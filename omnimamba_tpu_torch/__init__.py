@@ -1,0 +1,37 @@
+"""OmniMamba on PyTorch and CUDA: the port of ``omnimamba_tpu`` to one NVIDIA
+H100, slice by slice. This package imports ``torch``, never ``jax``, and
+nothing of the JAX package.
+
+Layer map (bottom-up), same sub-packages and function names as the JAX
+package so a reader finds the counterpart:
+
+  csrc/    hand-written CUDA kernels (sm_90a), built at first use
+  ops/     SSD scan (oracle / chunked / kernel), decode-step kernel, causal
+           conv, norms and their kernels, samplers, the kernel build
+  models/  Mamba-2 mixer, blocks, backbone + dual heads, decode engine,
+           VQ-16 decode side, the text-to-image composition
+  utils/   parameter bridge from the JAX pytree, device resolution
+
+Entry points run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``; a kernel wrapper uses its plain tensor version only for a
+tensor that lies on the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from omnimamba_tpu_torch.config import (  # noqa: F401
+    MODEL_REGISTRY,
+    VQ_MODELS,
+    LoraConfig,
+    Mamba2LayerConfig,
+    MambaConfig,
+    VQConfig,
+)
+from omnimamba_tpu_torch.models.generation import GenerateOutput, generate  # noqa: F401
+from omnimamba_tpu_torch.models.omnimamba import (  # noqa: F401
+    OmniMambaModel,
+    init_omnimamba,
+    t2i_generate,
+)
+from omnimamba_tpu_torch.ops.sampling import SampleParams  # noqa: F401
+from omnimamba_tpu_torch.utils.bridge import from_jax_params  # noqa: F401

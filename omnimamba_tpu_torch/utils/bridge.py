@@ -1,0 +1,182 @@
+"""Parameters of the JAX package -> parameters of the port.
+
+``from_jax_params`` takes the JAX parameter pytree with every leaf already
+turned into a numpy array by the caller, so this module never imports JAX.
+What changes on the way:
+
+- layers stacked on axis 0 become a Python list of per-layer dicts;
+- in_proj, stored as four column slices ``z | x | bc | dt``, becomes one fused
+  ``(d, d_in_proj)`` kernel in that column order, and the LoRA ``B_*``
+  factors likewise;
+- the conv taps ``weight_x`` / ``weight_bc`` (and biases) become one
+  ``weight`` / ``bias`` over the ``x | bc`` channels;
+- linear kernels stay ``(in, out)`` (the port applies ``x @ W``);
+- VQ conv kernels go from HWIO to OIHW.
+
+Every leaf of the input must be consumed: a leaf the port has no place for
+(vision towers, projector, VQ encoder, ...) raises instead of being dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from omnimamba_tpu_torch.models.backbone import check_supported
+from omnimamba_tpu_torch.models.mamba2 import TASKS
+from omnimamba_tpu_torch.utils.device import resolve_device
+
+_IN_PROJ_PARTS = ("z", "x", "bc", "dt")
+_TORCH_DTYPES = {
+    "float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
+}
+
+
+def _flatten(node, path: Tuple = ()) -> Dict[Tuple, np.ndarray]:
+    if node is None:
+        return {}
+    if isinstance(node, dict):
+        items = node.items()
+    elif isinstance(node, (list, tuple)):
+        items = enumerate(node)
+    else:
+        return {path: np.asarray(node)}
+    out: Dict[Tuple, np.ndarray] = {}
+    for k, v in items:
+        out.update(_flatten(v, path + (k,)))
+    return out
+
+
+class _Leaves:
+    """The flattened input; ``take`` converts a leaf and marks it consumed."""
+
+    def __init__(self, tree, dtype: Optional[torch.dtype], device: torch.device):
+        self.flat = _flatten(tree)
+        self.dtype, self.device = dtype, device
+
+    def has(self, *path) -> bool:
+        return any(k[: len(path)] == path for k in self.flat)
+
+    def take(self, *path) -> torch.Tensor:
+        arr = self.flat.pop(path)
+        dtype = self.dtype or _TORCH_DTYPES[str(arr.dtype)]
+        # numpy has no native bfloat16: widen through float32 (exact)
+        t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+        return t.to(device=self.device, dtype=dtype)
+
+    def take_tree(self, *path):
+        """Convert the whole subtree under ``path``, keeping its structure."""
+        if path in self.flat:
+            return self.take(*path)
+        keys = sorted((k for k in self.flat if k[: len(path)] == path), key=str)
+        out: Dict = {}
+        for k in keys:
+            node = out
+            rest = k[len(path):]
+            for part in rest[:-1]:
+                node = node.setdefault(part, {})
+            node[rest[-1]] = self.take(*k)
+        return _lists(out)
+
+
+def _lists(node):
+    """Dicts keyed 0..n-1 (flattened lists) back to lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        return [node[i] for i in range(len(node))]
+    return node
+
+
+def _hwio_to_oihw(node):
+    if isinstance(node, dict):
+        return {
+            k: v.permute(3, 2, 0, 1).contiguous()
+            if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 4
+            else _hwio_to_oihw(v)
+            for k, v in node.items()
+        }
+    if isinstance(node, list):
+        return [_hwio_to_oihw(v) for v in node]
+    return node
+
+
+def _bridge_layers(leaves: _Leaves, n_layer: int):
+    base = ("mamba", "layers")
+    mix = base + ("mixer",)
+    cat = lambda *ts: torch.cat(ts, dim=-1)  # noqa: E731
+    stacked = {
+        "norm": {"weight": leaves.take(*base, "norm", "weight")},
+        "mixer": {
+            "in_proj": {"kernel": cat(*[leaves.take(*mix, "in_proj", p) for p in _IN_PROJ_PARTS])},
+            "conv": {
+                "weight": cat(leaves.take(*mix, "conv", "weight_x"),
+                              leaves.take(*mix, "conv", "weight_bc")),
+                "bias": cat(leaves.take(*mix, "conv", "bias_x"),
+                            leaves.take(*mix, "conv", "bias_bc")),
+            },
+            "dt_bias": leaves.take(*mix, "dt_bias"),
+            "A_log": leaves.take(*mix, "A_log"),
+            "D": leaves.take(*mix, "D"),
+            "norm": {"weight": leaves.take(*mix, "norm", "weight")},
+            "out_proj": {"kernel": leaves.take(*mix, "out_proj", "kernel")},
+        },
+    }
+    if leaves.has(*mix, "lora"):
+        lora = {}
+        for task in TASKS:
+            lora[f"{task}_A"] = leaves.take(*mix, "lora", f"{task}_A")
+            lora[f"{task}_B"] = cat(
+                *[leaves.take(*mix, "lora", f"{task}_B_{p}") for p in _IN_PROJ_PARTS])
+        stacked["mixer"]["lora"] = lora
+
+    def layer(node, i):
+        if isinstance(node, dict):
+            return {k: layer(v, i) for k, v in node.items()}
+        if node.shape[0] != n_layer:
+            raise ValueError(f"stacked leaf has {node.shape[0]} layers, config says {n_layer}")
+        return node[i].contiguous()
+
+    return [layer(stacked, i) for i in range(n_layer)]
+
+
+def from_jax_params(
+    params_numpy: Dict,
+    model,
+    *,
+    dtype: Optional[torch.dtype] = None,
+    device="cuda",
+) -> Dict:
+    """Convert ``{"mamba": ..., "vq": ...}`` (numpy leaves) for
+    ``model`` (an ``OmniMambaModel`` of the port). ``dtype=None`` keeps each
+    leaf's own float type. Raises ``ValueError`` listing every leaf that was
+    not consumed."""
+    check_supported(model.cfg)
+    leaves = _Leaves(params_numpy, dtype, resolve_device(device))
+    out: Dict = {}
+
+    mamba: Dict = {}
+    for key in ("embedding", "img_embeddings", "pos_embed", "caption_embed",
+                "mmu_pos_embed", "norm_f"):
+        if leaves.has("mamba", key):
+            mamba[key] = leaves.take_tree("mamba", key)
+    mamba["layers"] = _bridge_layers(leaves, model.cfg.n_layer)
+    out["mamba"] = mamba
+
+    if leaves.has("vq"):
+        vq = {"codebook": leaves.take("vq", "codebook")}
+        for key in ("decoder", "post_quant_conv"):
+            vq[key] = _hwio_to_oihw(leaves.take_tree("vq", key))
+        out["vq"] = vq
+
+    if leaves.flat:
+        left = sorted("/".join(map(str, k)) for k in leaves.flat)
+        raise ValueError(
+            f"{len(left)} parameter leaves have no place in the port yet (the vision "
+            "towers, the projector and the VQ encoder arrive with later slices): "
+            + ", ".join(left[:8]) + (" ..." if len(left) > 8 else "")
+        )
+    return out

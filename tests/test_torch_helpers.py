@@ -1,0 +1,87 @@
+"""Shared helpers (no tests of their own) of the tests that hold the PyTorch port
+(``omnimamba_tpu_torch``) against the JAX package (``omnimamba_tpu``).
+
+Inputs are made with numpy from a seed and handed to both sides; JAX
+parameters are turned into numpy arrays here and go through the port's
+bridge. Everything runs on the CPU: the port's kernel wrappers use their
+plain versions there.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+from omnimamba_tpu import config as jcfg
+from omnimamba_tpu.models.omnimamba import OmniMambaModel as JaxModel
+from omnimamba_tpu_torch import config as tcfg
+from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel as TorchModel
+from omnimamba_tpu_torch.utils.bridge import from_jax_params
+
+# six xdist workers each hold a JAX and a PyTorch thread pool
+torch.set_num_threads(1)
+
+_MIXER = dict(d_model=32, d_state=16, headdim=8, expand=2, chunk_size=16)
+_MAMBA = dict(d_model=32, n_layer=2, vocab_size=64, vqvae_vocab_size=32,
+              num_tokens=16, mmu_pos_len=128, pad_vocab_size_multiple=16)
+_VQ = dict(codebook_size=32, codebook_embed_dim=8, ch=16, num_res_blocks=1,
+           encoder_ch_mult=(1, 2), decoder_ch_mult=(1, 2), z_channels=16)
+
+
+def tiny_models():
+    """The same tiny geometry as a model bundle of each package."""
+    jm = JaxModel(
+        cfg=jcfg.MambaConfig(mixer=jcfg.Mamba2LayerConfig(**_MIXER), **_MAMBA),
+        vision_cfg=jcfg.VisionConfig(), vq_cfg=jcfg.VQConfig(**_VQ), sptids={},
+    )
+    tm = TorchModel(
+        cfg=tcfg.MambaConfig(mixer=tcfg.Mamba2LayerConfig(**_MIXER), **_MAMBA),
+        vq_cfg=tcfg.VQConfig(**_VQ), sptids={},
+    )
+    return jm, tm
+
+
+def to_numpy(tree):
+    """Every leaf of a JAX pytree as a numpy array (bf16 widened to fp32)."""
+    def leaf(a):
+        a = np.asarray(a)
+        return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+    return jax.tree.map(leaf, tree)
+
+
+def fill_lora_b(mixer_params, rng, scale=0.05):
+    """LoRA B factors are initialised to zero; fill them so the LoRA branch
+    changes the output. Returns a new params dict (any leading layer axis)."""
+    lora = dict(mixer_params["lora"])
+    for k in sorted(lora):
+        if "_B_" in k:
+            lora[k] = jax.numpy.asarray(
+                scale * rng.standard_normal(lora[k].shape), lora[k].dtype)
+    return {**mixer_params, "lora": lora}
+
+
+def decode_side(vq_params):
+    """The VQ leaves the port has a place for."""
+    return {k: vq_params[k] for k in ("decoder", "post_quant_conv", "codebook")}
+
+
+def bridge(jax_params, torch_model, dtype=None):
+    return from_jax_params(to_numpy(jax_params), torch_model, dtype=dtype, device="cpu")
+
+
+def tt(a, dtype=None):
+    """numpy / JAX array -> torch tensor on the CPU (always a copy: the port
+    updates some tensors in place)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dtype or torch.bfloat16)
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def nn(t):
+    """torch tensor -> float32/int numpy array."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.detach().cpu().numpy()
