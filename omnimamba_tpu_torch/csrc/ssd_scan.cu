@@ -20,7 +20,9 @@
 // once). This first version spends more time than that on its fp32 products
 // and on shared-memory traffic; tensor-core products are later work. The chunk
 // length is chosen by shared memory (state + B/C/x tiles of one chunk), not by
-// the model's chunk_size: chunking does not change the result.
+// the model's chunk_size: chunking does not change the result. x, B and C are
+// read through a row stride (elements from one token's row to the next), so
+// column slices of the fused conv output go in without a copy.
 #include "common.cuh"
 
 namespace omt {
@@ -48,6 +50,7 @@ ssd_scan_kernel(const T* __restrict__ x,        // (B, L, H, P)
                 const float* __restrict__ D,    // (H) or null
                 T* __restrict__ y,              // (B, L, H, P)
                 float* __restrict__ final_state,  // (B, H, P, N)
+                long x_rs, long b_rs, long c_rs,  // token-row strides of x, Bm, Cm
                 int L, int H, int P, int G, int N) {
   constexpr int Q = kChunk;
   const int NS = N + 4;
@@ -82,9 +85,10 @@ ssd_scan_kernel(const T* __restrict__ x,        // (B, L, H, P)
       const int n = idx - t * N;
       float bv = 0.0f, cv = 0.0f;
       if (t < Qc) {
-        const size_t off = ((static_cast<size_t>(b) * L + t0 + t) * G + g) * N + n;
-        bv = to_float(Bm[off]);
-        cv = to_float(Cm[off]);
+        const size_t row = static_cast<size_t>(b) * L + t0 + t;
+        const size_t col = static_cast<size_t>(g) * N + n;
+        bv = to_float(Bm[row * b_rs + col]);
+        cv = to_float(Cm[row * c_rs + col]);
       }
       Bs[t * NS + n] = bv;
       Cs[t * NS + n] = cv;
@@ -93,7 +97,8 @@ ssd_scan_kernel(const T* __restrict__ x,        // (B, L, H, P)
       const int t = idx / P;
       const int p = idx - t * P;
       xs[idx] = (t < Qc)
-                    ? to_float(x[((static_cast<size_t>(b) * L + t0 + t) * H + h) * P + p])
+                    ? to_float(x[(static_cast<size_t>(b) * L + t0 + t) * x_rs +
+                                 static_cast<size_t>(h) * P + p])
                     : 0.0f;
     }
     if (tid < Q) {
@@ -179,6 +184,7 @@ ssd_scan_kernel(const T* __restrict__ x,        // (B, L, H, P)
 template <typename T>
 cudaError_t launch_ssd_scan(const void* x, const float* dt, const float* A, const void* Bm,
                             const void* Cm, const float* D, void* y, float* final_state,
+                            long x_rs, long b_rs, long c_rs,
                             int B, int L, int H, int P, int G, int N, cudaStream_t stream) {
   const size_t smem = scan_smem_floats(P, N) * sizeof(float);
   auto kernel = ssd_scan_kernel<T>;
@@ -189,25 +195,28 @@ cudaError_t launch_ssd_scan(const void* x, const float* dt, const float* A, cons
   }
   kernel<<<dim3(static_cast<unsigned int>(B) * H), kScanThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      D, static_cast<T*>(y), final_state, L, H, P, G, N);
+      D, static_cast<T*>(y), final_state, x_rs, b_rs, c_rs, L, H, P, G, N);
   return cudaGetLastError();
 }
 
 }  // namespace omt
 
 // N must be a multiple of 4 and `final_state` 16-byte aligned. x_dtype is the
-// type of x, Bm, Cm and y. D may be null. Returns the cudaError_t of the launch
-// (0 = success).
+// type of x, Bm, Cm and y. x_rs, b_rs and c_rs are the elements between
+// consecutive (batch, token) rows of x, Bm and Cm (H*P and G*N when they are
+// contiguous); dt, y and final_state are contiguous. D may be null. Returns
+// the cudaError_t of the launch (0 = success).
 extern "C" int omt_ssd_scan(const void* x, const float* dt, const float* A, const void* Bm,
                             const void* Cm, const float* D, void* y, float* final_state,
-                            int B, int L, int H, int P, int G, int N, int x_dtype,
+                            long x_rs, long b_rs, long c_rs, int B, int L, int H, int P,
+                            int G, int N, int x_dtype,
                             void* stream) {
   using namespace omt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (x_dtype == kBF16)
-    return launch_ssd_scan<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, final_state, B, L, H, P, G, N, s);
+    return launch_ssd_scan<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, final_state, x_rs, b_rs, c_rs, B, L, H, P, G, N, s);
   if (x_dtype == kF32)
-    return launch_ssd_scan<float>(x, dt, A, Bm, Cm, D, y, final_state, B, L, H, P, G, N, s);
+    return launch_ssd_scan<float>(x, dt, A, Bm, Cm, D, y, final_state, x_rs, b_rs, c_rs, B, L, H, P, G, N, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -160,7 +160,6 @@ def backbone_forward(
     cfg: MambaConfig,
     *,
     add_mmu_pos: bool = True,
-    scan_impl: str = "auto",
     return_cache: bool = False,
     initial_cache: Optional[BackboneCache] = None,
     valid_len: Optional[torch.Tensor] = None,
@@ -191,7 +190,7 @@ def backbone_forward(
             icache = Mamba2Cache(initial_cache.conv_state[i], initial_cache.ssm_state[i])
         h, residual, cache = block_forward(
             layer, h, residual, task, cfg.mixer, cfg.lora,
-            norm_eps=cfg.norm_eps, scan_impl=scan_impl, return_cache=return_cache,
+            norm_eps=cfg.norm_eps, return_cache=return_cache,
             initial_cache=icache, valid_len=valid_len,
         )
         caches.append(cache)

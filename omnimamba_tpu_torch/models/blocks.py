@@ -40,7 +40,6 @@ def block_forward(
     lora_cfg: Optional[LoraConfig],
     *,
     norm_eps: float = 1e-5,
-    scan_impl: str = "auto",
     return_cache: bool = False,
     layer_type: str = "mamba2",
     initial_cache: Optional[Mamba2Cache] = None,
@@ -53,7 +52,7 @@ def block_forward(
         hidden, residual, layer_params["norm"]["weight"], norm_eps)
     out, cache = mamba2_forward(
         layer_params["mixer"], normed, task, cfg, lora_cfg,
-        scan_impl=scan_impl, return_cache=return_cache,
+        return_cache=return_cache,
         initial_cache=initial_cache, valid_len=valid_len,
     )
     return out, new_residual, cache

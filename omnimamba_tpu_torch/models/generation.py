@@ -59,7 +59,6 @@ def generate(
     teacher_outputs: Optional[torch.Tensor] = None,  # (B, >=max_length) full-seq ids
     generator: Optional[torch.Generator] = None,
     cfg_scale: Optional[float] = None,
-    scan_impl: str = "auto",
     cache_dtype="auto",
     decode_impl: str = "auto",  # auto | scan
     token_callback: Optional[Callable[[np.ndarray], None]] = None,
@@ -106,7 +105,7 @@ def generate(
     # ---- prefill ----------------------------------------------------------
     hidden, cache = backbone_forward(
         params, input_embeddings, task, cfg,
-        scan_impl=scan_impl, return_cache=True, valid_len=prompt_lengths,
+        return_cache=True, valid_len=prompt_lengths,
     )
     if isinstance(cache_dtype, str) and cache_dtype == "auto":
         cache_dtype = torch.bfloat16 if B >= 16 else None

@@ -44,7 +44,6 @@ from omnimamba_tpu_torch.ops.conv import (
 from omnimamba_tpu_torch.ops.norms import gated_rms_norm
 from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
 from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
-from omnimamba_tpu_torch.ops.ssd_reference import ssd_scan_reference
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
 from omnimamba_tpu_torch.utils.init import uniform
 
@@ -158,7 +157,6 @@ def mamba2_forward(
     cfg: Mamba2LayerConfig,
     lora_cfg: Optional[LoraConfig] = None,
     *,
-    scan_impl: str = "auto",  # auto | kernel | chunked | reference
     return_cache: bool = False,
     initial_cache: Optional[Mamba2Cache] = None,
     valid_len: Optional[torch.Tensor] = None,
@@ -176,10 +174,6 @@ def mamba2_forward(
     padding: their dt is zeroed, an exact no-op for the SSM state, and the
     returned conv window ends at each row's last real input. Outputs at
     padded positions are garbage; callers mask.
-
-    ``scan_impl``: "auto" and "kernel" run ``ssd_fused`` (the CUDA kernel on
-    the card, its plain version on the CPU); "chunked" and "reference" are
-    tensor code on any device.
     """
     B, L, _ = x.shape
     H, P, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
@@ -206,13 +200,9 @@ def mamba2_forward(
         raise NotImplementedError(
             "scaled-int8 SSM state arrives with the serving slice (ROADMAP Q1 item 9)"
         )
-    if scan_impl == "auto":
-        scan_impl = "kernel"
-    if init_state is not None and scan_impl == "kernel":
-        scan_impl = "chunked"
-    if scan_impl == "kernel":
+    if init_state is None:
         y, final_state = ssd_fused(xh, dt, A, Bh, Ch, params["D"])
-    elif scan_impl == "chunked":
+    else:
         q = cfg.chunk_size
         if L < q:
             # a matched power-of-two chunk avoids padding the quadratic
@@ -221,12 +211,6 @@ def mamba2_forward(
         y, final_state = ssd_chunked(
             xh, dt, A, Bh, Ch, params["D"], chunk_size=q, initial_state=init_state
         )
-    elif scan_impl == "reference":
-        y, final_state = ssd_scan_reference(
-            xh, dt, A, Bh, Ch, params["D"], initial_state=init_state
-        )
-    else:
-        raise ValueError(f"unknown scan_impl {scan_impl}")
 
     y = y.reshape(B, L, cfg.d_inner)
     y = gated_rms_norm(y, z, params["norm"]["weight"], cfg.norm_eps)

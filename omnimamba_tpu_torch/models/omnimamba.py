@@ -58,7 +58,6 @@ def t2i_generate(
     cfg_scale: Optional[float] = None,
     dtype: torch.dtype = torch.bfloat16,
     decode_image: bool = True,
-    scan_impl: str = "auto",
     cache_dtype="auto",
     text_lengths=None,  # (B,) ragged true caption-block lengths
     device="cuda",
@@ -89,7 +88,7 @@ def t2i_generate(
         mamba, cfg,
         input_ids=text_ids, input_embeddings=emb, task="t2i",
         max_length=L0 + cfg.num_tokens, sample=sample, generator=generator,
-        cfg_scale=cfg_scale, scan_impl=scan_impl, cache_dtype=cache_dtype,
+        cfg_scale=cfg_scale, cache_dtype=cache_dtype,
         prompt_lengths=text_lengths, device=device,
     )
     tokens = out.sequences[:, L0:]

@@ -15,13 +15,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -121,10 +122,12 @@ def load_kernels() -> ctypes.CDLL:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
     # pointers and the stream are c_void_p: an unannotated Python int would be
     # passed as a 32-bit int and the address cut
-    lib.omt_add_rms_norm.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, f32, i32, i32, i32, ptr]
-    lib.omt_gated_rms_norm.argtypes = [ptr, ptr, ptr, ptr, i64, i32, f32, i32, i32, i32, ptr]
-    lib.omt_ssd_step.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-    lib.omt_ssd_scan.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+    lib.omt_add_rms_norm.argtypes = (
+        [ptr] * 5 + [i64, i64, i64, i32, f32, i32, i32, i32, ptr])
+    lib.omt_gated_rms_norm.argtypes = (
+        [ptr] * 4 + [i64, i64, i64, i32, f32, i32, i32, i32, ptr])
+    lib.omt_ssd_step.argtypes = [ptr] * 8 + [i64] * 3 + [i32] * 7 + [ptr]
+    lib.omt_ssd_scan.argtypes = [ptr] * 8 + [i64] * 3 + [i32] * 7 + [ptr]
     for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_ssd_step, lib.omt_ssd_scan):
         fn.restype = ctypes.c_int
     return lib
@@ -137,6 +140,28 @@ def dtype_code(dtype) -> int:
     if dtype == torch.bfloat16:
         return BF16
     raise TypeError(f"the kernels take float32 or bfloat16, not {dtype}")
+
+
+def as_rows(t: torch.Tensor, inner: int) -> Tuple[torch.Tensor, int]:
+    """``t`` as equally spaced rows for a kernel that takes a row stride:
+    returns (tensor, elements from one row to the next). A row is the last
+    ``inner`` dimensions and must be dense; the leading dimensions must step
+    evenly from row to row. A column slice of a wider matrix (the mixer's
+    x | B | C and z) qualifies and goes in as it is; any other layout is
+    copied to a contiguous tensor first."""
+    row = 1
+    for size, stride in zip(reversed(t.shape[-inner:]), reversed(t.stride()[-inner:])):
+        if size != 1 and stride != row:
+            return t.contiguous(), math.prod(t.shape[-inner:])
+        row *= size
+    lead = [(size, stride) for size, stride in zip(t.shape[:-inner], t.stride()[:-inner])
+            if size != 1]
+    if not lead:
+        return t, row
+    for (_, outer), (size, stride) in zip(lead[:-1], lead[1:]):
+        if outer != size * stride:
+            return t.contiguous(), row
+    return t, lead[-1][1]
 
 
 def check_launch(err: int, name: str) -> None:

@@ -9,6 +9,8 @@ What bounds them on an H100: bytes. Each is one pass over a row with one
 reduction and no matrix product. The design reads every input once, keeps
 the row in shared memory as fp32 between the reduction and the scaling, and
 writes every output once, with 16-byte accesses where the row allows it.
+Inputs go in with a row stride, so the gate z, a column slice of the in_proj
+output, is read where it lies, without a copy.
 The TPU kernel's row tile sized to its on-chip memory and its row padding
 have no counterpart: one thread block takes one row. At one-token decode
 (a few dozen rows) the launch, not the bytes, is the cost.
@@ -28,20 +30,15 @@ from omnimamba_tpu_torch.ops import kernel_build as kb
 from omnimamba_tpu_torch.ops.norms import add_norm_plain, gated_rms_norm_plain
 
 
-def _rows_2d(name: str, t: torch.Tensor, d: int) -> torch.Tensor:
-    if t.shape[-1] != d:
-        raise ValueError(f"{name}: last dimension {t.shape[-1]} != {d}")
-    return t.contiguous().view(-1, d)
-
-
 def _check_weight(weight: torch.Tensor, d: int, device: torch.device) -> torch.Tensor:
     if weight.shape != (d,) or weight.device != device:
         raise ValueError(f"weight must be ({d},) on {device}, got {tuple(weight.shape)} on {weight.device}")
     return weight.contiguous()
 
 
-def _vectorizable(d: int, *tensors: torch.Tensor) -> int:
-    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+def _vectorizable(d: int, strides, tensors) -> int:
+    return int(d % 4 == 0 and all(s % 4 == 0 for s in strides)
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def fused_add_rms_norm(
@@ -56,27 +53,27 @@ def fused_add_rms_norm(
     if not x.is_cuda:
         return add_norm_plain(x, residual, weight, eps)
     d = x.shape[-1]
-    x2 = _rows_2d("x", x, d)
+    x2, x_rs = kb.as_rows(x, 1)
     w = _check_weight(weight, d, x.device)
-    res2 = None
+    res2, res_rs = None, 0
     if residual is not None:
         if residual.dtype != torch.float32 or residual.shape != x.shape or residual.device != x.device:
             raise ValueError("residual must be float32 with x's shape and device")
-        res2 = _rows_2d("residual", residual, d)
-    out = torch.empty_like(x2)
-    y = torch.empty(x2.shape, dtype=torch.float32, device=x.device)
-    rows = x2.shape[0]
+        res2, res_rs = kb.as_rows(residual, 1)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    rows = x.numel() // d if d else 0
     if rows:
         ptrs = [x2, w, out, y] + ([res2] if res2 is not None else [])
         err = kb.load_kernels().omt_add_rms_norm(
             x2.data_ptr(), None if res2 is None else res2.data_ptr(), w.data_ptr(),
-            out.data_ptr(), y.data_ptr(), rows, d, float(eps),
+            out.data_ptr(), y.data_ptr(), x_rs, res_rs, rows, d, float(eps),
             kb.dtype_code(x2.dtype), kb.dtype_code(w.dtype),
-            _vectorizable(d, *ptrs), kb.current_stream(x.device),
+            _vectorizable(d, (x_rs, res_rs), ptrs), kb.current_stream(x.device),
         )
         kb.check_launch(err, "fused_add_rms_norm")
         fused_add_rms_norm.launches += 1
-    return out.view(x.shape), y.view(x.shape)
+    return out, y
 
 
 def fused_gated_rms_norm(
@@ -92,20 +89,19 @@ def fused_gated_rms_norm(
     if z.shape != y.shape or z.dtype != y.dtype or z.device != y.device:
         raise ValueError("z must match y in shape, dtype and device")
     d = y.shape[-1]
-    y2 = _rows_2d("y", y, d)
-    z2 = _rows_2d("z", z, d)
+    (y2, y_rs), (z2, z_rs) = kb.as_rows(y, 1), kb.as_rows(z, 1)
     w = _check_weight(weight, d, y.device)
-    out = torch.empty_like(y2)
-    rows = y2.shape[0]
+    out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    rows = y.numel() // d if d else 0
     if rows:
         err = kb.load_kernels().omt_gated_rms_norm(
-            y2.data_ptr(), z2.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
+            y2.data_ptr(), z2.data_ptr(), w.data_ptr(), out.data_ptr(), y_rs, z_rs, rows, d,
             float(eps), kb.dtype_code(y2.dtype), kb.dtype_code(w.dtype),
-            _vectorizable(d, y2, z2, w, out), kb.current_stream(y.device),
+            _vectorizable(d, (y_rs, z_rs), (y2, z2, w, out)), kb.current_stream(y.device),
         )
         kb.check_launch(err, "fused_gated_rms_norm")
         fused_gated_rms_norm.launches += 1
-    return out.view(y.shape)
+    return out
 
 
 # kernel launches since the counter was last set to 0 (plain-version calls do not count)

@@ -18,7 +18,8 @@ the cumulative sum, the 128-wide sub-tiles, the chunk rounded up to the lane
 width, the padding of L to a whole chunk in device memory and the sequential
 grid. The chunk length is a constant of the source chosen by shared memory;
 the model's ``chunk_size`` does not reach the kernel because chunking does
-not change the result. Products are fp32 multiply-adds for fp32 and bf16
+not change the result. x, B and C go in with a row stride, so the column
+slices of the fused conv output are read where they lie. Products are fp32 multiply-adds for fp32 and bf16
 inputs alike, so fp32 inputs are exact.
 
 The plain version is ``ssd_chunked`` with a zero initial state, which repeats
@@ -77,18 +78,18 @@ def ssd_fused(
         if t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
 
-    x_c, B_c, C_c = x.contiguous(), Bmat.contiguous(), Cmat.contiguous()
+    (x_c, x_rs), (B_c, b_rs), (C_c, c_rs) = (kb.as_rows(t, 2) for t in (x, Bmat, Cmat))
     dt_c = dt.to(torch.float32).contiguous()
     A_c = A.to(torch.float32).contiguous()
     D_c = None if D is None else D.to(device=x.device, dtype=torch.float32).contiguous()
-    y = torch.empty_like(x_c)
+    y = torch.empty((Bsz, L, H, P), dtype=x.dtype, device=x.device)
     alloc = torch.empty if x_c.numel() else torch.zeros  # the kernel writes every element
     final_state = alloc((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if x_c.numel():
         err = kb.load_kernels().omt_ssd_scan(
             x_c.data_ptr(), dt_c.data_ptr(), A_c.data_ptr(), B_c.data_ptr(), C_c.data_ptr(),
             None if D_c is None else D_c.data_ptr(), y.data_ptr(), final_state.data_ptr(),
-            Bsz, L, H, P, G, N, kb.dtype_code(x_c.dtype), kb.current_stream(x.device),
+            x_rs, b_rs, c_rs, Bsz, L, H, P, G, N, kb.dtype_code(x_c.dtype), kb.current_stream(x.device),
         )
         kb.check_launch(err, "ssd_fused")
         ssd_fused.launches += 1

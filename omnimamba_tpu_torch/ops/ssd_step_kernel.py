@@ -11,7 +11,9 @@ written once and nothing else is of any size. The design therefore reads
 each state element once and writes it once with 16-byte accesses (8-byte
 for a bf16 state), reduces over N inside a warp, and computes the decay,
 dt*x, the group-to-head mapping and D*x in the kernel, so no broadcast
-helper array is built in device memory as the TPU wrapper did. A bf16 state
+helper array is built in device memory as the TPU wrapper did. x, B and C go
+in with a row stride, so the column slices of the fused conv output that the
+mixer hands over are read where they lie, without a copy. A bf16 state
 halves the bytes; the product is still taken in fp32 and y comes from the
 unrounded new state.
 
@@ -68,16 +70,16 @@ def ssd_step_fused(
         if t.device != x_t.device:
             raise ValueError(f"{name} lies on {t.device}, x_t on {x_t.device}")
 
-    x_c, B_c, C_c = x_t.contiguous(), B_t.contiguous(), C_t.contiguous()
+    (x_c, x_rs), (B_c, b_rs), (C_c, c_rs) = (kb.as_rows(t, 2) for t in (x_t, B_t, C_t))
     dt_c = dt_t.to(torch.float32).contiguous()
     A_c = A.to(torch.float32).contiguous()
     D_c = None if D is None else D.to(device=x_t.device, dtype=torch.float32).contiguous()
-    y = torch.empty_like(x_c)
+    y = torch.empty((Bsz, H, P), dtype=x_t.dtype, device=x_t.device)
     if x_c.numel():
         err = kb.load_kernels().omt_ssd_step(
             x_c.data_ptr(), dt_c.data_ptr(), A_c.data_ptr(), B_c.data_ptr(), C_c.data_ptr(),
             None if D_c is None else D_c.data_ptr(), state.data_ptr(), y.data_ptr(),
-            Bsz, H, P, G, N, kb.dtype_code(x_c.dtype), kb.dtype_code(state.dtype),
+            x_rs, b_rs, c_rs, Bsz, H, P, G, N, kb.dtype_code(x_c.dtype), kb.dtype_code(state.dtype),
             kb.current_stream(x_t.device),
         )
         kb.check_launch(err, "ssd_step_fused")

@@ -143,6 +143,46 @@ def test_wrappers_use_the_plain_version_only_on_the_cpu():
             f"{mod}: no try/except around a build or a launch")
 
 
+_WIDE = torch.zeros(3, 5, 40)
+ROW_LAYOUTS = {
+    # name: (tensor, trailing dims of a row, expected row stride or None = copied)
+    "contiguous": (_WIDE, 1, 40),
+    "column_slice": (_WIDE[..., 8:24], 1, 40),
+    "column_slice_as_heads": (_WIDE[..., 8:24].reshape(3, 5, 4, 4), 2, 40),
+    "one_token": (_WIDE[:, 0, :8], 1, 200),
+    "single_row": (_WIDE[0, 0], 1, 40),
+    "uneven_rows": (_WIDE[:, ::2, :8], 1, None),
+    "transposed": (_WIDE.transpose(0, 1)[..., :8], 1, None),
+    "strided_columns": (_WIDE[..., ::2], 1, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROW_LAYOUTS))
+def test_as_rows_passes_column_slices_without_a_copy(name):
+    """The mixer hands the kernels column slices of the fused in_proj and conv
+    outputs; they go in with a row stride. Only a layout that is not evenly
+    spaced dense rows is copied."""
+    t, inner, stride = ROW_LAYOUTS[name]
+    rows, got = kernel_build.as_rows(t, inner)
+    if stride is None:
+        assert rows.is_contiguous() and rows.data_ptr() != t.data_ptr()
+        assert got == int(np.prod(t.shape[-inner:])) and torch.equal(rows, t)
+    else:
+        assert rows is t and got == stride
+
+
+def test_no_entry_point_chooses_the_scan():
+    """One scan per case (kernel for a fresh sequence, chunked tensor code for
+    a continuation): no argument of the model's functions picks another."""
+    import inspect
+
+    from omnimamba_tpu_torch.models import backbone, blocks, mamba2
+
+    for fn in (t2i_generate, generate, backbone.backbone_forward, blocks.block_forward,
+               mamba2.mamba2_forward):
+        assert "scan_impl" not in inspect.signature(fn).parameters, fn
+
+
 def test_build_raises_without_a_compiler(monkeypatch, tmp_path):
     """With no nvcc the build raises; nothing carries on without the kernels."""
     monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build")
