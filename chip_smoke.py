@@ -5,9 +5,10 @@
 builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, drives the port's main
 path (greedy text-to-image generation at the full 1.3B width and depth with
-random weights made from a seed), shows from the launch counters that the
-main path went through every kernel, compares a kernel run of the decode
-engine with a plain-version run end to end, and reports times. Any failed
+random weights made from a seed) through both decode paths, the whole-model
+decode kernel and the layer-by-layer step, shows from the launch counters
+that each path went through its kernels, compares a kernel run of the decode
+engine with a plain-version run end to end on both paths, and reports times. Any failed
 phase ends the run with a non-zero exit code; nothing is caught. Without a
 CUDA device it exits with code 2 and prints no result.
 
@@ -90,6 +91,18 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_clock_ms(fn, iters: int) -> float:
+    """Mean milliseconds of one call on the host's clock, enqueueing and device
+    work together: `iters` calls, then a device synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Mean microseconds the host spends to enqueue one call."""
     fn()
@@ -106,10 +119,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def errors(got, want):
+def errors(got, want, atol_rel=None):
     """(max abs error, worst share of the allowed error), element by element.
 
-    Allowed at an element: RTOL[dtype] * |reference| + ATOL_REL * max|reference|.
+    Allowed at an element: RTOL[dtype] * |reference| + atol_rel * max|reference|,
+    atol_rel = ATOL_REL unless the caller states another.
     Kernel and plain version do the same fp32 arithmetic in another summation
     order, which ATOL_REL covers; a bf16 output may besides round a value that
     lies between two bf16 numbers the other way, one unit in the last place,
@@ -118,7 +132,8 @@ def errors(got, want):
     if not torch.isfinite(g).all():
         raise AssertionError("kernel output is not finite")
     err = (g - w).abs()
-    allowed = RTOL[got.dtype] * w.abs() + ATOL_REL * max(w.abs().max().item(), 1e-30)
+    atol_rel = ATOL_REL if atol_rel is None else atol_rel
+    allowed = RTOL[got.dtype] * w.abs() + atol_rel * max(w.abs().max().item(), 1e-30)
     return err.max().item(), (err / allowed).max().item()
 
 
@@ -360,14 +375,255 @@ def check_norms(gen, results):
         emit({"kernel_check": rec})
 
 
+def fused_layers(gen, n_layer, mixer_cfg, lora_cfg, wdtype):
+    """`n_layer` random layers for the whole-model decode step: the model's
+    own init, then LoRA B factors, norm weights and D moved off their
+    constant initial values so that every operand counts."""
+    from omnimamba_tpu_torch.models.mamba2 import init_mamba2
+
+    dev = torch.device("cuda")
+    layers = []
+    for _ in range(n_layer):
+        mixer = init_mamba2(gen, mixer_cfg, lora_cfg, max(n_layer, 1), torch.float32, dev)
+        mixer["D"] = 1.0 + 0.2 * rand(gen, mixer["D"].shape, torch.float32)
+        mixer["norm"]["weight"] = 1.0 + 0.1 * rand(gen, mixer["norm"]["weight"].shape, torch.float32)
+        for k in mixer.get("lora", {}):
+            if k.endswith("_B"):
+                mixer["lora"][k] = 0.02 * rand(gen, mixer["lora"][k].shape, torch.float32)
+        layer = {"norm": {"weight": 1.0 + 0.1 * rand(gen, (mixer_cfg.d_model,), torch.float32)},
+                 "mixer": mixer}
+        layers.append(_cast(layer, wdtype))
+    return layers
+
+
+def _cast(node, dtype):
+    if isinstance(node, dict):
+        return {k: _cast(v, dtype) for k, v in node.items()}
+    return node.to(dtype).contiguous()
+
+
+def fused_state(gen, n_layer, B, mixer_cfg, io, sdtype):
+    from omnimamba_tpu_torch.models.backbone import BackboneCache
+
+    conv = rand(gen, (n_layer, B, mixer_cfg.d_conv - 1, mixer_cfg.d_conv_in), io, 0.5)
+    ssm = rand(gen, (n_layer, B, mixer_cfg.nheads, mixer_cfg.headdim, mixer_cfg.d_state), sdtype, 0.5)
+    return BackboneCache(conv, ssm)
+
+
+def fused_step_bytes(layers, cache, h, lora_task):
+    """Bytes one token step must move: every layer operand the step reads
+    once (the other task's LoRA is not read), the conv windows and SSM states
+    read and written, h in and out, the fp32 residual out."""
+    skip = {f"{t}_{ab}" for t in ("t2i", "mmu") if t != lora_task for ab in "AB"}
+    weights = sum(nbytes(t) for name, t in _named_leaves(layers) if name not in skip)
+    return weights + 2 * nbytes(cache.conv_state, cache.ssm_state) + 2 * nbytes(h) + 4 * h.numel()
+
+
+def fused_step_flops(B, n_layer, cfg, r):
+    """Multiply-adds (x2) of the two products, the LoRA branch and the SSM update."""
+    per_layer = (2 * B * cfg.d_model * cfg.d_in_proj + 2 * B * cfg.d_inner * cfg.d_model
+                 + 2 * B * r * (cfg.d_model + cfg.d_in_proj)
+                 + 5 * B * cfg.nheads * cfg.headdim * cfg.d_state)
+    return n_layer * per_layer
+
+
+# Tolerances of the whole-model decode step. With fp32 activations kernel and
+# plain version differ by the order of their fp32 sums only, and every output
+# element is held by the rule of the other kernels (RTOL, ATOL_REL), through 1
+# and through 4 layers. With bf16 activations the step rounds inside: the
+# normed hidden state, the gated yf * w and the layer output go to bf16. Kernel
+# and plain version sum the row's mean square in another order, so a few of the
+# 48 x 2048 normed values round the other way (measured: 2 to 10 rows of one
+# layer hold one). One such flip, 2^-8 of a value up to 4, moves every in_proj
+# output of its row by up to 4 * 2^-8 * max|W| = 3e-4, and the row's outputs by
+# the same share: 1.6e-4 of the largest value was measured. So a bf16 step of
+# one layer is held to RTOL plus 2^-10 of the largest reference value.
+BF16_STEP_ATOL_REL = 2.0 ** -10
+# Through 48 layers in bf16 every flipped value feeds the next layer's products
+# and the streams drift apart like two bf16 runs of one model (measured: up to
+# 0.5% of the largest value, 0.06% on average). h, the residual and what is
+# written to the caches are held to 2^-6 of the largest reference value,
+# element by element, and the mean error to a tenth of that.
+DEEP_TOL_REL = 2.0 ** -6
+
+
+def check_decode_fused(gen, results):
+    from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_limits, fused_decode_step, fused_decode_step_plain, prepare_fused_decode)
+
+    full, lora8 = Mamba2LayerConfig(), LoraConfig()
+    # d_in_proj = 139: no 4-element alignment anywhere, K = 24 below one k tile
+    narrow = Mamba2LayerConfig(d_model=24, d_state=20, headdim=16, d_conv=3)
+    bf, f32 = torch.bfloat16, torch.float32
+    # name: layers, mixer cfg, lora cfg, weight dtype; each stack is made once
+    sizes = {"full_bf16": (48, full, lora8, bf), "full_f32": (48, full, lora8, f32),
+             "narrow_f32": (2, narrow, LoraConfig(r=4), f32),
+             "narrow_bf16": (2, narrow, LoraConfig(r=4), bf)}
+    stacks = {}
+
+    def stack(name):
+        if name not in stacks:
+            stacks[name] = fused_layers(gen, *sizes[name])
+        return stacks[name]
+
+    cases = [
+        # name, stack, layers used, B, mixer cfg, lora cfg, task, io, weights, state
+        ("main_1_layer", "full_bf16", 1, BATCH, full, lora8, "t2i", bf, bf, bf),
+        ("fp32_state", "full_bf16", 1, BATCH, full, lora8, "mmu", bf, bf, f32),
+        ("cfg_batch_no_lora", "full_bf16", 1, 2 * BATCH, full, lora8, None, bf, bf, bf),
+        ("three_rows", "full_bf16", 1, 3, full, lora8, "t2i", bf, bf, bf),
+        ("twenty_rows", "full_bf16", 1, 20, full, lora8, "mmu", bf, bf, f32),
+        ("one_row_fp32", "full_f32", 1, 1, full, lora8, "t2i", f32, f32, bf),
+        ("three_rows_fp32", "full_f32", 1, 3, full, lora8, "t2i", f32, f32, f32),
+        ("four_layers_fp32", "full_f32", 4, BATCH, full, lora8, "t2i", f32, f32, f32),
+        ("awkward", "narrow_f32", 2, 3, narrow, LoraConfig(r=4), "t2i", f32, f32, f32),
+        ("awkward_bf16", "narrow_bf16", 2, 5, narrow, LoraConfig(r=4), "mmu", bf, bf, bf),
+        ("main", "full_bf16", 48, BATCH, full, lora8, "t2i", bf, bf, bf),
+    ]
+    for name, sname, n_layer, B, cfg, lcfg, task, io, wdtype, sdtype in cases:
+        layers = stack(sname)[:n_layer]
+        cache0 = fused_state(gen, n_layer, B, cfg, io, sdtype)
+        h = rand(gen, (B, cfg.d_model), io)
+        residual = rand(gen, (B, cfg.d_model), f32) if name != "main" else None
+        args = (task, cfg, lcfg, 1e-5)
+
+        ref_cache = cache0._replace(conv_state=cache0.conv_state.clone(),
+                                    ssm_state=cache0.ssm_state.clone())
+        h_ref, res_ref, _ = fused_decode_step_plain(layers, h, residual, ref_cache, *args)
+        cache = cache0._replace(conv_state=cache0.conv_state.clone(),
+                                ssm_state=cache0.ssm_state.clone())
+        plan = prepare_fused_decode(layers, task, cfg, lcfg, B, io)
+        conv_ptr, ssm_ptr = cache.conv_state.data_ptr(), cache.ssm_state.data_ptr()
+        h_out, res_out, cache_out = fused_decode_step(layers, h, residual, cache, *args, plan=plan)
+        torch.cuda.synchronize()
+        assert (cache_out.conv_state.data_ptr(), cache_out.ssm_state.data_ptr()) == (conv_ptr, ssm_ptr), \
+            "the cache must be updated in place"
+        pairs = {"h": (h_out, h_ref), "residual": (res_out, res_ref),
+                 "conv_window": (cache.conv_state, ref_cache.conv_state),
+                 "ssm_state": (cache.ssm_state, ref_cache.ssm_state)}
+        rec = {"kernel": "decode_fused", "case": name, "layers": n_layer, "batch": B,
+               "d_model": cfg.d_model, "task": task, "dtype": str(io), "weight_dtype": str(wdtype),
+               "state_dtype": str(sdtype)}
+        deep = n_layer > 4  # bf16 through many layers: see DEEP_TOL_REL
+        worst = 0.0
+        atol_rel = ATOL_REL if io == f32 else BF16_STEP_ATOL_REL
+        for key, (got, want) in pairs.items():
+            abs_err, share = errors(got, want, atol_rel)
+            rec[f"{key}_abs_err"] = abs_err
+            if deep:
+                scale = want.float().abs().max().item()
+                diff = (got.float() - want.float()).abs()
+                share = abs_err / (DEEP_TOL_REL * scale)
+                rec[f"{key}_mean_err_of_allowed"] = diff.mean().item() / (0.1 * DEEP_TOL_REL * scale)
+                assert rec[f"{key}_mean_err_of_allowed"] <= 1.0, rec
+            rec[f"{key}_err_of_allowed"] = share
+            worst = max(worst, abs_err)
+        rec.update({"tolerance": f"max and mean against {DEEP_TOL_REL} and {0.1 * DEEP_TOL_REL} "
+                                 "of the largest reference value"} if deep else
+                   {"rtol": {"fp32": 0.0, "bf16": RTOL[bf]}, "atol_rel": atol_rel})
+        assert all(rec[f"{k}_err_of_allowed"] <= 1.0 for k in pairs), rec
+        if name == "main":
+            r = lcfg.r
+            moved = fused_step_bytes(layers, cache, h, task)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            flops = fused_step_flops(B, n_layer, cfg, r)
+            ops_ms = flops / PEAK_OPS[io] * 1e3
+
+            def kernel_step():
+                fused_decode_step(layers, h, residual, cache, *args, plan=plan)
+
+            rec.update(
+                ms=time_ms(kernel_step, 10),
+                host_us=host_us(kernel_step, 20),
+                plain_ms=time_ms(lambda: fused_decode_step_plain(
+                    layers, h, residual, ref_cache, *args), 2, 1),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_moved=moved, flops=flops,
+                library_ms=None,
+                library_note="no single PyTorch call computes a whole-model decode step; the "
+                             "yardstick is the device time of one scan-path step (decode_profile)",
+            )
+            # the bf16-state rule of cache_dtype="auto" (B >= 16): the step with an
+            # fp32 and a bf16 state at three batch sizes, same layers
+            by_state = {}
+            for b in (8, 16, BATCH):
+                hb = h[:b].contiguous()
+                pb = prepare_fused_decode(layers, task, cfg, lcfg, b, io)
+                for sd in (f32, bf):
+                    cb = fused_state(gen, n_layer, b, cfg, io, sd)
+                    by_state[f"B{b}_{'fp32' if sd == f32 else 'bf16'}_state_ms"] = time_ms(
+                        lambda: fused_decode_step(layers, hb, None, cb, *args, plan=pb), 10)
+            rec["state_dtype_ms"] = by_state
+            # device time per kernel of the step at a small batch (the main
+            # batch's is in decode_profile)
+            cb = fused_state(gen, n_layer, 8, cfg, io, bf)
+            hb, pb = h[:8].contiguous(), prepare_fused_decode(layers, task, cfg, lcfg, 8, io)
+            rec["small_batch_profile"] = dict(batch=8, **profile_steps(
+                lambda i: fused_decode_step(layers, hb, None, cb, *args, plan=pb), 3))
+            results["decode_fused"] = dict(rec, max_abs_err=worst, shape=(n_layer, B, cfg.d_model))
+        emit({"kernel_check": rec})
+        del cache0, cache, ref_cache, plan
+
+    # activations of another type than the weights are refused, on the card as on the CPU
+    assert isinstance(fused_decode_limits(stack("full_bf16")[:1], full, lora8, f32), ValueError)
+
+    # what decode_impl="auto" is decided on: one step of the whole-model kernel
+    # against one step of the layer loop on the same 48 layers, for both types
+    # generate() can hand over, at the main batch and at a small one
+    against = {}
+    for name, sname, B, io, sdtype in (
+            ("bf16_B48", "full_bf16", BATCH, bf, bf), ("bf16_B4", "full_bf16", 4, bf, f32),
+            ("fp32_B48", "full_f32", BATCH, f32, bf), ("fp32_B4", "full_f32", 4, f32, f32)):
+        against[name] = step_pair_ms(gen, stack(sname), full, lora8, B, io, sdtype)
+    emit({"kernel_check": {"kernel": "decode_fused", "case": "fused_against_scan", "layers": 48,
+                           "ms": against}})
+    results["decode_fused"]["fused_against_scan_ms"] = against
+    stacks.clear()
+    torch.cuda.empty_cache()
+
+
+def step_pair_ms(gen, layers, cfg, lcfg, B, io, sdtype):
+    """One token step through `layers` by the whole-model kernel and by the
+    layer loop (`block_step`, which the "scan" decode path runs): milliseconds
+    of device work and on the host's clock, same weights and state shapes."""
+    from omnimamba_tpu_torch.models.blocks import block_step
+    from omnimamba_tpu_torch.models.mamba2 import Mamba2Cache
+    from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step, prepare_fused_decode
+
+    h = rand(gen, (B, cfg.d_model), io)
+    cache = fused_state(gen, len(layers), B, cfg, io, sdtype)
+    plan = prepare_fused_decode(layers, "t2i", cfg, lcfg, B, io)
+
+    def fused():
+        fused_decode_step(layers, h, None, cache, "t2i", cfg, lcfg, 1e-5, plan=plan)
+
+    def scan():
+        hh, res = h, None
+        for i, layer in enumerate(layers):
+            hh, res, _ = block_step(
+                layer, hh, res, Mamba2Cache(cache.conv_state[i], cache.ssm_state[i]), "t2i",
+                cfg, lcfg, norm_eps=1e-5)
+
+    # the loop's 1,372 launches a step overflow the launch queue, so its device
+    # time cannot be read behind queued work: the profiler's summed kernel time
+    return {"batch": B, "dtype": str(io), "state_dtype": str(sdtype),
+            "fused_device_ms": time_ms(fused, 5), "fused_host_clock_ms": host_clock_ms(fused, 5),
+            "scan_device_busy_ms": profile_steps(lambda i: scan(), 2)["device_busy_ms_per_step"],
+            "scan_host_clock_ms": host_clock_ms(scan, 5)}
+
+
 def kernel_wrappers():
     from omnimamba_tpu_torch.ops.norms_kernel import fused_add_rms_norm, fused_gated_rms_norm
     from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
+    from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step
     from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
 
     return {
         "ssd_scan": ssd_fused, "ssd_step": ssd_step_fused,
         "add_rms_norm": fused_add_rms_norm, "gated_rms_norm": fused_gated_rms_norm,
+        "decode_fused": fused_decode_step,
     }
 
 
@@ -376,6 +632,7 @@ KERNEL_FILES = {
     "ssd_step": ("omnimamba_tpu_torch/csrc/ssd_step.cu", "omnimamba_tpu/ops/ssd_step_pallas.py:98"),
     "add_rms_norm": ("omnimamba_tpu_torch/csrc/norms.cu", "omnimamba_tpu/ops/norms_pallas.py:129"),
     "gated_rms_norm": ("omnimamba_tpu_torch/csrc/norms.cu", "omnimamba_tpu/ops/norms_pallas.py:280"),
+    "decode_fused": ("omnimamba_tpu_torch/csrc/decode_fused.cu", "omnimamba_tpu/ops/decode_fused.py:447"),
 }
 
 
@@ -385,90 +642,118 @@ KERNEL_FILES = {
 
 
 def main_path(results, card):
+    """The 1.3B model at full width, depth and batch through both decode paths:
+    `t2i_generate` (whose decode_impl="auto" takes the whole-model decode
+    kernel) and the layer-by-layer path (`generate(decode_impl="scan")` plus
+    the VQ decode). Each path runs with the launch counters set to 0 just
+    before it and read just after."""
     from omnimamba_tpu_torch import (
         MambaConfig, OmniMambaModel, SampleParams, VQConfig, init_omnimamba, t2i_generate)
+    from omnimamba_tpu_torch.models.backbone import caption_embed, embed_text
+    from omnimamba_tpu_torch.models.generation import generate
+    from omnimamba_tpu_torch.models.vq import vq_decode_code
 
     cfg, vq_cfg = MambaConfig(), VQConfig()  # 1.3B: d=2048, 48 layers; VQ-16
     model = OmniMambaModel(cfg=cfg, vq_cfg=vq_cfg, sptids={})
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.time()
     params = init_omnimamba(gen, model, torch.bfloat16, "cuda")
-    n_params = sum(t.numel() for t in _leaves(params["mamba"]))
+    mamba = params["mamba"]
+    n_params = sum(t.numel() for t in _leaves(mamba))
     text_ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (BATCH, PROMPT))
     init_s = time.time() - t0
+    ids = torch.as_tensor(text_ids, device="cuda")
+    greedy = SampleParams(top_k=1)
 
-    def run(**kw):
+    def embed():
+        emb = caption_embed(mamba, embed_text(mamba, ids, torch.bfloat16))
+        return emb + mamba["pos_embed"][:, :PROMPT]
+
+    def run(decode_impl, decode_image=True, token_callback=None):
+        """(images, tokens, seconds). "fused" goes through t2i_generate."""
         torch.cuda.synchronize()
         t = time.time()
-        out = t2i_generate(params, model, text_ids, sample=SampleParams(top_k=1), **kw)
+        if decode_impl == "fused" and token_callback is None:
+            images, tokens = t2i_generate(params, model, text_ids, sample=greedy,
+                                          decode_image=decode_image)
+        else:
+            out = generate(mamba, cfg, input_ids=ids, input_embeddings=embed(), task="t2i",
+                           max_length=PROMPT + cfg.num_tokens, sample=greedy,
+                           decode_impl=decode_impl, token_callback=token_callback)
+            tokens = out.sequences[:, PROMPT:]
+            images = vq_decode_code(params["vq"], tokens, vq_cfg) if decode_image else None
         torch.cuda.synchronize()
-        return out, time.time() - t
+        return images, tokens, time.time() - t
 
     wrappers = kernel_wrappers()
-    run(decode_image=False)  # warm-up: builds nothing new, loads library and cuBLAS/cuDNN plans
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
-    (images, tokens), total_s = run(decode_image=True)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
     steps = cfg.num_tokens - 1  # the first token comes from the prefill logits
+    prefill = {"ssd_scan": cfg.n_layer, "add_rms_norm": cfg.n_layer, "gated_rms_norm": cfg.n_layer}
     expect = {
-        "ssd_scan": cfg.n_layer,
-        "ssd_step": cfg.n_layer * steps,
-        "add_rms_norm": cfg.n_layer * (steps + 1),
-        "gated_rms_norm": cfg.n_layer * (steps + 1),
+        "fused": dict(prefill, decode_fused=steps, ssd_step=0),
+        "scan": {"ssd_scan": cfg.n_layer, "ssd_step": cfg.n_layer * steps,
+                 "add_rms_norm": cfg.n_layer * (steps + 1),
+                 "gated_rms_norm": cfg.n_layer * (steps + 1), "decode_fused": 0},
     }
-    ok_tokens = (tuple(tokens.shape) == (BATCH, cfg.num_tokens)
-                 and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vqvae_vocab_size)
-    ok_images = (tuple(images.shape) == (BATCH, 256, 256, 3)
-                 and bool(torch.isfinite(images.float()).all()))
+    run("fused", decode_image=False)  # warm-up: builds nothing new, loads library and cuBLAS/cuDNN plans
+    torch.cuda.reset_peak_memory_stats()
+    launches, totals, report = {}, {}, {}
+    for path in ("fused", "scan"):
+        for w in wrappers.values():
+            w.launches = 0
+        images, tokens, total_s = run(path)
+        launches[path] = {k: w.launches for k, w in wrappers.items()}
+        totals[path] = [total_s]
+        ok_tokens = (tuple(tokens.shape) == (BATCH, cfg.num_tokens)
+                     and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vqvae_vocab_size)
+        ok_images = (tuple(images.shape) == (BATCH, 256, 256, 3)
+                     and bool(torch.isfinite(images.float()).all()))
+        report[path] = {
+            "tokens_shape": list(tokens.shape), "images_shape": list(images.shape),
+            "tokens_in_range": ok_tokens, "images_finite": ok_images,
+            "distinct_tokens": int(torch.unique(tokens).numel()),
+            "launches": launches[path], "launches_expected": expect[path],
+        }
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     emit({"main_path": {
         "model": "OmniMamba-1.3B", "params": n_params, "n_layer": cfg.n_layer,
-        "d_model": cfg.d_model, "batch": BATCH, "prompt": PROMPT,
-        "tokens_shape": list(tokens.shape), "images_shape": list(images.shape),
-        "tokens_in_range": ok_tokens, "images_finite": ok_images,
-        "distinct_tokens": int(torch.unique(tokens).numel()),
-        "launches": launches, "launches_expected": expect, "init_s": init_s,
+        "d_model": cfg.d_model, "batch": BATCH, "prompt": PROMPT, "init_s": init_s,
+        "fused": report["fused"], "scan": report["scan"],
     }})
-    assert ok_tokens and ok_images
-    assert launches == expect, (launches, expect)
-    for name, n in launches.items():
-        results[name]["launches"] = n
+    for path in ("fused", "scan"):
+        assert report[path]["tokens_in_range"] and report[path]["images_finite"], path
+        assert launches[path] == expect[path], (path, launches[path], expect[path])
+    for name in wrappers:
+        # a kernel's count comes from the path that runs it at decode; the
+        # prefill kernels run on both and report the layer-by-layer path's
+        # count beside the fused path's
+        own = "fused" if name == "decode_fused" else "scan"
+        results[name]["launches"] = launches[own][name]
+        results[name]["launches_fused_path"] = launches["fused"][name]
 
-    # ---- times: the counted run again twice (the spread inside one call),
-    # a run without image decode, then one with a per-token host callback
-    # whose time stamps give the prefill / decode-step split ----
-    totals = [total_s] + [run(decode_image=True)[1] for _ in range(2)]
-    stamps = []
+    # ---- times: the fused generation twice more (the spread inside one
+    # call; the layer-by-layer path is timed once), a run without image
+    # decode, then per path one run with a per-token host callback whose time
+    # stamps give the prefill / decode-step split ----
+    totals["fused"] += [run("fused")[2] for _ in range(2)]
+    tokens_only_s = run("fused", decode_image=False)[2]
+    split = {}
+    for path in ("fused", "scan"):
+        stamps = []
+        torch.cuda.synchronize()
+        t_start = time.time()
+        run(path, decode_image=False, token_callback=lambda _tok: stamps.append(time.time()))
+        step_ms = np.diff(np.asarray(stamps)) * 1e3
+        split[path] = {
+            "prefill_and_first_token_ms": (stamps[0] - t_start) * 1e3,
+            "decode_step_ms_median": float(np.median(step_ms)),
+            "decode_step_ms_p90": float(np.percentile(step_ms, 90)),
+            "decode_steps": int(step_ms.size),
+        }
 
-    def stamp(_tok):
-        stamps.append(time.time())
-
-    torch.cuda.synchronize()
-    t_start = time.time()
-    t2i_generate(params, model, text_ids, sample=SampleParams(top_k=1), decode_image=False)
-    torch.cuda.synchronize()
-    tokens_only_s = time.time() - t_start
-
-    from omnimamba_tpu_torch.models.backbone import caption_embed, embed_text
-    from omnimamba_tpu_torch.models.generation import generate
-
-    ids = torch.as_tensor(text_ids, device="cuda")
-    emb = caption_embed(params["mamba"], embed_text(params["mamba"], ids, torch.bfloat16))
-    emb = emb + params["mamba"]["pos_embed"][:, :PROMPT]
-    torch.cuda.synchronize()
-    t_start = time.time()
-    generate(params["mamba"], cfg, input_ids=ids, input_embeddings=emb, task="t2i",
-             max_length=PROMPT + cfg.num_tokens, sample=SampleParams(top_k=1),
-             token_callback=stamp)
-    torch.cuda.synchronize()
-    step_ms = np.diff(np.asarray(stamps)) * 1e3
-
-    emit({"decode_profile": dict(profile_decode_steps(params["mamba"], cfg, ids, emb), card=card)})
-
-    from omnimamba_tpu_torch.models.vq import vq_decode_code
+    profiles = {path: profile_decode_steps(mamba, cfg, ids, embed(), path)
+                for path in ("fused", "scan")}
+    emit({"decode_profile": dict(profiles, card=card)})
+    results["decode_fused"]["scan_step_device_ms"] = profiles["scan"]["device_busy_ms_per_step"]
 
     torch.cuda.synchronize()
     t_vq = time.time()
@@ -476,43 +761,55 @@ def main_path(results, card):
     torch.cuda.synchronize()
     vq_s = time.time() - t_vq
 
-    emit({"times": {
-        "card": card, "batch": BATCH, "total_s_runs": totals,
-        "total_s": float(np.median(totals)), "images_per_s": BATCH / float(np.median(totals)),
-        "tokens_only_s": tokens_only_s,
-        "prefill_and_first_token_ms": (stamps[0] - t_start) * 1e3,
-        "decode_step_ms_median": float(np.median(step_ms)),
-        "decode_step_ms_p90": float(np.percentile(step_ms, 90)),
-        "decode_steps": int(step_ms.size),
-        "vq_decode_ms": vq_s * 1e3,
-        "peak_memory_gib": peak_gib,
-        "note": "host clock, each ending in a device synchronize; step times from a run "
-                "with a per-token host callback",
-    }})
+    times = {"card": card, "batch": BATCH, "tokens_only_s_fused": tokens_only_s,
+             "vq_decode_ms": vq_s * 1e3, "peak_memory_gib": peak_gib,
+             "note": "host clock, each ending in a device synchronize; step times from a run "
+                     "with a per-token host callback; both paths in this one call"}
+    for path in ("fused", "scan"):
+        med = float(np.median(totals[path]))
+        times[path] = dict(split[path], total_s_runs=totals[path], total_s=med,
+                           images_per_s=BATCH / med)
+    emit({"times": times})
 
 
-def profile_decode_steps(mamba, cfg, ids, emb, steps: int = 4):
-    """Device-busy share of the decode step, from a profiler trace of a few
-    steady steps: wall time per step against the summed kernel time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from omnimamba_tpu_torch.models.backbone import apply_head, backbone_forward, backbone_step
+def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4):
+    """Device-busy share of the decode step of one path, from a profiler trace
+    of a few steady steps: wall time per step against the summed kernel time."""
+    from omnimamba_tpu_torch.models.backbone import (
+        apply_head, backbone_forward, backbone_step, backbone_step_fused)
+    from omnimamba_tpu_torch.ops.decode_fused import prepare_fused_decode
 
     _, cache = backbone_forward(mamba, emb, "t2i", cfg, return_cache=True)
     cache = cache._replace(ssm_state=cache.ssm_state.to(torch.bfloat16))
     tok = ids[:, 0] % cfg.vqvae_vocab_size
+    if decode_impl == "fused":
+        plan = prepare_fused_decode(mamba["layers"], "t2i", cfg.mixer, cfg.lora, BATCH, emb.dtype)
+
+        def backbone(pos):
+            return backbone_step_fused(mamba, tok, pos, cache, "t2i", cfg, dtype=emb.dtype, plan=plan)
+    else:
+        def backbone(pos):
+            return backbone_step(mamba, tok, pos, cache, "t2i", cfg, dtype=emb.dtype)
 
     def step(pos):
-        hidden, _ = backbone_step(mamba, tok, pos, cache, "t2i", cfg, dtype=emb.dtype)
+        hidden, _ = backbone(pos)
         return apply_head(mamba, hidden, "t2i").argmax(-1)
 
-    step(PROMPT)
+    return profile_steps(lambda i: step(PROMPT + i), steps)
+
+
+def profile_steps(step, steps: int):
+    """`step(i)` for i = 1..steps under the profiler, after one warm call
+    `step(0)`: wall time per step against the summed time of its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for i in range(steps):
-            step(PROMPT + 1 + i)
+            step(1 + i)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / steps
 
@@ -539,15 +836,20 @@ def profile_decode_steps(mamba, cfg, ids, emb, steps: int = 4):
     }
 
 
-def _leaves(node):
+def _named_leaves(node, name=""):
+    """(key of the leaf, tensor) for every tensor of a parameter tree."""
     if isinstance(node, dict):
-        for v in node.values():
-            yield from _leaves(v)
+        for k, v in node.items():
+            yield from _named_leaves(v, k)
     elif isinstance(node, (list, tuple)):
         for v in node:
-            yield from _leaves(v)
+            yield from _named_leaves(v, name)
     elif isinstance(node, torch.Tensor):
-        yield node
+        yield name, node
+
+
+def _leaves(node):
+    return (t for _, t in _named_leaves(node))
 
 
 # ---------------------------------------------------------------------------
@@ -557,10 +859,12 @@ def _leaves(node):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Test-only switch: route the model's four kernel call sites to the plain
+    """Test-only switch: route the model's five kernel call sites to the plain
     tensor versions by patching the names the model modules look up."""
+    import omnimamba_tpu_torch.models.backbone as backbone
     import omnimamba_tpu_torch.models.blocks as blocks
     import omnimamba_tpu_torch.models.mamba2 as mamba2
+    from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step_plain
     from omnimamba_tpu_torch.ops.norms import add_norm_plain, gated_rms_norm_plain
     from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused_plain
     from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_plain
@@ -570,19 +874,26 @@ def plain_versions():
         state.copy_(new_state)
         return y, state
 
-    saved = (blocks.add_norm, mamba2.gated_rms_norm, mamba2.ssd_fused, mamba2.ssd_step_fused)
+    def fused_plain(*args, plan=None):
+        return fused_decode_step_plain(*args)
+
+    saved = (blocks.add_norm, mamba2.gated_rms_norm, mamba2.ssd_fused, mamba2.ssd_step_fused,
+             backbone.fused_decode_step)
     blocks.add_norm, mamba2.gated_rms_norm = add_norm_plain, gated_rms_norm_plain
     mamba2.ssd_fused, mamba2.ssd_step_fused = ssd_fused_plain, step_plain_in_place
+    backbone.fused_decode_step = fused_plain
     try:
         yield
     finally:
-        blocks.add_norm, mamba2.gated_rms_norm, mamba2.ssd_fused, mamba2.ssd_step_fused = saved
+        (blocks.add_norm, mamba2.gated_rms_norm, mamba2.ssd_fused, mamba2.ssd_step_fused,
+         backbone.fused_decode_step) = saved
 
 
 def plain_vs_kernel():
-    """The decode engine at full width, 4 layers, fp32: once through the
-    kernels (free-running greedy), once through the plain versions replaying
-    the kernel run's tokens, so the logits of every step are comparable."""
+    """The decode engine at full width, 4 layers, fp32, once per decode path:
+    once through the kernels (free-running greedy), once through the plain
+    versions replaying the kernel run's tokens, so the logits of every step
+    are comparable."""
     from omnimamba_tpu_torch import MambaConfig, SampleParams
     from omnimamba_tpu_torch.models.backbone import caption_embed, embed_text, init_backbone
     from omnimamba_tpu_torch.models.generation import generate
@@ -603,34 +914,36 @@ def plain_vs_kernel():
                   sample=SampleParams(top_k=1), cache_dtype=None, return_logits=True)
 
     wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    out_k = generate(params, cfg, **common)
-    assert all(w.launches > 0 for w in wrappers.values())
-    before = {k: w.launches for k, w in wrappers.items()}
-    with plain_versions():
-        out_p = generate(params, cfg, teacher_outputs=out_k.sequences, **common)
-    assert before == {k: w.launches for k, w in wrappers.items()}, "plain run launched a kernel"
+    idle = {"scan": "decode_fused", "fused": "ssd_step"}  # the kernel the path does not run
+    for path in ("scan", "fused"):
+        for w in wrappers.values():
+            w.launches = 0
+        out_k = generate(params, cfg, decode_impl=path, **common)
+        before = {k: w.launches for k, w in wrappers.items()}
+        assert all((n > 0) != (k == idle[path]) for k, n in before.items()), (path, before)
+        with plain_versions():
+            out_p = generate(params, cfg, decode_impl=path, teacher_outputs=out_k.sequences, **common)
+        assert before == {k: w.launches for k, w in wrappers.items()}, "plain run launched a kernel"
 
-    lk, lp = torch.stack(out_k.logits), torch.stack(out_p.logits)  # (steps, B, V)
-    scale = lp.abs().max().item()
-    err = (lk - lp).abs().max().item()
-    # fp32 end to end over 4 layers and 24 recurrent steps: the kernels sum in
-    # another order than the plain versions and the differences compound
-    # through the layers; 1e-5 of the largest logit is about 80 fp32 ulps
-    tol = 1e-5 * scale
-    top2 = torch.topk(lp, 2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]  # (steps, B)
-    toks_k = out_k.sequences[:, PROMPT:].T  # (steps, B)
-    agree = lp.argmax(-1) == toks_k
-    decided = margin > 2 * tol  # a near-tie inside the tolerance decides nothing
-    rec = {"layers": cfg.n_layer, "d_model": cfg.d_model, "batch": B, "steps": new,
-           "logits_max_abs_err": err, "logits_scale": scale, "tol_abs": tol,
-           "tokens_equal": bool(agree.all()), "near_ties": int((~decided).sum()),
-           "min_margin": margin.min().item()}
-    emit({"plain_vs_kernel": rec})
-    assert err <= tol, rec
-    assert bool(agree[decided].all()), rec
+        lk, lp = torch.stack(out_k.logits), torch.stack(out_p.logits)  # (steps, B, V)
+        scale = lp.abs().max().item()
+        err = (lk - lp).abs().max().item()
+        # fp32 end to end over 4 layers and 24 recurrent steps: the kernels sum in
+        # another order than the plain versions and the differences compound
+        # through the layers; 1e-5 of the largest logit is about 80 fp32 ulps
+        tol = 1e-5 * scale
+        top2 = torch.topk(lp, 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]  # (steps, B)
+        toks_k = out_k.sequences[:, PROMPT:].T  # (steps, B)
+        agree = lp.argmax(-1) == toks_k
+        decided = margin > 2 * tol  # a near-tie inside the tolerance decides nothing
+        rec = {"decode_impl": path, "layers": cfg.n_layer, "d_model": cfg.d_model, "batch": B,
+               "steps": new, "logits_max_abs_err": err, "logits_scale": scale, "tol_abs": tol,
+               "tokens_equal": bool(agree.all()), "near_ties": int((~decided).sum()),
+               "min_margin": margin.min().item()}
+        emit({"plain_vs_kernel": rec})
+        assert err <= tol, rec
+        assert bool(agree[decided].all()), rec
 
 
 # ---------------------------------------------------------------------------
@@ -640,6 +953,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one CUDA device",
               file=sys.stderr)
+        return 2
+    if sys.argv[1:]:
+        print("usage: python3 chip_smoke.py", file=sys.stderr)
         return 2
     from omnimamba_tpu_torch.ops import kernel_build
 
@@ -665,6 +981,7 @@ def main() -> int:
     check_ssd_scan(gen, results)
     check_ssd_step(gen, results)
     check_norms(gen, results)
+    check_decode_fused(gen, results)
 
     main_path(results, card)
     plain_vs_kernel()
@@ -675,7 +992,10 @@ def main() -> int:
         r = results[name]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         row.update({k: r[k] for k in keys})
-        row.update({k: r[k] for k in ("case", "shape", "dtype", "bytes_moved", "host_us", "prefill", "fp32_state")
+        row.update({k: r[k] for k in (
+            "case", "shape", "dtype", "bytes_moved", "host_us", "prefill", "fp32_state",
+            "launches_fused_path", "flops", "library_note", "scan_step_device_ms",
+            "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile")
                     if k in r})
         kernels.append(row)
     emit({"card": card, "seconds_total": time.time() - t_all})

@@ -1,0 +1,988 @@
+// One decode token through every layer of the Mamba-2 stack, as ONE call.
+//
+// Replaces the TPU kernel `_fused_decode_kernel` / `fused_decode_step` of
+// omnimamba_tpu/ops/decode_fused.py. Per layer it computes
+//
+//   res  = h + res (fp32);  hn = RMSNorm(res) * w, rounded to the io type
+//   [z | x B C | dt] = hn @ W_in + scaling * (hn @ A_lora) @ B_lora      (fp32)
+//   x B C = silu(conv shift register step), window rolled in place
+//   dt    = softplus(dt + dt_bias)
+//   s'    = s * exp(dt * -exp(A_log)) + (dt * x) outer B, in place;  y = s' C + D x
+//   yf    = y * silu(z)
+//   h     = ((yf * w_gn rounded to io) @ W_out) * rsqrt(mean(yf^2) + eps), rounded to io
+//
+// and returns the last h and the fp32 residual. The TPU kernel walks a
+// sequential (layer, head tile) grid on one core with the (B, d) streams in its
+// on-chip memory. Here 132 SMs must share each layer's weights and state, and
+// a layer cannot start before the one before it has finished, so the exported
+// function `omt_fused_decode_step` enqueues, per layer, four kernels on the
+// caller's stream (stream order is the device-wide ordering point between the
+// phases), and one more after the last layer. There is no host synchronisation
+// and no library call between them; the host's part of a token step is this
+// one C call. Every phase is a `__global__` wrapper around `__device__` code,
+// so a persistent cooperative kernel with grid-wide barriers can take the same
+// phases later.
+//
+//   1. pre-norm      one block per batch row: finishes the previous layer's
+//                    out_proj (fixed-order sum of its K splits, times the
+//                    row's rstd, rounded to io), adds the residual, norms,
+//                    and computes hn @ A_lora.
+//   2. in_proj       blocks tile rows x (64 columns) of the
+//                    (B, d) x (d, 2*d_inner + 2N + H) product, so every weight
+//                    byte is read from device memory once; on its finished
+//                    columns a block adds the LoRA term and does the conv step
+//                    (x|B|C columns) or the softplus (dt columns).
+//   3. SSM update    one block per (row, head), the row code of the step
+//                    kernel (ssd_step_row.cuh); writes yf * w_gn rounded to io
+//                    and one partial sum of yf^2 per (row, head).
+//   4. out_proj      blocks tile rows x (64 columns) x (K split) of the
+//                    (B, d_inner) x (d_inner, d) product into fp32 partials
+//                    (d alone has too few columns to fill the card).
+//
+// Intermediates (hn, hn @ A, z, x|B|C, dt, yf * w_gn, partial sums) live in
+// scratch that the caller allocates once: about 1.7 MB at B=48, which stays in the
+// 50 MB L2. Weights are read through tables of device pointers, one entry per
+// layer and operand, so the per-layer tensors are neither stacked nor copied.
+//
+// What bounds it on an H100: bytes. The step must move each layer's weights
+// once and its state twice (about 7.4 GB at B=48 with a bf16 state at the 1.3B
+// width: 2.2 ms at 3.35 TB/s), and its 119 GFLOP are 0.12 ms of bf16
+// tensor-core time. So the two products are written by hand twice:
+//   - bf16 activations with bf16 weights (the serving case) stream the weight
+//     tiles through a four-stage cp.async ring in shared memory into
+//     warp-level tensor-core products (wmma, bf16 operands, fp32 sums): the
+//     product costs nothing beside the weight bytes, and enough bytes are in
+//     flight on every SM to keep device memory busy;
+//   - fp32 activations and weights, and any shape the tiles do not fit, take
+//     fp32 multiply-adds over shared-memory tiles (bf16 x bf16
+//     products are exact in fp32, so this is the same arithmetic in another
+//     order). It is bound by operations (119 GFLOP at 67 TFLOP/s is 1.8 ms at
+//     best).
+// The state update streams the state like the step kernel, whose row code it
+// shares. What keeps the step above its bound is recorded in PERF.md: the
+// state update reaches 60% of its bytes' rate, and four short kernels a layer
+// leave the card partly idle at each boundary.
+// All sums are taken in a fixed order (no atomics): a step gives the same bits
+// on every run.
+#include <cuda_pipeline.h>
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+#include "ssd_step_row.cuh"
+
+namespace omt {
+
+// rows of the pointer table: table[op * L + layer]
+enum K4Op : int {
+  kNormW = 0, kInProj, kLoraA, kLoraB, kConvW, kConvB, kDtBias, kALog, kD, kGnW, kOutProj,
+  kNumOps
+};
+
+constexpr int kMaxKSplit = 8;
+
+struct K4Args {
+  const void* const* tab;  // (kNumOps, L) device pointers, on the device
+  int L, B, d, d_inner, H, P, N, W, r, ksplit;
+  int vec4;  // every operand of the in_proj epilogue takes 4-element vector accesses
+  float lora_scale, norm_eps, gn_eps;
+  void* conv_state;      // (L, B, W-1, d_inner + 2N) io type, in place
+  void* ssm_state;       // (L, B, H, P, N) fp32 or bf16, in place
+  const void* h_in;      // (B, d) io type
+  const float* res_in;   // (B, d) or null
+  void* h_out;           // (B, d) io type
+  float* res;            // (B, d) running fp32 residual = the residual output
+  void* hn;              // (B, d) io type
+  float* hA;             // (B, r)
+  float* z;              // (B, d_inner)
+  float* xbc;            // (B, d_inner + 2N)
+  float* dt;             // (B, H)
+  void* ya;              // (B, d_inner) io type: (yf * w_gn) rounded
+  float* sumsq;          // (B, H)
+  float* part;           // (ksplit, B, d)
+};
+
+template <typename T>
+__device__ __forceinline__ const T* layer_ptr(const K4Args& a, int op, int layer) {
+  return static_cast<const T*>(a.tab[op * a.L + layer]);
+}
+
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+
+// ---------------------------------------------------------------------------
+// phase 1: finish the previous layer's out_proj, residual add, RMSNorm, hn @ A
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 1024;
+
+// rstd of the gated norm of row b, computed by one whole warp: lane l sums the
+// (row, head) partials of heads l, l + 32, ... in that order, then the lanes
+// are summed by the shuffle tree; every lane returns the value
+__device__ __forceinline__ float gated_rstd(const K4Args& a, int b, int lane) {
+  float total = 0.0f;
+  for (int h = lane; h < a.H; h += 32) total += a.sumsq[static_cast<size_t>(b) * a.H + h];
+  total = warp_sum(total);
+  return rsqrtf(total / static_cast<float>(a.d_inner) + a.gn_eps);
+}
+
+// element i of row b of the layer output: K splits summed in split order
+template <typename IO>
+__device__ __forceinline__ float finished_out_proj(const K4Args& a, int b, int i, float rstd) {
+  float total = 0.0f;
+  for (int s = 0; s < a.ksplit; ++s)
+    total += a.part[(static_cast<size_t>(s) * a.B + b) * a.d + i];
+  return to_float(from_float<IO>(total * rstd));
+}
+
+template <typename IO, typename WT>
+__global__ void __launch_bounds__(kRowThreads) k4_prenorm_kernel(K4Args a, int layer) {
+  extern __shared__ float4 smem4[];
+  float* row = reinterpret_cast<float*>(smem4);  // d floats
+  __shared__ float scratch[32];
+  __shared__ float rstd_prev;
+
+  const int b = blockIdx.x;
+  const int d = a.d;
+  float* res = a.res + static_cast<size_t>(b) * d;
+
+  float ss = 0.0f;
+  if (layer == 0) {
+    const IO* h = static_cast<const IO*>(a.h_in) + static_cast<size_t>(b) * d;
+    const float* rin = (a.res_in != nullptr) ? a.res_in + static_cast<size_t>(b) * d : nullptr;
+    for (int i = threadIdx.x; i < d; i += kRowThreads) {
+      float v = to_float(h[i]);
+      if (rin != nullptr) v += rin[i];
+      res[i] = v;
+      row[i] = v;
+      ss += v * v;
+    }
+  } else {
+    if (threadIdx.x < 32) {
+      const float r = gated_rstd(a, b, threadIdx.x);
+      if (threadIdx.x == 0) rstd_prev = r;
+    }
+    __syncthreads();
+    const float rstd = rstd_prev;
+    for (int i = threadIdx.x; i < d; i += kRowThreads) {
+      const float v = finished_out_proj<IO>(a, b, i, rstd) + res[i];
+      res[i] = v;
+      row[i] = v;
+      ss += v * v;
+    }
+  }
+  ss = block_sum(ss, scratch);
+  const float rstd = rsqrtf(ss / static_cast<float>(d) + a.norm_eps);
+
+  // each thread re-reads only the row entries it wrote itself
+  const WT* w = layer_ptr<WT>(a, kNormW, layer);
+  IO* hn = static_cast<IO*>(a.hn) + static_cast<size_t>(b) * d;
+  for (int i = threadIdx.x; i < d; i += kRowThreads) {
+    const IO v = from_float<IO>(row[i] * rstd * to_float(w[i]));
+    hn[i] = v;
+    row[i] = to_float(v);
+  }
+  if (a.r > 0) {
+    // hn @ A, eight columns of A at a time: a thread multiplies its own row
+    // entries with the (contiguous) A rows, so all its loads are independent;
+    // lanes, then warps, are summed in a fixed order
+    __shared__ float warp_part[kRowThreads / 32][8];
+    const WT* A = layer_ptr<WT>(a, kLoraA, layer);  // (d, r)
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int j0 = 0; j0 < a.r; j0 += 8) {
+      float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int i = threadIdx.x; i < d; i += kRowThreads) {
+        const float x = row[i];
+        const WT* Ai = A + static_cast<size_t>(i) * a.r + j0;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          if (j0 + jj < a.r) acc[jj] += x * to_float(Ai[jj]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) acc[jj] = warp_sum(acc[jj]);
+      __syncthreads();  // warp_part may still be read from the previous eight
+      if (lane == 0) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) warp_part[warp][jj] = acc[jj];
+      }
+      __syncthreads();
+      if (threadIdx.x < 8 && j0 + threadIdx.x < a.r) {
+        float total = 0.0f;
+        for (int w = 0; w < kRowThreads / 32; ++w) total += warp_part[w][threadIdx.x];
+        a.hA[static_cast<size_t>(b) * a.r + j0 + threadIdx.x] = total;
+      }
+    }
+  }
+}
+
+// after the last layer: h_out = the finished out_proj of that layer
+template <typename IO>
+__global__ void __launch_bounds__(kRowThreads) k4_finish_kernel(K4Args a) {
+  __shared__ float rstd_prev;
+  const int b = blockIdx.x;
+  if (threadIdx.x < 32) {
+    const float r = gated_rstd(a, b, threadIdx.x);
+    if (threadIdx.x == 0) rstd_prev = r;
+  }
+  __syncthreads();
+  const float rstd = rstd_prev;
+  IO* out = static_cast<IO*>(a.h_out) + static_cast<size_t>(b) * a.d;
+  for (int i = threadIdx.x; i < a.d; i += kRowThreads)
+    out[i] = from_float<IO>(finished_out_proj<IO>(a, b, i, rstd));
+}
+
+// ---------------------------------------------------------------------------
+// the product of phases 2 and 4: C[m0:m0+16, n0:n0+64] += A[:, k] W[k, :]
+// ---------------------------------------------------------------------------
+// fp32 multiply-adds over shared-memory tiles. 128 threads; a thread owns a
+// 2 x 4 patch of the 16 x 64 tile. The next k tile is fetched into registers
+// while the current one is multiplied. Columns past N and k past k_end read
+// as zero. The sum over k runs in k order inside one thread.
+
+constexpr int kBM = 16, kBN = 64, kBK = 32, kTM = 2, kTN = 4;
+constexpr int kGemmThreads = (kBM / kTM) * (kBN / kTN);  // 128
+constexpr int kAsStride = kBM + 2;  // floats; keeps the float2 reads 8-byte aligned
+constexpr int kWLoads = kBK * kBN / 4 / kGemmThreads;  // float4 loads of W per thread: 4
+static_assert(kGemmThreads * 4 == kBM * kBK, "one 4-element A load per thread");
+static_assert(kWLoads * 4 * kGemmThreads == kBK * kBN, "W tile divides evenly");
+
+// Four consecutive elements as they lie in memory, converted to fp32 only when
+// they are stored to shared memory: the loads of a tile are then started back
+// to back, with no use of a loaded value (and no branch) between them.
+template <typename T>
+struct Raw4;
+template <>
+struct Raw4<float> {
+  using type = float4;
+};
+template <>
+struct Raw4<__nv_bfloat16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 load_raw4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ uint2 load_raw4(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ float4 raw_to_float4(float4 r) { return r; }
+__device__ __forceinline__ float4 raw_to_float4(uint2 r) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <typename T>
+__device__ __forceinline__ float4 ldg4(const T* p) {
+  return raw_to_float4(__ldg(reinterpret_cast<const typename Raw4<T>::type*>(p)));
+}
+
+// p[0..3] where in < n of them exist; the rest read as zero
+__device__ __forceinline__ float4 load_guarded4(const float* p, int n) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (n > 0) v.x = p[0];
+  if (n > 1) v.y = p[1];
+  if (n > 2) v.z = p[2];
+  if (n > 3) v.w = p[3];
+  return v;
+}
+__device__ __forceinline__ uint2 load_guarded4(const __nv_bfloat16* p, int n) {
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  unsigned int e[4] = {0u, 0u, 0u, 0u};  // the bits of a bf16 zero are zero
+  for (int i = 0; i < 4; ++i)
+    if (i < n) e[i] = q[i];
+  return make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+}
+
+// Fetch the (kBM x kBK) A tile and the (kBK x kBN) W tile at k0 into
+// registers. A holds rows of io-typed activations with row stride K (the
+// normed hidden state for in_proj, the gated and weighted yf for out_proj).
+// An interior tile (whole in k and in columns, everything aligned) takes one
+// vector load per item; the edge takes guarded element loads. Rows
+// past M are read from row M - 1: their results are never written.
+template <typename IO, typename WT>
+__device__ __forceinline__ void gemm_fetch(const IO* __restrict__ A, int K,
+                                           const WT* __restrict__ Wm, int ldw, int M, int N,
+                                           int m0, int n0, int k0, int k_end, bool aligned,
+                                           typename Raw4<IO>::type& a_reg,
+                                           typename Raw4<WT>::type (&w_reg)[kWLoads]) {
+  const int tid = threadIdx.x;
+  const int a_row = min(m0 + tid / (kBK / 4), M - 1);
+  const int a_k = k0 + (tid % (kBK / 4)) * 4;
+  if (aligned && k0 + kBK <= k_end && n0 + kBN <= N) {
+    a_reg = load_raw4(A + static_cast<size_t>(a_row) * K + a_k);
+#pragma unroll
+    for (int j = 0; j < kWLoads; ++j) {
+      const int idx = tid + j * kGemmThreads;
+      w_reg[j] = load_raw4(Wm + static_cast<size_t>(k0 + idx / (kBN / 4)) * ldw + n0 +
+                           (idx % (kBN / 4)) * 4);
+    }
+  } else {
+    a_reg = load_guarded4(A + static_cast<size_t>(a_row) * K + min(a_k, k_end - 1), k_end - a_k);
+#pragma unroll
+    for (int j = 0; j < kWLoads; ++j) {
+      const int idx = tid + j * kGemmThreads;
+      const int gk = k0 + idx / (kBN / 4);
+      const int gc = n0 + (idx % (kBN / 4)) * 4;
+      const int n = (gk < k_end) ? N - gc : 0;
+      w_reg[j] = load_guarded4(
+          Wm + static_cast<size_t>(min(gk, k_end - 1)) * ldw + min(gc, N - 1), n);
+    }
+  }
+}
+
+template <typename ARaw, typename WRaw>
+__device__ __forceinline__ void gemm_stash(const ARaw& a_reg, const WRaw (&w_reg)[kWLoads],
+                                           float* As, float* Ws) {
+  const int tid = threadIdx.x;
+  const int a_row = tid / (kBK / 4);
+  const int a_k = (tid % (kBK / 4)) * 4;
+  const float4 av = raw_to_float4(a_reg);
+  As[(a_k + 0) * kAsStride + a_row] = av.x;
+  As[(a_k + 1) * kAsStride + a_row] = av.y;
+  As[(a_k + 2) * kAsStride + a_row] = av.z;
+  As[(a_k + 3) * kAsStride + a_row] = av.w;
+#pragma unroll
+  for (int j = 0; j < kWLoads; ++j) {
+    const int idx = tid + j * kGemmThreads;
+    store4(Ws + (idx / (kBN / 4)) * kBN + (idx % (kBN / 4)) * 4, raw_to_float4(w_reg[j]));
+  }
+}
+
+template <typename IO, typename WT>
+__device__ __forceinline__ void gemm_tile(const IO* __restrict__ A, int K,
+                                          const WT* __restrict__ Wm, int ldw, int M, int N,
+                                          int m0, int n0, int k_begin, int k_end,
+                                          float (&acc)[kTM][kTN], float* As, float* Ws) {
+  const int tx = threadIdx.x % (kBN / kTN);
+  const int ty = threadIdx.x / (kBN / kTN);
+  const bool aligned = K % 4 == 0 && ldw % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(A) % (4 * sizeof(IO)) == 0 &&
+                       reinterpret_cast<uintptr_t>(Wm) % (4 * sizeof(WT)) == 0;
+  typename Raw4<IO>::type a_reg;
+  typename Raw4<WT>::type w_reg[kWLoads];
+
+  if (k_begin >= k_end) return;
+  gemm_fetch(A, K, Wm, ldw, M, N, m0, n0, k_begin, k_end, aligned, a_reg, w_reg);
+  gemm_stash(a_reg, w_reg, As, Ws);
+  __syncthreads();
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+    const bool more = k0 + kBK < k_end;
+    if (more) gemm_fetch(A, K, Wm, ldw, M, N, m0, n0, k0 + kBK, k_end, aligned, a_reg, w_reg);
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float2 av = *reinterpret_cast<const float2*>(As + kk * kAsStride + ty * kTM);
+      const float4 wv = load4(Ws + kk * kBN + tx * kTN);
+      acc[0][0] += av.x * wv.x;
+      acc[0][1] += av.x * wv.y;
+      acc[0][2] += av.x * wv.z;
+      acc[0][3] += av.x * wv.w;
+      acc[1][0] += av.y * wv.x;
+      acc[1][1] += av.y * wv.y;
+      acc[1][2] += av.y * wv.z;
+      acc[1][3] += av.y * wv.w;
+    }
+    __syncthreads();  // every thread is done with this tile
+    if (more) gemm_stash(a_reg, w_reg, As, Ws);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phase 2: in_proj + LoRA, then conv step / softplus on the finished columns
+// ---------------------------------------------------------------------------
+
+// What follows the product for one finished element (row, col) of in_proj,
+// `v` with its LoRA term already added.
+template <typename IO, typename WT>
+__device__ __forceinline__ void in_proj_place(const K4Args& a, int layer, int row, int col,
+                                              float v) {
+  const int conv_ch = a.d_inner + 2 * a.N;
+  if (col < a.d_inner) {
+    a.z[static_cast<size_t>(row) * a.d_inner + col] = v;
+  } else if (col < a.d_inner + conv_ch) {
+    // shift register: taps oldest first; the newest tap is the raw value
+    const int c = col - a.d_inner;
+    const int taps = a.W - 1;
+    const WT* conv_w = layer_ptr<WT>(a, kConvW, layer);  // (W, conv_ch)
+    IO* win = static_cast<IO*>(a.conv_state) +
+              (static_cast<size_t>(layer) * a.B + row) * taps * conv_ch + c;
+    float y = v * to_float(conv_w[static_cast<size_t>(taps) * conv_ch + c]);
+    for (int t = 0; t < taps; ++t) {
+      const IO tap = win[static_cast<size_t>(t) * conv_ch];
+      y += to_float(tap) * to_float(conv_w[static_cast<size_t>(t) * conv_ch + c]);
+      if (t > 0) win[static_cast<size_t>(t - 1) * conv_ch] = tap;
+    }
+    if (taps > 0) win[static_cast<size_t>(taps - 1) * conv_ch] = from_float<IO>(v);
+    y += to_float(layer_ptr<WT>(a, kConvB, layer)[c]);
+    a.xbc[static_cast<size_t>(row) * conv_ch + c] = silu(y);
+  } else {
+    const int hh = col - a.d_inner - conv_ch;
+    const float u = v + to_float(layer_ptr<WT>(a, kDtBias, layer)[hh]);
+    // softplus, linear above 20 like torch.nn.functional.softplus
+    a.dt[static_cast<size_t>(row) * a.H + hh] = (u > 20.0f) ? u : log1pf(expf(u));
+  }
+}
+
+// acc += s * w and acc += x * w, element by element
+__device__ __forceinline__ void axpy4(float4& acc, float s, const float4& w) {
+  acc.x += s * w.x; acc.y += s * w.y; acc.z += s * w.z; acc.w += s * w.w;
+}
+__device__ __forceinline__ void mad4(float4& acc, const float4& x, const float4& w) {
+  acc.x += x.x * w.x; acc.y += x.y * w.y; acc.z += x.z * w.z; acc.w += x.w * w.w;
+}
+
+// What follows the product for the four consecutive columns col .. col + 3
+// (col a multiple of 4) of ROWS rows of in_proj: the LoRA term is added from
+// the rows' hn @ A (`hA[i]`, r floats each), then z is stored, the conv step
+// or the softplus is done. Rows past B are computed on clamped reads and
+// never written. With `vec` every class of columns begins at a multiple of 4
+// and every operand takes 4-element vector accesses: the per-column operands
+// are then loaded once per thread and the loads of different rows do not wait
+// for each other. Without it, and for a conv window that is not 4 taps, each
+// element goes through `in_proj_place`.
+template <typename IO, typename WT, int ROWS>
+__device__ __forceinline__ void in_proj_finish4(const K4Args& a, int layer,
+                                                const int (&rows)[ROWS],
+                                                const float* const (&hA)[ROWS], int col,
+                                                float4 (&v)[ROWS], bool vec) {
+  using IORaw = typename Raw4<IO>::type;
+  const int conv_ch = a.d_inner + 2 * a.N;
+  const int n_in = a.d_inner + conv_ch + a.H;
+  if (!vec) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      if (rows[i] >= a.B) continue;
+      const float vs[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (col + j >= n_in) continue;
+        float e = vs[j];
+        if (a.r > 0) {
+          const WT* lora_b = layer_ptr<WT>(a, kLoraB, layer);  // (r, n_in)
+          float lo = 0.0f;
+          for (int q = 0; q < a.r; ++q)
+            lo += hA[i][q] * to_float(lora_b[static_cast<size_t>(q) * n_in + col + j]);
+          e += a.lora_scale * lo;
+        }
+        in_proj_place<IO, WT>(a, layer, rows[i], col + j, e);
+      }
+    }
+    return;
+  }
+  if (col >= n_in) return;
+  if (a.r > 0) {
+    const WT* lora_b = layer_ptr<WT>(a, kLoraB, layer) + col;  // (r, n_in)
+    float4 lo[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) lo[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int q = 0; q < a.r; ++q) {
+      const float4 lb = ldg4(lora_b + static_cast<size_t>(q) * n_in);
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) axpy4(lo[i], hA[i][q], lb);
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) axpy4(v[i], a.lora_scale, lo[i]);
+  }
+
+  if (col < a.d_inner) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+      if (rows[i] < a.B) store4(a.z + static_cast<size_t>(rows[i]) * a.d_inner + col, v[i]);
+  } else if (col < a.d_inner + conv_ch && a.W == 4) {
+    // the 4-tap shift register of every shipped config, three old taps a row
+    const int c = col - a.d_inner;
+    const WT* conv_w = layer_ptr<WT>(a, kConvW, layer) + c;  // (4, conv_ch)
+    const float4 w0 = ldg4(conv_w), w1 = ldg4(conv_w + conv_ch);
+    const float4 w2 = ldg4(conv_w + 2 * conv_ch), w3 = ldg4(conv_w + 3 * conv_ch);
+    const float4 bias = ldg4(layer_ptr<WT>(a, kConvB, layer) + c);
+    IO* const base = static_cast<IO*>(a.conv_state) +
+                     static_cast<size_t>(layer) * a.B * 3 * conv_ch + c;
+    IORaw t0[ROWS], t1[ROWS], t2[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const IO* win = base + static_cast<size_t>(min(rows[i], a.B - 1)) * 3 * conv_ch;
+      t0[i] = load_raw4(win);
+      t1[i] = load_raw4(win + conv_ch);
+      t2[i] = load_raw4(win + 2 * conv_ch);
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      if (rows[i] >= a.B) continue;
+      float4 y = make_float4(v[i].x * w3.x, v[i].y * w3.y, v[i].z * w3.z, v[i].w * w3.w);
+      mad4(y, raw_to_float4(t0[i]), w0);
+      mad4(y, raw_to_float4(t1[i]), w1);
+      mad4(y, raw_to_float4(t2[i]), w2);
+      y.x += bias.x; y.y += bias.y; y.z += bias.z; y.w += bias.w;
+      IO* win = base + static_cast<size_t>(rows[i]) * 3 * conv_ch;
+      *reinterpret_cast<IORaw*>(win) = t1[i];
+      *reinterpret_cast<IORaw*>(win + conv_ch) = t2[i];
+      store4(win + 2 * conv_ch, v[i]);
+      store4(a.xbc + static_cast<size_t>(rows[i]) * conv_ch + c,
+             make_float4(silu(y.x), silu(y.y), silu(y.z), silu(y.w)));
+    }
+  } else {
+    // dt columns, and the conv columns of another tap count
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      if (rows[i] >= a.B) continue;
+      in_proj_place<IO, WT>(a, layer, rows[i], col, v[i].x);
+      in_proj_place<IO, WT>(a, layer, rows[i], col + 1, v[i].y);
+      in_proj_place<IO, WT>(a, layer, rows[i], col + 2, v[i].z);
+      in_proj_place<IO, WT>(a, layer, rows[i], col + 3, v[i].w);
+    }
+  }
+}
+
+template <typename IO, typename WT>
+__global__ void __launch_bounds__(kGemmThreads) k4_in_proj_kernel(K4Args a, int layer) {
+  __shared__ __align__(16) float As[kBK * kAsStride];
+  __shared__ __align__(16) float Ws[kBK * kBN];
+  static_assert(kTN == 4, "the epilogue takes four columns a thread");
+
+  const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+
+  float acc[kTM][kTN] = {};
+  gemm_tile(static_cast<const IO*>(a.hn), a.d, layer_ptr<WT>(a, kInProj, layer), n_in, a.B, n_in,
+            m0, n0, 0, a.d, acc, As, Ws);
+
+  const int tx = threadIdx.x % (kBN / kTN);
+  const int ty = threadIdx.x / (kBN / kTN);
+  int rows[kTM];
+  const float* hA[kTM];
+  float4 v[kTM];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    rows[i] = m0 + ty * kTM + i;
+    hA[i] = a.hA + static_cast<size_t>(min(rows[i], a.B - 1)) * a.r;
+    v[i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  in_proj_finish4<IO, WT, kTM>(a, layer, rows, hA, n0 + tx * kTN, v, a.vec4 != 0);
+}
+
+// ---------------------------------------------------------------------------
+// phase 3: SSM update in place, yf = (y + D x) silu(z), yf * w_gn, sums of yf^2
+// ---------------------------------------------------------------------------
+
+constexpr int kSsmThreads = 256;
+
+template <typename IO, typename WT, typename ST>
+__global__ void __launch_bounds__(kSsmThreads) k4_ssm_kernel(K4Args a, int layer) {
+  extern __shared__ float4 smem4[];
+  float* Bs = reinterpret_cast<float*>(smem4);  // N floats
+  float* Cs = Bs + a.N;                         // N floats
+  __shared__ float warp_ss[kSsmThreads / 32];
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int conv_ch = a.d_inner + 2 * a.N;
+  const float* xrow = a.xbc + static_cast<size_t>(b) * conv_ch;
+  for (int n = threadIdx.x; n < a.N; n += kSsmThreads) {
+    Bs[n] = xrow[a.d_inner + n];
+    Cs[n] = xrow[a.d_inner + a.N + n];
+  }
+  __syncthreads();
+
+  const float dtv = a.dt[bh];
+  const float A = -expf(to_float(layer_ptr<WT>(a, kALog, layer)[h]));
+  const float decay = expf(dtv * A);
+  const float Dv = to_float(layer_ptr<WT>(a, kD, layer)[h]);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  ST* sp = static_cast<ST*>(a.ssm_state) +
+           (static_cast<size_t>(layer) * a.B * a.H + bh) * a.P * a.N;
+  const size_t chan = static_cast<size_t>(b) * a.d_inner + static_cast<size_t>(h) * a.P;
+  const WT* gn_w = layer_ptr<WT>(a, kGnW, layer) + static_cast<size_t>(h) * a.P;
+  IO* ya = static_cast<IO*>(a.ya) + chan;
+
+  float ss = 0.0f;  // lane 0 of each warp: sum of yf^2 over the warp's rows, in p order
+  for (int p = warp; p < a.P; p += kSsmThreads / 32) {
+    // read before the row is streamed: these loads then wait behind nothing
+    const float xv = xrow[h * a.P + p];
+    const float zv = a.z[chan + p];
+    const float gw = to_float(gn_w[p]);
+    const float acc =
+        ssd_step_row(sp + static_cast<size_t>(p) * a.N, Bs, Cs, decay, dtv * xv, a.N, lane);
+    if (lane == 0) {
+      const float yf = (acc + Dv * xv) * silu(zv);
+      ya[p] = from_float<IO>(yf * gw);
+      ss += yf * yf;
+    }
+  }
+  if (lane == 0) warp_ss[warp] = ss;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < kSsmThreads / 32; ++w) total += warp_ss[w];
+    a.sumsq[bh] = total;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phase 4: out_proj of the gated, weighted yf into K-split partials
+// ---------------------------------------------------------------------------
+
+template <typename IO, typename WT>
+__global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int layer) {
+  __shared__ __align__(16) float As[kBK * kAsStride];
+  __shared__ __align__(16) float Ws[kBK * kBN];
+
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const int split = blockIdx.z;
+  const int K = a.d_inner;
+  const int per = ((K + a.ksplit - 1) / a.ksplit + kBK - 1) / kBK * kBK;
+  const int k_begin = min(K, split * per);
+  const int k_end = min(K, k_begin + per);
+
+  float acc[kTM][kTN] = {};
+  gemm_tile(static_cast<const IO*>(a.ya), K, layer_ptr<WT>(a, kOutProj, layer), a.d, a.B, a.d, m0,
+            n0, k_begin, k_end, acc, As, Ws);
+
+  const int tx = threadIdx.x % (kBN / kTN);
+  const int ty = threadIdx.x / (kBN / kTN);
+  float* part = a.part + static_cast<size_t>(split) * a.B * a.d;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = m0 + ty * kTM + i;
+    if (row >= a.B) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = n0 + tx * kTN + j;
+      if (col < a.d) part[static_cast<size_t>(row) * a.d + col] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phases 2 and 4 for bf16 activations and bf16 weights: tensor-core products
+// ---------------------------------------------------------------------------
+// A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
+// 16 (w % 4) .. + 15, the k half w / 4 of every k step, and MT accumulator
+// fragments; the two halves are added, lower k first, when C is read. The (64 x 64) weight tile and
+// the (MT * 16 x 64) activation tile of each k step are copied into a ring of
+// four shared-memory stages with 16-byte cp.async, three k steps ahead of the
+// one being multiplied (24 KB of weights in flight per block). Shapes are
+// whole tiles (K and N multiples of 64,
+// every row 16-byte aligned): the caller takes the multiply-add kernels
+// otherwise. Rows past M are read from row M - 1 and never written.
+
+constexpr int kTcThreads = 256, kTcBN = 64, kTcBK = 64, kTcStages = 4;
+constexpr int kLdW = kTcBN + 8;  // bf16 elements; the padding spreads the rows over the banks
+constexpr int kLdA = kTcBK + 8;
+constexpr int kLdC = kTcBN + 4;  // floats
+constexpr int kTcMaxRank = 64;   // LoRA ranks above this take the multiply-add kernels
+
+template <int MT>
+struct TcTile {
+  static constexpr int kWStage = kTcBK * kLdW;
+  static constexpr int kStage = kWStage + MT * 16 * kLdA;  // bf16 elements
+  static constexpr int kPipeBytes = kTcStages * kStage * 2;
+  static constexpr int kCHalf = MT * 16 * kLdC;  // floats: C of one k half
+  static constexpr int kCBytes = 2 * kCHalf * 4;
+  // after the product the ring holds C and, behind it, the block's rows of hn @ A
+  static constexpr int kEpilogueBytes = kCBytes + MT * 16 * kTcMaxRank * 4;
+  static constexpr int kBytes = kPipeBytes > kEpilogueBytes ? kPipeBytes : kEpilogueBytes;
+  static_assert(kStage * 2 % 32 == 0 && kWStage * 2 % 32 == 0, "wmma needs 32-byte alignment");
+};
+
+template <int MT>
+__device__ __forceinline__ void tc_copy_tile(const __nv_bfloat16* __restrict__ A, int lda,
+                                         const __nv_bfloat16* __restrict__ Wm, int ldw, int M,
+                                         int m0, int n0, int k0, __nv_bfloat16* stage) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kTcBK * kTcBN / 8 / kTcThreads; ++j) {
+    const int c = tid + j * kTcThreads;
+    const int row = c / (kTcBN / 8);
+    const int ch = (c % (kTcBN / 8)) * 8;
+    __pipeline_memcpy_async(stage + row * kLdW + ch,
+                            Wm + static_cast<size_t>(k0 + row) * ldw + n0 + ch, 16);
+  }
+  __nv_bfloat16* As = stage + TcTile<MT>::kWStage;
+#pragma unroll
+  for (int c = tid; c < MT * 16 * (kTcBK / 8); c += kTcThreads) {
+    const int row = c / (kTcBK / 8);
+    const int ch = (c % (kTcBK / 8)) * 8;
+    __pipeline_memcpy_async(As + row * kLdA + ch,
+                            A + static_cast<size_t>(min(m0 + row, M - 1)) * lda + k0 + ch, 16);
+  }
+}
+
+// C is left in `smem` for the caller as two fp32 (MT * 16 x 64) halves with row
+// stride kLdC, kCHalf floats apart: the lower and the upper k half
+template <int MT>
+__device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A, int lda,
+                                             const __nv_bfloat16* __restrict__ Wm, int ldw,
+                                             int M, int m0, int n0, int k_begin, int k_end,
+                                             unsigned char* smem) {
+  namespace wmma = nvcuda::wmma;
+  __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int warp_n = (threadIdx.x >> 5) & 3;
+  const int warp_k = threadIdx.x >> 7;
+  const int ntiles = (k_end - k_begin) / kTcBK;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) wmma::fill_fragment(acc[i], 0.0f);
+
+  for (int t = 0; t < kTcStages - 1; ++t) {
+    if (t < ntiles)
+      tc_copy_tile<MT>(A, lda, Wm, ldw, M, m0, n0, k_begin + t * kTcBK,
+                   pipe + t * TcTile<MT>::kStage);
+    __pipeline_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    __pipeline_wait_prior(kTcStages - 2);  // this thread's copies of tile t have landed
+    __syncthreads();  // everyone's have, and everyone is done with tile t - 1
+    const int ahead = t + kTcStages - 1;   // goes into the stage tile t - 1 used
+    if (ahead < ntiles)
+      tc_copy_tile<MT>(A, lda, Wm, ldw, M, m0, n0, k_begin + ahead * kTcBK,
+                   pipe + (ahead % kTcStages) * TcTile<MT>::kStage);
+    __pipeline_commit();
+
+    const __nv_bfloat16* Ws = pipe + (t % kTcStages) * TcTile<MT>::kStage;
+    const __nv_bfloat16* As = Ws + TcTile<MT>::kWStage;
+#pragma unroll
+    for (int k16 = 0; k16 < kTcBK / 2; k16 += 16) {
+      const int kk = warp_k * (kTcBK / 2) + k16;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, Ws + kk * kLdW + warp_n * 16, kLdW);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, As + i * 16 * kLdA + kk, kLdA);
+        wmma::mma_sync(acc[i], fa, fb, acc[i]);
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the ring is free: reuse it for C
+  float* Cs = reinterpret_cast<float*>(smem) + warp_k * TcTile<MT>::kCHalf;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    wmma::store_matrix_sync(Cs + i * 16 * kLdC + warp_n * 16, acc[i], kLdC, wmma::mem_row_major);
+  __syncthreads();
+}
+
+// four consecutive columns of row `row` of the finished tile: lower k half + upper
+template <int MT>
+__device__ __forceinline__ float4 tc_result4(const unsigned char* smem, int row, int c4) {
+  const float* Cs = reinterpret_cast<const float*>(smem) + row * kLdC + c4;
+  const float4 lo = load4(Cs), hi = load4(Cs + TcTile<MT>::kCHalf);
+  return make_float4(lo.x + hi.x, lo.y + hi.y, lo.z + hi.z, lo.w + hi.w);
+}
+
+// in_proj on whole tiles: a thread finishes 4 consecutive columns of MT rows
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads) k4_in_proj_tc_kernel(K4Args a, int layer) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  using bf16 = __nv_bfloat16;
+  constexpr int kRowStep = kTcThreads / (kTcBN / 4);  // 16: a thread takes rows rl, rl + 16, ...
+  const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
+  const int n0 = blockIdx.x * kTcBN;
+  const int m0 = blockIdx.y * MT * 16;
+  gemm_tile_tc<MT>(static_cast<const bf16*>(a.hn), a.d, layer_ptr<bf16>(a, kInProj, layer), n_in,
+                   a.B, m0, n0, 0, a.d, tc_smem);
+  float* hAs = reinterpret_cast<float*>(tc_smem + TcTile<MT>::kCBytes);  // (MT * 16, r)
+  for (int e = threadIdx.x; e < MT * 16 * a.r; e += kTcThreads)
+    hAs[e] = (m0 + e / a.r < a.B) ? a.hA[static_cast<size_t>(m0) * a.r + e] : 0.0f;
+  __syncthreads();
+
+  const int cg = threadIdx.x % (kTcBN / 4);
+  const int rl = threadIdx.x / (kTcBN / 4);
+  int rows[MT];
+  const float* hA[MT];
+  float4 v[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    rows[i] = m0 + rl + kRowStep * i;
+    hA[i] = hAs + (rl + kRowStep * i) * a.r;
+    v[i] = tc_result4<MT>(tc_smem, rl + kRowStep * i, cg * 4);
+  }
+  in_proj_finish4<bf16, bf16, MT>(a, layer, rows, hA, n0 + cg * 4, v, true);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, int layer) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  using bf16 = __nv_bfloat16;
+  const int n0 = blockIdx.x * kTcBN;
+  const int m0 = blockIdx.y * MT * 16;
+  const int split = blockIdx.z;
+  const int K = a.d_inner;
+  const int per = ((K + a.ksplit - 1) / a.ksplit + kTcBK - 1) / kTcBK * kTcBK;
+  const int k_begin = min(K, split * per);
+  const int k_end = min(K, k_begin + per);
+  gemm_tile_tc<MT>(static_cast<const bf16*>(a.ya), K, layer_ptr<bf16>(a, kOutProj, layer), a.d,
+                   a.B, m0, n0, k_begin, k_end, tc_smem);
+  float* part = a.part + static_cast<size_t>(split) * a.B * a.d;
+  for (int e = threadIdx.x; e < MT * 16 * (kTcBN / 4); e += kTcThreads) {
+    const int row = e / (kTcBN / 4), c4 = (e % (kTcBN / 4)) * 4;
+    if (m0 + row < a.B)
+      store4(part + static_cast<size_t>(m0 + row) * a.d + n0 + c4,
+             tc_result4<MT>(tc_smem, row, c4));
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// rows per block follow the batch: 16, 32 or 48
+inline int tc_row_fragments(int B) { return B <= 16 ? 1 : (B <= 32 ? 2 : 3); }
+
+template <int MT>
+cudaError_t allow_smem_tc() {
+  const cudaError_t err = allow_smem(k4_in_proj_tc_kernel<MT>, TcTile<MT>::kBytes);
+  if (err != cudaSuccess) return err;
+  return allow_smem(k4_out_proj_tc_kernel<MT>, TcTile<MT>::kBytes);
+}
+
+template <int MT>
+cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStream_t stream) {
+  const unsigned int row_tiles = (a.B + MT * 16 - 1) / (MT * 16);
+  if (out_proj) {
+    const dim3 grid(a.d / kTcBN, row_tiles, a.ksplit);
+    k4_out_proj_tc_kernel<MT><<<grid, kTcThreads, TcTile<MT>::kBytes, stream>>>(a, layer);
+  } else {
+    const dim3 grid((2 * a.d_inner + 2 * a.N + a.H) / kTcBN, row_tiles);
+    k4_in_proj_tc_kernel<MT><<<grid, kTcThreads, TcTile<MT>::kBytes, stream>>>(a, layer);
+  }
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj,
+                                     cudaStream_t stream) {
+  switch (tc_row_fragments(a.B)) {
+    case 1: return launch_product_tc<1>(a, layer, out_proj, stream);
+    case 2: return launch_product_tc<2>(a, layer, out_proj, stream);
+    default: return launch_product_tc<3>(a, layer, out_proj, stream);
+  }
+}
+
+inline cudaError_t allow_smem_tc(int B) {
+  switch (tc_row_fragments(B)) {
+    case 1: return allow_smem_tc<1>();
+    case 2: return allow_smem_tc<2>();
+    default: return allow_smem_tc<3>();
+  }
+}
+
+// ---------------------------------------------------------------------------
+
+template <typename IO, typename WT, typename ST>
+cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t stream) {
+  constexpr bool kBothBf16 =
+      std::is_same<IO, __nv_bfloat16>::value && std::is_same<WT, __nv_bfloat16>::value;
+  const size_t row_smem = static_cast<size_t>(a.d) * sizeof(float);
+  const size_t bc_smem = 2 * static_cast<size_t>(a.N) * sizeof(float);
+  cudaError_t err = allow_smem(k4_prenorm_kernel<IO, WT>, row_smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(k4_ssm_kernel<IO, WT, ST>, bc_smem);
+  if (err != cudaSuccess) return err;
+  const bool tensor_cores = kBothBf16 && whole_tiles;
+  if (tensor_cores && (err = allow_smem_tc(a.B)) != cudaSuccess) return err;
+
+  const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
+  const unsigned int row_tiles = (a.B + kBM - 1) / kBM;
+  const dim3 in_grid((n_in + kBN - 1) / kBN, row_tiles);
+  const dim3 out_grid((a.d + kBN - 1) / kBN, row_tiles, a.ksplit);
+  const dim3 rows(a.B);
+  const dim3 row_heads(static_cast<unsigned int>(a.B) * a.H);
+
+  for (int layer = 0; layer < a.L; ++layer) {
+    k4_prenorm_kernel<IO, WT><<<rows, kRowThreads, row_smem, stream>>>(a, layer);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (tensor_cores) {
+      if ((err = launch_product_tc(a, layer, false, stream)) != cudaSuccess) return err;
+    } else {
+      k4_in_proj_kernel<IO, WT><<<in_grid, kGemmThreads, 0, stream>>>(a, layer);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    k4_ssm_kernel<IO, WT, ST><<<row_heads, kSsmThreads, bc_smem, stream>>>(a, layer);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (tensor_cores) {
+      if ((err = launch_product_tc(a, layer, true, stream)) != cudaSuccess) return err;
+    } else {
+      k4_out_proj_kernel<IO, WT><<<out_grid, kGemmThreads, 0, stream>>>(a, layer);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  k4_finish_kernel<IO><<<rows, kRowThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename IO, typename WT>
+cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_tiles,
+                                   cudaStream_t stream) {
+  if (state_dtype == kF32) return run_fused_decode<IO, WT, float>(a, whole_tiles, stream);
+  if (state_dtype == kBF16)
+    return run_fused_decode<IO, WT, __nv_bfloat16>(a, whole_tiles, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace omt
+
+// One decode token through L layers. `tables` is a device array of
+// kNumOps * L device pointers, table[op * L + layer], in the order of
+// omt::K4Op: norm weight (d), in_proj (d, 2*d_inner + 2N + H), LoRA A (d, r),
+// LoRA B (r, 2*d_inner + 2N + H), conv weight (W, d_inner + 2N) oldest tap
+// first, conv bias, dt_bias (H), A_log (H), D (H), gated-norm weight
+// (d_inner), out_proj (d_inner, d); all of the element type w_dtype,
+// contiguous. r = 0 means no LoRA (its two table rows are not read). h_in,
+// h_out, hn, ya and conv_state have the element type io_dtype; ssm_state has
+// state_dtype; res_in (may be null), res_out and the scratch arrays hA, z, xbc,
+// dt, sumsq and part (ksplit, B, d) are fp32. conv_state and ssm_state are
+// contiguous over (L, B, ...) and are updated in place; ssm_state must be
+// 16-byte aligned and N a multiple of 4. One group (B and C shared by all
+// heads), H * P = d_inner. `aligned16` says that every tensor of the tables,
+// conv_state and every scratch array is 16-byte aligned: the in_proj epilogue
+// then takes 4-element vector accesses (d_inner and H multiples of 4), and
+// with whole tiles (d, d_inner and the in_proj width multiples of 64) and
+// bf16 activations and weights the products run on the tensor cores.
+// Activations and weights are both bf16 or both fp32.
+// Everything is enqueued on `stream`; nothing synchronises. Returns the first
+// cudaError_t of a launch (0 = success).
+extern "C" int omt_fused_decode_step(
+    const void* tables, int L, int B, int d, int d_inner, int H, int P, int N, int W, int r,
+    int ksplit, float lora_scale, float norm_eps, float gn_eps, void* conv_state,
+    void* ssm_state, const void* h_in, const void* res_in, void* h_out, void* res_out, void* hn,
+    void* hA, void* z, void* xbc, void* dt, void* ya, void* sumsq, void* part, int io_dtype,
+    int w_dtype, int state_dtype, int aligned16, void* stream) {
+  using namespace omt;
+  if (L < 1 || B < 1 || d < 1 || W < 1 || r < 0 || N % 4 != 0 || H * P != d_inner ||
+      ksplit < 1 || ksplit > kMaxKSplit ||
+      2 * static_cast<size_t>(N) * sizeof(float) > 227 * 1024 ||
+      static_cast<size_t>(d) * sizeof(float) > 227 * 1024 || (B + kBM - 1) / kBM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K4Args a;
+  a.tab = static_cast<const void* const*>(tables);
+  a.L = L; a.B = B; a.d = d; a.d_inner = d_inner; a.H = H; a.P = P; a.N = N; a.W = W;
+  a.r = r; a.ksplit = ksplit;
+  a.vec4 = aligned16 != 0 && d_inner % 4 == 0 && H % 4 == 0;
+  a.lora_scale = lora_scale; a.norm_eps = norm_eps; a.gn_eps = gn_eps;
+  a.conv_state = conv_state; a.ssm_state = ssm_state;
+  a.h_in = h_in; a.res_in = static_cast<const float*>(res_in);
+  a.h_out = h_out; a.res = static_cast<float*>(res_out);
+  a.hn = hn; a.hA = static_cast<float*>(hA); a.z = static_cast<float*>(z);
+  a.xbc = static_cast<float*>(xbc); a.dt = static_cast<float*>(dt);
+  a.ya = ya; a.sumsq = static_cast<float*>(sumsq);
+  a.part = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool whole = aligned16 != 0 && d % 64 == 0 && d_inner % 64 == 0 &&
+                     (2 * d_inner + 2 * N + H) % 64 == 0 && r <= kTcMaxRank;
+  if (io_dtype == kBF16 && w_dtype == kBF16)
+    return run_fused_decode_state<__nv_bfloat16, __nv_bfloat16>(a, state_dtype, whole, s);
+  if (io_dtype == kF32 && w_dtype == kF32)
+    return run_fused_decode_state<float, float>(a, state_dtype, whole, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

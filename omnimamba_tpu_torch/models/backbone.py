@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from omnimamba_tpu_torch.config import MambaConfig
 from omnimamba_tpu_torch.models.blocks import block_forward, block_step
 from omnimamba_tpu_torch.models.mamba2 import Mamba2Cache, init_mamba2
+from omnimamba_tpu_torch.ops.decode_fused import FusedDecodePlan, fused_decode_step
 from omnimamba_tpu_torch.ops.norms import rms_norm
 from omnimamba_tpu_torch.utils.device import resolve_device
 from omnimamba_tpu_torch.utils.init import normal, trunc_normal, uniform
@@ -243,6 +244,31 @@ def backbone_step(
             layer, h, residual, Mamba2Cache(cache.conv_state[i], cache.ssm_state[i]),
             task, cfg.mixer, cfg.lora, norm_eps=cfg.norm_eps,
         )
+    return _final_norm(params, h, residual, cfg.norm_eps, dtype), cache
+
+
+def backbone_step_fused(
+    params: Dict,
+    token_ids: torch.Tensor,  # (B,) next-token ids
+    pos,  # int or (B,) tensor: current position
+    cache: BackboneCache,
+    task: str,
+    cfg: MambaConfig,
+    *,
+    dtype=torch.bfloat16,
+    plan: Optional[FusedDecodePlan] = None,
+) -> Tuple[torch.Tensor, BackboneCache]:
+    """``backbone_step`` through the whole-model decode kernel
+    (``ops/decode_fused.py``): the embedding, one call for all layers, the
+    final norm. Same semantics; ``cache`` is updated in place and returned.
+    ``plan``: the kernel's pointer tables and scratch from
+    ``prepare_fused_decode``, built once per generation; without one the
+    wrapper builds them for this step alone."""
+    check_supported(cfg)
+    h = _decode_embed(params, token_ids, pos, task, cfg, dtype)
+    h, residual, _ = fused_decode_step(
+        params["layers"], h.contiguous(), None, cache, task, cfg.mixer, cfg.lora,
+        cfg.norm_eps, plan=plan)
     return _final_norm(params, h, residual, cfg.norm_eps, dtype), cache
 
 

@@ -3,7 +3,9 @@
 
 Prefill is one full-sequence forward returning the recurrent cache; the token
 loop is a Python loop whose body samples, embeds, runs the 48-layer recurrent
-step and applies the tied head in fp32. Constant-memory state, no KV cache.
+step (one call of the whole-model decode kernel, or a Python loop over the
+layers: ``decode_impl``) and applies the tied head in fp32. Constant-memory
+state, no KV cache.
 
 Semantics kept from the JAX engine:
 - the first sampled token comes from the prefill logits
@@ -31,7 +33,9 @@ from omnimamba_tpu_torch.models.backbone import (
     apply_head,
     backbone_forward,
     backbone_step,
+    backbone_step_fused,
 )
+from omnimamba_tpu_torch.ops.decode_fused import fused_decode_limits, prepare_fused_decode
 from omnimamba_tpu_torch.ops.sampling import (
     SampleParams,
     apply_repetition_penalty,
@@ -60,7 +64,7 @@ def generate(
     generator: Optional[torch.Generator] = None,
     cfg_scale: Optional[float] = None,
     cache_dtype="auto",
-    decode_impl: str = "auto",  # auto | scan
+    decode_impl: str = "auto",  # auto | fused | scan
     token_callback: Optional[Callable[[np.ndarray], None]] = None,
     prompt_lengths: Optional[torch.Tensor] = None,  # (B,) ragged true lengths
     return_logits: bool = False,
@@ -74,6 +78,15 @@ def generate(
     "auto" carries it in bf16 at B >= 16 and in fp32 below, None forces fp32,
     ``torch.bfloat16`` forces bf16.
 
+    ``decode_impl``: "fused" takes each token through all layers in one call
+    of the whole-model decode kernel (``backbone_step_fused``); "scan" loops
+    over the layers in Python (``backbone_step``), a few dozen launches per
+    layer. "auto" takes "fused" wherever the kernel's limits are met (one
+    group, ``lora_nums == 1``, no ``dt_limit``, float32 or bfloat16 weights
+    and embeddings of the same type) and "scan" elsewhere; the choice depends
+    on the model and its types, never on the device. "fused" raises where a
+    limit is not met.
+
     ``prompt_lengths`` (B,): ragged batching. ``input_ids``/embeddings are
     right-padded to L0; row i's true prompt is its first prompt_lengths[i]
     tokens. Padded positions are exact SSM no-ops, each row samples its first
@@ -85,13 +98,13 @@ def generate(
     """
     device = resolve_device(device)
     require_on(device, input_ids=input_ids, input_embeddings=input_embeddings)
-    if decode_impl == "fused":
-        raise NotImplementedError(
-            "decode_impl='fused': the whole-model decode kernel is the next slice "
-            "(ROADMAP Q2 K4, backbone_step_fused)"
-        )
-    if decode_impl not in ("auto", "scan"):
+    if decode_impl not in ("auto", "fused", "scan"):
         raise ValueError(f"unknown decode_impl {decode_impl}")
+    limit = None if decode_impl == "scan" else fused_decode_limits(
+        params["layers"], cfg.mixer, cfg.lora, input_embeddings.dtype)
+    if decode_impl == "fused" and limit is not None:
+        raise limit
+    use_fused = decode_impl != "scan" and limit is None
     B, L0 = input_ids.shape
     T_new = max_length - L0
     if T_new <= 0:
@@ -110,6 +123,8 @@ def generate(
     if isinstance(cache_dtype, str) and cache_dtype == "auto":
         cache_dtype = torch.bfloat16 if B >= 16 else None
     if cache_dtype in ("int8", torch.int8):
+        if decode_impl == "fused":
+            raise ValueError("cache_dtype='int8' rides the scan path, not decode_impl='fused'")
         raise NotImplementedError(
             "cache_dtype='int8': the scaled-int8 SSM state arrives with the "
             "serving slice (ROADMAP Q1 item 9)"
@@ -118,6 +133,16 @@ def generate(
         raise ValueError(f"unsupported cache_dtype {cache_dtype}")
     if cache_dtype is not None:
         cache = cache._replace(ssm_state=cache.ssm_state.to(cache_dtype))
+
+    step, step_kw = backbone_step, {}
+    if use_fused:
+        # pointer tables and scratch live as long as this call: a table that
+        # outlived the parameters would point at freed memory
+        plan = None
+        if device.type == "cuda":
+            plan = prepare_fused_decode(
+                params["layers"], task, cfg.mixer, cfg.lora, B, input_embeddings.dtype)
+        step, step_kw = backbone_step_fused, {"plan": plan}
 
     if prompt_lengths is not None:
         # each row's next-token logits come from its own last REAL position
@@ -171,8 +196,8 @@ def generate(
             break  # the last token needs no further logits
         # next logits: position id = prompt length + tokens sampled before this one
         pos = (L0 + n - 1) if prompt_lengths is None else prompt_lengths + (n - 1)
-        hidden, cache = backbone_step(
-            params, tok, pos, cache, task, cfg, dtype=input_embeddings.dtype)
+        hidden, cache = step(
+            params, tok, pos, cache, task, cfg, dtype=input_embeddings.dtype, **step_kw)
         logits = combine_cfg(apply_head(params, hidden, task))
 
     return GenerateOutput(

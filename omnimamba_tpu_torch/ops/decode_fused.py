@@ -1,0 +1,311 @@
+"""One decode token through the whole Mamba-2 stack as one CUDA call.
+
+Replaces the TPU kernel ``_fused_decode_kernel`` / ``fused_decode_step`` of
+``omnimamba_tpu/ops/decode_fused.py``. Source: ``csrc/decode_fused.cu``.
+
+Per layer: fp32 residual add + RMSNorm, in_proj with the task's LoRA, the
+conv shift-register step + SiLU, softplus(dt), the SSM update, and the gated
+RMSNorm folded into out_proj. The conv windows and SSM states of the stacked
+``BackboneCache`` are **updated in place**; the hidden and residual streams
+and every intermediate stay out of the caller's sight in a small scratch.
+
+What bounds it on an H100: the step must move every layer's weights once
+and its state twice, so by bytes it is a bandwidth pump like the TPU kernel.
+The design differs because the machine does: the TPU kernel walks a
+sequential (layer, head tile) grid on one core; here one C function enqueues
+four small kernels per layer on the current stream (stream order separates
+the phases), all 132 SMs share each layer's weights and state, and the host
+makes one call per token instead of a Python loop over the layers. The two
+products are written by hand: for bf16 activations and weights the weight
+tiles stream through a cp.async ring in shared memory into warp-level
+tensor-core products, so the weight bytes are the cost; the
+other case (fp32 activations and weights, and any shape that is not whole
+tiles) takes fp32 multiply-adds over shared-memory tiles, which are bound by
+operations (see the note in the source). Activations and weights of two
+different types are refused, as the model's own projections refuse them.
+
+Differences from the JAX module, all deliberate:
+
+- no ``FusedDecodeCache`` / ``to_fused_cache``: the kernel takes the
+  ``BackboneCache`` tensors with a layer stride, the x|B|C conv window stays
+  fused, and the batch is not padded (any B >= 1);
+- the per-layer weights are not stacked or copied: ``prepare_fused_decode``
+  builds one table of device pointers per operand and keeps the tensors
+  alive beside it. Build it inside the call that uses it (``generate`` does):
+  a table that outlives its parameters points at freed memory;
+- int8 ``{q, scale}`` weights are refused until the serving slice.
+
+``fused_decode_step_plain`` is the plain PyTorch version. It repeats the
+kernel's arithmetic and rounding points (which are the TPU kernel's, not
+``block_step``'s): the normed hidden state is rounded to the io dtype once;
+z, x, B, C and dt come out of in_proj in fp32 and are not rounded; the conv
+step and the SSM update run in fp32 and round only what they store; the
+gated ``yf * w`` is rounded to the io dtype before out_proj and the row's
+``rsqrt(mean(yf^2) + eps)`` is applied to the fp32 product afterwards.
+For a tensor on the CPU the wrapper uses it; for a CUDA tensor it launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+from omnimamba_tpu_torch.ops import kernel_build as kb
+
+# rows of the pointer table, in the order of omt::K4Op in csrc/decode_fused.cu
+OPERANDS = ("norm_w", "in_proj", "lora_A", "lora_B", "conv_w", "conv_b", "dt_bias", "A_log",
+            "D", "gn_w", "out_proj")
+MAX_KSPLIT = 8
+
+
+def _has_lora(layers: Sequence[Dict], task: Optional[str], lora_cfg: Optional[LoraConfig]) -> bool:
+    return task is not None and lora_cfg is not None and "lora" in layers[0]["mixer"]
+
+
+def fused_decode_limits(
+    layers: Sequence[Dict],
+    mixer_cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig],
+    io_dtype: Optional[torch.dtype] = None,
+) -> Optional[Exception]:
+    """The exception ``fused_decode_step`` raises for this model (and, when
+    given, this activation dtype), or None when the kernel takes it. Depends
+    on the model and the types only, never on the device."""
+    if mixer_cfg.ngroups != 1:
+        return ValueError(
+            f"fused decode supports ngroups=1 (every shipped config), not {mixer_cfg.ngroups}")
+    if lora_cfg is not None and lora_cfg.lora_nums != 1 and "lora" in layers[0]["mixer"]:
+        return ValueError(f"fused decode supports lora_nums=1, not {lora_cfg.lora_nums}")
+    lo, hi = mixer_cfg.dt_limit
+    if lo > 0.0 or hi < float("inf"):
+        return ValueError(f"fused decode has no dt clamp: dt_limit={mixer_cfg.dt_limit}")
+    if mixer_cfg.d_state % 4 != 0:
+        return ValueError(f"fused decode needs d_state to be a multiple of 4, not {mixer_cfg.d_state}")
+    for layer in layers:
+        mixer = layer["mixer"]
+        if isinstance(mixer["in_proj"]["kernel"], dict) or isinstance(mixer["out_proj"]["kernel"], dict):
+            return NotImplementedError(
+                "fused decode on int8 {q, scale} weights arrives with the serving slice "
+                "(ROADMAP slice 5, Q2 K4 int8 branch and K7)")
+    w_dtype = layers[0]["norm"]["weight"].dtype
+    if io_dtype is not None and io_dtype != w_dtype:
+        return ValueError(
+            f"fused decode takes activations of the weights' type, not {io_dtype} on {w_dtype}")
+    return None
+
+
+def _operands(layer: Dict, task: Optional[str], lora: bool) -> List[Optional[torch.Tensor]]:
+    mixer = layer["mixer"]
+    lp = mixer["lora"] if lora else None
+    return [
+        layer["norm"]["weight"], mixer["in_proj"]["kernel"],
+        lp[f"{task}_A"][0] if lora else None, lp[f"{task}_B"][0] if lora else None,
+        mixer["conv"]["weight"], mixer["conv"]["bias"], mixer["dt_bias"], mixer["A_log"],
+        mixer["D"], mixer["norm"]["weight"], mixer["out_proj"]["kernel"],
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedDecodePlan:
+    """What the C function reads, prepared once per ``generate`` call."""
+
+    tables: torch.Tensor  # (len(OPERANDS), n_layer) int64 on the card: device pointers
+    keep: Tuple[torch.Tensor, ...]  # the tensors the tables point at, kept alive
+    scratch: Dict[str, torch.Tensor]
+    batch: int
+    rank: int  # LoRA rank, 0 = no LoRA branch
+    ksplit: int  # K splits of out_proj
+    aligned16: bool  # every tensor of the tables and of the scratch is 16-byte aligned
+    io_dtype: torch.dtype
+    w_dtype: torch.dtype
+
+
+def prepare_fused_decode(
+    layers: Sequence[Dict],
+    task: Optional[str],
+    mixer_cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig],
+    batch: int,
+    dtype: torch.dtype,
+) -> FusedDecodePlan:
+    """Pointer tables and scratch for ``fused_decode_step`` on the card the
+    parameters lie on. Checks the kernel's limits and every layer's tensors
+    (device, one float32 or bfloat16 element type, shape, contiguity); copies
+    none of them."""
+    limit = fused_decode_limits(layers, mixer_cfg, lora_cfg, dtype)
+    if limit is not None:
+        raise limit
+    lora = _has_lora(layers, task, lora_cfg)
+    d, di, H, N, W = (mixer_cfg.d_model, mixer_cfg.d_inner, mixer_cfg.nheads, mixer_cfg.d_state,
+                      mixer_cfg.d_conv)
+    r = lora_cfg.r if lora else 0
+    shapes = [(d,), (d, mixer_cfg.d_in_proj), (d, r), (r, mixer_cfg.d_in_proj),
+              (W, mixer_cfg.d_conv_in), (mixer_cfg.d_conv_in,), (H,), (H,), (H,), (di,), (di, d)]
+    ref = layers[0]["norm"]["weight"]
+    if not ref.is_cuda:
+        raise ValueError("prepare_fused_decode is for parameters on a CUDA device")
+    kb.dtype_code(ref.dtype)
+    keep, ptrs = [], []
+    for i, layer in enumerate(layers):
+        row = []
+        for name, shape, t in zip(OPERANDS, shapes, _operands(layer, task, lora)):
+            if t is None:
+                row.append(0)
+                continue
+            if tuple(t.shape) != shape or t.dtype != ref.dtype or t.device != ref.device:
+                raise ValueError(
+                    f"layer {i} {name}: expected {shape} {ref.dtype} on {ref.device}, got "
+                    f"{tuple(t.shape)} {t.dtype} on {t.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"layer {i} {name} must be contiguous")
+            keep.append(t)
+            row.append(t.data_ptr())
+        ptrs.append(row)
+    tables = torch.tensor(ptrs, dtype=torch.int64).T.contiguous().to(ref.device)
+    ksplit = min(MAX_KSPLIT, max(1, math.ceil(di / 1024)))
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=ref.device)
+
+    scratch = {
+        "hn": torch.empty((batch, d), dtype=dtype, device=ref.device),
+        "hA": f32(batch, max(r, 1)), "z": f32(batch, di), "xbc": f32(batch, mixer_cfg.d_conv_in),
+        "dt": f32(batch, H), "ya": torch.empty((batch, di), dtype=dtype, device=ref.device),
+        "sumsq": f32(batch, H), "part": f32(ksplit, batch, d),
+    }
+    aligned16 = all(t.data_ptr() % 16 == 0 for t in keep + list(scratch.values()))
+    return FusedDecodePlan(
+        tables, tuple(keep), scratch, batch, r, ksplit, aligned16, dtype, ref.dtype)
+
+
+def fused_decode_step_plain(
+    layers: Sequence[Dict],
+    h: torch.Tensor,  # (B, d) embedded token, io dtype
+    residual: Optional[torch.Tensor],  # (B, d) fp32, or None (= zeros)
+    cache,  # BackboneCache: conv_state (L,B,W-1,C), ssm_state (L,B,H,P,N); UPDATED IN PLACE
+    task: Optional[str],
+    mixer_cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig],
+    norm_eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, object]:
+    """Plain tensor version of the kernel, with its rounding points. Returns
+    (h_out (B, d) io dtype, residual_out fp32, cache)."""
+    io = h.dtype
+    B = h.shape[0]
+    di, H, P, N, W = (mixer_cfg.d_inner, mixer_cfg.nheads, mixer_cfg.headdim, mixer_cfg.d_state,
+                      mixer_cfg.d_conv)
+    lora = _has_lora(layers, task, lora_cfg)
+    res = None if residual is None else residual.float()
+    for l, layer in enumerate(layers):
+        (norm_w, w_in, lora_a, lora_b, conv_w, conv_b, dt_bias, a_log, d_skip, gn_w,
+         w_out) = _operands(layer, task, lora)
+        res = h.float() if res is None else h.float() + res
+        var = torch.mean(res * res, dim=-1, keepdim=True)
+        hn = (res * torch.rsqrt(var + norm_eps) * norm_w.float()).to(io).float()
+        full = hn @ w_in.float()
+        if lora:
+            full = full + lora_cfg.scaling * ((hn @ lora_a.float()) @ lora_b.float())
+        z, raw, dt_raw = full[:, :di], full[:, di : 2 * di + 2 * N], full[:, 2 * di + 2 * N :]
+
+        window = cache.conv_state[l]  # (B, W-1, C)
+        taps, wf = window.float(), conv_w.float()
+        y = raw * wf[W - 1]
+        for t in range(W - 1):
+            y = y + taps[:, t] * wf[t]
+        xbc = F.silu(y + conv_b.float())
+        window.copy_(torch.cat([taps[:, 1:], raw[:, None]], dim=1))
+        x, Bv, Cv = xbc[:, :di].reshape(B, H, P), xbc[:, di : di + N], xbc[:, di + N :]
+
+        dt = F.softplus(dt_raw + dt_bias.float())  # (B, H)
+        decay = torch.exp(dt * -torch.exp(a_log.float()))
+        state = cache.ssm_state[l]
+        new = (state.float() * decay[:, :, None, None]
+               + (dt[:, :, None] * x)[..., None] * Bv[:, None, None, :])
+        state.copy_(new)
+        y = (new * Cv[:, None, None, :]).sum(-1) + x * d_skip.float()[None, :, None]
+
+        yf = y.reshape(B, di) * F.silu(z)
+        out = (yf * gn_w.float()).to(io).float() @ w_out.float()
+        rstd = torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + mixer_cfg.norm_eps)
+        h = (out * rstd).to(io)
+    return h, res, cache
+
+
+def fused_decode_step(
+    layers: Sequence[Dict],
+    h: torch.Tensor,  # (B, d) embedded token, float32 or bfloat16
+    residual: Optional[torch.Tensor],  # (B, d) fp32, or None (= zeros)
+    cache,  # BackboneCache, UPDATED IN PLACE
+    task: Optional[str],
+    mixer_cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig],
+    norm_eps: float = 1e-5,
+    *,
+    plan: Optional[FusedDecodePlan] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, object]:
+    """One token through all layers: (h_out (B, d), residual_out fp32, cache).
+    ``cache`` holds the new conv windows and SSM states when the call returns.
+    ``plan``: what ``prepare_fused_decode`` returned for these layers, task,
+    batch and dtype (its limits were checked there); without one it is built
+    for this call alone."""
+    if not h.is_cuda:
+        limit = fused_decode_limits(layers, mixer_cfg, lora_cfg, h.dtype)
+        if limit is not None:
+            raise limit
+        return fused_decode_step_plain(
+            layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps)
+
+    L, B, d = len(layers), h.shape[0], mixer_cfg.d_model
+    di, H, P, N, W = (mixer_cfg.d_inner, mixer_cfg.nheads, mixer_cfg.headdim, mixer_cfg.d_state,
+                      mixer_cfg.d_conv)
+    if plan is None:
+        plan = prepare_fused_decode(layers, task, mixer_cfg, lora_cfg, B, h.dtype)
+    if (plan.batch, plan.io_dtype) != (B, h.dtype) or plan.tables.shape != (len(OPERANDS), L) \
+            or plan.tables.device != h.device:
+        raise ValueError("the plan was prepared for another batch, dtype, depth or device")
+    if h.shape != (B, d) or not h.is_contiguous():
+        raise ValueError(f"h must be a contiguous (B, {d}) tensor, got {tuple(h.shape)}")
+    if residual is not None and (residual.shape != h.shape or residual.dtype != torch.float32
+                                 or residual.device != h.device or not residual.is_contiguous()):
+        raise ValueError("residual must be a contiguous float32 tensor of h's shape and device")
+    conv, ssm = cache.conv_state, cache.ssm_state
+    if (conv.shape != (L, B, W - 1, mixer_cfg.d_conv_in) or conv.dtype != h.dtype
+            or conv.device != h.device or not conv.is_contiguous()):
+        raise ValueError(
+            f"cache.conv_state must be a contiguous {(L, B, W - 1, mixer_cfg.d_conv_in)} "
+            f"{h.dtype} tensor on {h.device}, got {tuple(conv.shape)} {conv.dtype} on {conv.device}")
+    if ssm.shape != (L, B, H, P, N) or ssm.device != h.device or not ssm.is_contiguous():
+        raise ValueError(
+            f"cache.ssm_state must be a contiguous {(L, B, H, P, N)} tensor on {h.device}, "
+            f"got {tuple(ssm.shape)} on {ssm.device}")
+    if ssm.data_ptr() % 16 != 0:
+        raise ValueError("cache.ssm_state must be 16-byte aligned")
+
+    h_out = torch.empty_like(h)
+    res_out = torch.empty((B, d), dtype=torch.float32, device=h.device)
+    s = plan.scratch
+    lora_scale = lora_cfg.scaling if plan.rank else 0.0
+    err = kb.load_kernels().omt_fused_decode_step(
+        plan.tables.data_ptr(), L, B, d, di, H, P, N, W, plan.rank, plan.ksplit,
+        float(lora_scale), float(norm_eps), float(mixer_cfg.norm_eps),
+        conv.data_ptr(), ssm.data_ptr(), h.data_ptr(),
+        None if residual is None else residual.data_ptr(), h_out.data_ptr(), res_out.data_ptr(),
+        s["hn"].data_ptr(), s["hA"].data_ptr(), s["z"].data_ptr(), s["xbc"].data_ptr(),
+        s["dt"].data_ptr(), s["ya"].data_ptr(), s["sumsq"].data_ptr(), s["part"].data_ptr(),
+        kb.dtype_code(h.dtype), kb.dtype_code(plan.w_dtype), kb.dtype_code(ssm.dtype),
+        int(plan.aligned16 and conv.data_ptr() % 16 == 0), kb.current_stream(h.device),
+    )
+    kb.check_launch(err, "fused_decode_step")
+    fused_decode_step.launches += 1
+    return h_out, res_out, cache
+
+
+# token steps that went through the kernel since the counter was last set to 0:
+# one per call, whatever the C function launches inside (plain-version calls do not count)
+fused_decode_step.launches = 0

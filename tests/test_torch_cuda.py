@@ -25,7 +25,8 @@ def card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("check", ["check_ssd_scan", "check_ssd_step", "check_norms"])
+@pytest.mark.parametrize(
+    "check", ["check_ssd_scan", "check_ssd_step", "check_norms", "check_decode_fused"])
 def test_kernel_against_plain_version(card, check):
     import chip_smoke
 

@@ -1,0 +1,356 @@
+"""The whole-model fused decode step of the PyTorch port against the JAX
+package's, on the CPU, and against the port's own layer-by-layer path.
+
+The JAX side runs ``fused_decode_step`` as its own tests do off the TPU: the
+Pallas kernel in interpret mode (its default there). The port runs the plain
+version of its CUDA kernel, which repeats the kernel's rounding points.
+Everything is fp32 on the tiny geometry, LoRA B factors filled so the branch
+counts. Tolerances are the JAX test's own (``tests/test_decode_fused.py``):
+1e-5 for one step, 1e-4 for four consecutive steps.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import jax.random
+import numpy as np
+import pytest
+import torch
+
+from omnimamba_tpu.models import backbone as jbb
+from omnimamba_tpu.models.generation import generate as j_generate
+from omnimamba_tpu.models.omnimamba import init_omnimamba
+from omnimamba_tpu.ops.decode_fused import to_fused_cache
+from omnimamba_tpu.ops.sampling import SampleParams as JSampleParams
+from omnimamba_tpu_torch import SampleParams, generate
+from omnimamba_tpu_torch.config import LoraConfig
+from omnimamba_tpu_torch.models import backbone as tbb
+from omnimamba_tpu_torch.models import generation as tgen
+from omnimamba_tpu_torch.models.blocks import block_step
+from omnimamba_tpu_torch.models.mamba2 import Mamba2Cache
+from omnimamba_tpu_torch.ops import kernel_build
+from omnimamba_tpu_torch.ops.decode_fused import (
+    fused_decode_limits, fused_decode_step, fused_decode_step_plain,
+)
+from tests.test_torch_helpers import bridge, decode_side, fill_lora_b, nn, tiny_models, tt
+
+L0 = 6  # prompt length
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(nn(got), np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(jax model, torch model, jax backbone params, bridged torch params), fp32."""
+    jmodel, tmodel = tiny_models()
+    jp = init_omnimamba(jax.random.PRNGKey(0), jmodel, with_vision=False)
+    layers = dict(jp["mamba"]["layers"])
+    layers["mixer"] = fill_lora_b(layers["mixer"], np.random.default_rng(0))
+    jp = {"mamba": {**jp["mamba"], "layers": layers}, "vq": decode_side(jp["vq"])}
+    return jmodel, tmodel, jp["mamba"], bridge(jp, tmodel)["mamba"]
+
+
+def prefill(pair, task, B, seed):
+    """The same prefilled decode state on both sides (made by the JAX package),
+    and a token per row."""
+    jmodel, _, jm, _ = pair
+    rng = np.random.default_rng(seed)
+    emb = (0.5 * rng.standard_normal((B, L0, 32))).astype(np.float32)
+    _, jcache = jbb.backbone_forward(jm, jnp.asarray(emb), task, jmodel.cfg,
+                                     scan_impl="chunked", return_cache=True)
+    tcache = tbb.BackboneCache(tt(jcache.conv_state), tt(jcache.ssm_state))
+    tok = rng.integers(0, 32, (B,))
+    return jcache, tcache, tok
+
+
+def assert_caches_close(fcache, tcache, B, d_inner, tol):
+    """JAX splits the conv window into x and bc and pads the batch to 8; the
+    port keeps one fused window and the real rows."""
+    close(tcache.conv_state[..., :d_inner], np.asarray(fcache.conv_x)[:, :B], tol)
+    close(tcache.conv_state[..., d_inner:], np.asarray(fcache.conv_bc)[:, :B], tol)
+    n_layer, _, H, P, N = tcache.ssm_state.shape
+    close(tcache.ssm_state.reshape(n_layer, B, H * P, N), np.asarray(fcache.ssm)[:, :B], tol)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("task", ["t2i", "mmu"])
+def test_fused_step_matches_jax(pair, task, B):
+    jmodel, tmodel, jm, tm = pair
+    jcache, tcache, tok = prefill(pair, task, B, seed=B)
+    d_inner = jmodel.cfg.mixer.d_inner
+    hj, fcache = jbb.backbone_step_fused(
+        jm, jnp.asarray(tok, jnp.int32), jnp.int32(L0), to_fused_cache(jcache, d_inner),
+        task, jmodel.cfg, dtype=jnp.float32)
+    ht, out = tbb.backbone_step_fused(tm, tt(tok), L0, tcache, task, tmodel.cfg, dtype=torch.float32)
+    assert ht.shape == (B, 32) and fcache.ssm.shape[1] == 8  # no padding on the port's side
+    close(ht, hj, 1e-5)
+    assert_caches_close(fcache, out, B, d_inner, 1e-5)
+
+
+@pytest.mark.parametrize("task", ["t2i", "mmu"])
+def test_four_consecutive_fused_steps_match_jax(pair, task):
+    jmodel, tmodel, jm, tm = pair
+    jcache, tcache, tok = prefill(pair, task, 2, seed=7)
+    d_inner = jmodel.cfg.mixer.d_inner
+    fcache = to_fused_cache(jcache, d_inner)
+    for i in range(4):
+        hj, fcache = jbb.backbone_step_fused(
+            jm, jnp.asarray(tok, jnp.int32), jnp.int32(L0 + i), fcache, task, jmodel.cfg,
+            dtype=jnp.float32)
+        ht, tcache = tbb.backbone_step_fused(
+            tm, tt(tok), L0 + i, tcache, task, tmodel.cfg, dtype=torch.float32)
+        close(ht, hj, 1e-4)
+        tok = (tok + 7) % 32
+    assert_caches_close(fcache, tcache, 2, d_inner, 1e-4)
+
+
+@pytest.mark.parametrize("task", ["t2i", "mmu", None])
+def test_fused_plain_step_matches_the_layer_loop(pair, task):
+    """Inside the port: the fused step's plain version against ``block_step``
+    layer by layer, hidden, residual, window and state; the cache object is
+    updated in place."""
+    _, tmodel, _, tm = pair
+    cfg = tmodel.cfg
+    _, cache, _ = prefill(pair, "t2i", 3, seed=11)
+    ref = tbb.BackboneCache(cache.conv_state.clone(), cache.ssm_state.clone())
+    before = cache.ssm_state.clone()
+    h0 = tt((0.5 * np.random.default_rng(12).standard_normal((3, 32))).astype(np.float32))
+
+    h, residual = h0, None
+    for i, layer in enumerate(tm["layers"]):
+        h, residual, _ = block_step(
+            layer, h, residual, Mamba2Cache(ref.conv_state[i], ref.ssm_state[i]), task,
+            cfg.mixer, cfg.lora, norm_eps=cfg.norm_eps)
+    conv_obj, ssm_obj = cache.conv_state, cache.ssm_state
+    hf, rf, out = fused_decode_step(tm["layers"], h0, None, cache, task, cfg.mixer, cfg.lora,
+                                    cfg.norm_eps)
+    close(hf, nn(h), 1e-5)
+    close(rf, nn(residual), 1e-5)
+    close(out.conv_state, nn(ref.conv_state), 1e-5)
+    close(out.ssm_state, nn(ref.ssm_state), 1e-5)
+    assert rf.dtype == torch.float32
+    assert out.conv_state is conv_obj and out.ssm_state is ssm_obj
+    assert not torch.equal(ssm_obj, before), "the caller's state tensor holds the new state"
+    # an incoming residual is added before the first norm
+    r0 = torch.ones(3, 32)
+    c1 = tbb.BackboneCache(ref.conv_state.clone(), ref.ssm_state.clone())
+    c2 = tbb.BackboneCache(ref.conv_state.clone(), ref.ssm_state.clone())
+    a = fused_decode_step_plain(tm["layers"], h0, r0, c1, task, cfg.mixer, cfg.lora, cfg.norm_eps)
+    b = fused_decode_step_plain(tm["layers"], h0 + 1.0, None, c2, task, cfg.mixer, cfg.lora,
+                                cfg.norm_eps)
+    close(a[0], nn(b[0]), 1e-6)
+
+
+def embed(pair, task, ids):
+    """(jax embeddings, torch embeddings) of a prompt, positions applied."""
+    _, _, jm, tm = pair
+    if task == "t2i":
+        ej = jbb.caption_embed(jm, jbb.embed_text(jm, jnp.asarray(ids), jnp.float32))
+        et = tbb.caption_embed(tm, tbb.embed_text(tm, tt(ids), torch.float32))
+        n = ids.shape[1]
+        return ej + jm["pos_embed"][:, :n], et + tm["pos_embed"][:, :n]
+    return (jbb.embed_text(jm, jnp.asarray(ids), jnp.float32),
+            tbb.embed_text(tm, tt(ids), torch.float32))
+
+
+def port_generate(pair, task, ids, emb, new=12, **kw):
+    _, tmodel, _, tm = pair
+    kw.setdefault("cache_dtype", None)
+    return generate(tm, tmodel.cfg, input_ids=tt(ids), input_embeddings=emb, task=task,
+                    max_length=ids.shape[1] + new, sample=SampleParams(top_k=1),
+                    device="cpu", **kw)
+
+
+def jax_generate(pair, task, ids, emb, new=12, **kw):
+    jmodel, _, jm, _ = pair
+    return j_generate(jm, jmodel.cfg, input_ids=jnp.asarray(ids, jnp.int32), input_embeddings=emb,
+                      task=task, max_length=ids.shape[1] + new, sample=JSampleParams(top_k=1),
+                      scan_impl="chunked", cache_dtype=None, decode_impl="fused", **kw)
+
+
+def assert_streams_equal(got, want, logits, what):
+    """Equal token streams; where they differ, say how close the top two
+    logits of the port's fused run were at the first differing step."""
+    got, want = nn(got), np.asarray(want)
+    if np.array_equal(got, want):
+        return
+    b, step = np.argwhere(got != want)[0]
+    prompt = got.shape[1] - len(logits)  # one logits entry per generated position
+    top2 = torch.topk(logits[step - prompt][b], 2).values
+    raise AssertionError(
+        f"{what}: streams differ first at row {b} position {step}: {got[b, step]} vs "
+        f"{want[b, step]}; top-2 logit margin there {float(top2[0] - top2[1]):.3e}")
+
+
+@pytest.mark.parametrize("task", ["t2i", "mmu"])
+def test_generate_fused_streams(pair, task):
+    ids = np.random.default_rng(21).integers(0, 32, (2, L0))
+    ej, et = embed(pair, task, ids)
+    fused = port_generate(pair, task, ids, et, decode_impl="fused", return_logits=True)
+    scan = port_generate(pair, task, ids, et, decode_impl="scan")
+    ref = jax_generate(pair, task, ids, ej)
+    assert fused.num_generated == 12 and fused.sequences.shape == (2, L0 + 12)
+    assert_streams_equal(fused.sequences, scan.sequences, fused.logits, "port fused vs port scan")
+    assert_streams_equal(fused.sequences, ref.sequences, fused.logits, "port fused vs JAX fused")
+
+
+def test_generate_fused_with_cfg(pair):
+    cond = np.random.default_rng(22).integers(0, 32, (2, L0))
+    ids = np.concatenate([cond, np.full_like(cond, 49)], axis=0)  # [cond; uncond]
+    ej, et = embed(pair, "t2i", ids)
+    fused = port_generate(pair, "t2i", ids, et, decode_impl="fused", cfg_scale=7.5,
+                          return_logits=True)
+    scan = port_generate(pair, "t2i", ids, et, decode_impl="scan", cfg_scale=7.5)
+    ref = jax_generate(pair, "t2i", ids, ej, cfg_scale=7.5)
+    assert_streams_equal(fused.sequences, scan.sequences, fused.logits, "port fused vs port scan")
+    assert_streams_equal(fused.sequences, ref.sequences, fused.logits, "port fused vs JAX fused")
+    assert torch.equal(fused.sequences[:2, L0:], fused.sequences[2:, L0:])  # one draw per image
+
+
+def test_generate_fused_ragged(pair):
+    ids = np.random.default_rng(23).integers(0, 32, (3, 10))
+    lens = np.array([10, 6, 8], np.int32)
+    ej, et = embed(pair, "mmu", ids)
+    fused = port_generate(pair, "mmu", ids, et, decode_impl="fused", prompt_lengths=tt(lens),
+                          return_logits=True)
+    scan = port_generate(pair, "mmu", ids, et, decode_impl="scan", prompt_lengths=tt(lens))
+    ref = jax_generate(pair, "mmu", ids, ej, prompt_lengths=jnp.asarray(lens))
+    assert_streams_equal(fused.sequences, scan.sequences, fused.logits, "port fused vs port scan")
+    assert_streams_equal(fused.sequences, ref.sequences, fused.logits, "port fused vs JAX fused")
+    # each ragged row's stream is its solo stream
+    _, et1 = embed(pair, "mmu", ids[1:2, :6])
+    solo = port_generate(pair, "mmu", ids[1:2, :6], et1, decode_impl="fused")
+    assert torch.equal(solo.sequences[0, 6:], fused.sequences[1, 10:])
+
+
+def test_generate_fused_replay_callback_and_logits(pair):
+    """``teacher_outputs``, ``token_callback`` and ``return_logits`` on the
+    fused path: replayed logits equal the layer-by-layer path's (1e-4, fp32,
+    another order of the same sums)."""
+    ids = np.random.default_rng(24).integers(0, 32, (2, L0))
+    _, et = embed(pair, "t2i", ids)
+    teacher = torch.cat([tt(ids), tt(np.random.default_rng(25).integers(0, 32, (2, 12)))], dim=1)
+    seen = []
+    fused = port_generate(pair, "t2i", ids, et, decode_impl="fused", teacher_outputs=teacher,
+                          token_callback=seen.append, return_logits=True)
+    scan = port_generate(pair, "t2i", ids, et, decode_impl="scan", teacher_outputs=teacher,
+                         return_logits=True)
+    assert torch.equal(fused.sequences, teacher)
+    np.testing.assert_array_equal(np.stack(seen, 1), nn(teacher[:, L0:]))
+    close(torch.stack(fused.logits), nn(torch.stack(scan.logits)), 1e-4)
+
+
+def test_generate_fused_bf16_state(pair):
+    """``cache_dtype=torch.bfloat16`` on the fused path: the SSM state is
+    rounded to bf16 on every store, so replayed logits agree with the fp32
+    state's at bf16 scale (4 x 2^-7 of the largest logit, the bound the
+    layer-by-layer path is held to), not at fp32 scale."""
+    ids = np.random.default_rng(26).integers(0, 32, (2, L0))
+    _, et = embed(pair, "t2i", ids)
+    free = port_generate(pair, "t2i", ids, et, decode_impl="fused")
+    common = dict(decode_impl="fused", teacher_outputs=free.sequences, return_logits=True)
+    l32 = torch.stack(port_generate(pair, "t2i", ids, et, **common).logits)
+    l16 = torch.stack(port_generate(pair, "t2i", ids, et, cache_dtype=torch.bfloat16, **common).logits)
+    scale = float(l32.abs().max())
+    err = float((l16 - l32).abs().max())
+    assert 0 < err <= 2.0 ** -7 * scale * 4, (err, scale)
+    scan16 = torch.stack(port_generate(pair, "t2i", ids, et, cache_dtype=torch.bfloat16,
+                                       decode_impl="scan", teacher_outputs=free.sequences,
+                                       return_logits=True).logits)
+    assert float((l16 - scan16).abs().max()) <= 2.0 ** -7 * scale * 4
+
+
+def _refusals(pair):
+    _, tmodel, _, tm = pair
+    cfg = tmodel.cfg
+    quantized = [{**layer, "mixer": {**layer["mixer"], "in_proj": {"kernel": {"q": None, "scale": None}}}}
+                 for layer in tm["layers"]]
+    return {
+        "ngroups": (tm["layers"], dataclasses.replace(cfg.mixer, ngroups=2), cfg.lora,
+                    ValueError, "ngroups=1"),
+        "lora_nums": (tm["layers"], cfg.mixer, LoraConfig(lora_nums=2), ValueError, "lora_nums=1"),
+        "dt_limit": (tm["layers"], dataclasses.replace(cfg.mixer, dt_limit=(0.0, 0.1)), cfg.lora,
+                     ValueError, "dt_limit"),
+        "int8_weights": (quantized, cfg.mixer, cfg.lora, NotImplementedError, "ROADMAP slice 5"),
+        # fp32 activations (below) on bf16 weights: the kernel has no such instantiation
+        "mixed_types": ([_to_bf16(layer) for layer in tm["layers"]], cfg.mixer, cfg.lora,
+                        ValueError, "weights' type"),
+    }
+
+
+def _to_bf16(node):
+    if isinstance(node, dict):
+        return {k: _to_bf16(v) for k, v in node.items()}
+    return node.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("what", ["ngroups", "lora_nums", "dt_limit", "int8_weights", "mixed_types"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(pair, what):
+    layers, mixer_cfg, lora_cfg, exc, match = _refusals(pair)[what]
+    _, cache, _ = prefill(pair, "t2i", 2, seed=31)
+    assert isinstance(fused_decode_limits(layers, mixer_cfg, lora_cfg, torch.float32), exc)
+    with pytest.raises(exc, match=match):
+        fused_decode_step(layers, torch.zeros(2, 32), None, cache, "t2i", mixer_cfg, lora_cfg)
+
+
+def test_generate_refuses_fused_with_an_int8_state_and_an_unmet_limit(pair):
+    _, tmodel, _, tm = pair
+    ids = np.zeros((1, L0), np.int64)
+    _, et = embed(pair, "t2i", ids)
+    with pytest.raises(ValueError, match="scan path"):
+        port_generate(pair, "t2i", ids, et, decode_impl="fused", cache_dtype="int8")
+    limited = dataclasses.replace(
+        tmodel.cfg, mixer=dataclasses.replace(tmodel.cfg.mixer, dt_limit=(0.0, 0.1)))
+    with pytest.raises(ValueError, match="dt_limit"):
+        generate(tm, limited, input_ids=tt(ids), input_embeddings=et, task="t2i",
+                 max_length=L0 + 2, decode_impl="fused", device="cpu")
+
+
+@pytest.mark.parametrize("limited", [False, True], ids=["limits_met", "dt_limit_set"])
+def test_auto_takes_fused_where_the_limits_are_met(pair, limited, monkeypatch):
+    """``decode_impl="auto"`` is decided from the model alone, on the CPU as
+    on the card: the fused step wherever the kernel's limits are met, the
+    layer-by-layer step elsewhere."""
+    _, tmodel, _, tm = pair
+    cfg = tmodel.cfg
+    if limited:
+        cfg = dataclasses.replace(cfg, mixer=dataclasses.replace(cfg.mixer, dt_limit=(0.0, 0.1)))
+    calls = {"fused": 0, "scan": 0}
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tgen, "backbone_step_fused", counting("fused", tgen.backbone_step_fused))
+    monkeypatch.setattr(tgen, "backbone_step", counting("scan", tgen.backbone_step))
+    ids = np.zeros((1, L0), np.int64)
+    _, et = embed(pair, "t2i", ids)
+    generate(tm, cfg, input_ids=tt(ids), input_embeddings=et, task="t2i", max_length=L0 + 5,
+             cache_dtype=None, device="cpu")
+    assert calls == ({"fused": 0, "scan": 4} if limited else {"fused": 4, "scan": 0})
+
+
+def test_cpu_tensors_take_the_plain_version(pair):
+    """No build, no launch counted; the wrapper's source has no environment
+    switch and no try/except around its launch."""
+    import inspect
+    import re
+
+    from omnimamba_tpu_torch.ops import decode_fused
+
+    _, tmodel, _, tm = pair
+    _, cache, _ = prefill(pair, "t2i", 2, seed=41)
+    before = fused_decode_step.launches
+    fused_decode_step(tm["layers"], torch.zeros(2, 32), None, cache, "t2i", tmodel.cfg.mixer,
+                      tmodel.cfg.lora)
+    assert fused_decode_step.launches == before
+    assert kernel_build.load_kernels.cache_info().currsize == 0
+    src = inspect.getsource(decode_fused)
+    assert "os.environ" not in src and "is_available" not in src
+    assert not re.search(r"^\s*(try|except\b.*):", src, re.M)
+    assert (kernel_build.CSRC_DIR / "decode_fused.cu").is_file()
+    assert (kernel_build.CSRC_DIR / "ssd_step_row.cuh").is_file()

@@ -63,7 +63,8 @@ def test_sources_do_not_name_jax_imports():
 
 def test_csrc_ships_as_package_data():
     names = {p.name for p in kernel_build.CSRC_DIR.iterdir()}
-    assert {"common.cuh", "norms.cu", "ssd_scan.cu", "ssd_step.cu"} <= names
+    assert {"common.cuh", "ssd_step_row.cuh", "norms.cu", "ssd_scan.cu", "ssd_step.cu",
+            "decode_fused.cu"} <= names
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert re.search(r'omnimamba_tpu_torch\s*=\s*\["csrc/\*\.cu", "csrc/\*\.cuh"\]', pyproject)
 
@@ -136,7 +137,8 @@ def test_wrappers_use_the_plain_version_only_on_the_cpu():
     fused_gated_rms_norm(torch.randn(3, 32, generator=g), torch.randn(3, 32, generator=g), torch.ones(32))
     assert [w.launches for w in wrappers] == before
     assert kernel_build.load_kernels.cache_info().currsize == 0, "a CPU call must not build or load"
-    for mod in ("norms_kernel", "ssd_kernel", "ssd_step_kernel", "norms", "kernel_build"):
+    for mod in ("norms_kernel", "ssd_kernel", "ssd_step_kernel", "decode_fused", "norms",
+                "kernel_build"):
         src = (ROOT / "omnimamba_tpu_torch" / "ops" / f"{mod}.py").read_text()
         assert "os.environ.get(\"OMNIMAMBA" not in src and "is_available" not in src
         assert not re.search(r"^\s*(try|except\b.*):", src, re.M), (

@@ -183,6 +183,7 @@ def test_callback_eos_and_unported_options(pair):
     teacher[:, 8 + 3] = 5
     stopped = generate(mamba, tmodel.cfg, teacher_outputs=teacher, eos_token_id=5, **common)
     assert stopped.num_generated == 4
-    for bad in (dict(decode_impl="fused"), dict(cache_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            generate(mamba, tmodel.cfg, **{**common, **bad})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        generate(mamba, tmodel.cfg, **{**common, "cache_dtype": "int8"})
+    with pytest.raises(ValueError, match="unknown decode_impl"):
+        generate(mamba, tmodel.cfg, decode_impl="pallas", **common)
