@@ -3,20 +3,30 @@
     python3 chip_smoke.py
 
 builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, drives the port's main
-path (greedy text-to-image generation at the full 1.3B width and depth with
-random weights made from a seed) through both decode paths, the whole-model
-decode kernel and the layer-by-layer step, shows from the launch counters
-that each path went through its kernels, compares a kernel run of the decode
-engine with a plain-version run end to end on both paths, and reports times. Any failed
-phase ends the run with a non-zero exit code; nothing is caught. Without a
-CUDA device it exits with code 2 and prints no result.
+of the eight kernels against its plain PyTorch version on the card, and
+drives the port's two main paths at the full 1.3B width and depth with random
+weights made from a seed:
+
+- greedy text-to-image generation at batch 48 through both decode paths (the
+  whole-model decode kernel and the layer-by-layer step), then a kernel run
+  of the decode engine against a plain-version run end to end;
+- stage-1 text-to-image training: the loss and every gradient through the
+  kernels against the same through the plain versions (3 layers, fp32), then
+  `Trainer.train(max_steps=3)` at batch 90 in bf16 (halved until it fits),
+  the split of a step, one profiled step, and the memory peaks behind the
+  rule that resolves remat="proj".
+
+The launch counters show that each path went through its kernels. Any failed
+phase ends the run with a non-zero exit code; nothing is caught but the
+out-of-memory error that halves the training batch. Without a CUDA device it
+exits with code 2 and prints no result.
 
 Lines on standard output, one JSON object each unless noted:
   the card as `nvidia-smi --query-gpu=name,power.limit` gives it (plain text),
   {"card": ...} {"build": ...} {"kernel_check": ...}* {"main_path": ...}
-  {"decode_profile": ...} {"times": ...} {"plain_vs_kernel": ...}
-  {"kernels": [...]} and, last,
+  {"decode_profile": ...} {"times": ...} {"plain_vs_kernel": ...}*
+  {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
+  {"remat_threshold": ...} {"kernels": [...]} and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 fp32 comparisons run with TF32 off for matrix products and convolutions.
@@ -43,6 +53,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
 BATCH = 48  # main path: serving batch of the 1.3B text-to-image workload
 PROMPT = 72  # caption block length
+TRAIN_BATCH = 90  # stage-1 T2I training: batch_size_t2i of config/config_stage1_t2i.yaml
+TRAIN_LEN = PROMPT + 256  # caption block + image tokens
 
 
 def emit(obj) -> None:
@@ -187,6 +199,9 @@ def check_ssd_scan(gen, results):
         ("main_fp32", (4, PROMPT, 64, 64, 1, 128), torch.float32, 0, True, False, True),
         ("awkward", (3, 37, 6, 24, 2, 20), torch.float32, 0, True, False, False),
         ("awkward_bf16_tail", (3, 37, 6, 24, 2, 20), torch.bfloat16, 9, False, False, True),
+        ("shorter_than_a_chunk", (1, 5, 4, 8, 1, 16), torch.float32, 0, True, False, False),
+        # one layer of the training step, chunk states on
+        ("train", (TRAIN_BATCH, TRAIN_LEN, 64, 64, 1, 128), torch.bfloat16, 0, True, True, True),
     ]
     for name, shape, dtype, tail, with_d, timed, fused in cases:
         x, dt, A, Bm, Cm, D = ssd_inputs(gen, *shape, dtype, fused)
@@ -197,13 +212,22 @@ def check_ssd_scan(gen, results):
             D = None
         y, s = ssd_fused(x, dt, A, Bm, Cm, D)
         torch.cuda.synchronize()
-        y_ref, s_ref = ssd_fused_plain(x, dt, A, Bm, Cm, D)
+        y_ref, s_ref, h_ref = ssd_fused_plain(x, dt, A, Bm, Cm, D, return_chunk_states=True)
         ey, ry = errors(y, y_ref)
         es, rs = errors(s, s_ref)
+        # the same launch with the states entering each chunk written out
+        y2, s2, h = ssd_fused(x, dt, A, Bm, Cm, D, return_chunk_states=True)
+        torch.cuda.synchronize()
+        assert torch.equal(y2, y) and torch.equal(s2, s), "chunk states must not change y or the state"
+        eh, rh = errors(h, h_ref)
         rec = {"kernel": "ssd_scan", "case": name, "shape": shape, "dtype": str(dtype),
                "inputs": "slices of one fused tensor" if fused else "contiguous",
                "y_abs_err": ey, "y_err_of_allowed": ry, "state_abs_err": es,
-               "state_err_of_allowed": rs, "rtol": [RTOL[dtype], 0.0], "atol_rel": ATOL_REL}
+               "state_err_of_allowed": rs, "chunk_states_shape": list(h.shape),
+               "chunk_states_abs_err": eh, "chunk_states_err_of_allowed": rh,
+               "rtol": [RTOL[dtype], 0.0], "atol_rel": ATOL_REL}
+        assert rh <= 1.0, rec
+        del y2, s2, h_ref
         if tail:
             # dt = 0 must leave the state exactly where the shorter sequence left it
             L = shape[1] - tail
@@ -213,19 +237,118 @@ def check_ssd_scan(gen, results):
         assert ry <= 1.0 and rs <= 1.0, rec
         if timed:
             B, L, H, P, G, N = shape
+            train = name == "train"
+            # The chunk-entry states are left out of the bound: how many of them
+            # are kept is the kernel's own choice, not work the function sets.
             moved = nbytes(x, dt, A, Bm, Cm, D, y, s)
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = scan_flops(B, L, H, P, N, PLAIN_CHUNK) / PEAK_OPS[dtype] * 1e3
+
+            def kernel():
+                ssd_fused(x, dt, A, Bm, Cm, D, return_chunk_states=train)
+
             rec.update(
-                ms=time_ms(lambda: ssd_fused(x, dt, A, Bm, Cm, D), 20),
-                host_us=host_us(lambda: ssd_fused(x, dt, A, Bm, Cm, D), 20),
+                ms=time_ms(kernel, 5 if train else 20),
+                host_us=host_us(kernel, 20),
                 plain_ms=time_ms(lambda: ssd_fused_plain(x, dt, A, Bm, Cm, D), 3, 1),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_moved=moved, library_ms=None,
             )
-            results["ssd_scan"] = dict(rec, max_abs_err=max(ey, es))
+            if train:
+                rec["ms_without_chunk_states"] = time_ms(lambda: ssd_fused(x, dt, A, Bm, Cm, D), 5)
+                rec["chunk_states_bytes"] = nbytes(h)
+                results["ssd_scan"]["train"] = {k: rec[k] for k in (
+                    "shape", "ms", "ms_without_chunk_states", "plain_ms", "bound_ms", "bytes_moved",
+                    "chunk_states_bytes")}
+            else:
+                results["ssd_scan"] = dict(rec, max_abs_err=max(ey, es, eh))
+        del h
         emit({"kernel_check": rec})
+
+
+def check_ssd_scan_bwd(gen, results):
+    """K5 against its plain version: all six gradients, at one layer of the
+    training step and at awkward shapes."""
+    from omnimamba_tpu_torch.ops.ssd_kernel import (
+        PLAIN_CHUNK, ssd_bwd_plain, ssd_fused, ssd_fused_bwd)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, (B, L, H, P, G, N), dtype, with D, with gstate, timed, fused slices
+        ("train", (TRAIN_BATCH, TRAIN_LEN, 64, 64, 1, 128), bf, True, False, True, True),
+        ("train_fp32_gstate", (4, TRAIN_LEN, 64, 64, 1, 128), f32, True, True, False, True),
+        ("awkward", (3, 37, 6, 24, 2, 20), f32, True, True, False, False),
+        ("awkward_bf16_no_D", (3, 37, 6, 24, 2, 20), bf, False, False, False, True),
+        ("shorter_than_a_chunk", (1, 5, 4, 8, 1, 16), f32, True, False, False, False),
+        ("one_row_two_groups", (1, 48, 8, 16, 2, 32), bf, True, True, False, True),
+    ]
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    for name, shape, dtype, with_d, with_gs, timed, fused in cases:
+        B, L, H, P, G, N = shape
+        x, dt, A, Bm, Cm, D = ssd_inputs(gen, *shape, dtype, fused)
+        if not with_d:
+            D = None
+        # the cotangent of y arrives as a reshape of the gated norm's dy: contiguous
+        # on the model's path; one case hands it over as a column slice too
+        gy = rand(gen, (B, L, H, P), dtype)
+        if name == "awkward_bf16_no_D":
+            gy = sliced(gen, (B, L), (H * P, 8), dtype)[0].view(B, L, H, P)
+            assert not gy.is_contiguous()
+        gstate = rand(gen, (B, H, P, N), f32) if with_gs else None
+        _, _, hin = ssd_fused(x, dt, A, Bm, Cm, D, return_chunk_states=True)
+        got = ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy, gstate)
+        torch.cuda.synchronize()
+        again = ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy, gstate)
+        want = ssd_bwd_plain(x, dt, A, Bm, Cm, D, hin, gy, gstate)
+        rec = {"kernel": "ssd_scan_bwd", "case": name, "shape": shape, "dtype": str(dtype),
+               "D": with_d, "gstate": with_gs,
+               "inputs": "slices of one fused tensor" if fused else "contiguous",
+               "rtol": {"fp32": 0.0, "bf16": RTOL[bf]}, "atol_rel": ATOL_REL}
+        worst = 0.0
+        for key, g, g2, w in zip(names, got, again, want):
+            if w is None:
+                assert g is None, key
+                continue
+            assert g.dtype == w.dtype and g.shape == w.shape, key
+            abs_err, share = errors(g, w)
+            rec[f"{key}_abs_err"], rec[f"{key}_err_of_allowed"] = abs_err, share
+            rec[f"{key}_max"] = w.float().abs().max().item()
+            worst = max(worst, abs_err)
+            # fixed summation order: the same inputs give the same bits
+            assert torch.equal(g, g2), (name, key, "two runs differ")
+        rec["same_bits_on_a_second_run"] = True
+        assert all(rec.get(f"{k}_err_of_allowed", 0.0) <= 1.0 for k in names), rec
+        if timed:
+            dx, ddt, dA, dB, dC, dD = got
+            # the saved chunk-entry states are left out of the bound, as in
+            # check_ssd_scan: their number is the port's choice (chunk_states_bytes)
+            moved = nbytes(x, dt, A, Bm, Cm, D, gy, gstate, dx, ddt, dA, dB, dC, dD)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            flops = scan_bwd_flops(B, L, H, P, N, PLAIN_CHUNK)
+            ops_ms = flops / PEAK_OPS[dtype] * 1e3
+            rec.update(
+                ms=time_ms(lambda: ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy, gstate), 5),
+                host_us=host_us(lambda: ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy, gstate), 10),
+                plain_ms=time_ms(lambda: ssd_bwd_plain(x, dt, A, Bm, Cm, D, hin, gy, gstate), 2, 1),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_moved=moved, flops=flops, chunk_states_bytes=nbytes(hin),
+                library_ms=None,
+            )
+            results["ssd_scan_bwd"] = dict(rec, max_abs_err=worst)
+        del hin, got, again, want
+        emit({"kernel_check": rec})
+
+
+def scan_bwd_flops(B, L, H, P, N, Q):
+    """Multiply-adds (x2) of the chunked backward with chunk Q."""
+    tri = Q * (Q + 1) / 2
+    per_chunk = 2 * (tri * (N + P)          # M1, M2
+                     + 2 * tri * N + tri * P  # the intra-chunk parts of dC, dB, K
+                     + 4 * Q * P * N          # g h_in, x adj, adj B, the adjoint update
+                     + P * N)                 # <h_in, adj>
+    return B * H * (L / Q) * per_chunk
 
 
 def check_ssd_step(gen, results):
@@ -372,6 +495,123 @@ def check_norms(gen, results):
             else:
                 results["gated_rms_norm"]["prefill"] = {
                     k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bytes_moved")}
+        emit({"kernel_check": rec})
+
+
+def check_norms_bwd(gen, results):
+    """K6a and K6b against their plain versions, at one layer of the training
+    step and at awkward shapes."""
+    from omnimamba_tpu_torch.ops.norms import add_norm_bwd_plain, gated_rms_norm_bwd_plain
+    from omnimamba_tpu_torch.ops.norms_kernel import (
+        fused_add_rms_norm_bwd, fused_gated_rms_norm_bwd)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    train = (TRAIN_BATCH, TRAIN_LEN)
+    # name, rows-shape, d, g dtype, weight dtype, with dres, with dy out, timed
+    add_cases = [
+        ("train", train, 2048, bf, bf, True, True, True),
+        ("no_dres", train, 2048, bf, bf, False, True, False),
+        ("first_block_no_dy", (BATCH, PROMPT), 2048, bf, bf, True, False, False),
+        ("fp32", (5, 7), 2048, f32, f32, True, True, False),
+        ("one_row", (1,), 2048, f32, f32, False, True, False),
+        ("awkward", (3, 5), 250, f32, bf, False, True, False),
+        ("awkward_bf16", (7,), 1001, bf, f32, True, True, False),
+        ("more_rows_than_blocks", (1200,), 252, bf, bf, True, True, False),
+        ("g_and_dres_column_slices", (5, 7), 256, bf, bf, True, True, False),
+    ]
+    for name, lead, d, dtype, wdtype, with_dres, with_dy, timed in add_cases:
+        strided = name == "g_and_dres_column_slices"
+        y = rand(gen, (*lead, d), f32)
+        g = sliced(gen, lead, (d, 64), dtype)[0] if strided else rand(gen, (*lead, d), dtype)
+        dres = rand(gen, (*lead, d), f32) if with_dres else None
+        if strided:
+            dres = sliced(gen, lead, (32, d), f32)[1]
+            assert not g.is_contiguous() and not dres.is_contiguous()
+        w = (1.0 + 0.1 * rand(gen, (d,), f32)).to(wdtype)
+        dx, dy, dw = fused_add_rms_norm_bwd(y, g, w, dres, 1e-5, with_dy=with_dy)
+        torch.cuda.synchronize()
+        dw2 = fused_add_rms_norm_bwd(y, g, w, dres, 1e-5, with_dy=with_dy)[2]
+        dx_ref, dy_ref, dw_ref = add_norm_bwd_plain(y, g, w, dres, 1e-5)
+        assert (dy is None) == (not with_dy)
+        ex, rx = errors(dx, dx_ref)
+        ey, ry = errors(dy, dy_ref) if with_dy else (0.0, 0.0)
+        ew, rw = errors(dw, dw_ref)
+        rec = {"kernel": "add_rms_norm_bwd", "case": name, "shape": (*lead, d), "dtype": str(dtype),
+               "weight_dtype": str(wdtype), "dres": with_dres, "dy_out": with_dy,
+               "dx_abs_err": ex, "dx_err_of_allowed": rx, "dy_abs_err": ey, "dy_err_of_allowed": ry,
+               "dw_abs_err": ew, "dw_err_of_allowed": rw, "dw_max": dw_ref.abs().max().item(),
+               "rtol": RTOL[dtype], "atol_rel": ATOL_REL,
+               "same_bits_on_a_second_run": bool(torch.equal(dw, dw2))}
+        assert rx <= 1.0 and ry <= 1.0 and rw <= 1.0 and rec["same_bits_on_a_second_run"], rec
+        if timed:
+            moved = nbytes(y, g, w, dres, dx, dy, dw)
+            rows = y.numel() // d
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = 12 * rows * d / PEAK_OPS[f32] * 1e3
+            # yardstick: the backward of F.rms_norm through autograd (the norm half
+            # only: no cotangent of the stream added, no fp32 stream written)
+            lib_ms = None
+            if hasattr(F, "rms_norm"):
+                summed = y.to(dtype).requires_grad_()
+                wl = w.clone().requires_grad_()
+                out = F.rms_norm(summed, (d,), wl, 1e-5)
+                lib_ms = time_ms(lambda: torch.autograd.grad(out, (summed, wl), g, retain_graph=True), 20)
+                del out, summed
+            rec.update(
+                ms=time_ms(lambda: fused_add_rms_norm_bwd(y, g, w, dres, 1e-5), 20),
+                host_us=host_us(lambda: fused_add_rms_norm_bwd(y, g, w, dres, 1e-5), 50),
+                plain_ms=time_ms(lambda: add_norm_bwd_plain(y, g, w, dres, 1e-5), 5),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_moved=moved, library_ms=lib_ms,
+            )
+            results["add_rms_norm_bwd"] = dict(rec, max_abs_err=max(ex, ey, ew))
+        emit({"kernel_check": rec})
+
+    # name, rows-shape, d, dtype, weight dtype, timed, columns beside z in its matrix
+    # (on the training path z is a column slice of the in_proj output, y is the
+    # scan's output and g the out_proj's input cotangent, both contiguous)
+    gated_cases = [
+        ("train", train, 4096, bf, bf, True, 4096 + 256 + 64),
+        ("fp32", (5, 7), 4096, f32, f32, False, 4096 + 256 + 64),
+        ("awkward", (3, 5), 250, f32, bf, False, 0),
+        ("awkward_bf16", (7,), 1001, bf, f32, False, 0),
+        ("awkward_odd_stride", (3, 5), 252, bf, bf, False, 251),
+        ("more_rows_than_blocks", (1200,), 252, bf, bf, False, 0),
+    ]
+    for name, lead, d, dtype, wdtype, timed, beside in gated_cases:
+        yv = rand(gen, (*lead, d), dtype)
+        z = sliced(gen, lead, (d, beside), dtype)[0] if beside else rand(gen, (*lead, d), dtype)
+        g = rand(gen, (*lead, d), dtype)
+        w = (1.0 + 0.1 * rand(gen, (d,), f32)).to(wdtype)
+        dy, dz, dw = fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5)
+        torch.cuda.synchronize()
+        dw2 = fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5)[2]
+        dy_ref, dz_ref, dw_ref = gated_rms_norm_bwd_plain(yv, z, g, w, 1e-5)
+        ey, ry = errors(dy, dy_ref)
+        ez, rz = errors(dz, dz_ref)
+        ew, rw = errors(dw, dw_ref)
+        rec = {"kernel": "gated_rms_norm_bwd", "case": name, "shape": (*lead, d), "dtype": str(dtype),
+               "weight_dtype": str(wdtype), "z": "slice of a wider matrix" if beside else "contiguous",
+               "dy_abs_err": ey, "dy_err_of_allowed": ry, "dz_abs_err": ez, "dz_err_of_allowed": rz,
+               "dw_abs_err": ew, "dw_err_of_allowed": rw, "dw_max": dw_ref.abs().max().item(),
+               "rtol": RTOL[dtype], "atol_rel": ATOL_REL,
+               "same_bits_on_a_second_run": bool(torch.equal(dw, dw2))}
+        assert ry <= 1.0 and rz <= 1.0 and rw <= 1.0 and rec["same_bits_on_a_second_run"], rec
+        if timed:
+            moved = nbytes(yv, z, g, w, dy, dz, dw)
+            rows = yv.numel() // d
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = 30 * rows * d / PEAK_OPS[f32] * 1e3
+            rec.update(
+                ms=time_ms(lambda: fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5), 20),
+                host_us=host_us(lambda: fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5), 50),
+                plain_ms=time_ms(lambda: gated_rms_norm_bwd_plain(yv, z, g, w, 1e-5), 5),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_moved=moved, library_ms=None,
+            )
+            results["gated_rms_norm_bwd"] = dict(rec, max_abs_err=max(ey, ez, ew))
         emit({"kernel_check": rec})
 
 
@@ -615,16 +855,22 @@ def step_pair_ms(gen, layers, cfg, lcfg, B, io, sdtype):
 
 
 def kernel_wrappers():
-    from omnimamba_tpu_torch.ops.norms_kernel import fused_add_rms_norm, fused_gated_rms_norm
-    from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
     from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step
+    from omnimamba_tpu_torch.ops.norms_kernel import (
+        fused_add_rms_norm, fused_add_rms_norm_bwd, fused_gated_rms_norm, fused_gated_rms_norm_bwd)
+    from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused, ssd_fused_bwd
     from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
 
     return {
         "ssd_scan": ssd_fused, "ssd_step": ssd_step_fused,
         "add_rms_norm": fused_add_rms_norm, "gated_rms_norm": fused_gated_rms_norm,
         "decode_fused": fused_decode_step,
+        "ssd_scan_bwd": ssd_fused_bwd, "add_rms_norm_bwd": fused_add_rms_norm_bwd,
+        "gated_rms_norm_bwd": fused_gated_rms_norm_bwd,
     }
+
+
+BACKWARD_KERNELS = ("ssd_scan_bwd", "add_rms_norm_bwd", "gated_rms_norm_bwd")  # training only
 
 
 KERNEL_FILES = {
@@ -633,6 +879,9 @@ KERNEL_FILES = {
     "add_rms_norm": ("omnimamba_tpu_torch/csrc/norms.cu", "omnimamba_tpu/ops/norms_pallas.py:129"),
     "gated_rms_norm": ("omnimamba_tpu_torch/csrc/norms.cu", "omnimamba_tpu/ops/norms_pallas.py:280"),
     "decode_fused": ("omnimamba_tpu_torch/csrc/decode_fused.cu", "omnimamba_tpu/ops/decode_fused.py:447"),
+    "ssd_scan_bwd": ("omnimamba_tpu_torch/csrc/ssd_scan_bwd.cu", "omnimamba_tpu/ops/ssd_pallas_bwd.py:416"),
+    "add_rms_norm_bwd": ("omnimamba_tpu_torch/csrc/norms.cu", "omnimamba_tpu/ops/norms_pallas.py:200"),
+    "gated_rms_norm_bwd": ("omnimamba_tpu_torch/csrc/norms.cu", "omnimamba_tpu/ops/norms_pallas.py:307"),
 }
 
 
@@ -688,11 +937,12 @@ def main_path(results, card):
     wrappers = kernel_wrappers()
     steps = cfg.num_tokens - 1  # the first token comes from the prefill logits
     prefill = {"ssd_scan": cfg.n_layer, "add_rms_norm": cfg.n_layer, "gated_rms_norm": cfg.n_layer}
+    no_backward = dict.fromkeys(BACKWARD_KERNELS, 0)  # generation differentiates nothing
     expect = {
-        "fused": dict(prefill, decode_fused=steps, ssd_step=0),
+        "fused": dict(prefill, decode_fused=steps, ssd_step=0, **no_backward),
         "scan": {"ssd_scan": cfg.n_layer, "ssd_step": cfg.n_layer * steps,
                  "add_rms_norm": cfg.n_layer * (steps + 1),
-                 "gated_rms_norm": cfg.n_layer * (steps + 1), "decode_fused": 0},
+                 "gated_rms_norm": cfg.n_layer * (steps + 1), "decode_fused": 0, **no_backward},
     }
     run("fused", decode_image=False)  # warm-up: builds nothing new, loads library and cuBLAS/cuDNN plans
     torch.cuda.reset_peak_memory_stats()
@@ -723,6 +973,8 @@ def main_path(results, card):
         assert report[path]["tokens_in_range"] and report[path]["images_finite"], path
         assert launches[path] == expect[path], (path, launches[path], expect[path])
     for name in wrappers:
+        if name in BACKWARD_KERNELS:
+            continue  # their counts come from the training path
         # a kernel's count comes from the path that runs it at decode; the
         # prefill kernels run on both and report the layer-by-layer path's
         # count beside the fused path's
@@ -798,7 +1050,17 @@ def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4)
     return profile_steps(lambda i: step(PROMPT + i), steps)
 
 
-def profile_steps(step, steps: int):
+def _kernel_kind(name: str) -> str:
+    if "omt::" in name:
+        return "port_kernels"
+    if any(s in name for s in ("gemm", "nvjet", "cutlass", "cublas", "splitK")):
+        return "library_products"
+    if "elementwise" in name:
+        return "elementwise"
+    return "other"
+
+
+def profile_steps(step, steps: int, top: int = 10):
     """`step(i)` for i = 1..steps under the profiler, after one warm call
     `step(0)`: wall time per step against the summed time of its kernels."""
     from torch.autograd import DeviceType
@@ -826,13 +1088,18 @@ def profile_steps(step, steps: int):
     if busy_ms <= 0:
         raise RuntimeError("the profiler's trace holds no device time: the device's idle share "
                            "of the decode step cannot be read")
+    by_kind = {}
+    for us, name, _ in rows:
+        kind = _kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
     return {
         "steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches_per_step": sum(r[2] for r in rows) / steps,
+        "device_ms_per_step_by_kind": by_kind,
         "note": "wall time includes the profiler's own cost on the host",
         "top_kernels": [{"name": k[:60], "ms_per_step": us / 1e3 / steps, "calls_per_step": n / steps}
-                        for us, k, n in rows[:10] if us > 0],
+                        for us, k, n in rows[:top] if us > 0],
     }
 
 
@@ -920,7 +1187,8 @@ def plain_vs_kernel():
             w.launches = 0
         out_k = generate(params, cfg, decode_impl=path, **common)
         before = {k: w.launches for k, w in wrappers.items()}
-        assert all((n > 0) != (k == idle[path]) for k, n in before.items()), (path, before)
+        assert all((n > 0) != (k == idle[path] or k in BACKWARD_KERNELS)
+                   for k, n in before.items()), (path, before)
         with plain_versions():
             out_p = generate(params, cfg, decode_impl=path, teacher_outputs=out_k.sequences, **common)
         assert before == {k: w.launches for k, w in wrappers.items()}, "plain run launched a kernel"
@@ -944,6 +1212,307 @@ def plain_vs_kernel():
         emit({"plain_vs_kernel": rec})
         assert err <= tol, rec
         assert bool(agree[decided].all()), rec
+
+
+# ---------------------------------------------------------------------------
+# phase: training, kernels against plain versions end to end
+# ---------------------------------------------------------------------------
+
+
+def _require_grad(params):
+    leaves = []
+    for name, t in _named_leaves(params):
+        leaves.append((name, t.requires_grad_()))
+    return leaves
+
+
+def _synthetic_t2i_batch(rng, cfg, batch):
+    return {"t2i_flow": {
+        "inputs": rng.integers(0, cfg.vqvae_vocab_size, (batch, cfg.num_tokens)),
+        "caption_ids": rng.integers(0, cfg.vocab_size, (batch, PROMPT)),
+    }}
+
+
+def train_plain_vs_kernel():
+    """`t2i_loss` and the gradient of every parameter at full width, 3 layers,
+    fp32, once through the kernels (forward and backward) and once through the
+    plain versions differentiated by autograd; then the kernel run again with
+    every block checkpointed, which must give the same bits."""
+    from omnimamba_tpu_torch import MambaConfig, OmniMambaModel, VQConfig, init_omnimamba
+    from omnimamba_tpu_torch.models.omnimamba import t2i_loss
+
+    B = 2
+    cfg = dataclasses.replace(MambaConfig(), n_layer=3)
+    model = OmniMambaModel(cfg=cfg, vq_cfg=VQConfig(), sptids={})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    params = init_omnimamba(gen, model, torch.float32, "cuda", with_vq=False)
+    for layer in params["mamba"]["layers"]:  # LoRA B starts at zero; make the branch count
+        lora = layer["mixer"]["lora"]
+        lora["t2i_B"] = 0.02 * torch.randn(
+            lora["t2i_B"].shape, generator=gen, device="cuda", dtype=torch.float32)
+    named = _require_grad(params)
+    leaves = [t for _, t in named]
+    flow = _synthetic_t2i_batch(np.random.default_rng(SEED + 2), cfg, B)["t2i_flow"]
+    img = torch.as_tensor(flow["inputs"], device="cuda")
+    cap = torch.as_tensor(flow["caption_ids"], device="cuda")
+
+    def run(remat, seed=None):
+        g = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
+        loss = t2i_loss(params, model, img, cap, dtype=torch.float32, generator=g, remat=remat)
+        return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    wrappers = kernel_wrappers()
+    counts = {}
+    for remat in (False, True):
+        for w in wrappers.values():
+            w.launches = 0
+        out = run(remat)
+        counts[remat] = {k: w.launches for k, w in wrappers.items() if w.launches}
+        if remat:
+            loss_r, grads_r = out
+        else:
+            loss_k, grads_k = out
+    n = cfg.n_layer
+    forward = ("ssd_scan", "add_rms_norm", "gated_rms_norm")
+    assert counts[False] == {**dict.fromkeys(forward, n), **dict.fromkeys(BACKWARD_KERNELS, n)}, counts
+    assert counts[True] == {**dict.fromkeys(forward, 2 * n), **dict.fromkeys(BACKWARD_KERNELS, n)}, counts
+    with plain_versions():
+        loss_p, grads_p = run(False)
+    assert counts[True] == {k: w.launches for k, w in wrappers.items() if w.launches}, \
+        "plain run launched a kernel"
+
+    # fp32 end to end through 3 layers: kernel and plain version sum in another
+    # order; a gradient leaf is held to 1e-4 of its largest reference value
+    tol_rel = 1e-4
+    worst, worst_leaf, unused = 0.0, "", []
+    for (name, _), gk, gp, gr in zip(named, grads_k, grads_p, grads_r):
+        if gp is None:  # the other task's LoRA and positions take no part in a t2i loss
+            assert gk is None and gr is None, name
+            unused.append(name)
+            continue
+        assert torch.isfinite(gk).all(), name
+        share = (gk - gp).abs().max().item() / (tol_rel * max(gp.abs().max().item(), 1e-30))
+        if share > worst:
+            worst, worst_leaf = share, name
+        assert torch.equal(gk, gr), (name, "checkpointing changed a gradient")
+    rec = {"layers": n, "d_model": cfg.d_model, "batch": B, "tokens": B * TRAIN_LEN,
+           "loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+           "loss_rel_err": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+           "gradient_leaves": len(named) - len(unused), "unused_leaves": sorted(set(unused)),
+           "worst_gradient_err_of_allowed": worst, "worst_leaf": worst_leaf, "tol_rel": tol_rel,
+           "checkpointed_equals_bit_for_bit": True, "launches": counts[False],
+           "launches_checkpointed": counts[True]}
+    # dropout: the recompute must draw the first run's masks
+    _, g_a = run(False, seed=11)
+    _, g_b = run(True, seed=11)
+    rec["dropout_masks_repeat_under_checkpointing"] = all(
+        torch.equal(a, b) for a, b in zip(g_a, g_b) if a is not None)
+    emit({"train_plain_vs_kernel": rec})
+    assert rec["loss_rel_err"] <= 1e-5 and worst <= 1.0, rec
+    assert torch.equal(loss_k, loss_r) and rec["dropout_masks_repeat_under_checkpointing"], rec
+
+
+# ---------------------------------------------------------------------------
+# phase: the training path
+# ---------------------------------------------------------------------------
+
+
+class _StepLog:
+    """Metrics sink of the trainer that also stamps the host's clock: the
+    float() of a metric waits for the device, so the time between two
+    entries is one whole step."""
+
+    def __init__(self):
+        self.rows, self.stamps = [], []
+
+    def log(self, step, metrics):
+        torch.cuda.synchronize()
+        self.stamps.append(time.time())
+        self.rows.append(dict(metrics, step=step))
+
+
+def train_path(results, card):
+    """Stage-1 text-to-image training at the full 1.3B width and depth:
+    `Trainer.train(max_steps=3)` on synthetic batches, launch counters set to 0
+    just before and read just after; then the split of a step, one profiled
+    step, and the peaks behind the rule that resolves remat="proj"."""
+    from omnimamba_tpu_torch import MambaConfig, OmniMambaModel, VQConfig, init_omnimamba
+    from omnimamba_tpu_torch.config import TrainConfig
+    from omnimamba_tpu_torch.models.omnimamba import t2i_loss
+    from omnimamba_tpu_torch.train.optimizer import make_schedule
+    from omnimamba_tpu_torch.train.trainer import REMAT_TOKENS, Trainer, clip_and_apply, resolve_remat
+
+    cfg = MambaConfig()
+    model = OmniMambaModel(cfg=cfg, vq_cfg=VQConfig(), sptids={})
+    steps = 3
+    wrappers = kernel_wrappers()
+    tries = []
+    batch = TRAIN_BATCH
+    while True:
+        # config/config_stage1_t2i.yaml; logging every step so that every loss is seen
+        tcfg = TrainConfig(stage="align", t2i_task=True, mmu_task=False, batch_size_t2i=batch,
+                           lr=8e-4, warmup_steps=1000, max_steps=100000, logging_steps=1)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = init_omnimamba(gen, model, torch.bfloat16, "cuda", with_vq=False)
+        before = {name: t.detach().clone() for name, t in _paths(params)}
+        rng = np.random.default_rng(SEED)
+        loader = [_synthetic_t2i_batch(rng, cfg, batch) for _ in range(steps)]
+        log = _StepLog()
+        trainer = Trainer(model, params, tcfg, loader, dtype=torch.bfloat16,
+                          metrics_writer=log, log_fn=lambda line: None)
+        tokens = batch * TRAIN_LEN
+        remat = resolve_remat(tcfg.remat, tokens)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.time()
+        try:
+            state, _ = trainer.train(max_steps=steps)
+        except torch.cuda.OutOfMemoryError:
+            tries.append({"batch": batch, "fits": False,
+                          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+            del trainer, params, before
+            torch.cuda.empty_cache()
+            batch //= 2
+            assert batch >= 1, tries
+            continue
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        tries.append({"batch": batch, "fits": True, "peak_memory_gib": peak_gib})
+        break
+
+    n = cfg.n_layer
+    fwd = n * steps * (2 if remat else 1)  # checkpointing runs every forward again
+    expect = {"ssd_scan": fwd, "add_rms_norm": fwd, "gated_rms_norm": fwd, "ssd_step": 0,
+              "decode_fused": 0, **dict.fromkeys(BACKWARD_KERNELS, n * steps)}
+    losses = [row["loss"] for row in log.rows]
+    step_s = np.diff(np.asarray([t_start] + log.stamps))
+    # gate 4's checks: the mixer core is frozen, the image embeddings and the LoRA move
+    moved = {name: (t.detach() != before[name]).any().item() for name, t in _paths(params)}
+    frozen_moved = sorted(k for k, m in moved.items() if m and not _trains_in_align_t2i(k))
+    rec = {
+        "model": "OmniMamba-1.3B", "n_layer": n, "d_model": cfg.d_model, "stage": tcfg.stage,
+        "batch": batch, "seq_len": TRAIN_LEN, "tokens_per_step": tokens, "steps": steps,
+        "remat": tcfg.remat, "remat_resolved": remat, "remat_rule_tokens": REMAT_TOKENS,
+        "lr": tcfg.lr, "warmup_steps": tcfg.warmup_steps, "dtype": "torch.bfloat16",
+        "batch_tries": tries, "losses": losses, "grad_norms": [r["grad_norm"] for r in log.rows],
+        "state_step": state.step, "launches": launches, "launches_expected": expect,
+        "trainable_leaves": sum(t.requires_grad for _, t in _paths(params)),
+        "trainable_parameters": sum(t.numel() for _, t in _paths(params) if t.requires_grad),
+        "frozen_leaves_that_moved": frozen_moved,
+        "img_embeddings_moved": any(m for k, m in moved.items() if "img_embeddings" in k),
+        "lora_moved": any(m for k, m in moved.items() if "lora/t2i" in k),
+    }
+    emit({"train_path": rec})
+    assert len(losses) == steps and all(np.isfinite(losses)), rec
+    assert state.step == steps and launches == expect, rec
+    assert not frozen_moved and rec["img_embeddings_moved"] and rec["lora_moved"], rec
+    del before
+    for name in expect:
+        results[name]["launches_train"] = launches[name]
+        results[name]["launches_per_train_step"] = launches[name] // steps
+        if name in BACKWARD_KERNELS:
+            results[name]["launches"] = launches[name]
+
+    # ---- the split of one step: forward, backward (with its recompute), update ----
+    flow = {k: torch.as_tensor(v, device="cuda") for k, v in loader[0]["t2i_flow"].items()}
+    leaves = [t for _, t in _paths(params) if t.requires_grad]
+    schedule = make_schedule(tcfg)
+
+    def manual_step():
+        marks = [time.time()]
+        loss = t2i_loss(params, model, flow["inputs"], flow["caption_ids"], dtype=torch.bfloat16,
+                        generator=trainer.generator, remat=remat)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        trainer.state, _ = clip_and_apply(trainer.state, trainer.tx, schedule, grads)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        return np.diff(marks)
+
+    splits = np.asarray([manual_step() for _ in range(3)])
+    split = np.median(splits, axis=0)
+    profile = profile_steps(
+        lambda i: trainer.step_fn(trainer.state, loader[0], trainer.generator), 1, top=24)
+    after_first = step_s[1:]
+    med = float(np.median(after_first))
+    emit({"train_times": {
+        "card": card, "batch": batch, "tokens_per_step": tokens, "remat": remat,
+        "step_s": [float(v) for v in step_s], "step_s_median_after_first": med,
+        "tokens_per_s": tokens / med, "forward_s": float(split[0]), "backward_s": float(split[1]),
+        "optimizer_s": float(split[2]), "peak_memory_gib": peak_gib,
+        "device_busy_ms_per_step": profile["device_busy_ms_per_step"],
+        "device_idle_share": profile["device_idle_share"],
+        "kernel_launches_per_step": profile["kernel_launches_per_step"],
+        "device_ms_per_step_by_kind": profile["device_ms_per_step_by_kind"],
+        "top_kernels": profile["top_kernels"],
+        "note": "host clock, each ending in a device synchronize; the split is the median of "
+                "three hand-driven steps; idle share and kernels from one profiled step",
+    }})
+
+    # ---- what remat="proj" rests on: peak memory and time of one forward and
+    # backward with and without checkpointing at two small batches ----
+    peaks = []
+    for b in (8, 16):
+        sub = {k: v[:b] for k, v in flow.items()}
+        for ck in (False, True):
+            def fwd_bwd():
+                loss = t2i_loss(params, model, sub["inputs"], sub["caption_ids"],
+                                dtype=torch.bfloat16, generator=trainer.generator, remat=ck)
+                torch.autograd.grad(loss, leaves, allow_unused=True)
+            fwd_bwd()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            fwd_bwd()
+            torch.cuda.synchronize()
+            peaks.append({"batch": b, "tokens": b * TRAIN_LEN, "checkpointing": ck,
+                          "seconds": time.time() - t0,
+                          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "held_before_gib": base / 2**30})
+    # the largest batch the rule still runs without checkpointing must fit
+    edge = (REMAT_TOKENS - 1) // TRAIN_LEN
+    if 16 < edge <= flow["inputs"].shape[0]:
+        assert not resolve_remat("proj", edge * TRAIN_LEN)
+        sub = {k: v[:edge] for k, v in flow.items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        loss = t2i_loss(params, model, sub["inputs"], sub["caption_ids"], dtype=torch.bfloat16,
+                        generator=trainer.generator, remat=False)
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        peaks.append({"batch": edge, "tokens": edge * TRAIN_LEN, "checkpointing": False,
+                      "seconds": time.time() - t0, "largest_batch_below_the_rule": True,
+                      "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+        del loss
+    by = {(r["batch"], r["checkpointing"]): r for r in peaks}
+    per_token = {ck: (by[(16, ck)]["peak_memory_gib"] - by[(8, ck)]["peak_memory_gib"])
+                 / (8 * TRAIN_LEN) * 2**30 for ck in (False, True)}
+    emit({"remat_threshold": {
+        "card": card, "runs": peaks, "bytes_per_token_kept": per_token[False],
+        "bytes_per_token_checkpointed": per_token[True], "rule_tokens": REMAT_TOKENS,
+        "device_memory_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
+    }})
+
+
+def _paths(params):
+    from omnimamba_tpu_torch.train.optimizer import named_leaves
+
+    return list(named_leaves(params))
+
+
+def _trains_in_align_t2i(path: str) -> bool:
+    """Stage `align` with the t2i task only: what may move."""
+    return ("lora" in path or any(s in path for s in (
+        "img_embeddings", "caption_embed", "pos_embed", "embedding"))) and "mmu_pos_embed" not in path
 
 
 # ---------------------------------------------------------------------------
@@ -979,12 +1548,17 @@ def main() -> int:
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     check_ssd_scan(gen, results)
+    check_ssd_scan_bwd(gen, results)
     check_ssd_step(gen, results)
     check_norms(gen, results)
+    check_norms_bwd(gen, results)
     check_decode_fused(gen, results)
 
     main_path(results, card)
     plain_vs_kernel()
+    torch.cuda.empty_cache()
+    train_plain_vs_kernel()
+    train_path(results, card)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -993,8 +1567,9 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         row.update({k: r[k] for k in keys})
         row.update({k: r[k] for k in (
-            "case", "shape", "dtype", "bytes_moved", "host_us", "prefill", "fp32_state",
-            "launches_fused_path", "flops", "library_note", "scan_step_device_ms",
+            "case", "shape", "dtype", "bytes_moved", "host_us", "prefill", "fp32_state", "train",
+            "launches_fused_path", "launches_train", "launches_per_train_step", "flops",
+            "chunk_states_bytes", "library_note", "scan_step_device_ms",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile")
                     if k in r})
         kernels.append(row)

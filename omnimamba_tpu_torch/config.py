@@ -9,15 +9,16 @@ packages (the port imports nothing from the JAX package):
 - ``LoraConfig``         dual-task LoRA on every mixer's in_proj
 - ``MambaConfig``        backbone (embeddings, 48 blocks, dual heads)
 - ``VQConfig``           LlamaGen VQ-16 tokenizer
+- ``TrainConfig``        the YAML ``train:`` block and the trainer's defaults
 
-The ViT, vision and training configs arrive with the slices that use them.
+The ViT and vision configs arrive with the slice that uses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -193,3 +194,73 @@ def vq_8() -> VQConfig:
 
 
 VQ_MODELS = {"VQ-16": vq_16, "VQ-8": vq_8}
+
+
+@dataclass
+class TrainConfig:
+    """Mirrors the YAML ``train:`` block and the training script's defaults.
+    The JAX package's ``scan_impl`` has no counterpart: a CUDA tensor takes
+    the kernels, a CPU tensor their plain versions."""
+
+    omnimamba_model: str = "OmniMamba-1.3B"
+    image_backbone: str = "dinosiglip-vit-so-384px"
+    dataset: str = "datasets/pretokenized_coco_train2014.jsonl"
+    stage: str = "finetune"  # align | finetune | inference
+    vq_ckpt: Optional[str] = None
+    t2i_task: bool = True
+    mmu_task: bool = True
+    omnimamba_ckpt: Optional[str] = None
+    mamba_pretrain: Optional[str] = None
+    batch_size_t2i: int = 48
+    batch_size_mmu: int = 3
+    lr: float = 1e-4
+    max_steps: int = 150000
+    warmup_steps: int = 0
+    resume_dir: Optional[str] = None
+    output_dir: str = "logs/"
+    logging_steps: int = 500
+    bf16: bool = True
+    # optimizer
+    decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_accum: int = 1
+    min_lr_rate: float = 0.01
+    scheduler: str = "cosine_with_min_lr"
+    save_steps: int = 5000
+    save_total_limit: int = 5
+    # evaluate() every N optimizer steps when an eval loader is configured; 0 disables
+    eval_steps: int = 0
+    seed: int = 0
+    num_workers: int = 16
+    # kept for config-surface parity: the port runs on one card and refuses
+    # any other mesh until parallel/ is ported
+    mesh_shape: Dict[str, int] = field(default_factory=lambda: {"dp": 1, "tp": 1})
+    # gradient checkpointing over the blocks. True: checkpoint every block;
+    # False: keep every activation; "proj": choose between the two from the
+    # tokens of a step (train/trainer.resolve_remat). The JAX package's
+    # selective policies ("proj_xbd", "proj_ssd", "proj_conv_ssd", "dots")
+    # are refused until they are ported.
+    remat: Any = "proj"
+
+    def __post_init__(self):
+        if {k: v for k, v in self.mesh_shape.items() if v != 1}:
+            raise NotImplementedError(
+                f"mesh_shape={self.mesh_shape}: the port runs on one card; meshes arrive "
+                "with parallel/ (ROADMAP Q1 item 10)"
+            )
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "TrainConfig":
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f)["train"]
+        raw["lr"] = float(raw["lr"])
+        known = {f.name for f in dataclasses.fields(cls)}
+        cfg = cls(**{k: v for k, v in raw.items() if k in known})
+        if not cfg.t2i_task:
+            cfg.batch_size_t2i = 0
+        if not cfg.mmu_task:
+            cfg.batch_size_mmu = 0
+        return cfg

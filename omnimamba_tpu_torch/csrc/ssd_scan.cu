@@ -12,7 +12,10 @@
 //
 // The ragged last chunk is masked (dt = 0, x = B = C = 0 beyond the end), never
 // padded in device memory, and dt = 0 anywhere is an exact no-op for the state
-// (decay exp(0) = 1, update 0). All products are fp32 multiply-adds on values
+// (decay exp(0) = 1, update 0). For training the kernel also writes the state
+// entering every chunk, (B, C, H, P, N) fp32 with C = ceil(L / kChunk): the
+// backward kernel (ssd_scan_bwd.cu) starts each chunk from it instead of
+// running the recurrence again. All products are fp32 multiply-adds on values
 // widened from the input type, which is exact for fp32 inputs and at least as
 // accurate as bf16 dot operands for bf16 inputs.
 //
@@ -50,6 +53,7 @@ ssd_scan_kernel(const T* __restrict__ x,        // (B, L, H, P)
                 const float* __restrict__ D,    // (H) or null
                 T* __restrict__ y,              // (B, L, H, P)
                 float* __restrict__ final_state,  // (B, H, P, N)
+                float* __restrict__ chunk_states,  // (B, C, H, P, N) or null
                 long x_rs, long b_rs, long c_rs,  // token-row strides of x, Bm, Cm
                 int L, int H, int P, int G, int N) {
   constexpr int Q = kChunk;
@@ -75,9 +79,21 @@ ssd_scan_kernel(const T* __restrict__ x,        // (B, L, H, P)
   const float Dv = (D != nullptr) ? D[h] : 0.0f;
 
   for (int i = tid; i < P * NS; i += kScanThreads) st[i] = 0.0f;
+  __syncthreads();  // the first chunk's entry state is read back below
 
+  const int n_chunks = (L + Q - 1) / Q;
   for (int t0 = 0; t0 < L; t0 += Q) {
     const int Qc = min(Q, L - t0);
+
+    if (chunk_states != nullptr) {  // the state entering this chunk
+      float* cs = chunk_states +
+                  ((static_cast<size_t>(b) * n_chunks + t0 / Q) * H + h) * P * N;
+      for (int idx = tid; idx < P * N4; idx += kScanThreads) {
+        const int p = idx / N4;
+        const int n = (idx - p * N4) * 4;
+        store4(cs + static_cast<size_t>(p) * N + n, load4(st + static_cast<size_t>(p) * NS + n));
+      }
+    }
 
     // ---- load the chunk: B, C, x tiles as fp32, dt ----
     for (int idx = tid; idx < Q * N; idx += kScanThreads) {
@@ -184,7 +200,7 @@ ssd_scan_kernel(const T* __restrict__ x,        // (B, L, H, P)
 template <typename T>
 cudaError_t launch_ssd_scan(const void* x, const float* dt, const float* A, const void* Bm,
                             const void* Cm, const float* D, void* y, float* final_state,
-                            long x_rs, long b_rs, long c_rs,
+                            float* chunk_states, long x_rs, long b_rs, long c_rs,
                             int B, int L, int H, int P, int G, int N, cudaStream_t stream) {
   const size_t smem = scan_smem_floats(P, N) * sizeof(float);
   auto kernel = ssd_scan_kernel<T>;
@@ -195,7 +211,7 @@ cudaError_t launch_ssd_scan(const void* x, const float* dt, const float* A, cons
   }
   kernel<<<dim3(static_cast<unsigned int>(B) * H), kScanThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      D, static_cast<T*>(y), final_state, x_rs, b_rs, c_rs, L, H, P, G, N);
+      D, static_cast<T*>(y), final_state, chunk_states, x_rs, b_rs, c_rs, L, H, P, G, N);
   return cudaGetLastError();
 }
 
@@ -204,19 +220,21 @@ cudaError_t launch_ssd_scan(const void* x, const float* dt, const float* A, cons
 // N must be a multiple of 4 and `final_state` 16-byte aligned. x_dtype is the
 // type of x, Bm, Cm and y. x_rs, b_rs and c_rs are the elements between
 // consecutive (batch, token) rows of x, Bm and Cm (H*P and G*N when they are
-// contiguous); dt, y and final_state are contiguous. D may be null. Returns
-// the cudaError_t of the launch (0 = success).
+// contiguous); dt, y, final_state and chunk_states are contiguous. D may be
+// null; chunk_states may be null (inference), else it receives the state
+// entering each chunk of kChunk tokens. Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int omt_ssd_scan(const void* x, const float* dt, const float* A, const void* Bm,
                             const void* Cm, const float* D, void* y, float* final_state,
-                            long x_rs, long b_rs, long c_rs, int B, int L, int H, int P,
+                            float* chunk_states, long x_rs, long b_rs, long c_rs, int B, int L, int H, int P,
                             int G, int N, int x_dtype,
                             void* stream) {
   using namespace omt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (x_dtype == kBF16)
-    return launch_ssd_scan<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, final_state, x_rs, b_rs, c_rs, B, L, H, P, G, N, s);
+    return launch_ssd_scan<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, final_state, chunk_states, x_rs, b_rs, c_rs, B, L, H, P, G, N, s);
   if (x_dtype == kF32)
-    return launch_ssd_scan<float>(x, dt, A, Bm, Cm, D, y, final_state, x_rs, b_rs, c_rs, B, L, H, P, G, N, s);
+    return launch_ssd_scan<float>(x, dt, A, Bm, Cm, D, y, final_state, chunk_states, x_rs, b_rs, c_rs, B, L, H, P, G, N, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

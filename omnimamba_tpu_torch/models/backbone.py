@@ -154,6 +154,44 @@ def _final_norm(params, h, residual, eps, dtype):
     return rms_norm(h.float() + residual, params["norm_f"]["weight"], eps).to(dtype)
 
 
+def check_remat(remat) -> bool:
+    """``remat`` as a bool. The JAX package's selective checkpoint policies
+    (save only named intermediates of a block) have no counterpart yet."""
+    if remat is True or remat is False:
+        return remat
+    raise NotImplementedError(
+        f"remat={remat!r}: the port checkpoints whole blocks (True) or nothing (False); the "
+        "selective policies 'proj_xbd', 'proj_ssd', 'proj_conv_ssd' and 'dots' are ROADMAP Q5"
+    )
+
+
+def _checkpointed(run, generator: Optional[torch.Generator], *args):
+    """``run(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): only the
+    arguments are kept and the block runs again in the backward. The
+    recompute starts from the generator state the first run started from, so
+    it draws the same dropout masks, and leaves the generator where it found
+    it."""
+    from torch.utils.checkpoint import checkpoint
+
+    if generator is None:
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+    entry = generator.get_state()
+    first = [True]
+
+    def replay(*a):
+        if first[0]:
+            first[0] = False
+            return run(*a)
+        now = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return run(*a)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(replay, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def backbone_forward(
     params: Dict,
     embeddings: torch.Tensor,  # (B, L, d)
@@ -164,8 +202,16 @@ def backbone_forward(
     return_cache: bool = False,
     initial_cache: Optional[BackboneCache] = None,
     valid_len: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[BackboneCache]]:
     """Full-sequence forward over all layers -> final-normed hidden states.
+
+    Training arguments: ``generator`` draws the LoRA dropout masks (None: no
+    dropout; it takes the place of the JAX ``dropout_key``), ``remat=True``
+    checkpoints every block (``torch.utils.checkpoint``; only a block's inputs
+    stay alive and its forward runs again in the backward, with the same
+    masks), ``remat=False`` keeps every activation.
 
     mmu adds ``mmu_pos_embed[:, :L]``; t2i positions were already added by the
     caller. ``initial_cache``/``valid_len``: continuation prefill from an
@@ -173,6 +219,7 @@ def backbone_forward(
     positions themselves (``add_mmu_pos=False`` for mmu windows).
     """
     check_supported(cfg)
+    remat = check_remat(remat) and torch.is_grad_enabled()
     B, L, d = embeddings.shape
     h = embeddings
     if task == "mmu" and add_mmu_pos:
@@ -189,11 +236,14 @@ def backbone_forward(
         icache = None
         if initial_cache is not None:
             icache = Mamba2Cache(initial_cache.conv_state[i], initial_cache.ssm_state[i])
-        h, residual, cache = block_forward(
-            layer, h, residual, task, cfg.mixer, cfg.lora,
-            norm_eps=cfg.norm_eps, return_cache=return_cache,
-            initial_cache=icache, valid_len=valid_len,
-        )
+        def run(h, residual, layer=layer, icache=icache):
+            return block_forward(
+                layer, h, residual, task, cfg.mixer, cfg.lora,
+                norm_eps=cfg.norm_eps, return_cache=return_cache,
+                initial_cache=icache, valid_len=valid_len, generator=generator,
+            )
+
+        h, residual, cache = _checkpointed(run, generator, h, residual) if remat else run(h, residual)
         caches.append(cache)
     final = _final_norm(params, h, residual, cfg.norm_eps, embeddings.dtype)
 

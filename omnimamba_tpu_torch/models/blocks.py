@@ -44,16 +44,17 @@ def block_forward(
     layer_type: str = "mamba2",
     initial_cache: Optional[Mamba2Cache] = None,
     valid_len=None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Mamba2Cache]]:
-    """One block, full-sequence. ``initial_cache``/``valid_len``: see
-    ``mamba2.mamba2_forward``."""
+    """One block, full-sequence. ``initial_cache``/``valid_len``/``generator``:
+    see ``mamba2.mamba2_forward``."""
     _check_supported(layer_params, layer_type)
     normed, new_residual = add_norm(
         hidden, residual, layer_params["norm"]["weight"], norm_eps)
     out, cache = mamba2_forward(
         layer_params["mixer"], normed, task, cfg, lora_cfg,
         return_cache=return_cache,
-        initial_cache=initial_cache, valid_len=valid_len,
+        initial_cache=initial_cache, valid_len=valid_len, generator=generator,
     )
     return out, new_residual, cache
 

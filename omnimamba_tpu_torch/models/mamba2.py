@@ -5,9 +5,12 @@
     SSD scan (h_t = e^{dt A} h + dt B x)         -> y
     gated RMSNorm(y, z), out_proj                -> (B, L, d_model)
 
-Prefill runs the scan kernel (``ops/ssd_kernel.py``), or the chunked tensor
-code when it continues from a cached state; decode is the O(1) recurrent
-``mamba2_step`` on the step kernel (``ops/ssd_step_kernel.py``).
+Prefill and training run the scan kernel (``ops/ssd_kernel.py``), or the
+chunked tensor code when the sequence continues from a cached state; decode
+is the O(1) recurrent ``mamba2_step`` on the step kernel
+(``ops/ssd_step_kernel.py``). The full-sequence forward is differentiable:
+the scan and the gated norm bring their own backward kernels, the rest is
+tensor code that writes nothing in place.
 
 Parameter layout (one layer; a plain dict of tensors, kernels stored
 ``(in, out)`` and applied as ``x @ W``):
@@ -113,9 +116,12 @@ def _project_parts(
     task: Optional[str],
     cfg: Mamba2LayerConfig,
     lora_cfg: Optional[LoraConfig],
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """in_proj (+ task LoRA) as one product, split into the {z, x, bc, dt}
-    column slices. LoRA dropout is a training option and is not ported yet."""
+    column slices. With a ``generator`` the LoRA branch sees ``x`` after
+    dropout (keep probability ``1 - lora_cfg.dropout``, kept values scaled
+    up); ``generator=None`` means no dropout."""
     kernel = params["in_proj"]["kernel"]
     if isinstance(kernel, dict):
         raise NotImplementedError(
@@ -124,9 +130,14 @@ def _project_parts(
     full = x @ kernel
     if task is not None and "lora" in params and lora_cfg is not None:
         lp = params["lora"]
+        xl = x
+        if generator is not None and lora_cfg.dropout > 0.0:
+            keep_p = 1.0 - lora_cfg.dropout
+            keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
+            xl = torch.where(keep, x / keep_p, torch.zeros((), dtype=x.dtype, device=x.device))
         for i in range(lora_cfg.lora_nums):
-            h = x @ lp[f"{task}_A"][i]  # (..., r)
-            full = full + (h @ lp[f"{task}_B"][i]) * lora_cfg.scaling
+            h = xl @ lp[f"{task}_A"][i]  # (..., r)
+            full = torch.add(full, h @ lp[f"{task}_B"][i], alpha=lora_cfg.scaling)
     di, gn2 = cfg.d_inner, 2 * cfg.ngroups * cfg.d_state
     return {
         "z": full[..., :di],
@@ -160,8 +171,12 @@ def mamba2_forward(
     return_cache: bool = False,
     initial_cache: Optional[Mamba2Cache] = None,
     valid_len: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Optional[Mamba2Cache]]:
-    """Full-sequence forward (prefill).
+    """Full-sequence forward (prefill and training).
+
+    ``generator``: LoRA dropout for training (see ``_project_parts``); None
+    means no dropout.
 
     With ``return_cache=True`` also returns the final (conv, ssm) state so a
     decode loop can continue.
@@ -178,7 +193,7 @@ def mamba2_forward(
     B, L, _ = x.shape
     H, P, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
 
-    parts = _project_parts(params, x, task, cfg, lora_cfg)
+    parts = _project_parts(params, x, task, cfg, lora_cfg, generator)
     z, xbc_raw = parts["z"], parts["xbc"]
     conv = params["conv"]
     halo = initial_cache.conv_state if initial_cache is not None else None

@@ -1,4 +1,5 @@
-"""OmniMamba top-level composition: the text-to-image path.
+"""OmniMamba top-level composition: the text-to-image path and the training
+losses of the backbone.
 
 Counterpart of ``omnimamba_tpu/models/omnimamba.py``. One params dict:
 
@@ -7,8 +8,8 @@ Counterpart of ``omnimamba_tpu/models/omnimamba.py``. One params dict:
       "vq":    VQ-16 decode side                       (vq.py)
     }
 
-The understanding path (vision towers, projector, ``mmu_generate``) and the
-training losses arrive with their slices.
+The understanding path (vision towers, projector, ``mmu_generate``,
+``mmu_loss``) arrives with its slice.
 """
 
 from __future__ import annotations
@@ -16,9 +17,17 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from omnimamba_tpu_torch.config import MambaConfig, VQConfig
-from omnimamba_tpu_torch.models.backbone import caption_embed, embed_text, init_backbone
+from omnimamba_tpu_torch.models.backbone import (
+    apply_head,
+    backbone_forward,
+    caption_embed,
+    embed_image_tokens,
+    embed_text,
+    init_backbone,
+)
 from omnimamba_tpu_torch.models.generation import generate
 from omnimamba_tpu_torch.models.vq import init_vq, vq_decode_code
 from omnimamba_tpu_torch.ops.sampling import SampleParams
@@ -46,6 +55,92 @@ def init_omnimamba(
     if model.cfg.t2i_task and with_vq:
         params["vq"] = init_vq(generator, model.vq_cfg, dtype, device)
     return params
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+IGNORE_INDEX = -100
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = IGNORE_INDEX
+) -> torch.Tensor:
+    """Mean cross entropy over the positions whose label is not
+    ``ignore_index``, computed in fp32; 0 where every label is ignored."""
+    flat = labels.reshape(-1).long()
+    total = F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]).float(), flat,
+        ignore_index=ignore_index, reduction="sum")
+    return total / torch.clamp((flat != ignore_index).sum(), min=1)
+
+
+def _shift_and_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shift-by-one language-model loss: position t predicts label t + 1."""
+    return cross_entropy(logits[:, :-1], labels[:, 1:])
+
+
+def t2i_loss(
+    params: Dict,
+    model: OmniMambaModel,
+    image_ids: torch.Tensor,  # (B, 256) VQ token ids
+    caption_ids: torch.Tensor,  # (B, 72): [<|t2i|> <|sot|> pad*/cap <|eot|> <|soi|>]
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    generator: Optional[torch.Generator] = None,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Text-to-image training loss: the caption block without its last id,
+    the image tokens, then that last id; only image positions carry labels.
+    ``generator`` draws the LoRA dropout masks (None: no dropout); ``remat``:
+    see ``backbone.backbone_forward``. The ids and the parameters must lie on
+    one device."""
+    cfg = model.cfg
+    mamba = params["mamba"]
+    image_ids, caption_ids = image_ids.long(), caption_ids.long()
+    img_emb = embed_image_tokens(mamba, image_ids, dtype)  # (B, 256, d)
+    txt = caption_embed(mamba, embed_text(mamba, caption_ids, dtype))
+    emb = torch.cat([txt[:, :-1], img_emb, txt[:, -1:]], dim=1)
+
+    B, n_cap = caption_ids.shape
+    ignore = image_ids.new_full((B, 1), IGNORE_INDEX)
+    labels = torch.cat([ignore.expand(B, n_cap - 1), image_ids, ignore], dim=1)
+    L = emb.shape[1]
+    emb = emb + mamba["pos_embed"][:, :L].to(dtype)
+    hidden, _ = backbone_forward(mamba, emb, "t2i", cfg, generator=generator, remat=remat)
+    return _shift_and_ce(apply_head(mamba, hidden, "t2i"), labels)
+
+
+def mmu_loss(*args, **kwargs):
+    """The understanding loss runs the vision towers and the projector."""
+    raise NotImplementedError(
+        "mmu_loss needs models/vit.py and models/projector.py, which arrive with the "
+        "understanding slice (ROADMAP Q1 item 7); the stage-2 unified step follows it"
+    )
+
+
+def lm_loss(
+    params: Dict,
+    model: OmniMambaModel,
+    input_ids: torch.Tensor,  # (B, T)
+    labels: torch.Tensor,  # (B, T)
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Pure language-modelling loss: a text-only sequence through the mmu
+    LoRA and head, no image splice, no mmu positional table."""
+    mamba = params["mamba"]
+    emb = embed_text(mamba, input_ids.long(), dtype)
+    hidden, _ = backbone_forward(
+        mamba, emb, "mmu", model.cfg, add_mmu_pos=False, generator=generator)
+    return _shift_and_ce(apply_head(mamba, hidden, "mmu"), labels)
+
+
+# ---------------------------------------------------------------------------
+# inference
+# ---------------------------------------------------------------------------
 
 
 def t2i_generate(

@@ -126,12 +126,18 @@ def load_kernels() -> ctypes.CDLL:
         [ptr] * 5 + [i64, i64, i64, i32, f32, i32, i32, i32, ptr])
     lib.omt_gated_rms_norm.argtypes = (
         [ptr] * 4 + [i64, i64, i64, i32, f32, i32, i32, i32, ptr])
+    lib.omt_add_rms_norm_bwd.argtypes = (
+        [ptr] * 8 + [i64, i64, i64, i32, f32, i32, i32, i32, i32, ptr])
+    lib.omt_gated_rms_norm_bwd.argtypes = (
+        [ptr] * 8 + [i64, i64, i64, i64, i32, f32, i32, i32, i32, i32, ptr])
     lib.omt_ssd_step.argtypes = [ptr] * 8 + [i64] * 3 + [i32] * 7 + [ptr]
-    lib.omt_ssd_scan.argtypes = [ptr] * 8 + [i64] * 3 + [i32] * 7 + [ptr]
+    lib.omt_ssd_scan.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 7 + [ptr]
+    lib.omt_ssd_scan_bwd.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 8 + [ptr]
     lib.omt_fused_decode_step.argtypes = (
         [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 4 + [ptr])
-    for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_ssd_step, lib.omt_ssd_scan,
-               lib.omt_fused_decode_step):
+    for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_add_rms_norm_bwd,
+               lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_scan,
+               lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step):
         fn.restype = ctypes.c_int
     return lib
 

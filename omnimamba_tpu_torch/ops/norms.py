@@ -7,7 +7,9 @@ Counterpart of ``omnimamba_tpu/ops/norms.py``. The numerics contract:
 - the normalized output is cast back to the activation dtype
 
 ``add_norm_plain`` and ``gated_rms_norm_plain`` are plain tensor code and
-are the plain versions of the two kernels in ``norms_kernel.py``.
+are the plain versions of the two forward kernels in ``norms_kernel.py``;
+``add_norm_bwd_plain`` and ``gated_rms_norm_bwd_plain`` are those of the two
+backward kernels.
 ``add_norm`` and ``gated_rms_norm`` are what the model calls: they go to
 the kernel wrappers, which launch the kernel for a CUDA tensor and use the
 plain version for a CPU tensor. There is no size guard and no switch: a
@@ -49,6 +51,54 @@ def gated_rms_norm_plain(
     u = y.float() * F.silu(z.float())
     var = torch.mean(u * u, dim=-1, keepdim=True)
     return (u * torch.rsqrt(var + eps) * weight.float()).to(y.dtype)
+
+
+def add_norm_bwd_plain(
+    y: torch.Tensor,  # (..., d) fp32: the saved stream x + residual
+    g: torch.Tensor,  # (..., d) cotangent of the normed output, in x's type
+    weight: torch.Tensor,  # (d,)
+    dres: Optional[torch.Tensor],  # (..., d) fp32 cotangent of the stream, or None
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of ``add_norm_plain``, rstd recomputed from ``y``, fp32
+    throughout: dy = w g rstd - y rstd^3/d sum(w g y) (+ dres). Returns
+    (dx = dy in g's type, dy fp32: the cotangent of the incoming residual,
+    dw fp32 summed over rows)."""
+    d = y.shape[-1]
+    yf, gf, wf = y.float(), g.float(), weight.float()
+    rstd = torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)
+    wg = wf * gf
+    dot = torch.sum(wg * yf, dim=-1, keepdim=True)
+    dy = wg * rstd - yf * (rstd * rstd * rstd / d) * dot
+    if dres is not None:
+        dy = dy + dres.float()
+    dw = torch.sum((gf * yf * rstd).reshape(-1, d), dim=0)
+    return dy.to(g.dtype), dy, dw
+
+
+def gated_rms_norm_bwd_plain(
+    y: torch.Tensor,  # (..., d)
+    z: torch.Tensor,  # (..., d)
+    g: torch.Tensor,  # (..., d) cotangent of the output
+    weight: torch.Tensor,  # (d,)
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of ``gated_rms_norm_plain`` through u = y silu(z), fp32
+    throughout. Returns (dy in y's type, dz in z's type, dw fp32 summed over
+    rows)."""
+    d = y.shape[-1]
+    yf, zf, gf, wf = y.float(), z.float(), g.float(), weight.float()
+    sz = torch.sigmoid(zf)
+    silu = zf * sz
+    u = yf * silu
+    rstd = torch.rsqrt(torch.mean(u * u, dim=-1, keepdim=True) + eps)
+    wg = wf * gf
+    dot = torch.sum(wg * u, dim=-1, keepdim=True)
+    du = wg * rstd - u * (rstd * rstd * rstd / d) * dot
+    dy = du * silu
+    dz = du * yf * (sz * (1.0 + zf * (1.0 - sz)))  # d silu / dz = s (1 + z (1 - s))
+    dw = torch.sum((gf * u * rstd).reshape(-1, d), dim=0)
+    return dy.to(y.dtype), dz.to(z.dtype), dw
 
 
 def add_norm(

@@ -29,8 +29,13 @@ def ssd_chunked(
     *,
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
     chunk_size: int = 256,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    return_chunk_states: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Returns (y (B,L,H,P) in x.dtype, final_state (B,H,P,N) fp32).
+
+    With ``return_chunk_states`` a third output follows: the fp32 state
+    entering each chunk, (B, C, H, P, N) with C = ceil(L / chunk_size), which
+    is what the SSD backward starts every chunk from.
 
     Matches ``ssd_reference.ssd_scan_reference`` to fp32 accuracy.
     """
@@ -95,4 +100,6 @@ def ssd_chunked(
     if D is not None:
         y = y + xc * D.float()[None, None, None, :, None]
     y = y.reshape(Bsz, L + pad, H, P)[:, :L]
+    if return_chunk_states:
+        return y.to(x.dtype), h, h_prev
     return y.to(x.dtype), h

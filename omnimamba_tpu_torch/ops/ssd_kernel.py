@@ -1,29 +1,50 @@
-"""The chunked SSD forward of prefill as a CUDA kernel.
+"""The chunked SSD scan of prefill and training as CUDA kernels, forward and
+backward.
 
-Replaces the TPU kernel ``_ssd_kernel`` / ``ssd_pallas`` of
+Forward: replaces the TPU kernel ``_ssd_kernel`` / ``ssd_pallas`` of
 ``omnimamba_tpu/ops/ssd_pallas.py``. Source: ``csrc/ssd_scan.cu``.
+Backward: replaces ``_ssd_bwd_kernel`` / ``ssd_pallas_ad`` of
+``omnimamba_tpu/ops/ssd_pallas_bwd.py``. Source: ``csrc/ssd_scan_bwd.cu``.
 
-Same contract: zero initial state in, ``(y (B,L,H,P) in x.dtype,
+Forward contract: zero initial state in, ``(y (B,L,H,P) in x.dtype,
 final_state (B,H,P,N) fp32)`` out. One thread block per (batch, head) loops
 over chunks inside the block and carries the fp32 (P, N) state in shared
 memory for the whole sequence; the cumulative sum of dt*A is computed in the
 kernel, and the ragged last chunk is masked, not padded in device memory.
 dt = 0 at a position is an exact no-op for the state, which is how padded
-rows of a ragged batch are handled by the caller.
+rows of a ragged batch are handled by the caller. With
+``return_chunk_states`` the kernel also writes the fp32 state entering every
+chunk, (B, C, H, P, N), the residual the backward starts each chunk from.
 
-What bounds it on an H100: bytes, at prefill shapes (x read and y written
-once, the final state written once). What the TPU kernel did for its own
-hardware is gone: the time-on-lanes transposed layout with its two copies of
-the cumulative sum, the 128-wide sub-tiles, the chunk rounded up to the lane
-width, the padding of L to a whole chunk in device memory and the sequential
-grid. The chunk length is a constant of the source chosen by shared memory;
-the model's ``chunk_size`` does not reach the kernel because chunking does
-not change the result. x, B and C go in with a row stride, so the column
-slices of the fused conv output are read where they lie. Products are fp32 multiply-adds for fp32 and bf16
-inputs alike, so fp32 inputs are exact.
+``ssd_fused`` is differentiable: where a gradient is asked for it runs
+through ``torch.autograd.Function`` around the two kernels. The backward
+walks the chunks of one sequence in reverse and carries the (P, N) adjoint
+of the state in shared memory as the forward carries the state; the decay
+matrix of a chunk is rebuilt there and never stored. Its derivation is the
+one of ``ssd_pallas_bwd.py`` (the decay cotangent folded into dB and dC) and
+``ssd_bwd_plain`` repeats it in tensor code.
 
-The plain version is ``ssd_chunked`` with a zero initial state, which repeats
-the kernel's chunked arithmetic in tensor code.
+What bounds them on an H100: bytes by the roofline rule (x read and y
+written once; the backward reads the chunk states once), but both first
+versions do their products as fp32 multiply-adds out of shared memory and
+are held back by those. What the TPU kernels did for their own hardware is
+gone: the time-on-lanes transposed layouts with two copies of the cumulative
+sum, the 128-wide causal sub-tiles, the hi/lo bf16 split of the suffix sum,
+the chunk rounded up to the lane width, the padding of L and the sequential
+grid. The chunk length is a constant of the sources chosen by shared memory;
+the model's ``chunk_size`` does not reach the kernels because chunking does
+not change the result. x, B, C and gy go in with a row stride, so the column
+slices of the fused conv output are read where they lie. fp32 inputs are
+exact to summation order.
+
+Sums across blocks are taken in a fixed order, without atomics: a backward
+block walks a tile of heads of one group and adds their dB / dC into its own
+fp32 partial; a second kernel sums the partials of a group's tiles, and dA
+and dD over the batch, in index order. A backward gives the same bits on
+every run.
+
+The plain versions are ``ssd_chunked`` with a zero initial state and
+``ssd_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -31,37 +52,105 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from omnimamba_tpu_torch.ops import kernel_build as kb
 from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
 
-PLAIN_CHUNK = 16  # chunk of the plain version; equals kChunk of csrc/ssd_scan.cu
+PLAIN_CHUNK = 16  # chunk of the plain versions; equals kChunk of csrc/ssd_scan.cu
+BWD_HEAD_TILE = 8  # heads one backward block walks (the `tile` argument of omt_ssd_scan_bwd)
 
 
-def ssd_fused_plain(x, dt, A, Bmat, Cmat, D=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain tensor version of the kernel: chunked SSD from a zero state."""
-    return ssd_chunked(x, dt, A, Bmat, Cmat, D, chunk_size=PLAIN_CHUNK)
+def ssd_fused_plain(x, dt, A, Bmat, Cmat, D=None, *, return_chunk_states: bool = False):
+    """Plain tensor version of the forward kernel: chunked SSD from a zero state."""
+    return ssd_chunked(x, dt, A, Bmat, Cmat, D, chunk_size=PLAIN_CHUNK,
+                       return_chunk_states=return_chunk_states)
 
 
-def ssd_fused(
-    x: torch.Tensor,  # (B, L, H, P) float32 or bfloat16
-    dt: torch.Tensor,  # (B, L, H) softplus'ed
-    A: torch.Tensor,  # (H,) negative
-    Bmat: torch.Tensor,  # (B, L, G, N) in x.dtype
-    Cmat: torch.Tensor,  # (B, L, G, N) in x.dtype
-    D: Optional[torch.Tensor] = None,  # (H,)
-    *,
-    return_chunk_states: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B,L,H,P) in x.dtype, final_state (B,H,P,N) fp32)."""
-    if return_chunk_states:
-        raise NotImplementedError(
-            "chunk-entry states are the input of the SSD backward kernel and "
-            "arrive with the training slice (ROADMAP Q2 K5)"
-        )
-    if not x.is_cuda:
-        return ssd_fused_plain(x, dt, A, Bmat, Cmat, D)
+def ssd_bwd_plain(
+    x: torch.Tensor,  # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H)
+    A: torch.Tensor,  # (H,)
+    Bmat: torch.Tensor,  # (B, L, G, N)
+    Cmat: torch.Tensor,  # (B, L, G, N)
+    D: Optional[torch.Tensor],  # (H,) or None
+    chunk_states: torch.Tensor,  # (B, C, H, P, N) fp32, state entering each chunk
+    gy: torch.Tensor,  # (B, L, H, P) cotangent of y
+    gstate: Optional[torch.Tensor] = None,  # (B, H, P, N) cotangent of the final state
+):
+    """Plain tensor version of the backward kernel: chunks in reverse, the
+    (P, N) adjoint of the state carried from chunk to chunk, fp32 throughout.
+    Returns (dx, ddt, dA, dB, dC, dD) in the types of x, dt, A, Bmat, Cmat, D
+    (dD is None without D)."""
+    Bsz, L, H, P = x.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    Q = PLAIN_CHUNK
+    pad = (-L) % Q
+    C = (L + pad) // Q
+    rep = H // G
+    dev = x.device
 
+    def padded(t):
+        t = t.float()
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+
+    xf, gf, dtf, Bf, Cf = (padded(t) for t in (x, gy, dt, Bmat, Cmat))
+    Af = A.float()
+    adj = (gstate.float().clone() if gstate is not None
+           else torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=dev))
+    dx = torch.zeros_like(xf)
+    ddt = torch.zeros_like(dtf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA = torch.zeros((H,), dtype=torch.float32, device=dev)
+    dD = torch.zeros((H,), dtype=torch.float32, device=dev)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))[None, :, :, None]
+
+    for c in reversed(range(C)):
+        sl = slice(c * Q, (c + 1) * Q)
+        xc, gc, dtc = xf[:, sl], gf[:, sl], dtf[:, sl]  # (B,Q,H,P) (B,Q,H,P) (B,Q,H)
+        Bc = Bf[:, sl].repeat_interleave(rep, dim=2)  # (B,Q,H,N)
+        Cc = Cf[:, sl].repeat_interleave(rep, dim=2)
+        hin = chunk_states[:, c].float()  # (B,H,P,N)
+        s = torch.cumsum(dtc * Af, dim=1)  # (B,Q,H), every term <= 0
+        tot = s[:, -1]  # (B,H)
+        es, carry, etot = torch.exp(s), torch.exp(tot[:, None] - s), torch.exp(tot)
+        diff = s[:, :, None, :] - s[:, None, :, :]  # (B,t,j,H)
+        w = torch.exp(diff.masked_fill(~mask, 0.0)).masked_fill(~mask, 0.0)
+        scores = torch.einsum("bthn,bjhn->btjh", Cc, Bc)
+        gx = torch.einsum("bthp,bjhp->btjh", gc, xc)
+        m1 = gx * w * dtc[:, None]  # (g_t . x_j) e^{s_t - s_j} dt_j
+        m2 = scores * w  # (C_t . B_j) e^{s_t - s_j}
+
+        dC_h = torch.einsum("btjh,bjhn->bthn", m1, Bc) + es[..., None] * torch.einsum(
+            "bthp,bhpn->bthn", gc, hin)
+        dB2 = (dtc * carry)[..., None] * torch.einsum("bjhp,bhpn->bjhn", xc, adj)
+        dB_h = torch.einsum("btjh,bthn->bjhn", m1, Cc) + dB2
+        K = torch.einsum("btjh,bthp->bjhp", m2, gc) + carry[..., None] * torch.einsum(
+            "bhpn,bjhn->bjhp", adj, Bc)
+        dx[:, sl] = dtc[..., None] * K
+        # the decay cotangent, folded into dC and dB: dL/ds_t = C_t.dC_t - B_t.dB_t,
+        # dL/dtotal = sum_j B_j.dB2_j + e^{total} <h_in, adj>
+        r = (Cc * dC_h).sum(-1) - (Bc * dB_h).sum(-1)  # (B,Q,H)
+        bias = (Bc * dB2).sum(dim=(1, 3)) + etot * (hin * adj).sum(dim=(2, 3))  # (B,H)
+        da = torch.flip(torch.cumsum(torch.flip(r, (1,)), dim=1), (1,)) + bias[:, None]
+        ddt[:, sl] = Af * da + (xc * K).sum(-1)
+        dA += (dtc * da).sum(dim=(0, 1))
+        dD += (gc * xc).sum(dim=(0, 1, 3))
+        adj = etot[..., None, None] * adj + torch.einsum("bthp,bthn->bhpn", es[..., None] * gc, Cc)
+        dB[:, sl] = dB_h.reshape(Bsz, Q, G, rep, N).sum(3)
+        dC[:, sl] = dC_h.reshape(Bsz, Q, G, rep, N).sum(3)
+
+    if D is not None:
+        dx = dx + gf * D.float()[None, None, :, None]
+    return (
+        dx[:, :L].to(x.dtype), ddt[:, :L].to(dt.dtype), dA.to(A.dtype),
+        dB[:, :L].to(Bmat.dtype), dC[:, :L].to(Cmat.dtype),
+        None if D is None else dD.to(D.dtype),
+    )
+
+
+def _check_scan_inputs(x, dt, A, Bmat, Cmat):
     Bsz, L, H, P = x.shape
     if Bmat.dim() != 4 or Bmat.shape[:2] != (Bsz, L):
         raise ValueError(f"Bmat must be (B, L, G, N), got {tuple(Bmat.shape)}")
@@ -77,24 +166,149 @@ def ssd_fused(
     for name, t in (("dt", dt), ("A", A), ("Bmat", Bmat), ("Cmat", Cmat)):
         if t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
+    return G, N
 
+
+def _fp32(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    return None if t is None else t.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _scan_forward(x, dt, A, Bmat, Cmat, D, return_chunk_states):
+    """The forward kernel (or, for CPU tensors, its plain version), outside
+    autograd. Returns (y, final_state[, chunk_states])."""
+    if not x.is_cuda:
+        return ssd_fused_plain(x, dt, A, Bmat, Cmat, D, return_chunk_states=return_chunk_states)
+    Bsz, L, H, P = x.shape
+    G, N = _check_scan_inputs(x, dt, A, Bmat, Cmat)
     (x_c, x_rs), (B_c, b_rs), (C_c, c_rs) = (kb.as_rows(t, 2) for t in (x, Bmat, Cmat))
-    dt_c = dt.to(torch.float32).contiguous()
-    A_c = A.to(torch.float32).contiguous()
-    D_c = None if D is None else D.to(device=x.device, dtype=torch.float32).contiguous()
+    dt_c, A_c, D_c = _fp32(dt, x.device), _fp32(A, x.device), _fp32(D, x.device)
     y = torch.empty((Bsz, L, H, P), dtype=x.dtype, device=x.device)
     alloc = torch.empty if x_c.numel() else torch.zeros  # the kernel writes every element
     final_state = alloc((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    chunks = -(-L // PLAIN_CHUNK)
+    states = (torch.empty((Bsz, chunks, H, P, N), dtype=torch.float32, device=x.device)
+              if return_chunk_states else None)
     if x_c.numel():
         err = kb.load_kernels().omt_ssd_scan(
             x_c.data_ptr(), dt_c.data_ptr(), A_c.data_ptr(), B_c.data_ptr(), C_c.data_ptr(),
-            None if D_c is None else D_c.data_ptr(), y.data_ptr(), final_state.data_ptr(),
+            _ptr(D_c), y.data_ptr(), final_state.data_ptr(), _ptr(states),
             x_rs, b_rs, c_rs, Bsz, L, H, P, G, N, kb.dtype_code(x_c.dtype), kb.current_stream(x.device),
         )
         kb.check_launch(err, "ssd_fused")
         ssd_fused.launches += 1
-    return y, final_state
+    return (y, final_state, states) if return_chunk_states else (y, final_state)
+
+
+def ssd_fused_bwd(
+    x: torch.Tensor,  # (B, L, H, P) float32 or bfloat16
+    dt: torch.Tensor,  # (B, L, H)
+    A: torch.Tensor,  # (H,)
+    Bmat: torch.Tensor,  # (B, L, G, N) in x.dtype
+    Cmat: torch.Tensor,  # (B, L, G, N) in x.dtype
+    D: Optional[torch.Tensor],  # (H,) or None
+    chunk_states: torch.Tensor,  # (B, C, H, P, N) fp32 from the forward kernel
+    gy: torch.Tensor,  # (B, L, H, P) in x.dtype
+    gstate: Optional[torch.Tensor] = None,  # (B, H, P, N) or None: no cotangent
+):
+    """Backward of ``ssd_fused``: (dx, ddt, dA, dB, dC, dD) in the types of
+    x, dt, A, Bmat, Cmat, D. An absent ``gstate`` is a null pointer for the
+    kernel, not a tensor of zeros."""
+    if not x.is_cuda:
+        return ssd_bwd_plain(x, dt, A, Bmat, Cmat, D, chunk_states, gy, gstate)
+    Bsz, L, H, P = x.shape
+    G, N = _check_scan_inputs(x, dt, A, Bmat, Cmat)
+    chunks = -(-L // PLAIN_CHUNK)
+    if chunk_states.shape != (Bsz, chunks, H, P, N) or chunk_states.dtype != torch.float32:
+        raise ValueError(
+            f"chunk_states must be float32 {(Bsz, chunks, H, P, N)}, got "
+            f"{chunk_states.dtype} {tuple(chunk_states.shape)}")
+    if gy.shape != x.shape or gy.device != x.device:
+        raise ValueError("gy must have x's shape and device")
+    if gstate is not None and (gstate.shape != (Bsz, H, P, N) or gstate.device != x.device):
+        raise ValueError("gstate must be (B, H, P, N) on x's device")
+    dev = x.device
+    (x_c, x_rs), (B_c, b_rs), (C_c, c_rs) = (kb.as_rows(t, 2) for t in (x, Bmat, Cmat))
+    g_c, g_rs = kb.as_rows(gy.to(x.dtype), 2)
+    dt_c, A_c, D_c, gs_c = _fp32(dt, dev), _fp32(A, dev), _fp32(D, dev), _fp32(gstate, dev)
+    hin = chunk_states.contiguous()
+
+    rep = H // G
+    tile = next(t for t in (BWD_HEAD_TILE, 4, 2, 1) if rep % t == 0)
+    tiles = H // tile  # blocks per batch row; each tile lies inside one group
+    alloc = torch.empty if x_c.numel() else torch.zeros
+    dx = alloc((Bsz, L, H, P), dtype=x.dtype, device=dev)
+    ddt = alloc((Bsz, L, H), dtype=torch.float32, device=dev)
+    dB = alloc((Bsz, L, G, N), dtype=x.dtype, device=dev)
+    dC = alloc((Bsz, L, G, N), dtype=x.dtype, device=dev)
+    dA = alloc((H,), dtype=torch.float32, device=dev)
+    dD = alloc((H,), dtype=torch.float32, device=dev)
+    # per-block partials, summed in index order by the second kernel
+    dBC_part = torch.empty((2, Bsz, L, tiles, N), dtype=torch.float32, device=dev)
+    dAD_part = torch.empty((2, Bsz, H), dtype=torch.float32, device=dev)
+    if x_c.numel():
+        err = kb.load_kernels().omt_ssd_scan_bwd(
+            x_c.data_ptr(), dt_c.data_ptr(), A_c.data_ptr(), B_c.data_ptr(), C_c.data_ptr(),
+            _ptr(D_c), hin.data_ptr(), g_c.data_ptr(), _ptr(gs_c),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dD.data_ptr(), dBC_part.data_ptr(), dAD_part.data_ptr(),
+            x_rs, b_rs, c_rs, g_rs, Bsz, L, H, P, G, N, tile,
+            kb.dtype_code(x_c.dtype), kb.current_stream(dev),
+        )
+        kb.check_launch(err, "ssd_fused_bwd")
+        ssd_fused_bwd.launches += 1
+    return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
+            None if D is None else dD.to(D.dtype))
+
+
+class _SSDFunction(torch.autograd.Function):
+    """Forward kernel with chunk states kept, backward kernel (plain versions
+    for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, D):
+        y, final_state, states = _scan_forward(x, dt, A, Bmat, Cmat, D, True)
+        ctx.has_D = D is not None
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, states, *([D] if ctx.has_D else []))
+        ctx.set_materialize_grads(False)
+        return y, final_state
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gstate):
+        x, dt, A, Bmat, Cmat, states, *rest = ctx.saved_tensors
+        D = rest[0] if ctx.has_D else None
+        if gy is None:  # only the final state was used downstream
+            gy = torch.zeros_like(x)
+        return ssd_fused_bwd(x, dt, A, Bmat, Cmat, D, states, gy, gstate)
+
+
+def ssd_fused(
+    x: torch.Tensor,  # (B, L, H, P) float32 or bfloat16
+    dt: torch.Tensor,  # (B, L, H) softplus'ed
+    A: torch.Tensor,  # (H,) negative
+    Bmat: torch.Tensor,  # (B, L, G, N) in x.dtype
+    Cmat: torch.Tensor,  # (B, L, G, N) in x.dtype
+    D: Optional[torch.Tensor] = None,  # (H,)
+    *,
+    return_chunk_states: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Returns (y (B,L,H,P) in x.dtype, final_state (B,H,P,N) fp32) and, with
+    ``return_chunk_states``, the fp32 states entering each chunk of
+    ``PLAIN_CHUNK`` tokens, (B, C, H, P, N); that form is not differentiable.
+    Differentiable otherwise: a gradient runs the backward kernel."""
+    if return_chunk_states:
+        return _scan_forward(x, dt, A, Bmat, Cmat, D, True)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, A, Bmat, Cmat, D))
+    if needs_grad:
+        return _SSDFunction.apply(x, dt, A, Bmat, Cmat, D)
+    return _scan_forward(x, dt, A, Bmat, Cmat, D, False)
 
 
 # kernel launches since the counter was last set to 0 (plain-version calls do not count)
 ssd_fused.launches = 0
+ssd_fused_bwd.launches = 0

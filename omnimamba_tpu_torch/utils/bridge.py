@@ -180,3 +180,62 @@ def from_jax_params(
             + ", ".join(left[:8]) + (" ..." if len(left) > 8 else "")
         )
     return out
+
+
+def to_jax_tree(port_tree: Dict, model) -> Dict:
+    """The inverse of ``from_jax_params`` for the backbone: a tree shaped like
+    the port's ``{"mamba": ...}`` (parameters, gradients or updated
+    parameters) as numpy arrays under the JAX package's names. The fused
+    in_proj kernel and LoRA B factors are cut back into their ``z | x | bc |
+    dt`` column slices, the conv taps and biases into ``x | bc``, and the
+    per-layer dicts are stacked on a leading layer axis. Tests use it to
+    compare the two packages leaf by leaf."""
+    if set(port_tree) != {"mamba"}:
+        raise ValueError(f"to_jax_tree converts the backbone only, got {sorted(port_tree)}")
+    mixer_cfg = model.cfg.mixer
+    di, gn2, H = mixer_cfg.d_inner, 2 * mixer_cfg.ngroups * mixer_cfg.d_state, mixer_cfg.nheads
+    widths = dict(zip(_IN_PROJ_PARTS, (di, di, gn2, H)))
+
+    def arr(t):  # always a copy: the port updates its parameters in place
+        t = t.detach().cpu()
+        return np.array((t.float() if t.dtype in (torch.bfloat16, torch.float16) else t).numpy())
+
+    def tree(node):
+        if isinstance(node, dict):
+            return {k: tree(v) for k, v in node.items()}
+        return arr(node)
+
+    def columns(t, sizes):
+        return [arr(p) for p in torch.split(t, list(sizes), dim=-1)]
+
+    def layer(p):
+        mix = p["mixer"]
+        wx, wbc = columns(mix["conv"]["weight"], (di, gn2))
+        bx, bbc = columns(mix["conv"]["bias"], (di, gn2))
+        out = {
+            "in_proj": dict(zip(_IN_PROJ_PARTS,
+                                columns(mix["in_proj"]["kernel"], widths.values()))),
+            "conv": {"weight_x": wx, "weight_bc": wbc, "bias_x": bx, "bias_bc": bbc},
+            "dt_bias": arr(mix["dt_bias"]), "A_log": arr(mix["A_log"]), "D": arr(mix["D"]),
+            "norm": {"weight": arr(mix["norm"]["weight"])},
+            "out_proj": {"kernel": arr(mix["out_proj"]["kernel"])},
+        }
+        if "lora" in mix:
+            lora = {}
+            for task in TASKS:
+                lora[f"{task}_A"] = arr(mix["lora"][f"{task}_A"])
+                for part, cols in zip(_IN_PROJ_PARTS,
+                                      columns(mix["lora"][f"{task}_B"], widths.values())):
+                    lora[f"{task}_B_{part}"] = cols
+            out["lora"] = lora
+        return {"norm": {"weight": arr(p["norm"]["weight"])}, "mixer": out}
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    mamba = port_tree["mamba"]
+    out = {k: tree(v) for k, v in mamba.items() if k != "layers"}
+    out["layers"] = stack([layer(p) for p in mamba["layers"]])
+    return {"mamba": out}

@@ -26,7 +26,8 @@ def card():
 
 
 @pytest.mark.parametrize(
-    "check", ["check_ssd_scan", "check_ssd_step", "check_norms", "check_decode_fused"])
+    "check", ["check_ssd_scan", "check_ssd_scan_bwd", "check_ssd_step", "check_norms",
+              "check_norms_bwd", "check_decode_fused"])
 def test_kernel_against_plain_version(card, check):
     import chip_smoke
 
@@ -39,3 +40,9 @@ def test_decode_engine_kernels_against_plain_versions(card):
     import chip_smoke
 
     chip_smoke.plain_vs_kernel()
+
+
+def test_training_loss_and_gradients_kernels_against_plain_versions(card):
+    import chip_smoke
+
+    chip_smoke.train_plain_vs_kernel()

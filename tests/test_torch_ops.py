@@ -116,9 +116,21 @@ def test_scan_kernel_plain_vs_pallas(L, Q, G, with_D, tail):
 
 
 def test_scan_kernel_refuses_chunk_states():
-    d, _ = ssd_inputs(2, L=8)
-    with pytest.raises(NotImplementedError, match="K5"):
-        ssd_fused(*[tt(v) for v in d.values()], return_chunk_states=True)
+    """Until the training slice the scan refused ``return_chunk_states``; it
+    now returns the fp32 state entering every chunk of 16 tokens, which is
+    what the backward kernel starts from, and refuses nothing for it. y and
+    the final state do not depend on the option. (Held against the
+    interpreted Pallas kernel in ``tests/test_torch_train_ops.py``.)"""
+    d, _ = ssd_inputs(2, L=40)
+    t = [tt(v) for v in d.values()]
+    y, s, h = ssd_fused(*t, return_chunk_states=True)
+    assert h.shape == (2, 3, 4, 8, 16) and h.dtype == torch.float32
+    assert float(h[:, 0].abs().max()) == 0.0 and float(h[:, 1].abs().max()) > 0.0
+    y2, s2 = ssd_fused(*t)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    # the state entering chunk c is the final state of the first 16 * c tokens
+    _, s32 = ssd_fused(*[v[:, :32] if v.dim() > 1 else v for v in t])
+    close(h[:, 2], nn(s32), FP32)
 
 
 def step_inputs(seed, B, H=8, P=16, N=32, G=1, state_dtype="float32", x_dtype="bfloat16"):

@@ -15,12 +15,19 @@ import omnimamba_tpu_torch
 from omnimamba_tpu_torch import (
     MambaConfig, OmniMambaModel, VQConfig, from_jax_params, generate, init_omnimamba, t2i_generate,
 )
+from omnimamba_tpu_torch.config import TrainConfig
 from omnimamba_tpu_torch.models.backbone import init_backbone
 from omnimamba_tpu_torch.models.vq import init_vq
 from omnimamba_tpu_torch.ops import kernel_build
-from omnimamba_tpu_torch.ops.norms_kernel import fused_add_rms_norm, fused_gated_rms_norm
-from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
+from omnimamba_tpu_torch.ops.norms_kernel import (
+    fused_add_rms_norm,
+    fused_add_rms_norm_bwd,
+    fused_gated_rms_norm,
+    fused_gated_rms_norm_bwd,
+)
+from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused, ssd_fused_bwd
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
+from omnimamba_tpu_torch.train.trainer import Trainer, make_train_step
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
@@ -53,8 +60,28 @@ def test_imports_neither_jax_nor_the_jax_package():
     assert done.stdout.startswith("clean")
 
 
+def port_sources():
+    """The port's Python sources. ``omnimamba_tpu_torch/build/`` is where the
+    kernels are built (ignored by git): whatever lies there is not the port's."""
+    pkg = ROOT / "omnimamba_tpu_torch"
+    return sorted(p for p in pkg.rglob("*.py")
+                  if "build" not in p.relative_to(pkg).parts[:1]) + [ROOT / "chip_smoke.py"]
+
+
 def test_sources_do_not_name_jax_imports():
-    for path in list((ROOT / "omnimamba_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    sources = port_sources()
+    assert ROOT / "omnimamba_tpu_torch" / "train" / "trainer.py" in sources
+    # a copy of the repository under the build directory is not searched
+    stray = ROOT / "omnimamba_tpu_torch" / "build" / "_package_test_probe"
+    stray.mkdir(parents=True, exist_ok=True)
+    probe = stray / "probe.py"
+    probe.write_text("import jax\n")
+    try:
+        assert probe not in port_sources()
+    finally:
+        probe.unlink()
+        stray.rmdir()
+    for path in sources:
         for line in path.read_text().splitlines():
             stripped = line.strip()
             assert not stripped.startswith(("import jax", "from jax", "import omnimamba_tpu ",
@@ -63,8 +90,8 @@ def test_sources_do_not_name_jax_imports():
 
 def test_csrc_ships_as_package_data():
     names = {p.name for p in kernel_build.CSRC_DIR.iterdir()}
-    assert {"common.cuh", "ssd_step_row.cuh", "norms.cu", "ssd_scan.cu", "ssd_step.cu",
-            "decode_fused.cu"} <= names
+    assert {"common.cuh", "ssd_step_row.cuh", "norms.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
+            "ssd_step.cu", "decode_fused.cu"} <= names
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert re.search(r'omnimamba_tpu_torch\s*=\s*\["csrc/\*\.cu", "csrc/\*\.cuh"\]', pyproject)
 
@@ -89,6 +116,8 @@ ENTRY_POINTS = {
         p["mamba"], m.cfg, input_ids=torch.zeros(1, 4, dtype=torch.long),
         input_embeddings=torch.zeros(1, 4, 32), task="t2i", max_length=8),
     "from_jax_params": lambda m, p: from_jax_params({"mamba": {}}, m),
+    "make_train_step": lambda m, p: make_train_step(m, None, TrainConfig(mmu_task=False)),
+    "Trainer": lambda m, p: Trainer(m, p, TrainConfig(mmu_task=False, stage="align"), []),
 }
 
 
@@ -129,9 +158,22 @@ def test_wrappers_use_the_plain_version_only_on_the_cpu():
     dt = torch.rand(2, 5, 4, generator=g)
     A = -torch.rand(4, generator=g)
     Bm, Cm = torch.randn(2, 5, 2, 16, generator=g), torch.randn(2, 5, 2, 16, generator=g)
-    wrappers = (ssd_fused, ssd_step_fused, fused_add_rms_norm, fused_gated_rms_norm)
+    wrappers = (ssd_fused, ssd_step_fused, fused_add_rms_norm, fused_gated_rms_norm,
+                ssd_fused_bwd, fused_add_rms_norm_bwd, fused_gated_rms_norm_bwd)
     before = [w.launches for w in wrappers]
     ssd_fused(x, dt, A, Bm, Cm, None)
+    # the backward wrappers, called directly and through autograd
+    _, _, states = ssd_fused(x, dt, A, Bm, Cm, None, return_chunk_states=True)
+    ssd_fused_bwd(x, dt, A, Bm, Cm, None, states, torch.ones_like(x), None)
+    leaf = x.clone().requires_grad_()
+    ssd_fused(leaf, dt, A, Bm, Cm, None)[0].sum().backward()
+    rows = torch.randn(3, 32, generator=g)
+    fused_add_rms_norm_bwd(rows, rows, torch.ones(32), None)
+    fused_gated_rms_norm_bwd(rows, rows, rows, torch.ones(32))
+    w_leaf = torch.ones(32, requires_grad=True)
+    (fused_add_rms_norm(rows, rows, w_leaf)[0].sum()
+     + fused_gated_rms_norm(rows, rows, w_leaf).sum()).backward()
+    assert leaf.grad is not None and w_leaf.grad is not None
     ssd_step_fused(x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], None, torch.zeros(2, 4, 8, 16))
     fused_add_rms_norm(torch.randn(3, 32, generator=g), None, torch.ones(32))
     fused_gated_rms_norm(torch.randn(3, 32, generator=g), torch.randn(3, 32, generator=g), torch.ones(32))
