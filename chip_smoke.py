@@ -3,13 +3,17 @@
     python3 chip_smoke.py
 
 builds the port's CUDA kernels from the sources in this checkout, holds each
-of the eight kernels against its plain PyTorch version on the card, and
-drives the port's two main paths at the full 1.3B width and depth with random
-weights made from a seed:
+of the nine kernels (and the int8 branches of the decode-step kernels)
+against its plain PyTorch version on the card, and drives the port's main
+paths at the full 1.3B width and depth with random weights made from a seed:
 
 - greedy text-to-image generation at batch 48 through both decode paths (the
   whole-model decode kernel and the layer-by-layer step), then a kernel run
   of the decode engine against a plain-version run end to end;
+- int8 serving: the same generation on `quantize_decode_params` of the bf16
+  weights through both paths (the layer-by-layer one with the scaled-int8
+  state), the continuous-batching slot engine on 64 requests, and
+  speculative decoding with three drafts against plain greedy decoding;
 - stage-1 text-to-image training: the loss and every gradient through the
   kernels against the same through the plain versions (3 layers, fp32), then
   `Trainer.train(max_steps=3)` at batch 90 in bf16 (halved until it fits),
@@ -24,7 +28,8 @@ exits with code 2 and prints no result.
 Lines on standard output, one JSON object each unless noted:
   the card as `nvidia-smi --query-gpu=name,power.limit` gives it (plain text),
   {"card": ...} {"build": ...} {"kernel_check": ...}* {"main_path": ...}
-  {"decode_profile": ...} {"times": ...} {"plain_vs_kernel": ...}*
+  {"decode_profile": ...} {"times": ...} {"int8_path": ...} {"slot_engine": ...}
+  {"speculative": ...} {"plain_vs_kernel": ...}*
   {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
   {"remat_threshold": ...} {"kernels": [...]} and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -854,23 +859,45 @@ def step_pair_ms(gen, layers, cfg, lcfg, B, io, sdtype):
             "scan_host_clock_ms": host_clock_ms(scan, 5)}
 
 
+class _Count:
+    """One kernel's launch counter: the attribute `attr` of its wrapper (the
+    int8 branches of K4 and K2 count on their wrappers' `int8_launches`)."""
+
+    def __init__(self, fn, attr="launches"):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
+
+
 def kernel_wrappers():
     from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step
     from omnimamba_tpu_torch.ops.norms_kernel import (
         fused_add_rms_norm, fused_add_rms_norm_bwd, fused_gated_rms_norm, fused_gated_rms_norm_bwd)
+    from omnimamba_tpu_torch.ops.quant_kernel import qmatmul
     from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused, ssd_fused_bwd
     from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
 
-    return {
+    fns = {
         "ssd_scan": ssd_fused, "ssd_step": ssd_step_fused,
         "add_rms_norm": fused_add_rms_norm, "gated_rms_norm": fused_gated_rms_norm,
         "decode_fused": fused_decode_step,
         "ssd_scan_bwd": ssd_fused_bwd, "add_rms_norm_bwd": fused_add_rms_norm_bwd,
-        "gated_rms_norm_bwd": fused_gated_rms_norm_bwd,
+        "gated_rms_norm_bwd": fused_gated_rms_norm_bwd, "qmatmul": qmatmul,
     }
+    counts = {k: _Count(fn) for k, fn in fns.items()}
+    counts["decode_fused_int8"] = _Count(fused_decode_step, "int8_launches")
+    counts["ssd_step_int8"] = _Count(ssd_step_fused, "int8_launches")
+    return counts
 
 
 BACKWARD_KERNELS = ("ssd_scan_bwd", "add_rms_norm_bwd", "gated_rms_norm_bwd")  # training only
+INT8_KERNELS = ("qmatmul", "decode_fused_int8", "ssd_step_int8")  # int8 weights or state only
 
 
 KERNEL_FILES = {
@@ -882,7 +909,283 @@ KERNEL_FILES = {
     "ssd_scan_bwd": ("omnimamba_tpu_torch/csrc/ssd_scan_bwd.cu", "omnimamba_tpu/ops/ssd_pallas_bwd.py:416"),
     "add_rms_norm_bwd": ("omnimamba_tpu_torch/csrc/norms.cu", "omnimamba_tpu/ops/norms_pallas.py:200"),
     "gated_rms_norm_bwd": ("omnimamba_tpu_torch/csrc/norms.cu", "omnimamba_tpu/ops/norms_pallas.py:307"),
+    "qmatmul": ("omnimamba_tpu_torch/csrc/qmatmul.cu", "omnimamba_tpu/ops/quant_pallas.py:71"),
+    # the int8 {q, scale} branch of the whole-model step (_mm with quant=True)
+    "decode_fused_int8": ("omnimamba_tpu_torch/csrc/decode_fused.cu",
+                          "omnimamba_tpu/ops/decode_fused.py:72"),
+    # the scaled-int8 state step: XLA code on the TPU side, no Pallas kernel
+    "ssd_step_int8": ("omnimamba_tpu_torch/csrc/ssd_step.cu", "omnimamba_tpu/ops/ssd_reference.py:118"),
 }
+
+
+# ---------------------------------------------------------------------------
+# phase: the int8 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_qmatmul(gen, results):
+    """K7 in both layouts at every shape of the int8 main path (the 1.3B's
+    prefill and step projections at batch 48, project_in, the image head) and
+    at awkward ones: one row, 13 rows, O = 139, K = 24, fp32 activations."""
+    from omnimamba_tpu_torch.ops.quant import quantize_linear
+    from omnimamba_tpu_torch.ops.quant_kernel import qmatmul, qmatmul_plain
+
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = BATCH * PROMPT  # prefill rows
+    cases = [
+        # name, M, K, O, transposed table, x dtype, out dtype, timed
+        ("step_in_proj", BATCH, 2048, 8512, False, bf, bf, True),
+        ("prefill_in_proj", rows, 2048, 8512, False, bf, bf, True),
+        ("prefill_out_proj", rows, 4096, 2048, False, bf, bf, True),
+        ("step_out_proj", BATCH, 4096, 2048, False, bf, bf, True),
+        ("project_in_fc1", BATCH, 2048, 8192, False, bf, bf, True),
+        ("project_in_fc2", BATCH, 8192, 2048, False, bf, bf, True),
+        ("project_in_fc3", BATCH, 2048, 2048, False, bf, bf, True),
+        ("image_head", BATCH, 2048, 16384, True, bf, f32, True),
+        ("one_row", 1, 2048, 8512, False, bf, bf, False),
+        ("thirteen_rows_head", 13, 2048, 16384, True, bf, f32, False),
+        ("awkward", 13, 24, 139, False, f32, f32, False),
+        ("awkward_bf16_table", 13, 24, 139, True, bf, bf, False),
+        ("ragged_columns_bf16", 5, 2048, 139, False, bf, bf, False),
+        ("fp32_step_in_proj", BATCH, 2048, 8512, False, f32, f32, False),
+        ("fp32_table", 4, 2048, 16384, True, f32, f32, False),
+    ]
+    shapes, worst = {}, 0.0
+    for name, M, K, O, tr, xd, od, timed in cases:
+        w = rand(gen, (O, K) if tr else (K, O), f32, 0.02)
+        qe = quantize_linear(w, (1,) if tr else (0,))
+        q, sc = qe["q"], qe["scale"]
+        x = rand(gen, (M, K), xd)
+        y = qmatmul(x, q, sc, tr, od)
+        torch.cuda.synchronize()
+        y_ref = qmatmul_plain(x, q, sc, tr, od)
+        err, share = errors(y, y_ref)
+        worst = max(worst, err)
+        rec = {"kernel": "qmatmul", "case": name, "shape": (M, K, O), "layout": "(O, K)" if tr else "(K, O)",
+               "dtype": str(xd), "out_dtype": str(od), "abs_err": err, "err_of_allowed": share,
+               "rtol": RTOL[od], "atol_rel": ATOL_REL}
+        assert share <= 1.0, rec
+        if timed:
+            moved = nbytes(x, q, sc, y)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * M * K * O / PEAK_OPS[xd] * 1e3
+            iters = 5 if M > BATCH else 20
+            dense = w.to(xd)  # yardstick: a dense weight of the same shape in x's type
+            rec.update(
+                ms=time_ms(lambda: qmatmul(x, q, sc, tr, od), iters),
+                plain_ms=time_ms(lambda: qmatmul_plain(x, q, sc, tr, od), 3, 1),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_moved=moved,
+                library_ms=time_ms(lambda: torch.matmul(x, dense.T if tr else dense), iters),
+                library_note="torch.matmul on a dense weight of the same shape in x's type: a "
+                             "yardstick, not the same function (it reads twice the weight bytes)",
+            )
+            shapes[name] = {k: rec[k] for k in ("shape", "layout", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}
+            if name == "step_in_proj":
+                results["qmatmul"] = dict(rec)
+        emit({"kernel_check": rec})
+        del w, qe, q, sc, x, y, y_ref
+    results["qmatmul"].update(max_abs_err=worst, shapes=shapes)
+
+
+def check_decode_fused_int8(gen, results):
+    """K4's int8 branch (int8 in_proj and out_proj, the other weights in the
+    activation type) against its plain version at 1 and 48 layers, batch 48
+    and 4, bf16 and fp32, with K4's tolerances (see BF16_STEP_ATOL_REL and
+    DEEP_TOL_REL)."""
+    from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_step, fused_decode_step_plain, prepare_fused_decode)
+    from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+
+    full, lora8 = Mamba2LayerConfig(), LoraConfig()
+    narrow = Mamba2LayerConfig(d_model=24, d_state=20, headdim=16, d_conv=3)
+    bf, f32 = torch.bfloat16, torch.float32
+    sizes = {"bf16": (48, full, lora8, bf), "f32": (48, full, lora8, f32),
+             "narrow_f32": (2, narrow, LoraConfig(r=4), f32),
+             "narrow_bf16": (2, narrow, LoraConfig(r=4), bf)}
+    stacks = {}
+
+    def stack(name):
+        if name not in stacks:
+            layers = fused_layers(gen, *sizes[name])
+            stacks[name] = quantize_decode_params({"layers": layers})["layers"]
+            del layers
+        return stacks[name]
+
+    cases = [
+        # name, stack, layers used, B, mixer cfg, lora cfg, task, io, state
+        ("int8_1_layer", "bf16", 1, BATCH, full, lora8, "t2i", bf, bf),
+        ("int8_1_layer_four_rows", "bf16", 1, 4, full, lora8, "mmu", bf, f32),
+        ("int8_deep_four_rows", "bf16", 48, 4, full, lora8, "t2i", bf, bf),
+        ("int8_awkward", "narrow_f32", 2, 3, narrow, LoraConfig(r=4), "t2i", f32, f32),
+        ("int8_awkward_bf16", "narrow_bf16", 2, 5, narrow, LoraConfig(r=4), "mmu", bf, bf),
+        ("int8_main", "bf16", 48, BATCH, full, lora8, "t2i", bf, bf),
+        ("int8_fp32_1_layer", "f32", 1, BATCH, full, lora8, "t2i", f32, f32),
+        ("int8_fp32_1_layer_four_rows", "f32", 1, 4, full, lora8, "mmu", f32, bf),
+        ("int8_fp32_deep_four_rows", "f32", 48, 4, full, lora8, "t2i", f32, f32),
+    ]
+    for name, sname, n_layer, B, cfg, lcfg, task, io, sdtype in cases:
+        if sname == "f32" and "bf16" in stacks:
+            stacks.pop("bf16")
+            torch.cuda.empty_cache()
+        layers = stack(sname)[:n_layer]
+        cache0 = fused_state(gen, n_layer, B, cfg, io, sdtype)
+        h = rand(gen, (B, cfg.d_model), io)
+        residual = rand(gen, (B, cfg.d_model), f32) if name != "int8_main" else None
+        args = (task, cfg, lcfg, 1e-5)
+        ref_cache = cache0._replace(conv_state=cache0.conv_state.clone(),
+                                    ssm_state=cache0.ssm_state.clone())
+        h_ref, res_ref, _ = fused_decode_step_plain(layers, h, residual, ref_cache, *args)
+        cache = cache0._replace(conv_state=cache0.conv_state.clone(), ssm_state=cache0.ssm_state.clone())
+        plan = prepare_fused_decode(layers, task, cfg, lcfg, B, io)
+        assert plan.proj_dtype == torch.int8
+        h_out, res_out, _ = fused_decode_step(layers, h, residual, cache, *args, plan=plan)
+        torch.cuda.synchronize()
+        pairs = {"h": (h_out, h_ref), "residual": (res_out, res_ref),
+                 "conv_window": (cache.conv_state, ref_cache.conv_state),
+                 "ssm_state": (cache.ssm_state, ref_cache.ssm_state)}
+        rec = {"kernel": "decode_fused_int8", "case": name, "layers": n_layer, "batch": B,
+               "d_model": cfg.d_model, "task": task, "dtype": str(io), "weight_dtype": "int8 projections",
+               "state_dtype": str(sdtype)}
+        deep = n_layer > 4
+        worst = 0.0
+        atol_rel = ATOL_REL if io == f32 else BF16_STEP_ATOL_REL
+        for key, (got, want) in pairs.items():
+            abs_err, share = errors(got, want, atol_rel)
+            rec[f"{key}_abs_err"] = abs_err
+            if deep:
+                scale = want.float().abs().max().item()
+                diff = (got.float() - want.float()).abs()
+                share = abs_err / (DEEP_TOL_REL * scale)
+                rec[f"{key}_mean_err_of_allowed"] = diff.mean().item() / (0.1 * DEEP_TOL_REL * scale)
+                assert rec[f"{key}_mean_err_of_allowed"] <= 1.0, rec
+            rec[f"{key}_err_of_allowed"] = share
+            worst = max(worst, abs_err)
+        rec.update({"tolerance": f"max and mean against {DEEP_TOL_REL} and {0.1 * DEEP_TOL_REL} "
+                                 "of the largest reference value"} if deep else
+                   {"rtol": {"fp32": 0.0, "bf16": RTOL[bf]}, "atol_rel": atol_rel})
+        assert all(rec[f"{k}_err_of_allowed"] <= 1.0 for k in pairs), rec
+        if name == "int8_main":
+            moved = fused_step_bytes(layers, cache, h, task)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            flops = fused_step_flops(B, n_layer, cfg, lcfg.r)
+            ops_ms = flops / PEAK_OPS[io] * 1e3
+
+            def kernel_step():
+                fused_decode_step(layers, h, residual, cache, *args, plan=plan)
+
+            rec.update(
+                ms=time_ms(kernel_step, 10), host_us=host_us(kernel_step, 20),
+                plain_ms=time_ms(lambda: fused_decode_step_plain(
+                    layers, h, residual, ref_cache, *args), 2, 1),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_moved=moved, flops=flops, library_ms=None,
+                library_note="no single PyTorch call computes a whole-model decode step",
+            )
+            # device time per kernel of the int8 step at the main batch
+            rec["profile"] = profile_steps(
+                lambda i: fused_decode_step(layers, h, None, cache, *args, plan=plan), 3)
+            results["decode_fused_int8"] = dict(rec, max_abs_err=worst, shape=(n_layer, B, cfg.d_model))
+        emit({"kernel_check": rec})
+        del cache0, cache, ref_cache, plan
+    stacks.clear()
+    torch.cuda.empty_cache()
+
+
+# q of the int8-state step. Kernel and plain version compute s' = s * decay +
+# dtx * B with one rounding fewer in the kernel (it contracts the multiply-add),
+# then the row's scale ns = amax|s'| / 127 + 1e-20 and s' / ns, each correctly
+# rounded in both. With u = 2^-24 and mag = |s * decay| + |dtx * B| (the sum
+# can cancel), s' differs by at most 3u mag, ns by 3u max(mag) / amax + 2u
+# relative, and the quotient v by u (3 mag / ns + |v| (3 max(mag) / amax + 4)).
+# q may round apart only where v lies that close to a .5 boundary; the window
+# takes Q8_ULPS = 8 in place of 3 and 4, twice the bound. Elsewhere q is equal.
+Q8_ULPS = 8
+
+
+def q8_tie_window(state0, x, dt, A, Bm, unrounded, scale):
+    """Per element of q (B, H, P, N), the distance from .5 (in units of q)
+    within which kernel and plain version may round apart."""
+    from omnimamba_tpu_torch.ops.quant import dequantize_ssm_state
+
+    H, G = x.shape[1], Bm.shape[1]
+    dtf = dt.float()
+    decay = torch.exp(dtf * A.float())[..., None, None]
+    dtx = (dtf[..., None] * x.float())[..., None]
+    Bf = Bm.float().repeat_interleave(H // G, dim=1)[:, :, None, :]
+    mag = (dequantize_ssm_state(state0) * decay).abs() + (dtx * Bf).abs()
+    ns = scale[..., None]
+    amax = unrounded.abs().amax(-1, keepdim=True)
+    v = (unrounded / ns).abs()
+    rel = mag.amax(-1, keepdim=True) / torch.clamp(amax, min=1e-30)
+    return Q8_ULPS * 2.0 ** -24 * (mag / ns + v * (rel + 1.0))
+
+
+def check_ssd_step_int8(gen, results):
+    """K2's int8-state branch against the plain int8 step: y and the scale by
+    the kernels' rule, q equal but for values within `q8_tie_window` of .5."""
+    from omnimamba_tpu_torch.ops.quant import dequantize_ssm_state, quantize_ssm_state
+    from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused, ssd_step_plain
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, (B, H, P, G, N), x dtype, with D, timed
+        ("main", (BATCH, 64, 64, 1, 128), bf, True, True),
+        ("one_row", (1, 64, 64, 1, 128), bf, True, False),
+        ("fp32", (BATCH, 64, 64, 1, 128), f32, True, False),
+        ("awkward", (3, 6, 24, 2, 20), f32, False, False),
+    ]
+    for name, (B, H, P, G, N), dtype, with_d, timed in cases:
+        x, dt, A, Bm, Cm, D = ssd_inputs(gen, B, 1, H, P, G, N, dtype, True)
+        x, dt, Bm, Cm = x[:, 0], dt[:, 0], Bm[:, 0], Cm[:, 0]
+        if not with_d:
+            D = None
+        state0 = quantize_ssm_state(rand(gen, (B, H, P, N), f32, 0.5))
+        y_ref, s_ref = ssd_step_plain(x, dt, A, Bm, Cm, D, state0)
+        _, unrounded = ssd_step_plain(x, dt, A, Bm, Cm, D, dequantize_ssm_state(state0))
+        state = {k: v.clone() for k, v in state0.items()}
+        y, s = ssd_step_fused(x, dt, A, Bm, Cm, D, state)
+        torch.cuda.synchronize()
+        assert s is state, "the state must be updated in place"
+        ey, ry = errors(y, y_ref)
+        es, rs = errors(state["scale"], s_ref["scale"])
+        value = unrounded / s_ref["scale"][..., None]
+        from_tie = ((value - torch.floor(value)) - 0.5).abs()
+        window = q8_tie_window(state0, x, dt, A, Bm, unrounded, s_ref["scale"])
+        near = from_tie < window
+        dq = (state["q"].int() - s_ref["q"].int()).abs()
+        differ = dq > 0
+        rec = {"kernel": "ssd_step_int8", "case": name, "shape": (B, H, P, G, N), "dtype": str(dtype),
+               "state": "int8 q with an fp32 scale a (b, h, p) row",
+               "y_abs_err": ey, "y_err_of_allowed": ry, "scale_abs_err": es,
+               "scale_err_of_allowed": rs, "q_max_diff": int(dq.max()),
+               "q_diffs": int(differ.sum()), "q_diffs_not_at_a_tie": int((differ & ~near).sum()),
+               "q_tie_ulps": Q8_ULPS,
+               "q_tie_window_median": float(window.median()), "q_tie_window_max": float(window.max()),
+               "q_diff_largest_distance_from_tie": float(from_tie[differ].max()) if differ.any() else None,
+               "q_diff_largest_share_of_window": (float((from_tie / window)[differ].max())
+                                                  if differ.any() else None),
+               "rtol": [RTOL[dtype], 0.0], "atol_rel": ATOL_REL}
+        assert ry <= 1.0 and rs <= 1.0, rec
+        assert rec["q_max_diff"] <= 1 and rec["q_diffs_not_at_a_tie"] == 0, rec
+        if timed:
+            moved = nbytes(x, dt, A, Bm, Cm, D, y) + 2 * nbytes(state0["q"], state0["scale"])
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = 8 * B * H * P * N / PEAK_OPS[f32] * 1e3
+            rec.update(
+                ms=time_ms(lambda: ssd_step_fused(x, dt, A, Bm, Cm, D, state), 50),
+                host_us=host_us(lambda: ssd_step_fused(x, dt, A, Bm, Cm, D, state)),
+                plain_ms=time_ms(lambda: ssd_step_plain(x, dt, A, Bm, Cm, D, state0), 10),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_moved=moved, library_ms=None,
+            )
+            results["ssd_step_int8"] = dict(rec, max_abs_err=max(ey, es))
+        emit({"kernel_check": rec})
 
 
 # ---------------------------------------------------------------------------
@@ -937,7 +1240,8 @@ def main_path(results, card):
     wrappers = kernel_wrappers()
     steps = cfg.num_tokens - 1  # the first token comes from the prefill logits
     prefill = {"ssd_scan": cfg.n_layer, "add_rms_norm": cfg.n_layer, "gated_rms_norm": cfg.n_layer}
-    no_backward = dict.fromkeys(BACKWARD_KERNELS, 0)  # generation differentiates nothing
+    # generation differentiates nothing; bf16 weights and states launch no int8 branch
+    no_backward = dict.fromkeys(BACKWARD_KERNELS + INT8_KERNELS, 0)
     expect = {
         "fused": dict(prefill, decode_fused=steps, ssd_step=0, **no_backward),
         "scan": {"ssd_scan": cfg.n_layer, "ssd_step": cfg.n_layer * steps,
@@ -946,11 +1250,12 @@ def main_path(results, card):
     }
     run("fused", decode_image=False)  # warm-up: builds nothing new, loads library and cuBLAS/cuDNN plans
     torch.cuda.reset_peak_memory_stats()
-    launches, totals, report = {}, {}, {}
+    launches, totals, report, tokens_by = {}, {}, {}, {}
     for path in ("fused", "scan"):
         for w in wrappers.values():
             w.launches = 0
         images, tokens, total_s = run(path)
+        tokens_by[path] = tokens
         launches[path] = {k: w.launches for k, w in wrappers.items()}
         totals[path] = [total_s]
         ok_tokens = (tuple(tokens.shape) == (BATCH, cfg.num_tokens)
@@ -973,8 +1278,8 @@ def main_path(results, card):
         assert report[path]["tokens_in_range"] and report[path]["images_finite"], path
         assert launches[path] == expect[path], (path, launches[path], expect[path])
     for name in wrappers:
-        if name in BACKWARD_KERNELS:
-            continue  # their counts come from the training path
+        if name in BACKWARD_KERNELS + INT8_KERNELS:
+            continue  # their counts come from the training path and the int8 path
         # a kernel's count comes from the path that runs it at decode; the
         # prefill kernels run on both and report the layer-by-layer path's
         # count beside the fused path's
@@ -1022,17 +1327,21 @@ def main_path(results, card):
         times[path] = dict(split[path], total_s_runs=totals[path], total_s=med,
                            images_per_s=BATCH / med)
     emit({"times": times})
+    return params, model, text_ids, tokens_by["fused"]
 
 
-def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4):
+def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4, int8_state=False):
     """Device-busy share of the decode step of one path, from a profiler trace
-    of a few steady steps: wall time per step against the summed kernel time."""
+    of a few steady steps: wall time per step against the summed kernel time.
+    The SSM state is bf16, or scaled int8 with `int8_state`."""
     from omnimamba_tpu_torch.models.backbone import (
         apply_head, backbone_forward, backbone_step, backbone_step_fused)
     from omnimamba_tpu_torch.ops.decode_fused import prepare_fused_decode
+    from omnimamba_tpu_torch.ops.quant import quantize_ssm_state
 
     _, cache = backbone_forward(mamba, emb, "t2i", cfg, return_cache=True)
-    cache = cache._replace(ssm_state=cache.ssm_state.to(torch.bfloat16))
+    cache = cache._replace(ssm_state=quantize_ssm_state(cache.ssm_state) if int8_state
+                           else cache.ssm_state.to(torch.bfloat16))
     tok = ids[:, 0] % cfg.vqvae_vocab_size
     if decode_impl == "fused":
         plan = prepare_fused_decode(mamba["layers"], "t2i", cfg.mixer, cfg.lora, BATCH, emb.dtype)
@@ -1120,6 +1429,355 @@ def _leaves(node):
 
 
 # ---------------------------------------------------------------------------
+# phases: int8 serving at 1.3B: text-to-image, the slot engine, speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def _first_divergence(a, b):
+    """Per row of two (B, T) token tensors: the first index where they differ
+    (T where they never do)."""
+    diff = a != b
+    T = a.shape[1]
+    return torch.where(diff.any(1), diff.int().argmax(1), torch.full_like(diff[:, 0], T, dtype=torch.long))
+
+
+def int8_path(params, model, text_ids, bf16_tokens, results, card):
+    """`t2i_generate` at 1.3B on `quantize_decode_params(bf16 weights)`, batch
+    48, on the whole-model step (decode_impl="auto") and on the layer loop
+    with the scaled-int8 state (cache_dtype="int8"), launch counters set to 0
+    just before each and read just after. Returns the int8 backbone."""
+    from omnimamba_tpu_torch import SampleParams, t2i_generate
+    from omnimamba_tpu_torch.models.backbone import caption_embed, embed_text
+    from omnimamba_tpu_torch.models.generation import generate
+    from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+
+    cfg, mamba = model.cfg, params["mamba"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    qmamba = quantize_decode_params(mamba)
+    torch.cuda.synchronize()
+    quantize_s = time.time() - t0
+    qparams = {"mamba": qmamba, "vq": params["vq"]}
+    greedy = SampleParams(top_k=1)
+    ids = torch.as_tensor(text_ids, device="cuda")
+    L, steps = cfg.n_layer, cfg.num_tokens - 1
+    wrappers = kernel_wrappers()
+    zero = dict.fromkeys(wrappers, 0)
+    # prefill: in_proj and out_proj a layer and the head; a step: project_in fc1-fc3
+    # and the head, and on the layer loop in_proj and out_proj a layer
+    expect = {
+        "fused": dict(zero, ssd_scan=L, add_rms_norm=L, gated_rms_norm=L,
+                      qmatmul=2 * L + 1 + 4 * steps, decode_fused_int8=steps),
+        "scan_int8_state": dict(zero, ssd_scan=L, add_rms_norm=L * (steps + 1),
+                                gated_rms_norm=L * (steps + 1),
+                                qmatmul=2 * L + 1 + (4 + 2 * L) * steps, ssd_step_int8=L * steps),
+    }
+    path_kw = {"fused": {}, "scan_int8_state": {"cache_dtype": "int8"}}
+    t2i_generate(qparams, model, text_ids, sample=greedy, decode_image=False)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    launches, report, tokens_by = {}, {}, {}
+    for path, kw in path_kw.items():
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        images, tokens = t2i_generate(qparams, model, text_ids, sample=greedy, **kw)
+        torch.cuda.synchronize()
+        total_s = time.time() - t
+        launches[path] = {k: w.launches for k, w in wrappers.items()}
+        tokens_by[path] = tokens
+        report[path] = {
+            "total_s": total_s, "images_per_s": BATCH / total_s,
+            "tokens_in_range": (tuple(tokens.shape) == (BATCH, cfg.num_tokens)
+                                and int(tokens.min()) >= 0
+                                and int(tokens.max()) < cfg.vqvae_vocab_size),
+            "images_finite": (tuple(images.shape) == (BATCH, 256, 256, 3)
+                              and bool(torch.isfinite(images.float()).all())),
+            "launches": launches[path], "launches_expected": expect[path],
+        }
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    def embed():
+        return caption_embed(qmamba, embed_text(qmamba, ids, torch.bfloat16)) + qmamba["pos_embed"][:, :PROMPT]
+
+    for path, kw in path_kw.items():
+        stamps = []
+        torch.cuda.synchronize()
+        t_start = time.time()
+        generate(qmamba, cfg, input_ids=ids, input_embeddings=embed(), task="t2i",
+                 max_length=PROMPT + cfg.num_tokens, sample=greedy,
+                 token_callback=lambda _tok: stamps.append(time.time()), **kw)
+        step_ms = np.diff(np.asarray(stamps)) * 1e3
+        prof = profile_decode_steps(qmamba, cfg, ids, embed(), "fused" if path == "fused" else "scan",
+                                    int8_state=path != "fused")
+        report[path].update(
+            prefill_and_first_token_ms=(stamps[0] - t_start) * 1e3,
+            decode_step_ms_median=float(np.median(step_ms)),
+            decode_step_ms_p90=float(np.percentile(step_ms, 90)),
+            kernel_launches_per_step=prof["kernel_launches_per_step"],
+            device_idle_share=prof["device_idle_share"],
+            device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+            top_kernels=prof["top_kernels"][:6])
+
+    first = _first_divergence(tokens_by["fused"], bf16_tokens)
+    first_state = _first_divergence(tokens_by["scan_int8_state"], tokens_by["fused"])
+    rec = {
+        "card": card, "model": "OmniMamba-1.3B", "batch": BATCH, "prompt": PROMPT,
+        "new_tokens": cfg.num_tokens, "quantize_s": quantize_s,
+        "weight_bytes_bf16": nbytes(*_leaves(mamba)), "weight_bytes_int8": nbytes(*_leaves(qmamba)),
+        "step_weight_bytes_bf16": nbytes(*_leaves(mamba["layers"]), *_leaves(mamba["img_embeddings"])),
+        "step_weight_bytes_int8": nbytes(*_leaves(qmamba["layers"]), *_leaves(qmamba["img_embeddings"])),
+        "peak_memory_gib": peak_gib,
+        "against_bf16": {"rows_identical": int((first == cfg.num_tokens).sum()),
+                         "first_divergence_step_min": int(first.min()),
+                         "first_divergence_step_median": float(first.float().median()),
+                         "tokens_equal_share": float((tokens_by["fused"] == bf16_tokens).float().mean())},
+        "int8_state_against_fused": {
+            "rows_identical": int((first_state == cfg.num_tokens).sum()),
+            "first_divergence_step_median": float(first_state.float().median())},
+        "fused": report["fused"], "scan_int8_state": report["scan_int8_state"],
+        "note": "host clock, each run ending in a device synchronize; step times from a run "
+                "with a per-token host callback; idle share from a profiled window of 4 steps",
+    }
+    emit({"int8_path": rec})
+    for path in path_kw:
+        assert report[path]["tokens_in_range"] and report[path]["images_finite"], (path, rec)
+        assert launches[path] == expect[path], (path, launches[path], expect[path])
+    results["qmatmul"]["launches"] = launches["fused"]["qmatmul"]
+    results["qmatmul"]["launches_scan_path"] = launches["scan_int8_state"]["qmatmul"]
+    results["decode_fused_int8"]["launches"] = launches["fused"]["decode_fused_int8"]
+    results["ssd_step_int8"]["launches"] = launches["scan_int8_state"]["ssd_step_int8"]
+    return qmamba
+
+
+def _solo_stream(mamba, cfg, prompt_ids, emb, new, dtype, cache_dtype):
+    from omnimamba_tpu_torch import SampleParams, generate
+
+    out = generate(mamba, cfg, input_ids=prompt_ids, input_embeddings=emb.to(dtype), task="mmu",
+                   max_length=prompt_ids.shape[1] + new, sample=SampleParams(top_k=1),
+                   cache_dtype=cache_dtype)
+    return out.sequences[0, prompt_ids.shape[1]:].tolist()
+
+
+def _agreement(got, want):
+    """(identical, first index where the two lists differ or None)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return False, i
+    return len(got) == len(want), None if len(got) == len(want) else min(len(got), len(want))
+
+
+def slot_engine_phase(qmamba, cfg, card):
+    """The slot engine at 1.3B as scripts/bench_continuous.py drives the JAX
+    one: int8 weights, bf16 state, 16 slots, chunks of 16 steps, 64 text
+    requests (task mmu) of 64 ids with budgets drawn from {32, 64, 128, 256},
+    all submitted at once. Then 8 of them against solo `generate`, and at 4
+    layers in fp32 every stream against its solo stream (which must be equal)."""
+    from omnimamba_tpu_torch import MambaConfig
+    from omnimamba_tpu_torch.models.backbone import embed_text, init_backbone
+    from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+    from omnimamba_tpu_torch.serve.continuous import SlotEngine
+
+    bf, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(SEED)
+    n_req, plen = 64, 64
+    budgets = rng.choice([32, 64, 128, 256], size=n_req)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (n_req, plen)), device="cuda")
+    emb = embed_text(qmamba, prompts, bf).float()
+    emb_host = emb.cpu().numpy()
+    eng = SlotEngine(qmamba, cfg, n_slots=16, chunk=16, task="mmu", dtype=bf, state_dtype=bf)
+    assert eng.fused
+    t_w = time.time()
+    eng.warmup([plen])
+    warmup_s = time.time() - t_w
+    eng.timings = {k: [] for k in eng.timings}
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(emb_host[i], plen, max_new=int(budgets[i])) for i in range(n_req)]
+    done_at, ticks = {}, 0
+    while len(done_at) < n_req:
+        eng.tick()
+        ticks += 1
+        now = time.perf_counter() - t0
+        for i, r in enumerate(reqs):
+            if i not in done_at and r.done.is_set():
+                done_at[i] = now
+        assert ticks < 10_000, "the engine did not drain"
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    lat = np.asarray([done_at[i] for i in range(n_req)])
+    useful = sum(len(r.tokens) for r in reqs)
+    assert all(len(r.tokens) == int(b) for r, b in zip(reqs, budgets))
+    solo = []
+    for i in range(8):
+        want = _solo_stream(qmamba, cfg, prompts[i:i + 1], emb[i:i + 1], int(budgets[i]), bf, bf)
+        same, at = _agreement(reqs[i].tokens, want)
+        solo.append({"request": i, "budget": int(budgets[i]), "identical": same, "first_divergence": at})
+    rec = {
+        "card": card, "model": "OmniMamba-1.3B", "weights": "int8 projections, tables and "
+        "project_in (quantize_decode_params of bf16)", "state_dtype": "torch.bfloat16",
+        "n_slots": 16, "chunk": 16, "requests": n_req, "prompt": plen,
+        "budgets": {str(b): int((budgets == b).sum()) for b in (32, 64, 128, 256)},
+        "warmup_s": warmup_s, "wall_s": wall, "useful_tokens": useful, "useful_tok_per_s": useful / wall,
+        "latency_s_p50": float(np.percentile(lat, 50)), "latency_s_p95": float(np.percentile(lat, 95)),
+        "ticks": ticks, "chunk_ms_median": 1e3 * float(np.median(eng.timings["chunk"])),
+        "prefill_ms_median": 1e3 * float(np.median(eng.timings["prefill"])),
+        "insert_ms_median": 1e3 * float(np.median(eng.timings["insert"])),
+        "prefill_groups": len(eng.timings["prefill"]), "launches": launches,
+        "solo_identical": sum(r["identical"] for r in solo), "solo": solo,
+        "note": "host clock; latency from the common submit to the tick that finished the "
+                "request; chunk, prefill and insert each end in a host read or synchronize",
+    }
+    assert launches.get("decode_fused_int8", 0) > 0 and launches.get("qmatmul", 0) > 0, rec
+    del eng
+    torch.cuda.empty_cache()
+
+    # fp32 at 4 layers: per-row arithmetic that depends neither on the batch nor
+    # on the slot, so every stream must equal its solo stream (int8 weights, so
+    # every product is K7's or K4's fp32 multiply-add, row by row)
+    cfg4 = dataclasses.replace(MambaConfig(), n_layer=4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    p4 = quantize_decode_params(init_backbone(gen, cfg4, f32, "cuda"))
+    rng4 = np.random.default_rng(SEED + 4)
+    lens = [32, 64, 64, 32, 64, 32, 64, 64]
+    news = rng4.choice([8, 16, 24, 40], size=len(lens))
+    ids4 = [torch.as_tensor(rng4.integers(0, cfg4.vocab_size, (1, n)), device="cuda") for n in lens]
+    embs4 = [embed_text(p4, i, f32) for i in ids4]
+    eng4 = SlotEngine(p4, cfg4, n_slots=4, chunk=8, task="mmu", dtype=f32)
+    reqs4 = [eng4.submit(e[0].cpu().numpy(), e.shape[1], max_new=int(n)) for e, n in zip(embs4, news)]
+    eng4.run_until_drained()
+    exact = []
+    for r, i, e, n in zip(reqs4, ids4, embs4, news):
+        same, at = _agreement(r.tokens, _solo_stream(p4, cfg4, i, e, int(n), f32, None))
+        exact.append(at if not same else -1)
+    rec["fp32_4_layers"] = {"requests": len(lens), "n_slots": 4, "chunk": 8,
+                            "streams_equal_to_solo": sum(a == -1 for a in exact),
+                            "first_divergence": exact}
+    emit({"slot_engine": rec})
+    assert all(a == -1 for a in exact), rec["fp32_4_layers"]
+
+
+def speculative_phase(mamba, qmamba, cfg, card):
+    """Speculative decoding at 1.3B with the bf16 target, B=1 and a 64-id
+    prompt, with three drafts against plain greedy decoding on the same card:
+    the int8 model for 128 new tokens, and the first 8 layers and prompt
+    lookup, which accept next to nothing on random weights (a round then
+    yields one token, whose cost the verify-pass profile gives), for 32. Where
+    a stream leaves plain greedy, plain greedy's top-2 margin there and the
+    gap of the same two logits when the plain stream is replayed through the
+    continuation prefill (the verify pass's code path). Then at 4 layers in
+    fp32, where the streams must equal plain greedy."""
+    from omnimamba_tpu_torch import MambaConfig, SampleParams, generate
+    from omnimamba_tpu_torch.models.backbone import (
+        apply_head, backbone_forward, embed_decode_window, embed_text, init_backbone)
+    from omnimamba_tpu_torch.models.speculative import speculative_generate
+    from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+
+    bf, f32 = torch.bfloat16, torch.float32
+    greedy = SampleParams(top_k=1)
+    plen, new = 64, 128
+    ids = torch.as_tensor(np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, (1, plen)),
+                          device="cuda")
+    emb = embed_text(mamba, ids, bf)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    def plain():
+        return generate(mamba, cfg, input_ids=ids, input_embeddings=emb, task="mmu",
+                        max_length=plen + new, sample=greedy, cache_dtype=None, return_logits=True)
+
+    plain()  # warm-up
+    ref, plain_s = timed(plain)
+    ref_toks = ref.sequences[0, plen:].tolist()
+    _, cache = backbone_forward(mamba, emb, "mmu", cfg, return_cache=True)
+
+    def divergence(at, spec_tok):
+        p_tok = ref_toks[at]
+        row = ref.logits[at][0]
+        if at == 0:
+            row_v = apply_head(mamba, backbone_forward(mamba, emb, "mmu", cfg)[0][0, -1], "mmu")
+        else:
+            e = embed_decode_window(mamba, ref.sequences[:, plen:plen + at], plen, "mmu", cfg, bf)
+            h, _ = backbone_forward(mamba, e, "mmu", cfg, add_mmu_pos=False, return_cache=True,
+                                    initial_cache=cache, valid_len=torch.tensor([at], device="cuda"))
+            row_v = apply_head(mamba, h[0, -1], "mmu")
+        top2 = torch.topk(row, 2).values
+        return {"plain_token": p_tok, "speculative_token": spec_tok,
+                "plain_top2_margin": float(top2[0] - top2[1]),
+                "plain_logit_gap": float(row[p_tok] - row[spec_tok]),
+                "continuation_logit_gap": float(row_v[p_tok] - row_v[spec_tok]),
+                "continuation_argmax": int(torch.argmax(row_v))}
+
+    drafts = {"int8": (dict(draft_params=qmamba), new),
+              "first_8_layers": (dict(draft_layers=8), 32), "ngram": (dict(draft_mode="ngram"), 32)}
+    rec = {"card": card, "model": "OmniMamba-1.3B", "target": "torch.bfloat16", "prompt": plen,
+           "new_tokens": new, "k_draft": 8, "plain_greedy_s": plain_s,
+           "plain_greedy_tok_per_s": new / plain_s, "drafts": {}}
+    for name, (kw, n) in drafts.items():
+        out, secs = timed(lambda: speculative_generate(
+            mamba, cfg, input_ids=ids, input_embeddings=emb, task="mmu", max_length=plen + n,
+            k_draft=8, **kw))
+        got = out.sequences[0, plen:plen + out.num_generated].tolist()
+        same, at = _agreement(got, ref_toks[:n])
+        rec["drafts"][name] = {
+            "new_tokens": n, "seconds": secs, "tok_per_s": out.num_generated / secs,
+            "speedup_over_plain": out.num_generated / secs / rec["plain_greedy_tok_per_s"],
+            "rounds": out.rounds, "drafted": out.drafted,
+            "accepted": out.accepted, "acceptance": out.accepted / max(out.drafted, 1),
+            "stream_identical_to_plain": same, "first_divergence": at,
+            "at_divergence": divergence(at, got[at]) if at is not None and at < len(got) else None}
+
+    # where a round's time goes: one verify pass of the target, a window of
+    # 2K+2 = 18 tokens through the continuation prefill, and its argmax read
+    window, valid = ids[:, :18], torch.tensor([18], device="cuda")
+
+    def verify(_i=0):
+        e = embed_decode_window(mamba, window, plen, "mmu", cfg, bf)
+        h, _ = backbone_forward(mamba, e, "mmu", cfg, add_mmu_pos=False, return_cache=True,
+                                initial_cache=cache, valid_len=valid)
+        return torch.argmax(apply_head(mamba, h[0], "mmu"), dim=-1).cpu()
+
+    prof = profile_steps(verify, 3)
+    rec["verify_pass"] = {
+        "window": 18, "host_clock_ms": timed(lambda: [verify() for _ in range(3)])[1] * 1e3 / 3,
+        **{k: prof[k] for k in ("device_busy_ms_per_step", "kernel_launches_per_step",
+                                "device_ms_per_step_by_kind")}}
+    del cache
+
+    cfg4 = dataclasses.replace(MambaConfig(), n_layer=4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    p4 = init_backbone(gen, cfg4, f32, "cuda")
+    q4 = quantize_decode_params(p4)
+    emb4 = embed_text(p4, ids, f32)
+    want = generate(p4, cfg4, input_ids=ids, input_embeddings=emb4, task="mmu", max_length=plen + 48,
+                    sample=greedy, cache_dtype=None, return_logits=True)
+    exact = {}
+    for name, kw in {"int8": dict(draft_params=q4), "first_2_layers": dict(draft_layers=2),
+                     "ngram": dict(draft_mode="ngram")}.items():
+        out = speculative_generate(p4, cfg4, input_ids=ids, input_embeddings=emb4, task="mmu",
+                                   max_length=plen + 48, k_draft=4, **kw)
+        same, at = _agreement(out.sequences[0].tolist(), want.sequences[0].tolist())
+        margin = None
+        if not same:
+            top2 = torch.topk(want.logits[at - plen][0], 2).values
+            margin = float(top2[0] - top2[1])
+        exact[name] = {"identical": same, "first_divergence": at, "top2_margin_there": margin,
+                       "accepted": out.accepted, "drafted": out.drafted}
+    rec["fp32_4_layers"] = exact
+    emit({"speculative": rec})
+    assert all(v["identical"] for v in exact.values()), exact
+    assert all(v["tok_per_s"] > 0 for v in rec["drafts"].values())
+
+
+# ---------------------------------------------------------------------------
 # phase: kernels against plain versions, end to end through the decode engine
 # ---------------------------------------------------------------------------
 
@@ -1187,7 +1845,7 @@ def plain_vs_kernel():
             w.launches = 0
         out_k = generate(params, cfg, decode_impl=path, **common)
         before = {k: w.launches for k, w in wrappers.items()}
-        assert all((n > 0) != (k == idle[path] or k in BACKWARD_KERNELS)
+        assert all((n > 0) != (k == idle[path] or k in BACKWARD_KERNELS + INT8_KERNELS)
                    for k, n in before.items()), (path, before)
         with plain_versions():
             out_p = generate(params, cfg, decode_impl=path, teacher_outputs=out_k.sequences, **common)
@@ -1386,7 +2044,8 @@ def train_path(results, card):
     n = cfg.n_layer
     fwd = n * steps * (2 if remat else 1)  # checkpointing runs every forward again
     expect = {"ssd_scan": fwd, "add_rms_norm": fwd, "gated_rms_norm": fwd, "ssd_step": 0,
-              "decode_fused": 0, **dict.fromkeys(BACKWARD_KERNELS, n * steps)}
+              "decode_fused": 0, **dict.fromkeys(BACKWARD_KERNELS, n * steps),
+              **dict.fromkeys(INT8_KERNELS, 0)}
     losses = [row["loss"] for row in log.rows]
     step_s = np.diff(np.asarray([t_start] + log.stamps))
     # gate 4's checks: the mixer core is frozen, the image embeddings and the LoRA move
@@ -1411,6 +2070,8 @@ def train_path(results, card):
     assert not frozen_moved and rec["img_embeddings_moved"] and rec["lora_moved"], rec
     del before
     for name in expect:
+        if name in INT8_KERNELS:
+            continue
         results[name]["launches_train"] = launches[name]
         results[name]["launches_per_train_step"] = launches[name] // steps
         if name in BACKWARD_KERNELS:
@@ -1545,20 +2206,29 @@ def main() -> int:
                     "commands": info.commands,
                     "ptxas": [ln for ln in info.log.splitlines() if "registers" in ln or "spill" in ln]}})
 
-    results = {}
+    results, phase_s = {}, {"build": time.time() - t_all}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    check_ssd_scan(gen, results)
-    check_ssd_scan_bwd(gen, results)
-    check_ssd_step(gen, results)
-    check_norms(gen, results)
-    check_norms_bwd(gen, results)
-    check_decode_fused(gen, results)
 
-    main_path(results, card)
-    plain_vs_kernel()
+    def phase(fn, *args):
+        t = time.time()
+        out = fn(*args)
+        phase_s[fn.__name__] = time.time() - t
+        return out
+
+    for check in (check_ssd_scan, check_ssd_scan_bwd, check_ssd_step, check_norms, check_norms_bwd,
+                  check_decode_fused, check_qmatmul, check_decode_fused_int8, check_ssd_step_int8):
+        phase(check, gen, results)
+
+    params, model, text_ids, bf16_tokens = phase(main_path, results, card)
+    qmamba = phase(int8_path, params, model, text_ids, bf16_tokens, results, card)
+    phase(slot_engine_phase, qmamba, model.cfg, card)
+    phase(speculative_phase, params["mamba"], qmamba, model.cfg, card)
+    del params, qmamba, bf16_tokens
     torch.cuda.empty_cache()
-    train_plain_vs_kernel()
-    train_path(results, card)
+    phase(plain_vs_kernel)
+    torch.cuda.empty_cache()
+    phase(train_plain_vs_kernel)
+    phase(train_path, results, card)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -1570,10 +2240,11 @@ def main() -> int:
             "case", "shape", "dtype", "bytes_moved", "host_us", "prefill", "fp32_state", "train",
             "launches_fused_path", "launches_train", "launches_per_train_step", "flops",
             "chunk_states_bytes", "library_note", "scan_step_device_ms",
-            "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile")
+            "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "layout",
+            "out_dtype", "shapes", "launches_scan_path", "profile")
                     if k in r})
         kernels.append(row)
-    emit({"card": card, "seconds_total": time.time() - t_all})
+    emit({"card": card, "seconds_total": time.time() - t_all, "seconds_by_phase": phase_s})
     emit({"kernels": kernels})  # measured on the card named in the line above
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,10 +7,13 @@ package so a reader finds the counterpart:
 
   csrc/    hand-written CUDA kernels (sm_90a), built at first use
   ops/     SSD scan (oracle / chunked / kernels, forward and backward),
-           decode-step kernel, causal conv, norms and their kernels (forward
-           and backward), samplers, the kernel build
+           decode-step kernels, causal conv, norms and their kernels (forward
+           and backward), int8 weight quantization and the int8 matmul
+           kernel, samplers, the kernel build
   models/  Mamba-2 mixer, blocks, backbone + dual heads, decode engine,
-           VQ-16 decode side, the text-to-image composition and the losses
+           speculative decoding, VQ-16 decode side, the text-to-image
+           composition and the losses
+  serve/   the continuous-batching slot engine
   train/   schedule, stage freezing, AdamW; the training step and loop
   utils/   parameter bridge from and to the JAX pytree, checkpoints, device
            resolution
@@ -39,7 +42,17 @@ from omnimamba_tpu_torch.models.omnimamba import (  # noqa: F401
     t2i_generate,
     t2i_loss,
 )
+from omnimamba_tpu_torch.models.speculative import (  # noqa: F401
+    shallow_draft,
+    speculative_generate,
+)
+from omnimamba_tpu_torch.ops.quant import (  # noqa: F401
+    quantize_decode_params,
+    quantize_linear,
+    quantize_ssm_state,
+)
 from omnimamba_tpu_torch.ops.sampling import SampleParams  # noqa: F401
+from omnimamba_tpu_torch.serve.continuous import SlotEngine  # noqa: F401
 from omnimamba_tpu_torch.train.trainer import (  # noqa: F401
     Trainer,
     TrainState,

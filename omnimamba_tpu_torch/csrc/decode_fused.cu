@@ -5,6 +5,7 @@
 //
 //   res  = h + res (fp32);  hn = RMSNorm(res) * w, rounded to the io type
 //   [z | x B C | dt] = hn @ W_in + scaling * (hn @ A_lora) @ B_lora      (fp32)
+//   (an int8 {q, scale} W_in or W_out: (hn @ q) * scale, the scale on the fp32 product)
 //   x B C = silu(conv shift register step), window rolled in place
 //   dt    = softplus(dt + dt_bias)
 //   s'    = s * exp(dt * -exp(A_log)) + (dt * x) outer B, in place;  y = s' C + D x
@@ -58,6 +59,12 @@
 //     products are exact in fp32, so this is the same arithmetic in another
 //     order). It is bound by operations (119 GFLOP at 67 TFLOP/s is 1.8 ms at
 //     best).
+// With int8 projections (serving) the weight tiles land as int8, half the
+// bytes: the multiply-add kernels widen them on the way into shared memory,
+// the tensor-core kernels widen each landed tile to bf16 in shared memory
+// behind one __syncthreads before the product; the column scale multiplies
+// the fp32 product in the epilogue (before in_proj's LoRA term, on each
+// out_proj K-split partial). The other weights keep the activation type.
 // The state update streams the state like the step kernel, whose row code it
 // shares. What keeps the step above its bound is recorded in PERF.md: the
 // state update reaches 60% of its bytes' rate, and four short kernels a layer
@@ -77,6 +84,7 @@ namespace omt {
 // rows of the pointer table: table[op * L + layer]
 enum K4Op : int {
   kNormW = 0, kInProj, kLoraA, kLoraB, kConvW, kConvB, kDtBias, kALog, kD, kGnW, kOutProj,
+  kInScale, kOutScale,  // fp32 column scales of int8 projections
   kNumOps
 };
 
@@ -259,6 +267,10 @@ template <>
 struct Raw4<__nv_bfloat16> {
   using type = uint2;
 };
+template <>
+struct Raw4<int8_t> {
+  using type = char4;
+};
 
 __device__ __forceinline__ float4 load_raw4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -266,7 +278,14 @@ __device__ __forceinline__ float4 load_raw4(const float* p) {
 __device__ __forceinline__ uint2 load_raw4(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint2*>(p);
 }
+__device__ __forceinline__ char4 load_raw4(const int8_t* p) {
+  return *reinterpret_cast<const char4*>(p);
+}
 __device__ __forceinline__ float4 raw_to_float4(float4 r) { return r; }
+__device__ __forceinline__ float4 raw_to_float4(char4 r) {
+  return make_float4(static_cast<float>(r.x), static_cast<float>(r.y), static_cast<float>(r.z),
+                     static_cast<float>(r.w));
+}
 __device__ __forceinline__ float4 raw_to_float4(uint2 r) {
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
@@ -294,6 +313,30 @@ __device__ __forceinline__ uint2 load_guarded4(const __nv_bfloat16* p, int n) {
     if (i < n) e[i] = q[i];
   return make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
 }
+__device__ __forceinline__ char4 load_guarded4(const int8_t* p, int n) {
+  char4 v = make_char4(0, 0, 0, 0);
+  if (n > 0) v.x = p[0];
+  if (n > 1) v.y = p[1];
+  if (n > 2) v.z = p[2];
+  if (n > 3) v.w = p[3];
+  return v;
+}
+
+// the column scales s[col .. col + 3] of an int8 projection, zero past n
+__device__ __forceinline__ float4 scale4(const float* s, int col, int n) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (col < n) v.x = s[col];
+  if (col + 1 < n) v.y = s[col + 1];
+  if (col + 2 < n) v.z = s[col + 2];
+  if (col + 3 < n) v.w = s[col + 3];
+  return v;
+}
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+
+template <typename PW>
+constexpr bool kInt8 = std::is_same<PW, int8_t>::value;
 
 // Fetch the (kBM x kBK) A tile and the (kBK x kBN) W tile at k0 into
 // registers. A holds rows of io-typed activations with row stride K (the
@@ -535,7 +578,7 @@ __device__ __forceinline__ void in_proj_finish4(const K4Args& a, int layer,
   }
 }
 
-template <typename IO, typename WT>
+template <typename IO, typename WT, typename PW>
 __global__ void __launch_bounds__(kGemmThreads) k4_in_proj_kernel(K4Args a, int layer) {
   __shared__ __align__(16) float As[kBK * kAsStride];
   __shared__ __align__(16) float Ws[kBK * kBN];
@@ -546,7 +589,7 @@ __global__ void __launch_bounds__(kGemmThreads) k4_in_proj_kernel(K4Args a, int 
   const int m0 = blockIdx.y * kBM;
 
   float acc[kTM][kTN] = {};
-  gemm_tile(static_cast<const IO*>(a.hn), a.d, layer_ptr<WT>(a, kInProj, layer), n_in, a.B, n_in,
+  gemm_tile(static_cast<const IO*>(a.hn), a.d, layer_ptr<PW>(a, kInProj, layer), n_in, a.B, n_in,
             m0, n0, 0, a.d, acc, As, Ws);
 
   const int tx = threadIdx.x % (kBN / kTN);
@@ -559,6 +602,11 @@ __global__ void __launch_bounds__(kGemmThreads) k4_in_proj_kernel(K4Args a, int 
     rows[i] = m0 + ty * kTM + i;
     hA[i] = a.hA + static_cast<size_t>(min(rows[i], a.B - 1)) * a.r;
     v[i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  if constexpr (kInt8<PW>) {
+    const float4 sc = scale4(layer_ptr<float>(a, kInScale, layer), n0 + tx * kTN, n_in);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) v[i] = mul4(v[i], sc);
   }
   in_proj_finish4<IO, WT, kTM>(a, layer, rows, hA, n0 + tx * kTN, v, a.vec4 != 0);
 }
@@ -627,7 +675,7 @@ __global__ void __launch_bounds__(kSsmThreads) k4_ssm_kernel(K4Args a, int layer
 // phase 4: out_proj of the gated, weighted yf into K-split partials
 // ---------------------------------------------------------------------------
 
-template <typename IO, typename WT>
+template <typename IO, typename PW>
 __global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int layer) {
   __shared__ __align__(16) float As[kBK * kAsStride];
   __shared__ __align__(16) float Ws[kBK * kBN];
@@ -641,12 +689,17 @@ __global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int
   const int k_end = min(K, k_begin + per);
 
   float acc[kTM][kTN] = {};
-  gemm_tile(static_cast<const IO*>(a.ya), K, layer_ptr<WT>(a, kOutProj, layer), a.d, a.B, a.d, m0,
+  gemm_tile(static_cast<const IO*>(a.ya), K, layer_ptr<PW>(a, kOutProj, layer), a.d, a.B, a.d, m0,
             n0, k_begin, k_end, acc, As, Ws);
 
   const int tx = threadIdx.x % (kBN / kTN);
   const int ty = threadIdx.x / (kBN / kTN);
   float* part = a.part + static_cast<size_t>(split) * a.B * a.d;
+  float sc[kTN] = {1.0f, 1.0f, 1.0f, 1.0f};
+  if constexpr (kInt8<PW>) {
+    const float4 s4 = scale4(layer_ptr<float>(a, kOutScale, layer), n0 + tx * kTN, a.d);
+    sc[0] = s4.x; sc[1] = s4.y; sc[2] = s4.z; sc[3] = s4.w;
+  }
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int row = m0 + ty * kTM + i;
@@ -654,21 +707,24 @@ __global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int col = n0 + tx * kTN + j;
-      if (col < a.d) part[static_cast<size_t>(row) * a.d + col] = acc[i][j];
+      if (col < a.d)
+        part[static_cast<size_t>(row) * a.d + col] = kInt8<PW> ? acc[i][j] * sc[j] : acc[i][j];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// phases 2 and 4 for bf16 activations and bf16 weights: tensor-core products
+// phases 2 and 4 for bf16 activations and bf16 or int8 projections: tensor cores
 // ---------------------------------------------------------------------------
 // A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
 // 16 (w % 4) .. + 15, the k half w / 4 of every k step, and MT accumulator
 // fragments; the two halves are added, lower k first, when C is read. The (64 x 64) weight tile and
 // the (MT * 16 x 64) activation tile of each k step are copied into a ring of
 // four shared-memory stages with 16-byte cp.async, three k steps ahead of the
-// one being multiplied (24 KB of weights in flight per block). Shapes are
-// whole tiles (K and N multiples of 64,
+// one being multiplied (24 KB of bf16 weights in flight per block, 12 KB of
+// int8). An int8 weight tile is widened to bf16 in a buffer of its own once it
+// has landed, behind one __syncthreads (wmma has no int8 x bf16 product).
+// Shapes are whole tiles (K and N multiples of 64,
 // every row 16-byte aligned): the caller takes the multiply-add kernels
 // otherwise. Rows past M are read from row M - 1 and never written.
 
@@ -678,33 +734,51 @@ constexpr int kLdA = kTcBK + 8;
 constexpr int kLdC = kTcBN + 4;  // floats
 constexpr int kTcMaxRank = 64;   // LoRA ranks above this take the multiply-add kernels
 
-template <int MT>
+// bytes of one weight-tile row in a stage, and of the bf16 buffer an int8 tile is widened into
+template <typename PW>
+struct TcW;
+template <>
+struct TcW<__nv_bfloat16> {
+  static constexpr int kRowBytes = kLdW * 2;
+  static constexpr int kWideBytes = 0;
+};
+template <>
+struct TcW<int8_t> {
+  static constexpr int kRowBytes = kTcBN + 16;  // rows stay 16-byte aligned
+  static constexpr int kWideBytes = kTcBK * kLdW * 2;
+};
+
+template <int MT, typename PW>
 struct TcTile {
-  static constexpr int kWStage = kTcBK * kLdW;
-  static constexpr int kStage = kWStage + MT * 16 * kLdA;  // bf16 elements
-  static constexpr int kPipeBytes = kTcStages * kStage * 2;
+  static constexpr int kWBytes = kTcBK * TcW<PW>::kRowBytes;
+  static constexpr int kStageBytes = kWBytes + MT * 16 * kLdA * 2;
+  static constexpr int kWideOffset = kTcStages * kStageBytes;
+  static constexpr int kPipeBytes = kWideOffset + TcW<PW>::kWideBytes;
   static constexpr int kCHalf = MT * 16 * kLdC;  // floats: C of one k half
   static constexpr int kCBytes = 2 * kCHalf * 4;
   // after the product the ring holds C and, behind it, the block's rows of hn @ A
   static constexpr int kEpilogueBytes = kCBytes + MT * 16 * kTcMaxRank * 4;
   static constexpr int kBytes = kPipeBytes > kEpilogueBytes ? kPipeBytes : kEpilogueBytes;
-  static_assert(kStage * 2 % 32 == 0 && kWStage * 2 % 32 == 0, "wmma needs 32-byte alignment");
+  static_assert(kWBytes % 32 == 0 && kStageBytes % 32 == 0, "wmma needs 32-byte alignment");
 };
 
-template <int MT>
+template <int MT, typename PW>
 __device__ __forceinline__ void tc_copy_tile(const __nv_bfloat16* __restrict__ A, int lda,
-                                         const __nv_bfloat16* __restrict__ Wm, int ldw, int M,
-                                         int m0, int n0, int k0, __nv_bfloat16* stage) {
+                                             const PW* __restrict__ Wm, int ldw, int M, int m0,
+                                             int n0, int k0, unsigned char* stage) {
   const int tid = threadIdx.x;
+  constexpr int kChunks = kTcBN * static_cast<int>(sizeof(PW)) / 16;  // 16-byte chunks a row
 #pragma unroll
-  for (int j = 0; j < kTcBK * kTcBN / 8 / kTcThreads; ++j) {
+  for (int j = 0; j < kTcBK * kChunks / kTcThreads; ++j) {
     const int c = tid + j * kTcThreads;
-    const int row = c / (kTcBN / 8);
-    const int ch = (c % (kTcBN / 8)) * 8;
-    __pipeline_memcpy_async(stage + row * kLdW + ch,
-                            Wm + static_cast<size_t>(k0 + row) * ldw + n0 + ch, 16);
+    const int row = c / kChunks;
+    const int ch = (c % kChunks) * 16;  // bytes
+    __pipeline_memcpy_async(
+        stage + row * TcW<PW>::kRowBytes + ch,
+        reinterpret_cast<const unsigned char*>(Wm + static_cast<size_t>(k0 + row) * ldw + n0) + ch,
+        16);
   }
-  __nv_bfloat16* As = stage + TcTile<MT>::kWStage;
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(stage + TcTile<MT, PW>::kWBytes);
 #pragma unroll
   for (int c = tid; c < MT * 16 * (kTcBK / 8); c += kTcThreads) {
     const int row = c / (kTcBK / 8);
@@ -714,15 +788,29 @@ __device__ __forceinline__ void tc_copy_tile(const __nv_bfloat16* __restrict__ A
   }
 }
 
+// the landed (64 x 64) int8 weight tile of a stage, widened to bf16 (exact: |q| <= 127)
+__device__ __forceinline__ void tc_widen_int8(const unsigned char* stage, __nv_bfloat16* wide) {
+  static_assert(kTcThreads * 16 == kTcBK * kTcBN, "16 int8 values a thread");
+  const int row = threadIdx.x >> 2, c16 = (threadIdx.x & 3) * 16;
+  const int4 raw = *reinterpret_cast<const int4*>(stage + row * TcW<int8_t>::kRowBytes + c16);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  __align__(16) __nv_bfloat16 v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = __float2bfloat16_rn(static_cast<float>(b[i]));
+  uint4* dst = reinterpret_cast<uint4*>(wide + row * kLdW + c16);
+  dst[0] = reinterpret_cast<const uint4*>(v)[0];
+  dst[1] = reinterpret_cast<const uint4*>(v)[1];
+}
+
 // C is left in `smem` for the caller as two fp32 (MT * 16 x 64) halves with row
 // stride kLdC, kCHalf floats apart: the lower and the upper k half
-template <int MT>
+template <int MT, typename PW>
 __device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A, int lda,
-                                             const __nv_bfloat16* __restrict__ Wm, int ldw,
+                                             const PW* __restrict__ Wm, int ldw,
                                              int M, int m0, int n0, int k_begin, int k_end,
                                              unsigned char* smem) {
   namespace wmma = nvcuda::wmma;
-  __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem);
+  using Tile = TcTile<MT, PW>;
   const int warp_n = (threadIdx.x >> 5) & 3;
   const int warp_k = threadIdx.x >> 7;
   const int ntiles = (k_end - k_begin) / kTcBK;
@@ -733,8 +821,8 @@ __device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A
 
   for (int t = 0; t < kTcStages - 1; ++t) {
     if (t < ntiles)
-      tc_copy_tile<MT>(A, lda, Wm, ldw, M, m0, n0, k_begin + t * kTcBK,
-                   pipe + t * TcTile<MT>::kStage);
+      tc_copy_tile<MT, PW>(A, lda, Wm, ldw, M, m0, n0, k_begin + t * kTcBK,
+                           smem + t * Tile::kStageBytes);
     __pipeline_commit();
   }
   for (int t = 0; t < ntiles; ++t) {
@@ -742,12 +830,21 @@ __device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A
     __syncthreads();  // everyone's have, and everyone is done with tile t - 1
     const int ahead = t + kTcStages - 1;   // goes into the stage tile t - 1 used
     if (ahead < ntiles)
-      tc_copy_tile<MT>(A, lda, Wm, ldw, M, m0, n0, k_begin + ahead * kTcBK,
-                   pipe + (ahead % kTcStages) * TcTile<MT>::kStage);
+      tc_copy_tile<MT, PW>(A, lda, Wm, ldw, M, m0, n0, k_begin + ahead * kTcBK,
+                           smem + (ahead % kTcStages) * Tile::kStageBytes);
     __pipeline_commit();
 
-    const __nv_bfloat16* Ws = pipe + (t % kTcStages) * TcTile<MT>::kStage;
-    const __nv_bfloat16* As = Ws + TcTile<MT>::kWStage;
+    const unsigned char* stage = smem + (t % kTcStages) * Tile::kStageBytes;
+    const __nv_bfloat16* Ws;
+    if constexpr (kInt8<PW>) {
+      __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem + Tile::kWideOffset);
+      tc_widen_int8(stage, wide);  // the sync above: nobody still reads tile t - 1's
+      __syncthreads();
+      Ws = wide;
+    } else {
+      Ws = reinterpret_cast<const __nv_bfloat16*>(stage);
+    }
+    const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(stage + Tile::kWBytes);
 #pragma unroll
     for (int k16 = 0; k16 < kTcBK / 2; k16 += 16) {
       const int kk = warp_k * (kTcBK / 2) + k16;
@@ -763,7 +860,7 @@ __device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A
   }
   __pipeline_wait_prior(0);
   __syncthreads();  // the ring is free: reuse it for C
-  float* Cs = reinterpret_cast<float*>(smem) + warp_k * TcTile<MT>::kCHalf;
+  float* Cs = reinterpret_cast<float*>(smem) + warp_k * Tile::kCHalf;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
     wmma::store_matrix_sync(Cs + i * 16 * kLdC + warp_n * 16, acc[i], kLdC, wmma::mem_row_major);
@@ -771,15 +868,15 @@ __device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A
 }
 
 // four consecutive columns of row `row` of the finished tile: lower k half + upper
-template <int MT>
+template <int MT, typename PW>
 __device__ __forceinline__ float4 tc_result4(const unsigned char* smem, int row, int c4) {
   const float* Cs = reinterpret_cast<const float*>(smem) + row * kLdC + c4;
-  const float4 lo = load4(Cs), hi = load4(Cs + TcTile<MT>::kCHalf);
+  const float4 lo = load4(Cs), hi = load4(Cs + TcTile<MT, PW>::kCHalf);
   return make_float4(lo.x + hi.x, lo.y + hi.y, lo.z + hi.z, lo.w + hi.w);
 }
 
 // in_proj on whole tiles: a thread finishes 4 consecutive columns of MT rows
-template <int MT>
+template <int MT, typename PW>
 __global__ void __launch_bounds__(kTcThreads) k4_in_proj_tc_kernel(K4Args a, int layer) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   using bf16 = __nv_bfloat16;
@@ -787,15 +884,17 @@ __global__ void __launch_bounds__(kTcThreads) k4_in_proj_tc_kernel(K4Args a, int
   const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
   const int n0 = blockIdx.x * kTcBN;
   const int m0 = blockIdx.y * MT * 16;
-  gemm_tile_tc<MT>(static_cast<const bf16*>(a.hn), a.d, layer_ptr<bf16>(a, kInProj, layer), n_in,
-                   a.B, m0, n0, 0, a.d, tc_smem);
-  float* hAs = reinterpret_cast<float*>(tc_smem + TcTile<MT>::kCBytes);  // (MT * 16, r)
+  gemm_tile_tc<MT, PW>(static_cast<const bf16*>(a.hn), a.d, layer_ptr<PW>(a, kInProj, layer), n_in,
+                       a.B, m0, n0, 0, a.d, tc_smem);
+  float* hAs = reinterpret_cast<float*>(tc_smem + TcTile<MT, PW>::kCBytes);  // (MT * 16, r)
   for (int e = threadIdx.x; e < MT * 16 * a.r; e += kTcThreads)
     hAs[e] = (m0 + e / a.r < a.B) ? a.hA[static_cast<size_t>(m0) * a.r + e] : 0.0f;
   __syncthreads();
 
   const int cg = threadIdx.x % (kTcBN / 4);
   const int rl = threadIdx.x / (kTcBN / 4);
+  float4 sc = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  if constexpr (kInt8<PW>) sc = load4(layer_ptr<float>(a, kInScale, layer) + n0 + cg * 4);
   int rows[MT];
   const float* hA[MT];
   float4 v[MT];
@@ -803,12 +902,13 @@ __global__ void __launch_bounds__(kTcThreads) k4_in_proj_tc_kernel(K4Args a, int
   for (int i = 0; i < MT; ++i) {
     rows[i] = m0 + rl + kRowStep * i;
     hA[i] = hAs + (rl + kRowStep * i) * a.r;
-    v[i] = tc_result4<MT>(tc_smem, rl + kRowStep * i, cg * 4);
+    v[i] = tc_result4<MT, PW>(tc_smem, rl + kRowStep * i, cg * 4);
+    if constexpr (kInt8<PW>) v[i] = mul4(v[i], sc);
   }
   in_proj_finish4<bf16, bf16, MT>(a, layer, rows, hA, n0 + cg * 4, v, true);
 }
 
-template <int MT>
+template <int MT, typename PW>
 __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, int layer) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   using bf16 = __nv_bfloat16;
@@ -819,14 +919,15 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
   const int per = ((K + a.ksplit - 1) / a.ksplit + kTcBK - 1) / kTcBK * kTcBK;
   const int k_begin = min(K, split * per);
   const int k_end = min(K, k_begin + per);
-  gemm_tile_tc<MT>(static_cast<const bf16*>(a.ya), K, layer_ptr<bf16>(a, kOutProj, layer), a.d,
-                   a.B, m0, n0, k_begin, k_end, tc_smem);
+  gemm_tile_tc<MT, PW>(static_cast<const bf16*>(a.ya), K, layer_ptr<PW>(a, kOutProj, layer), a.d,
+                       a.B, m0, n0, k_begin, k_end, tc_smem);
   float* part = a.part + static_cast<size_t>(split) * a.B * a.d;
   for (int e = threadIdx.x; e < MT * 16 * (kTcBN / 4); e += kTcThreads) {
     const int row = e / (kTcBN / 4), c4 = (e % (kTcBN / 4)) * 4;
-    if (m0 + row < a.B)
-      store4(part + static_cast<size_t>(m0 + row) * a.d + n0 + c4,
-             tc_result4<MT>(tc_smem, row, c4));
+    if (m0 + row >= a.B) continue;
+    float4 v = tc_result4<MT, PW>(tc_smem, row, c4);
+    if constexpr (kInt8<PW>) v = mul4(v, load4(layer_ptr<float>(a, kOutScale, layer) + n0 + c4));
+    store4(part + static_cast<size_t>(m0 + row) * a.d + n0 + c4, v);
   }
 }
 
@@ -840,47 +941,49 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // rows per block follow the batch: 16, 32 or 48
 inline int tc_row_fragments(int B) { return B <= 16 ? 1 : (B <= 32 ? 2 : 3); }
 
-template <int MT>
+template <int MT, typename PW>
 cudaError_t allow_smem_tc() {
-  const cudaError_t err = allow_smem(k4_in_proj_tc_kernel<MT>, TcTile<MT>::kBytes);
+  const cudaError_t err = allow_smem(k4_in_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
   if (err != cudaSuccess) return err;
-  return allow_smem(k4_out_proj_tc_kernel<MT>, TcTile<MT>::kBytes);
+  return allow_smem(k4_out_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
 }
 
-template <int MT>
+template <int MT, typename PW>
 cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStream_t stream) {
   const unsigned int row_tiles = (a.B + MT * 16 - 1) / (MT * 16);
   if (out_proj) {
     const dim3 grid(a.d / kTcBN, row_tiles, a.ksplit);
-    k4_out_proj_tc_kernel<MT><<<grid, kTcThreads, TcTile<MT>::kBytes, stream>>>(a, layer);
+    k4_out_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
   } else {
     const dim3 grid((2 * a.d_inner + 2 * a.N + a.H) / kTcBN, row_tiles);
-    k4_in_proj_tc_kernel<MT><<<grid, kTcThreads, TcTile<MT>::kBytes, stream>>>(a, layer);
+    k4_in_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
   }
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj,
-                                     cudaStream_t stream) {
+template <typename PW>
+cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStream_t stream) {
   switch (tc_row_fragments(a.B)) {
-    case 1: return launch_product_tc<1>(a, layer, out_proj, stream);
-    case 2: return launch_product_tc<2>(a, layer, out_proj, stream);
-    default: return launch_product_tc<3>(a, layer, out_proj, stream);
+    case 1: return launch_product_tc<1, PW>(a, layer, out_proj, stream);
+    case 2: return launch_product_tc<2, PW>(a, layer, out_proj, stream);
+    default: return launch_product_tc<3, PW>(a, layer, out_proj, stream);
   }
 }
 
-inline cudaError_t allow_smem_tc(int B) {
+template <typename PW>
+cudaError_t allow_smem_tc(int B) {
   switch (tc_row_fragments(B)) {
-    case 1: return allow_smem_tc<1>();
-    case 2: return allow_smem_tc<2>();
-    default: return allow_smem_tc<3>();
+    case 1: return allow_smem_tc<1, PW>();
+    case 2: return allow_smem_tc<2, PW>();
+    default: return allow_smem_tc<3, PW>();
   }
 }
 
 // ---------------------------------------------------------------------------
 
-template <typename IO, typename WT, typename ST>
+template <typename IO, typename WT, typename PW, typename ST>
 cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t stream) {
+  // tensor cores for bf16 activations and weights, with bf16 or int8 projections
   constexpr bool kBothBf16 =
       std::is_same<IO, __nv_bfloat16>::value && std::is_same<WT, __nv_bfloat16>::value;
   const size_t row_smem = static_cast<size_t>(a.d) * sizeof(float);
@@ -889,8 +992,11 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t str
   if (err != cudaSuccess) return err;
   err = allow_smem(k4_ssm_kernel<IO, WT, ST>, bc_smem);
   if (err != cudaSuccess) return err;
-  const bool tensor_cores = kBothBf16 && whole_tiles;
-  if (tensor_cores && (err = allow_smem_tc(a.B)) != cudaSuccess) return err;
+  bool tensor_cores = false;
+  if constexpr (kBothBf16) {
+    tensor_cores = whole_tiles;
+    if (tensor_cores && (err = allow_smem_tc<PW>(a.B)) != cudaSuccess) return err;
+  }
 
   const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
   const unsigned int row_tiles = (a.B + kBM - 1) / kBM;
@@ -902,18 +1008,22 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t str
   for (int layer = 0; layer < a.L; ++layer) {
     k4_prenorm_kernel<IO, WT><<<rows, kRowThreads, row_smem, stream>>>(a, layer);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if (tensor_cores) {
-      if ((err = launch_product_tc(a, layer, false, stream)) != cudaSuccess) return err;
-    } else {
-      k4_in_proj_kernel<IO, WT><<<in_grid, kGemmThreads, 0, stream>>>(a, layer);
+    if constexpr (kBothBf16) {
+      if (tensor_cores && (err = launch_product_tc<PW>(a, layer, false, stream)) != cudaSuccess)
+        return err;
+    }
+    if (!tensor_cores) {
+      k4_in_proj_kernel<IO, WT, PW><<<in_grid, kGemmThreads, 0, stream>>>(a, layer);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     k4_ssm_kernel<IO, WT, ST><<<row_heads, kSsmThreads, bc_smem, stream>>>(a, layer);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if (tensor_cores) {
-      if ((err = launch_product_tc(a, layer, true, stream)) != cudaSuccess) return err;
-    } else {
-      k4_out_proj_kernel<IO, WT><<<out_grid, kGemmThreads, 0, stream>>>(a, layer);
+    if constexpr (kBothBf16) {
+      if (tensor_cores && (err = launch_product_tc<PW>(a, layer, true, stream)) != cudaSuccess)
+        return err;
+    }
+    if (!tensor_cores) {
+      k4_out_proj_kernel<IO, PW><<<out_grid, kGemmThreads, 0, stream>>>(a, layer);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
   }
@@ -921,12 +1031,12 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t str
   return cudaGetLastError();
 }
 
-template <typename IO, typename WT>
+template <typename IO, typename WT, typename PW>
 cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_tiles,
                                    cudaStream_t stream) {
-  if (state_dtype == kF32) return run_fused_decode<IO, WT, float>(a, whole_tiles, stream);
+  if (state_dtype == kF32) return run_fused_decode<IO, WT, PW, float>(a, whole_tiles, stream);
   if (state_dtype == kBF16)
-    return run_fused_decode<IO, WT, __nv_bfloat16>(a, whole_tiles, stream);
+    return run_fused_decode<IO, WT, PW, __nv_bfloat16>(a, whole_tiles, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -938,7 +1048,10 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // LoRA B (r, 2*d_inner + 2N + H), conv weight (W, d_inner + 2N) oldest tap
 // first, conv bias, dt_bias (H), A_log (H), D (H), gated-norm weight
 // (d_inner), out_proj (d_inner, d); all of the element type w_dtype,
-// contiguous. r = 0 means no LoRA (its two table rows are not read). h_in,
+// contiguous, except in_proj and out_proj when proj_dtype is int8: then they
+// are int8 and the rows in_scale (2*d_inner + 2N + H) and out_scale (d) hold
+// their fp32 column scales (the scale rows are not read otherwise).
+// r = 0 means no LoRA (its two table rows are not read). h_in,
 // h_out, hn, ya and conv_state have the element type io_dtype; ssm_state has
 // state_dtype; res_in (may be null), res_out and the scratch arrays hA, z, xbc,
 // dt, sumsq and part (ksplit, B, d) are fp32. conv_state and ssm_state are
@@ -949,7 +1062,8 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // then takes 4-element vector accesses (d_inner and H multiples of 4), and
 // with whole tiles (d, d_inner and the in_proj width multiples of 64) and
 // bf16 activations and weights the products run on the tensor cores.
-// Activations and weights are both bf16 or both fp32.
+// Activations and weights are both bf16 or both fp32; proj_dtype is w_dtype
+// or int8.
 // Everything is enqueued on `stream`; nothing synchronises. Returns the first
 // cudaError_t of a launch (0 = success).
 extern "C" int omt_fused_decode_step(
@@ -957,7 +1071,7 @@ extern "C" int omt_fused_decode_step(
     int ksplit, float lora_scale, float norm_eps, float gn_eps, void* conv_state,
     void* ssm_state, const void* h_in, const void* res_in, void* h_out, void* res_out, void* hn,
     void* hA, void* z, void* xbc, void* dt, void* ya, void* sumsq, void* part, int io_dtype,
-    int w_dtype, int state_dtype, int aligned16, void* stream) {
+    int w_dtype, int state_dtype, int aligned16, int proj_dtype, void* stream) {
   using namespace omt;
   if (L < 1 || B < 1 || d < 1 || W < 1 || r < 0 || N % 4 != 0 || H * P != d_inner ||
       ksplit < 1 || ksplit > kMaxKSplit ||
@@ -980,9 +1094,14 @@ extern "C" int omt_fused_decode_step(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool whole = aligned16 != 0 && d % 64 == 0 && d_inner % 64 == 0 &&
                      (2 * d_inner + 2 * N + H) % 64 == 0 && r <= kTcMaxRank;
-  if (io_dtype == kBF16 && w_dtype == kBF16)
-    return run_fused_decode_state<__nv_bfloat16, __nv_bfloat16>(a, state_dtype, whole, s);
-  if (io_dtype == kF32 && w_dtype == kF32)
-    return run_fused_decode_state<float, float>(a, state_dtype, whole, s);
+  using bf16 = __nv_bfloat16;
+  if (io_dtype == kBF16 && w_dtype == kBF16 && proj_dtype == kBF16)
+    return run_fused_decode_state<bf16, bf16, bf16>(a, state_dtype, whole, s);
+  if (io_dtype == kBF16 && w_dtype == kBF16 && proj_dtype == kI8)
+    return run_fused_decode_state<bf16, bf16, int8_t>(a, state_dtype, whole, s);
+  if (io_dtype == kF32 && w_dtype == kF32 && proj_dtype == kF32)
+    return run_fused_decode_state<float, float, float>(a, state_dtype, whole, s);
+  if (io_dtype == kF32 && w_dtype == kF32 && proj_dtype == kI8)
+    return run_fused_decode_state<float, float, int8_t>(a, state_dtype, whole, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

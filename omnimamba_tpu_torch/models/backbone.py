@@ -14,7 +14,10 @@ Embedding extras:
 - mmu: ``mmu_pos_embed`` (1, 1500, d);
 - text ``embedding`` (padded vocab).
 
-Linear kernels are stored ``(in, out)`` and applied as ``x @ W``.
+Linear kernels are stored ``(in, out)`` and applied as ``x @ W``. For
+serving, the tables, ``project_in`` and the mixers' projections may be int8
+``{"q", "scale"}`` entries (``ops/quant.quantize_decode_params``); lookups and
+products go through ``lookup_any`` / ``matmul_any``, which take either form.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from omnimamba_tpu_torch.models.blocks import block_forward, block_step
 from omnimamba_tpu_torch.models.mamba2 import Mamba2Cache, init_mamba2
 from omnimamba_tpu_torch.ops.decode_fused import FusedDecodePlan, fused_decode_step
 from omnimamba_tpu_torch.ops.norms import rms_norm
+from omnimamba_tpu_torch.ops.quant import is_quantized, lookup_any, matmul_any
 from omnimamba_tpu_torch.utils.device import resolve_device
 from omnimamba_tpu_torch.utils.init import normal, trunc_normal, uniform
 
@@ -106,28 +110,26 @@ def init_backbone(
 # ---------------------------------------------------------------------------
 
 
-def _lookup(table, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    if isinstance(table, dict):
-        raise NotImplementedError(
-            "int8 {q, scale} tables arrive with the serving slice (ROADMAP Q1 item 9)"
-        )
-    return table[ids].to(dtype)
+def _linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The product rounds to x's type, then the bias is added (the JAX
+    rounding points)."""
+    return matmul_any(x, p["kernel"]) + p["bias"].to(x.dtype)
 
 
 def _fused_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
     """FusedMLPProjector forward: Lin-GELU-Lin-GELU-Lin, exact (erf) GELU."""
-    h = F.gelu(x @ p["fc1"]["kernel"] + p["fc1"]["bias"])
-    h = F.gelu(h @ p["fc2"]["kernel"] + p["fc2"]["bias"])
-    return h @ p["fc3"]["kernel"] + p["fc3"]["bias"]
+    h = F.gelu(_linear(p["fc1"], x))
+    h = F.gelu(_linear(p["fc2"], h))
+    return _linear(p["fc3"], h)
 
 
 def embed_text(params: Dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return _lookup(params["embedding"], ids, dtype)
+    return lookup_any(params["embedding"], ids, dtype)
 
 
 def embed_image_tokens(params: Dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """img_embeddings: table lookup + FusedMLP project_in."""
-    e = _lookup(params["img_embeddings"]["word_embeddings"], ids, dtype)
+    e = lookup_any(params["img_embeddings"]["word_embeddings"], ids, dtype)
     return _fused_mlp(params["img_embeddings"]["project_in"], e)
 
 
@@ -144,10 +146,20 @@ def caption_embed(params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 class BackboneCache(NamedTuple):
-    """Stacked per-layer decode state: leading axis = layer."""
+    """Stacked per-layer decode state: leading axis = layer. The SSM state
+    may be scaled int8 (``ops/quant.quantize_ssm_state``): a dict with q
+    (n_layer, B, H, P, N) int8 and scale (n_layer, B, H, P) fp32."""
 
     conv_state: torch.Tensor  # (n_layer, B, W-1, d_conv_in)
-    ssm_state: torch.Tensor  # (n_layer, B, H, P, N) fp32 or the cache dtype
+    ssm_state: object  # (n_layer, B, H, P, N) fp32 or the cache dtype, or int8 {"q", "scale"}
+
+
+def layer_state(state, i: int):
+    """Layer ``i`` of a stacked SSM state in either representation (views:
+    an update of the layer's state lands in the stack)."""
+    if isinstance(state, dict):
+        return {k: v[i] for k, v in state.items()}
+    return state[i]
 
 
 def _final_norm(params, h, residual, eps, dtype):
@@ -235,7 +247,8 @@ def backbone_forward(
     for i, layer in enumerate(params["layers"]):
         icache = None
         if initial_cache is not None:
-            icache = Mamba2Cache(initial_cache.conv_state[i], initial_cache.ssm_state[i])
+            icache = Mamba2Cache(initial_cache.conv_state[i],
+                                 layer_state(initial_cache.ssm_state, i))
         def run(h, residual, layer=layer, icache=icache):
             return block_forward(
                 layer, h, residual, task, cfg.mixer, cfg.lora,
@@ -273,6 +286,24 @@ def _decode_embed(params, token_ids, pos, task, cfg, dtype):
     raise ValueError(task)
 
 
+def embed_decode_window(
+    params: Dict,
+    token_ids: torch.Tensor,  # (B, K)
+    pos0: int,  # absolute position of token_ids[:, 0]
+    task: str,
+    cfg: MambaConfig,
+    dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Decode-style embeddings (B, K, d) of a K-token window at positions
+    pos0 .. pos0 + K - 1: the batched ``_decode_embed``. Feed them to
+    ``backbone_forward(..., add_mmu_pos=False, initial_cache=...)`` for a
+    continuation prefill (the verify pass of speculative decoding)."""
+    B, K = token_ids.shape
+    pos = (int(pos0) + torch.arange(K, device=token_ids.device)).repeat(B)
+    emb = _decode_embed(params, token_ids.reshape(B * K), pos, task, cfg, dtype)
+    return emb.reshape(B, K, -1)
+
+
 def backbone_step(
     params: Dict,
     token_ids: torch.Tensor,  # (B,) next-token ids
@@ -291,7 +322,7 @@ def backbone_step(
     residual = None
     for i, layer in enumerate(params["layers"]):
         h, residual, _ = block_step(
-            layer, h, residual, Mamba2Cache(cache.conv_state[i], cache.ssm_state[i]),
+            layer, h, residual, Mamba2Cache(cache.conv_state[i], layer_state(cache.ssm_state, i)),
             task, cfg.mixer, cfg.lora, norm_eps=cfg.norm_eps,
         )
     return _final_norm(params, h, residual, cfg.norm_eps, dtype), cache
@@ -327,15 +358,15 @@ def apply_head(params: Dict, hidden: torch.Tensor, task: str) -> torch.Tensor:
     an fp32 result. Both operands are widened to fp32 before the product: the
     products of bf16 values are exact in fp32 and the sum is taken in fp32,
     which is what fp32 accumulation of bf16 operands computes; a bf16 result
-    would round the logits and could flip a greedy argmax."""
+    would round the logits and could flip a greedy argmax. An int8 table
+    goes through the int8 product in its transposed layout with an fp32
+    result."""
     if task == "t2i":
         table = params["img_embeddings"]["word_embeddings"]
     elif task == "mmu":
         table = params["embedding"]
     else:
         raise ValueError(task)
-    if isinstance(table, dict):
-        raise NotImplementedError(
-            "int8 {q, scale} tables arrive with the serving slice (ROADMAP Q1 item 9)"
-        )
+    if is_quantized(table):
+        return matmul_any(hidden, table, transpose=True, out_dtype=torch.float32)
     return hidden.float() @ table.float().T

@@ -36,6 +36,7 @@ from omnimamba_tpu_torch.models.backbone import (
     backbone_step_fused,
 )
 from omnimamba_tpu_torch.ops.decode_fused import fused_decode_limits, prepare_fused_decode
+from omnimamba_tpu_torch.ops.quant import quantize_ssm_state
 from omnimamba_tpu_torch.ops.sampling import (
     SampleParams,
     apply_repetition_penalty,
@@ -76,7 +77,10 @@ def generate(
     ``cache_dtype``: carry the SSM state in this dtype during decode. The
     state's read and write is the dominant memory traffic of batched decode;
     "auto" carries it in bf16 at B >= 16 and in fp32 below, None forces fp32,
-    ``torch.bfloat16`` forces bf16.
+    ``torch.bfloat16`` forces bf16, ``"int8"`` (or ``torch.int8``) the
+    scaled-int8 state of ``ops/quant.quantize_ssm_state``, which rides the
+    layer-by-layer path ("auto" then takes "scan"; "fused" raises
+    ``ValueError``).
 
     ``decode_impl``: "fused" takes each token through all layers in one call
     of the whole-model decode kernel (``backbone_step_fused``); "scan" loops
@@ -85,7 +89,8 @@ def generate(
     group, ``lora_nums == 1``, no ``dt_limit``, float32 or bfloat16 weights
     and embeddings of the same type) and "scan" elsewhere; the choice depends
     on the model and its types, never on the device. "fused" raises where a
-    limit is not met.
+    limit is not met. int8 ``{q, scale}`` weights
+    (``ops/quant.quantize_decode_params``) take either path.
 
     ``prompt_lengths`` (B,): ragged batching. ``input_ids``/embeddings are
     right-padded to L0; row i's true prompt is its first prompt_lengths[i]
@@ -100,6 +105,11 @@ def generate(
     require_on(device, input_ids=input_ids, input_embeddings=input_embeddings)
     if decode_impl not in ("auto", "fused", "scan"):
         raise ValueError(f"unknown decode_impl {decode_impl}")
+    int8_state = isinstance(cache_dtype, (str, torch.dtype)) and cache_dtype in ("int8", torch.int8)
+    if int8_state:
+        if decode_impl == "fused":
+            raise ValueError("cache_dtype='int8' rides the scan path, not decode_impl='fused'")
+        decode_impl = "scan"
     limit = None if decode_impl == "scan" else fused_decode_limits(
         params["layers"], cfg.mixer, cfg.lora, input_embeddings.dtype)
     if decode_impl == "fused" and limit is not None:
@@ -122,16 +132,11 @@ def generate(
     )
     if isinstance(cache_dtype, str) and cache_dtype == "auto":
         cache_dtype = torch.bfloat16 if B >= 16 else None
-    if cache_dtype in ("int8", torch.int8):
-        if decode_impl == "fused":
-            raise ValueError("cache_dtype='int8' rides the scan path, not decode_impl='fused'")
-        raise NotImplementedError(
-            "cache_dtype='int8': the scaled-int8 SSM state arrives with the "
-            "serving slice (ROADMAP Q1 item 9)"
-        )
-    if cache_dtype not in (None, torch.float32, torch.bfloat16):
+    if int8_state:
+        cache = cache._replace(ssm_state=quantize_ssm_state(cache.ssm_state))
+    elif cache_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported cache_dtype {cache_dtype}")
-    if cache_dtype is not None:
+    elif cache_dtype is not None:
         cache = cache._replace(ssm_state=cache.ssm_state.to(cache_dtype))
 
     step, step_kw = backbone_step, {}

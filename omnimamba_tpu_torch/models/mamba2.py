@@ -28,6 +28,11 @@ The JAX package stores in_proj, the LoRA B factors and the conv taps as
 column slices so that a mesh can shard them; one card needs one product, so
 the port stores them fused in the same column order
 (``utils/bridge.from_jax_params`` concatenates the slices).
+
+For serving, in_proj and out_proj may be int8 ``{"kernel": {"q", "scale"}}``
+entries (``ops/quant.quantize_decode_params``); every product goes through
+``ops/quant.matmul_any``, which takes either form, and the SSM state of a
+decode cache may be scaled int8 (``ops/quant.quantize_ssm_state``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from omnimamba_tpu_torch.ops.conv import (
     conv_state_from_sequence,
 )
 from omnimamba_tpu_torch.ops.norms import gated_rms_norm
+from omnimamba_tpu_torch.ops.quant import dequantize_ssm_state, matmul_any
 from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
 from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
@@ -58,7 +64,7 @@ class Mamba2Cache(NamedTuple):
     conv_state covers the concatenated [x|B|C] channels."""
 
     conv_state: torch.Tensor  # (B, W-1, d_conv_in) activation dtype
-    ssm_state: torch.Tensor  # (B, H, P, N) fp32 (or the carried cache dtype)
+    ssm_state: object  # (B, H, P, N) fp32 (or the carried cache dtype), or int8 {"q", "scale"}
 
 
 def init_mamba2(
@@ -122,12 +128,7 @@ def _project_parts(
     column slices. With a ``generator`` the LoRA branch sees ``x`` after
     dropout (keep probability ``1 - lora_cfg.dropout``, kept values scaled
     up); ``generator=None`` means no dropout."""
-    kernel = params["in_proj"]["kernel"]
-    if isinstance(kernel, dict):
-        raise NotImplementedError(
-            "int8 {q, scale} weights arrive with the serving slice (ROADMAP Q1 item 9, Q2 K7)"
-        )
-    full = x @ kernel
+    full = matmul_any(x, params["in_proj"]["kernel"])
     if task is not None and "lora" in params and lora_cfg is not None:
         lp = params["lora"]
         xl = x
@@ -211,10 +212,8 @@ def mamba2_forward(
     Ch = Cm.reshape(B, L, G, N)
 
     init_state = initial_cache.ssm_state if initial_cache is not None else None
-    if isinstance(init_state, dict):
-        raise NotImplementedError(
-            "scaled-int8 SSM state arrives with the serving slice (ROADMAP Q1 item 9)"
-        )
+    if isinstance(init_state, dict):  # continuing from a scaled-int8 decode state
+        init_state = dequantize_ssm_state(init_state)
     if init_state is None:
         y, final_state = ssd_fused(xh, dt, A, Bh, Ch, params["D"])
     else:
@@ -229,7 +228,7 @@ def mamba2_forward(
 
     y = y.reshape(B, L, cfg.d_inner)
     y = gated_rms_norm(y, z, params["norm"]["weight"], cfg.norm_eps)
-    out = y @ params["out_proj"]["kernel"]
+    out = matmul_any(y, params["out_proj"]["kernel"])
 
     cache = None
     if return_cache:
@@ -290,4 +289,4 @@ def mamba2_step(
         params["D"], cache.ssm_state,
     )
     y = gated_rms_norm(y.reshape(B, cfg.d_inner), parts["z"], params["norm"]["weight"], cfg.norm_eps)
-    return y @ params["out_proj"]["kernel"], cache
+    return matmul_any(y, params["out_proj"]["kernel"]), cache

@@ -166,12 +166,16 @@ def t2i_generate(
     a common length; row i's true block is its first text_lengths[i] ids and
     its stream is exactly its B=1 stream. Incompatible with ``cfg_scale``.
 
+    ``cache_dtype``: see ``generation.generate``. Parameters quantized by
+    ``ops/quant.quantize_decode_params`` serve as they are.
+
     Runs on ``device``; the parameters must already lie there.
     """
     device = resolve_device(device)
     cfg = model.cfg
     mamba = params["mamba"]
-    require_on(device, embedding=mamba["embedding"])
+    table = mamba["embedding"]
+    require_on(device, embedding=table["q"] if isinstance(table, dict) else table)
     text_ids = torch.as_tensor(text_ids, device=device).long()
     emb = caption_embed(mamba, embed_text(mamba, text_ids, dtype))
     L0 = emb.shape[1]

@@ -24,6 +24,16 @@ tiles) takes fp32 multiply-adds over shared-memory tiles, which are bound by
 operations (see the note in the source). Activations and weights of two
 different types are refused, as the model's own projections refuse them.
 
+int8 ``{q, scale}`` in_proj and out_proj (``ops/quant.quantize_decode_params``;
+the other weights stay in the activation type) take the same kernels with the
+weight tiles landing as int8, half the bytes: on the tensor cores each landed
+tile is widened to bf16 in shared memory before the product, in the
+multiply-add kernels it is widened on the way into shared memory. The column
+scale multiplies the fp32 product in the epilogue, before in_proj's LoRA term
+is added (JAX ``_mm`` then ``+ lora_scale * ...``), and each fp32 K-split
+partial of out_proj. Two table rows carry the scale pointers. The SSM state
+stays fp32 or bf16: an int8 state rides the layer-by-layer path, as in JAX.
+
 Differences from the JAX module, all deliberate:
 
 - no ``FusedDecodeCache`` / ``to_fused_cache``: the kernel takes the
@@ -32,13 +42,13 @@ Differences from the JAX module, all deliberate:
 - the per-layer weights are not stacked or copied: ``prepare_fused_decode``
   builds one table of device pointers per operand and keeps the tensors
   alive beside it. Build it inside the call that uses it (``generate`` does):
-  a table that outlives its parameters points at freed memory;
-- int8 ``{q, scale}`` weights are refused until the serving slice.
+  a table that outlives its parameters points at freed memory.
 
 ``fused_decode_step_plain`` is the plain PyTorch version. It repeats the
 kernel's arithmetic and rounding points (which are the TPU kernel's, not
 ``block_step``'s): the normed hidden state is rounded to the io dtype once;
-z, x, B, C and dt come out of in_proj in fp32 and are not rounded; the conv
+z, x, B, C and dt come out of in_proj in fp32 and are not rounded (an int8
+product is ``(hn @ q) * scale`` in fp32); the conv
 step and the SSM update run in fp32 and round only what they store; the
 gated ``yf * w`` is rounded to the io dtype before out_proj and the row's
 ``rsqrt(mean(yf^2) + eps)`` is applied to the fp32 product afterwards.
@@ -57,10 +67,12 @@ import torch.nn.functional as F
 
 from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
 from omnimamba_tpu_torch.ops import kernel_build as kb
+from omnimamba_tpu_torch.ops.quant import is_quantized
 
-# rows of the pointer table, in the order of omt::K4Op in csrc/decode_fused.cu
+# rows of the pointer table, in the order of omt::K4Op in csrc/decode_fused.cu;
+# the two scale rows are read only for int8 projections
 OPERANDS = ("norm_w", "in_proj", "lora_A", "lora_B", "conv_w", "conv_b", "dt_bias", "A_log",
-            "D", "gn_w", "out_proj")
+            "D", "gn_w", "out_proj", "in_scale", "out_scale")
 MAX_KSPLIT = 8
 
 
@@ -87,12 +99,13 @@ def fused_decode_limits(
         return ValueError(f"fused decode has no dt clamp: dt_limit={mixer_cfg.dt_limit}")
     if mixer_cfg.d_state % 4 != 0:
         return ValueError(f"fused decode needs d_state to be a multiple of 4, not {mixer_cfg.d_state}")
+    quant = _int8_projections(layers[0])
     for layer in layers:
         mixer = layer["mixer"]
-        if isinstance(mixer["in_proj"]["kernel"], dict) or isinstance(mixer["out_proj"]["kernel"], dict):
-            return NotImplementedError(
-                "fused decode on int8 {q, scale} weights arrives with the serving slice "
-                "(ROADMAP slice 5, Q2 K4 int8 branch and K7)")
+        if {is_quantized(mixer["in_proj"]["kernel"]),
+                is_quantized(mixer["out_proj"]["kernel"])} != {quant}:
+            return ValueError(
+                "fused decode takes in_proj and out_proj of every layer both int8 or both dense")
     w_dtype = layers[0]["norm"]["weight"].dtype
     if io_dtype is not None and io_dtype != w_dtype:
         return ValueError(
@@ -100,14 +113,23 @@ def fused_decode_limits(
     return None
 
 
+def _int8_projections(layer: Dict) -> bool:
+    return is_quantized(layer["mixer"]["in_proj"]["kernel"])
+
+
 def _operands(layer: Dict, task: Optional[str], lora: bool) -> List[Optional[torch.Tensor]]:
+    """The layer's tensors in the order of OPERANDS: an int8 projection gives
+    its q in the weight row and its scale in the scale row."""
     mixer = layer["mixer"]
     lp = mixer["lora"] if lora else None
+    w_in, w_out = mixer["in_proj"]["kernel"], mixer["out_proj"]["kernel"]
+    quant = is_quantized(w_in)
     return [
-        layer["norm"]["weight"], mixer["in_proj"]["kernel"],
+        layer["norm"]["weight"], w_in["q"] if quant else w_in,
         lp[f"{task}_A"][0] if lora else None, lp[f"{task}_B"][0] if lora else None,
         mixer["conv"]["weight"], mixer["conv"]["bias"], mixer["dt_bias"], mixer["A_log"],
-        mixer["D"], mixer["norm"]["weight"], mixer["out_proj"]["kernel"],
+        mixer["D"], mixer["norm"]["weight"], w_out["q"] if quant else w_out,
+        w_in["scale"] if quant else None, w_out["scale"] if quant else None,
     ]
 
 
@@ -124,6 +146,7 @@ class FusedDecodePlan:
     aligned16: bool  # every tensor of the tables and of the scratch is 16-byte aligned
     io_dtype: torch.dtype
     w_dtype: torch.dtype
+    proj_dtype: torch.dtype  # w_dtype, or int8 for {q, scale} projections
 
 
 def prepare_fused_decode(
@@ -136,8 +159,8 @@ def prepare_fused_decode(
 ) -> FusedDecodePlan:
     """Pointer tables and scratch for ``fused_decode_step`` on the card the
     parameters lie on. Checks the kernel's limits and every layer's tensors
-    (device, one float32 or bfloat16 element type, shape, contiguity); copies
-    none of them."""
+    (device, one float32 or bfloat16 element type, or int8 projections with
+    float32 scales, shape, contiguity); copies none of them."""
     limit = fused_decode_limits(layers, mixer_cfg, lora_cfg, dtype)
     if limit is not None:
         raise limit
@@ -146,11 +169,16 @@ def prepare_fused_decode(
                       mixer_cfg.d_conv)
     r = lora_cfg.r if lora else 0
     shapes = [(d,), (d, mixer_cfg.d_in_proj), (d, r), (r, mixer_cfg.d_in_proj),
-              (W, mixer_cfg.d_conv_in), (mixer_cfg.d_conv_in,), (H,), (H,), (H,), (di,), (di, d)]
+              (W, mixer_cfg.d_conv_in), (mixer_cfg.d_conv_in,), (H,), (H,), (H,), (di,), (di, d),
+              (mixer_cfg.d_in_proj,), (d,)]
     ref = layers[0]["norm"]["weight"]
     if not ref.is_cuda:
         raise ValueError("prepare_fused_decode is for parameters on a CUDA device")
     kb.dtype_code(ref.dtype)
+    proj_dtype = torch.int8 if _int8_projections(layers[0]) else ref.dtype
+    dtypes = dict.fromkeys(OPERANDS, ref.dtype)
+    dtypes.update(in_proj=proj_dtype, out_proj=proj_dtype, in_scale=torch.float32,
+                  out_scale=torch.float32)
     keep, ptrs = [], []
     for i, layer in enumerate(layers):
         row = []
@@ -158,9 +186,9 @@ def prepare_fused_decode(
             if t is None:
                 row.append(0)
                 continue
-            if tuple(t.shape) != shape or t.dtype != ref.dtype or t.device != ref.device:
+            if tuple(t.shape) != shape or t.dtype != dtypes[name] or t.device != ref.device:
                 raise ValueError(
-                    f"layer {i} {name}: expected {shape} {ref.dtype} on {ref.device}, got "
+                    f"layer {i} {name}: expected {shape} {dtypes[name]} on {ref.device}, got "
                     f"{tuple(t.shape)} {t.dtype} on {t.device}")
             if not t.is_contiguous():
                 raise ValueError(f"layer {i} {name} must be contiguous")
@@ -181,7 +209,7 @@ def prepare_fused_decode(
     }
     aligned16 = all(t.data_ptr() % 16 == 0 for t in keep + list(scratch.values()))
     return FusedDecodePlan(
-        tables, tuple(keep), scratch, batch, r, ksplit, aligned16, dtype, ref.dtype)
+        tables, tuple(keep), scratch, batch, r, ksplit, aligned16, dtype, ref.dtype, proj_dtype)
 
 
 def fused_decode_step_plain(
@@ -204,11 +232,13 @@ def fused_decode_step_plain(
     res = None if residual is None else residual.float()
     for l, layer in enumerate(layers):
         (norm_w, w_in, lora_a, lora_b, conv_w, conv_b, dt_bias, a_log, d_skip, gn_w,
-         w_out) = _operands(layer, task, lora)
+         w_out, s_in, s_out) = _operands(layer, task, lora)
         res = h.float() if res is None else h.float() + res
         var = torch.mean(res * res, dim=-1, keepdim=True)
         hn = (res * torch.rsqrt(var + norm_eps) * norm_w.float()).to(io).float()
         full = hn @ w_in.float()
+        if s_in is not None:
+            full = full * s_in
         if lora:
             full = full + lora_cfg.scaling * ((hn @ lora_a.float()) @ lora_b.float())
         z, raw, dt_raw = full[:, :di], full[:, di : 2 * di + 2 * N], full[:, 2 * di + 2 * N :]
@@ -232,6 +262,8 @@ def fused_decode_step_plain(
 
         yf = y.reshape(B, di) * F.silu(z)
         out = (yf * gn_w.float()).to(io).float() @ w_out.float()
+        if s_out is not None:
+            out = out * s_out
         rstd = torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + mixer_cfg.norm_eps)
         h = (out * rstd).to(io)
     return h, res, cache
@@ -254,6 +286,9 @@ def fused_decode_step(
     ``plan``: what ``prepare_fused_decode`` returned for these layers, task,
     batch and dtype (its limits were checked there); without one it is built
     for this call alone."""
+    if isinstance(cache.ssm_state, dict):
+        raise ValueError("fused decode takes an fp32 or bf16 SSM state; an int8 state rides "
+                         "the layer-by-layer path")
     if not h.is_cuda:
         limit = fused_decode_limits(layers, mixer_cfg, lora_cfg, h.dtype)
         if limit is not None:
@@ -299,13 +334,20 @@ def fused_decode_step(
         s["hn"].data_ptr(), s["hA"].data_ptr(), s["z"].data_ptr(), s["xbc"].data_ptr(),
         s["dt"].data_ptr(), s["ya"].data_ptr(), s["sumsq"].data_ptr(), s["part"].data_ptr(),
         kb.dtype_code(h.dtype), kb.dtype_code(plan.w_dtype), kb.dtype_code(ssm.dtype),
-        int(plan.aligned16 and conv.data_ptr() % 16 == 0), kb.current_stream(h.device),
+        int(plan.aligned16 and conv.data_ptr() % 16 == 0),
+        kb.I8 if plan.proj_dtype == torch.int8 else kb.dtype_code(plan.proj_dtype),
+        kb.current_stream(h.device),
     )
     kb.check_launch(err, "fused_decode_step")
-    fused_decode_step.launches += 1
+    if plan.proj_dtype == torch.int8:
+        fused_decode_step.int8_launches += 1
+    else:
+        fused_decode_step.launches += 1
     return h_out, res_out, cache
 
 
 # token steps that went through the kernel since the counter was last set to 0:
-# one per call, whatever the C function launches inside (plain-version calls do not count)
+# one per call, whatever the C function launches inside (plain-version calls do not
+# count); `launches` with float projections, `int8_launches` with int8 ones
 fused_decode_step.launches = 0
+fused_decode_step.int8_launches = 0

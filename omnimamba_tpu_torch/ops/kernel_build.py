@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-F32, BF16 = 0, 1  # element type codes of csrc/common.cuh
+F32, BF16, I8 = 0, 1, 2  # element type codes of csrc/common.cuh
 
 
 class BuildInfo(NamedTuple):
@@ -133,11 +133,13 @@ def load_kernels() -> ctypes.CDLL:
     lib.omt_ssd_step.argtypes = [ptr] * 8 + [i64] * 3 + [i32] * 7 + [ptr]
     lib.omt_ssd_scan.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 7 + [ptr]
     lib.omt_ssd_scan_bwd.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 8 + [ptr]
+    lib.omt_ssd_step_q8.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 6 + [ptr]
     lib.omt_fused_decode_step.argtypes = (
-        [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 4 + [ptr])
+        [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr])
+    lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_add_rms_norm_bwd,
-               lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_scan,
-               lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step):
+               lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_step_q8, lib.omt_ssd_scan,
+               lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step, lib.omt_qmatmul):
         fn.restype = ctypes.c_int
     return lib
 

@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from omnimamba_tpu_torch.ops.quant import dequantize_ssm_state, quantize_ssm_state
+
 
 def ssd_scan_reference(
     x: torch.Tensor,  # (B, L, H, P)
@@ -67,8 +69,8 @@ def ssd_step(
     B_t: torch.Tensor,  # (B, G, N)
     C_t: torch.Tensor,  # (B, G, N)
     D: Optional[torch.Tensor],  # (H,)
-    state: torch.Tensor,  # (B, H, P, N) fp32 or bf16
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    state,  # (B, H, P, N) fp32 or bf16, or scaled int8 {"q", "scale"}
+) -> Tuple[torch.Tensor, object]:
     """O(1) recurrent decode step in plain tensor code.
 
     Returns (y_t (B,H,P) in x_t.dtype, new_state in state.dtype); ``state``
@@ -80,12 +82,12 @@ def ssd_step(
     The JAX function switches to an algebraically equal distributed form at
     batch >= 16; ``new_state`` is identical between the two and ``y`` differs
     by summation order only.
+
+    A scaled-int8 state (``ops/quant.quantize_ssm_state``: q (B, H, P, N)
+    int8, scale (B, H, P) fp32) is dequantized, updated, y taken from the
+    unrounded new state, and the new state requantized: a new dict is
+    returned.
     """
-    if isinstance(state, dict):
-        raise NotImplementedError(
-            "scaled-int8 SSM state arrives with the serving slice "
-            "(ROADMAP Q1 item 9, ops/quant)"
-        )
     H = x_t.shape[1]
     rep = H // B_t.shape[1]
     Bf = B_t.float().repeat_interleave(rep, dim=1)  # (B, H, N)
@@ -95,10 +97,12 @@ def ssd_step(
 
     decay = torch.exp(dtf * A.float())  # (B, H)
     dtx = dtf[..., None] * xf  # (B, H, P)
-    new_state = state.float() * decay[..., None, None] + torch.einsum(
+    new_state = dequantize_ssm_state(state) * decay[..., None, None] + torch.einsum(
         "bhp,bhn->bhpn", dtx, Bf
     )
     y = torch.einsum("bhpn,bhn->bhp", new_state, Cf)
     if D is not None:
         y = y + xf * D.float()[None, :, None]
+    if isinstance(state, dict):
+        return y.to(x_t.dtype), quantize_ssm_state(new_state)
     return y.to(x_t.dtype), new_state.to(state.dtype)

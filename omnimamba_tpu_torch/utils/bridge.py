@@ -11,7 +11,12 @@ What changes on the way:
 - the conv taps ``weight_x`` / ``weight_bc`` (and biases) become one
   ``weight`` / ``bias`` over the ``x | bc`` channels;
 - linear kernels stay ``(in, out)`` (the port applies ``x @ W``);
-- VQ conv kernels go from HWIO to OIHW.
+- VQ conv kernels go from HWIO to OIHW;
+- an int8-quantized tree (``quantize_decode_params``) keeps its ``q`` leaves
+  int8 and its ``scale`` leaves float32 whatever ``dtype`` says; the in_proj
+  parts' ``q`` and ``scale`` are concatenated along the columns like dense
+  parts, and a tree passed through JAX ``fuse_in_proj`` (``in_proj/fused``)
+  is taken as it is.
 
 Every leaf of the input must be consumed: a leaf the port has no place for
 (vision towers, projector, VQ encoder, ...) raises instead of being dropped.
@@ -54,6 +59,7 @@ class _Leaves:
 
     def __init__(self, tree, dtype: Optional[torch.dtype], device: torch.device):
         self.flat = _flatten(tree)
+        self.quantized = {k[:-1] for k in self.flat if k[-1] == "q"}  # {"q", "scale"} entries
         self.dtype, self.device = dtype, device
 
     def has(self, *path) -> bool:
@@ -61,6 +67,10 @@ class _Leaves:
 
     def take(self, *path) -> torch.Tensor:
         arr = self.flat.pop(path)
+        if arr.dtype == np.int8:
+            return torch.from_numpy(np.array(arr)).to(self.device)
+        if path[-1] == "scale" and path[:-1] in self.quantized:
+            return torch.from_numpy(np.array(arr, np.float32)).to(self.device)
         dtype = self.dtype or _TORCH_DTYPES[str(arr.dtype)]
         # numpy has no native bfloat16: widen through float32 (exact)
         t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
@@ -104,6 +114,17 @@ def _hwio_to_oihw(node):
     return node
 
 
+def _in_proj(leaves: _Leaves, mix: Tuple):
+    """The fused in_proj kernel, dense or ``{"q", "scale"}``, from the four
+    column slices or from JAX ``fuse_in_proj``'s ``fused`` entry."""
+    if leaves.has(*mix, "in_proj", "fused"):
+        return leaves.take_tree(*mix, "in_proj", "fused")
+    parts = [leaves.take_tree(*mix, "in_proj", p) for p in _IN_PROJ_PARTS]
+    if isinstance(parts[0], dict):
+        return {k: torch.cat([part[k] for part in parts], dim=-1) for k in ("q", "scale")}
+    return torch.cat(parts, dim=-1)
+
+
 def _bridge_layers(leaves: _Leaves, n_layer: int):
     base = ("mamba", "layers")
     mix = base + ("mixer",)
@@ -111,7 +132,7 @@ def _bridge_layers(leaves: _Leaves, n_layer: int):
     stacked = {
         "norm": {"weight": leaves.take(*base, "norm", "weight")},
         "mixer": {
-            "in_proj": {"kernel": cat(*[leaves.take(*mix, "in_proj", p) for p in _IN_PROJ_PARTS])},
+            "in_proj": {"kernel": _in_proj(leaves, mix)},
             "conv": {
                 "weight": cat(leaves.take(*mix, "conv", "weight_x"),
                               leaves.take(*mix, "conv", "weight_bc")),
@@ -122,7 +143,7 @@ def _bridge_layers(leaves: _Leaves, n_layer: int):
             "A_log": leaves.take(*mix, "A_log"),
             "D": leaves.take(*mix, "D"),
             "norm": {"weight": leaves.take(*mix, "norm", "weight")},
-            "out_proj": {"kernel": leaves.take(*mix, "out_proj", "kernel")},
+            "out_proj": {"kernel": leaves.take_tree(*mix, "out_proj", "kernel")},
         },
     }
     if leaves.has(*mix, "lora"):

@@ -27,7 +27,8 @@ def card():
 
 @pytest.mark.parametrize(
     "check", ["check_ssd_scan", "check_ssd_scan_bwd", "check_ssd_step", "check_norms",
-              "check_norms_bwd", "check_decode_fused"])
+              "check_norms_bwd", "check_decode_fused", "check_qmatmul", "check_decode_fused_int8",
+              "check_ssd_step_int8"])
 def test_kernel_against_plain_version(card, check):
     import chip_smoke
 

@@ -32,6 +32,7 @@ from omnimamba_tpu_torch.ops import kernel_build
 from omnimamba_tpu_torch.ops.decode_fused import (
     fused_decode_limits, fused_decode_step, fused_decode_step_plain,
 )
+from omnimamba_tpu_torch.ops.quant import quantize_linear
 from tests.test_torch_helpers import bridge, decode_side, fill_lora_b, nn, tiny_models, tt
 
 L0 = 6  # prompt length
@@ -265,15 +266,17 @@ def test_generate_fused_bf16_state(pair):
 def _refusals(pair):
     _, tmodel, _, tm = pair
     cfg = tmodel.cfg
-    quantized = [{**layer, "mixer": {**layer["mixer"], "in_proj": {"kernel": {"q": None, "scale": None}}}}
-                 for layer in tm["layers"]]
+    # int8 projections are taken (tests/test_torch_quant.py); an int8 in_proj
+    # beside a dense out_proj is not
+    quantized = [{**layer, "mixer": {**layer["mixer"], "in_proj": {"kernel": quantize_linear(
+        layer["mixer"]["in_proj"]["kernel"], (0,))}}} for layer in tm["layers"]]
     return {
         "ngroups": (tm["layers"], dataclasses.replace(cfg.mixer, ngroups=2), cfg.lora,
                     ValueError, "ngroups=1"),
         "lora_nums": (tm["layers"], cfg.mixer, LoraConfig(lora_nums=2), ValueError, "lora_nums=1"),
         "dt_limit": (tm["layers"], dataclasses.replace(cfg.mixer, dt_limit=(0.0, 0.1)), cfg.lora,
                      ValueError, "dt_limit"),
-        "int8_weights": (quantized, cfg.mixer, cfg.lora, NotImplementedError, "ROADMAP slice 5"),
+        "int8_weights": (quantized, cfg.mixer, cfg.lora, ValueError, "both int8 or both dense"),
         # fp32 activations (below) on bf16 weights: the kernel has no such instantiation
         "mixed_types": ([_to_bf16(layer) for layer in tm["layers"]], cfg.mixer, cfg.lora,
                         ValueError, "weights' type"),

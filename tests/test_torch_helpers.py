@@ -85,3 +85,20 @@ def nn(t):
     if t.dtype in (torch.bfloat16, torch.float16):
         t = t.float()
     return t.detach().cpu().numpy()
+
+
+def torch_config(jcfg):
+    """The port's ``MambaConfig`` of a JAX ``MambaConfig`` (the fields the
+    tiny test configs set)."""
+    mixer = tcfg.Mamba2LayerConfig(**{f: getattr(jcfg.mixer, f) for f in (
+        "d_model", "d_state", "d_conv", "expand", "headdim", "ngroups", "chunk_size", "dt_limit")})
+    return tcfg.MambaConfig(mixer=mixer, **{f: getattr(jcfg, f) for f in (
+        "d_model", "n_layer", "vocab_size", "vqvae_vocab_size", "num_tokens", "mmu_pos_len",
+        "pad_vocab_size_multiple", "t2i_task", "mmu_task")})
+
+
+def bridge_backbone(jax_backbone, cfg):
+    """A JAX backbone tree (no ``"mamba"`` wrapper) through the bridge, for
+    the port's config ``cfg``."""
+    model = TorchModel(cfg=cfg, vq_cfg=tcfg.VQConfig(), sptids={})
+    return from_jax_params({"mamba": to_numpy(jax_backbone)}, model, device="cpu")["mamba"]

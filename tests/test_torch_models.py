@@ -306,6 +306,17 @@ def test_unported_options_raise(pair):
     for bad in (dict(attn_layer_idx=(1,)), dict(d_intermediate=64)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbb.backbone_forward(tp["mamba"], x, "t2i", dataclasses.replace(tmodel.cfg, **bad))
-    quantized = {**layer["mixer"], "in_proj": {"kernel": {"q": None, "scale": None}}}
-    with pytest.raises(NotImplementedError, match="int8"):
-        tm2.mamba2_forward(quantized, x, "t2i", tmodel.cfg.mixer, tmodel.cfg.lora)
+    # int8 {q, scale} projections, refused before the serving slice, now run: the
+    # mixer on int8 in_proj and out_proj equals the mixer on their dequantized
+    # weights up to the order of the scale multiply
+    from omnimamba_tpu_torch.ops.quant import quantize_linear
+
+    x = torch.randn(1, 3, 32, generator=torch.Generator().manual_seed(0))
+    mixer = layer["mixer"]
+    qin, qout = (quantize_linear(mixer[k]["kernel"], (0,)) for k in ("in_proj", "out_proj"))
+    quantized = {**mixer, "in_proj": {"kernel": qin}, "out_proj": {"kernel": qout}}
+    dequantized = {**mixer, "in_proj": {"kernel": qin["q"].float() * qin["scale"]},
+                   "out_proj": {"kernel": qout["q"].float() * qout["scale"]}}
+    got, _ = tm2.mamba2_forward(quantized, x, "t2i", tmodel.cfg.mixer, tmodel.cfg.lora)
+    want, _ = tm2.mamba2_forward(dequantized, x, "t2i", tmodel.cfg.mixer, tmodel.cfg.lora)
+    np.testing.assert_allclose(nn(got), nn(want), rtol=1e-5, atol=1e-5)

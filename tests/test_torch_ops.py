@@ -202,11 +202,21 @@ def test_step_kernel_plain_fp32_groups_no_D():
 
 
 def test_step_refuses_int8_state():
+    """Once refused, now taken: a scaled-int8 state {q, scale} goes through
+    the plain step and the kernel wrapper (its plain version here) and comes
+    back requantized, y close to the step on the dequantized fp32 state."""
+    from omnimamba_tpu_torch.ops.quant import dequantize_ssm_state, quantize_ssm_state
+
     d = step_inputs(4, 2, x_dtype="float32")
     t = {k: tt(v) for k, v in d.items()}
-    t["state"] = {"q": t["state"].to(torch.int8), "scale": torch.ones(2, 8, 16)}
-    with pytest.raises(NotImplementedError, match="int8"):
-        ssd_step(**t)
+    t["state"] = quantize_ssm_state(t["state"])
+    y8, s8 = ssd_step(**t)
+    assert s8["q"].dtype == torch.int8 and s8["scale"].shape == t["state"]["scale"].shape
+    y32, s32 = ssd_step(**{**t, "state": dequantize_ssm_state(t["state"])})
+    close(y8, nn(y32), FP32)
+    assert torch.equal(s8["q"], quantize_ssm_state(s32)["q"])
+    yk, sk = ssd_step_fused(**t)
+    assert sk is t["state"] and torch.equal(sk["q"], s8["q"]) and torch.equal(yk, y8)
 
 
 @pytest.mark.parametrize("with_res", [False, True])

@@ -26,7 +26,11 @@ from omnimamba_tpu_torch.ops.norms_kernel import (
     fused_gated_rms_norm_bwd,
 )
 from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused, ssd_fused_bwd
+from omnimamba_tpu_torch.ops.quant import quantize_decode_params, quantize_linear, quantize_ssm_state
+from omnimamba_tpu_torch.ops.quant_kernel import qmatmul
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
+from omnimamba_tpu_torch.models.speculative import speculative_generate
+from omnimamba_tpu_torch.serve.continuous import SlotEngine
 from omnimamba_tpu_torch.train.trainer import Trainer, make_train_step
 
 torch.set_num_threads(1)
@@ -44,6 +48,9 @@ def test_imports_neither_jax_nor_the_jax_package():
     importing needs no nvcc, no triton and no GPU."""
     mods = port_modules()
     assert "omnimamba_tpu_torch.ops.ssd_kernel" in mods and len(mods) >= 20
+    # the serving slice's modules are among them
+    assert {"omnimamba_tpu_torch.ops.quant", "omnimamba_tpu_torch.ops.quant_kernel",
+            "omnimamba_tpu_torch.serve.continuous", "omnimamba_tpu_torch.models.speculative"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -91,7 +98,7 @@ def test_sources_do_not_name_jax_imports():
 def test_csrc_ships_as_package_data():
     names = {p.name for p in kernel_build.CSRC_DIR.iterdir()}
     assert {"common.cuh", "ssd_step_row.cuh", "norms.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
-            "ssd_step.cu", "decode_fused.cu"} <= names
+            "ssd_step.cu", "decode_fused.cu", "qmatmul.cu"} <= names
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert re.search(r'omnimamba_tpu_torch\s*=\s*\["csrc/\*\.cu", "csrc/\*\.cuh"\]', pyproject)
 
@@ -118,6 +125,10 @@ ENTRY_POINTS = {
     "from_jax_params": lambda m, p: from_jax_params({"mamba": {}}, m),
     "make_train_step": lambda m, p: make_train_step(m, None, TrainConfig(mmu_task=False)),
     "Trainer": lambda m, p: Trainer(m, p, TrainConfig(mmu_task=False, stage="align"), []),
+    "SlotEngine": lambda m, p: SlotEngine(quantize_decode_params(p["mamba"]), m.cfg),
+    "speculative_generate": lambda m, p: speculative_generate(
+        p["mamba"], m.cfg, input_ids=torch.zeros(1, 4, dtype=torch.long),
+        input_embeddings=torch.zeros(1, 4, 32), task="t2i", max_length=8, draft_layers=1),
 }
 
 
@@ -159,8 +170,8 @@ def test_wrappers_use_the_plain_version_only_on_the_cpu():
     A = -torch.rand(4, generator=g)
     Bm, Cm = torch.randn(2, 5, 2, 16, generator=g), torch.randn(2, 5, 2, 16, generator=g)
     wrappers = (ssd_fused, ssd_step_fused, fused_add_rms_norm, fused_gated_rms_norm,
-                ssd_fused_bwd, fused_add_rms_norm_bwd, fused_gated_rms_norm_bwd)
-    before = [w.launches for w in wrappers]
+                ssd_fused_bwd, fused_add_rms_norm_bwd, fused_gated_rms_norm_bwd, qmatmul)
+    before = [w.launches for w in wrappers] + [ssd_step_fused.int8_launches]
     ssd_fused(x, dt, A, Bm, Cm, None)
     # the backward wrappers, called directly and through autograd
     _, _, states = ssd_fused(x, dt, A, Bm, Cm, None, return_chunk_states=True)
@@ -177,10 +188,15 @@ def test_wrappers_use_the_plain_version_only_on_the_cpu():
     ssd_step_fused(x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], None, torch.zeros(2, 4, 8, 16))
     fused_add_rms_norm(torch.randn(3, 32, generator=g), None, torch.ones(32))
     fused_gated_rms_norm(torch.randn(3, 32, generator=g), torch.randn(3, 32, generator=g), torch.ones(32))
-    assert [w.launches for w in wrappers] == before
+    qw = quantize_linear(torch.randn(32, 24, generator=g), (0,))
+    qmatmul(rows, qw["q"], qw["scale"])
+    qmatmul(rows, qw["q"].T.contiguous(), qw["scale"], transpose=True, out_dtype=torch.float32)
+    ssd_step_fused(x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], None,
+                   quantize_ssm_state(torch.randn(2, 4, 8, 16, generator=g)))
+    assert [w.launches for w in wrappers] + [ssd_step_fused.int8_launches] == before
     assert kernel_build.load_kernels.cache_info().currsize == 0, "a CPU call must not build or load"
     for mod in ("norms_kernel", "ssd_kernel", "ssd_step_kernel", "decode_fused", "norms",
-                "kernel_build"):
+                "kernel_build", "quant", "quant_kernel"):
         src = (ROOT / "omnimamba_tpu_torch" / "ops" / f"{mod}.py").read_text()
         assert "os.environ.get(\"OMNIMAMBA" not in src and "is_available" not in src
         assert not re.search(r"^\s*(try|except\b.*):", src, re.M), (
