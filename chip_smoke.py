@@ -27,7 +27,7 @@ exits with code 2 and prints no result.
 
 Lines on standard output, one JSON object each unless noted:
   the card as `nvidia-smi --query-gpu=name,power.limit` gives it (plain text),
-  {"card": ...} {"build": ...} {"kernel_check": ...}* {"main_path": ...}
+  {"card": ...} {"build": ...} {"kernel_check": ...}* {"qmatmul_m_sweep": ...} {"main_path": ...}
   {"decode_profile": ...} {"times": ...} {"int8_path": ...} {"slot_engine": ...}
   {"speculative": ...} {"plain_vs_kernel": ...}*
   {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
@@ -923,12 +923,30 @@ KERNEL_FILES = {
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def _m_tile(rows):
+    """K7's bf16 activations take the 128-row tiles from `rows` rows on while
+    inside (1: always; 2**30: never, the 64-row tiles)."""
+    from omnimamba_tpu_torch.ops import quant_kernel
+
+    saved, quant_kernel.M_TILE = quant_kernel.M_TILE, rows
+    try:
+        yield
+    finally:
+        quant_kernel.M_TILE = saved
+
+
 def check_qmatmul(gen, results):
     """K7 in both layouts at every shape of the int8 main path (the 1.3B's
-    prefill and step projections at batch 48, project_in, the image head) and
-    at awkward ones: one row, 13 rows, O = 139, K = 24, fp32 activations."""
+    prefill and step projections at batch 48, project_in, the image head, the
+    slot engine's prefill group of 16 x 64 rows) and at awkward ones: one row,
+    13 rows, O = 139, K = 24, fp32 activations. At the prefill shapes rows
+    0-47 and row 0 must have the same bits alone as in the whole batch (the
+    two sides of M_TILE), and the two tensor-core paths (64-row tiles, 128-row
+    tiles) are timed against each other at 64 to 3456 rows, where they must
+    give the same bits."""
     from omnimamba_tpu_torch.ops.quant import quantize_linear
-    from omnimamba_tpu_torch.ops.quant_kernel import qmatmul, qmatmul_plain
+    from omnimamba_tpu_torch.ops.quant_kernel import M_TILE, qmatmul, qmatmul_plain
 
     bf, f32 = torch.bfloat16, torch.float32
     rows = BATCH * PROMPT  # prefill rows
@@ -937,6 +955,8 @@ def check_qmatmul(gen, results):
         ("step_in_proj", BATCH, 2048, 8512, False, bf, bf, True),
         ("prefill_in_proj", rows, 2048, 8512, False, bf, bf, True),
         ("prefill_out_proj", rows, 4096, 2048, False, bf, bf, True),
+        ("slot_prefill_in_proj", 16 * 64, 2048, 8512, False, bf, bf, True),
+        ("prefill_head_table", rows, 2048, 16384, True, bf, f32, True),
         ("step_out_proj", BATCH, 4096, 2048, False, bf, bf, True),
         ("project_in_fc1", BATCH, 2048, 8192, False, bf, bf, True),
         ("project_in_fc2", BATCH, 8192, 2048, False, bf, bf, True),
@@ -965,6 +985,10 @@ def check_qmatmul(gen, results):
                "dtype": str(xd), "out_dtype": str(od), "abs_err": err, "err_of_allowed": share,
                "rtol": RTOL[od], "atol_rel": ATOL_REL}
         assert share <= 1.0, rec
+        if name.startswith("prefill_"):
+            rec["rows_alone_identical"] = (torch.equal(y[:BATCH], qmatmul(x[:BATCH], q, sc, tr, od))
+                                           and torch.equal(y[:1], qmatmul(x[:1], q, sc, tr, od)))
+            assert rec["rows_alone_identical"], rec
         if timed:
             moved = nbytes(x, q, sc, y)
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -987,7 +1011,33 @@ def check_qmatmul(gen, results):
                 results["qmatmul"] = dict(rec)
         emit({"kernel_check": rec})
         del w, qe, q, sc, x, y, y_ref
-    results["qmatmul"].update(max_abs_err=worst, shapes=shapes)
+
+    # the two paths on one layer's prefill products (in_proj, out_proj) at each M
+    weights = {}
+    for name, K, O in (("in_proj", 2048, 8512), ("out_proj", 4096, 2048)):
+        qe = quantize_linear(rand(gen, (K, O), f32, 0.02), (0,))
+        weights[name] = (K, qe["q"], qe["scale"])
+    sweep = []
+    for M in (64, 128, 256, 1024, rows):
+        rec = {"rows": M}
+        for name, (K, q, sc) in weights.items():
+            x = rand(gen, (M, K), bf)
+            ys = {}
+            for path, m_tile in (("rows_64", 2 ** 30), ("tiles_128", 1)):
+                with _m_tile(m_tile):
+                    ys[path] = qmatmul(x, q, sc)
+                    rec[f"{name}_{path}_ms"] = time_ms(lambda: qmatmul(x, q, sc), 5 if M > BATCH else 20)
+            assert torch.equal(ys["rows_64"], ys["tiles_128"]), (name, M)
+        for path in ("rows_64", "tiles_128"):
+            rec[f"layer_{path}_ms"] = rec[f"in_proj_{path}_ms"] + rec[f"out_proj_{path}_ms"]
+        sweep.append(rec)
+    del weights, x, ys
+    emit({"qmatmul_m_sweep": {
+        "m_tile": M_TILE, "sweep": sweep,
+        "note": "device ms of K7's two tensor-core paths (64-row and 128-row tiles) on the same "
+                "inputs: in_proj 2048 x 8512 and out_proj 4096 x 2048, (K, O), bf16; the two "
+                "gave the same bits at every M"}})
+    results["qmatmul"].update(max_abs_err=worst, shapes=shapes, m_tile=M_TILE, m_sweep=sweep)
 
 
 def check_decode_fused_int8(gen, results):
@@ -1632,6 +1682,7 @@ def slot_engine_phase(qmamba, cfg, card):
                 "request; chunk, prefill and insert each end in a host read or synchronize",
     }
     assert launches.get("decode_fused_int8", 0) > 0 and launches.get("qmatmul", 0) > 0, rec
+    assert rec["solo_identical"] == len(solo), rec  # a row's bits do not depend on its batch
     del eng
     torch.cuda.empty_cache()
 
@@ -2241,7 +2292,7 @@ def main() -> int:
             "launches_fused_path", "launches_train", "launches_per_train_step", "flops",
             "chunk_states_bytes", "library_note", "scan_step_device_ms",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "layout",
-            "out_dtype", "shapes", "launches_scan_path", "profile")
+            "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
                     if k in r})
         kernels.append(row)
     emit({"card": card, "seconds_total": time.time() - t_all, "seconds_by_phase": phase_s})

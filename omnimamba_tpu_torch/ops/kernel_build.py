@@ -136,7 +136,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.omt_ssd_step_q8.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 6 + [ptr]
     lib.omt_fused_decode_step.argtypes = (
         [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr])
-    lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_add_rms_norm_bwd,
                lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_step_q8, lib.omt_ssd_scan,
                lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step, lib.omt_qmatmul):

@@ -11,15 +11,26 @@ with fp32 sums, the scale applied to the accumulator and the result cast to
 for fp32). x is float32 or bfloat16, q int8, s float32.
 
 What bounds it on an H100: at decode (tens of rows) the weight bytes, which
-int8 halves against bf16; at prefill (thousands of rows) the operations. For
-bf16 activations on whole tiles the weight tiles stream as int8 through a
-``cp.async`` ring in shared memory (half the bytes of K4's bf16 stage), are
-widened to bf16 in shared memory and multiplied on the tensor cores (wmma,
-fp32 sums); the transposed table is read as a column-major operand, with no
-transposed copy. fp32 activations and shapes that are not whole tiles take
-fp32 multiply-adds over shared-memory tiles. The sums over k run in a fixed
-order that does not depend on the number of rows, so a row's result is the
-same in any batch.
+int8 halves against bf16; at prefill (thousands of rows) the operations. bf16
+activations on whole tiles take the tensor cores along one of two paths, by
+the number of rows M:
+
+- ``M < M_TILE`` (decode): 16-64 rows x 64 columns a block. The int8 weight
+  tiles stream through a ``cp.async`` ring in shared memory (half the bytes of
+  K4's bf16 stage), are widened to bf16 there and multiplied with wmma.
+- ``M >= M_TILE`` (prefill, the slot engine's prefill groups): 128 rows x 128
+  columns a block, so each operand byte is read from L2 by fewer blocks; the
+  int8 tile of the next k step is widened during this one into a double
+  buffer (one barrier a k step), and the products are ``ldmatrix`` +
+  ``mma.sync`` m16n8k16 on 64 x 64 warp tiles.
+
+Both sum in one order: for every 64-wide k tile, k in [0, 32) into one fp32
+accumulator and [32, 64) into another, each in k16 steps in k order, then
+``(lo + hi) * scale``. So a row's result has the same bits in any batch and
+through either path. The transposed table is read as a column-major operand,
+with no transposed copy. fp32 activations and shapes that are not whole tiles
+take fp32 multiply-adds over shared-memory tiles, also in an order that does
+not depend on M.
 
 ``qmatmul_plain`` is the plain PyTorch version. The wrapper uses it for a
 tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
@@ -33,6 +44,12 @@ from typing import Optional
 import torch
 
 from omnimamba_tpu_torch.ops import kernel_build as kb
+
+# rows from which bf16 activations take the 128-row tiles: the smallest M of
+# 64, 128, 256, 1024 and 3456 at which they take less time than the 64-row
+# tiles over one layer's prefill products, in_proj and out_proj, on the H100
+# (`chip_smoke.py`'s `qmatmul_m_sweep`, PERF.md)
+M_TILE = 128
 
 
 def qmatmul_plain(
@@ -82,7 +99,7 @@ def qmatmul(
     if M and O:
         err = kb.load_kernels().omt_qmatmul(
             x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, O,
-            int(transpose), kb.dtype_code(x2.dtype), kb.dtype_code(out_dtype),
+            int(transpose), kb.dtype_code(x2.dtype), kb.dtype_code(out_dtype), M_TILE,
             kb.current_stream(x.device),
         )
         kb.check_launch(err, "qmatmul")

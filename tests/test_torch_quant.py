@@ -107,7 +107,7 @@ def test_quantize_decode_params_matches_jax_leaf_for_leaf(quantized, fused):
 
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("O", [512, 200, 139])
-@pytest.mark.parametrize("B", [1, 8, 13])
+@pytest.mark.parametrize("B", [1, 8, 13, 130, 257])
 def test_qmatmul_plain_matches_the_pallas_kernel(B, O, transpose):
     rng = np.random.default_rng(B * 1000 + O)
     K = 48
