@@ -42,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -926,7 +927,7 @@ KERNEL_FILES = {
 @contextlib.contextmanager
 def _m_tile(rows):
     """K7's bf16 activations take the 128-row tiles from `rows` rows on while
-    inside (1: always; 2**30: never, the 64-row tiles)."""
+    inside (1: always; 2**30: never, the decode path)."""
     from omnimamba_tpu_torch.ops import quant_kernel
 
     saved, quant_kernel.M_TILE = quant_kernel.M_TILE, rows
@@ -940,13 +941,16 @@ def check_qmatmul(gen, results):
     """K7 in both layouts at every shape of the int8 main path (the 1.3B's
     prefill and step projections at batch 48, project_in, the image head, the
     slot engine's prefill group of 16 x 64 rows) and at awkward ones: one row,
-    13 rows, O = 139, K = 24, fp32 activations. At the prefill shapes rows
-    0-47 and row 0 must have the same bits alone as in the whole batch (the
-    two sides of M_TILE), and the two tensor-core paths (64-row tiles, 128-row
-    tiles) are timed against each other at 64 to 3456 rows, where they must
-    give the same bits."""
+    13 rows, O = 139, K = 24, fp32 activations, and K = 192 or 2112, where the
+    decode path's last stage holds fewer k tiles than the others, in each of
+    its column tiles. Rows 0-47 and row 0 of the prefill shapes, and rows 0-15
+    and row 0 of four decode shapes and of the short-stage cases, must have
+    the same bits alone as in the whole batch; the two tensor-core paths (the
+    decode path's block pairs, the 128-row tiles) are timed against each other
+    from 1 to 3456 rows, where they must give the same bits. A 48-row time is
+    the median of five; its kernel_check line names the decode path's launch."""
     from omnimamba_tpu_torch.ops.quant import quantize_linear
-    from omnimamba_tpu_torch.ops.quant_kernel import M_TILE, qmatmul, qmatmul_plain
+    from omnimamba_tpu_torch.ops.quant_kernel import M_TILE, decode_plan, qmatmul, qmatmul_plain
 
     bf, f32 = torch.bfloat16, torch.float32
     rows = BATCH * PROMPT  # prefill rows
@@ -964,6 +968,15 @@ def check_qmatmul(gen, results):
         ("image_head", BATCH, 2048, 16384, True, bf, f32, True),
         ("one_row", 1, 2048, 8512, False, bf, bf, False),
         ("thirteen_rows_head", 13, 2048, 16384, True, bf, f32, False),
+        ("twenty_rows_table_bf16", 20, 2048, 4096, True, bf, bf, False),
+        # the decode path's last stage short of whole (K not a multiple of a stage's
+        # k tiles), in each column tile (32, 64, 128 columns) and layout
+        ("short_stage_32_columns", 48, 2112, 2048, False, bf, bf, False),
+        ("short_stage_32_columns_table", 20, 2112, 2048, True, bf, bf, False),
+        ("short_stage_64_columns", 20, 192, 8192, False, bf, bf, False),
+        ("short_stage_64_columns_table", 48, 192, 8192, True, bf, f32, False),
+        ("short_stage_128_columns", 64, 192, 16384, False, bf, bf, False),
+        ("short_stage_128_columns_table", 48, 192, 16384, True, bf, f32, False),
         ("awkward", 13, 24, 139, False, f32, f32, False),
         ("awkward_bf16_table", 13, 24, 139, True, bf, bf, False),
         ("ragged_columns_bf16", 5, 2048, 139, False, bf, bf, False),
@@ -985,8 +998,19 @@ def check_qmatmul(gen, results):
                "dtype": str(xd), "out_dtype": str(od), "abs_err": err, "err_of_allowed": share,
                "rtol": RTOL[od], "atol_rel": ATOL_REL}
         assert share <= 1.0, rec
-        if name.startswith("prefill_"):
-            rec["rows_alone_identical"] = (torch.equal(y[:BATCH], qmatmul(x[:BATCH], q, sc, tr, od))
+        decode = xd == bf and M < M_TILE and K % 64 == 0 and O % 64 == 0
+        if decode:
+            rec["decode_plan"] = plan = decode_plan(M, O, tr)
+            if name.startswith("short_stage_"):  # the case reaches the branch it is for
+                assert (plan["columns"] == int(name.split("_")[2])
+                        and K // 64 % plan["stage_tiles"] != 0), rec
+        # a row's bits alone and in the batch: rows 0-47 across M_TILE at prefill,
+        # rows 0-15 inside the decode path
+        alone = {"prefill_in_proj": BATCH, "prefill_out_proj": BATCH, "prefill_head_table": BATCH,
+                 "step_in_proj": 16, "step_out_proj": 16, "project_in_fc2": 16, "image_head": 16}
+        if name in alone or name.startswith("short_stage_"):
+            n = alone.get(name, 16)
+            rec["rows_alone_identical"] = (torch.equal(y[:n], qmatmul(x[:n], q, sc, tr, od))
                                            and torch.equal(y[:1], qmatmul(x[:1], q, sc, tr, od)))
             assert rec["rows_alone_identical"], rec
         if timed:
@@ -995,16 +1019,28 @@ def check_qmatmul(gen, results):
             ops_ms = 2 * M * K * O / PEAK_OPS[xd] * 1e3
             iters = 5 if M > BATCH else 20
             dense = w.to(xd)  # yardstick: a dense weight of the same shape in x's type
+
+            def timed_ms(fn):
+                # a 48-row time is a few microseconds: the median of five runs
+                if M > BATCH:
+                    return time_ms(fn, iters), None
+                runs = [time_ms(fn, iters) for _ in range(5)]
+                return statistics.median(runs), runs
+
+            ms, ms_runs = timed_ms(lambda: qmatmul(x, q, sc, tr, od))
+            library_ms, library_runs = timed_ms(lambda: torch.matmul(x, dense.T if tr else dense))
             rec.update(
-                ms=time_ms(lambda: qmatmul(x, q, sc, tr, od), iters),
+                ms=ms,
                 plain_ms=time_ms(lambda: qmatmul_plain(x, q, sc, tr, od), 3, 1),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_moved=moved,
-                library_ms=time_ms(lambda: torch.matmul(x, dense.T if tr else dense), iters),
+                library_ms=library_ms,
                 library_note="torch.matmul on a dense weight of the same shape in x's type: a "
                              "yardstick, not the same function (it reads twice the weight bytes)",
             )
+            if ms_runs:
+                rec.update(ms_runs=ms_runs, library_ms_runs=library_runs)
             shapes[name] = {k: rec[k] for k in ("shape", "layout", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")}
             if name == "step_in_proj":
@@ -1018,25 +1054,25 @@ def check_qmatmul(gen, results):
         qe = quantize_linear(rand(gen, (K, O), f32, 0.02), (0,))
         weights[name] = (K, qe["q"], qe["scale"])
     sweep = []
-    for M in (64, 128, 256, 1024, rows):
+    for M in (1, 16, BATCH, 64, 127, 128, 256, 1024, rows):
         rec = {"rows": M}
         for name, (K, q, sc) in weights.items():
             x = rand(gen, (M, K), bf)
             ys = {}
-            for path, m_tile in (("rows_64", 2 ** 30), ("tiles_128", 1)):
+            for path, m_tile in (("decode", 2 ** 30), ("tiles_128", 1)):
                 with _m_tile(m_tile):
                     ys[path] = qmatmul(x, q, sc)
                     rec[f"{name}_{path}_ms"] = time_ms(lambda: qmatmul(x, q, sc), 5 if M > BATCH else 20)
-            assert torch.equal(ys["rows_64"], ys["tiles_128"]), (name, M)
-        for path in ("rows_64", "tiles_128"):
+            assert torch.equal(ys["decode"], ys["tiles_128"]), (name, M)
+        for path in ("decode", "tiles_128"):
             rec[f"layer_{path}_ms"] = rec[f"in_proj_{path}_ms"] + rec[f"out_proj_{path}_ms"]
         sweep.append(rec)
     del weights, x, ys
     emit({"qmatmul_m_sweep": {
         "m_tile": M_TILE, "sweep": sweep,
-        "note": "device ms of K7's two tensor-core paths (64-row and 128-row tiles) on the same "
-                "inputs: in_proj 2048 x 8512 and out_proj 4096 x 2048, (K, O), bf16; the two "
-                "gave the same bits at every M"}})
+        "note": "device ms of K7's two tensor-core paths (the decode path's block pairs, the "
+                "128-row tiles) on the same inputs: in_proj 2048 x 8512 and out_proj 4096 x 2048, "
+                "(K, O), bf16; the two gave the same bits at every M"}})
     results["qmatmul"].update(max_abs_err=worst, shapes=shapes, m_tile=M_TILE, m_sweep=sweep)
 
 

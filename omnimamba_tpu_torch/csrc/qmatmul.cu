@@ -13,17 +13,20 @@
 // at 3.35 TB/s); at prefill (thousands of rows) the operations (a 3456-row
 // in_proj is 120 GFLOP: 0.12 ms of bf16 tensor-core time). Three paths:
 //   - bf16 activations on whole tiles (K and O multiples of 64, 16-byte aligned
-//     rows), fewer than m_tile rows (decode): K4's bf16 product (decode_fused.cu)
-//     with the weight tile landing as int8. A block of 8 warps takes MT * 16
-//     rows x 64 columns; the int8 weight tile (64 x 64, 4 KB, half of K4's bf16
-//     stage) and the activation tile of each k step are copied into a four-stage
-//     ring with 16-byte cp.async, three k steps ahead. wmma has no int8 x bf16
-//     product, so each landed weight tile is widened to bf16 in shared memory
-//     (exact: |q| <= 127) behind one __syncthreads, then warp w multiplies
-//     columns 16 (w % 4) .. + 15 over the k half w / 4 (m16n16k16, fp32 sums).
-//     The transposed table needs no transposed copy: its (O, K) tile is loaded
-//     as a column-major matrix_b. Few blocks, each short of work: bound by the
-//     latency of its loads, not by the bytes.
+//     rows), fewer than m_tile rows (decode), bound by the weight bytes: a
+//     cluster of two blocks for each tile of 32, 64 or 128 columns (chosen
+//     from O alone) and up to 64 rows. The two blocks run the two k chains of
+//     the order below, lo and hi, each over all of K, so the card gets twice
+//     as many blocks as column tiles with no partial sums in device memory
+//     and one launch. A producer warp streams the block's half of each int8
+//     tile and activation tile into a ring with TMA copies and mbarriers;
+//     the consumer warps widen the int8 tile in registers (ldmatrix.trans of
+//     byte pairs for (K, O), 32-bit loads for (O, K)) into mma.sync m16n8k16.
+//     Rank 1 pushes its fp32 sums into rank 0's shared memory; rank 0 adds,
+//     scales and stores. On an H100 the 48-row step in_proj takes about 13 us
+//     against 5.5 for its bytes: the launch, the stage handshakes and the
+//     epilogue take about 5 of them, the widening and the products about 7
+//     (tools/k7_ablation.py).
 //   - the same on m_tile rows or more (prefill), bound by the operations: a
 //     block of 8 warps takes 128 rows x 128 columns, so each activation byte
 //     is read from L2 by a quarter as many blocks as with 64-column tiles and
@@ -37,186 +40,31 @@
 //     and widening are issued in eight pieces between its products. On an
 //     H100 the ldmatrix loads and mma.sync products alone take 0.33 ms of the
 //     3456-row in_proj's 0.47 (370 TFLOP/s, against 989 for wgmma), the
-//     widening 0.10 and the copies 0.05 (tools/k7_prefill_ablation.py).
+//     widening 0.10 and the copies 0.05 (tools/k7_ablation.py).
 //   - fp32 activations, and edges that are not whole tiles (O = 139, K = 24,
 //     any M), take fp32 multiply-adds over shared-memory tiles.
 // The two tensor-core paths sum in one order: for every 64-wide k tile, k in
 // [0, 32) goes into an accumulator `lo` and k in [32, 64) into `hi`, each as two
-// k16 products in k order (a wmma m16n16k16 is two m16n8k16 products over the
-// same k16); then out = (lo + hi) * s. So a row gives the same bits in any
-// batch and through either path, and the fp32 path too sums in an order that
-// does not depend on M.
-#include <cuda_pipeline.h>
-#include <mma.h>
+// k16 products in k order, one mma.sync m16n8k16 (HMMA.16816.F32.BF16) each,
+// with the tiles in k order; then out = (lo + hi) * s. A sum does not depend
+// on the row's or column's place within an m16 or n8 tile. So a row gives the
+// same bits in any batch and through either path (chip_smoke.py asserts it),
+// and the fp32 path too sums in an order that does not depend on M.
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace omt {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-// ---------------------------------------------------------------------------
-// tensor-core path: bf16 activations, whole tiles
-// ---------------------------------------------------------------------------
-
-constexpr int kQThreads = 256, kQBN = 64, kQBK = 64, kQStages = 4;
-constexpr int kQLdQ = kQBK + 16;  // bytes of an int8 tile row in a stage: rows stay 16-byte aligned
-constexpr int kQLdB = kQBN + 8;   // bf16 elements of a widened tile row
-constexpr int kQLdA = kQBK + 8;   // bf16 elements of an activation tile row
-constexpr int kQLdC = kQBN + 4;   // floats
-static_assert(kQThreads == 64 * 4, "one 16-byte chunk of the int8 tile per thread");
-
-template <int MT>
-struct QTile {
-  static constexpr int kWBytes = 64 * kQLdQ;
-  static constexpr int kStageBytes = kWBytes + MT * 16 * kQLdA * 2;
-  static constexpr int kWideOffset = kQStages * kStageBytes;
-  static constexpr int kPipeBytes = kWideOffset + 64 * kQLdB * 2;
-  static constexpr int kCHalf = MT * 16 * kQLdC;  // floats: C of one k half
-  static constexpr int kBytes = kPipeBytes > 2 * kCHalf * 4 ? kPipeBytes : 2 * kCHalf * 4;
-  static_assert(kWBytes % 32 == 0 && kStageBytes % 32 == 0, "wmma needs 32-byte alignment");
-};
-
-// The int8 weight tile at (k0, n0) and the activation rows m0 .. m0 + MT*16 - 1
-// at k0 into one stage. Rows past M are read from row M - 1 and never written.
-template <int MT, bool TRANS>
-__device__ __forceinline__ void qmm_copy_tile(const bf16* __restrict__ x,
-                                              const int8_t* __restrict__ q, int M, int K, int O,
-                                              int m0, int n0, int k0, unsigned char* stage) {
-  const int tid = threadIdx.x;
-  {
-    const int row = tid >> 2, ch = (tid & 3) * 16;  // row: k for (K, O), o for (O, K)
-    const int8_t* src = TRANS ? q + static_cast<size_t>(n0 + row) * K + k0 + ch
-                              : q + static_cast<size_t>(k0 + row) * O + n0 + ch;
-    __pipeline_memcpy_async(stage + row * kQLdQ + ch, src, 16);
-  }
-  bf16* As = reinterpret_cast<bf16*>(stage + QTile<MT>::kWBytes);
-#pragma unroll
-  for (int c = tid; c < MT * 16 * (kQBK / 8); c += kQThreads) {
-    const int row = c / (kQBK / 8), ch = (c % (kQBK / 8)) * 8;
-    __pipeline_memcpy_async(As + row * kQLdA + ch,
-                            x + static_cast<size_t>(min(m0 + row, M - 1)) * K + k0 + ch, 16);
-  }
-}
-
-// the landed int8 tile of `stage`, widened to bf16 in `wide` (same row order)
-__device__ __forceinline__ void qmm_widen(const unsigned char* stage, bf16* wide) {
-  const int row = threadIdx.x >> 2, c16 = (threadIdx.x & 3) * 16;
-  const int4 raw = *reinterpret_cast<const int4*>(stage + row * kQLdQ + c16);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  __align__(16) bf16 v[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = __float2bfloat16_rn(static_cast<float>(b[i]));
-  uint4* dst = reinterpret_cast<uint4*>(wide + row * kQLdB + c16);
-  dst[0] = reinterpret_cast<const uint4*>(v)[0];
-  dst[1] = reinterpret_cast<const uint4*>(v)[1];
-}
-
-template <int MT, bool TRANS, typename OT>
-__global__ void __launch_bounds__(kQThreads)
-qmm_tc_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-              const float* __restrict__ s, OT* __restrict__ out, int M, int K, int O) {
-  extern __shared__ __align__(128) unsigned char qsmem[];
-  namespace wmma = nvcuda::wmma;
-  using Tile = QTile<MT>;
-  const int n0 = blockIdx.x * kQBN;
-  const int m0 = blockIdx.y * MT * 16;
-  const int warp_n = (threadIdx.x >> 5) & 3;
-  const int warp_k = threadIdx.x >> 7;
-  const int ntiles = K / kQBK;
-  bf16* wide = reinterpret_cast<bf16*>(qsmem + Tile::kWideOffset);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) wmma::fill_fragment(acc[i], 0.0f);
-
-  for (int t = 0; t < kQStages - 1; ++t) {
-    if (t < ntiles)
-      qmm_copy_tile<MT, TRANS>(x, q, M, K, O, m0, n0, t * kQBK, qsmem + t * Tile::kStageBytes);
-    __pipeline_commit();
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    __pipeline_wait_prior(kQStages - 2);  // this thread's copies of tile t have landed
-    __syncthreads();  // everyone's have, and everyone is done with tile t - 1 and `wide`
-    const int ahead = t + kQStages - 1;  // goes into the stage tile t - 1 used
-    if (ahead < ntiles)
-      qmm_copy_tile<MT, TRANS>(x, q, M, K, O, m0, n0, ahead * kQBK,
-                               qsmem + (ahead % kQStages) * Tile::kStageBytes);
-    __pipeline_commit();
-
-    const unsigned char* stage = qsmem + (t % kQStages) * Tile::kStageBytes;
-    qmm_widen(stage, wide);
-    __syncthreads();
-    const bf16* As = reinterpret_cast<const bf16*>(stage + Tile::kWBytes);
-#pragma unroll
-    for (int k16 = 0; k16 < kQBK / 2; k16 += 16) {
-      const int kk = warp_k * (kQBK / 2) + k16;
-      if constexpr (TRANS) {
-        // wide holds [o][k]: element (k, o) at o * ld + k, a column-major B
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, wide + warp_n * 16 * kQLdB + kk, kQLdB);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, As + i * 16 * kQLdA + kk, kQLdA);
-          wmma::mma_sync(acc[i], fa, fb, acc[i]);
-        }
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, wide + kk * kQLdB + warp_n * 16, kQLdB);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, As + i * 16 * kQLdA + kk, kQLdA);
-          wmma::mma_sync(acc[i], fa, fb, acc[i]);
-        }
-      }
-    }
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();  // the ring is free: reuse it for C
-  float* Cs = reinterpret_cast<float*>(qsmem) + warp_k * Tile::kCHalf;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    wmma::store_matrix_sync(Cs + i * 16 * kQLdC + warp_n * 16, acc[i], kQLdC, wmma::mem_row_major);
-  __syncthreads();
-
-  const float* C0 = reinterpret_cast<const float*>(qsmem);
-  for (int e = threadIdx.x; e < MT * 16 * (kQBN / 4); e += kQThreads) {
-    const int row = e / (kQBN / 4), c4 = (e % (kQBN / 4)) * 4;
-    if (m0 + row >= M) continue;
-    const float4 lo = load4(C0 + row * kQLdC + c4);
-    const float4 hi = load4(C0 + Tile::kCHalf + row * kQLdC + c4);
-    const float4 sc = load4(s + n0 + c4);
-    store4(out + static_cast<size_t>(m0 + row) * O + n0 + c4,
-           make_float4((lo.x + hi.x) * sc.x, (lo.y + hi.y) * sc.y, (lo.z + hi.z) * sc.z,
-                       (lo.w + hi.w) * sc.w));
-  }
-}
-
-template <int MT, bool TRANS, typename OT>
-cudaError_t launch_qmm_tc(const void* x, const int8_t* q, const float* s, void* out, int M, int K,
-                          int O, cudaStream_t stream) {
-  const size_t smem = QTile<MT>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(qmm_tc_kernel<MT, TRANS, OT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(O / kQBN, (M + MT * 16 - 1) / (MT * 16));
-  qmm_tc_kernel<MT, TRANS, OT><<<grid, kQThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), q, s, static_cast<OT*>(out), M, K, O);
-  return cudaGetLastError();
-}
-
-// rows per block follow M: 16, 32, 48 or 64
-template <bool TRANS, typename OT>
-cudaError_t launch_qmm_tc_rows(const void* x, const int8_t* q, const float* s, void* out, int M,
-                               int K, int O, cudaStream_t stream) {
-  if (M <= 16) return launch_qmm_tc<1, TRANS, OT>(x, q, s, out, M, K, O, stream);
-  if (M <= 32) return launch_qmm_tc<2, TRANS, OT>(x, q, s, out, M, K, O, stream);
-  if (M <= 48) return launch_qmm_tc<3, TRANS, OT>(x, q, s, out, M, K, O, stream);
-  return launch_qmm_tc<4, TRANS, OT>(x, q, s, out, M, K, O, stream);
-}
+// the tensor-core paths take whole tiles: K and O multiples of these
+constexpr int kQBN = 64, kQBK = 64;
 
 // ---------------------------------------------------------------------------
 // tensor-core path for many rows: bf16 activations, whole tiles, M >= m_tile
@@ -237,7 +85,7 @@ static_assert(kWStageBytes % 128 == 0 && kWQBytes % 128 == 0, "16-byte aligned t
 constexpr int kWCopiesQ = kWQBytes / 16 / kWThreads, kWCopies = kWCopiesQ + kWM * kWK / 8 / kWThreads;
 constexpr int kWWidens = kWQBytes / 8 / kWThreads;
 
-// Measurement only: tools/k7_prefill_ablation.py builds this file with
+// Measurement only: tools/k7_ablation.py builds this file with
 // OMT_QMM_WIDE_SKIP = 1 (no widening), 2 (no copies) or 3 (neither) to time what
 // is left of the 128-row path; its results are then wrong. The library has 0.
 #ifndef OMT_QMM_WIDE_SKIP
@@ -500,6 +348,479 @@ cudaError_t launch_qmm_wide(const void* x, const int8_t* q, const float* s, void
 }
 
 // ---------------------------------------------------------------------------
+// tensor-core path for few rows: bf16 activations, whole tiles, M < m_tile
+// ---------------------------------------------------------------------------
+// The two k chains of the order above, lo and hi, run in the two blocks of a
+// cluster (rank 0 takes k in [0, 32) of every 64-wide k tile, rank 1 [32, 64)),
+// each over all of K: twice the blocks of a column tiling, and no partial sums
+// in device memory. A block takes up to 64 rows (MT m16 tiles) and BN columns
+// (32, 64 or 128, from O alone), 16 a consumer warp, or one m16 tile and 16
+// columns a warp where 32 columns leave a block its SM to itself. A producer
+// warp copies the block's half of each activation tile and int8 weight tile
+// with one TMA copy each (swizzled, so the loads below have no bank conflicts)
+// into a ring of stages of kS k tiles: a stage's `full` mbarrier counts its
+// bytes, its `empty` mbarrier the consumer warps that are done with it, so no
+// block-wide barrier stands in the k loop. The launch is a programmatic
+// dependent of the kernel ahead in the stream: the blocks set up while it
+// finishes and read nothing before it is done. The int8 tile is widened in registers: for
+// (K, O) an ldmatrix.trans of byte pairs gives a thread two k rows of columns
+// 2g and 2g + 1, which become the B operands of two n8 tiles (the even and the
+// odd columns of the warp's 16); for (O, K) two 32-bit loads give a thread the
+// k pairs 2c and 2c + 8 of its column. At the end rank 1 pushes its sums into
+// rank 0's shared memory through the cluster and arrives on an mbarrier there;
+// rank 0 adds, scales and stores.
+
+// Measurement only: tools/k7_ablation.py builds this file with
+// OMT_QMM_PAIR_SKIP = 1 (no activation copies), 2 (no weight copies), 4 (no
+// widening and no products) or a sum of them, to time what is left of the
+// decode path, whose results are then wrong, or 8 (the launch alone). The
+// library has 0.
+#ifndef OMT_QMM_PAIR_SKIP
+#define OMT_QMM_PAIR_SKIP 0
+#endif
+
+// the column tile follows O, never M: the widest of 128, 64 and 32 columns that
+// divides O and still gives 128 column tiles, else 32
+constexpr int pair_columns(int O) {
+  return O % 128 == 0 && O / 128 >= 128 ? 128 : O / 64 >= 128 ? 64 : 32;
+}
+
+// consumer warps of a block: 16 columns and all rows each, or for 32 columns
+// (the few-column-tile shapes, one block an SM) 16 columns and one m16 tile each,
+// so that every sub-partition of the SM has a warp
+constexpr int pair_warps(int MT, int BN) { return BN == 32 ? 2 * MT : BN / 16; }
+// threads of a block: the consumer warps and the producer warp
+constexpr int pair_threads(int MT, int BN) { return 32 * (pair_warps(MT, BN) + 1); }
+
+template <int MT, int BN, bool TRANS>
+struct PairTile {
+  static constexpr bool kTrans = TRANS;
+  static constexpr int kWarps = pair_warps(MT, BN), kThreads = pair_threads(MT, BN);
+  static constexpr int kColWarps = BN / 16;           // warps side by side along the columns
+  static constexpr int kWM = MT / (kWarps / kColWarps);  // m16 tiles a warp
+  // k tiles a stage and bytes of the ring: a block of 32 columns has its SM to
+  // itself (O / 32 column tiles fill the card once), the wider ones share it
+  // with two more
+  static constexpr int kS = BN == 32 ? 8 : 4;
+  static constexpr int kRing = BN == 32 ? 131072 : 65536;
+  static constexpr int kABytes = MT * 16 * 64;  // a k tile's activations: 16 MT rows x 32 bf16
+  static constexpr int kQBytes = 32 * BN;       // a k tile's weights: 32 k x BN int8
+  static constexpr int kStageBytes = kS * (kABytes + kQBytes);
+  static constexpr int kRingStages = kRing / kStageBytes;
+  static constexpr int kStages = kRingStages < 3 ? 3 : kRingStages > 8 ? 8 : kRingStages;
+  static constexpr int kAcc = kWM * 2 * 4;  // accumulator floats of a thread
+  // rank 1's sums, pushed into rank 0 as the threads hold them
+  static constexpr int kSumsBytes = kWarps * kAcc * 32 * 4;
+  static constexpr int kBytes = kStages * kStageBytes + kSumsBytes + 1024;  // + the ring's alignment
+  // every tile a multiple of 1 KB: the swizzle of a TMA copy follows the
+  // address bits, so a tile starts where its pattern starts
+  static_assert(kABytes % 1024 == 0 && kQBytes % 1024 == 0, "1 KB aligned tiles");
+  static_assert(kWM * (kWarps / kColWarps) == MT, "the warps split the m16 tiles evenly");
+};
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// an arrival on the barrier at `bar`'s place in block `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// a phase of `bar` that has not completed 4 s after the wait began (a fault in
+// the kernel: a correct launch waits microseconds) ends the launch with an error
+// instead of hanging the card; the clock is read every 1024 polls
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t i = 1; !mbar_try_wait(bar, parity); ++i) {
+    if (i % 1024 != 0) continue;
+    const uint64_t now = global_ns();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > 4000000000ull) __trap();
+  }
+}
+
+// the 2-D box at (c0, c1) (inner, outer coordinate) of `map` into `dst` of this
+// block, its bytes counted on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// launched as a programmatic dependent of the kernel ahead of it in the stream
+// (see launch_qmm_pair), a block may start before that kernel ends: this waits
+// for it to end and for its writes to be visible
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+template <typename OT>
+__device__ __forceinline__ void store_2(OT* p, float a, float b);
+template <>
+__device__ __forceinline__ void store_2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store_2<bf16>(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = bf16x2_bits(a, b);
+}
+
+// N k tiles of a landed stage (from its activation tile a_tile and its weight
+// tile q_tile on) into the accumulators of this warp's P::kWM m16 tiles, in k
+// order: for each tile, the two k16 steps of this block's k half. a_off, b_off
+// are this lane's offsets in a tile (swizzle and the warp's rows and columns
+// included).
+template <typename P, int N>
+__device__ __forceinline__ void pair_tiles(float (&acc)[P::kWM][2][4], const unsigned char* a_tile,
+                                           const unsigned char* q_tile, const uint32_t (&a_off)[2],
+                                           uint32_t b_off, uint32_t pair_sel) {
+  constexpr bool TRANS = P::kTrans;
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    uint32_t b[2][2][2];  // [k16 step][n8 tile][b0, b1]
+    const unsigned char* q = q_tile + u * P::kQBytes;
+    if constexpr (TRANS) {
+      // (O, K): row 16 cw + 8 j + g holds 32 bytes of k; b_off is the offset of
+      // the words of k 2c and 2c + 8 in row 16 cw + g, whose bit 7 is the row's
+      // swizzle of the 16-byte chunk
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned char* p = q + b_off + j * 8 * 32 + ((h * 16) ^ ((b_off >> 3) & 16));
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + 8);
+          widen4(__byte_perm(w0, w1, pair_sel), b[h][j][0], b[h][j][1]);
+        }
+    } else {
+      // r[i]: k rows 8 i + 2c, 8 i + 2c + 1 of columns 2g, 2g + 1 (bytes 0-1, 2-3)
+      uint32_t r[4];
+      ldsm_x4_trans(r, smem_addr(q) + b_off);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        widen4(__byte_perm(r[i], 0u, 0x3120), b[i >> 1][0][i & 1], b[i >> 1][1][i & 1]);
+    }
+    const uint32_t a = smem_addr(a_tile) + u * P::kABytes;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the two k16 steps of this block's k half, in k order
+      uint32_t af[P::kWM][4];
+#pragma unroll
+      for (int i = 0; i < P::kWM; ++i) ldsm_x4(af[i], a + i * 16 * 64 + a_off[h]);
+#pragma unroll
+      for (int i = 0; i < P::kWM; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mma_bf16(acc[i][j], af[i], b[h][j][0], b[h][j][1]);
+    }
+  }
+}
+
+template <int MT, int BN, bool TRANS, typename OT>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(pair_threads(MT, BN))
+qmm_pair_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+                const float* __restrict__ s, OT* __restrict__ out, int M, int K, int O) {
+  using P = PairTile<MT, BN, TRANS>;
+  if (OMT_QMM_PAIR_SKIP & 8) return;
+  extern __shared__ unsigned char psmem_raw[];
+  __shared__ __align__(8) uint64_t full[P::kStages], empty[P::kStages], sums_full;
+  unsigned char* psmem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(psmem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* sums = reinterpret_cast<float*>(psmem + P::kStages * P::kStageBytes);
+  const uint32_t rank = cluster_ctarank();
+  const int kh = rank & 1;  // 0: the lo chain, 1: the hi chain
+  const int n0 = (blockIdx.x >> 1) * BN, m0 = blockIdx.y * MT * 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ntiles = K / kQBK, nstages = (ntiles + P::kS - 1) / P::kS;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], P::kWarps);
+    }
+    mbar_init(&sums_full, P::kWarps * 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // this block's barriers are set
+  // and rank 0's are, for rank 1, once it has waited on this arrival (just
+  // before it pushes its sums)
+  cluster_arrive_relaxed();
+
+  // the consumer warp's columns 16 cw .. 16 cw + 15 and m16 tiles wi kWM .. of the block
+  const int cw = warp % P::kColWarps, wi = warp / P::kColWarps;
+  float acc[P::kWM][2][4];  // [m16 tile][n8 tile][mma.sync accumulator]
+#pragma unroll
+  for (int i = 0; i < P::kWM; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  if (warp == P::kWarps) {
+    // the producer: stage st into its slot once the slot's last stage is done
+    // with, its weight tiles and activation tiles; the first once the kernel
+    // ahead in the stream is done (it may have written any input)
+    if (lane == 0) {
+      prefetch_tensor_map(&qmap);
+      prefetch_tensor_map(&xmap);
+      grid_dependency_wait();
+      for (int st = 0; st < nstages; ++st) {
+        const int slot = st % P::kStages, t0 = st * P::kS, n = min(P::kS, ntiles - t0);
+        if (st >= P::kStages) mbar_wait(&empty[slot], (st / P::kStages - 1) & 1);
+        unsigned char* stage = psmem + slot * P::kStageBytes;
+        mbar_arrive_expect_tx(&full[slot], n * ((OMT_QMM_PAIR_SKIP & 1 ? 0 : P::kABytes) +
+                                                (OMT_QMM_PAIR_SKIP & 2 ? 0 : P::kQBytes)));
+        for (int u = 0; u < n; ++u) {
+          const int k = (t0 + u) * kQBK + kh * 32;
+          if (!(OMT_QMM_PAIR_SKIP & 2)) {
+            if constexpr (TRANS)
+              tma_load(stage + P::kS * P::kABytes + u * P::kQBytes, &qmap, k, n0, &full[slot]);
+            else
+              tma_load(stage + P::kS * P::kABytes + u * P::kQBytes, &qmap, n0, k, &full[slot]);
+          }
+          if (!(OMT_QMM_PAIR_SKIP & 1))
+            tma_load(stage + u * P::kABytes, &xmap, k, m0, &full[slot]);
+        }
+      }
+    }
+    cluster_wait();
+  } else {
+    // this lane's offsets, swizzle included (a tile's row r, 16-byte chunk j lies
+    // at chunk j ^ (bits 7.. of r x row bytes)): A by ldmatrix, row l % 16 of the
+    // warp's first m16 tile and chunk 2 h + l / 16 of a 64-byte row; B of (K, O)
+    // by ldmatrix.trans, row l and chunk cw of a BN-byte row; B of (O, K), row
+    // 16 cw + g of 32 bytes, the words of k 2c and 2c + 8 (the chunk's swizzle
+    // bit rides in bit 7)
+    uint32_t a_off[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      a_off[h] = wi * P::kWM * 16 * 64 + (lane & 15) * 64 +
+                 (((2 * h + (lane >> 4)) ^ ((lane >> 1) & 3)) << 4);
+    uint32_t b_off;
+    if constexpr (TRANS)
+      b_off = (cw * 16 + (lane >> 2)) * 32 + (lane & 2) * 2;
+    else
+      b_off = lane * BN + ((cw ^ ((lane * BN / 128) & (BN / 16 - 1))) << 4);
+    const uint32_t pair_sel = (lane & 1) ? 0x7632u : 0x5410u;
+
+    for (int st = 0; st < nstages; ++st) {
+      const int slot = st % P::kStages;
+      mbar_wait(&full[slot], (st / P::kStages) & 1);
+      const unsigned char* a_tile = psmem + slot * P::kStageBytes;
+      const unsigned char* q_tile = a_tile + P::kS * P::kABytes;
+      if (!(OMT_QMM_PAIR_SKIP & 4)) {
+        const int n = min(P::kS, ntiles - st * P::kS);
+        if (n == P::kS) {
+          pair_tiles<P, P::kS>(acc, a_tile, q_tile, a_off, b_off, pair_sel);
+        } else {  // the last stage of a K that is not a multiple of kS tiles
+          for (int u = 0; u < n; ++u)
+            pair_tiles<P, 1>(acc, a_tile + u * P::kABytes, q_tile + u * P::kQBytes, a_off, b_off,
+                             pair_sel);
+        }
+      }
+      __syncwarp();  // the warp is done with the stage
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+
+    // rank 1 pushes its sums into rank 0's, laid out as the threads hold them;
+    // each thread's arrival on rank 0's sums_full releases its stores
+    const int at = warp * P::kAcc * 32 + lane;
+    cluster_wait();
+    if (kh == 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      float* peer = cluster.map_shared_rank(sums, rank - 1) + at;
+#pragma unroll
+      for (int i = 0; i < P::kWM; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) peer[((i * 2 + j) * 4 + e) * 32] = acc[i][j][e];
+      mbar_arrive_remote(&sums_full, rank - 1);
+    } else {  // out = (lo + hi) * s, once the kernel ahead in the stream is done with out
+      grid_dependency_wait();
+      mbar_wait(&sums_full, 0);
+      const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+      for (int i = 0; i < P::kWM; ++i) {
+        float v[2][4];  // [n8 tile][accumulator]: lo + hi
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[j][e] = acc[i][j][e] + sums[at + ((i * 2 + j) * 4 + e) * 32];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // rows g and g + 8 of the m16 tile
+          const int row = m0 + (wi * P::kWM + i) * 16 + half * 8 + g;
+          if (row >= M) continue;
+          OT* dst = out + static_cast<size_t>(row) * O;
+          if constexpr (TRANS) {  // n8 tile j: columns 8 j + 2c, 8 j + 2c + 1
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int col = n0 + cw * 16 + j * 8 + 2 * c;
+              const float2 sc = *reinterpret_cast<const float2*>(s + col);
+              store_2(dst + col, v[j][2 * half] * sc.x, v[j][2 * half + 1] * sc.y);
+            }
+          } else {  // the even and the odd n8 tile: columns 4c .. 4c + 3
+            const int col = n0 + cw * 16 + 4 * c;
+            const float4 sc = load4(s + col);
+            store4(dst + col, make_float4(v[0][2 * half] * sc.x, v[1][2 * half] * sc.y,
+                                          v[0][2 * half + 1] * sc.z, v[1][2 * half + 1] * sc.w));
+          }
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime (no link to libcuda)
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// a row-major (rows, cols) matrix of 1- or 2-byte elements, read in boxes of
+// box_rows x box_cols with the swizzle whose span is a box row
+inline bool encode_tile_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int bytes,
+                            int rows, int cols, int box_rows, int box_cols) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return false;
+  const int row_bytes = box_cols * bytes;
+  const CUtensorMapSwizzle swizzle = row_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MT, int BN, bool TRANS, typename OT>
+cudaError_t launch_qmm_pair(const void* x, const int8_t* q, const float* s, void* out, int M, int K,
+                            int O, cudaStream_t stream) {
+  using P = PairTile<MT, BN, TRANS>;
+  CUtensorMap xmap, qmap;  // rows past M read as zeros
+  if (!encode_tile_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, MT * 16, 32) ||
+      !(TRANS ? encode_tile_map(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, K, BN, 32)
+              : encode_tile_map(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, O, 32, BN)))
+    return cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      qmm_pair_kernel<MT, BN, TRANS, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kBytes);
+  if (attr != cudaSuccess) return attr;
+  // programmatic dependent launch: the blocks set up while the kernel ahead in
+  // the stream finishes; they read nothing before it is done
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * (O / BN), (M + MT * 16 - 1) / (MT * 16));
+  cfg.blockDim = dim3(P::kThreads);
+  cfg.dynamicSmemBytes = P::kBytes;
+  cfg.stream = stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, qmm_pair_kernel<MT, BN, TRANS, OT>, xmap, qmap, s,
+                                             static_cast<OT*>(out), M, K, O);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// rows a block follow M: 16, 32, 48 or 64
+constexpr int pair_m16_tiles(int M) { return M <= 16 ? 1 : M <= 32 ? 2 : M <= 48 ? 3 : 4; }
+
+template <int MT, typename F>
+cudaError_t with_pair_columns(int O, F&& f) {
+  using MTc = std::integral_constant<int, MT>;
+  switch (pair_columns(O)) {
+    case 128: return f(MTc(), std::integral_constant<int, 128>());
+    case 64: return f(MTc(), std::integral_constant<int, 64>());
+    default: return f(MTc(), std::integral_constant<int, 32>());
+  }
+}
+
+// f(MT, BN), the m16 tiles and the columns of a block for (M, O) as constants
+template <typename F>
+cudaError_t with_pair_tile(int M, int O, F&& f) {
+  switch (pair_m16_tiles(M)) {
+    case 1: return with_pair_columns<1>(O, f);
+    case 2: return with_pair_columns<2>(O, f);
+    case 3: return with_pair_columns<3>(O, f);
+    default: return with_pair_columns<4>(O, f);
+  }
+}
+
+template <bool TRANS, typename OT>
+cudaError_t launch_qmm_pair_tile(const void* x, const int8_t* q, const float* s, void* out, int M,
+                                 int K, int O, cudaStream_t stream) {
+  return with_pair_tile(M, O, [&](auto mt, auto bn) {
+    return launch_qmm_pair<decltype(mt)::value, decltype(bn)::value, TRANS, OT>(x, q, s, out, M, K,
+                                                                             O, stream);
+  });
+}
+
+// ---------------------------------------------------------------------------
 // multiply-add path: fp32 activations and shapes that are not whole tiles
 // ---------------------------------------------------------------------------
 // 128 threads take a 16 x 64 tile; a thread owns 2 rows x 4 columns and sums
@@ -580,8 +901,8 @@ cudaError_t run_qmatmul(const void* x, const int8_t* q, const float* s, void* ou
     return transpose ? launch_qmm_wide<true, OT>(x, q, s, out, M, K, O, stream)
                      : launch_qmm_wide<false, OT>(x, q, s, out, M, K, O, stream);
   if (x_dtype == kBF16 && whole)
-    return transpose ? launch_qmm_tc_rows<true, OT>(x, q, s, out, M, K, O, stream)
-                     : launch_qmm_tc_rows<false, OT>(x, q, s, out, M, K, O, stream);
+    return transpose ? launch_qmm_pair_tile<true, OT>(x, q, s, out, M, K, O, stream)
+                     : launch_qmm_pair_tile<false, OT>(x, q, s, out, M, K, O, stream);
   if (x_dtype == kBF16) return launch_qmm_fma<bf16, OT>(x, q, s, out, M, K, O, transpose, stream);
   if (x_dtype == kF32) return launch_qmm_fma<float, OT>(x, q, s, out, M, K, O, transpose, stream);
   return cudaErrorInvalidValue;
@@ -612,4 +933,23 @@ extern "C" int omt_qmatmul(const void* x, const void* q, const float* s, void* o
     return run_qmatmul<__nv_bfloat16>(x, qi, s, out, M, K, O, transpose, x_dtype, whole, m_tile,
                                       st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch that the decode path (bf16 activations on whole tiles, fewer than
+// m_tile rows) makes for M rows and O columns: plan = {blocks a cluster,
+// columns a block, rows a block, threads a block, k tiles a stage, ring
+// stages, shared bytes a block}. Returns 0, or cudaErrorInvalidValue for shapes that are not whole.
+extern "C" int omt_qmatmul_pair_plan(int M, int O, int transpose, int* plan) {
+  using namespace omt;
+  if (M < 1 || O < 1 || O % kQBN != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto fill = [&](auto mt, auto bn, auto tr) {
+    using P = PairTile<decltype(mt)::value, decltype(bn)::value, decltype(tr)::value>;
+    const int v[7] = {2, decltype(bn)::value, decltype(mt)::value * 16, P::kThreads,
+                      P::kS, P::kStages, P::kBytes};
+    for (int i = 0; i < 7; ++i) plan[i] = v[i];
+    return cudaSuccess;
+  };
+  return static_cast<int>(with_pair_tile(M, O, [&](auto mt, auto bn) {
+    return transpose ? fill(mt, bn, std::true_type()) : fill(mt, bn, std::false_type());
+  }));
 }

@@ -15,9 +15,15 @@ int8 halves against bf16; at prefill (thousands of rows) the operations. bf16
 activations on whole tiles take the tensor cores along one of two paths, by
 the number of rows M:
 
-- ``M < M_TILE`` (decode): 16-64 rows x 64 columns a block. The int8 weight
-  tiles stream through a ``cp.async`` ring in shared memory (half the bytes of
-  K4's bf16 stage), are widened to bf16 there and multiplied with wmma.
+- ``M < M_TILE`` (decode, bound by the weight bytes): a cluster of two
+  blocks for each tile of 32, 64 or 128 columns (chosen from O alone) and up
+  to 64 rows. The two blocks run the two k chains of the order below, each
+  over all of K, and the second pushes its sums into the first through
+  distributed shared memory: twice the blocks of a column tiling, no partial
+  sums in device memory, one launch. A producer warp streams the int8 and
+  activation tiles in with TMA copies and mbarriers; the int8 tile is widened
+  to bf16 in registers, after ``ldmatrix`` of byte pairs for (K, O), for
+  ``mma.sync`` m16n8k16. ``decode_plan`` reports the launch.
 - ``M >= M_TILE`` (prefill, the slot engine's prefill groups): 128 rows x 128
   columns a block, so each operand byte is read from L2 by fewer blocks; the
   int8 tile of the next k step is widened during this one into a double
@@ -25,12 +31,12 @@ the number of rows M:
   ``mma.sync`` m16n8k16 on 64 x 64 warp tiles.
 
 Both sum in one order: for every 64-wide k tile, k in [0, 32) into one fp32
-accumulator and [32, 64) into another, each in k16 steps in k order, then
-``(lo + hi) * scale``. So a row's result has the same bits in any batch and
-through either path. The transposed table is read as a column-major operand,
-with no transposed copy. fp32 activations and shapes that are not whole tiles
-take fp32 multiply-adds over shared-memory tiles, also in an order that does
-not depend on M.
+accumulator ``lo`` and [32, 64) into another ``hi``, each in k16 steps in k
+order (one m16n8k16 product each), then ``(lo + hi) * scale``. So a row's
+result has the same bits in any batch and through either path. The transposed
+table is read as it lies, with no transposed copy. fp32 activations and shapes
+that are not whole tiles take fp32 multiply-adds over shared-memory tiles,
+also in an order that does not depend on M.
 
 ``qmatmul_plain`` is the plain PyTorch version. The wrapper uses it for a
 tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
@@ -38,6 +44,7 @@ tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -45,10 +52,10 @@ import torch
 
 from omnimamba_tpu_torch.ops import kernel_build as kb
 
-# rows from which bf16 activations take the 128-row tiles: the smallest M of
-# 64, 128, 256, 1024 and 3456 at which they take less time than the 64-row
-# tiles over one layer's prefill products, in_proj and out_proj, on the H100
-# (`chip_smoke.py`'s `qmatmul_m_sweep`, PERF.md)
+# rows from which bf16 activations take the 128-row tiles (the prefill path),
+# below which the decode path; both give a row the same bits. `chip_smoke.py`'s
+# `qmatmul_m_sweep` times the two over one layer's in_proj and out_proj from 1
+# to 3456 rows (PERF.md)
 M_TILE = 128
 
 
@@ -105,6 +112,16 @@ def qmatmul(
         kb.check_launch(err, "qmatmul")
         qmatmul.launches += 1
     return out.reshape(*lead, O)
+
+
+def decode_plan(M: int, O: int, transpose: bool = False) -> dict:
+    """The launch of the decode path (bf16 activations on whole tiles, fewer
+    than ``M_TILE`` rows) for M rows and O columns, as the library makes it."""
+    plan = (ctypes.c_int * 7)()
+    kb.check_launch(kb.load_kernels().omt_qmatmul_pair_plan(M, O, int(transpose), plan),
+                    "qmatmul decode_plan")
+    keys = ("cluster_blocks", "columns", "rows", "threads", "stage_tiles", "stages", "shared_bytes")
+    return dict(zip(keys, plan))
 
 
 # kernel launches since the counter was last set to 0 (plain-version calls do not count)

@@ -123,6 +123,27 @@ def test_qmatmul_plain_matches_the_pallas_kernel(B, O, transpose):
                                                             transpose)))
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("O", [128, 192])
+@pytest.mark.parametrize("M", [1, 16, 48])
+def test_qmatmul_bf16_whole_tiles_match_the_pallas_kernel(M, O, transpose):
+    """bf16 activations on whole tiles below M_TILE rows, the shapes that take
+    the decode path on the card: the wrapper on the CPU (the plain version)
+    against the Pallas kernel in interpret mode, both returning x's type. The
+    two sum in fp32 in other orders, so a result may round to the other of two
+    neighbouring bf16 values: one bf16 rounding, 2^-7 of the value."""
+    rng = np.random.default_rng(M * 1000 + O + transpose)
+    K = 128
+    w = (0.05 * rng.standard_normal((O, K) if transpose else (K, O))).astype(np.float32)
+    x = jnp.asarray(rng.standard_normal((M, K)), dtype=jnp.bfloat16)
+    qe = jq.quantize_linear(jnp.asarray(w), (1,) if transpose else (0,))
+    ref = np.asarray(qmatmul_pallas(x, qe["q"], qe["scale"], transpose=transpose,
+                                    interpret=True)).astype(np.float32)
+    got = qmatmul(tt(x), tt(qe["q"]), tt(qe["scale"]), transpose=transpose)
+    assert got.shape == (M, O) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(nn(got), ref, rtol=2.0 ** -7, atol=2e-5 * np.abs(ref).max())
+
+
 def test_matmul_any_and_lookup_any_match_jax():
     rng = np.random.default_rng(5)
     w = (0.05 * rng.standard_normal((40, 24))).astype(np.float32)
