@@ -137,11 +137,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def errors(got, want, atol_rel=None):
+def errors(got, want, atol_rel=None, rtol=None):
     """(max abs error, worst share of the allowed error), element by element.
 
-    Allowed at an element: RTOL[dtype] * |reference| + atol_rel * max|reference|,
-    atol_rel = ATOL_REL unless the caller states another.
+    Allowed at an element: rtol * |reference| + atol_rel * max|reference|,
+    rtol = RTOL[dtype] and atol_rel = ATOL_REL unless the caller states others.
     Kernel and plain version do the same fp32 arithmetic in another summation
     order, which ATOL_REL covers; a bf16 output may besides round a value that
     lies between two bf16 numbers the other way, one unit in the last place,
@@ -151,7 +151,8 @@ def errors(got, want, atol_rel=None):
         raise AssertionError("kernel output is not finite")
     err = (g - w).abs()
     atol_rel = ATOL_REL if atol_rel is None else atol_rel
-    allowed = RTOL[got.dtype] * w.abs() + atol_rel * max(w.abs().max().item(), 1e-30)
+    rtol = RTOL[got.dtype] if rtol is None else rtol
+    allowed = rtol * w.abs() + atol_rel * max(w.abs().max().item(), 1e-30)
     return err.max().item(), (err / allowed).max().item()
 
 
@@ -273,9 +274,53 @@ def check_ssd_scan(gen, results):
         emit({"kernel_check": rec})
 
 
+# K5's bf16 gradients against its plain version, which rounds the operands of
+# its products where the kernel does (both follow the JAX kernel); the sums are
+# fp32 in another order, so an operand may round the other way: the rule of
+# bf16 activations at one layer (K4, `DEEP_TOL_REL`'s one-layer sibling).
+BWD_BF16_ATOL_REL = 2.0 ** -10
+# ... and both against the fp32-operand result of the same inputs: the JAX
+# package's own bound for its bf16 backward (tests/test_ssd_pallas_bwd.py)
+BWD_BF16_VS_FP32_REL = 6e-2
+
+
+def ptxas_of(log: str, kernel: str):
+    """The `ptxas -v` lines (registers, spills, shared memory) of each kernel whose
+    mangled name holds `kernel`, by name."""
+    lines, found = log.splitlines(), {}
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            found[ln.split("'")[1]] = [x.strip() for x in lines[i + 1:i + 4]
+                                       if "spill" in x or "registers" in x or "smem" in x]
+    return found or None
+
+
+def sass_counts(library, kernel: str, ops=("HMMA",)):
+    """How often each of `ops` occurs in the SASS of the kernels whose mangled
+    names hold `kernel` (`cuobjdump -sass` of the built library), by name."""
+    from pathlib import Path
+
+    from omnimamba_tpu_torch.ops import kernel_build
+
+    cuobjdump = str(Path(kernel_build._find_nvcc()).parent / "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in dump.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+        elif name and kernel in name:
+            for op in ops:
+                if f" {op}." in ln or f" {op} " in ln:
+                    counts.setdefault(name, dict.fromkeys(ops, 0))[op] += 1
+    return counts
+
+
 def check_ssd_scan_bwd(gen, results):
     """K5 against its plain version: all six gradients, at one layer of the
-    training step and at awkward shapes."""
+    training step, at awkward shapes and at each tile shape of the bf16
+    kernel. bf16 cases are also held against the plain version on fp32
+    operands."""
     from omnimamba_tpu_torch.ops.ssd_kernel import (
         PLAIN_CHUNK, ssd_bwd_plain, ssd_fused, ssd_fused_bwd)
 
@@ -288,6 +333,11 @@ def check_ssd_scan_bwd(gen, results):
         ("awkward_bf16_no_D", (3, 37, 6, 24, 2, 20), bf, False, False, False, True),
         ("shorter_than_a_chunk", (1, 5, 4, 8, 1, 16), f32, True, False, False, False),
         ("one_row_two_groups", (1, 48, 8, 16, 2, 32), bf, True, True, False, True),
+        # the bf16 kernel's other tile shapes (P, N) <= (128, 128) and (64, 256), full and padded
+        ("head_dim_128_bf16", (2, 45, 4, 128, 1, 128), bf, True, True, False, True),
+        ("head_dim_96_bf16", (2, 37, 4, 96, 2, 128), bf, True, False, False, False),
+        ("d_state_256_bf16", (2, 45, 4, 64, 1, 256), bf, True, True, False, True),
+        ("d_state_200_bf16", (1, 37, 4, 40, 2, 200), bf, False, True, False, False),
     ]
     names = ("dx", "ddt", "dA", "dB", "dC", "dD")
     for name, shape, dtype, with_d, with_gs, timed, fused in cases:
@@ -307,24 +357,41 @@ def check_ssd_scan_bwd(gen, results):
         torch.cuda.synchronize()
         again = ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy, gstate)
         want = ssd_bwd_plain(x, dt, A, Bm, Cm, D, hin, gy, gstate)
+        # bf16 inputs: every gradient, fp32 ones too, by the bf16 rule
+        rtol, atol_rel = (RTOL[bf], BWD_BF16_ATOL_REL) if dtype == bf else (None, ATOL_REL)
         rec = {"kernel": "ssd_scan_bwd", "case": name, "shape": shape, "dtype": str(dtype),
                "D": with_d, "gstate": with_gs,
                "inputs": "slices of one fused tensor" if fused else "contiguous",
-               "rtol": {"fp32": 0.0, "bf16": RTOL[bf]}, "atol_rel": ATOL_REL}
+               "rtol": RTOL[bf] if dtype == bf else {"fp32": 0.0, "bf16": RTOL[bf]},
+               "atol_rel": atol_rel}
+        if dtype == bf:
+            # the same inputs on fp32 operands (bf16 to fp32 is exact)
+            exact = ssd_bwd_plain(x.float(), dt, A, Bm.float(), Cm.float(), D, hin, gy.float(),
+                                  gstate)
+            rec["vs_fp32_operands_rel_bound"] = BWD_BF16_VS_FP32_REL
         worst = 0.0
-        for key, g, g2, w in zip(names, got, again, want):
+        for i, (key, g, g2, w) in enumerate(zip(names, got, again, want)):
             if w is None:
                 assert g is None, key
                 continue
             assert g.dtype == w.dtype and g.shape == w.shape, key
-            abs_err, share = errors(g, w)
+            abs_err, share = errors(g, w, atol_rel, rtol)
             rec[f"{key}_abs_err"], rec[f"{key}_err_of_allowed"] = abs_err, share
             rec[f"{key}_max"] = w.float().abs().max().item()
             worst = max(worst, abs_err)
             # fixed summation order: the same inputs give the same bits
             assert torch.equal(g, g2), (name, key, "two runs differ")
+            if dtype == bf:
+                e = exact[i].float()
+                scale = max(e.abs().max().item(), 1e-30)
+                rec[f"{key}_kernel_vs_fp32_rel"] = (g.float() - e).abs().max().item() / scale
+                rec[f"{key}_plain_vs_fp32_rel"] = (w.float() - e).abs().max().item() / scale
         rec["same_bits_on_a_second_run"] = True
         assert all(rec.get(f"{k}_err_of_allowed", 0.0) <= 1.0 for k in names), rec
+        if dtype == bf:
+            assert all(rec.get(f"{k}_{who}_vs_fp32_rel", 0.0) <= BWD_BF16_VS_FP32_REL
+                       for k in names for who in ("kernel", "plain")), rec
+            del exact
         if timed:
             dx, ddt, dA, dB, dC, dD = got
             # the saved chunk-entry states are left out of the bound, as in
@@ -333,15 +400,31 @@ def check_ssd_scan_bwd(gen, results):
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             flops = scan_bwd_flops(B, L, H, P, N, PLAIN_CHUNK)
             ops_ms = flops / PEAK_OPS[dtype] * 1e3
+            def kernel():
+                ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy, gstate)
+
+            states_ms = (moved + nbytes(hin)) / HBM_BYTES_PER_S * 1e3
             rec.update(
-                ms=time_ms(lambda: ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy, gstate), 5),
-                host_us=host_us(lambda: ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy, gstate), 10),
+                ms=time_ms(kernel, 5),
+                ms_median_of_5_launches=statistics.median(time_ms(kernel, 1, 1) for _ in range(5)),
+                host_us=host_us(kernel, 10),
                 plain_ms=time_ms(lambda: ssd_bwd_plain(x, dt, A, Bm, Cm, D, hin, gy, gstate), 2, 1),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                # the saved states read once besides: the floor of a backward
+                # that starts each chunk from a saved fp32 state
+                bound_with_states_ms=max(states_ms, ops_ms),
                 bytes_moved=moved, flops=flops, chunk_states_bytes=nbytes(hin),
                 library_ms=None,
+                ptxas=ptxas_of(results.get("build_log", ""),
+                               "ssd_scan_bwd_bf16" if dtype == bf else "ssd_scan_bwd_kernel"),
             )
+            if dtype == bf:
+                from omnimamba_tpu_torch.ops import kernel_build
+
+                rec["dynamic_smem_bytes"] = kernel_build.load_kernels().omt_ssd_scan_bwd_bf16_smem_bytes(P, N)
+                rec["sass"] = sass_counts(kernel_build.build_kernels().library, "ssd_scan_bwd_bf16",
+                                          ("HMMA", "LDSM", "LDGSTS"))
             results["ssd_scan_bwd"] = dict(rec, max_abs_err=worst)
         del hin, got, again, want
         emit({"kernel_check": rec})
@@ -1455,9 +1538,10 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def profile_steps(step, steps: int, top: int = 10):
+def profile_steps(step, steps: int, top: int = 10, named=()):
     """`step(i)` for i = 1..steps under the profiler, after one warm call
-    `step(0)`: wall time per step against the summed time of its kernels."""
+    `step(0)`: wall time per step against the summed time of its kernels
+    (and of the kernels whose names hold each string of `named`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1495,6 +1579,8 @@ def profile_steps(step, steps: int, top: int = 10):
         "note": "wall time includes the profiler's own cost on the host",
         "top_kernels": [{"name": k[:60], "ms_per_step": us / 1e3 / steps, "calls_per_step": n / steps}
                         for us, k, n in rows[:top] if us > 0],
+        **({"named_ms_per_step": {key: sum(us for us, k, _ in rows if key in k) / 1e3 / steps
+                                  for key in named}} if named else {}),
     }
 
 
@@ -2187,7 +2273,8 @@ def train_path(results, card):
     splits = np.asarray([manual_step() for _ in range(3)])
     split = np.median(splits, axis=0)
     profile = profile_steps(
-        lambda i: trainer.step_fn(trainer.state, loader[0], trainer.generator), 1, top=24)
+        lambda i: trainer.step_fn(trainer.state, loader[0], trainer.generator), 1, top=24,
+        named=("ssd_scan_bwd", "ssd_bwd_reduce", "ssd_scan_kernel"))
     after_first = step_s[1:]
     med = float(np.median(after_first))
     emit({"train_times": {
@@ -2200,6 +2287,8 @@ def train_path(results, card):
         "kernel_launches_per_step": profile["kernel_launches_per_step"],
         "device_ms_per_step_by_kind": profile["device_ms_per_step_by_kind"],
         "top_kernels": profile["top_kernels"],
+        # K5 (its kernel, then its two summing kernels) and K1, device ms of the profiled step
+        "named_ms_per_step": profile["named_ms_per_step"],
         "note": "host clock, each ending in a device synchronize; the split is the median of "
                 "three hand-driven steps; idle share and kernels from one profiled step",
     }})
@@ -2293,7 +2382,7 @@ def main() -> int:
                     "commands": info.commands,
                     "ptxas": [ln for ln in info.log.splitlines() if "registers" in ln or "spill" in ln]}})
 
-    results, phase_s = {}, {"build": time.time() - t_all}
+    results, phase_s = {"build_log": info.log}, {"build": time.time() - t_all}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def phase(fn, *args):
@@ -2326,7 +2415,9 @@ def main() -> int:
         row.update({k: r[k] for k in (
             "case", "shape", "dtype", "bytes_moved", "host_us", "prefill", "fp32_state", "train",
             "launches_fused_path", "launches_train", "launches_per_train_step", "flops",
-            "chunk_states_bytes", "library_note", "scan_step_device_ms",
+            "chunk_states_bytes", "bound_with_states_ms", "ms_median_of_5_launches", "ptxas",
+            "dynamic_smem_bytes", "sass",
+            "library_note", "scan_step_device_ms",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
                     if k in r})

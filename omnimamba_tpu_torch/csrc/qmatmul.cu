@@ -26,7 +26,7 @@
 //     scales and stores. On an H100 the 48-row step in_proj takes about 13 us
 //     against 5.5 for its bytes: the launch, the stage handshakes and the
 //     epilogue take about 5 of them, the widening and the products about 7
-//     (tools/k7_ablation.py).
+//     (tools/ablation.py k7-decode).
 //   - the same on m_tile rows or more (prefill), bound by the operations: a
 //     block of 8 warps takes 128 rows x 128 columns, so each activation byte
 //     is read from L2 by a quarter as many blocks as with 64-column tiles and
@@ -40,7 +40,7 @@
 //     and widening are issued in eight pieces between its products. On an
 //     H100 the ldmatrix loads and mma.sync products alone take 0.33 ms of the
 //     3456-row in_proj's 0.47 (370 TFLOP/s, against 989 for wgmma), the
-//     widening 0.10 and the copies 0.05 (tools/k7_ablation.py).
+//     widening 0.10 and the copies 0.05 (tools/ablation.py k7-prefill).
 //   - fp32 activations, and edges that are not whole tiles (O = 139, K = 24,
 //     any M), take fp32 multiply-adds over shared-memory tiles.
 // The two tensor-core paths sum in one order: for every 64-wide k tile, k in
@@ -85,7 +85,7 @@ static_assert(kWStageBytes % 128 == 0 && kWQBytes % 128 == 0, "16-byte aligned t
 constexpr int kWCopiesQ = kWQBytes / 16 / kWThreads, kWCopies = kWCopiesQ + kWM * kWK / 8 / kWThreads;
 constexpr int kWWidens = kWQBytes / 8 / kWThreads;
 
-// Measurement only: tools/k7_ablation.py builds this file with
+// Measurement only: tools/ablation.py k7-prefill builds this file with
 // OMT_QMM_WIDE_SKIP = 1 (no widening), 2 (no copies) or 3 (neither) to time what
 // is left of the 128-row path; its results are then wrong. The library has 0.
 #ifndef OMT_QMM_WIDE_SKIP
@@ -370,7 +370,7 @@ cudaError_t launch_qmm_wide(const void* x, const int8_t* q, const float* s, void
 // rank 0's shared memory through the cluster and arrives on an mbarrier there;
 // rank 0 adds, scales and stores.
 
-// Measurement only: tools/k7_ablation.py builds this file with
+// Measurement only: tools/ablation.py k7-decode builds this file with
 // OMT_QMM_PAIR_SKIP = 1 (no activation copies), 2 (no weight copies), 4 (no
 // widening and no products) or a sum of them, to time what is left of the
 // decode path, whose results are then wrong, or 8 (the launch alone). The

@@ -138,6 +138,8 @@ def load_kernels() -> ctypes.CDLL:
         [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr])
     lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.omt_qmatmul_pair_plan.argtypes = [i32] * 3 + [ptr]
+    lib.omt_ssd_scan_bwd_bf16_smem_bytes.argtypes = [i32, i32]
+    lib.omt_ssd_scan_bwd_bf16_smem_bytes.restype = i64
     for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_add_rms_norm_bwd,
                lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_step_q8, lib.omt_ssd_scan,
                lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step, lib.omt_qmatmul,

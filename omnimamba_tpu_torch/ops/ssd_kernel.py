@@ -19,15 +19,20 @@ chunk, (B, C, H, P, N), the residual the backward starts each chunk from.
 ``ssd_fused`` is differentiable: where a gradient is asked for it runs
 through ``torch.autograd.Function`` around the two kernels. The backward
 walks the chunks of one sequence in reverse and carries the (P, N) adjoint
-of the state in shared memory as the forward carries the state; the decay
-matrix of a chunk is rebuilt there and never stored. Its derivation is the
-one of ``ssd_pallas_bwd.py`` (the decay cotangent folded into dB and dC) and
-``ssd_bwd_plain`` repeats it in tensor code.
+of the state as the forward carries the state; the decay matrix of a chunk
+is rebuilt there and never stored. Its derivation is the one of
+``ssd_pallas_bwd.py`` (the decay cotangent folded into dB and dC) and
+``ssd_bwd_plain`` repeats it in tensor code. Like the JAX kernel, the
+backward has two operand types: for fp32 inputs a kernel of fp32
+multiply-adds with the adjoint in shared memory; for bf16 inputs a
+tensor-core kernel (bf16 operands rounded where the JAX kernel rounds them,
+fp32 sums) with the adjoint in registers, one block per (batch, head) and
+one cluster of blocks per head tile.
 
 What bounds them on an H100: bytes by the roofline rule (x read and y
-written once; the backward reads the chunk states once), but both first
-versions do their products as fp32 multiply-adds out of shared memory and
-are held back by those. What the TPU kernels did for their own hardware is
+written once; the backward reads the chunk states once). The forward and
+the fp32 backward do their products as fp32 multiply-adds out of shared
+memory and are held back by those. What the TPU kernels did for their own hardware is
 gone: the time-on-lanes transposed layouts with two copies of the cumulative
 sum, the 128-wide causal sub-tiles, the hi/lo bf16 split of the suffix sum,
 the chunk rounded up to the lane width, the padding of L and the sequential
@@ -37,11 +42,11 @@ not change the result. x, B, C and gy go in with a row stride, so the column
 slices of the fused conv output are read where they lie. fp32 inputs are
 exact to summation order.
 
-Sums across blocks are taken in a fixed order, without atomics: a backward
-block walks a tile of heads of one group and adds their dB / dC into its own
-fp32 partial; a second kernel sums the partials of a group's tiles, and dA
-and dD over the batch, in index order. A backward gives the same bits on
-every run.
+Sums across blocks are taken in a fixed order, without atomics: the heads of
+a tile of one group add their dB / dC into the tile's own fp32 partial (in
+turn in one fp32 block; across the cluster's shared memory in rank order for
+bf16); a second kernel sums the partials of a group's tiles, and dA and dD
+over the batch, in index order. A backward gives the same bits on every run.
 
 The plain versions are ``ssd_chunked`` with a zero initial state and
 ``ssd_bwd_plain``.
@@ -59,7 +64,10 @@ from omnimamba_tpu_torch.ops import kernel_build as kb
 from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
 
 PLAIN_CHUNK = 16  # chunk of the plain versions; equals kChunk of csrc/ssd_scan.cu
-BWD_HEAD_TILE = 8  # heads one backward block walks (the `tile` argument of omt_ssd_scan_bwd)
+# heads of one `tile` (the argument of omt_ssd_scan_bwd): one fp32 backward block
+# walks them in turn; the bf16 backward runs them as one cluster of blocks, one
+# head a block (the cluster size is timed by tools/ablation.py k5)
+BWD_HEAD_TILE, BWD_BF16_CLUSTER = 8, 4
 
 
 def ssd_fused_plain(x, dt, A, Bmat, Cmat, D=None, *, return_chunk_states: bool = False):
@@ -80,9 +88,24 @@ def ssd_bwd_plain(
     gstate: Optional[torch.Tensor] = None,  # (B, H, P, N) cotangent of the final state
 ):
     """Plain tensor version of the backward kernel: chunks in reverse, the
-    (P, N) adjoint of the state carried from chunk to chunk, fp32 throughout.
+    (P, N) adjoint of the state carried from chunk to chunk, sums in fp32.
     Returns (dx, ddt, dA, dB, dC, dD) in the types of x, dt, A, Bmat, Cmat, D
-    (dD is None without D)."""
+    (dD is None without D).
+
+    The operands of the products follow x's type, as ``_ssd_bwd_kernel``'s
+    ``mxu_dtype`` does (``ssd_pallas_bwd.py:385``). For fp32 x every operand
+    is fp32. For bf16 x each product takes bf16 operands, summed in fp32,
+    rounded where the JAX kernel rounds them: g, B and C as given; ``h_in``
+    and ``adj`` (``:157``, ``:159``); ``xd = x dt``, ``ge = g e^{s}`` and
+    ``xc = x (dt e^{tot - s})`` (``:177-179``); ``(Gxd * w)`` and
+    ``(scores * w)`` (``:234-235``). The products are the scores ``C B^T``,
+    ``Gxd = g xd^T``, ``dC1``, ``dB1``, ``K1``, ``ge h_in``, ``xc adj``,
+    ``adj B^T`` and the adjoint update ``ge^T C`` (``:237-288``). The
+    element-wise sums (r, chi, ``<h_in, adj>``, the suffix sum of r) stay
+    fp32 on unrounded values (``:270-276``); the hi/lo bf16 split of the
+    suffix sum (``:297-305``), a device for the TPU's matrix unit, is not
+    carried over: the suffix sum is an fp32 sum here. dx is rounded once,
+    after ``dt K + D g``."""
     Bsz, L, H, P = x.shape
     G, N = Bmat.shape[2], Bmat.shape[3]
     Q = PLAIN_CHUNK
@@ -95,7 +118,13 @@ def ssd_bwd_plain(
         t = t.float()
         return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
 
-    xf, gf, dtf, Bf, Cf = (padded(t) for t in (x, gy, dt, Bmat, Cmat))
+    xf, gf, dtf, Bf, Cf = (padded(t) for t in (x, gy.to(x.dtype), dt, Bmat, Cmat))
+    if x.dtype == torch.bfloat16:
+        def mx(t):  # an operand of a product, rounded to bf16
+            return t.to(torch.bfloat16).float()
+    else:
+        def mx(t):  # fp32 operands
+            return t
     Af = A.float()
     adj = (gstate.float().clone() if gstate is not None
            else torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=dev))
@@ -118,16 +147,20 @@ def ssd_bwd_plain(
         diff = s[:, :, None, :] - s[:, None, :, :]  # (B,t,j,H)
         w = torch.exp(diff.masked_fill(~mask, 0.0)).masked_fill(~mask, 0.0)
         scores = torch.einsum("bthn,bjhn->btjh", Cc, Bc)
-        gx = torch.einsum("bthp,bjhp->btjh", gc, xc)
-        m1 = gx * w * dtc[:, None]  # (g_t . x_j) e^{s_t - s_j} dt_j
-        m2 = scores * w  # (C_t . B_j) e^{s_t - s_j}
+        xd = mx(xc * dtc[..., None])  # x_j dt_j
+        ge = mx(gc * es[..., None])  # g_t e^{s_t}
+        xcar = mx(xc * (dtc * carry)[..., None])  # x_j dt_j e^{tot - s_j}
+        m1 = mx(torch.einsum("bthp,bjhp->btjh", gc, xd) * w)  # (g_t . x_j dt_j) e^{s_t - s_j}
+        m2 = mx(scores * w)  # (C_t . B_j) e^{s_t - s_j}
+        dC2 = torch.einsum("bthp,bhpn->bthn", ge, mx(hin))
+        adj_op = mx(adj)
+        dB2 = torch.einsum("bjhp,bhpn->bjhn", xcar, adj_op)
+        update = torch.einsum("bthp,bthn->bhpn", ge, Cc)
 
-        dC_h = torch.einsum("btjh,bjhn->bthn", m1, Bc) + es[..., None] * torch.einsum(
-            "bthp,bhpn->bthn", gc, hin)
-        dB2 = (dtc * carry)[..., None] * torch.einsum("bjhp,bhpn->bjhn", xc, adj)
+        dC_h = torch.einsum("btjh,bjhn->bthn", m1, Bc) + dC2
         dB_h = torch.einsum("btjh,bthn->bjhn", m1, Cc) + dB2
         K = torch.einsum("btjh,bthp->bjhp", m2, gc) + carry[..., None] * torch.einsum(
-            "bhpn,bjhn->bjhp", adj, Bc)
+            "bhpn,bjhn->bjhp", adj_op, Bc)
         dx[:, sl] = dtc[..., None] * K
         # the decay cotangent, folded into dC and dB: dL/ds_t = C_t.dC_t - B_t.dB_t,
         # dL/dtotal = sum_j B_j.dB2_j + e^{total} <h_in, adj>
@@ -137,7 +170,7 @@ def ssd_bwd_plain(
         ddt[:, sl] = Af * da + (xc * K).sum(-1)
         dA += (dtc * da).sum(dim=(0, 1))
         dD += (gc * xc).sum(dim=(0, 1, 3))
-        adj = etot[..., None, None] * adj + torch.einsum("bthp,bthn->bhpn", es[..., None] * gc, Cc)
+        adj = etot[..., None, None] * adj + update
         dB[:, sl] = dB_h.reshape(Bsz, Q, G, rep, N).sum(3)
         dC[:, sl] = dC_h.reshape(Bsz, Q, G, rep, N).sum(3)
 
@@ -167,6 +200,14 @@ def _check_scan_inputs(x, dt, A, Bmat, Cmat):
         if t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
     return G, N
+
+
+def _rows_of_four(t: torch.Tensor, rs: int) -> Tuple[torch.Tensor, int]:
+    """(t, rs) unless its start or row stride would split a piece of four
+    bf16; then a dense copy and its row stride."""
+    if t.data_ptr() % 8 == 0 and rs % 4 == 0:
+        return t, rs
+    return t.clone(memory_format=torch.contiguous_format), t.shape[-1] * t.shape[-2]
 
 
 def _fp32(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
@@ -233,11 +274,20 @@ def ssd_fused_bwd(
     dev = x.device
     (x_c, x_rs), (B_c, b_rs), (C_c, c_rs) = (kb.as_rows(t, 2) for t in (x, Bmat, Cmat))
     g_c, g_rs = kb.as_rows(gy.to(x.dtype), 2)
+    if x.dtype == torch.bfloat16:
+        if not kb.load_kernels().omt_ssd_scan_bwd_bf16_smem_bytes(P, N):
+            raise ValueError(
+                "the bf16 backward takes headdim <= 64 and d_state <= 256, or headdim <= 128 "
+                f"and d_state <= 128, headdim a multiple of 4; got {P} and {N}")
+        # it copies rows in pieces of four bf16: 8-byte aligned rows
+        (x_c, x_rs), (B_c, b_rs), (C_c, c_rs), (g_c, g_rs) = (
+            _rows_of_four(t, rs) for t, rs in ((x_c, x_rs), (B_c, b_rs), (C_c, c_rs), (g_c, g_rs)))
     dt_c, A_c, D_c, gs_c = _fp32(dt, dev), _fp32(A, dev), _fp32(D, dev), _fp32(gstate, dev)
     hin = chunk_states.contiguous()
 
     rep = H // G
-    tile = next(t for t in (BWD_HEAD_TILE, 4, 2, 1) if rep % t == 0)
+    first = BWD_BF16_CLUSTER if x.dtype == torch.bfloat16 else BWD_HEAD_TILE
+    tile = next(t for t in (first, 4, 2, 1) if t <= first and rep % t == 0)
     tiles = H // tile  # blocks per batch row; each tile lies inside one group
     alloc = torch.empty if x_c.numel() else torch.zeros
     dx = alloc((Bsz, L, H, P), dtype=x.dtype, device=dev)

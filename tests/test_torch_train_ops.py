@@ -103,6 +103,52 @@ def test_ssd_bwd_plain_vs_interpreted_pallas(name):
     _assert_grads(_port_grads_plain(d, wy, ws), _jax_grads(fn, d, wy, ws), 2e-3)
 
 
+def _bf16_grads(name):
+    """The port's plain backward and ``jax.grad`` of the interpreted Pallas
+    backward on one case with x, B and C cast to bf16 on both sides (dt, A, D
+    and the cotangent of the final state stay fp32). The cotangent of y is
+    bf16 on both sides: ``wy`` rounded, as ``jax.grad`` hands it back through
+    ``y.astype(float32)``."""
+    d, wy, ws = _case(name)
+    d16 = dict(d)
+    for k in ("x", "Bmat", "Cmat"):
+        d16[k] = jnp.asarray(d[k]).astype(jnp.bfloat16)
+    fn = functools.partial(ssd_pallas_ad, chunk_size=16, head_tile=None, interpret=True)
+    want = _jax_grads(fn, d16, wy, ws)
+    t = [None if v is None else tt(np.asarray(v, np.float32)) for v in d16.values()]
+    for i, k in enumerate(d16):
+        if k in ("x", "Bmat", "Cmat"):
+            t[i] = t[i].to(torch.bfloat16)
+    _, _, states = ssd_fused_plain(*t, return_chunk_states=True)
+    got = ssd_bwd_plain(*t, states, tt(wy).to(torch.bfloat16), None if ws is None else tt(ws))
+    return {k: g for k, g in zip(GRADS, got) if g is not None}, want
+
+
+# bf16 operands on both sides, rounded at the same points; the sums are fp32
+# in another order, and the chunk states come from two forwards (the port's
+# plain one, the Pallas one), so an operand that lies near the midpoint of
+# two bf16 numbers may round the other way, and dx is rounded once here and
+# twice in JAX (dt K, then + D g). Each element: |error| <= 2^-7 |reference|
+# (one bf16 unit of a bf16 output) + 2^-9 max |reference| (half a unit at the
+# top of the range). Without the rounding points the plain version misses
+# this bound on two of the five cases.
+BF16_RTOL, BF16_ATOL_REL = 2.0 ** -7, 2.0 ** -9
+
+
+@pytest.mark.parametrize("name", sorted(SSD_CASES))
+def test_ssd_bwd_plain_bf16_vs_interpreted_pallas(name):
+    """K5's plain version with bf16 inputs against ``jax.grad`` of
+    ``ssd_pallas_ad`` in interpret mode, which takes ``mxu_dtype=bf16``."""
+    got, want = _bf16_grads(name)
+    assert set(got) == set(want)
+    for k in want:
+        g, w = nn(got[k].float()), np.asarray(want[k], np.float32)
+        assert got[k].dtype == (torch.bfloat16 if k in ("dx", "dB", "dC") else torch.float32), k
+        allowed = BF16_RTOL * np.abs(w) + BF16_ATOL_REL * max(float(np.abs(w).max()), 1e-30)
+        share = float((np.abs(g - w) / allowed).max())
+        assert share <= 1.0, (k, share)
+
+
 @pytest.mark.parametrize("name", sorted(SSD_CASES))
 def test_ssd_bwd_plain_vs_grad_of_chunked(name):
     """... and against ``jax.grad`` of the chunked scan: fp32 on both sides."""

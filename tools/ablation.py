@@ -1,0 +1,237 @@
+"""What holds a hand-written kernel back: the kernel built with parts of its
+work taken out, each build timed on the shapes of its main path.
+
+    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill]
+
+needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
+builds the target's source once for each entry of its ``builds``, all builds
+of all targets in parallel, with the target's measurement macro set to the
+entry's value, and times each build:
+
+- ``k5`` (``ssd_scan_bwd.cu``, ``OMT_K5_SKIP``): K5's bf16 kernel through
+  ``ssd_fused_bwd`` at one layer of the training step (B=90, L=328, H=64,
+  P=64, N=128) and at B=9; then the shipped build with clusters of 8, 4 and 2
+  heads (``BWD_BF16_CLUSTER``). Each time is the median of five single
+  launches.
+- ``k7-decode`` (``qmatmul.cu``, ``OMT_QMM_PAIR_SKIP``): K7's bf16 path below
+  ``M_TILE`` rows at the 1.3B's decode shapes of ``chip_smoke.py`` at 48 rows,
+  the step in_proj also at 16 rows and one row; each time the median of three
+  calls of 20 launches.
+- ``k7-prefill`` (``qmatmul.cu``, ``OMT_QMM_WIDE_SKIP``): K7's 128-row tiles at
+  the prefill in_proj and out_proj at 3,456 rows and the in_proj at 1,024
+  rows; each time one call of five launches.
+
+Only the build with the value 0 gives correct results; it must equal the
+library's bits, which is asserted. Prints the card, one JSON line a
+measurement, then one JSON line of all with each build's ``ptxas`` lines.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+_bf, _f32 = torch.bfloat16, torch.float32
+
+
+def median_ms(fn, repeats: int, iters: int, warmup: int = 3) -> float:
+    """The median of `repeats` device times (ms a call) of `iters` calls."""
+    import chip_smoke as cs
+
+    return statistics.median(cs.time_ms(fn, iters, warmup) for _ in range(repeats))
+
+
+def emit(rows: dict, key, rec) -> None:
+    rows[key] = rec
+    print(json.dumps({key: rec}), flush=True)
+
+
+@contextlib.contextmanager
+def only(entry: str, fn):
+    """The library's wrappers see `fn` as its function `entry`, and the shipped
+    library's others, while inside."""
+    from omnimamba_tpu_torch.ops import kernel_build as kb
+
+    shipped, load = kb.load_kernels(), kb.load_kernels
+
+    class _Only:
+        def __getattr__(self, name):
+            return fn if name == entry else getattr(shipped, name)
+
+    kb.load_kernels = _Only
+    try:
+        yield
+    finally:
+        kb.load_kernels = load
+
+
+def run_k5(libs: dict, builds: dict, rows: dict) -> None:
+    import chip_smoke as cs
+    from omnimamba_tpu_torch.ops import ssd_kernel as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for batch in (cs.TRAIN_BATCH, cs.TRAIN_BATCH // 10):
+        x, dt, A, Bm, Cm, D = cs.ssd_inputs(gen, batch, cs.TRAIN_LEN, 64, 64, 1, 128, _bf)
+        gy = cs.rand(gen, x.shape, _bf)
+        _, _, hin = sk.ssd_fused(x, dt, A, Bm, Cm, D, return_chunk_states=True)
+
+        def run():
+            return sk.ssd_fused_bwd(x, dt, A, Bm, Cm, D, hin, gy)
+
+        want = run()
+        for v, name in builds.items():
+            with only("omt_ssd_scan_bwd", libs[v]):
+                if v == 0:
+                    assert all(torch.equal(g, w) for g, w in zip(run(), want) if w is not None)
+                emit(rows, f"B{batch} {name}", median_ms(run, 5, 1, 1))
+        if batch == cs.TRAIN_BATCH:  # the cluster size, through the shipped build
+            shipped = sk.BWD_BF16_CLUSTER
+            try:
+                for cluster in (8, 4, 2):
+                    sk.BWD_BF16_CLUSTER = cluster
+                    emit(rows, f"B{batch} cluster of {cluster}", median_ms(run, 5, 1, 1))
+            finally:
+                sk.BWD_BF16_CLUSTER = shipped
+
+
+# name -> (rows, K, O, (O, K) table, out dtype)
+K7_DECODE_SHAPES = {
+    "step_in_proj": (48, 2048, 8512, False, _bf),
+    "step_out_proj": (48, 4096, 2048, False, _bf),
+    "project_in_fc1": (48, 2048, 8192, False, _bf),
+    "project_in_fc2": (48, 8192, 2048, False, _bf),
+    "project_in_fc3": (48, 2048, 2048, False, _bf),
+    "image_head": (48, 2048, 16384, True, _f32),
+    "step_in_proj_16_rows": (16, 2048, 8512, False, _bf),
+    "step_in_proj_one_row": (1, 2048, 8512, False, _bf),
+}
+K7_PREFILL_SHAPES = {
+    "prefill_in_proj": (3456, 2048, 8512, False, _bf),
+    "prefill_out_proj": (3456, 4096, 2048, False, _bf),
+    "slot_prefill_in_proj": (1024, 2048, 8512, False, _bf),
+}
+
+
+def run_k7(path: str, m_tile: int, shapes: dict, repeats: int, iters: int):
+    """K7's `path`, forced by its M_TILE `m_tile`, through each build at `shapes`."""
+
+    def run(libs: dict, builds: dict, rows: dict) -> None:
+        import chip_smoke as cs
+        from omnimamba_tpu_torch.ops import kernel_build as kb
+        from omnimamba_tpu_torch.ops.quant import quantize_linear
+        from omnimamba_tpu_torch.ops.quant_kernel import qmatmul
+
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+        for shape, (M, K, O, tr, od) in shapes.items():
+            w = cs.rand(gen, (O, K) if tr else (K, O), _f32, 0.02)
+            qe = quantize_linear(w, (1,) if tr else (0,))
+            q, sc = qe["q"], qe["scale"]
+            x = cs.rand(gen, (M, K), _bf)
+            y = torch.empty((M, O), dtype=od, device="cuda")
+
+            def launch(omt_qmatmul):
+                err = omt_qmatmul(x.data_ptr(), q.data_ptr(), sc.data_ptr(), y.data_ptr(), M, K, O,
+                                  int(tr), kb.BF16, kb.dtype_code(od), m_tile,
+                                  torch.cuda.current_stream().cuda_stream)
+                kb.check_launch(err, "qmatmul ablation")
+
+            with cs._m_tile(m_tile):
+                want = qmatmul(x, q, sc, tr, od)
+            launch(libs[0])
+            torch.cuda.synchronize()
+            assert torch.equal(y, want), f"the shipped build differs at {shape}"
+            bytes_ms = cs.nbytes(x, q, sc, y) / cs.HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * M * K * O / cs.PEAK_OPS[_bf] * 1e3
+            rec = {"path": path, "shape": (M, K, O), "layout": "(O, K)" if tr else "(K, O)",
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            for v, name in builds.items():
+                rec[name] = median_ms(lambda: launch(libs[v]), repeats, iters)
+            emit(rows, shape, rec)
+
+    return run
+
+
+# source (under omnimamba_tpu_torch/csrc), entry function, measurement macro,
+# builds (macro value -> name; 0 is the shipped build), run(libs, builds, rows)
+# where libs maps a macro value to its build's entry function
+TARGETS = {
+    "k5": ("ssd_scan_bwd.cu", "omt_ssd_scan_bwd", "OMT_K5_SKIP",
+           {0: "as shipped", 1: "no state copies", 2: "no pushes", 8: "no sums of pushed rows",
+            10: "no cluster sums", 4: "no W products", 15: "none of these"},
+           run_k5),
+    "k7-decode": ("qmatmul.cu", "omt_qmatmul", "OMT_QMM_PAIR_SKIP",
+                  {0: "as shipped", 1: "no activation copies", 2: "no weight copies",
+                   3: "no copies", 4: "no widening or products",
+                   7: "launch, barriers and stores only", 8: "launch only"},
+                  run_k7("decode", 1 << 30, K7_DECODE_SHAPES, 3, 20)),
+    "k7-prefill": ("qmatmul.cu", "omt_qmatmul", "OMT_QMM_WIDE_SKIP",
+                   {0: "as shipped", 1: "no widening", 2: "no copies",
+                    3: "products and ldmatrix only"},
+                   run_k7("prefill", 1, K7_PREFILL_SHAPES, 1, 5)),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("targets", nargs="*", help=f"{', '.join(TARGETS)} (default: all)")
+    targets = ap.parse_args().targets or list(TARGETS)
+    if set(targets) - set(TARGETS):
+        ap.error(f"targets are {', '.join(TARGETS)}")
+    if not torch.cuda.is_available():
+        print("ablation: needs one CUDA device", file=sys.stderr)
+        return 2
+    from omnimamba_tpu_torch.ops import kernel_build as kb
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    out_dir = kb.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = kb._find_nvcc()
+    procs = {}
+    for t in targets:
+        source, _, macro, builds, _ = TARGETS[t]
+        for v in builds:
+            lib = out_dir / f"lib_{macro}_{v}.so"
+            cmd = [nvcc, *kb.NVCC_FLAGS, "-shared", f"-D{macro}={v}", "-o", str(lib),
+                   str(kb.CSRC_DIR / source)]
+            procs[t, v] = lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)
+    shipped = kb.load_kernels()
+    libs, ptxas = {t: {} for t in targets}, {}
+    for (t, v), (lib, proc) in procs.items():
+        _, entry, macro, _, _ = TARGETS[t]
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {macro}={v}:\n{log}")
+        ptxas[f"{macro}={v}"] = sorted(
+            {ln.split(":", 1)[1].strip() for ln in log.splitlines() if "registers" in ln})
+        cdll = ctypes.CDLL(str(lib))
+        getattr(cdll, entry).argtypes = getattr(shipped, entry).argtypes
+        getattr(cdll, entry).restype = getattr(shipped, entry).restype
+        libs[t][v] = getattr(cdll, entry)
+
+    rows = {}
+    for t in targets:
+        _, _, _, builds, run = TARGETS[t]
+        rows[t] = {}
+        run(libs[t], builds, rows[t])
+    print(json.dumps({"card": card, "ablation_ms": rows, "ptxas": ptxas,
+                      "builds": {t: {TARGETS[t][2]: TARGETS[t][3]} for t in targets}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
