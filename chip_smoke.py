@@ -28,7 +28,7 @@ exits with code 2 and prints no result.
 Lines on standard output, one JSON object each unless noted:
   the card as `nvidia-smi --query-gpu=name,power.limit` gives it (plain text),
   {"card": ...} {"build": ...} {"kernel_check": ...}* {"qmatmul_m_sweep": ...} {"main_path": ...}
-  {"decode_profile": ...} {"times": ...} {"int8_path": ...} {"slot_engine": ...}
+  {"decode_profile": ...} {"times": ...} {"fidelity": ...} {"int8_path": ...} {"slot_engine": ...}
   {"speculative": ...} {"plain_vs_kernel": ...}*
   {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
   {"remat_threshold": ...} {"kernels": [...]} and, last,
@@ -197,18 +197,49 @@ def scan_flops(B, L, H, P, N, Q):
     return B * H * (L / Q) * per_chunk
 
 
+# K1's and K5's bf16 outputs against their plain versions, which round the
+# operands of their products where the kernels do (all follow the JAX
+# kernels); the sums are fp32 in another order, so an operand may round the
+# other way: the rule of bf16 activations at one layer (K4, `DEEP_TOL_REL`'s
+# one-layer sibling), for every output, the fp32 ones too.
+BWD_BF16_ATOL_REL = 2.0 ** -10
+# ... and both against the fp32-operand result of the same inputs: the JAX
+# package's own bound for its bf16 backward (tests/test_ssd_pallas_bwd.py)
+BWD_BF16_VS_FP32_REL = 6e-2
+
+
+def _vs_fp32_rel(got, exact):
+    """max |got - exact| over max |exact|."""
+    e = exact.float()
+    return (got.float() - e).abs().max().item() / max(e.abs().max().item(), 1e-30)
+
+
 def check_ssd_scan(gen, results):
+    """K1 against its plain version at the main path's prefill and training
+    shapes, at awkward shapes, at each tile shape of the bf16 tensor-core
+    kernel and beyond them (the multiply-add kernel); bf16 cases also against
+    the plain version on fp32 operands."""
+    from omnimamba_tpu_torch.ops import kernel_build
     from omnimamba_tpu_torch.ops.ssd_kernel import PLAIN_CHUNK, ssd_fused, ssd_fused_plain
 
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [
         # name, (B, L, H, P, G, N), dtype, dt=0 tail, with D, timed, fused slices
-        ("main", (BATCH, PROMPT, 64, 64, 1, 128), torch.bfloat16, 0, True, True, True),
-        ("main_fp32", (4, PROMPT, 64, 64, 1, 128), torch.float32, 0, True, False, True),
-        ("awkward", (3, 37, 6, 24, 2, 20), torch.float32, 0, True, False, False),
-        ("awkward_bf16_tail", (3, 37, 6, 24, 2, 20), torch.bfloat16, 9, False, False, True),
-        ("shorter_than_a_chunk", (1, 5, 4, 8, 1, 16), torch.float32, 0, True, False, False),
+        ("main", (BATCH, PROMPT, 64, 64, 1, 128), bf, 0, True, True, True),
+        ("main_fp32", (4, PROMPT, 64, 64, 1, 128), f32, 0, True, False, True),
+        ("awkward", (3, 37, 6, 24, 2, 20), f32, 0, True, False, False),
+        ("awkward_bf16_tail", (3, 37, 6, 24, 2, 20), bf, 9, False, False, True),
+        ("shorter_than_a_chunk", (1, 5, 4, 8, 1, 16), f32, 0, True, False, False),
+        # the tensor-core kernel's other tile shapes (P, N) <= (128, 128) and (64, 256),
+        # full and zero-padded
+        ("head_dim_128_bf16", (2, 45, 4, 128, 1, 128), bf, 0, True, False, True),
+        ("d_state_256_bf16", (2, 45, 4, 64, 1, 256), bf, 0, True, False, True),
+        ("d_state_200_bf16_tail", (1, 37, 4, 40, 2, 200), bf, 5, False, False, False),
+        # beyond the tiles: the multiply-add kernel, rounding at the same points
+        ("beyond_tiles_128_256_bf16", (2, 37, 4, 128, 1, 256), bf, 7, True, False, True),
+        ("beyond_tiles_256_128_bf16", (2, 37, 2, 256, 1, 128), bf, 0, True, False, False),
         # one layer of the training step, chunk states on
-        ("train", (TRAIN_BATCH, TRAIN_LEN, 64, 64, 1, 128), torch.bfloat16, 0, True, True, True),
+        ("train", (TRAIN_BATCH, TRAIN_LEN, 64, 64, 1, 128), bf, 0, True, True, True),
     ]
     for name, shape, dtype, tail, with_d, timed, fused in cases:
         x, dt, A, Bm, Cm, D = ssd_inputs(gen, *shape, dtype, fused)
@@ -219,21 +250,40 @@ def check_ssd_scan(gen, results):
             D = None
         y, s = ssd_fused(x, dt, A, Bm, Cm, D)
         torch.cuda.synchronize()
+        y_again, s_again = ssd_fused(x, dt, A, Bm, Cm, D)
+        # fixed summation order: the same inputs give the same bits
+        assert torch.equal(y_again, y) and torch.equal(s_again, s), (name, "two runs differ")
+        del y_again, s_again
         y_ref, s_ref, h_ref = ssd_fused_plain(x, dt, A, Bm, Cm, D, return_chunk_states=True)
-        ey, ry = errors(y, y_ref)
-        es, rs = errors(s, s_ref)
+        # bf16 inputs: every output, the fp32 states too, by the bf16 rule
+        rtol, atol_rel = (RTOL[bf], BWD_BF16_ATOL_REL) if dtype == bf else (None, ATOL_REL)
+        ey, ry = errors(y, y_ref, atol_rel, rtol)
+        es, rs = errors(s, s_ref, atol_rel, rtol)
         # the same launch with the states entering each chunk written out
         y2, s2, h = ssd_fused(x, dt, A, Bm, Cm, D, return_chunk_states=True)
         torch.cuda.synchronize()
         assert torch.equal(y2, y) and torch.equal(s2, s), "chunk states must not change y or the state"
-        eh, rh = errors(h, h_ref)
+        eh, rh = errors(h, h_ref, atol_rel, rtol)
         rec = {"kernel": "ssd_scan", "case": name, "shape": shape, "dtype": str(dtype),
+               "path": ("tensor cores" if dtype == bf and
+                        kernel_build.load_kernels().omt_ssd_scan_bf16_smem_bytes(shape[3], shape[5])
+                        else "multiply-adds"),
                "inputs": "slices of one fused tensor" if fused else "contiguous",
                "y_abs_err": ey, "y_err_of_allowed": ry, "state_abs_err": es,
                "state_err_of_allowed": rs, "chunk_states_shape": list(h.shape),
                "chunk_states_abs_err": eh, "chunk_states_err_of_allowed": rh,
-               "rtol": [RTOL[dtype], 0.0], "atol_rel": ATOL_REL}
-        assert rh <= 1.0, rec
+               "rtol": RTOL[bf] if dtype == bf else [RTOL[dtype], 0.0], "atol_rel": atol_rel,
+               "same_bits_on_a_second_run": True}
+        if dtype == bf:
+            # the same inputs on fp32 operands (bf16 to fp32 is exact)
+            exact = ssd_fused_plain(x.float(), dt, A, Bm.float(), Cm.float(), D,
+                                    return_chunk_states=True)
+            rec["vs_fp32_operands_rel_bound"] = BWD_BF16_VS_FP32_REL
+            for key, got, want, e in zip(("y", "state", "chunk_states"), (y, s, h),
+                                         (y_ref, s_ref, h_ref), exact):
+                rec[f"{key}_kernel_vs_fp32_rel"] = _vs_fp32_rel(got, e)
+                rec[f"{key}_plain_vs_fp32_rel"] = _vs_fp32_rel(want, e)
+            del exact
         del y2, s2, h_ref
         if tail:
             # dt = 0 must leave the state exactly where the shorter sequence left it
@@ -241,7 +291,10 @@ def check_ssd_scan(gen, results):
             _, s_short = ssd_fused(x[:, :L], dt[:, :L], A, Bm[:, :L], Cm[:, :L], D)
             rec["tail_state_equal"] = bool(torch.equal(s, s_short))
             assert rec["tail_state_equal"], rec
-        assert ry <= 1.0 and rs <= 1.0, rec
+        assert ry <= 1.0 and rs <= 1.0 and rh <= 1.0, rec
+        if dtype == bf:
+            assert all(rec[f"{k}_{who}_vs_fp32_rel"] <= BWD_BF16_VS_FP32_REL
+                       for k in ("y", "state", "chunk_states") for who in ("kernel", "plain")), rec
         if timed:
             B, L, H, P, G, N = shape
             train = name == "train"
@@ -256,32 +309,31 @@ def check_ssd_scan(gen, results):
 
             rec.update(
                 ms=time_ms(kernel, 5 if train else 20),
+                ms_median_of_5_launches=statistics.median(time_ms(kernel, 1, 1) for _ in range(5)),
                 host_us=host_us(kernel, 20),
                 plain_ms=time_ms(lambda: ssd_fused_plain(x, dt, A, Bm, Cm, D), 3, 1),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_moved=moved, library_ms=None,
+                ptxas=ptxas_of(results.get("build_log", ""), "ssd_scan_bf16_kernel"),
+                sass=sass_counts(kernel_build.build_kernels().library, "ssd_scan_bf16_kernel",
+                                 ("HMMA", "LDSM", "LDGSTS")),
+                dynamic_smem_bytes=kernel_build.load_kernels().omt_ssd_scan_bf16_smem_bytes(P, N),
             )
             if train:
-                rec["ms_without_chunk_states"] = time_ms(lambda: ssd_fused(x, dt, A, Bm, Cm, D), 5)
-                rec["chunk_states_bytes"] = nbytes(h)
+                states = nbytes(h)
+                # the states written once besides: the floor of a forward that
+                # saves every chunk's entering state in fp32
+                rec.update(ms_without_chunk_states=time_ms(lambda: ssd_fused(x, dt, A, Bm, Cm, D), 5),
+                           chunk_states_bytes=states,
+                           bound_with_states_ms=max((moved + states) / HBM_BYTES_PER_S * 1e3, ops_ms))
                 results["ssd_scan"]["train"] = {k: rec[k] for k in (
-                    "shape", "ms", "ms_without_chunk_states", "plain_ms", "bound_ms", "bytes_moved",
-                    "chunk_states_bytes")}
+                    "shape", "ms", "ms_median_of_5_launches", "ms_without_chunk_states", "plain_ms",
+                    "bound_ms", "bound_with_states_ms", "bytes_moved", "chunk_states_bytes")}
             else:
                 results["ssd_scan"] = dict(rec, max_abs_err=max(ey, es, eh))
         del h
         emit({"kernel_check": rec})
-
-
-# K5's bf16 gradients against its plain version, which rounds the operands of
-# its products where the kernel does (both follow the JAX kernel); the sums are
-# fp32 in another order, so an operand may round the other way: the rule of
-# bf16 activations at one layer (K4, `DEEP_TOL_REL`'s one-layer sibling).
-BWD_BF16_ATOL_REL = 2.0 ** -10
-# ... and both against the fp32-operand result of the same inputs: the JAX
-# package's own bound for its bf16 backward (tests/test_ssd_pallas_bwd.py)
-BWD_BF16_VS_FP32_REL = 6e-2
 
 
 def ptxas_of(log: str, kernel: str):
@@ -318,9 +370,9 @@ def sass_counts(library, kernel: str, ops=("HMMA",)):
 
 def check_ssd_scan_bwd(gen, results):
     """K5 against its plain version: all six gradients, at one layer of the
-    training step, at awkward shapes and at each tile shape of the bf16
-    kernel. bf16 cases are also held against the plain version on fp32
-    operands."""
+    training step, at awkward shapes, at each tile shape of the bf16
+    tensor-core kernel and beyond them (the multiply-add kernel). bf16 cases
+    are also held against the plain version on fp32 operands."""
     from omnimamba_tpu_torch.ops.ssd_kernel import (
         PLAIN_CHUNK, ssd_bwd_plain, ssd_fused, ssd_fused_bwd)
 
@@ -338,6 +390,9 @@ def check_ssd_scan_bwd(gen, results):
         ("head_dim_96_bf16", (2, 37, 4, 96, 2, 128), bf, True, False, False, False),
         ("d_state_256_bf16", (2, 45, 4, 64, 1, 256), bf, True, True, False, True),
         ("d_state_200_bf16", (1, 37, 4, 40, 2, 200), bf, False, True, False, False),
+        # beyond those tiles: the multiply-add kernel, rounding at the same points
+        ("beyond_tiles_128_256_bf16", (1, 37, 4, 128, 1, 256), bf, True, True, False, True),
+        ("beyond_tiles_256_128_bf16", (1, 37, 2, 256, 1, 128), bf, True, False, False, False),
     ]
     names = ("dx", "ddt", "dA", "dB", "dC", "dD")
     for name, shape, dtype, with_d, with_gs, timed, fused in cases:
@@ -382,10 +437,8 @@ def check_ssd_scan_bwd(gen, results):
             # fixed summation order: the same inputs give the same bits
             assert torch.equal(g, g2), (name, key, "two runs differ")
             if dtype == bf:
-                e = exact[i].float()
-                scale = max(e.abs().max().item(), 1e-30)
-                rec[f"{key}_kernel_vs_fp32_rel"] = (g.float() - e).abs().max().item() / scale
-                rec[f"{key}_plain_vs_fp32_rel"] = (w.float() - e).abs().max().item() / scale
+                rec[f"{key}_kernel_vs_fp32_rel"] = _vs_fp32_rel(g, exact[i])
+                rec[f"{key}_plain_vs_fp32_rel"] = _vs_fp32_rel(w, exact[i])
         rec["same_bits_on_a_second_run"] = True
         assert all(rec.get(f"{k}_err_of_allowed", 0.0) <= 1.0 for k in names), rec
         if dtype == bf:
@@ -728,6 +781,8 @@ def fused_layers(gen, n_layer, mixer_cfg, lora_cfg, wdtype):
 def _cast(node, dtype):
     if isinstance(node, dict):
         return {k: _cast(v, dtype) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_cast(v, dtype) for v in node)
     return node.to(dtype).contiguous()
 
 
@@ -1476,8 +1531,10 @@ def main_path(results, card):
             "decode_steps": int(step_ms.size),
         }
 
-    profiles = {path: profile_decode_steps(mamba, cfg, ids, embed(), path)
+    profiles = {path: profile_decode_steps(mamba, cfg, ids, embed(), path,
+                                           named=K4_PHASES if path == "fused" else ())
                 for path in ("fused", "scan")}
+    profiles["fused"]["k4_phases"] = k4_phase_split(profiles["fused"], cfg, BATCH)
     emit({"decode_profile": dict(profiles, card=card)})
     results["decode_fused"]["scan_step_device_ms"] = profiles["scan"]["device_busy_ms_per_step"]
 
@@ -1499,10 +1556,73 @@ def main_path(results, card):
     return params, model, text_ids, tokens_by["fused"]
 
 
-def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4, int8_state=False):
+def fidelity_phase(params, model, text_ids, card):
+    """1.3B greedy text-to-image at B=48 with the weights of the main path:
+    the bf16 stream (K1 rounding its product operands where the JAX kernel
+    does), and the same with K1 swapped at prefill for `ssd_chunked` on
+    widened operands (the arithmetic of K1 before that rounding), each against
+    the stream of the same weights in fp32 with an fp32 decode state
+    (`eval/fidelity.py`). Per arithmetic: the first divergence (the earliest
+    step over the rows), how many rows diverge, and the fp32 replay's top-2
+    logit margin at the first divergent token."""
+    from omnimamba_tpu_torch.eval import fidelity
+    from omnimamba_tpu_torch.models import mamba2
+    from omnimamba_tpu_torch.models.backbone import caption_embed, embed_text
+    from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
+    from omnimamba_tpu_torch.ops.ssd_kernel import PLAIN_CHUNK
+
+    cfg = model.cfg
+    ids = torch.as_tensor(text_ids, device="cuda")
+    T = PROMPT + cfg.num_tokens
+
+    def embed(m, dtype):
+        return caption_embed(m, embed_text(m, ids, dtype)) + m["pos_embed"][:, :PROMPT].to(dtype)
+
+    m16, m32 = params["mamba"], _cast(params["mamba"], torch.float32)
+    ref = fidelity.greedy_stream(m32, cfg, ids, embed(m32, torch.float32), "t2i", T,
+                                 cache_dtype=None)
+    report = fidelity.logit_margin_report(m32, cfg, embed(m32, torch.float32), ref, "t2i", PROMPT)
+    margins = report["margins"]
+    del m32
+    torch.cuda.empty_cache()
+
+    def widened(x, dt, A, Bm, Cm, D=None):
+        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk_size=PLAIN_CHUNK)
+
+    rec = {"card": card, "batch": BATCH, "new_tokens": cfg.num_tokens,
+           "reference": "fp32 weights and decode state, the same seed",
+           # the replay runs the layer-by-layer step, the stream the whole-model one
+           "fp32_replay_argmax_agrees_share": float(report["argmax_agrees"].mean()),
+           "fp32_top2_margin_median": float(np.median(margins)),
+           "fp32_top2_margin_min": float(margins.min())}
+    kernel = mamba2.ssd_fused
+    for name in ("bf16_k1_rounded", "bf16_prefill_widened"):
+        mamba2.ssd_fused = kernel if name == "bf16_k1_rounded" else widened
+        try:
+            got = fidelity.greedy_stream(m16, cfg, ids, embed(m16, torch.bfloat16), "t2i", T)
+        finally:
+            mamba2.ssd_fused = kernel
+        diff = fidelity.compare_streams(got, ref)
+        neq = got[:, PROMPT:] != ref[:, PROMPT:]
+        first = np.where(neq.any(1), neq.argmax(1), cfg.num_tokens)  # per row
+        row = int(first.argmin())
+        at = int(first[row])
+        rec[name] = {
+            "stream_diff": diff._asdict(), "rows_diverged": int(neq.any(1).sum()),
+            "tokens_equal_share": float(1.0 - neq.mean()),
+            "first_divergence_step": at, "first_divergence_row": row,
+            "first_divergence_step_median_of_rows": float(np.median(first)),
+            "fp32_top2_margin_there": float(margins[row, at]) if at < cfg.num_tokens else None,
+        }
+    emit({"fidelity": rec})
+
+
+def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4, int8_state=False,
+                         named=()):
     """Device-busy share of the decode step of one path, from a profiler trace
-    of a few steady steps: wall time per step against the summed kernel time.
-    The SSM state is bf16, or scaled int8 with `int8_state`."""
+    of a few steady steps: wall time per step against the summed kernel time
+    (and that of the kernels named in `named`, see `profile_steps`). The SSM
+    state is bf16, or scaled int8 with `int8_state`."""
     from omnimamba_tpu_torch.models.backbone import (
         apply_head, backbone_forward, backbone_step, backbone_step_fused)
     from omnimamba_tpu_torch.ops.decode_fused import prepare_fused_decode
@@ -1525,7 +1645,48 @@ def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4,
         hidden, _ = backbone(pos)
         return apply_head(mamba, hidden, "t2i").argmax(-1)
 
-    return profile_steps(lambda i: step(PROMPT + i), steps)
+    return profile_steps(lambda i: step(PROMPT + i), steps, named=named)
+
+
+# K4's four kernels a layer (and the one after the last layer), by name
+K4_PHASES = ("k4_prenorm", "k4_in_proj", "k4_ssm", "k4_out_proj", "k4_finish")
+
+
+def k4_phase_split(profile, cfg, B, io_bytes=2, state_bytes=2):
+    """K4's step by phase, all layers: each phase's device ms a step from the
+    decode profile, beside the bytes it must move (each operand read once,
+    each output written once; the out_proj's K-split partials and the other
+    task's LoRA left out) and their time at the card's memory rate. Weights
+    and activations of `io_bytes`, the SSM state of `state_bytes`, the
+    residual and the small per-head vectors fp32. The products' operations
+    take under 1% of that time at the bf16 peak, so each phase is bound by
+    bytes."""
+    m, r, f = cfg.mixer, cfg.lora.r, 4
+    d, di, din, cd = m.d_model, m.d_inner, m.d_in_proj, m.d_conv_in
+    e, H = io_bytes, m.nheads
+    per_layer = {
+        # h in, residual in and out, hn out, the norm weight, LoRA A, hn A out
+        "k4_prenorm": B * d * e + 2 * B * d * f + B * d * e + d * e + d * r * e + B * r * f,
+        # W_in, LoRA B, hn and hn A in, the conv windows in and out, conv weight and
+        # bias, dt_bias, z | x B C | dt out
+        "k4_in_proj": (d * din * e + r * din * e + B * d * e + B * r * f
+                       + 2 * B * (m.d_conv - 1) * cd * e + m.d_conv * cd * e + cd * e + H * f
+                       + B * din * e),
+        # the state in and out, z | x B C | dt in, A_log, D, the gated norm's weight,
+        # yf w out, a sum of squares per (row, head)
+        "k4_ssm": (2 * B * H * m.headdim * m.d_state * state_bytes + B * din * e + 2 * H * f
+                   + di * e + B * di * e + B * H * f),
+        # W_out, yf w in, the fp32 product out
+        "k4_out_proj": di * d * e + B * di * e + B * d * f,
+    }
+    named = profile["named_ms_per_step"]
+    split = {}
+    for name, per in per_layer.items():
+        bound = cfg.n_layer * per / HBM_BYTES_PER_S * 1e3
+        split[name] = {"ms_per_step": named[name], "bytes_per_step": cfg.n_layer * per,
+                       "bound_ms": bound, "share_of_bound": bound / named[name]}
+    split["k4_finish"] = {"ms_per_step": named["k4_finish"]}
+    return split
 
 
 def _kernel_kind(name: str) -> str:
@@ -2274,7 +2435,7 @@ def train_path(results, card):
     split = np.median(splits, axis=0)
     profile = profile_steps(
         lambda i: trainer.step_fn(trainer.state, loader[0], trainer.generator), 1, top=24,
-        named=("ssd_scan_bwd", "ssd_bwd_reduce", "ssd_scan_kernel"))
+        named=("ssd_scan_bwd", "ssd_bwd_reduce", "ssd_scan_bf16_kernel", "ssd_scan_kernel"))
     after_first = step_s[1:]
     med = float(np.median(after_first))
     emit({"train_times": {
@@ -2287,7 +2448,8 @@ def train_path(results, card):
         "kernel_launches_per_step": profile["kernel_launches_per_step"],
         "device_ms_per_step_by_kind": profile["device_ms_per_step_by_kind"],
         "top_kernels": profile["top_kernels"],
-        # K5 (its kernel, then its two summing kernels) and K1, device ms of the profiled step
+        # K5 (its kernel, then its two summing kernels) and K1 (its tensor-core kernel,
+        # then its multiply-add kernel), device ms of the profiled step
         "named_ms_per_step": profile["named_ms_per_step"],
         "note": "host clock, each ending in a device synchronize; the split is the median of "
                 "three hand-driven steps; idle share and kernels from one profiled step",
@@ -2396,6 +2558,7 @@ def main() -> int:
         phase(check, gen, results)
 
     params, model, text_ids, bf16_tokens = phase(main_path, results, card)
+    phase(fidelity_phase, params, model, text_ids, card)
     qmamba = phase(int8_path, params, model, text_ids, bf16_tokens, results, card)
     phase(slot_engine_phase, qmamba, model.cfg, card)
     phase(speculative_phase, params["mamba"], qmamba, model.cfg, card)

@@ -26,6 +26,12 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// v rounded to the nearest bf16 (ties to even), as an fp32 value: an operand
+// of a product that the JAX kernels round to bf16
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // Four consecutive elements as one 16-byte (fp32) or 8-byte (bf16) access.
 // The pointer must be aligned to the access size.
 __device__ __forceinline__ float4 load4(const float* p) {

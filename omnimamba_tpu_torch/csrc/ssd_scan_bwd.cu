@@ -31,7 +31,11 @@
 // Every exponent formed is <= 0 (s is a cumulative sum of non-positive terms),
 // so nothing is clamped. The ragged last chunk is masked (dt = 0 and x = g = B
 // = C = 0 beyond the end). All products are fp32 multiply-adds: exact to
-// summation order.
+// summation order for fp32 inputs. bf16 inputs take this kernel only at the
+// shapes the tensor-core kernel below does not take; it then rounds the
+// operands of its products to bf16 where that kernel (and ssd_bwd_plain)
+// does: x dt, g e^s, x dt e^{tot - s}, the state, the adjoint, (g . x dt) w
+// and (C . B) w.
 //
 // Sums across blocks are taken without atomics, in a fixed order: the heads of
 // a block's tile add their dB / dC into the block's own fp32 partial (one
@@ -46,6 +50,7 @@
 #include <cstddef>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace omt {
 
@@ -72,6 +77,14 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+// an operand of a product: rounded to bf16 for bf16 inputs, as it is for fp32
+template <bool kRound>
+__device__ __forceinline__ float op(float v) { return kRound ? round_bf16(v) : v; }
+template <bool kRound>
+__device__ __forceinline__ float4 op4(float4 v) {
+  return make_float4(op<kRound>(v.x), op<kRound>(v.y), op<kRound>(v.z), op<kRound>(v.w));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 ssd_scan_bwd_kernel(const T* __restrict__ x,         // (B, L, H, P)
@@ -93,6 +106,7 @@ ssd_scan_bwd_kernel(const T* __restrict__ x,         // (B, L, H, P)
                     int L, int H, int P, int G, int N, int tile) {
   constexpr int Q = kBwdChunk;
   constexpr int kWarps = kBwdThreads / 32;
+  constexpr bool kRound = !std::is_same<T, float>::value;
   const int NS = N + 4;
   const int N4 = N / 4;
   const int PS = P + 1;
@@ -205,11 +219,17 @@ ssd_scan_bwd_kernel(const T* __restrict__ x,         // (B, L, H, P)
           float cb = 0.0f;
           for (int n4 = 0; n4 < N4; ++n4)
             cb += dot4(load4(Cs + t * NS + 4 * n4), load4(Bs + j * NS + 4 * n4));
-          float gx = 0.0f;
-          for (int p = 0; p < P; ++p) gx += gs[t * PS + p] * xs[j * PS + p];
           const float w = expf(sc[t] - sc[j]);
-          m1 = gx * w * dtc[j];
-          m2 = cb * w;
+          float gx = 0.0f;
+          if constexpr (kRound) {  // g . bf16(x dt), then both weighted products rounded
+            for (int p = 0; p < P; ++p) gx += gs[t * PS + p] * round_bf16(xs[j * PS + p] * dtc[j]);
+            m1 = round_bf16(gx * w);
+            m2 = round_bf16(cb * w);
+          } else {
+            for (int p = 0; p < P; ++p) gx += gs[t * PS + p] * xs[j * PS + p];
+            m1 = gx * w * dtc[j];
+            m2 = cb * w;
+          }
         }
         M1[t * (Q + 1) + j] = m1;
         M2[t * (Q + 1) + j] = m2;
@@ -237,25 +257,34 @@ ssd_scan_bwd_kernel(const T* __restrict__ x,         // (B, L, H, P)
           fma4(dba, M1[tt * (Q + 1) + ta], v);
           fma4(dbb, M1[tt * (Q + 1) + tb], v);
         }
-        float4 gha = zero4, ghb = zero4;  // g_t h_in
-        float4 xaa = zero4, xab = zero4;  // x_j adj
-        for (int p = 0; p < P; ++p) {
-          const float4 hv4 =
-              __ldg(reinterpret_cast<const float4*>(hc + static_cast<size_t>(p) * N + n));
-          const float4 av4 = load4(adj + static_cast<size_t>(p) * NS + n);
-          fma4(gha, gs[ta * PS + p], hv4);
-          fma4(ghb, gs[tb * PS + p], hv4);
-          fma4(xaa, xs[ta * PS + p], av4);
-          fma4(xab, xs[tb * PS + p], av4);
-        }
-        fma4(dca, es[ta], gha);
-        fma4(dcb, es[tb], ghb);
-        store4(dCs + ta * NS + n, dca);
-        store4(dCs + tb * NS + n, dcb);
+        float4 gha = zero4, ghb = zero4;  // g_t h_in; bf16: bf16(g_t e^{s_t}) bf16(h_in)
+        float4 xaa = zero4, xab = zero4;  // x_j adj; bf16: bf16(x_j dt_j e^{tot - s_j}) bf16(adj)
         const float fa = dtc[ta] * carry[ta];
         const float fb = dtc[tb] * carry[tb];
-        const float4 db2a = make_float4(fa * xaa.x, fa * xaa.y, fa * xaa.z, fa * xaa.w);
-        const float4 db2b = make_float4(fb * xab.x, fb * xab.y, fb * xab.z, fb * xab.w);
+        for (int p = 0; p < P; ++p) {
+          const float4 hv4 = op4<kRound>(
+              __ldg(reinterpret_cast<const float4*>(hc + static_cast<size_t>(p) * N + n)));
+          const float4 av4 = op4<kRound>(load4(adj + static_cast<size_t>(p) * NS + n));
+          if constexpr (kRound) {
+            fma4(gha, round_bf16(gs[ta * PS + p] * es[ta]), hv4);
+            fma4(ghb, round_bf16(gs[tb * PS + p] * es[tb]), hv4);
+            fma4(xaa, round_bf16(xs[ta * PS + p] * fa), av4);
+            fma4(xab, round_bf16(xs[tb * PS + p] * fb), av4);
+          } else {
+            fma4(gha, gs[ta * PS + p], hv4);
+            fma4(ghb, gs[tb * PS + p], hv4);
+            fma4(xaa, xs[ta * PS + p], av4);
+            fma4(xab, xs[tb * PS + p], av4);
+          }
+        }
+        // the scales went into the rounded operands for bf16
+        fma4(dca, kRound ? 1.0f : es[ta], gha);
+        fma4(dcb, kRound ? 1.0f : es[tb], ghb);
+        store4(dCs + ta * NS + n, dca);
+        store4(dCs + tb * NS + n, dcb);
+        const float sa = kRound ? 1.0f : fa, sb = kRound ? 1.0f : fb;
+        const float4 db2a = make_float4(sa * xaa.x, sa * xaa.y, sa * xaa.z, sa * xaa.w);
+        const float4 db2b = make_float4(sb * xab.x, sb * xab.y, sb * xab.z, sb * xab.w);
         chi += dot4(load4(Bs + ta * NS + n), db2a) + dot4(load4(Bs + tb * NS + n), db2b);
         dba.x += db2a.x; dba.y += db2a.y; dba.z += db2a.z; dba.w += db2a.w;
         dbb.x += db2b.x; dbb.y += db2b.y; dbb.z += db2b.z; dbb.w += db2b.w;
@@ -277,7 +306,7 @@ ssd_scan_bwd_kernel(const T* __restrict__ x,         // (B, L, H, P)
         float k2[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // (adj B_j)_p
         const float* ap = adj + static_cast<size_t>(p) * NS;
         for (int n4 = 0; n4 < N4; ++n4) {
-          const float4 a = load4(ap + 4 * n4);
+          const float4 a = op4<kRound>(load4(ap + 4 * n4));
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             k2[q] += dot4(a, load4(Bs + (j0 + q * (Q / 4)) * NS + 4 * n4));
@@ -378,7 +407,7 @@ ssd_scan_bwd_kernel(const T* __restrict__ x,         // (B, L, H, P)
 #pragma unroll
           for (int q = 0; q < kAdjRows; ++q) {
             const int p = p0 + q * pgroups;
-            if (p < P) fma4(a[q], e * gs[t * PS + p], cv);
+            if (p < P) fma4(a[q], op<kRound>(e * gs[t * PS + p]), cv);
           }
         }
 #pragma unroll
@@ -533,73 +562,9 @@ namespace bwd16 {
 #define OMT_K5_SKIP 0
 #endif
 
-using bf16 = __nv_bfloat16;
+using namespace tc;
 constexpr int kQ = kBwdChunk;   // 16: one m16 / k16 tile
 constexpr int kWS = kQ + 8;     // bf16 row stride of the (Q, Q) tiles: 48 B
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 8 (or 4) bytes global -> shared; with ok false the bytes are zeros
-__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(saddr(dst)), "l"(src),
-               "r"(ok ? 8 : 0) : "memory");
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr(dst)), "l"(src),
-               "r"(ok ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {  // all but the newest N groups have landed
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void cp16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(saddr(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(saddr(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm2t(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(saddr(p)) : "memory");
-}
-// d += a (16 x 16) b (16 x 8), bf16 operands, fp32 sums (HMMA.16816.F32.BF16)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {  // round to bf16, lo in the low half
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float lo16(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float hi16(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// ldmatrix .x4 addresses for lane l of a 16 x 16 tile at `base` (row stride `ld`),
-// its four 8 x 8 matrices taken down the first eight columns, then down the
-// second: an A operand (m, k) from (m, k) storage, or a pair of n8 B operands
-// (k, n) from (k, n) storage with .trans
-__device__ __forceinline__ const bf16* quads_down(const bf16* base, int ld, int l) {
-  return base + (l & 15) * ld + (l >> 4) * 8;
-}
-// ... taken across the first eight rows, then across the second: an A operand
-// (m, k) from (k, m) storage with .trans, or a pair of n8 B operands (k, n)
-// from (n, k) storage
-__device__ __forceinline__ const bf16* quads_across(const bf16* base, int ld, int l) {
-  return base + ((l & 7) + (l >> 4) * 8) * ld + ((l >> 3) & 1) * 8;
-}
 
 __device__ __forceinline__ float red4(float v) {  // sum over the 8 lanes of one lane & 3
   v += __shfl_xor_sync(0xffffffffu, v, 4);
@@ -1177,22 +1142,6 @@ __global__ void __launch_bounds__(Tiles<PM, NM>::kT, Tiles<PM, NM>::kMinBlocks)
   Tiles<PM, NM>::template walk<kFull>(a);
 }
 
-// Calls f with the first tiles that hold (P, N), as a Tiles<kPM, kNM>{}, and
-// returns true; false if none do.
-template <class F>
-bool with_tiles(int P, int N, F&& f) {
-  if (P % 4 != 0) return false;
-  if (P <= 64 && N <= 128)
-    f(Tiles<64, 128>{});
-  else if (P <= 128 && N <= 128)
-    f(Tiles<128, 128>{});
-  else if (P <= 64 && N <= 256)
-    f(Tiles<64, 256>{});
-  else
-    return false;
-  return true;
-}
-
 }  // namespace bwd16
 
 // The bf16 path: one cluster of `tile` blocks per head tile, one block per
@@ -1268,7 +1217,7 @@ cudaError_t launch_ssd_scan_bwd_bf16(const void* x, const float* dt, const float
   args.R = bwd16::kQ / tile;
   args.r_shift = __builtin_ctz(static_cast<unsigned>(args.R));
   cudaError_t err = cudaErrorInvalidValue;
-  bwd16::with_tiles(P, N, [&](auto tiles) {
+  tc::with_tiles<bwd16::Tiles>(P, N, [&](auto tiles) {
     err = launch_tiles<decltype(tiles)>(args, B, P, N, dA, dB, dC, dD, stream);
   });
   return err;
@@ -1280,7 +1229,7 @@ cudaError_t launch_ssd_scan_bwd_bf16(const void* x, const float* dt, const float
 // dim P and state dim N; 0 if the bf16 backward does not take them.
 extern "C" long omt_ssd_scan_bwd_bf16_smem_bytes(int P, int N) {
   long bytes = 0;
-  omt::bwd16::with_tiles(P, N, [&](auto tiles) {
+  omt::tc::with_tiles<omt::bwd16::Tiles>(P, N, [&](auto tiles) {
     bytes = static_cast<long>(sizeof(typename decltype(tiles)::Smem));
   });
   return bytes;
@@ -1295,10 +1244,11 @@ extern "C" long omt_ssd_scan_bwd_bf16_smem_bytes(int P, int N) {
 // final state: nothing is read). `tile` heads share a block: it must divide
 // the heads of a group, H / G. dBC_part is scratch of 2 * B * L * (H / tile) * N
 // floats, dAD_part of 2 * B * H floats. N must be a multiple of 4 and the fp32
-// buffers 16-byte aligned. bf16 inputs further need P <= 64 and N <= 256, or
-// P <= 128 and N <= 128 (omt_ssd_scan_bwd_bf16_smem_bytes is not 0), P a
-// multiple of 4, tile <= 8, and x, Bm, Cm, gy 8-byte aligned with row strides
-// that are multiples of 4. Returns the cudaError_t of the launches (0 = success).
+// buffers 16-byte aligned. bf16 inputs whose (P, N) the tensor-core kernel takes
+// (omt_ssd_scan_bwd_bf16_smem_bytes is not 0) further need tile <= 8, and x, Bm,
+// Cm, gy 8-byte aligned with row strides that are multiples of 4; other bf16
+// shapes take the multiply-add kernel, rounding as the tensor-core one does.
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int omt_ssd_scan_bwd(const void* x, const float* dt, const float* A, const void* Bm,
                                 const void* Cm, const float* D, const float* hin,
                                 const void* gy, const float* gstate, void* dx, float* ddt,
@@ -1310,6 +1260,8 @@ extern "C" int omt_ssd_scan_bwd(const void* x, const float* dt, const float* A, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N % 4 != 0 || tile < 1 || G < 1 || H % G != 0 || (H / G) % tile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == kBF16 && omt_ssd_scan_bwd_bf16_smem_bytes(P, N) == 0)
+    return launch_ssd_scan_bwd<__nv_bfloat16>(x, dt, A, Bm, Cm, D, hin, gy, gstate, dx, ddt, dA, dB, dC, dD, dBC_part, dAD_part, x_rs, b_rs, c_rs, g_rs, B, L, H, P, G, N, tile, s);
   if (x_dtype == kBF16)
     return launch_ssd_scan_bwd_bf16(x, dt, A, Bm, Cm, D, hin, gy, gstate, dx, ddt, dA, dB, dC, dD, dBC_part, dAD_part, x_rs, b_rs, c_rs, g_rs, B, L, H, P, G, N, tile, s);
   if (x_dtype == kF32)

@@ -36,6 +36,8 @@ NVCC_FLAGS = (
 )
 
 F32, BF16, I8 = 0, 1, 2  # element type codes of csrc/common.cuh
+# the headers the sources include: an edit of one rebuilds the library
+HEADERS = ("common.cuh", "ssd_step_row.cuh", "tensor_core.cuh")
 
 
 class BuildInfo(NamedTuple):
@@ -67,7 +69,7 @@ def _sources() -> List[Path]:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC_DIR.glob("*.cu*")):
+    for path in _sources() + [CSRC_DIR / name for name in HEADERS]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -138,8 +140,9 @@ def load_kernels() -> ctypes.CDLL:
         [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr])
     lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.omt_qmatmul_pair_plan.argtypes = [i32] * 3 + [ptr]
-    lib.omt_ssd_scan_bwd_bf16_smem_bytes.argtypes = [i32, i32]
-    lib.omt_ssd_scan_bwd_bf16_smem_bytes.restype = i64
+    for fn in (lib.omt_ssd_scan_bf16_smem_bytes, lib.omt_ssd_scan_bwd_bf16_smem_bytes):
+        fn.argtypes = [i32, i32]
+        fn.restype = i64
     for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_add_rms_norm_bwd,
                lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_step_q8, lib.omt_ssd_scan,
                lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step, lib.omt_qmatmul,

@@ -8,7 +8,9 @@ takes an ``initial_state``, the kernel does not), and with a zero initial
 state it is the plain version of the scan kernel in ``ssd_kernel.py``.
 
 Numerics: exponentials, cumulative sums, products and the carried state are
-all fp32; the output is cast to ``x.dtype``.
+all fp32; the output is cast to ``x.dtype``. With ``round_operands`` the
+operands of the products are rounded to ``x.dtype`` first, where the Pallas
+kernel rounds them (its ``mxu_dtype``); the sums and the state stay fp32.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ def ssd_chunked(
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N) fp32
     chunk_size: int = 256,
     return_chunk_states: bool = False,
+    round_operands: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (y (B,L,H,P) in x.dtype, final_state (B,H,P,N) fp32).
 
@@ -38,6 +41,15 @@ def ssd_chunked(
     is what the SSD backward starts every chunk from.
 
     Matches ``ssd_reference.ssd_scan_reference`` to fp32 accuracy.
+
+    ``round_operands``: every product takes operands rounded to ``x.dtype``
+    (a no-op for fp32 x), at the points of the small-chunk path of
+    ``omnimamba_tpu/ops/ssd_pallas.py``'s ``_ssd_kernel`` (``mxu_dtype``):
+    B and C as given; the masked scores ``C_t . B_j`` and the decay
+    ``e^{s_t - s_j}`` each rounded, then their product (``:125``,
+    ``:170-171``); ``x dt`` (``:132``, ``:173``); the state entering the
+    chunk, for ``C_t . state`` (``:179``); ``(x dt) e^{tot - s}``, for the
+    update (``:188-190``). y is summed in fp32 and rounded once.
     """
     Bsz, L, H, P = x.shape
     G, N = Bmat.shape[2], Bmat.shape[3]
@@ -45,6 +57,13 @@ def ssd_chunked(
     pad = (-L) % Q
     C = (L + pad) // Q
     rep = H // G
+
+    if round_operands and x.dtype != torch.float32:
+        def mx(t):  # an operand of a product, rounded to x's type
+            return t.to(x.dtype).float()
+    else:
+        def mx(t):
+            return t
 
     xf, dtf = x.float(), dt.float()
     Bf, Cf = Bmat.float(), Cmat.float()
@@ -72,14 +91,14 @@ def ssd_chunked(
     diff = (s[:, :, :, None, :] - s[:, :, None, :, :]).permute(0, 1, 4, 2, 3)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     decay = torch.exp(diff.masked_fill(~mask, 0.0)).masked_fill(~mask, 0.0)
-    attn = scores.repeat_interleave(rep, dim=2) * decay  # (B,C,H,Q,Q)
+    attn = mx(mx(scores.repeat_interleave(rep, dim=2)) * mx(decay))  # (B,C,H,Q,Q)
     dtx = dtc[..., None] * xc  # (B,C,Q,H,P)
-    y_intra = torch.einsum("bchij,bcjhp->bcihp", attn, dtx)
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", attn, mx(dtx))
 
     # --- chunk states: S[b,c,h,p,n] = sum_j exp(total - s_j) dt_j x_j B_j ---
     state_decay = torch.exp(total[:, :, None, :] - s)  # (B,C,Q,H)
     Bh = Bc.repeat_interleave(rep, dim=3)  # (B,C,Q,H,N)
-    chunk_states = torch.einsum("bcqhp,bcqhn->bchpn", dtx * state_decay[..., None], Bh)
+    chunk_states = torch.einsum("bcqhp,bcqhn->bchpn", mx(dtx * state_decay[..., None]), Bh)
 
     # --- inter-chunk state passing (sequential over the C chunks) -----------
     if initial_state is None:
@@ -94,7 +113,7 @@ def ssd_chunked(
 
     # --- inter-chunk output --------------------------------------------------
     Ch = Cc.repeat_interleave(rep, dim=3)  # (B,C,Q,H,N)
-    y_inter = torch.einsum("bcqhn,bchpn->bcqhp", Ch, h_prev) * torch.exp(s)[..., None]
+    y_inter = torch.einsum("bcqhn,bchpn->bcqhp", Ch, mx(h_prev)) * torch.exp(s)[..., None]
 
     y = y_intra + y_inter
     if D is not None:

@@ -8,9 +8,13 @@ Backward: replaces ``_ssd_bwd_kernel`` / ``ssd_pallas_ad`` of
 
 Forward contract: zero initial state in, ``(y (B,L,H,P) in x.dtype,
 final_state (B,H,P,N) fp32)`` out. One thread block per (batch, head) loops
-over chunks inside the block and carries the fp32 (P, N) state in shared
-memory for the whole sequence; the cumulative sum of dt*A is computed in the
-kernel, and the ragged last chunk is masked, not padded in device memory.
+over chunks inside the block and carries the fp32 (P, N) state for the whole
+sequence; the cumulative sum of dt*A is computed in the kernel, and the
+ragged last chunk is masked, not padded in device memory. Like the JAX
+kernel, the forward has two operand types: for fp32 inputs a kernel of fp32
+multiply-adds with the state in shared memory; for bf16 inputs a tensor-core
+kernel (bf16 operands rounded where the JAX kernel rounds them, fp32 sums)
+with the state in registers, one block per (batch, head).
 dt = 0 at a position is an exact no-op for the state, which is how padded
 rows of a ragged batch are handled by the caller. With
 ``return_chunk_states`` the kernel also writes the fp32 state entering every
@@ -27,12 +31,15 @@ backward has two operand types: for fp32 inputs a kernel of fp32
 multiply-adds with the adjoint in shared memory; for bf16 inputs a
 tensor-core kernel (bf16 operands rounded where the JAX kernel rounds them,
 fp32 sums) with the adjoint in registers, one block per (batch, head) and
-one cluster of blocks per head tile.
+one cluster of blocks per head tile. bf16 inputs whose head and state sizes
+(P, N) fit none of the tensor-core kernels' tiles, (64, 128), (128, 128) and
+(64, 256), take the multiply-add kernels, which then round at the same points.
 
 What bounds them on an H100: bytes by the roofline rule (x read and y
-written once; the backward reads the chunk states once). The forward and
-the fp32 backward do their products as fp32 multiply-adds out of shared
-memory and are held back by those. What the TPU kernels did for their own hardware is
+written once; the backward reads the chunk states once). The fp32 kernels
+do their products as fp32 multiply-adds out of shared memory and are held
+back by those; the bf16 kernels by the latency of their serial walk over
+chunks. What the TPU kernels did for their own hardware is
 gone: the time-on-lanes transposed layouts with two copies of the cumulative
 sum, the 128-wide causal sub-tiles, the hi/lo bf16 split of the suffix sum,
 the chunk rounded up to the lane width, the padding of L and the sequential
@@ -71,9 +78,14 @@ BWD_HEAD_TILE, BWD_BF16_CLUSTER = 8, 4
 
 
 def ssd_fused_plain(x, dt, A, Bmat, Cmat, D=None, *, return_chunk_states: bool = False):
-    """Plain tensor version of the forward kernel: chunked SSD from a zero state."""
+    """Plain tensor version of the forward kernel: chunked SSD from a zero
+    state. The operands of its products follow x's type, as
+    ``_ssd_kernel``'s ``mxu_dtype`` does (``ssd_pallas.py:305``): fp32 x is
+    ``ssd_chunked`` on fp32 operands; bf16 x rounds them to bf16 where the
+    JAX kernel does at a chunk of ``PLAIN_CHUNK`` tokens (``ssd_chunked``'s
+    ``round_operands`` lists the points), with fp32 sums and an fp32 state."""
     return ssd_chunked(x, dt, A, Bmat, Cmat, D, chunk_size=PLAIN_CHUNK,
-                       return_chunk_states=return_chunk_states)
+                       return_chunk_states=return_chunk_states, round_operands=True)
 
 
 def ssd_bwd_plain(
@@ -226,6 +238,10 @@ def _scan_forward(x, dt, A, Bmat, Cmat, D, return_chunk_states):
     Bsz, L, H, P = x.shape
     G, N = _check_scan_inputs(x, dt, A, Bmat, Cmat)
     (x_c, x_rs), (B_c, b_rs), (C_c, c_rs) = (kb.as_rows(t, 2) for t in (x, Bmat, Cmat))
+    if x.dtype == torch.bfloat16 and kb.load_kernels().omt_ssd_scan_bf16_smem_bytes(P, N):
+        # the tensor-core kernel copies rows in pieces of four bf16: 8-byte aligned rows
+        (x_c, x_rs), (B_c, b_rs), (C_c, c_rs) = (
+            _rows_of_four(t, rs) for t, rs in ((x_c, x_rs), (B_c, b_rs), (C_c, c_rs)))
     dt_c, A_c, D_c = _fp32(dt, x.device), _fp32(A, x.device), _fp32(D, x.device)
     y = torch.empty((Bsz, L, H, P), dtype=x.dtype, device=x.device)
     alloc = torch.empty if x_c.numel() else torch.zeros  # the kernel writes every element
@@ -274,12 +290,8 @@ def ssd_fused_bwd(
     dev = x.device
     (x_c, x_rs), (B_c, b_rs), (C_c, c_rs) = (kb.as_rows(t, 2) for t in (x, Bmat, Cmat))
     g_c, g_rs = kb.as_rows(gy.to(x.dtype), 2)
-    if x.dtype == torch.bfloat16:
-        if not kb.load_kernels().omt_ssd_scan_bwd_bf16_smem_bytes(P, N):
-            raise ValueError(
-                "the bf16 backward takes headdim <= 64 and d_state <= 256, or headdim <= 128 "
-                f"and d_state <= 128, headdim a multiple of 4; got {P} and {N}")
-        # it copies rows in pieces of four bf16: 8-byte aligned rows
+    if x.dtype == torch.bfloat16 and kb.load_kernels().omt_ssd_scan_bwd_bf16_smem_bytes(P, N):
+        # the tensor-core kernel copies rows in pieces of four bf16: 8-byte aligned rows
         (x_c, x_rs), (B_c, b_rs), (C_c, c_rs), (g_c, g_rs) = (
             _rows_of_four(t, rs) for t, rs in ((x_c, x_rs), (B_c, b_rs), (C_c, c_rs), (g_c, g_rs)))
     dt_c, A_c, D_c, gs_c = _fp32(dt, dev), _fp32(A, dev), _fp32(D, dev), _fp32(gstate, dev)

@@ -29,7 +29,7 @@ from omnimamba_tpu_torch.ops import norms as tnorms
 from omnimamba_tpu_torch.ops import sampling as tsamp
 from omnimamba_tpu_torch.ops.norms_kernel import fused_add_rms_norm, fused_gated_rms_norm
 from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
-from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
+from omnimamba_tpu_torch.ops.ssd_kernel import PLAIN_CHUNK, ssd_fused
 from omnimamba_tpu_torch.ops.ssd_reference import ssd_scan_reference, ssd_step
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
 from tests.test_torch_helpers import nn, tt
@@ -87,12 +87,15 @@ def test_ssd_chunked(L, Q, with_state):
     close(st, nn(sr), FP32)
 
 
-@pytest.mark.parametrize(
-    "L,Q,G,with_D,tail",
-    [(32, 8, 2, True, 0), (64, 16, 1, True, 0), (24, 16, 2, True, 0), (37, 8, 1, False, 0),
-     (40, 16, 2, True, 11)],
+SCAN_CASES = dict(
+    argnames="L,Q,G,with_D,tail",
+    argvalues=[(32, 8, 2, True, 0), (64, 16, 1, True, 0), (24, 16, 2, True, 0),
+               (37, 8, 1, False, 0), (40, 16, 2, True, 11)],
     ids=["aligned", "G1", "ragged", "ragged_noD", "dt0_tail"],
 )
+
+
+@pytest.mark.parametrize(**SCAN_CASES)
 def test_scan_kernel_plain_vs_pallas(L, Q, G, with_D, tail):
     """Plain version of the scan kernel (what ``ssd_fused`` runs for a CPU
     tensor) against ``ssd_pallas`` in interpret mode. 2e-4 is the tolerance of
@@ -113,6 +116,49 @@ def test_scan_kernel_plain_vs_pallas(L, Q, G, with_D, tail):
         _, s_short = ssd_fused(t["x"][:, :-tail], t["dt"][:, :-tail], t["A"],
                                t["Bmat"][:, :-tail], t["Cmat"][:, :-tail], t["D"])
         assert torch.equal(st, s_short)
+
+
+@pytest.mark.parametrize(**SCAN_CASES)
+def test_scan_kernel_plain_bf16_vs_pallas(L, Q, G, with_D, tail):
+    """The plain version with bf16 x, B and C against ``ssd_pallas`` on the
+    same bf16 inputs in interpret mode at the plain version's chunk of 16
+    (the JAX kernel's small-chunk path, ``mxu_dtype`` bf16). Both round the
+    operands of their products at the same points and sum in fp32 in another
+    order, so an operand may round the other way: y within 2^-7 of itself
+    (one bf16 unit of a bf16 output) + 2^-14 of the largest |y|, the fp32
+    final state within 2^-14 of its largest value. Products on unrounded
+    operands miss the state bound by 15-48 times on these cases."""
+    d, _ = ssd_inputs(2, L=L, G=G)
+    if tail:
+        d["dt"][:, -tail:] = 0.0
+    if not with_D:
+        d["D"] = None
+    j = {k: None if v is None else jnp.asarray(v) for k, v in d.items()}
+    t = {k: None if v is None else tt(v) for k, v in d.items()}
+    for k in ("x", "Bmat", "Cmat"):
+        j[k], t[k] = j[k].astype(jnp.bfloat16), t[k].to(torch.bfloat16)
+    yj, sj = ssd_pallas(*j.values(), chunk_size=16, interpret=True)
+    yt, st = ssd_fused(*t.values())
+    assert yt.dtype == torch.bfloat16 and st.dtype == torch.float32
+    yw, sw = np.asarray(yj.astype(jnp.float32)), np.asarray(sj)
+    y_allowed = 2.0 ** -7 * np.abs(yw) + 2.0 ** -14 * np.abs(yw).max()
+    assert float((np.abs(nn(yt.float()) - yw) / y_allowed).max()) <= 1.0
+    assert float(np.abs(nn(st) - sw).max()) <= 2.0 ** -14 * float(np.abs(sw).max())
+    if tail:
+        _, s_short = ssd_fused(t["x"][:, :-tail], t["dt"][:, :-tail], t["A"],
+                               t["Bmat"][:, :-tail], t["Cmat"][:, :-tail], t["D"])
+        assert torch.equal(st, s_short)
+
+
+def test_scan_kernel_plain_fp32_is_chunked():
+    """For fp32 x the plain version is ``ssd_chunked`` at its chunk, bit for
+    bit: y, the final state and the chunk states."""
+    d, _ = ssd_inputs(5, L=45, G=2)
+    t = [tt(v) for v in d.values()]
+    got = ssd_fused(*t, return_chunk_states=True)
+    want = ssd_chunked(*t, chunk_size=PLAIN_CHUNK, return_chunk_states=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_scan_kernel_refuses_chunk_states():

@@ -103,6 +103,16 @@ def test_csrc_ships_as_package_data():
     assert re.search(r'omnimamba_tpu_torch\s*=\s*\["csrc/\*\.cu", "csrc/\*\.cuh"\]', pyproject)
 
 
+def test_build_lists_every_header_the_sources_include():
+    """The library's hash covers the sources and ``kernel_build.HEADERS``: a
+    header the sources include but the list misses would not rebuild it."""
+    included = set()
+    for path in kernel_build.CSRC_DIR.glob("*.cu*"):
+        included |= set(re.findall(r'#include "([^"]+)"', path.read_text()))
+    on_disk = {p.name for p in kernel_build.CSRC_DIR.glob("*.cuh")}
+    assert included == on_disk == set(kernel_build.HEADERS)
+
+
 def tiny():
     from omnimamba_tpu_torch.config import Mamba2LayerConfig
 
