@@ -907,6 +907,20 @@ def check_decode_fused(gen, results):
                                  "of the largest reference value"} if deep else
                    {"rtol": {"fp32": 0.0, "bf16": RTOL[bf]}, "atol_rel": atol_rel})
         assert all(rec[f"{k}_err_of_allowed"] <= 1.0 for k in pairs), rec
+        if name in ("main_1_layer", "twenty_rows"):
+            # a row's bits do not depend on the batch: rows 0-2 of this step
+            # equal the 3-row step on the same rows, weights, residual and cache rows
+            c3 = cache0._replace(conv_state=cache0.conv_state[:, :3].clone(),
+                                 ssm_state=cache0.ssm_state[:, :3].clone())
+            h3, r3, _ = fused_decode_step(
+                layers, h[:3].contiguous(), residual[:3].contiguous(), c3, *args,
+                plan=prepare_fused_decode(layers, task, cfg, lcfg, 3, io))
+            torch.cuda.synchronize()
+            same = {"h": torch.equal(h3, h_out[:3]), "residual": torch.equal(r3, res_out[:3]),
+                    "conv_window": torch.equal(c3.conv_state, cache.conv_state[:, :3]),
+                    "ssm_state": torch.equal(c3.ssm_state, cache.ssm_state[:, :3])}
+            rec["rows_0_to_2_equal_to_3_row_step"] = same
+            assert all(same.values()), rec
         if name == "main":
             r = lcfg.r
             moved = fused_step_bytes(layers, cache, h, task)
@@ -953,6 +967,21 @@ def check_decode_fused(gen, results):
     # activations of another type than the weights are refused, on the card as on the CPU
     assert isinstance(fused_decode_limits(stack("full_bf16")[:1], full, lora8, f32), ValueError)
 
+    rec = in_proj_phase(gen, stack("full_bf16"), full, lora8, "t2i")
+    if results.get("build_log"):  # the bf16 in_proj kernels: no spills, tensor-core products
+        from omnimamba_tpu_torch.ops import kernel_build
+
+        rec["ptxas"] = ptxas_of(results["build_log"], "k4_in_proj_pair")
+        rec["sass"] = sass_counts(kernel_build.build_kernels().library, "k4_in_proj_pair",
+                                  ("HMMA.16816.F32.BF16", "LDSM", "UTMALDG"))
+        assert rec["ptxas"] and all("0 bytes spill stores" in " ".join(v)
+                                    for v in rec["ptxas"].values()), rec["ptxas"]
+        assert rec["sass"] and all(c["HMMA.16816.F32.BF16"] > 0 for c in rec["sass"].values()), \
+            rec["sass"]
+    emit({"kernel_check": rec})
+    results["decode_fused"]["in_proj_phase"] = {k: rec[k] for k in ("by_batch", "ptxas", "sass")
+                                                if k in rec}
+
     # what decode_impl="auto" is decided on: one step of the whole-model kernel
     # against one step of the layer loop on the same 48 layers, for both types
     # generate() can hand over, at the main batch and at a small one
@@ -966,6 +995,60 @@ def check_decode_fused(gen, results):
     results["decode_fused"]["fused_against_scan_ms"] = against
     stacks.clear()
     torch.cuda.empty_cache()
+
+
+def in_proj_phase(gen, layers, cfg, lcfg, task):
+    """K4's bf16 in_proj phase (the product with LoRA, conv step and softplus)
+    of one layer alone, as the step launches it (`fused_decode_in_proj`), at 16,
+    48 and 96 rows: device ms beside the bytes it must move at the card's memory
+    rate, and the bare `torch.matmul(hn, W_in)` of the same shape (the product
+    alone, without the LoRA term, the conv step and their bytes). Each launch
+    takes the next of the 48 layers, so its weights come from device memory
+    (one layer's 34.9 MB would stay in the 50 MB L2 between launches); the
+    `_same_layer` times repeat one layer. Beside them the phase inside the
+    48-layer step (profile of 3 steps): each kernel's time and the part of it
+    that no earlier kernel overlaps."""
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_in_proj, fused_decode_step, prepare_fused_decode)
+
+    bf = torch.bfloat16
+    by_batch = {}
+    for b in (16, BATCH, 2 * BATCH):
+        h = rand(gen, (b, cfg.d_model), bf)
+        cache = fused_state(gen, len(layers), b, cfg, bf, bf)
+        plan = prepare_fused_decode(layers, task, cfg, lcfg, b, bf)
+        args = (layers, h, None, cache, task, cfg, lcfg, 1e-5)
+        fused_decode_step(*args, plan=plan)  # the scratch holds a real hn and hn @ A
+        w_in = [layer["mixer"]["in_proj"]["kernel"] for layer in layers]
+        hn, turn = plan.scratch["hn"], [0]
+
+        def phase():
+            fused_decode_in_proj(*args, plan=plan, layer=turn[0] % len(layers))
+            turn[0] += 1
+
+        def product():
+            torch.matmul(hn, w_in[turn[0] % len(layers)])
+            turn[0] += 1
+
+        phase_bytes = k4_phase_bytes(cfg, lcfg.r, b)["k4_in_proj"]
+        ms = time_ms(phase, 2 * len(layers))
+        prof = profile_steps(lambda i: fused_decode_step(*args, plan=plan), 3, named=K4_PHASES)
+        bound = phase_bytes / HBM_BYTES_PER_S * 1e3
+        by_batch[f"B{b}"] = {
+            "ms": ms, "bound_ms": bound, "share_of_bound": bound / ms, "bytes": phase_bytes,
+            "library_ms": time_ms(product, 2 * len(layers)),
+            "ms_same_layer": time_ms(lambda: fused_decode_in_proj(*args, plan=plan, layer=0), 20),
+            "library_ms_same_layer": time_ms(lambda: torch.matmul(hn, w_in[0]), 20),
+            "step_ms_per_layer": {k: v / len(layers) for k, v in prof["named_ms_per_step"].items()},
+            "step_exposed_ms_per_layer": {
+                k: v / len(layers) for k, v in prof["named_exposed_ms_per_step"].items()},
+            "step_device_busy_ms": prof["device_busy_ms_per_step"],
+        }
+        del cache, plan
+    return {"kernel": "decode_fused", "case": "in_proj_phase", "layers": 1, "d_model": cfg.d_model,
+            "d_in_proj": cfg.d_in_proj, "lora_rank": lcfg.r, "dtype": str(bf), "by_batch": by_batch,
+            "library_note": "torch.matmul(hn, W_in): the product alone (no LoRA term, conv step "
+                            "or softplus), the yardstick for the phase's product"}
 
 
 def step_pair_ms(gen, layers, cfg, lcfg, B, io, sdtype):
@@ -1312,7 +1395,8 @@ def check_decode_fused_int8(gen, results):
             )
             # device time per kernel of the int8 step at the main batch
             rec["profile"] = profile_steps(
-                lambda i: fused_decode_step(layers, h, None, cache, *args, plan=plan), 3)
+                lambda i: fused_decode_step(layers, h, None, cache, *args, plan=plan), 3,
+                named=K4_PHASES)
             results["decode_fused_int8"] = dict(rec, max_abs_err=worst, shape=(n_layer, B, cfg.d_model))
         emit({"kernel_check": rec})
         del cache0, cache, ref_cache, plan
@@ -1652,19 +1736,16 @@ def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4,
 K4_PHASES = ("k4_prenorm", "k4_in_proj", "k4_ssm", "k4_out_proj", "k4_finish")
 
 
-def k4_phase_split(profile, cfg, B, io_bytes=2, state_bytes=2):
-    """K4's step by phase, all layers: each phase's device ms a step from the
-    decode profile, beside the bytes it must move (each operand read once,
-    each output written once; the out_proj's K-split partials and the other
-    task's LoRA left out) and their time at the card's memory rate. Weights
-    and activations of `io_bytes`, the SSM state of `state_bytes`, the
-    residual and the small per-head vectors fp32. The products' operations
-    take under 1% of that time at the bf16 peak, so each phase is bound by
-    bytes."""
-    m, r, f = cfg.mixer, cfg.lora.r, 4
+def k4_phase_bytes(m, r, B, io_bytes=2, state_bytes=2):
+    """Bytes of each of K4's phases for one layer of mixer config `m`, LoRA rank
+    `r`, B rows: each operand read once, each output written once (the
+    out_proj's K-split partials and the other task's LoRA left out). Weights and
+    activations of `io_bytes`, the SSM state of `state_bytes`, the residual and
+    the small per-head vectors fp32."""
+    f = 4
     d, di, din, cd = m.d_model, m.d_inner, m.d_in_proj, m.d_conv_in
     e, H = io_bytes, m.nheads
-    per_layer = {
+    return {
         # h in, residual in and out, hn out, the norm weight, LoRA A, hn A out
         "k4_prenorm": B * d * e + 2 * B * d * f + B * d * e + d * e + d * r * e + B * r * f,
         # W_in, LoRA B, hn and hn A in, the conv windows in and out, conv weight and
@@ -1679,12 +1760,23 @@ def k4_phase_split(profile, cfg, B, io_bytes=2, state_bytes=2):
         # W_out, yf w in, the fp32 product out
         "k4_out_proj": di * d * e + B * di * e + B * d * f,
     }
-    named = profile["named_ms_per_step"]
+
+
+def k4_phase_split(profile, cfg, B, io_bytes=2, state_bytes=2):
+    """K4's step by phase, all layers: each phase's device ms a step from the
+    decode profile (its kernels' time, and the part of it that no earlier
+    kernel overlaps: the bf16 in_proj starts while the pre-norm runs), beside
+    the bytes it must move (`k4_phase_bytes`) and their time at the card's
+    memory rate. The products' operations take under 1% of that time at the
+    bf16 peak, so each phase is bound by bytes."""
+    named, exposed = profile["named_ms_per_step"], profile["named_exposed_ms_per_step"]
     split = {}
-    for name, per in per_layer.items():
+    for name, per in k4_phase_bytes(cfg.mixer, cfg.lora.r, B, io_bytes, state_bytes).items():
         bound = cfg.n_layer * per / HBM_BYTES_PER_S * 1e3
-        split[name] = {"ms_per_step": named[name], "bytes_per_step": cfg.n_layer * per,
-                       "bound_ms": bound, "share_of_bound": bound / named[name]}
+        split[name] = {"ms_per_step": named[name], "exposed_ms_per_step": exposed[name],
+                       "bytes_per_step": cfg.n_layer * per, "bound_ms": bound,
+                       "share_of_bound": bound / named[name],
+                       "share_of_bound_exposed": bound / exposed[name]}
     split["k4_finish"] = {"ms_per_step": named["k4_finish"]}
     return split
 
@@ -1702,7 +1794,8 @@ def _kernel_kind(name: str) -> str:
 def profile_steps(step, steps: int, top: int = 10, named=()):
     """`step(i)` for i = 1..steps under the profiler, after one warm call
     `step(0)`: wall time per step against the summed time of its kernels
-    (and of the kernels whose names hold each string of `named`)."""
+    (and of the kernels whose names hold each string of `named`, with the part
+    of it that no earlier kernel overlaps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1721,6 +1814,15 @@ def profile_steps(step, steps: int, top: int = 10, named=()):
                 return getattr(evt, name)
         return 0.0
 
+    # the part of each kernel's time that no earlier kernel overlaps (a kernel
+    # launched as a programmatic dependent starts while the one ahead of it runs)
+    exposed, last_end = {key: 0.0 for key in named}, float("-inf")
+    for start, end, name in sorted((e.time_range.start, e.time_range.end, e.name)
+                                   for e in prof.events() if e.device_type == DeviceType.CUDA):
+        for key in named:
+            if key in name:
+                exposed[key] += max(0.0, end - max(start, last_end))
+        last_end = max(last_end, end)
     # kernel events only: an operator's row repeats the time of the kernels it launched
     rows = sorted(((device_us(e), e.key, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
@@ -1741,7 +1843,9 @@ def profile_steps(step, steps: int, top: int = 10, named=()):
         "top_kernels": [{"name": k[:60], "ms_per_step": us / 1e3 / steps, "calls_per_step": n / steps}
                         for us, k, n in rows[:top] if us > 0],
         **({"named_ms_per_step": {key: sum(us for us, k, _ in rows if key in k) / 1e3 / steps
-                                  for key in named}} if named else {}),
+                                  for key in named},
+            "named_exposed_ms_per_step": {key: us / 1e3 / steps for key, us in exposed.items()}}
+           if named else {}),
     }
 
 
@@ -2581,7 +2685,8 @@ def main() -> int:
             "chunk_states_bytes", "bound_with_states_ms", "ms_median_of_5_launches", "ptxas",
             "dynamic_smem_bytes", "sass",
             "library_note", "scan_step_device_ms",
-            "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "layout",
+            "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "in_proj_phase",
+            "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
                     if k in r})
         kernels.append(row)

@@ -247,7 +247,7 @@ class TrainConfig:
         if {k: v for k, v in self.mesh_shape.items() if v != 1}:
             raise NotImplementedError(
                 f"mesh_shape={self.mesh_shape}: the port runs on one card; meshes arrive "
-                "with parallel/ (ROADMAP Q1 item 10)"
+                "with parallel/ (ROADMAP: slice 6, multi-GPU)"
             )
 
     @classmethod

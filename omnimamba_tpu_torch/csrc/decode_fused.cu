@@ -32,7 +32,9 @@
 //                    (B, d) x (d, 2*d_inner + 2N + H) product, so every weight
 //                    byte is read from device memory once; on its finished
 //                    columns a block adds the LoRA term and does the conv step
-//                    (x|B|C columns) or the softplus (dt columns).
+//                    (x|B|C columns) or the softplus (dt columns). With bf16
+//                    weights it is launched as a programmatic dependent of
+//                    the pre-norm and starts fetching weights while that runs.
 //   3. SSM update    one block per (row, head), the row code of the step
 //                    kernel (ssd_step_row.cuh); writes yf * w_gn rounded to io
 //                    and one partial sum of yf^2 per (row, head).
@@ -49,11 +51,19 @@
 // once and its state twice (about 7.4 GB at B=48 with a bf16 state at the 1.3B
 // width: 2.2 ms at 3.35 TB/s), and its 119 GFLOP are 0.12 ms of bf16
 // tensor-core time. So the two products are written by hand twice:
-//   - bf16 activations with bf16 weights (the serving case) stream the weight
-//     tiles through a four-stage cp.async ring in shared memory into
-//     warp-level tensor-core products (wmma, bf16 operands, fp32 sums): the
-//     product costs nothing beside the weight bytes, and enough bytes are in
-//     flight on every SM to keep device memory busy;
+//   - bf16 activations with bf16 weights (the serving case) take tensor-core
+//     products (bf16 operands, fp32 sums), which cost nothing beside the
+//     weight bytes. The in_proj (34.9 MB of weights a layer at 1.3B, the
+//     largest phase) runs its two k chains in the two blocks of a cluster per
+//     64 columns: a producer warp streams the weight and activation tiles with
+//     TMA copies into a ring of mbarrier-guarded stages (about 64 KB a block,
+//     three blocks an SM), the first stages' weights asked for before the
+//     pre-norm ends, consumer warps multiply with ldmatrix and mma.sync, the
+//     blocks trade halves of their sums through distributed shared memory and
+//     each finishes half the columns. The out_proj (and an int8 in_proj)
+//     streams its tiles through a four-stage cp.async ring into wmma products
+//     behind a block barrier a k step. Both sum in one k order, so a row's
+//     bits do not depend on B;
 //   - fp32 activations and weights, and any shape the tiles do not fit, take
 //     fp32 multiply-adds over shared-memory tiles (bf16 x bf16
 //     products are exact in fp32, so this is the same arithmetic in another
@@ -71,13 +81,17 @@
 // leave the card partly idle at each boundary.
 // All sums are taken in a fixed order (no atomics): a step gives the same bits
 // on every run.
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <mma.h>
 
+#include <cstring>
 #include <type_traits>
 
 #include "common.cuh"
 #include "ssd_step_row.cuh"
+#include "tensor_core.cuh"
+#include "tma.cuh"
 
 namespace omt {
 
@@ -109,6 +123,10 @@ struct K4Args {
   void* ya;              // (B, d_inner) io type: (yf * w_gn) rounded
   float* sumsq;          // (B, H)
   float* part;           // (ksplit, B, d)
+  // (L + 1) tensor maps in host memory for the bf16 in_proj, W_in of each
+  // layer then hn (omt_fused_decode_in_maps), copied into its launch
+  // parameters; null on the other paths
+  const CUtensorMap* in_maps;
 };
 
 template <typename T>
@@ -150,6 +168,10 @@ __global__ void __launch_bounds__(kRowThreads) k4_prenorm_kernel(K4Args a, int l
   __shared__ float scratch[32];
   __shared__ float rstd_prev;
 
+  // the bf16 in_proj is launched as a programmatic dependent of this kernel:
+  // its blocks may start and fetch weights now; they read hn and hn @ A only
+  // once this kernel has ended
+  grid_launch_dependents();
   const int b = blockIdx.x;
   const int d = a.d;
   float* res = a.res + static_cast<size_t>(b) * d;
@@ -714,9 +736,10 @@ __global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int
 }
 
 // ---------------------------------------------------------------------------
-// phases 2 and 4 for bf16 activations and bf16 or int8 projections: tensor cores
+// phase 4 for bf16 activations, and phase 2 with an int8 in_proj: tensor cores
 // ---------------------------------------------------------------------------
-// A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
+// (Phase 2 with a bf16 in_proj takes the two-block clusters further below, in
+// the same sum order.) A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
 // 16 (w % 4) .. + 15, the k half w / 4 of every k step, and MT accumulator
 // fragments; the two halves are added, lower k first, when C is read. The (64 x 64) weight tile and
 // the (MT * 16 x 64) activation tile of each k step are copied into a ring of
@@ -875,7 +898,8 @@ __device__ __forceinline__ float4 tc_result4(const unsigned char* smem, int row,
   return make_float4(lo.x + hi.x, lo.y + hi.y, lo.z + hi.z, lo.w + hi.w);
 }
 
-// in_proj on whole tiles: a thread finishes 4 consecutive columns of MT rows
+// in_proj on whole tiles with an int8 W_in: a thread finishes 4 consecutive
+// columns of MT rows
 template <int MT, typename PW>
 __global__ void __launch_bounds__(kTcThreads) k4_in_proj_tc_kernel(K4Args a, int layer) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -931,6 +955,473 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
   }
 }
 
+// ---------------------------------------------------------------------------
+// phase 2 for bf16 activations and a bf16 in_proj: a two-block cluster per column tile
+// ---------------------------------------------------------------------------
+// The sum order is gemm_tile_tc's: for every 64-wide k tile in k order, k in
+// [0, 32) goes into a chain `lo` and k in [32, 64) into `hi`, each as two k16
+// steps of HMMA.16816.F32.BF16 (a wmma m16n16k16 product is two of them, one
+// per n8 half of its columns), and the result is lo + hi. Here the two chains
+// run in the two blocks of a cluster, rank 0 lo and rank 1 hi, each over all
+// of K, so the card gets two blocks per column tile of 64 and no partial sum
+// goes through device memory. Each block has four consumer warps (16 columns
+// and the MT m16 tiles of the row tile each) and a producer warp that copies
+// the block's half of each weight tile (32 k x 64 columns, 4 KB) and of each
+// activation tile (16 MT rows x 32 k) with one TMA copy each, swizzled so that
+// the ldmatrix loads have no bank conflicts, into a ring of about 64 KB: a
+// stage's `full` mbarrier counts its bytes, its `empty` mbarrier the consumer
+// warps done with it, and no block-wide barrier stands in the k loop. Weights
+// come by ldmatrix.trans from the (K, O) tile, activations by ldmatrix, into
+// mma.sync m16n8k16.
+//
+// The launch is a programmatic dependent of the pre-norm, which lets it start
+// at once: the producer asks for the first stages' weight tiles (which the
+// pre-norm does not write) before griddepcontrol.wait, and for activation tiles
+// only after it. A block takes up to 96 rows (16 MT, MT from the batch; more
+// rows take more row tiles) and three blocks share an SM, so at B <= 96 the
+// weights are read once and every cluster of the grid is resident while the
+// pre-norm runs.
+//
+// What follows the product is in_proj_finish4's arithmetic in its order, laid
+// out to shorten the tail after the last weight byte: the LoRA product (hn @
+// A) @ B of a thread's rows and columns is summed before the k loop (it does
+// not need the in_proj's), the epilogue's other operands are asked into L2
+// while the weights stream, and the layer's weight pointers are looked up once.
+// At the end the blocks trade halves through distributed shared memory: rank 0
+// finishes rows 0-7 of every m16 tile and rank 1 rows 8-15, so each block
+// sends its sums of the other rows to its peer with st.async, which counts
+// their bytes on the peer's mbarrier (no fence). lo + hi (an fp32 sum is the
+// same either way round) goes through shared memory once, so that a warp
+// finishes whole 64-column rows (the conv windows and the stores take whole
+// 128-byte lines), 4 columns of MT rows a thread. A row's bits therefore do
+// not depend on B, and equal those of the wmma path this replaces. Shapes are
+// whole tiles, as for gemm_tile_tc. Rows past B read as zeros (the TMA copy
+// fills them) and are never written.
+
+// Measurement only: tools/ablation.py k4-in-proj builds this file with
+// OMT_K4_IN_SKIP set to a sum of 1 (no activation copies), 2 (no weight
+// copies), 4 (no products) and 8 (no epilogue: no exchange of the sums, no
+// stores, conv step or softplus; the LoRA product is summed before the k loop
+// either way), or to 16 (the launch alone), to time what is left of the bf16
+// in_proj, whose results are then wrong; or to 32 (no weights asked for before
+// the pre-norm ends), 64 (an ordinary launch, no programmatic dependency) or
+// 128 (no L2 prefetch of the epilogue's operands), which change when work
+// starts and give the shipped bits. The library has 0.
+#ifndef OMT_K4_IN_SKIP
+#define OMT_K4_IN_SKIP 0
+#endif
+
+template <int MT>
+struct InPair {
+  static constexpr int kWarps = kTcBN / 16;           // consumer warps
+  static constexpr int kThreads = 32 * (kWarps + 1);  // and the producer warp
+  static constexpr int kS = 2;                        // k tiles a stage
+  static constexpr int kABytes = MT * 16 * 64;        // a k tile's activations: 16 MT rows x 32 bf16
+  static constexpr int kWBytes = 32 * kTcBN * 2;      // a k tile's weights: 32 k x 64 bf16
+  static constexpr int kStageBytes = kS * (kABytes + kWBytes);
+  // about 64 KB of ring: three blocks an SM
+  static constexpr int kStages = 65536 / kStageBytes < 3 ? 3 : 65536 / kStageBytes;
+  static constexpr int kSumsBytes = kWarps * MT * 4 * 32 * 4;  // the peer's half of the sums
+  static_assert(kStages * kStageBytes + kSumsBytes <= 73 * 1024, "three blocks an SM");
+  static constexpr int kBytes = kStages * kStageBytes + kSumsBytes + 1024;  // + the ring's alignment
+  // every tile a multiple of 1 KB: the swizzle of a TMA copy follows the
+  // address bits, so a tile starts where its pattern starts
+  static_assert(kABytes % 1024 == 0 && kWBytes % 1024 == 0, "1 KB aligned tiles");
+};
+
+// N k tiles of a landed stage (activation tiles from a_tile, weight tiles from
+// w_tile on) into the accumulators of this warp's MT m16 tiles and two n8
+// tiles, in k order: for each tile, the two k16 steps of this block's k half.
+// a_off, b_off: this lane's ldmatrix offsets in a tile for k16 step h.
+template <int MT, int N>
+__device__ __forceinline__ void in_pair_tiles(float (&acc)[MT][2][4], const unsigned char* a_tile,
+                                              const unsigned char* w_tile,
+                                              const uint32_t (&a_off)[2],
+                                              const uint32_t (&b_off)[2]) {
+  using P = InPair<MT>;
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t b[4];  // b0, b1 of the warp's first n8 tile, then of its second
+      tc::ldsm4t(b, w_tile + u * P::kWBytes + b_off[h]);
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) tc::ldsm4(af[i], a_tile + u * P::kABytes + i * 1024 + a_off[h]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        tc::mma(acc[i][0], af[i], b[0], b[1]);
+        tc::mma(acc[i][1], af[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// a barrier of the first NW warps of the block (the consumers), not the producer
+template <int NW>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NW * 32) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// the layer's weights that the bf16 in_proj's epilogue reads, looked up in the
+// pointer table once, before the k loop
+struct InPairOps {
+  const __nv_bfloat16* lora_b;   // (r, n_in)
+  const __nv_bfloat16* conv_w;   // (W, conv_ch)
+  const __nv_bfloat16* conv_b;   // (conv_ch)
+  const __nv_bfloat16* dt_bias;  // (H)
+};
+
+// What the epilogue of the block reads that the pre-norm does not write, asked
+// into L2 while the weights stream, one request a 128-byte line: thread 0 the
+// block's LoRA B columns and conv weights and bias, or dt_bias; thread (cg, rl)
+// of the finishing layout with cg = 0 the conv windows of its rows
+template <int MT>
+__device__ __forceinline__ void in_pair_prefetch(const K4Args& a, const InPairOps& ops, int layer,
+                                                 int row0, int n0) {
+  const int conv_ch = a.d_inner + 2 * a.N;
+  const int n_in = a.d_inner + conv_ch + a.H;
+  const int ch = n0 - a.d_inner;
+  const bool conv = ch >= 0 && ch < conv_ch;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < a.r; ++q) prefetch_l2(ops.lora_b + static_cast<size_t>(q) * n_in + n0);
+    if (conv) {
+      for (int t = 0; t < a.W; ++t) prefetch_l2(ops.conv_w + static_cast<size_t>(t) * conv_ch + ch);
+      prefetch_l2(ops.conv_b + ch);
+    } else if (ch >= conv_ch) {
+      prefetch_l2(ops.dt_bias + ch - conv_ch);
+    }
+  }
+  if ((threadIdx.x & 15) != 0 || !conv) return;
+  const __nv_bfloat16* win = static_cast<const __nv_bfloat16*>(a.conv_state) +
+                             static_cast<size_t>(layer) * a.B * (a.W - 1) * conv_ch + ch;
+#pragma unroll
+  for (int k = 0; k < MT; ++k) {
+    const int row = row0 + 16 * k;
+    if (row >= a.B) break;
+    for (int t = 0; t + 1 < a.W; ++t)
+      prefetch_l2(win + (static_cast<size_t>(row) * (a.W - 1) + t) * conv_ch);
+  }
+}
+
+// The LoRA product of in_proj_finish4, summed in its order (q ascending) for 4
+// columns from `col` of the rows row0, row0 + 16, ...: lo[i] = (hn @ A)[row] @
+// B[:, col .. col + 3]. Rows past B read row B - 1 and are never written. The
+// loads of eight q are issued together.
+template <int ROWS>
+__device__ __forceinline__ void in_pair_lora(const K4Args& a, const InPairOps& ops, int row0,
+                                             int col, float4 (&lo)[ROWS]) {
+  const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) lo[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int q0 = 0; q0 < a.r; q0 += 8) {
+    const int n = min(8, a.r - q0);
+    uint2 lb[8];
+    float h[ROWS][8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k >= n) break;
+      lb[k] = __ldg(reinterpret_cast<const uint2*>(ops.lora_b + static_cast<size_t>(q0 + k) * n_in + col));
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        h[i][k] = a.hA[static_cast<size_t>(min(row0 + 16 * i, a.B - 1)) * a.r + q0 + k];
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k >= n) break;
+      const float4 l = raw_to_float4(lb[k]);
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) axpy4(lo[i], h[i][k], l);
+    }
+  }
+}
+
+// in_proj_finish4's vector path for bf16 activations and weights, in its
+// arithmetic and order, for 4 columns from `col` of ROWS rows: the LoRA term
+// (`lo`, from in_pair_lora), then the z store, the conv step or the softplus.
+// It takes the layer's weights from `ops` rather than from the pointer table,
+// and reads dt_bias once for the 4 columns, not once an element behind a
+// table lookup (one column tile of the grid holds all dt columns: its blocks
+// would trail the others).
+template <int ROWS>
+__device__ __forceinline__ void in_pair_finish(const K4Args& a, int layer, const InPairOps& ops,
+                                               const int (&rows)[ROWS], const float4 (&lo)[ROWS],
+                                               int col, float4 (&v)[ROWS]) {
+  using bf16 = __nv_bfloat16;
+  const int conv_ch = a.d_inner + 2 * a.N;
+  if (a.r > 0) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) axpy4(v[i], a.lora_scale, lo[i]);
+  }
+
+  const int ch = col - a.d_inner;
+  if (ch < 0) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+      if (rows[i] < a.B) store4(a.z + static_cast<size_t>(rows[i]) * a.d_inner + col, v[i]);
+  } else if (ch < conv_ch && a.W == 4) {
+    // the 4-tap shift register of every shipped config, three old taps a row
+    const bf16* conv_w = ops.conv_w + ch;  // (4, conv_ch)
+    const float4 w0 = ldg4(conv_w), w1 = ldg4(conv_w + conv_ch);
+    const float4 w2 = ldg4(conv_w + 2 * conv_ch), w3 = ldg4(conv_w + 3 * conv_ch);
+    const float4 bias = ldg4(ops.conv_b + ch);
+    bf16* const base = static_cast<bf16*>(a.conv_state) +
+                       static_cast<size_t>(layer) * a.B * 3 * conv_ch + ch;
+    uint2 t0[ROWS], t1[ROWS], t2[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const bf16* win = base + static_cast<size_t>(min(rows[i], a.B - 1)) * 3 * conv_ch;
+      t0[i] = load_raw4(win);
+      t1[i] = load_raw4(win + conv_ch);
+      t2[i] = load_raw4(win + 2 * conv_ch);
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      if (rows[i] >= a.B) continue;
+      float4 y = make_float4(v[i].x * w3.x, v[i].y * w3.y, v[i].z * w3.z, v[i].w * w3.w);
+      mad4(y, raw_to_float4(t0[i]), w0);
+      mad4(y, raw_to_float4(t1[i]), w1);
+      mad4(y, raw_to_float4(t2[i]), w2);
+      y.x += bias.x; y.y += bias.y; y.z += bias.z; y.w += bias.w;
+      bf16* win = base + static_cast<size_t>(rows[i]) * 3 * conv_ch;
+      *reinterpret_cast<uint2*>(win) = t1[i];
+      *reinterpret_cast<uint2*>(win + conv_ch) = t2[i];
+      store4(win + 2 * conv_ch, v[i]);
+      store4(a.xbc + static_cast<size_t>(rows[i]) * conv_ch + ch,
+             make_float4(silu(y.x), silu(y.y), silu(y.z), silu(y.w)));
+    }
+  } else if (ch >= conv_ch) {
+    // dt columns: softplus(dt + dt_bias), linear above 20, as in_proj_place
+    const int hh = ch - conv_ch;
+    const float4 b4 = ldg4(ops.dt_bias + hh);
+    auto softplus = [](float u) { return (u > 20.0f) ? u : log1pf(expf(u)); };
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      if (rows[i] >= a.B) continue;
+      store4(a.dt + static_cast<size_t>(rows[i]) * a.H + hh,
+             make_float4(softplus(v[i].x + b4.x), softplus(v[i].y + b4.y),
+                         softplus(v[i].z + b4.z), softplus(v[i].w + b4.w)));
+    }
+  } else {
+    // the conv columns of another tap count
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      if (rows[i] >= a.B) continue;
+      in_proj_place<bf16, bf16>(a, layer, rows[i], col, v[i].x);
+      in_proj_place<bf16, bf16>(a, layer, rows[i], col + 1, v[i].y);
+      in_proj_place<bf16, bf16>(a, layer, rows[i], col + 2, v[i].z);
+      in_proj_place<bf16, bf16>(a, layer, rows[i], col + 3, v[i].w);
+    }
+  }
+}
+
+// three blocks an SM (at most 136 registers a thread): the grid of 2 x 133
+// blocks at B <= 96 is then one wave
+template <int MT>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(InPair<MT>::kThreads, 3)
+k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap wmap,
+                       const __grid_constant__ CUtensorMap xmap) {
+  using P = InPair<MT>;
+  using bf16 = __nv_bfloat16;
+  if (OMT_K4_IN_SKIP & 16) return;
+  extern __shared__ unsigned char pair_smem_raw[];
+  __shared__ __align__(8) uint64_t full[P::kStages], empty[P::kStages], sums_full;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(pair_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* sums = reinterpret_cast<float*>(ring + P::kStages * P::kStageBytes);
+  const uint32_t rank = cluster_ctarank();  // 0: the lo chain, 1: the hi chain
+  const int n0 = (blockIdx.x >> 1) * kTcBN, m0 = blockIdx.y * MT * 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ntiles = a.d / kTcBK, nstages = (ntiles + P::kS - 1) / P::kS;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], P::kWarps);
+    }
+    mbar_init(&sums_full, 1);  // its bytes come from the peer's st.async stores
+    mbar_arrive_expect_tx(&sums_full, P::kSumsBytes);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // this block's barriers are set, and the peer's are once
+  cluster_arrive_relaxed();  // the cluster barrier has been waited on
+
+  if (warp == P::kWarps) {
+    if (lane == 0) {
+      constexpr uint32_t kA = (OMT_K4_IN_SKIP & 1) ? 0 : P::kABytes;
+      constexpr uint32_t kW = (OMT_K4_IN_SKIP & 2) ? 0 : P::kWBytes;
+      prefetch_tensor_map(&wmap);  // W_in of this layer
+      prefetch_tensor_map(&xmap);  // hn
+      auto weights = [&](int st, int slot, int n) {  // stage st's weight tiles into its slot
+        for (int u = 0; u < n; ++u)
+          if (kW)
+            tma_load(ring + slot * P::kStageBytes + P::kS * P::kABytes + u * P::kWBytes, &wmap, n0,
+                     (st * P::kS + u) * kTcBK + rank * 32, &full[slot]);
+      };
+      // the first stages' weights before the pre-norm has ended (32: after, a measurement)
+      const int first = (OMT_K4_IN_SKIP & 32) ? 0 : min(P::kStages, nstages);
+      for (int st = 0; st < first; ++st) {
+        const int n = min(P::kS, ntiles - st * P::kS);
+        mbar_arrive_expect_tx(&full[st], n * (kA + kW));
+        weights(st, st, n);
+      }
+      grid_dependency_wait();  // hn is the pre-norm's output
+      for (int st = 0; st < nstages; ++st) {
+        const int slot = st % P::kStages, n = min(P::kS, ntiles - st * P::kS);
+        if (st >= first) {  // into the slot once its last stage is done with
+          if (st >= P::kStages) mbar_wait<false>(&empty[slot], (st / P::kStages - 1) & 1);
+          mbar_arrive_expect_tx(&full[slot], n * (kA + kW));
+          weights(st, slot, n);
+        }
+        for (int u = 0; u < n; ++u)
+          if (kA)
+            tma_load(ring + slot * P::kStageBytes + u * P::kABytes, &xmap,
+                     (st * P::kS + u) * kTcBK + rank * 32, m0, &full[slot]);
+      }
+    }
+    cluster_wait();
+    return;
+  }
+
+  // this lane's ldmatrix offsets, swizzle included: A, row l % 16 of an m16
+  // tile (64-byte rows; 16-byte chunk j of row r lies at j ^ ((r >> 1) & 3)) and
+  // chunk 2 h + l / 16; W by .trans, k row 16 h + l % 16 (128-byte rows; chunk
+  // j of row r at j ^ (r & 7)) and the chunk of columns 16 warp + 8 (l / 16)
+  uint32_t a_off[2], b_off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a_off[h] = (lane & 15) * 64 + (((2 * h + (lane >> 4)) ^ ((lane >> 1) & 3)) << 4);
+    b_off[h] = (h * 16 + (lane & 15)) * 128 + (((2 * warp + (lane >> 4)) ^ (lane & 7)) << 4);
+  }
+  // the columns 4 cg .. 4 cg + 3 and rows rl, rl + 16, ... (from row0) of the
+  // tile that this thread finishes, see the epilogue
+  const int cg = threadIdx.x & 15, rl = threadIdx.x >> 4;
+  const int row0 = m0 + rank * 8 + rl;
+  const InPairOps ops = {layer_ptr<bf16>(a, kLoraB, layer), layer_ptr<bf16>(a, kConvW, layer),
+                         layer_ptr<bf16>(a, kConvB, layer), layer_ptr<bf16>(a, kDtBias, layer)};
+  if (!(OMT_K4_IN_SKIP & 128)) in_pair_prefetch<MT>(a, ops, layer, row0, n0);
+
+  // the LoRA product (hn @ A) @ B of this thread's rows and columns does not
+  // need the in_proj's: it is summed now, in q order, while the first stages land
+  grid_dependency_wait();  // hn @ A is the pre-norm's
+  float4 lo[MT];
+  in_pair_lora<MT>(a, ops, row0, n0 + cg * 4, lo);
+
+  float acc[MT][2][4];  // [m16 tile][n8 tile][mma.sync accumulator]
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  for (int st = 0; st < nstages; ++st) {
+    const int slot = st % P::kStages;
+    mbar_wait<false>(&full[slot], (st / P::kStages) & 1);
+    const unsigned char* a_tile = ring + slot * P::kStageBytes;
+    const unsigned char* w_tile = a_tile + P::kS * P::kABytes;
+    if (!(OMT_K4_IN_SKIP & 4)) {
+      const int n = min(P::kS, ntiles - st * P::kS);
+      if (n == P::kS) {
+        in_pair_tiles<MT, P::kS>(acc, a_tile, w_tile, a_off, b_off);
+      } else {  // the last stage of a K that is not a multiple of kS tiles
+        for (int u = 0; u < n; ++u)
+          in_pair_tiles<MT, 1>(acc, a_tile + u * P::kABytes, w_tile + u * P::kWBytes, a_off, b_off);
+      }
+    }
+    __syncwarp();  // the warp is done with the stage
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+
+  cluster_wait();  // the peer's barriers are set
+  if (OMT_K4_IN_SKIP & 8) return;
+  // Rank 0 finishes rows 0-7 of every m16 tile, rank 1 rows 8-15: accumulators
+  // 0, 1 of lane (g, c) are row g, 2, 3 row g + 8 (columns 2 c, 2 c + 1 of the
+  // n8 tile). Each block sends its sums of the other rows to its peer with
+  // st.async, 16 bytes a lane and m16 tile laid out as the threads hold them,
+  // which count on the peer's sums_full as the bytes of a TMA copy do.
+  const int g = lane >> 2, c = lane & 3;
+  const int at = (warp * MT * 32 + lane) * 4;  // floats; m16 tile i at + 128 i
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    st_async_remote4(sums + at + i * 128, rank ^ 1, &sums_full,
+                     rank ? acc[i][0][0] : acc[i][0][2], rank ? acc[i][0][1] : acc[i][0][3],
+                     rank ? acc[i][1][0] : acc[i][1][2], rank ? acc[i][1][1] : acc[i][1][3]);
+
+  // the ring, which every consumer warp is done with, takes lo + hi of this
+  // block's rows (row q = 8 i + g: 8 MT x 64)
+  constexpr int kLdCs = kTcBN + 8;  // floats: conflict-free float2 stores
+  float* Cs = reinterpret_cast<float*>(ring);
+  consumer_sync<P::kWarps>();
+  mbar_wait<false>(&sums_full, 0);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float4 p = load4(sums + at + i * 128);
+    float* row = Cs + (i * 8 + g) * kLdCs + warp * 16 + 2 * c;
+    *reinterpret_cast<float2*>(row) = make_float2((rank ? acc[i][0][2] : acc[i][0][0]) + p.x,
+                                                  (rank ? acc[i][0][3] : acc[i][0][1]) + p.y);
+    *reinterpret_cast<float2*>(row + 8) = make_float2((rank ? acc[i][1][2] : acc[i][1][0]) + p.z,
+                                                      (rank ? acc[i][1][3] : acc[i][1][1]) + p.w);
+  }
+  consumer_sync<P::kWarps>();
+
+  // then, as in the other in_proj paths, thread (cg, rl) finishes 4 columns of
+  // MT rows: a warp takes whole 64-column rows
+  int rows[MT];
+  float4 v[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    rows[i] = row0 + i * 16;
+    v[i] = load4(Cs + (i * 8 + rl) * kLdCs + cg * 4);
+  }
+  in_pair_finish<MT>(a, layer, ops, rows, lo, n0 + cg * 4, v);
+}
+
+template <int MT>
+cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      k4_in_proj_pair_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, InPair<MT>::kBytes);
+  if (attr != cudaSuccess) return attr;
+  // programmatic dependent launch: the blocks start while the pre-norm runs
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * ((2 * a.d_inner + 2 * a.N + a.H) / kTcBN), (a.B + MT * 16 - 1) / (MT * 16));
+  cfg.blockDim = dim3(InPair<MT>::kThreads);
+  cfg.dynamicSmemBytes = InPair<MT>::kBytes;
+  cfg.stream = stream;
+  if (!(OMT_K4_IN_SKIP & 64)) {  // 64: an ordinary launch (measurement only)
+    cfg.attrs = &pdl;
+    cfg.numAttrs = 1;
+  }
+  CUtensorMap wmap, xmap;  // the host copies of this layer's W_in and of hn
+  std::memcpy(&wmap, a.in_maps + layer, sizeof(wmap));
+  std::memcpy(&xmap, a.in_maps + a.L, sizeof(xmap));
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k4_in_proj_pair_kernel<MT>, a, layer, wmap, xmap);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// rows a block of the bf16 in_proj: 16 to 96, so that up to 96 rows read each
+// weight tile from device memory once and the grid is one wave
+inline int pair_row_fragments(int B) { return B >= 96 ? 6 : (B + 15) / 16; }
+
+cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
+  switch (pair_row_fragments(a.B)) {
+    case 1: return launch_in_proj_pair<1>(a, layer, stream);
+    case 2: return launch_in_proj_pair<2>(a, layer, stream);
+    case 3: return launch_in_proj_pair<3>(a, layer, stream);
+    case 4: return launch_in_proj_pair<4>(a, layer, stream);
+    case 5: return launch_in_proj_pair<5>(a, layer, stream);
+    default: return launch_in_proj_pair<6>(a, layer, stream);
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -938,13 +1429,15 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// rows per block follow the batch: 16, 32 or 48
+// rows per block of the out_proj (and an int8 in_proj) follow the batch: 16, 32 or 48
 inline int tc_row_fragments(int B) { return B <= 16 ? 1 : (B <= 32 ? 2 : 3); }
 
 template <int MT, typename PW>
 cudaError_t allow_smem_tc() {
-  const cudaError_t err = allow_smem(k4_in_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
-  if (err != cudaSuccess) return err;
+  if constexpr (kInt8<PW>) {
+    const cudaError_t err = allow_smem(k4_in_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
+    if (err != cudaSuccess) return err;
+  }
   return allow_smem(k4_out_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
 }
 
@@ -954,7 +1447,7 @@ cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStr
   if (out_proj) {
     const dim3 grid(a.d / kTcBN, row_tiles, a.ksplit);
     k4_out_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
-  } else {
+  } else if constexpr (kInt8<PW>) {
     const dim3 grid((2 * a.d_inner + 2 * a.N + a.H) / kTcBN, row_tiles);
     k4_in_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
   }
@@ -963,6 +1456,7 @@ cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStr
 
 template <typename PW>
 cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStream_t stream) {
+  if (!out_proj && !kInt8<PW>) return launch_in_proj_pair(a, layer, stream);
   switch (tc_row_fragments(a.B)) {
     case 1: return launch_product_tc<1, PW>(a, layer, out_proj, stream);
     case 2: return launch_product_tc<2, PW>(a, layer, out_proj, stream);
@@ -981,11 +1475,26 @@ cudaError_t allow_smem_tc(int B) {
 
 // ---------------------------------------------------------------------------
 
+template <typename IO, typename WT>
+constexpr bool kBothBf16 =
+    std::is_same<IO, __nv_bfloat16>::value && std::is_same<WT, __nv_bfloat16>::value;
+
+// phase 2 of `layer` on the path the step takes
+template <typename IO, typename WT, typename PW>
+cudaError_t launch_in_proj(const K4Args& a, int layer, bool tensor_cores, cudaStream_t stream) {
+  if constexpr (kBothBf16<IO, WT>) {
+    if (tensor_cores) return launch_product_tc<PW>(a, layer, false, stream);
+  }
+  const dim3 in_grid((2 * a.d_inner + 2 * a.N + a.H + kBN - 1) / kBN, (a.B + kBM - 1) / kBM);
+  k4_in_proj_kernel<IO, WT, PW><<<in_grid, kGemmThreads, 0, stream>>>(a, layer);
+  return cudaGetLastError();
+}
+
+// `layer` < 0: the whole step; else the in_proj phase of that layer alone (a
+// measurement: it reads hn and hn @ A as the scratch holds them)
 template <typename IO, typename WT, typename PW, typename ST>
-cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t stream) {
+cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, cudaStream_t stream) {
   // tensor cores for bf16 activations and weights, with bf16 or int8 projections
-  constexpr bool kBothBf16 =
-      std::is_same<IO, __nv_bfloat16>::value && std::is_same<WT, __nv_bfloat16>::value;
   const size_t row_smem = static_cast<size_t>(a.d) * sizeof(float);
   const size_t bc_smem = 2 * static_cast<size_t>(a.N) * sizeof(float);
   cudaError_t err = allow_smem(k4_prenorm_kernel<IO, WT>, row_smem);
@@ -993,14 +1502,15 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t str
   err = allow_smem(k4_ssm_kernel<IO, WT, ST>, bc_smem);
   if (err != cudaSuccess) return err;
   bool tensor_cores = false;
-  if constexpr (kBothBf16) {
+  if constexpr (kBothBf16<IO, WT>) {
     tensor_cores = whole_tiles;
+    // the bf16 in_proj reads its tiles through the plan's tensor maps: no other path stands in
+    if (tensor_cores && !kInt8<PW> && a.in_maps == nullptr) return cudaErrorInvalidValue;
     if (tensor_cores && (err = allow_smem_tc<PW>(a.B)) != cudaSuccess) return err;
   }
+  if (layer_only >= 0) return launch_in_proj<IO, WT, PW>(a, layer_only, tensor_cores, stream);
 
-  const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
   const unsigned int row_tiles = (a.B + kBM - 1) / kBM;
-  const dim3 in_grid((n_in + kBN - 1) / kBN, row_tiles);
   const dim3 out_grid((a.d + kBN - 1) / kBN, row_tiles, a.ksplit);
   const dim3 rows(a.B);
   const dim3 row_heads(static_cast<unsigned int>(a.B) * a.H);
@@ -1008,17 +1518,10 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t str
   for (int layer = 0; layer < a.L; ++layer) {
     k4_prenorm_kernel<IO, WT><<<rows, kRowThreads, row_smem, stream>>>(a, layer);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if constexpr (kBothBf16) {
-      if (tensor_cores && (err = launch_product_tc<PW>(a, layer, false, stream)) != cudaSuccess)
-        return err;
-    }
-    if (!tensor_cores) {
-      k4_in_proj_kernel<IO, WT, PW><<<in_grid, kGemmThreads, 0, stream>>>(a, layer);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
+    if ((err = launch_in_proj<IO, WT, PW>(a, layer, tensor_cores, stream)) != cudaSuccess) return err;
     k4_ssm_kernel<IO, WT, ST><<<row_heads, kSsmThreads, bc_smem, stream>>>(a, layer);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if constexpr (kBothBf16) {
+    if constexpr (kBothBf16<IO, WT>) {
       if (tensor_cores && (err = launch_product_tc<PW>(a, layer, true, stream)) != cudaSuccess)
         return err;
     }
@@ -1033,10 +1536,11 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, cudaStream_t str
 
 template <typename IO, typename WT, typename PW>
 cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_tiles,
-                                   cudaStream_t stream) {
-  if (state_dtype == kF32) return run_fused_decode<IO, WT, PW, float>(a, whole_tiles, stream);
+                                   int layer_only, cudaStream_t stream) {
+  if (state_dtype == kF32)
+    return run_fused_decode<IO, WT, PW, float>(a, whole_tiles, layer_only, stream);
   if (state_dtype == kBF16)
-    return run_fused_decode<IO, WT, PW, __nv_bfloat16>(a, whole_tiles, stream);
+    return run_fused_decode<IO, WT, PW, __nv_bfloat16>(a, whole_tiles, layer_only, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1061,9 +1565,13 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // conv_state and every scratch array is 16-byte aligned: the in_proj epilogue
 // then takes 4-element vector accesses (d_inner and H multiples of 4), and
 // with whole tiles (d, d_inner and the in_proj width multiples of 64) and
-// bf16 activations and weights the products run on the tensor cores.
+// bf16 activations and weights the products run on the tensor cores; a bf16
+// in_proj there reads W_in and hn through `in_maps`, what
+// omt_fused_decode_in_maps wrote (in host memory) for these tables and this
+// hn (null otherwise; the call fails if that path finds it null).
 // Activations and weights are both bf16 or both fp32; proj_dtype is w_dtype
-// or int8.
+// or int8. `layer_only` < 0 runs the step; a layer index runs that layer's
+// in_proj phase alone, as the step would launch it (a measurement).
 // Everything is enqueued on `stream`; nothing synchronises. Returns the first
 // cudaError_t of a launch (0 = success).
 extern "C" int omt_fused_decode_step(
@@ -1071,12 +1579,14 @@ extern "C" int omt_fused_decode_step(
     int ksplit, float lora_scale, float norm_eps, float gn_eps, void* conv_state,
     void* ssm_state, const void* h_in, const void* res_in, void* h_out, void* res_out, void* hn,
     void* hA, void* z, void* xbc, void* dt, void* ya, void* sumsq, void* part, int io_dtype,
-    int w_dtype, int state_dtype, int aligned16, int proj_dtype, void* stream) {
+    int w_dtype, int state_dtype, int aligned16, int proj_dtype, const void* in_maps,
+    int layer_only, void* stream) {
   using namespace omt;
   if (L < 1 || B < 1 || d < 1 || W < 1 || r < 0 || N % 4 != 0 || H * P != d_inner ||
       ksplit < 1 || ksplit > kMaxKSplit ||
       2 * static_cast<size_t>(N) * sizeof(float) > 227 * 1024 ||
-      static_cast<size_t>(d) * sizeof(float) > 227 * 1024 || (B + kBM - 1) / kBM > 65535)
+      static_cast<size_t>(d) * sizeof(float) > 227 * 1024 || (B + kBM - 1) / kBM > 65535 ||
+      layer_only >= L)
     return static_cast<int>(cudaErrorInvalidValue);
   K4Args a;
   a.tab = static_cast<const void* const*>(tables);
@@ -1091,17 +1601,45 @@ extern "C" int omt_fused_decode_step(
   a.xbc = static_cast<float*>(xbc); a.dt = static_cast<float*>(dt);
   a.ya = ya; a.sumsq = static_cast<float*>(sumsq);
   a.part = static_cast<float*>(part);
+  a.in_maps = static_cast<const CUtensorMap*>(in_maps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool whole = aligned16 != 0 && d % 64 == 0 && d_inner % 64 == 0 &&
                      (2 * d_inner + 2 * N + H) % 64 == 0 && r <= kTcMaxRank;
   using bf16 = __nv_bfloat16;
   if (io_dtype == kBF16 && w_dtype == kBF16 && proj_dtype == kBF16)
-    return run_fused_decode_state<bf16, bf16, bf16>(a, state_dtype, whole, s);
+    return run_fused_decode_state<bf16, bf16, bf16>(a, state_dtype, whole, layer_only, s);
   if (io_dtype == kBF16 && w_dtype == kBF16 && proj_dtype == kI8)
-    return run_fused_decode_state<bf16, bf16, int8_t>(a, state_dtype, whole, s);
+    return run_fused_decode_state<bf16, bf16, int8_t>(a, state_dtype, whole, layer_only, s);
   if (io_dtype == kF32 && w_dtype == kF32 && proj_dtype == kF32)
-    return run_fused_decode_state<float, float, float>(a, state_dtype, whole, s);
+    return run_fused_decode_state<float, float, float>(a, state_dtype, whole, layer_only, s);
   if (io_dtype == kF32 && w_dtype == kF32 && proj_dtype == kI8)
-    return run_fused_decode_state<float, float, int8_t>(a, state_dtype, whole, s);
+    return run_fused_decode_state<float, float, int8_t>(a, state_dtype, whole, layer_only, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor maps of the bf16 in_proj: for each of the L layers W_in (the host
+// array `w_in` of L device pointers to (d, n_in) bf16 matrices), read in boxes
+// of 32 k x 64 columns, then hn ((B, d) bf16), in boxes of the row tile x 32 k.
+// Written to `maps` in host memory, (L + 1) x 128 bytes, for the caller to hand
+// to omt_fused_decode_step with these tables and this hn (each launch takes
+// its two maps as parameters).
+// Returns 0, or cudaErrorInvalidValue for shapes that are not whole tiles or a
+// map that cuTensorMapEncodeTiled refuses (a pointer or row that is not 16-byte aligned).
+extern "C" int omt_fused_decode_in_maps(const void* const* w_in, int L, int B, int d, int n_in,
+                                        const void* hn, void* maps) {
+  using namespace omt;
+  if (L < 1 || B < 1 || d % kTcBK != 0 || n_in % kTcBN != 0 || d < 1 || n_in < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned char* out = static_cast<unsigned char*>(maps);
+  CUtensorMap m;
+  for (int l = 0; l < L; ++l) {
+    if (!encode_tile_map(&m, w_in[l], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, d, n_in, 32, kTcBN))
+      return static_cast<int>(cudaErrorInvalidValue);
+    std::memcpy(out + l * sizeof(m), &m, sizeof(m));
+  }
+  if (!encode_tile_map(&m, hn, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, d, 16 * pair_row_fragments(B),
+                       32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  std::memcpy(out + L * sizeof(m), &m, sizeof(m));
+  return 0;
 }

@@ -51,12 +51,11 @@
 // same bits in any batch and through either path (chip_smoke.py asserts it),
 // and the fp32 path too sums in an order that does not depend on M.
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace omt {
 
@@ -91,10 +90,6 @@ constexpr int kWWidens = kWQBytes / 8 / kWThreads;
 #ifndef OMT_QMM_WIDE_SKIP
 #define OMT_QMM_WIDE_SKIP 0
 #endif
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
@@ -418,97 +413,6 @@ struct PairTile {
   static_assert(kWM * (kWarps / kColWarps) == MT, "the warps split the m16 tiles evenly");
 };
 
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// an arrival on the barrier at `bar`'s place in block `rank` of the cluster
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(bar)), "r"(rank));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, P1;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// a phase of `bar` that has not completed 4 s after the wait began (a fault in
-// the kernel: a correct launch waits microseconds) ends the launch with an error
-// instead of hanging the card; the clock is read every 1024 polls
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t i = 1; !mbar_try_wait(bar, parity); ++i) {
-    if (i % 1024 != 0) continue;
-    const uint64_t now = global_ns();
-    if (t0 == 0) t0 = now;
-    else if (now - t0 > 4000000000ull) __trap();
-  }
-}
-
-// the 2-D box at (c0, c1) (inner, outer coordinate) of `map` into `dst` of this
-// block, its bytes counted on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// launched as a programmatic dependent of the kernel ahead of it in the stream
-// (see launch_qmm_pair), a block may start before that kernel ends: this waits
-// for it to end and for its writes to be visible
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
 template <typename OT>
 __device__ __forceinline__ void store_2(OT* p, float a, float b);
 template <>
@@ -722,39 +626,6 @@ qmm_pair_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled of the driver, found through the runtime (no link to libcuda)
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
-}
-
-// a row-major (rows, cols) matrix of 1- or 2-byte elements, read in boxes of
-// box_rows x box_cols with the swizzle whose span is a box row
-inline bool encode_tile_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int bytes,
-                            int rows, int cols, int box_rows, int box_cols) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (!encode) return false;
-  const int row_bytes = box_cols * bytes;
-  const CUtensorMapSwizzle swizzle = row_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
-                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                       : CU_TENSOR_MAP_SWIZZLE_128B;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MT, int BN, bool TRANS, typename OT>

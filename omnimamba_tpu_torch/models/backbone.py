@@ -42,13 +42,11 @@ def check_supported(cfg: MambaConfig) -> None:
     """Raise for config options whose modules are not ported yet."""
     if cfg.attn_layer_idx:
         raise NotImplementedError(
-            "attn_layer_idx != (): attention layers arrive with ops/attention "
-            "(ROADMAP Q1 item 10)"
+            "attn_layer_idx != (): attention layers arrive with ops/attention (ROADMAP: slice 6)"
         )
     if cfg.d_intermediate > 0:
         raise NotImplementedError(
-            "d_intermediate > 0: the GatedMLP sub-block arrives with ops/attention "
-            "(ROADMAP Q1 item 10)"
+            "d_intermediate > 0: the GatedMLP sub-block arrives with ops/attention (ROADMAP: slice 6)"
         )
 
 
@@ -173,7 +171,8 @@ def check_remat(remat) -> bool:
         return remat
     raise NotImplementedError(
         f"remat={remat!r}: the port checkpoints whole blocks (True) or nothing (False); the "
-        "selective policies 'proj_xbd', 'proj_ssd', 'proj_conv_ssd' and 'dots' are ROADMAP Q5"
+        "selective policies 'proj_xbd', 'proj_ssd', 'proj_conv_ssd' and 'dots' are not ported "
+        "yet (ROADMAP: selective checkpoint policies)"
     )
 
 

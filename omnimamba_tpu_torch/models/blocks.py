@@ -22,12 +22,11 @@ def _check_supported(layer_params: Dict, layer_type: str) -> None:
     if layer_type != "mamba2":
         raise NotImplementedError(
             f"layer_type={layer_type!r}: attention layers (attn_layer_idx) arrive "
-            "with ops/attention (ROADMAP Q1 item 10)"
+            "with ops/attention (ROADMAP: slice 6)"
         )
     if "mlp" in layer_params:
         raise NotImplementedError(
-            "d_intermediate > 0: the GatedMLP sub-block arrives with ops/attention "
-            "(ROADMAP Q1 item 10)"
+            "d_intermediate > 0: the GatedMLP sub-block arrives with ops/attention (ROADMAP: slice 6)"
         )
 
 

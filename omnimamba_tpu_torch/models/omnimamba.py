@@ -116,7 +116,7 @@ def mmu_loss(*args, **kwargs):
     """The understanding loss runs the vision towers and the projector."""
     raise NotImplementedError(
         "mmu_loss needs models/vit.py and models/projector.py, which arrive with the "
-        "understanding slice (ROADMAP Q1 item 7); the stage-2 unified step follows it"
+        "understanding slice (ROADMAP: slice 3, MMU inference); the stage-2 unified step follows it"
     )
 
 

@@ -4,8 +4,12 @@ Counterpart of ``omnimamba_tpu/models/speculative.py``. A cheap DRAFT
 proposes K tokens one at a time; the TARGET then scores the whole window in
 one pass (a continuation prefill, ``backbone_forward(initial_cache=...)``),
 accepts the longest draft prefix that matches its own greedy choices, and
-adds one correction / bonus token from its logits. The stream is the one
-plain greedy decoding gives; the draft decides only the speed.
+adds one correction / bonus token from its logits. In fp32 the stream is the
+one plain greedy decoding gives and the draft decides only the speed. In bf16
+the verify pass scores a window where plain decoding takes one step a token,
+so the two sum and round in other orders: at 1.3B the streams part where the
+top-2 logit margin is tiny (on an H100, all three drafts left plain greedy at
+the same token, at a margin of 0.0026).
 
 State bookkeeping needs no per-position rollback: the verify pass masks
 padded positions to dt = 0, which makes them exact no-ops for the SSM state,

@@ -17,8 +17,11 @@ four small kernels per layer on the current stream (stream order separates
 the phases), all 132 SMs share each layer's weights and state, and the host
 makes one call per token instead of a Python loop over the layers. The two
 products are written by hand: for bf16 activations and weights the weight
-tiles stream through a cp.async ring in shared memory into warp-level
-tensor-core products, so the weight bytes are the cost; the
+tiles stream into warp-level tensor-core products, so the weight bytes are
+the cost (the in_proj through TMA copies, two blocks of a cluster per column
+tile, the copies of its weights started while the pre-norm still runs; it
+reads W_in and the normed hidden state through tensor maps that
+``prepare_fused_decode`` encodes once); the
 other case (fp32 activations and weights, and any shape that is not whole
 tiles) takes fp32 multiply-adds over shared-memory tiles, which are bound by
 operations (see the note in the source). Activations and weights of two
@@ -74,6 +77,8 @@ from omnimamba_tpu_torch.ops.quant import is_quantized
 OPERANDS = ("norm_w", "in_proj", "lora_A", "lora_B", "conv_w", "conv_b", "dt_bias", "A_log",
             "D", "gn_w", "out_proj", "in_scale", "out_scale")
 MAX_KSPLIT = 8
+TC_TILE = 64  # the products take the tensor cores on dims that are multiples of this
+TENSOR_MAP_BYTES = 128  # sizeof(CUtensorMap)
 
 
 def _has_lora(layers: Sequence[Dict], task: Optional[str], lora_cfg: Optional[LoraConfig]) -> bool:
@@ -147,6 +152,10 @@ class FusedDecodePlan:
     io_dtype: torch.dtype
     w_dtype: torch.dtype
     proj_dtype: torch.dtype  # w_dtype, or int8 for {q, scale} projections
+    # (n_layer + 1) tensor maps in host memory, W_in of each layer then hn, for
+    # a bf16 in_proj on whole tiles (omt_fused_decode_in_maps): each launch of
+    # that phase takes its two as parameters; else None
+    in_maps: Optional[torch.Tensor] = None
 
 
 def prepare_fused_decode(
@@ -208,8 +217,16 @@ def prepare_fused_decode(
         "sumsq": f32(batch, H), "part": f32(ksplit, batch, d),
     }
     aligned16 = all(t.data_ptr() % 16 == 0 for t in keep + list(scratch.values()))
-    return FusedDecodePlan(
-        tables, tuple(keep), scratch, batch, r, ksplit, aligned16, dtype, ref.dtype, proj_dtype)
+    in_maps = None
+    if (dtype == torch.bfloat16 and proj_dtype == torch.bfloat16 and aligned16
+            and d % TC_TILE == 0 and mixer_cfg.d_in_proj % TC_TILE == 0):
+        w_in = torch.tensor([row[OPERANDS.index("in_proj")] for row in ptrs], dtype=torch.int64)
+        in_maps = torch.empty(((len(layers) + 1) * TENSOR_MAP_BYTES,), dtype=torch.uint8)
+        kb.check_launch(kb.load_kernels().omt_fused_decode_in_maps(
+            w_in.data_ptr(), len(layers), batch, d, mixer_cfg.d_in_proj, scratch["hn"].data_ptr(),
+            in_maps.data_ptr()), "prepare_fused_decode: the in_proj's tensor maps")
+    return FusedDecodePlan(tables, tuple(keep), scratch, batch, r, ksplit, aligned16, dtype,
+                           ref.dtype, proj_dtype, in_maps)
 
 
 def fused_decode_step_plain(
@@ -296,11 +313,45 @@ def fused_decode_step(
         return fused_decode_step_plain(
             layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps)
 
+    if plan is None:
+        plan = prepare_fused_decode(layers, task, mixer_cfg, lora_cfg, h.shape[0], h.dtype)
+    h_out, res_out = _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, -1)
+    if plan.proj_dtype == torch.int8:
+        fused_decode_step.int8_launches += 1
+    else:
+        fused_decode_step.launches += 1
+    return h_out, res_out, cache
+
+
+def fused_decode_in_proj(
+    layers: Sequence[Dict],
+    h: torch.Tensor,
+    residual: Optional[torch.Tensor],
+    cache,
+    task: Optional[str],
+    mixer_cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig],
+    norm_eps: float = 1e-5,
+    *,
+    plan: FusedDecodePlan,
+    layer: int,
+) -> None:
+    """The in_proj phase of ``layer`` alone, on the card, as ``fused_decode_step``
+    launches it with these arguments: a measurement of one phase. It reads the
+    normed hidden state and its LoRA product as the plan's scratch holds them
+    (from the last step) and rolls the layer's conv window in place. Counts no
+    launch."""
+    if not 0 <= layer < len(layers):
+        raise ValueError(f"layer {layer} of {len(layers)}")
+    _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer)
+
+
+def _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer_only):
+    """Checks the arguments and enqueues the C function: the whole step
+    (``layer_only`` -1) or one layer's in_proj phase. Returns (h_out, res_out)."""
     L, B, d = len(layers), h.shape[0], mixer_cfg.d_model
     di, H, P, N, W = (mixer_cfg.d_inner, mixer_cfg.nheads, mixer_cfg.headdim, mixer_cfg.d_state,
                       mixer_cfg.d_conv)
-    if plan is None:
-        plan = prepare_fused_decode(layers, task, mixer_cfg, lora_cfg, B, h.dtype)
     if (plan.batch, plan.io_dtype) != (B, h.dtype) or plan.tables.shape != (len(OPERANDS), L) \
             or plan.tables.device != h.device:
         raise ValueError("the plan was prepared for another batch, dtype, depth or device")
@@ -336,14 +387,11 @@ def fused_decode_step(
         kb.dtype_code(h.dtype), kb.dtype_code(plan.w_dtype), kb.dtype_code(ssm.dtype),
         int(plan.aligned16 and conv.data_ptr() % 16 == 0),
         kb.I8 if plan.proj_dtype == torch.int8 else kb.dtype_code(plan.proj_dtype),
+        None if plan.in_maps is None else plan.in_maps.data_ptr(), layer_only,
         kb.current_stream(h.device),
     )
     kb.check_launch(err, "fused_decode_step")
-    if plan.proj_dtype == torch.int8:
-        fused_decode_step.int8_launches += 1
-    else:
-        fused_decode_step.launches += 1
-    return h_out, res_out, cache
+    return h_out, res_out
 
 
 # token steps that went through the kernel since the counter was last set to 0:

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 
 F32, BF16, I8 = 0, 1, 2  # element type codes of csrc/common.cuh
 # the headers the sources include: an edit of one rebuilds the library
-HEADERS = ("common.cuh", "ssd_step_row.cuh", "tensor_core.cuh")
+HEADERS = ("common.cuh", "ssd_step_row.cuh", "tensor_core.cuh", "tma.cuh")
 
 
 class BuildInfo(NamedTuple):
@@ -137,7 +137,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.omt_ssd_scan_bwd.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 8 + [ptr]
     lib.omt_ssd_step_q8.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 6 + [ptr]
     lib.omt_fused_decode_step.argtypes = (
-        [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr])
+        [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr, i32, ptr])
+    lib.omt_fused_decode_in_maps.argtypes = [ptr] + [i32] * 4 + [ptr] * 2
     lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.omt_qmatmul_pair_plan.argtypes = [i32] * 3 + [ptr]
     for fn in (lib.omt_ssd_scan_bf16_smem_bytes, lib.omt_ssd_scan_bwd_bf16_smem_bytes):
@@ -145,7 +146,8 @@ def load_kernels() -> ctypes.CDLL:
         fn.restype = i64
     for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_add_rms_norm_bwd,
                lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_step_q8, lib.omt_ssd_scan,
-               lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step, lib.omt_qmatmul,
+               lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step, lib.omt_fused_decode_in_maps,
+               lib.omt_qmatmul,
                lib.omt_qmatmul_pair_plan):
         fn.restype = ctypes.c_int
     return lib

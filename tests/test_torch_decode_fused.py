@@ -357,3 +357,71 @@ def test_cpu_tensors_take_the_plain_version(pair):
     assert not re.search(r"^\s*(try|except\b.*):", src, re.M)
     assert (kernel_build.CSRC_DIR / "decode_fused.cu").is_file()
     assert (kernel_build.CSRC_DIR / "ssd_step_row.cuh").is_file()
+
+
+# A geometry whose step takes the tensor-core products on the card: d, d_inner
+# and the in_proj width (2 * 128 + 2 * 28 + 8 = 320) are multiples of 64, so the
+# bf16 in_proj there runs its two-block clusters. On the CPU the wrapper runs
+# the plain version, the reference the card's kernel is held against.
+_WIDE_MIXER = dict(d_model=64, d_state=28, headdim=16, expand=2, chunk_size=16)
+
+
+@pytest.fixture(scope="module")
+def wide_pair():
+    """(jax model, torch model, jax backbone params, bridged torch params) at
+    d_model 64, fp32, LoRA B factors filled."""
+    from omnimamba_tpu import config as jcfg
+    from omnimamba_tpu.models.omnimamba import OmniMambaModel as JaxModel
+    from omnimamba_tpu_torch import config as tcfg
+    from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel as TorchModel
+    from tests.test_torch_helpers import _MAMBA, _VQ
+
+    mamba = {**_MAMBA, "d_model": _WIDE_MIXER["d_model"]}
+    jmodel = JaxModel(cfg=jcfg.MambaConfig(mixer=jcfg.Mamba2LayerConfig(**_WIDE_MIXER), **mamba),
+                      vision_cfg=jcfg.VisionConfig(), vq_cfg=jcfg.VQConfig(**_VQ), sptids={})
+    tmodel = TorchModel(cfg=tcfg.MambaConfig(mixer=tcfg.Mamba2LayerConfig(**_WIDE_MIXER), **mamba),
+                        vq_cfg=tcfg.VQConfig(**_VQ), sptids={})
+    jp = init_omnimamba(jax.random.PRNGKey(1), jmodel, with_vision=False)
+    layers = dict(jp["mamba"]["layers"])
+    layers["mixer"] = fill_lora_b(layers["mixer"], np.random.default_rng(1))
+    jp = {"mamba": {**jp["mamba"], "layers": layers}, "vq": decode_side(jp["vq"])}
+    return jmodel, tmodel, jp["mamba"], bridge(jp, tmodel)["mamba"]
+
+
+def _without_lora_jax(jm):
+    mixer = {k: v for k, v in jm["layers"]["mixer"].items() if k != "lora"}
+    return {**jm, "layers": {**jm["layers"], "mixer": mixer}}
+
+
+def _without_lora_torch(tm):
+    return {**tm, "layers": [{**layer, "mixer": {k: v for k, v in layer["mixer"].items()
+                                                  if k != "lora"}} for layer in tm["layers"]]}
+
+
+@pytest.mark.parametrize("lora", [True, False], ids=["lora", "no_lora"])
+@pytest.mark.parametrize("B", [16, 17, 48, 96])
+def test_fused_step_matches_jax_on_tensor_core_tiles(wide_pair, B, lora):
+    """The fused step at the batches where the card's row tiling changes (16,
+    17, 48, 96 rows), with and without the LoRA branch, against JAX's
+    ``backbone_step_fused`` (Pallas in interpret mode), fp32, 1e-5."""
+    jmodel, tmodel, jm, tm = wide_pair
+    mixer = tmodel.cfg.mixer
+    assert mixer.d_model % 64 == 0 and mixer.d_inner % 64 == 0 and mixer.d_in_proj % 64 == 0
+    if not lora:
+        jm, tm = _without_lora_jax(jm), _without_lora_torch(tm)
+    rng = np.random.default_rng(100 + B)
+    L, W = tmodel.cfg.n_layer, mixer.d_conv
+    conv = (0.5 * rng.standard_normal((L, B, W - 1, mixer.d_conv_in))).astype(np.float32)
+    ssm = (0.5 * rng.standard_normal(
+        (L, B, mixer.nheads, mixer.headdim, mixer.d_state))).astype(np.float32)
+    tok = rng.integers(0, 32, (B,))
+    hj, fcache = jbb.backbone_step_fused(
+        jm, jnp.asarray(tok, jnp.int32), jnp.int32(L0),
+        to_fused_cache(jbb.BackboneCache(jnp.asarray(conv), jnp.asarray(ssm)), mixer.d_inner),
+        "t2i", jmodel.cfg, dtype=jnp.float32)
+    before = fused_decode_step.launches
+    ht, out = tbb.backbone_step_fused(tm, tt(tok), L0, tbb.BackboneCache(tt(conv), tt(ssm)),
+                                      "t2i", tmodel.cfg, dtype=torch.float32)
+    assert fused_decode_step.launches == before  # CPU tensors: the plain version
+    close(ht, hj, 1e-5)
+    assert_caches_close(fcache, out, B, mixer.d_inner, 1e-5)

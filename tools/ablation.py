@@ -1,7 +1,7 @@
 """What holds a hand-written kernel back: the kernel built with parts of its
 work taken out, each build timed on the shapes of its main path.
 
-    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill]
+    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
@@ -20,9 +20,17 @@ entry's value, and times each build:
 - ``k7-prefill`` (``qmatmul.cu``, ``OMT_QMM_WIDE_SKIP``): K7's 128-row tiles at
   the prefill in_proj and out_proj at 3,456 rows and the in_proj at 1,024
   rows; each time one call of five launches.
+- ``k4-in-proj`` (``decode_fused.cu``, ``OMT_K4_IN_SKIP``): K4's bf16 in_proj
+  phase alone (``fused_decode_in_proj``: the product, the LoRA term, the conv
+  step and the softplus), each launch on the next of the 1.3B's 48 layers, at
+  16, 48 and 96 rows, beside the phase's bytes at the card's memory rate; each
+  time the median of three calls of 96 launches; and the 48-layer step of
+  each build (median of three calls of 5 steps), where the phase starts
+  while the pre-norm runs.
 
-Only the build with the value 0 gives correct results; it must equal the
-library's bits, which is asserted. Prints the card, one JSON line a
+Only the build with the value 0 (and, of ``k4-in-proj``, 32, 64 and 128,
+which change when work starts, not what it is) gives correct results; the build
+with 0 must equal the library's bits, which is asserted. Prints the card, one JSON line a
 measurement, then one JSON line of all with each build's ``ptxas`` lines.
 """
 
@@ -105,6 +113,49 @@ def run_k5(libs: dict, builds: dict, rows: dict) -> None:
                 sk.BWD_BF16_CLUSTER = shipped
 
 
+def run_k4_in_proj(libs: dict, builds: dict, rows: dict) -> None:
+    import chip_smoke as cs
+    from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+    from omnimamba_tpu_torch.ops import decode_fused as df
+
+    cfg, lcfg = Mamba2LayerConfig(), LoraConfig()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    layers = cs.fused_layers(gen, 48, cfg, lcfg, _bf)
+    for batch in (16, cs.BATCH, 2 * cs.BATCH):
+        h = cs.rand(gen, (batch, cfg.d_model), _bf)
+        cache = cs.fused_state(gen, len(layers), batch, cfg, _bf, _bf)
+        plan = df.prepare_fused_decode(layers, "t2i", cfg, lcfg, batch, _bf)
+        args = (layers, h, None, cache, "t2i", cfg, lcfg, 1e-5)
+        df.fused_decode_step(*args, plan=plan)  # the scratch holds a real hn and hn @ A
+        turn = [0]
+
+        def phase():  # each launch on the next layer: its weights come from device memory
+            df.fused_decode_in_proj(*args, plan=plan, layer=turn[0] % len(layers))
+            turn[0] += 1
+
+        def outputs():  # z, x B C and dt after the conv step and softplus, the rolled window
+            return [plan.scratch[k].clone() for k in ("z", "xbc", "dt")] + [cache.conv_state.clone()]
+
+        window = cache.conv_state.clone()
+        df.fused_decode_in_proj(*args, plan=plan, layer=0)
+        want = outputs()
+        bound = cs.k4_phase_bytes(cfg, lcfg.r, batch)["k4_in_proj"] / cs.HBM_BYTES_PER_S * 1e3
+        rec = {"shape": (batch, cfg.d_model, cfg.d_in_proj), "bound_ms": bound, "bound_by": "bytes",
+               "phase_ms": {}, "step_ms": {}}
+        for v, name in builds.items():
+            with only("omt_fused_decode_step", libs[v]):
+                if v == 0:
+                    cache.conv_state.copy_(window)
+                    df.fused_decode_in_proj(*args, plan=plan, layer=0)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(g, w) for g, w in zip(outputs(), want)), \
+                        f"the shipped build differs at B={batch}"
+                rec["phase_ms"][name] = median_ms(phase, 3, 2 * len(layers))
+                rec["step_ms"][name] = median_ms(lambda: df.fused_decode_step(*args, plan=plan), 3, 5)
+        emit(rows, f"in_proj_B{batch}", rec)
+        del cache, plan
+
+
 # name -> (rows, K, O, (O, K) table, out dtype)
 K7_DECODE_SHAPES = {
     "step_in_proj": (48, 2048, 8512, False, _bf),
@@ -180,6 +231,13 @@ TARGETS = {
                    {0: "as shipped", 1: "no widening", 2: "no copies",
                     3: "products and ldmatrix only"},
                    run_k7("prefill", 1, K7_PREFILL_SHAPES, 1, 5)),
+    "k4-in-proj": ("decode_fused.cu", "omt_fused_decode_step", "OMT_K4_IN_SKIP",
+                   {0: "as shipped", 1: "no activation copies", 2: "no weight copies",
+                    3: "no copies", 4: "no products", 8: "no epilogue",
+                    7: "launch, barriers and epilogue only", 15: "launch and barriers only",
+                    16: "launch only", 32: "no weights before the pre-norm ends",
+                    64: "ordinary launch", 128: "no L2 prefetch for the epilogue"},
+                   run_k4_in_proj),
 }
 
 

@@ -1,0 +1,152 @@
+"""K4 (the whole-model decode step) of one checkout of the port, on the card:
+the bits of its outputs on fixed inputs and its device time by phase, so that
+two checkouts (a change and its parent) can be held against each other in
+one call.
+
+    python3 tools/k4_probe.py --root DIR --out FILE
+    python3 tools/k4_probe.py --compare FILE_A FILE_B
+
+needs one NVIDIA GPU and nvcc. The first form imports the port and
+`chip_smoke.py` from DIR (a checkout, for example `git archive` of a parent
+unpacked into a git-ignored directory), makes the 1.3B's 48 random bf16
+layers and inputs from the seed of `chip_smoke.py`, and:
+
+- saves h, the residual, the conv windows and the SSM states after one step
+  through 1 layer and through 48 layers at B=48, and through 1 layer at B=96
+  (bf16 state, LoRA rank 8, task t2i) to FILE;
+- times the 48-layer step (CUDA events around 10 queued steps) and profiles 3
+  steps at B = 16, 48 and 96 with the time of each of K4's phase kernels,
+  and the part of it that no earlier kernel overlaps (the bf16 in_proj starts
+  while the pre-norm runs);
+- does the same at B=48 for `quantize_decode_params` of the layers (int8
+  in_proj and out_proj).
+
+Prints the card, then one JSON line. The second form asserts that every saved
+tensor of A equals B's bit for bit and prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+PHASES = ("k4_prenorm", "k4_in_proj", "k4_ssm", "k4_out_proj", "k4_finish")
+
+
+def profile(step, steps: int = 3) -> dict:
+    """Device ms a step of each phase kernel, summed and exposed (not
+    overlapped by an earlier kernel), from a profiler trace of `steps` steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    step()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    summed = dict.fromkeys(PHASES, 0.0)
+    exposed = dict.fromkeys(PHASES, 0.0)
+    last_end = float("-inf")
+    for start, end, name in sorted((e.time_range.start, e.time_range.end, e.name)
+                                   for e in prof.events() if e.device_type == DeviceType.CUDA):
+        for key in PHASES:
+            if key in name:
+                summed[key] += (end - start) / 1e3 / steps
+                exposed[key] += max(0.0, end - max(start, last_end)) / 1e3 / steps
+        last_end = max(last_end, end)
+    return {"ms_per_step": summed, "exposed_ms_per_step": exposed}
+
+
+def probe(root: Path, out: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_step, prepare_fused_decode)
+    from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+
+    assert Path(cs.__file__).resolve().parent == root.resolve(), cs.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, lcfg, bf = Mamba2LayerConfig(), LoraConfig(), torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    layers = cs.fused_layers(gen, 48, cfg, lcfg, bf)
+    rec, saved = {"root": str(root)}, {}
+
+    def inputs(n_layer, B):
+        return (cs.rand(gen, (B, cfg.d_model), bf), cs.rand(gen, (B, cfg.d_model), torch.float32),
+                cs.fused_state(gen, n_layer, B, cfg, bf, bf))
+
+    for n_layer, B in ((1, cs.BATCH), (48, cs.BATCH), (1, 2 * cs.BATCH)):
+        h, residual, cache = inputs(n_layer, B)
+        plan = prepare_fused_decode(layers[:n_layer], "t2i", cfg, lcfg, B, bf)
+        h_out, res_out, _ = fused_decode_step(layers[:n_layer], h, residual, cache, "t2i", cfg,
+                                              lcfg, 1e-5, plan=plan)
+        torch.cuda.synchronize()
+        key = f"L{n_layer}_B{B}"
+        saved.update({f"{key}_h": h_out, f"{key}_residual": res_out,
+                      f"{key}_conv_window": cache.conv_state, f"{key}_ssm_state": cache.ssm_state})
+    torch.save({k: v.cpu() for k, v in saved.items()}, out)
+    del saved
+
+    def timed(stack, B, key):
+        h, _, cache = inputs(len(stack), B)
+        plan = prepare_fused_decode(stack, "t2i", cfg, lcfg, B, bf)
+
+        def step():
+            fused_decode_step(stack, h, None, cache, "t2i", cfg, lcfg, 1e-5, plan=plan)
+
+        rec[key] = {"batch": B, "step_ms": cs.time_ms(step, 10), **profile(step)}
+        print(json.dumps({key: rec[key]}), flush=True)
+
+    for B in (16, cs.BATCH, 2 * cs.BATCH):
+        timed(layers, B, f"bf16_B{B}")
+    qlayers = quantize_decode_params({"layers": layers})["layers"]
+    del layers
+    torch.cuda.empty_cache()
+    timed(qlayers, cs.BATCH, f"int8_B{cs.BATCH}")
+    return rec
+
+
+def compare(a: Path, b: Path) -> dict:
+    ta, tb = torch.load(a), torch.load(b)
+    assert ta.keys() == tb.keys(), (sorted(ta), sorted(tb))
+    equal = {k: torch.equal(ta[k], tb[k]) for k in ta}
+    rec = {"compare": [str(a), str(b)], "bits_equal": equal,
+           "max_abs_diff": {k: (ta[k].float() - tb[k].float()).abs().max().item() for k in ta}}
+    print(json.dumps(rec), flush=True)
+    assert all(equal.values()), rec
+    return rec
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path, help="the checkout to probe")
+    ap.add_argument("--out", type=Path, help="where to save the outputs")
+    ap.add_argument("--compare", type=Path, nargs=2, metavar=("A", "B"))
+    args = ap.parse_args()
+    if args.compare:
+        compare(*args.compare)
+        return 0
+    if args.root is None or args.out is None:
+        ap.error("--root and --out, or --compare")
+    if not torch.cuda.is_available():
+        print("k4_probe: needs one CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    t0 = time.time()
+    rec = probe(args.root, args.out)
+    print(json.dumps({"card": card, "seconds": time.time() - t0, **rec}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
