@@ -839,11 +839,17 @@ def check_decode_fused(gen, results):
     full, lora8 = Mamba2LayerConfig(), LoraConfig()
     # d_in_proj = 139: no 4-element alignment anywhere, K = 24 below one k tile
     narrow = Mamba2LayerConfig(d_model=24, d_state=20, headdim=16, d_conv=3)
+    # state tiles that the SSM phase's tile kernel does not take (P not a
+    # multiple of 8; N above 128): the step kernel's row code runs them
+    narrow_p12 = Mamba2LayerConfig(d_model=24, d_state=20, headdim=12, d_conv=3)
+    narrow_n132 = Mamba2LayerConfig(d_model=24, d_state=132, headdim=16, d_conv=3)
     bf, f32 = torch.bfloat16, torch.float32
     # name: layers, mixer cfg, lora cfg, weight dtype; each stack is made once
     sizes = {"full_bf16": (48, full, lora8, bf), "full_f32": (48, full, lora8, f32),
              "narrow_f32": (2, narrow, LoraConfig(r=4), f32),
-             "narrow_bf16": (2, narrow, LoraConfig(r=4), bf)}
+             "narrow_bf16": (2, narrow, LoraConfig(r=4), bf),
+             "narrow_p12_bf16": (2, narrow_p12, LoraConfig(r=4), bf),
+             "narrow_n132_f32": (2, narrow_n132, LoraConfig(r=4), f32)}
     stacks = {}
 
     def stack(name):
@@ -863,6 +869,10 @@ def check_decode_fused(gen, results):
         ("four_layers_fp32", "full_f32", 4, BATCH, full, lora8, "t2i", f32, f32, f32),
         ("awkward", "narrow_f32", 2, 3, narrow, LoraConfig(r=4), "t2i", f32, f32, f32),
         ("awkward_bf16", "narrow_bf16", 2, 5, narrow, LoraConfig(r=4), "mmu", bf, bf, bf),
+        ("awkward_head_dim_12_bf16", "narrow_p12_bf16", 2, 5, narrow_p12, LoraConfig(r=4), "t2i",
+         bf, bf, bf),
+        ("awkward_d_state_132", "narrow_n132_f32", 2, 3, narrow_n132, LoraConfig(r=4), "mmu",
+         f32, f32, f32),
         ("main", "full_bf16", 48, BATCH, full, lora8, "t2i", bf, bf, bf),
     ]
     for name, sname, n_layer, B, cfg, lcfg, task, io, wdtype, sdtype in cases:
@@ -982,6 +992,14 @@ def check_decode_fused(gen, results):
     results["decode_fused"]["in_proj_phase"] = {k: rec[k] for k in ("by_batch", "ptxas", "sass")
                                                 if k in rec}
 
+    rec = ssm_phase(gen, stack("full_bf16"), full, lora8, "t2i")
+    if results.get("build_log"):  # every instantiation of the SSM phase's tile kernel: no spills
+        rec["ptxas"] = ptxas_of(results["build_log"], "k4_ssm_tile")
+        assert rec["ptxas"] and len(rec["ptxas"]) == 4 and all(
+            "0 bytes spill stores" in " ".join(v) for v in rec["ptxas"].values()), rec["ptxas"]
+    emit({"kernel_check": rec})
+    results["decode_fused"]["ssm_phase"] = {k: rec[k] for k in ("by_case", "ptxas") if k in rec}
+
     # what decode_impl="auto" is decided on: one step of the whole-model kernel
     # against one step of the layer loop on the same 48 layers, for both types
     # generate() can hand over, at the main batch and at a small one
@@ -1049,6 +1067,65 @@ def in_proj_phase(gen, layers, cfg, lcfg, task):
             "d_in_proj": cfg.d_in_proj, "lora_rank": lcfg.r, "dtype": str(bf), "by_batch": by_batch,
             "library_note": "torch.matmul(hn, W_in): the product alone (no LoRA term, conv step "
                             "or softplus), the yardstick for the phase's product"}
+
+
+def ssm_phase(gen, layers, cfg, lcfg, task):
+    """K4's SSM-update phase (the state update in place, y, the gate, yf * w_gn
+    and the sums of yf^2) of one layer alone, as the step launches it
+    (`fused_decode_ssm`), at 16, 48 and 96 rows with a bf16 state and at 16
+    rows with an fp32 state: device ms beside the bytes it must move at the
+    card's memory rate, and beside a device copy of the same state bytes
+    (`copy_` of one layer's state into another tensor: what a stream that reads
+    and writes each byte once reaches on this card; it does not compute the
+    phase's function). Each launch takes the next of the 48 layers, so the
+    state comes from device memory. Beside them the phase inside the 48-layer
+    step (profile of 3 steps): each kernel's time and the part of it that no
+    earlier kernel overlaps."""
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_ssm, fused_decode_step, prepare_fused_decode)
+
+    bf = torch.bfloat16
+    by_case = {}
+    for b, sdtype in ((16, bf), (BATCH, bf), (2 * BATCH, bf), (16, torch.float32)):
+        h = rand(gen, (b, cfg.d_model), bf)
+        cache = fused_state(gen, len(layers), b, cfg, bf, sdtype)
+        plan = prepare_fused_decode(layers, task, cfg, lcfg, b, bf)
+        args = (layers, h, None, cache, task, cfg, lcfg, 1e-5)
+        fused_decode_step(*args, plan=plan)  # the scratch holds a real z, x B C and dt
+        states, turn = cache.ssm_state, [0]
+        copy_to = torch.empty_like(states[0])
+
+        def phase():
+            fused_decode_ssm(*args, plan=plan, layer=turn[0] % len(layers))
+            turn[0] += 1
+
+        def copy():
+            copy_to.copy_(states[turn[0] % len(layers)])
+            turn[0] += 1
+
+        phase_bytes = k4_phase_bytes(cfg, lcfg.r, b, state_bytes=states.element_size())["k4_ssm"]
+        ms = time_ms(phase, 2 * len(layers))
+        copy_ms = time_ms(copy, 2 * len(layers))
+        prof = profile_steps(lambda i: fused_decode_step(*args, plan=plan), 3, named=K4_PHASES)
+        bound = phase_bytes / HBM_BYTES_PER_S * 1e3
+        copy_bytes = 2 * nbytes(states[0])
+        by_case[f"B{b}_{'bf16' if sdtype == bf else 'fp32'}_state"] = {
+            "ms": ms, "bound_ms": bound, "share_of_bound": bound / ms, "bytes": phase_bytes,
+            "rate_tb_per_s": phase_bytes / ms / 1e9,
+            "copy_ms": copy_ms, "copy_bytes": copy_bytes,
+            "copy_rate_tb_per_s": copy_bytes / copy_ms / 1e9,
+            "step_ms_per_layer": {k: v / len(layers) for k, v in prof["named_ms_per_step"].items()},
+            "step_exposed_ms_per_layer": {
+                k: v / len(layers) for k, v in prof["named_exposed_ms_per_step"].items()},
+            "step_device_busy_ms": prof["device_busy_ms_per_step"],
+        }
+        del cache, plan, states, copy_to
+    return {"kernel": "decode_fused", "case": "ssm_phase", "layers": 1, "d_model": cfg.d_model,
+            "heads": cfg.nheads, "head_dim": cfg.headdim, "d_state": cfg.d_state, "dtype": str(bf),
+            "by_case": by_case,
+            "copy_note": "copy_ of one layer's state into another tensor (each byte read and "
+                         "written once): the rate a read-write stream reaches, not the phase's "
+                         "function, so library_ms stays null"}
 
 
 def step_pair_ms(gen, layers, cfg, lcfg, B, io, sdtype):
@@ -1616,10 +1693,14 @@ def main_path(results, card):
         }
 
     profiles = {path: profile_decode_steps(mamba, cfg, ids, embed(), path,
-                                           named=K4_PHASES if path == "fused" else ())
+                                           named=K4_PHASES + ("k4_ssm_tile",) if path == "fused"
+                                           else ())
                 for path in ("fused", "scan")}
     profiles["fused"]["k4_phases"] = k4_phase_split(profiles["fused"], cfg, BATCH)
     emit({"decode_profile": dict(profiles, card=card)})
+    # the SSM phase of the generation went through its tile kernel, and only through it
+    named = profiles["fused"]["named_ms_per_step"]
+    assert named["k4_ssm_tile"] > 0 and named["k4_ssm_tile"] == named["k4_ssm"], named
     results["decode_fused"]["scan_step_device_ms"] = profiles["scan"]["device_busy_ms_per_step"]
 
     torch.cuda.synchronize()
@@ -1815,13 +1896,16 @@ def profile_steps(step, steps: int, top: int = 10, named=()):
         return 0.0
 
     # the part of each kernel's time that no earlier kernel overlaps (a kernel
-    # launched as a programmatic dependent starts while the one ahead of it runs)
-    exposed, last_end = {key: 0.0 for key in named}, float("-inf")
+    # launched as a programmatic dependent starts while the one ahead of it runs);
+    # summed over all kernels, the time the device had work at all
+    exposed, covered, last_end = {key: 0.0 for key in named}, 0.0, float("-inf")
     for start, end, name in sorted((e.time_range.start, e.time_range.end, e.name)
                                    for e in prof.events() if e.device_type == DeviceType.CUDA):
+        part = max(0.0, end - max(start, last_end))
+        covered += part
         for key in named:
             if key in name:
-                exposed[key] += max(0.0, end - max(start, last_end))
+                exposed[key] += part
         last_end = max(last_end, end)
     # kernel events only: an operator's row repeats the time of the kernels it launched
     rows = sorted(((device_us(e), e.key, e.count) for e in prof.key_averages()
@@ -1834,9 +1918,13 @@ def profile_steps(step, steps: int, top: int = 10, named=()):
     for us, name, _ in rows:
         kind = _kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
+    covered_ms = covered / 1e3 / steps
     return {
         "steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_covered_ms_per_step": covered_ms,
+        # from the time covered by some kernel: overlapping kernels' summed time
+        # can exceed the wall time
+        "device_idle_share": 1.0 - covered_ms / wall_ms,
         "kernel_launches_per_step": sum(r[2] for r in rows) / steps,
         "device_ms_per_step_by_kind": by_kind,
         "note": "wall time includes the profiler's own cost on the host",
@@ -2686,7 +2774,7 @@ def main() -> int:
             "dynamic_smem_bytes", "sass",
             "library_note", "scan_step_device_ms",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "in_proj_phase",
-            "layout",
+            "ssm_phase", "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
                     if k in r})
         kernels.append(row)

@@ -35,9 +35,12 @@
 //                    (x|B|C columns) or the softplus (dt columns). With bf16
 //                    weights it is launched as a programmatic dependent of
 //                    the pre-norm and starts fetching weights while that runs.
-//   3. SSM update    one block per (row, head), the row code of the step
-//                    kernel (ssd_step_row.cuh); writes yf * w_gn rounded to io
-//                    and one partial sum of yf^2 per (row, head).
+//   3. SSM update    one block per (row, head), which issues the loads of its
+//                    whole state tile at once, as a programmatic dependent of
+//                    the in_proj that starts while the in_proj runs (tiles
+//                    beyond 64 x 128 take the step kernel's row code,
+//                    ssd_step_row.cuh); writes yf * w_gn rounded to io and one
+//                    partial sum of yf^2 per (row, head).
 //   4. out_proj      blocks tile rows x (64 columns) x (K split) of the
 //                    (B, d_inner) x (d_inner, d) product into fp32 partials
 //                    (d alone has too few columns to fill the card).
@@ -75,10 +78,11 @@
 // behind one __syncthreads before the product; the column scale multiplies
 // the fp32 product in the epilogue (before in_proj's LoRA term, on each
 // out_proj K-split partial). The other weights keep the activation type.
-// The state update streams the state like the step kernel, whose row code it
-// shares. What keeps the step above its bound is recorded in PERF.md: the
-// state update reaches 60% of its bytes' rate, and four short kernels a layer
-// leave the card partly idle at each boundary.
+// The state update has a whole (row, head) tile of state in flight per block
+// from its first cycles, fetched while the in_proj runs, in the step
+// kernel's arithmetic and order. What keeps the step above its bound is
+// recorded in PERF.md, phase by phase; four short kernels a layer leave the
+// card partly idle at each boundary.
 // All sums are taken in a fixed order (no atomics): a step gives the same bits
 // on every run.
 #include <cooperative_groups.h>
@@ -694,6 +698,205 @@ __global__ void __launch_bounds__(kSsmThreads) k4_ssm_kernel(K4Args a, int layer
 }
 
 // ---------------------------------------------------------------------------
+// phase 3 on tiles of at most 64 x 128: every state load of a tile in flight at once
+// ---------------------------------------------------------------------------
+// k4_ssm_kernel above keeps one 256-byte state row in flight per warp: a lane
+// loads its 4 elements, updates them, stores them and sums the row with
+// shuffles before the next row's load is issued, every block first waits for
+// its B, C, dt and the weights' loads and a barrier, and lane 0 finishes the
+// warp's rows one after another. That reaches about 60% of the card's memory
+// rate. Here, with the same layout (one block of 8 warps per (row, head), warp
+// w owning rows p = w, w + 8, ... and lane l elements n = 4 l .. 4 l + 3 of
+// each), a warp issues the loads of all its rows (up to 8 x 8 bytes a lane in
+// bf16, 8 x 16 in fp32) before anything else, so a block has its whole tile
+// (16 KB in bf16) in flight from its first cycles; the weights it reads
+// (A_log, D, the gated norm's weight) follow. The kernel is a programmatic
+// dependent of the in_proj, whose blocks let it start once the pre-norm has
+// ended: the first blocks' loads (the state of this layer was written one
+// token earlier) then share the memory with the in_proj's weight stream,
+// which alone leaves part of the card's rate unused, and only after
+// griddepcontrol.wait does a block read the in_proj's outputs (B, C, x, z,
+// dt) and write anything.
+// Each lane reads the B and C of its own n and lane i the x and z of the
+// warp's row i, so no barrier stands before the update, and the gate (an exp
+// and a division a row) runs on the warp's rows in parallel, one a lane. The
+// arithmetic is k4_ssm_kernel's (and the step kernel's row code) in its order
+// and contraction, written out with intrinsics: s' = fma(s, decay, dtx B[n])
+// element by element, a lane's four products over n in n order, warp_sum's
+// butterfly, yf^2 summed over the warp's rows in p order (the rows' yf moved
+// to lane 0 by shuffles), the 8 warp totals in warp order by thread 0; so
+// every output keeps its bits. The launch takes this kernel for P a multiple
+// of 8 up to 64 and N a multiple of 4 up to 128 (`ssm_tile_fits`: every
+// shipped config) and k4_ssm_kernel for other shapes.
+
+// Measurement only: tools/ablation.py k4-ssm builds this file with
+// OMT_K4_SSM_SKIP set to a sum of 1 (no state loads: the update reads zeros)
+// and 2 (no state stores), or to 16 (the launch alone), to time what is left of
+// the phase, whose results are then wrong; or to 4 (an ordinary launch, no
+// programmatic dependency), 8 (the in_proj lets it start only as its blocks
+// end), 32 (the state loads after griddepcontrol.wait) or 64 (the in_proj lets
+// it start near the end of its k loop, not once the pre-norm has ended), which
+// change when work starts and give the shipped bits. The library has 0.
+#ifndef OMT_K4_SSM_SKIP
+#define OMT_K4_SSM_SKIP 0
+#endif
+
+constexpr int kSsmTileRows = 8;  // rows a warp holds: P <= 8 warps x 8
+constexpr int kSsmTileN = 128;   // four n a lane
+
+__host__ __device__ constexpr bool ssm_tile_fits(int P, int N) {
+  return P % 8 == 0 && P <= 8 * kSsmTileRows && N % 4 == 0 && N <= kSsmTileN;
+}
+
+// four floats rounded to the state type, as store4 rounds them
+__device__ __forceinline__ float4 to_raw4(float4 v, float4*) { return v; }
+__device__ __forceinline__ uint2 to_raw4(float4 v, uint2*) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// the raw state of this lane's elements in the warp's rows (row i at `tile` + i * step)
+template <typename Raw>
+__device__ __forceinline__ void ssm_tile_fetch(Raw (&raw)[kSsmTileRows], const Raw* tile,
+                                               size_t step, int rows, bool on) {
+#pragma unroll
+  for (int i = 0; i < kSsmTileRows; ++i)
+    if (i < rows && on && !(OMT_K4_SSM_SKIP & 1)) raw[i] = __ldcs(tile + i * step);
+}
+
+// blocks an SM that the register budget must allow: five with a bf16 state (at
+// most 51 registers a thread), four with an fp32 one (64)
+template <typename ST>
+constexpr int kSsmTileBlocks = sizeof(ST) == 2 ? 5 : 4;
+
+template <typename IO, typename WT, typename ST>
+__global__ void __launch_bounds__(kSsmThreads, kSsmTileBlocks<ST>)
+k4_ssm_tile_kernel(K4Args a, int layer) {
+  using Raw = typename Raw4<ST>::type;
+  __shared__ float warp_ss[kSsmThreads / 32];
+  if (OMT_K4_SSM_SKIP & 16) return;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows = a.P / 8;  // this warp's rows: p = warp + 8 i, i < rows
+  const int n = lane * 4;    // this lane's elements n .. n + 3
+  const bool on = n < a.N;
+  // this lane's first element in row `warp` of the tile; row p + 8 lies 8 N on
+  Raw* tile = reinterpret_cast<Raw*>(static_cast<ST*>(a.ssm_state) +
+                                     (static_cast<size_t>(layer) * a.B * a.H + bh) * a.P * a.N +
+                                     static_cast<size_t>(warp) * a.N + n);
+  const size_t step = 2 * static_cast<size_t>(a.N);  // 8 N elements in units of 4
+
+  Raw raw[kSsmTileRows] = {};
+  // the state does not come from the in_proj: its loads go first
+  if (!(OMT_K4_SSM_SKIP & 32)) ssm_tile_fetch(raw, tile, step, rows, on);
+  // lane i < rows holds what row p = warp + 8 i needs besides the state (the
+  // other lanes a copy of the last row's)
+  const int own = warp + 8 * min(lane, rows - 1);
+  const float A = -expf(to_float(layer_ptr<WT>(a, kALog, layer)[h]));
+  const float Dv = to_float(layer_ptr<WT>(a, kD, layer)[h]);
+  const float gw = to_float(layer_ptr<WT>(a, kGnW, layer)[static_cast<size_t>(h) * a.P + own]);
+
+  grid_dependency_wait();  // the in_proj's outputs are complete and visible
+  if (OMT_K4_SSM_SKIP & 32) ssm_tile_fetch(raw, tile, step, rows, on);
+  const int conv_ch = a.d_inner + 2 * a.N;
+  const float* xrow = a.xbc + static_cast<size_t>(b) * conv_ch;
+  const size_t chan = static_cast<size_t>(b) * a.d_inner + static_cast<size_t>(h) * a.P;
+  float4 bq = make_float4(0.0f, 0.0f, 0.0f, 0.0f), cq = bq;
+  if (on) {
+    const float* bp = xrow + a.d_inner + n;
+    const float* cp = bp + a.N;
+    bq = make_float4(bp[0], bp[1], bp[2], bp[3]);
+    cq = make_float4(cp[0], cp[1], cp[2], cp[3]);
+  }
+  const float xv = xrow[h * a.P + own];
+  const float zv = a.z[chan + own];
+  const float dtv = a.dt[bh];
+  const float decay = expf(__fmul_rn(dtv, A));
+
+  // Each product and multiply-add is written out as k4_ssm_kernel's code
+  // compiles (its SASS): s' = fma(s, decay, dtx * B[n]), the four products
+  // fma(s3, c3, fma(s2, c2, fma(s0, c0, s1 * c1))) added to the lane's sum, so
+  // the compiler cannot contract them another way here
+  float acc[kSsmTileRows];
+#pragma unroll
+  for (int i = 0; i < kSsmTileRows; ++i) {
+    acc[i] = 0.0f;
+    if (i >= rows) continue;
+    const float dtx = __fmul_rn(dtv, __shfl_sync(0xffffffffu, xv, i));
+    if (!on) continue;
+    float4 s = raw_to_float4(raw[i]);
+    s.x = __fmaf_rn(s.x, decay, __fmul_rn(dtx, bq.x));
+    s.y = __fmaf_rn(s.y, decay, __fmul_rn(dtx, bq.y));
+    s.z = __fmaf_rn(s.z, decay, __fmul_rn(dtx, bq.z));
+    s.w = __fmaf_rn(s.w, decay, __fmul_rn(dtx, bq.w));
+    const float dot = __fmaf_rn(s.w, cq.w, __fmaf_rn(s.z, cq.z,
+                                                     __fmaf_rn(s.x, cq.x, __fmul_rn(s.y, cq.y))));
+    acc[i] = __fadd_rn(acc[i], dot);
+    if (!(OMT_K4_SSM_SKIP & 2)) __stcs(tile + i * step, to_raw4(s, static_cast<Raw*>(nullptr)));
+  }
+  // warp_sum of each row, the rows' shuffles interleaved: every lane gets y
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < kSsmTileRows; ++i)
+      if (i < rows) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+
+  // lane i < rows finishes row warp + 8 i; lane 0 sums yf^2 over them in p order
+  float y = acc[0];
+#pragma unroll
+  for (int i = 1; i < kSsmTileRows; ++i)
+    if (lane == i) y = acc[i];
+  const float yf = __fmul_rn(__fmaf_rn(Dv, xv, y), silu(zv));
+  if (lane < rows) static_cast<IO*>(a.ya)[chan + own] = from_float<IO>(__fmul_rn(yf, gw));
+  float ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kSsmTileRows; ++i) {
+    if (i >= rows) break;
+    const float yi = __shfl_sync(0xffffffffu, yf, i);
+    ss = __fmaf_rn(yi, yi, ss);
+  }
+  if (lane == 0) warp_ss[warp] = ss;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < kSsmThreads / 32; ++w) total += warp_ss[w];
+    a.sumsq[bh] = total;
+  }
+}
+
+// phase 3 of `layer`: the tile kernel, a programmatic dependent of the in_proj,
+// where the shape fits it, k4_ssm_kernel otherwise
+template <typename IO, typename WT, typename ST>
+cudaError_t launch_ssm(const K4Args& a, int layer, cudaStream_t stream) {
+  const unsigned int row_heads = static_cast<unsigned int>(a.B) * a.H;
+  if (!ssm_tile_fits(a.P, a.N)) {
+    const size_t bc_smem = 2 * static_cast<size_t>(a.N) * sizeof(float);
+    k4_ssm_kernel<IO, WT, ST><<<row_heads, kSsmThreads, bc_smem, stream>>>(a, layer);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(row_heads);
+  cfg.blockDim = dim3(kSsmThreads);
+  cfg.stream = stream;
+  if (!(OMT_K4_SSM_SKIP & 4)) {  // 4: an ordinary launch (measurement only)
+    cfg.attrs = &pdl;
+    cfg.numAttrs = 1;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k4_ssm_tile_kernel<IO, WT, ST>, a, layer);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // phase 4: out_proj of the gated, weighted yf into K-split partials
 // ---------------------------------------------------------------------------
 
@@ -977,10 +1180,11 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 // The launch is a programmatic dependent of the pre-norm, which lets it start
 // at once: the producer asks for the first stages' weight tiles (which the
 // pre-norm does not write) before griddepcontrol.wait, and for activation tiles
-// only after it. A block takes up to 96 rows (16 MT, MT from the batch; more
-// rows take more row tiles) and three blocks share an SM, so at B <= 96 the
-// weights are read once and every cluster of the grid is resident while the
-// pre-norm runs.
+// only after it. Past that wait each block lets the SSM phase, launched as its
+// own programmatic dependent, start. A block takes up to 96 rows (16 MT, MT
+// from the batch; more rows take more row tiles) and three blocks share an SM,
+// so at B <= 96 the weights are read once and every cluster of the grid is
+// resident while the pre-norm runs.
 //
 // What follows the product is in_proj_finish4's arithmetic in its order, laid
 // out to shorten the tail after the last weight byte: the LoRA product (hn @
@@ -1270,6 +1474,10 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
         weights(st, st, n);
       }
       grid_dependency_wait();  // hn is the pre-norm's output
+      // the SSM phase's blocks may start now and fetch their state while this
+      // kernel runs (they read its outputs only once it has ended); a block's
+      // first trigger counts, and none comes before griddepcontrol.wait
+      if (!(OMT_K4_SSM_SKIP & (8 | 64))) grid_launch_dependents();
       for (int st = 0; st < nstages; ++st) {
         const int slot = st % P::kStages, n = min(P::kS, ntiles - st * P::kS);
         if (st >= first) {  // into the slot once its last stage is done with
@@ -1282,6 +1490,7 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
             tma_load(ring + slot * P::kStageBytes + u * P::kABytes, &xmap,
                      (st * P::kS + u) * kTcBK + rank * 32, m0, &full[slot]);
       }
+      if (OMT_K4_SSM_SKIP & 64) grid_launch_dependents();
     }
     cluster_wait();
     return;
@@ -1308,6 +1517,7 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
   // the LoRA product (hn @ A) @ B of this thread's rows and columns does not
   // need the in_proj's: it is summed now, in q order, while the first stages land
   grid_dependency_wait();  // hn @ A is the pre-norm's
+  if (!(OMT_K4_SSM_SKIP & (8 | 64))) grid_launch_dependents();
   float4 lo[MT];
   in_pair_lora<MT>(a, ops, row0, n0 + cg * 4, lo);
 
@@ -1336,6 +1546,7 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
     __syncwarp();  // the warp is done with the stage
     if (lane == 0) mbar_arrive(&empty[slot]);
   }
+  if (OMT_K4_SSM_SKIP & 64) grid_launch_dependents();
 
   cluster_wait();  // the peer's barriers are set
   if (OMT_K4_IN_SKIP & 8) return;
@@ -1490,10 +1701,14 @@ cudaError_t launch_in_proj(const K4Args& a, int layer, bool tensor_cores, cudaSt
   return cudaGetLastError();
 }
 
-// `layer` < 0: the whole step; else the in_proj phase of that layer alone (a
-// measurement: it reads hn and hn @ A as the scratch holds them)
+// phases that run_fused_decode can launch alone, for one layer (a measurement)
+enum K4Phase : int { kPhaseInProj = 2, kPhaseSsm = 3 };
+
+// `layer_only` < 0: the whole step; else phase `phase_only` of that layer
+// alone (a measurement: it reads what it takes from the scratch as it stands)
 template <typename IO, typename WT, typename PW, typename ST>
-cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, cudaStream_t stream) {
+cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, int phase_only,
+                             cudaStream_t stream) {
   // tensor cores for bf16 activations and weights, with bf16 or int8 projections
   const size_t row_smem = static_cast<size_t>(a.d) * sizeof(float);
   const size_t bc_smem = 2 * static_cast<size_t>(a.N) * sizeof(float);
@@ -1508,19 +1723,21 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
     if (tensor_cores && !kInt8<PW> && a.in_maps == nullptr) return cudaErrorInvalidValue;
     if (tensor_cores && (err = allow_smem_tc<PW>(a.B)) != cudaSuccess) return err;
   }
-  if (layer_only >= 0) return launch_in_proj<IO, WT, PW>(a, layer_only, tensor_cores, stream);
+  if (layer_only >= 0 && phase_only == kPhaseInProj)
+    return launch_in_proj<IO, WT, PW>(a, layer_only, tensor_cores, stream);
+  if (layer_only >= 0 && phase_only == kPhaseSsm)
+    return launch_ssm<IO, WT, ST>(a, layer_only, stream);
+  if (layer_only >= 0) return cudaErrorInvalidValue;
 
   const unsigned int row_tiles = (a.B + kBM - 1) / kBM;
   const dim3 out_grid((a.d + kBN - 1) / kBN, row_tiles, a.ksplit);
   const dim3 rows(a.B);
-  const dim3 row_heads(static_cast<unsigned int>(a.B) * a.H);
 
   for (int layer = 0; layer < a.L; ++layer) {
     k4_prenorm_kernel<IO, WT><<<rows, kRowThreads, row_smem, stream>>>(a, layer);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if ((err = launch_in_proj<IO, WT, PW>(a, layer, tensor_cores, stream)) != cudaSuccess) return err;
-    k4_ssm_kernel<IO, WT, ST><<<row_heads, kSsmThreads, bc_smem, stream>>>(a, layer);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_ssm<IO, WT, ST>(a, layer, stream)) != cudaSuccess) return err;
     if constexpr (kBothBf16<IO, WT>) {
       if (tensor_cores && (err = launch_product_tc<PW>(a, layer, true, stream)) != cudaSuccess)
         return err;
@@ -1536,11 +1753,12 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
 
 template <typename IO, typename WT, typename PW>
 cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_tiles,
-                                   int layer_only, cudaStream_t stream) {
+                                   int layer_only, int phase_only, cudaStream_t stream) {
   if (state_dtype == kF32)
-    return run_fused_decode<IO, WT, PW, float>(a, whole_tiles, layer_only, stream);
+    return run_fused_decode<IO, WT, PW, float>(a, whole_tiles, layer_only, phase_only, stream);
   if (state_dtype == kBF16)
-    return run_fused_decode<IO, WT, PW, __nv_bfloat16>(a, whole_tiles, layer_only, stream);
+    return run_fused_decode<IO, WT, PW, __nv_bfloat16>(a, whole_tiles, layer_only, phase_only,
+                                                       stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1571,7 +1789,8 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // hn (null otherwise; the call fails if that path finds it null).
 // Activations and weights are both bf16 or both fp32; proj_dtype is w_dtype
 // or int8. `layer_only` < 0 runs the step; a layer index runs that layer's
-// in_proj phase alone, as the step would launch it (a measurement).
+// phase `phase_only` alone (2: the in_proj, 3: the SSM update), as the step
+// would launch it (a measurement).
 // Everything is enqueued on `stream`; nothing synchronises. Returns the first
 // cudaError_t of a launch (0 = success).
 extern "C" int omt_fused_decode_step(
@@ -1580,7 +1799,7 @@ extern "C" int omt_fused_decode_step(
     void* ssm_state, const void* h_in, const void* res_in, void* h_out, void* res_out, void* hn,
     void* hA, void* z, void* xbc, void* dt, void* ya, void* sumsq, void* part, int io_dtype,
     int w_dtype, int state_dtype, int aligned16, int proj_dtype, const void* in_maps,
-    int layer_only, void* stream) {
+    int layer_only, int phase_only, void* stream) {
   using namespace omt;
   if (L < 1 || B < 1 || d < 1 || W < 1 || r < 0 || N % 4 != 0 || H * P != d_inner ||
       ksplit < 1 || ksplit > kMaxKSplit ||
@@ -1607,13 +1826,17 @@ extern "C" int omt_fused_decode_step(
                      (2 * d_inner + 2 * N + H) % 64 == 0 && r <= kTcMaxRank;
   using bf16 = __nv_bfloat16;
   if (io_dtype == kBF16 && w_dtype == kBF16 && proj_dtype == kBF16)
-    return run_fused_decode_state<bf16, bf16, bf16>(a, state_dtype, whole, layer_only, s);
+    return run_fused_decode_state<bf16, bf16, bf16>(a, state_dtype, whole, layer_only,
+                                                    phase_only, s);
   if (io_dtype == kBF16 && w_dtype == kBF16 && proj_dtype == kI8)
-    return run_fused_decode_state<bf16, bf16, int8_t>(a, state_dtype, whole, layer_only, s);
+    return run_fused_decode_state<bf16, bf16, int8_t>(a, state_dtype, whole, layer_only,
+                                                      phase_only, s);
   if (io_dtype == kF32 && w_dtype == kF32 && proj_dtype == kF32)
-    return run_fused_decode_state<float, float, float>(a, state_dtype, whole, layer_only, s);
+    return run_fused_decode_state<float, float, float>(a, state_dtype, whole, layer_only,
+                                                       phase_only, s);
   if (io_dtype == kF32 && w_dtype == kF32 && proj_dtype == kI8)
-    return run_fused_decode_state<float, float, int8_t>(a, state_dtype, whole, layer_only, s);
+    return run_fused_decode_state<float, float, int8_t>(a, state_dtype, whole, layer_only,
+                                                        phase_only, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

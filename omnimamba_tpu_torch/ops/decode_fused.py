@@ -26,6 +26,8 @@ other case (fp32 activations and weights, and any shape that is not whole
 tiles) takes fp32 multiply-adds over shared-memory tiles, which are bound by
 operations (see the note in the source). Activations and weights of two
 different types are refused, as the model's own projections refuse them.
+The SSM update asks for a whole (row, head) tile of state at once, while the
+in_proj still runs.
 
 int8 ``{q, scale}`` in_proj and out_proj (``ops/quant.quantize_decode_params``;
 the other weights stay in the activation type) take the same kernels with the
@@ -315,7 +317,8 @@ def fused_decode_step(
 
     if plan is None:
         plan = prepare_fused_decode(layers, task, mixer_cfg, lora_cfg, h.shape[0], h.dtype)
-    h_out, res_out = _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, -1)
+    h_out, res_out = _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan,
+                             -1, 0)
     if plan.proj_dtype == torch.int8:
         fused_decode_step.int8_launches += 1
     else:
@@ -343,12 +346,43 @@ def fused_decode_in_proj(
     launch."""
     if not 0 <= layer < len(layers):
         raise ValueError(f"layer {layer} of {len(layers)}")
-    _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer)
+    _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer,
+            _PHASE_IN_PROJ)
 
 
-def _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer_only):
+def fused_decode_ssm(
+    layers: Sequence[Dict],
+    h: torch.Tensor,
+    residual: Optional[torch.Tensor],
+    cache,
+    task: Optional[str],
+    mixer_cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig],
+    norm_eps: float = 1e-5,
+    *,
+    plan: FusedDecodePlan,
+    layer: int,
+) -> None:
+    """The SSM-update phase of ``layer`` alone, on the card, as
+    ``fused_decode_step`` launches it with these arguments: a measurement of
+    one phase. It reads z, x|B|C and dt as the plan's scratch holds them (from
+    the last step), updates the layer's SSM state in place and writes the
+    scratch's gated output and sums of squares. Counts no launch."""
+    if not 0 <= layer < len(layers):
+        raise ValueError(f"layer {layer} of {len(layers)}")
+    _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer,
+            _PHASE_SSM)
+
+
+# phases the C function launches alone (omt::K4Phase in csrc/decode_fused.cu)
+_PHASE_IN_PROJ, _PHASE_SSM = 2, 3
+
+
+def _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer_only,
+            phase_only):
     """Checks the arguments and enqueues the C function: the whole step
-    (``layer_only`` -1) or one layer's in_proj phase. Returns (h_out, res_out)."""
+    (``layer_only`` -1) or phase ``phase_only`` of one layer. Returns (h_out,
+    res_out)."""
     L, B, d = len(layers), h.shape[0], mixer_cfg.d_model
     di, H, P, N, W = (mixer_cfg.d_inner, mixer_cfg.nheads, mixer_cfg.headdim, mixer_cfg.d_state,
                       mixer_cfg.d_conv)
@@ -387,7 +421,7 @@ def _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, pla
         kb.dtype_code(h.dtype), kb.dtype_code(plan.w_dtype), kb.dtype_code(ssm.dtype),
         int(plan.aligned16 and conv.data_ptr() % 16 == 0),
         kb.I8 if plan.proj_dtype == torch.int8 else kb.dtype_code(plan.proj_dtype),
-        None if plan.in_maps is None else plan.in_maps.data_ptr(), layer_only,
+        None if plan.in_maps is None else plan.in_maps.data_ptr(), layer_only, phase_only,
         kb.current_stream(h.device),
     )
     kb.check_launch(err, "fused_decode_step")

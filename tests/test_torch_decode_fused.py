@@ -425,3 +425,79 @@ def test_fused_step_matches_jax_on_tensor_core_tiles(wide_pair, B, lora):
     assert fused_decode_step.launches == before  # CPU tensors: the plain version
     close(ht, hj, 1e-5)
     assert_caches_close(fcache, out, B, mixer.d_inner, 1e-5)
+
+
+# The geometry of the card's SSM-phase tile: headdim 64 and d_state 128, so a
+# (row, head) state tile is P x N = 64 x 128, as in every layer of the 1.3B.
+_TILE_MIXER = dict(d_model=64, d_state=128, headdim=64, expand=2, chunk_size=16)
+
+
+@pytest.fixture(scope="module")
+def tile_pair():
+    """(jax model, torch model, jax backbone params, bridged torch params) at
+    d_model 64, headdim 64, d_state 128, fp32, LoRA B factors filled."""
+    from omnimamba_tpu import config as jcfg
+    from omnimamba_tpu.models.omnimamba import OmniMambaModel as JaxModel
+    from omnimamba_tpu_torch import config as tcfg
+    from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel as TorchModel
+    from tests.test_torch_helpers import _MAMBA, _VQ
+
+    mamba = {**_MAMBA, "d_model": _TILE_MIXER["d_model"]}
+    jmodel = JaxModel(cfg=jcfg.MambaConfig(mixer=jcfg.Mamba2LayerConfig(**_TILE_MIXER), **mamba),
+                      vision_cfg=jcfg.VisionConfig(), vq_cfg=jcfg.VQConfig(**_VQ), sptids={})
+    tmodel = TorchModel(cfg=tcfg.MambaConfig(mixer=tcfg.Mamba2LayerConfig(**_TILE_MIXER), **mamba),
+                        vq_cfg=tcfg.VQConfig(**_VQ), sptids={})
+    jp = init_omnimamba(jax.random.PRNGKey(2), jmodel, with_vision=False)
+    layers = dict(jp["mamba"]["layers"])
+    layers["mixer"] = fill_lora_b(layers["mixer"], np.random.default_rng(2))
+    jp = {"mamba": {**jp["mamba"], "layers": layers}, "vq": decode_side(jp["vq"])}
+    return jmodel, tmodel, jp["mamba"], bridge(jp, tmodel)["mamba"]
+
+
+@pytest.mark.parametrize("state", ["fp32", "bf16"])
+@pytest.mark.parametrize("B", [1, 5, 16, 48])
+def test_fused_step_matches_jax_on_the_ssm_tile(tile_pair, B, state):
+    """The fused step at the card's SSM tile (P x N = 64 x 128) against JAX's
+    ``backbone_step_fused`` (Pallas in interpret mode), fp32 activations. With
+    an fp32 state every output is held to 1e-5. With a bf16 state both sides
+    update in fp32 (y from the unrounded state) and round only the stored
+    state to bf16, so h and the conv windows are still held to 1e-5. The two
+    fp32 values of a state element differ in their last bits (another exp,
+    another order), and where they lie on either side of a bf16 rounding
+    boundary the stored values are adjacent bf16 numbers: one unit in the last
+    place, up to 2^-7 of the value (half a unit, 2^-8, cannot hold such a
+    pair). So each state element is held to one bf16 unit of JAX's,
+    ``2^-7 |ref| + 1e-5``, and at most 1e-4 of them may differ at all."""
+    jmodel, tmodel, jm, tm = tile_pair
+    mixer = tmodel.cfg.mixer
+    assert (mixer.headdim, mixer.d_state) == (64, 128)
+    rng = np.random.default_rng(200 + B)
+    L, W = tmodel.cfg.n_layer, mixer.d_conv
+    conv = (0.5 * rng.standard_normal((L, B, W - 1, mixer.d_conv_in))).astype(np.float32)
+    ssm = (0.5 * rng.standard_normal(
+        (L, B, mixer.nheads, mixer.headdim, mixer.d_state))).astype(np.float32)
+    tok = rng.integers(0, 32, (B,))
+    sj, st = (jnp.float32, torch.float32) if state == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    hj, fcache = jbb.backbone_step_fused(
+        jm, jnp.asarray(tok, jnp.int32), jnp.int32(L0),
+        to_fused_cache(jbb.BackboneCache(jnp.asarray(conv), jnp.asarray(ssm, sj)), mixer.d_inner),
+        "t2i", jmodel.cfg, dtype=jnp.float32)
+    before = fused_decode_step.launches
+    ht, out = tbb.backbone_step_fused(tm, tt(tok), L0,
+                                      tbb.BackboneCache(tt(conv), tt(ssm).to(st)),
+                                      "t2i", tmodel.cfg, dtype=torch.float32)
+    assert fused_decode_step.launches == before  # CPU tensors: the plain version
+    assert out.ssm_state.dtype == st and np.asarray(fcache.ssm).dtype == np.dtype(sj)
+    if state == "fp32":
+        close(ht, hj, 1e-5)
+        assert_caches_close(fcache, out, B, mixer.d_inner, 1e-5)
+        return
+    di = mixer.d_inner
+    close(ht, hj, 1e-5)
+    close(out.conv_state[..., :di], np.asarray(fcache.conv_x)[:, :B], 1e-5)
+    close(out.conv_state[..., di:], np.asarray(fcache.conv_bc)[:, :B], 1e-5)
+    got = nn(out.ssm_state.float()).reshape(L, B, di, mixer.d_state)
+    want = np.asarray(fcache.ssm.astype(jnp.float32))[:, :B]
+    err = np.abs(got - want)
+    assert (err <= 2.0 ** -7 * np.abs(want) + 1e-5).all(), float(err.max())
+    assert (err > 0).mean() <= 1e-4, int((err > 0).sum())

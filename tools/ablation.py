@@ -1,7 +1,7 @@
 """What holds a hand-written kernel back: the kernel built with parts of its
 work taken out, each build timed on the shapes of its main path.
 
-    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj]
+    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-ssm]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
@@ -27,10 +27,18 @@ entry's value, and times each build:
   time the median of three calls of 96 launches; and the 48-layer step of
   each build (median of three calls of 5 steps), where the phase starts
   while the pre-norm runs.
+- ``k4-ssm`` (``decode_fused.cu``, ``OMT_K4_SSM_SKIP``): K4's SSM-update phase
+  alone (``fused_decode_ssm``: the state update in place, y, the gate and the
+  sums of squares), each launch on the next of the 1.3B's 48 layers, at 16, 48
+  and 96 rows with a bf16 state, beside the phase's bytes at the card's memory
+  rate; each time the median of three calls of 96 launches; and the 48-layer
+  step of each build (median of three calls of 5 steps), where the phase
+  starts while the in_proj runs.
 
-Only the build with the value 0 (and, of ``k4-in-proj``, 32, 64 and 128,
-which change when work starts, not what it is) gives correct results; the build
-with 0 must equal the library's bits, which is asserted. Prints the card, one JSON line a
+Only the build with the value 0 (and, of ``k4-in-proj``, 32, 64 and 128, of
+``k4-ssm`` 4, 8, 32 and 64, which change when work starts, not what it is)
+gives correct results; the build with 0 must equal the library's bits, which
+is asserted. Prints the card, one JSON line a
 measurement, then one JSON line of all with each build's ``ptxas`` lines.
 """
 
@@ -113,47 +121,60 @@ def run_k5(libs: dict, builds: dict, rows: dict) -> None:
                 sk.BWD_BF16_CLUSTER = shipped
 
 
-def run_k4_in_proj(libs: dict, builds: dict, rows: dict) -> None:
-    import chip_smoke as cs
-    from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
-    from omnimamba_tpu_torch.ops import decode_fused as df
+def run_k4_phase(phase: str):
+    """K4's bf16 `phase` ("in_proj" or "ssm") through each build: the phase alone,
+    each launch on the next of the 48 layers, and the 48-layer step."""
 
-    cfg, lcfg = Mamba2LayerConfig(), LoraConfig()
-    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    layers = cs.fused_layers(gen, 48, cfg, lcfg, _bf)
-    for batch in (16, cs.BATCH, 2 * cs.BATCH):
-        h = cs.rand(gen, (batch, cfg.d_model), _bf)
-        cache = cs.fused_state(gen, len(layers), batch, cfg, _bf, _bf)
-        plan = df.prepare_fused_decode(layers, "t2i", cfg, lcfg, batch, _bf)
-        args = (layers, h, None, cache, "t2i", cfg, lcfg, 1e-5)
-        df.fused_decode_step(*args, plan=plan)  # the scratch holds a real hn and hn @ A
-        turn = [0]
+    def run(libs: dict, builds: dict, rows: dict) -> None:
+        import chip_smoke as cs
+        from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+        from omnimamba_tpu_torch.ops import decode_fused as df
 
-        def phase():  # each launch on the next layer: its weights come from device memory
-            df.fused_decode_in_proj(*args, plan=plan, layer=turn[0] % len(layers))
-            turn[0] += 1
+        cfg, lcfg = Mamba2LayerConfig(), LoraConfig()
+        launch = df.fused_decode_in_proj if phase == "in_proj" else df.fused_decode_ssm
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+        layers = cs.fused_layers(gen, 48, cfg, lcfg, _bf)
+        for batch in (16, cs.BATCH, 2 * cs.BATCH):
+            h = cs.rand(gen, (batch, cfg.d_model), _bf)
+            cache = cs.fused_state(gen, len(layers), batch, cfg, _bf, _bf)
+            plan = df.prepare_fused_decode(layers, "t2i", cfg, lcfg, batch, _bf)
+            args = (layers, h, None, cache, "t2i", cfg, lcfg, 1e-5)
+            df.fused_decode_step(*args, plan=plan)  # the scratch holds real inputs of the phase
+            turn = [0]
 
-        def outputs():  # z, x B C and dt after the conv step and softplus, the rolled window
-            return [plan.scratch[k].clone() for k in ("z", "xbc", "dt")] + [cache.conv_state.clone()]
+            def alone():  # each launch on the next layer: its weights and state come from memory
+                launch(*args, plan=plan, layer=turn[0] % len(layers))
+                turn[0] += 1
 
-        window = cache.conv_state.clone()
-        df.fused_decode_in_proj(*args, plan=plan, layer=0)
-        want = outputs()
-        bound = cs.k4_phase_bytes(cfg, lcfg.r, batch)["k4_in_proj"] / cs.HBM_BYTES_PER_S * 1e3
-        rec = {"shape": (batch, cfg.d_model, cfg.d_in_proj), "bound_ms": bound, "bound_by": "bytes",
-               "phase_ms": {}, "step_ms": {}}
-        for v, name in builds.items():
-            with only("omt_fused_decode_step", libs[v]):
-                if v == 0:
-                    cache.conv_state.copy_(window)
-                    df.fused_decode_in_proj(*args, plan=plan, layer=0)
-                    torch.cuda.synchronize()
-                    assert all(torch.equal(g, w) for g, w in zip(outputs(), want)), \
-                        f"the shipped build differs at B={batch}"
-                rec["phase_ms"][name] = median_ms(phase, 3, 2 * len(layers))
-                rec["step_ms"][name] = median_ms(lambda: df.fused_decode_step(*args, plan=plan), 3, 5)
-        emit(rows, f"in_proj_B{batch}", rec)
-        del cache, plan
+            # what layer 0's phase writes: z, x B C and dt after the conv step and
+            # softplus and the rolled window; or the new state, yf * w_gn and the sums of yf^2
+            if phase == "in_proj":
+                written = [plan.scratch[k] for k in ("z", "xbc", "dt")] + [cache.conv_state]
+            else:
+                written = [cache.ssm_state[0]] + [plan.scratch[k] for k in ("ya", "sumsq")]
+            updated = written[-1] if phase == "in_proj" else written[0]  # updated in place
+            before = updated.clone()
+            launch(*args, plan=plan, layer=0)
+            want = [t.clone() for t in written]
+            bound = cs.k4_phase_bytes(cfg, lcfg.r, batch)[f"k4_{phase}"] / cs.HBM_BYTES_PER_S * 1e3
+            rec = {"shape": ((batch, cfg.d_model, cfg.d_in_proj) if phase == "in_proj" else
+                             (batch, cfg.nheads, cfg.headdim, cfg.d_state)),
+                   "bound_ms": bound, "bound_by": "bytes", "phase_ms": {}, "step_ms": {}}
+            for v, name in builds.items():
+                with only("omt_fused_decode_step", libs[v]):
+                    if v == 0:
+                        updated.copy_(before)
+                        launch(*args, plan=plan, layer=0)
+                        torch.cuda.synchronize()
+                        assert all(torch.equal(g, w) for g, w in zip(written, want)), \
+                            f"the shipped build differs at B={batch}"
+                    rec["phase_ms"][name] = median_ms(alone, 3, 2 * len(layers))
+                    rec["step_ms"][name] = median_ms(lambda: df.fused_decode_step(*args, plan=plan),
+                                                     3, 5)
+            emit(rows, f"{phase}_B{batch}", rec)
+            del cache, plan, written, want, updated, before
+
+    return run
 
 
 # name -> (rows, K, O, (O, K) table, out dtype)
@@ -237,7 +258,13 @@ TARGETS = {
                     7: "launch, barriers and epilogue only", 15: "launch and barriers only",
                     16: "launch only", 32: "no weights before the pre-norm ends",
                     64: "ordinary launch", 128: "no L2 prefetch for the epilogue"},
-                   run_k4_in_proj),
+                   run_k4_phase("in_proj")),
+    "k4-ssm": ("decode_fused.cu", "omt_fused_decode_step", "OMT_K4_SSM_SKIP",
+               {0: "as shipped", 1: "no state loads", 2: "no state stores",
+                3: "no state traffic", 16: "launch only", 4: "ordinary launch",
+                8: "no early start", 32: "state loads after the wait",
+                64: "early start near the in_proj's end"},
+               run_k4_phase("ssm")),
 }
 
 

@@ -13,13 +13,15 @@ layers and inputs from the seed of `chip_smoke.py`, and:
 
 - saves h, the residual, the conv windows and the SSM states after one step
   through 1 layer and through 48 layers at B=48, and through 1 layer at B=96
-  (bf16 state, LoRA rank 8, task t2i) to FILE;
+  (bf16 state, LoRA rank 8, task t2i), through 48 layers at B=16 with an fp32
+  state, and through 48 layers at B=48 on `quantize_decode_params` of the
+  layers (int8 in_proj and out_proj) to FILE;
 - times the 48-layer step (CUDA events around 10 queued steps) and profiles 3
   steps at B = 16, 48 and 96 with the time of each of K4's phase kernels,
   and the part of it that no earlier kernel overlaps (the bf16 in_proj starts
-  while the pre-norm runs);
-- does the same at B=48 for `quantize_decode_params` of the layers (int8
-  in_proj and out_proj).
+  while the pre-norm runs, the SSM update while the in_proj runs);
+- does the same with an fp32 state at B = 8 and 16, and at B=48 on the int8
+  layers.
 
 Prints the card, then one JSON line. The second form asserts that every saved
 tensor of A equals B's bit for bit and prints one JSON line.
@@ -79,35 +81,45 @@ def probe(root: Path, out: Path) -> dict:
     layers = cs.fused_layers(gen, 48, cfg, lcfg, bf)
     rec, saved = {"root": str(root)}, {}
 
-    def inputs(n_layer, B):
-        return (cs.rand(gen, (B, cfg.d_model), bf), cs.rand(gen, (B, cfg.d_model), torch.float32),
-                cs.fused_state(gen, n_layer, B, cfg, bf, bf))
+    qlayers = quantize_decode_params({"layers": layers})["layers"]
 
-    for n_layer, B in ((1, cs.BATCH), (48, cs.BATCH), (1, 2 * cs.BATCH)):
-        h, residual, cache = inputs(n_layer, B)
-        plan = prepare_fused_decode(layers[:n_layer], "t2i", cfg, lcfg, B, bf)
-        h_out, res_out, _ = fused_decode_step(layers[:n_layer], h, residual, cache, "t2i", cfg,
-                                              lcfg, 1e-5, plan=plan)
+    def inputs(n_layer, B, state=bf):
+        return (cs.rand(gen, (B, cfg.d_model), bf), cs.rand(gen, (B, cfg.d_model), torch.float32),
+                cs.fused_state(gen, n_layer, B, cfg, bf, state))
+
+    # key, layers, rows, state dtype
+    for key, stack, B, state in (
+            (f"L1_B{cs.BATCH}", layers[:1], cs.BATCH, bf),
+            (f"L48_B{cs.BATCH}", layers, cs.BATCH, bf),
+            (f"L1_B{2 * cs.BATCH}", layers[:1], 2 * cs.BATCH, bf),
+            ("L48_B16_fp32_state", layers, 16, torch.float32),
+            (f"L48_B{cs.BATCH}_int8", qlayers, cs.BATCH, bf)):
+        h, residual, cache = inputs(len(stack), B, state)
+        plan = prepare_fused_decode(stack, "t2i", cfg, lcfg, B, bf)
+        h_out, res_out, _ = fused_decode_step(stack, h, residual, cache, "t2i", cfg, lcfg, 1e-5,
+                                              plan=plan)
         torch.cuda.synchronize()
-        key = f"L{n_layer}_B{B}"
         saved.update({f"{key}_h": h_out, f"{key}_residual": res_out,
                       f"{key}_conv_window": cache.conv_state, f"{key}_ssm_state": cache.ssm_state})
+        del cache, plan
     torch.save({k: v.cpu() for k, v in saved.items()}, out)
     del saved
 
-    def timed(stack, B, key):
-        h, _, cache = inputs(len(stack), B)
+    def timed(stack, B, key, state=bf):
+        h, _, cache = inputs(len(stack), B, state)
         plan = prepare_fused_decode(stack, "t2i", cfg, lcfg, B, bf)
 
         def step():
             fused_decode_step(stack, h, None, cache, "t2i", cfg, lcfg, 1e-5, plan=plan)
 
-        rec[key] = {"batch": B, "step_ms": cs.time_ms(step, 10), **profile(step)}
+        rec[key] = {"batch": B, "state": str(state), "step_ms": cs.time_ms(step, 10),
+                    **profile(step)}
         print(json.dumps({key: rec[key]}), flush=True)
 
     for B in (16, cs.BATCH, 2 * cs.BATCH):
         timed(layers, B, f"bf16_B{B}")
-    qlayers = quantize_decode_params({"layers": layers})["layers"]
+    for B in (8, 16):
+        timed(layers, B, f"bf16_B{B}_fp32_state", torch.float32)
     del layers
     torch.cuda.empty_cache()
     timed(qlayers, cs.BATCH, f"int8_B{cs.BATCH}")
