@@ -843,13 +843,20 @@ def check_decode_fused(gen, results):
     # multiple of 8; N above 128): the step kernel's row code runs them
     narrow_p12 = Mamba2LayerConfig(d_model=24, d_state=20, headdim=12, d_conv=3)
     narrow_n132 = Mamba2LayerConfig(d_model=24, d_state=132, headdim=16, d_conv=3)
+    # whole tensor-core tiles at other widths (in_proj widths 4,416 and 6,464):
+    # the early pre-norm takes d = 1,024 (both of its instantiations there,
+    # with and without LoRA); d = 1,536 is not a whole number of its rows, so
+    # the pre-norm there is k4_prenorm_kernel beside the tensor-core products
+    d1024 = Mamba2LayerConfig(d_model=1024, headdim=32)
+    d1536 = Mamba2LayerConfig(d_model=1536, headdim=48)
     bf, f32 = torch.bfloat16, torch.float32
     # name: layers, mixer cfg, lora cfg, weight dtype; each stack is made once
     sizes = {"full_bf16": (48, full, lora8, bf), "full_f32": (48, full, lora8, f32),
              "narrow_f32": (2, narrow, LoraConfig(r=4), f32),
              "narrow_bf16": (2, narrow, LoraConfig(r=4), bf),
              "narrow_p12_bf16": (2, narrow_p12, LoraConfig(r=4), bf),
-             "narrow_n132_f32": (2, narrow_n132, LoraConfig(r=4), f32)}
+             "narrow_n132_f32": (2, narrow_n132, LoraConfig(r=4), f32),
+             "d1024_bf16": (1, d1024, lora8, bf), "d1536_bf16": (1, d1536, lora8, bf)}
     stacks = {}
 
     def stack(name):
@@ -874,7 +881,16 @@ def check_decode_fused(gen, results):
         ("awkward_d_state_132", "narrow_n132_f32", 2, 3, narrow_n132, LoraConfig(r=4), "mmu",
          f32, f32, f32),
         ("main", "full_bf16", 48, BATCH, full, lora8, "t2i", bf, bf, bf),
+        ("d_model_1024_bf16", "d1024_bf16", 1, BATCH, d1024, lora8, "t2i", bf, bf, bf),
+        ("d_model_1024_no_lora_bf16", "d1024_bf16", 1, 2 * BATCH, d1024, lora8, None, bf, bf, bf),
+        ("d_model_1536_bf16", "d1536_bf16", 1, BATCH, d1536, lora8, "t2i", bf, bf, bf),
     ]
+    # the pre-norm kernel each bf16 case on whole tiles must run (by name)
+    prenorm_of = {"main_1_layer": "k4_prenorm_early_kernel<2, 8>",
+                  "cfg_batch_no_lora": "k4_prenorm_early_kernel<2, 0>",
+                  "d_model_1024_bf16": "k4_prenorm_early_kernel<1, 8>",
+                  "d_model_1024_no_lora_bf16": "k4_prenorm_early_kernel<1, 0>",
+                  "d_model_1536_bf16": "k4_prenorm_kernel<"}
     for name, sname, n_layer, B, cfg, lcfg, task, io, wdtype, sdtype in cases:
         layers = stack(sname)[:n_layer]
         cache0 = fused_state(gen, n_layer, B, cfg, io, sdtype)
@@ -931,6 +947,12 @@ def check_decode_fused(gen, results):
                     "ssm_state": torch.equal(c3.ssm_state, cache.ssm_state[:, :3])}
             rec["rows_0_to_2_equal_to_3_row_step"] = same
             assert all(same.values()), rec
+        if name in prenorm_of:
+            ran = [k for k in kernel_names(lambda: fused_decode_step(
+                layers, h, residual, cache, *args, plan=plan)) if "k4_prenorm" in k]
+            rec["prenorm_kernels"] = ran
+            want = prenorm_of[name].replace(" ", "")
+            assert ran and all(want in k.replace(" ", "") for k in ran), (name, ran)
         if name == "main":
             r = lcfg.r
             moved = fused_step_bytes(layers, cache, h, task)
@@ -992,6 +1014,15 @@ def check_decode_fused(gen, results):
     results["decode_fused"]["in_proj_phase"] = {k: rec[k] for k in ("by_batch", "ptxas", "sass")
                                                 if k in rec}
 
+    rec = prenorm_phase(gen, stack("full_bf16"), full, lora8, "t2i")
+    if results.get("build_log"):  # every instantiation of the early pre-norm: no spills
+        rec["ptxas"] = ptxas_of(results["build_log"], "k4_prenorm_early")
+        assert rec["ptxas"] and len(rec["ptxas"]) == 4 and all(
+            "0 bytes spill stores" in " ".join(v) for v in rec["ptxas"].values()), rec["ptxas"]
+    emit({"kernel_check": rec})
+    results["decode_fused"]["prenorm_phase"] = {k: rec[k] for k in ("by_batch", "ptxas")
+                                                if k in rec}
+
     rec = ssm_phase(gen, stack("full_bf16"), full, lora8, "t2i")
     if results.get("build_log"):  # every instantiation of the SSM phase's tile kernel: no spills
         rec["ptxas"] = ptxas_of(results["build_log"], "k4_ssm_tile")
@@ -1013,6 +1044,73 @@ def check_decode_fused(gen, results):
     results["decode_fused"]["fused_against_scan_ms"] = against
     stacks.clear()
     torch.cuda.empty_cache()
+
+
+def kernel_names(fn) -> list:
+    """The names of the device kernels one call of `fn` launches (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+
+def prenorm_phase(gen, layers, cfg, lcfg, task):
+    """K4's bf16 pre-norm phase (the previous layer's out_proj finished, the
+    residual add, the RMSNorm and hn @ A) of one layer alone, as the step
+    launches it (`fused_decode_prenorm`, on a running residual it updates in
+    place), at 16, 48 and 96 rows: device ms beside the bytes it must move at
+    the card's memory rate, and beside `F.rms_norm` of the same (B, d) bf16
+    rows with the layer's weight (the norm half only: no out_proj to finish,
+    no residual, no hn @ A; it does not compute the phase's function, so
+    library_ms stays null). Each launch takes the next of the 48 layers, so
+    its weights come from device memory. Beside them the phase inside the
+    48-layer step (profile of 3 steps): each kernel's time and the part of it
+    that no earlier kernel overlaps."""
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_prenorm, fused_decode_step, prepare_fused_decode)
+
+    bf = torch.bfloat16
+    by_batch = {}
+    for b in (16, BATCH, 2 * BATCH):
+        h = rand(gen, (b, cfg.d_model), bf)
+        residual = rand(gen, (b, cfg.d_model), torch.float32)
+        cache = fused_state(gen, len(layers), b, cfg, bf, bf)
+        plan = prepare_fused_decode(layers, task, cfg, lcfg, b, bf)
+        args = (layers, h, None, cache, task, cfg, lcfg, 1e-5)
+        fused_decode_step(*args, plan=plan)  # the scratch holds real partials and sums of squares
+        norm_w = [layer["norm"]["weight"] for layer in layers]
+        turn = [0]
+
+        def phase():
+            fused_decode_prenorm(layers, h, residual, *args[3:], plan=plan,
+                                 layer=turn[0] % len(layers))
+            turn[0] += 1
+
+        def norm():
+            F.rms_norm(h, (cfg.d_model,), norm_w[turn[0] % len(layers)], 1e-5)
+            turn[0] += 1
+
+        phase_bytes = k4_phase_bytes(cfg, lcfg.r, b)["k4_prenorm"]
+        ms = time_ms(phase, 2 * len(layers))
+        prof = profile_steps(lambda i: fused_decode_step(*args, plan=plan), 3, named=K4_PHASES)
+        bound = phase_bytes / HBM_BYTES_PER_S * 1e3
+        by_batch[f"B{b}"] = {
+            "ms": ms, "bound_ms": bound, "share_of_bound": bound / ms, "bytes": phase_bytes,
+            "rms_norm_ms": time_ms(norm, 2 * len(layers)),
+            "step_ms_per_layer": {k: v / len(layers) for k, v in prof["named_ms_per_step"].items()},
+            "step_exposed_ms_per_layer": {
+                k: v / len(layers) for k, v in prof["named_exposed_ms_per_step"].items()},
+            "step_device_busy_ms": prof["device_busy_ms_per_step"],
+        }
+        del cache, plan
+    return {"kernel": "decode_fused", "case": "prenorm_phase", "layers": 1, "d_model": cfg.d_model,
+            "lora_rank": lcfg.r, "dtype": str(bf), "by_batch": by_batch,
+            "rms_norm_note": "F.rms_norm of the (B, d) bf16 rows with the layer's weight: the "
+                             "norm half alone (no out_proj to finish, no residual, no hn @ A), "
+                             "a yardstick, not the phase's function"}
 
 
 def in_proj_phase(gen, layers, cfg, lcfg, task):
@@ -1693,14 +1791,16 @@ def main_path(results, card):
         }
 
     profiles = {path: profile_decode_steps(mamba, cfg, ids, embed(), path,
-                                           named=K4_PHASES + ("k4_ssm_tile",) if path == "fused"
-                                           else ())
+                                           named=K4_PHASES + ("k4_ssm_tile", "k4_prenorm_early")
+                                           if path == "fused" else ())
                 for path in ("fused", "scan")}
     profiles["fused"]["k4_phases"] = k4_phase_split(profiles["fused"], cfg, BATCH)
     emit({"decode_profile": dict(profiles, card=card)})
-    # the SSM phase of the generation went through its tile kernel, and only through it
+    # the SSM phase of the generation went through its tile kernel, and only
+    # through it; the pre-norm through the early pre-norm, and only through it
     named = profiles["fused"]["named_ms_per_step"]
     assert named["k4_ssm_tile"] > 0 and named["k4_ssm_tile"] == named["k4_ssm"], named
+    assert named["k4_prenorm_early"] > 0 and named["k4_prenorm_early"] == named["k4_prenorm"], named
     results["decode_fused"]["scan_step_device_ms"] = profiles["scan"]["device_busy_ms_per_step"]
 
     torch.cuda.synchronize()
@@ -2773,8 +2873,8 @@ def main() -> int:
             "chunk_states_bytes", "bound_with_states_ms", "ms_median_of_5_launches", "ptxas",
             "dynamic_smem_bytes", "sass",
             "library_note", "scan_step_device_ms",
-            "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "in_proj_phase",
-            "ssm_phase", "layout",
+            "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "prenorm_phase",
+            "in_proj_phase", "ssm_phase", "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
                     if k in r})
         kernels.append(row)

@@ -27,7 +27,10 @@
 //   1. pre-norm      one block per batch row: finishes the previous layer's
 //                    out_proj (fixed-order sum of its K splits, times the
 //                    row's rstd, rounded to io), adds the residual, norms,
-//                    and computes hn @ A_lora.
+//                    and computes hn @ A_lora. In bf16 on the tensor-core
+//                    path, at the shapes prenorm_row_fits takes, it is
+//                    launched as a programmatic dependent of the out_proj and
+//                    fetches its weights while that runs.
 //   2. in_proj       blocks tile rows x (64 columns) of the
 //                    (B, d) x (d, 2*d_inner + 2N + H) product, so every weight
 //                    byte is read from device memory once; on its finished
@@ -80,7 +83,8 @@
 // out_proj K-split partial). The other weights keep the activation type.
 // The state update has a whole (row, head) tile of state in flight per block
 // from its first cycles, fetched while the in_proj runs, in the step
-// kernel's arithmetic and order. What keeps the step above its bound is
+// kernel's arithmetic and order; the pre-norm has its weights in registers
+// and the loads of its row in flight at once. What keeps the step above its bound is
 // recorded in PERF.md, phase by phase; four short kernels a layer leave the
 // card partly idle at each boundary.
 // All sums are taken in a fixed order (no atomics): a step gives the same bits
@@ -245,6 +249,236 @@ __global__ void __launch_bounds__(kRowThreads) k4_prenorm_kernel(K4Args a, int l
         for (int w = 0; w < kRowThreads / 32; ++w) total += warp_part[w][threadIdx.x];
         a.hA[static_cast<size_t>(b) * a.r + j0 + threadIdx.x] = total;
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phase 1 for bf16 activations and weights: started while the out_proj ends
+// ---------------------------------------------------------------------------
+// k4_prenorm_kernel above is an ordinary launch behind the out_proj and walks
+// a chain of dependent steps: one warp reduces the gated norm's partial sums,
+// a barrier; the K-split partials and the residual; block_sum's two barriers;
+// only then the norm weight and LoRA A from device memory, by which time the
+// in_proj, which its first instruction let start, streams W_in through the
+// same memory; then eight warp trees, two barriers and a serial tail for
+// hn @ A. Here the same block of 1,024 threads a row, with the same thread ->
+// element map (thread t owns i = t and t + 1,024), is a programmatic
+// dependent of the out_proj, whose blocks let it start as they begin. Before
+// griddepcontrol.wait a thread reads only what no running kernel writes: its
+// norm weights and its rows of A, into registers. After the wait every warp
+// reads the row's gated-norm partial sums itself (so no barrier stands before
+// the row), beside the thread's K-split partials and residual, all issued
+// back to back; nothing is written before the wait. One barrier passes the
+// warps' sums of squares, one the warps' sums of hn @ A, whose columns leave
+// a warp through one transposing xor tree (9 shuffles where eight warp_sums
+// take 40) that forms warp_sum's very sums. The in_proj may start once the
+// wait has returned: its weight copies then overlap this kernel's work, not
+// the out_proj's (tools/ablation.py k4-prenorm times the other placements).
+//
+// The arithmetic is k4_prenorm_kernel's, in its order and contraction, written
+// out with intrinsics as the parent kernel's SASS shows it: the K splits summed
+// in split order, total * rstd rounded to bf16 before the residual add,
+// ss = fma(v, v, ss) over a thread's elements in i order, warp_sum's tree,
+// then the same tree over the 32 warp totals; rsqrtf(ss / d + eps); hn =
+// round((v * rstd) * w); acc = fma(hn, A, acc) in i order, warp_sum's tree,
+// the 32 warp sums added in warp order. So every output keeps its bits. The
+// launch takes this kernel for d of 1,024 or 2,048, LoRA rank 0 or 8, at most
+// 128 heads and 4 K splits (`prenorm_row_fits`: the 1.3B), k4_prenorm_kernel
+// for other shapes.
+
+// Measurement only: tools/ablation.py k4-prenorm builds this file with
+// OMT_K4_PRE_SKIP set to a sum of 1 (no reads of the out_proj's partials or
+// the sums of squares: they read as zeros), 2 (no norm-weight or LoRA A reads:
+// the weights read as ones, A as zeros) and 4 (no hn @ A), or to 8 (the launch
+// alone), to time what is left of the early pre-norm, whose results are then
+// wrong; or to 16 (an ordinary launch, no programmatic dependency), 32 (the
+// in_proj may start at the pre-norm's first instruction), 64 (the in_proj may
+// start once hn is written), 128 (the out_proj does not let the pre-norm start
+// before its blocks end) or 256 (the in_proj may start once the row's sum of
+// squares is known), which change when work starts and give the shipped bits.
+// The library has 0.
+#ifndef OMT_K4_PRE_SKIP
+#define OMT_K4_PRE_SKIP 0
+#endif
+
+constexpr int kPreMaxHeads = 128;   // gated-norm partial sums of a row: 4 a lane
+constexpr int kPreMaxKSplit = 4;
+
+__host__ __device__ constexpr bool prenorm_row_fits(int d, int r, int H, int ksplit) {
+  return (d == kRowThreads || d == 2 * kRowThreads) && (r == 0 || r == 8) && H <= kPreMaxHeads &&
+         ksplit <= kPreMaxKSplit;
+}
+
+// The sums over the warp's lanes of each of a lane's R values, by warp_sum's
+// xor tree (lane offsets 16, 8, 4, 2, 1), but while more than one value is
+// left a lane gives half of them away at each level: where its offset bit is
+// set it keeps the upper half and sends the lower, else the other way round.
+// Each sum it forms is the sum warp_sum forms at that node (fp32 addition is
+// commutative), so the result equals warp_sum of that value. Returns the sum
+// of value lane / (32 / R), which lanes (32 / R) c .. (32 / R) (c + 1) - 1 hold.
+template <int R>
+__device__ __forceinline__ float warp_sum_columns(const float (&v)[R], int lane) {
+  static_assert(R >= 1 && R <= 32 && (R & (R - 1)) == 0, "R a power of two up to 32");
+  float cur[R];
+#pragma unroll
+  for (int c = 0; c < R; ++c) cur[c] = v[c];
+#pragma unroll
+  for (int level = 0; level < 5; ++level) {
+    const int off = 16 >> level;
+    const int half = (R >> level) / 2;  // values given away at this level; 0 once one is left
+    if (half > 0) {
+      const bool up = (lane & off) != 0;
+#pragma unroll
+      for (int c = 0; c < half; ++c) {
+        const float mine = up ? cur[c + half] : cur[c];
+        const float other = up ? cur[c] : cur[c + half];
+        cur[c] = mine + __shfl_xor_sync(0xffffffffu, other, off);
+      }
+    } else {
+      cur[0] += __shfl_xor_sync(0xffffffffu, cur[0], off);
+    }
+  }
+  return cur[0];
+}
+
+// E elements a thread (d = 1,024 E), LoRA rank R
+template <int E, int R>
+__global__ void __launch_bounds__(kRowThreads) k4_prenorm_early_kernel(K4Args a, int layer) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kWarps = kRowThreads / 32;
+  __shared__ float warp_ss[kWarps];
+  if (OMT_K4_PRE_SKIP & 8) return;
+
+  const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const size_t row = static_cast<size_t>(b) * (E * kRowThreads);
+
+  // no running kernel writes the layer's weights: they are asked for first
+  unsigned short w_raw[E];
+  uint4 a_raw[E][R > 0 ? R / 8 : 1];
+  {
+    const unsigned short* wp =
+        reinterpret_cast<const unsigned short*>(layer_ptr<bf16>(a, kNormW, layer));
+    const uint4* ap = reinterpret_cast<const uint4*>(layer_ptr<bf16>(a, kLoraA, layer));
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int i = t + k * kRowThreads;
+      w_raw[k] = (OMT_K4_PRE_SKIP & 2) ? 0x3f80 : __ldg(wp + i);  // 0x3f80: bf16 one
+#pragma unroll
+      for (int q = 0; q < R / 8; ++q)
+        a_raw[k][q] = (OMT_K4_PRE_SKIP & 2) ? make_uint4(0, 0, 0, 0)
+                                            : __ldg(ap + static_cast<size_t>(i) * (R / 8) + q);
+    }
+  }
+  if (OMT_K4_PRE_SKIP & 32) grid_launch_dependents();
+  grid_dependency_wait();  // the out_proj's partials and the sums of squares are visible
+  // the in_proj's blocks may start and fetch W_in; they read hn and hn @ A
+  // only once this kernel has ended
+  if (!(OMT_K4_PRE_SKIP & (32 | 64 | 256))) grid_launch_dependents();
+
+  float* res = a.res + row;
+  float v[E];
+  if (layer == 0) {
+    const bf16* h = static_cast<const bf16*>(a.h_in) + row;
+    const float* rin = (a.res_in != nullptr) ? a.res_in + row : nullptr;
+    float hv[E], rv[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      hv[k] = to_float(h[t + k * kRowThreads]);
+      rv[k] = (rin != nullptr) ? rin[t + k * kRowThreads] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < E; ++k) v[k] = (rin != nullptr) ? __fadd_rn(hv[k], rv[k]) : hv[k];
+  } else {
+    // every load of the row goes out before the first use of a loaded value
+    constexpr bool kRead = !(OMT_K4_PRE_SKIP & 1);
+    float sq[kPreMaxHeads / 32], p[kPreMaxKSplit][E], r0[E];
+    const float* sp = a.sumsq + static_cast<size_t>(b) * a.H;
+#pragma unroll
+    for (int j = 0; j < kPreMaxHeads / 32; ++j)
+      sq[j] = (kRead && lane + 32 * j < a.H) ? sp[lane + 32 * j] : 0.0f;
+#pragma unroll
+    for (int s = 0; s < kPreMaxKSplit; ++s)
+#pragma unroll
+      for (int k = 0; k < E; ++k)
+        p[s][k] = (kRead && s < a.ksplit)
+                      ? a.part[(static_cast<size_t>(s) * a.B + b) * a.d + t + k * kRowThreads]
+                      : 0.0f;
+#pragma unroll
+    for (int k = 0; k < E; ++k) r0[k] = res[t + k * kRowThreads];
+
+    // gated_rstd: heads lane, lane + 32, ... in that order, then the lanes' tree
+    float total = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kPreMaxHeads / 32; ++j)
+      if (lane + 32 * j < a.H) total = __fadd_rn(total, sq[j]);
+    total = warp_sum(total);
+    const float rstd_prev = rsqrtf(__fadd_rn(__fdiv_rn(total, static_cast<float>(a.d_inner)),
+                                             a.gn_eps));
+    // finished_out_proj: the K splits in split order, times rstd, rounded to bf16
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      float o = 0.0f;
+#pragma unroll
+      for (int s = 0; s < kPreMaxKSplit; ++s)
+        if (s < a.ksplit) o = __fadd_rn(o, p[s][k]);
+      v[k] = __fadd_rn(to_float(from_float<bf16>(__fmul_rn(o, rstd_prev))), r0[k]);
+    }
+  }
+
+  // the row's sum of squares: block_sum's tree, one barrier (warp_ss is fresh)
+  float ss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    res[t + k * kRowThreads] = v[k];
+    ss = __fmaf_rn(v[k], v[k], ss);
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) warp_ss[warp] = ss;
+  __syncthreads();
+  if (OMT_K4_PRE_SKIP & 256) grid_launch_dependents();
+  ss = warp_sum(warp_ss[lane]);
+  const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(a.d)), a.norm_eps));
+
+  bf16* hn = static_cast<bf16*>(a.hn) + row;
+  float x[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const float wk = __uint_as_float(static_cast<unsigned int>(w_raw[k]) << 16);
+    const bf16 q = __float2bfloat16_rn(__fmul_rn(__fmul_rn(v[k], rstd), wk));
+    hn[t + k * kRowThreads] = q;
+    x[k] = __bfloat162float(q);
+  }
+  if (OMT_K4_PRE_SKIP & 64) grid_launch_dependents();
+
+  if constexpr (R > 0) {
+    if (OMT_K4_PRE_SKIP & 4) return;
+    // hn @ A: a thread's elements in i order, one fma chain a column
+    float acc[R];
+#pragma unroll
+    for (int c = 0; c < R; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < E; ++k)
+#pragma unroll
+      for (int q = 0; q < R / 8; ++q) {
+        const uint32_t u[4] = {a_raw[k][q].x, a_raw[k][q].y, a_raw[k][q].z, a_raw[k][q].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[e]));
+          acc[8 * q + 2 * e] = __fmaf_rn(x[k], f.x, acc[8 * q + 2 * e]);
+          acc[8 * q + 2 * e + 1] = __fmaf_rn(x[k], f.y, acc[8 * q + 2 * e + 1]);
+        }
+      }
+    __shared__ float warp_hA[kWarps][R];
+    constexpr int kLanesPerColumn = 32 / R;
+    const float col = warp_sum_columns<R>(acc, lane);
+    if (lane % kLanesPerColumn == 0) warp_hA[warp][lane / kLanesPerColumn] = col;
+    __syncthreads();
+    if (t < R) {  // the warps' sums in warp order
+      float total = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) total = __fadd_rn(total, warp_hA[w][t]);
+      a.hA[static_cast<size_t>(b) * R + t] = total;
     }
   }
 }
@@ -1139,6 +1373,10 @@ template <int MT, typename PW>
 __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, int layer) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   using bf16 = __nv_bfloat16;
+  // the next layer's pre-norm may be launched as a programmatic dependent of
+  // this kernel: its blocks may start now and fetch the layer's weights; they
+  // read the partials only once this kernel has ended
+  if (!(OMT_K4_PRE_SKIP & 128)) grid_launch_dependents();
   const int n0 = blockIdx.x * kTcBN;
   const int m0 = blockIdx.y * MT * 16;
   const int split = blockIdx.z;
@@ -1178,9 +1416,10 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 // mma.sync m16n8k16.
 //
 // The launch is a programmatic dependent of the pre-norm, which lets it start
-// at once: the producer asks for the first stages' weight tiles (which the
-// pre-norm does not write) before griddepcontrol.wait, and for activation tiles
-// only after it. Past that wait each block lets the SSM phase, launched as its
+// once the pre-norm's own griddepcontrol.wait has returned (k4_prenorm_kernel:
+// at its first instruction): the producer asks for the first stages' weight
+// tiles (which the pre-norm does not write) before griddepcontrol.wait, and
+// for activation tiles only after it. Past that wait each block lets the SSM phase, launched as its
 // own programmatic dependent, start. A block takes up to 96 rows (16 MT, MT
 // from the batch; more rows take more row tiles) and three blocks share an SM,
 // so at B <= 96 the weights are read once and every cluster of the grid is
@@ -1702,7 +1941,44 @@ cudaError_t launch_in_proj(const K4Args& a, int layer, bool tensor_cores, cudaSt
 }
 
 // phases that run_fused_decode can launch alone, for one layer (a measurement)
-enum K4Phase : int { kPhaseInProj = 2, kPhaseSsm = 3 };
+enum K4Phase : int { kPhasePrenorm = 1, kPhaseInProj = 2, kPhaseSsm = 3 };
+
+template <int E, int R>
+cudaError_t launch_prenorm_early(const cudaLaunchConfig_t& cfg, const K4Args& a, int layer) {
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k4_prenorm_early_kernel<E, R>, a, layer);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// phase 1 of `layer`: with `early` (bf16 on the tensor-core path, a shape that
+// prenorm_row_fits) the early kernel, a programmatic dependent of the
+// out_proj; k4_prenorm_kernel otherwise
+template <typename IO, typename WT>
+cudaError_t launch_prenorm(const K4Args& a, int layer, bool early, cudaStream_t stream) {
+  if constexpr (kBothBf16<IO, WT>) {
+    if (early) {
+      cudaLaunchAttribute pdl;
+      pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      pdl.val.programmaticStreamSerializationAllowed = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(a.B);
+      cfg.blockDim = dim3(kRowThreads);
+      cfg.stream = stream;
+      if (!(OMT_K4_PRE_SKIP & 16)) {  // 16: an ordinary launch (measurement only)
+        cfg.attrs = &pdl;
+        cfg.numAttrs = 1;
+      }
+      if (a.d == kRowThreads)
+        return a.r ? launch_prenorm_early<1, 8>(cfg, a, layer)
+                   : launch_prenorm_early<1, 0>(cfg, a, layer);
+      return a.r ? launch_prenorm_early<2, 8>(cfg, a, layer)
+                 : launch_prenorm_early<2, 0>(cfg, a, layer);
+    }
+  }
+  const size_t row_smem = static_cast<size_t>(a.d) * sizeof(float);
+  k4_prenorm_kernel<IO, WT><<<a.B, kRowThreads, row_smem, stream>>>(a, layer);
+  return cudaGetLastError();
+}
 
 // `layer_only` < 0: the whole step; else phase `phase_only` of that layer
 // alone (a measurement: it reads what it takes from the scratch as it stands)
@@ -1723,6 +1999,10 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
     if (tensor_cores && !kInt8<PW> && a.in_maps == nullptr) return cudaErrorInvalidValue;
     if (tensor_cores && (err = allow_smem_tc<PW>(a.B)) != cudaSuccess) return err;
   }
+  const bool early_prenorm =
+      kBothBf16<IO, WT> && tensor_cores && prenorm_row_fits(a.d, a.r, a.H, a.ksplit);
+  if (layer_only >= 0 && phase_only == kPhasePrenorm)
+    return launch_prenorm<IO, WT>(a, layer_only, early_prenorm, stream);
   if (layer_only >= 0 && phase_only == kPhaseInProj)
     return launch_in_proj<IO, WT, PW>(a, layer_only, tensor_cores, stream);
   if (layer_only >= 0 && phase_only == kPhaseSsm)
@@ -1734,8 +2014,7 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
   const dim3 rows(a.B);
 
   for (int layer = 0; layer < a.L; ++layer) {
-    k4_prenorm_kernel<IO, WT><<<rows, kRowThreads, row_smem, stream>>>(a, layer);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_prenorm<IO, WT>(a, layer, early_prenorm, stream)) != cudaSuccess) return err;
     if ((err = launch_in_proj<IO, WT, PW>(a, layer, tensor_cores, stream)) != cudaSuccess) return err;
     if ((err = launch_ssm<IO, WT, ST>(a, layer, stream)) != cudaSuccess) return err;
     if constexpr (kBothBf16<IO, WT>) {
@@ -1789,8 +2068,8 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // hn (null otherwise; the call fails if that path finds it null).
 // Activations and weights are both bf16 or both fp32; proj_dtype is w_dtype
 // or int8. `layer_only` < 0 runs the step; a layer index runs that layer's
-// phase `phase_only` alone (2: the in_proj, 3: the SSM update), as the step
-// would launch it (a measurement).
+// phase `phase_only` alone (1: the pre-norm, 2: the in_proj, 3: the SSM
+// update), as the step would launch it (a measurement).
 // Everything is enqueued on `stream`; nothing synchronises. Returns the first
 // cudaError_t of a launch (0 = success).
 extern "C" int omt_fused_decode_step(

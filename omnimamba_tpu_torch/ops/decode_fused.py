@@ -27,7 +27,8 @@ tiles) takes fp32 multiply-adds over shared-memory tiles, which are bound by
 operations (see the note in the source). Activations and weights of two
 different types are refused, as the model's own projections refuse them.
 The SSM update asks for a whole (row, head) tile of state at once, while the
-in_proj still runs.
+in_proj still runs; the bf16 pre-norm asks for its weights while the out_proj
+still runs.
 
 int8 ``{q, scale}`` in_proj and out_proj (``ops/quant.quantize_decode_params``;
 the other weights stay in the activation type) take the same kernels with the
@@ -326,6 +327,35 @@ def fused_decode_step(
     return h_out, res_out, cache
 
 
+def fused_decode_prenorm(
+    layers: Sequence[Dict],
+    h: torch.Tensor,
+    residual: torch.Tensor,
+    cache,
+    task: Optional[str],
+    mixer_cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig],
+    norm_eps: float = 1e-5,
+    *,
+    plan: FusedDecodePlan,
+    layer: int,
+) -> None:
+    """The pre-norm phase of ``layer`` alone, on the card, as
+    ``fused_decode_step`` launches it with these arguments: a measurement of
+    one phase. Layer 0 reads ``h`` and ``residual``; a later layer reads the
+    out_proj's partial sums and the gated norm's sums of squares as the
+    plan's scratch holds them (from the last step). ``residual`` is the
+    running fp32 residual, which the step keeps in its residual output: it is
+    updated in place. Writes the scratch's normed hidden state and its LoRA
+    product. Counts no launch."""
+    if not 0 <= layer < len(layers):
+        raise ValueError(f"layer {layer} of {len(layers)}")
+    if residual is None:
+        raise ValueError("the pre-norm phase updates a running residual: give one")
+    _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer,
+            _PHASE_PRENORM, res_out=residual)
+
+
 def fused_decode_in_proj(
     layers: Sequence[Dict],
     h: torch.Tensor,
@@ -375,13 +405,14 @@ def fused_decode_ssm(
 
 
 # phases the C function launches alone (omt::K4Phase in csrc/decode_fused.cu)
-_PHASE_IN_PROJ, _PHASE_SSM = 2, 3
+_PHASE_PRENORM, _PHASE_IN_PROJ, _PHASE_SSM = 1, 2, 3
 
 
 def _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer_only,
-            phase_only):
+            phase_only, res_out=None):
     """Checks the arguments and enqueues the C function: the whole step
-    (``layer_only`` -1) or phase ``phase_only`` of one layer. Returns (h_out,
+    (``layer_only`` -1) or phase ``phase_only`` of one layer. The running
+    residual goes to ``res_out``, a new tensor if None. Returns (h_out,
     res_out)."""
     L, B, d = len(layers), h.shape[0], mixer_cfg.d_model
     di, H, P, N, W = (mixer_cfg.d_inner, mixer_cfg.nheads, mixer_cfg.headdim, mixer_cfg.d_state,
@@ -408,7 +439,8 @@ def _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, pla
         raise ValueError("cache.ssm_state must be 16-byte aligned")
 
     h_out = torch.empty_like(h)
-    res_out = torch.empty((B, d), dtype=torch.float32, device=h.device)
+    if res_out is None:
+        res_out = torch.empty((B, d), dtype=torch.float32, device=h.device)
     s = plan.scratch
     lora_scale = lora_cfg.scaling if plan.rank else 0.0
     err = kb.load_kernels().omt_fused_decode_step(

@@ -501,3 +501,116 @@ def test_fused_step_matches_jax_on_the_ssm_tile(tile_pair, B, state):
     err = np.abs(got - want)
     assert (err <= 2.0 ** -7 * np.abs(want) + 1e-5).all(), float(err.max())
     assert (err > 0).mean() <= 1e-4, int((err > 0).sum())
+
+
+# The geometries where the card's pre-norm dispatch changes (prenorm_row_fits in
+# csrc/decode_fused.cu): d_model 1,024 is a whole number of the early
+# pre-norm's rows, 640 is not (the card runs k4_prenorm_kernel there). Both
+# are whole tensor-core tiles (in_proj widths 4,160 and 2,624) with d_inner
+# above 1,024, so the out_proj is summed in two K splits; LoRA rank 8 or
+# none. On the CPU the wrapper runs the plain version, the reference the
+# card's kernels are held against.
+_PRENORM_MIXERS = {
+    1024: dict(d_model=1024, d_state=16, headdim=64, expand=2, chunk_size=16),
+    640: dict(d_model=640, d_state=16, headdim=40, expand=2, chunk_size=16),
+}
+
+
+@pytest.fixture(scope="module")
+def prenorm_pairs():
+    """d_model -> (jax model, torch model, jax backbone params, bridged torch
+    params), fp32, LoRA B factors filled; each made on first use."""
+    from omnimamba_tpu import config as jcfg
+    from omnimamba_tpu.models.omnimamba import OmniMambaModel as JaxModel
+    from omnimamba_tpu_torch import config as tcfg
+    from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel as TorchModel
+    from tests.test_torch_helpers import _MAMBA, _VQ
+
+    made = {}
+
+    def get(d_model):
+        if d_model not in made:
+            mixer = _PRENORM_MIXERS[d_model]
+            mamba = {**_MAMBA, "d_model": d_model}
+            jmodel = JaxModel(cfg=jcfg.MambaConfig(mixer=jcfg.Mamba2LayerConfig(**mixer), **mamba),
+                              vision_cfg=jcfg.VisionConfig(), vq_cfg=jcfg.VQConfig(**_VQ),
+                              sptids={})
+            tmodel = TorchModel(cfg=tcfg.MambaConfig(mixer=tcfg.Mamba2LayerConfig(**mixer),
+                                                     **mamba),
+                                vq_cfg=tcfg.VQConfig(**_VQ), sptids={})
+            jp = init_omnimamba(jax.random.PRNGKey(3), jmodel, with_vision=False)
+            layers = dict(jp["mamba"]["layers"])
+            layers["mixer"] = fill_lora_b(layers["mixer"], np.random.default_rng(3))
+            jp = {"mamba": {**jp["mamba"], "layers": layers}, "vq": decode_side(jp["vq"])}
+            made[d_model] = jmodel, tmodel, jp["mamba"], bridge(jp, tmodel)["mamba"]
+        return made[d_model]
+
+    return get
+
+
+@pytest.mark.parametrize("res_in", [False, True], ids=["no_residual", "residual"])
+@pytest.mark.parametrize("B", [1, 48])
+@pytest.mark.parametrize("lora", [True, False], ids=["lora8", "no_lora"])
+@pytest.mark.parametrize("d_model", [1024, 640], ids=["d1024_early", "d640_parent"])
+def test_fused_step_matches_jax_on_the_prenorm(prenorm_pairs, d_model, lora, B, res_in):
+    """The fused step where the card's pre-norm dispatch changes (d_model, LoRA
+    rank 8 or 0, 1 or 48 rows, K splits of two, an incoming residual or none)
+    against JAX's fused step (Pallas in interpret mode), fp32: every output
+    within 1e-5. Without a residual both sides run ``backbone_step_fused``
+    (the embedding, the step and the final norm); with one, the step itself
+    (``fused_decode_step``), which adds it before the first norm."""
+    from omnimamba_tpu.ops.decode_fused import fused_decode_step as j_fused_decode_step
+
+    jmodel, tmodel, jm, tm = prenorm_pairs(d_model)
+    mixer = tmodel.cfg.mixer
+    assert mixer.d_inner > 1024 and mixer.d_in_proj % 64 == 0
+    if not lora:
+        jm, tm = _without_lora_jax(jm), _without_lora_torch(tm)
+    rng = np.random.default_rng(300 + B + 2 * res_in + 4 * lora + d_model)
+    L, W = tmodel.cfg.n_layer, mixer.d_conv
+    conv = (0.5 * rng.standard_normal((L, B, W - 1, mixer.d_conv_in))).astype(np.float32)
+    ssm = (0.5 * rng.standard_normal(
+        (L, B, mixer.nheads, mixer.headdim, mixer.d_state))).astype(np.float32)
+    jcache = to_fused_cache(jbb.BackboneCache(jnp.asarray(conv), jnp.asarray(ssm)), mixer.d_inner)
+    tcache = tbb.BackboneCache(tt(conv), tt(ssm))
+    before = fused_decode_step.launches
+    if not res_in:
+        tok = rng.integers(0, 32, (B,))
+        hj, fcache = jbb.backbone_step_fused(jm, jnp.asarray(tok, jnp.int32), jnp.int32(L0), jcache,
+                                             "t2i", jmodel.cfg, dtype=jnp.float32)
+        ht, out = tbb.backbone_step_fused(tm, tt(tok), L0, tcache, "t2i", tmodel.cfg,
+                                          dtype=torch.float32)
+    else:
+        h = (0.5 * rng.standard_normal((B, mixer.d_model))).astype(np.float32)
+        residual = (0.5 * rng.standard_normal((B, mixer.d_model))).astype(np.float32)
+        lp = jm["layers"]["mixer"].get("lora")
+        lora_args = ((lp["t2i_A"], {p: lp[f"t2i_B_{p}"] for p in ("z", "x", "bc", "dt")},
+                      jmodel.cfg.lora.scaling) if lora else (None, None, 0.0))
+        hj, rj, fcache = j_fused_decode_step(
+            jm["layers"], jnp.asarray(h), jnp.asarray(residual), jcache, *lora_args,
+            norm_eps=jmodel.cfg.norm_eps, gn_eps=mixer.norm_eps)
+        ht, rt, out = fused_decode_step(tm["layers"], tt(h), tt(residual), tcache, "t2i", mixer,
+                                        tmodel.cfg.lora, tmodel.cfg.norm_eps)
+        close(rt, rj, 1e-5)
+    assert fused_decode_step.launches == before  # CPU tensors: the plain version
+    close(ht, hj, 1e-5)
+    assert_caches_close(fcache, out, B, mixer.d_inner, 1e-5)
+
+
+def test_prenorm_phase_refuses_a_layer_out_of_range(pair):
+    """``fused_decode_prenorm``, like the in_proj and SSM phase wrappers,
+    refuses a layer the stack does not have (before any plan or launch), and
+    a missing running residual."""
+    from omnimamba_tpu_torch.ops.decode_fused import fused_decode_prenorm
+
+    _, tmodel, _, tm = pair
+    cfg = tmodel.cfg
+    _, cache, _ = prefill(pair, "t2i", 2, seed=51)
+    h, residual = torch.zeros(2, 32), torch.zeros(2, 32)
+    for layer in (-1, len(tm["layers"])):
+        with pytest.raises(ValueError, match=f"layer {layer} of {len(tm['layers'])}"):
+            fused_decode_prenorm(tm["layers"], h, residual, cache, "t2i", cfg.mixer, cfg.lora,
+                                 plan=None, layer=layer)
+    with pytest.raises(ValueError, match="running residual"):
+        fused_decode_prenorm(tm["layers"], h, None, cache, "t2i", cfg.mixer, cfg.lora, plan=None,
+                             layer=0)

@@ -1,7 +1,7 @@
 """What holds a hand-written kernel back: the kernel built with parts of its
 work taken out, each build timed on the shapes of its main path.
 
-    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-ssm]
+    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-ssm] [k4-prenorm]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
@@ -34,9 +34,23 @@ entry's value, and times each build:
   rate; each time the median of three calls of 96 launches; and the 48-layer
   step of each build (median of three calls of 5 steps), where the phase
   starts while the in_proj runs.
+- ``k4-prenorm`` (``decode_fused.cu``, ``OMT_K4_PRE_SKIP``): K4's bf16
+  pre-norm phase alone (``fused_decode_prenorm``: the finished out_proj of
+  the layer before, the residual add, the RMSNorm and hn @ A), each launch on
+  the next of the 1.3B's 48 layers, at 16, 48 and 96 rows, beside the phase's
+  bytes at the card's memory rate; each time the median of three calls of 96
+  launches; and the 48-layer step of each build (median of three calls of 5
+  steps), where the phase starts while the out_proj runs and the in_proj
+  while it runs.
+
+Of every ``k4-*`` build the 48-layer step is also profiled (3 steps,
+``tools/k4_probe.py``'s ``profile``): each phase's time that no earlier kernel
+overlaps, and how long after the end of the kernels ahead of it the phase's
+kernel starts (negative: while they run).
 
 Only the build with the value 0 (and, of ``k4-in-proj``, 32, 64 and 128, of
-``k4-ssm`` 4, 8, 32 and 64, which change when work starts, not what it is)
+``k4-ssm`` 4, 8, 32 and 64, of ``k4-prenorm`` 16, 32, 64, 128 and 256, which
+change when work starts, not what it is)
 gives correct results; the build with 0 must equal the library's bits, which
 is asserted. Prints the card, one JSON line a
 measurement, then one JSON line of all with each build's ``ptxas`` lines.
@@ -56,7 +70,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
 
 _bf, _f32 = torch.bfloat16, torch.float32
 
@@ -122,57 +136,71 @@ def run_k5(libs: dict, builds: dict, rows: dict) -> None:
 
 
 def run_k4_phase(phase: str):
-    """K4's bf16 `phase` ("in_proj" or "ssm") through each build: the phase alone,
-    each launch on the next of the 48 layers, and the 48-layer step."""
+    """K4's bf16 `phase` ("prenorm", "in_proj" or "ssm") through each build: the
+    phase alone, each launch on the next of the 48 layers, and the 48-layer step."""
 
     def run(libs: dict, builds: dict, rows: dict) -> None:
         import chip_smoke as cs
+        import k4_probe
         from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
         from omnimamba_tpu_torch.ops import decode_fused as df
 
         cfg, lcfg = Mamba2LayerConfig(), LoraConfig()
-        launch = df.fused_decode_in_proj if phase == "in_proj" else df.fused_decode_ssm
+        launch = {"prenorm": df.fused_decode_prenorm, "in_proj": df.fused_decode_in_proj,
+                  "ssm": df.fused_decode_ssm}[phase]
         gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
         layers = cs.fused_layers(gen, 48, cfg, lcfg, _bf)
         for batch in (16, cs.BATCH, 2 * cs.BATCH):
             h = cs.rand(gen, (batch, cfg.d_model), _bf)
+            residual = cs.rand(gen, (batch, cfg.d_model), _f32)  # the pre-norm's, in place
             cache = cs.fused_state(gen, len(layers), batch, cfg, _bf, _bf)
             plan = df.prepare_fused_decode(layers, "t2i", cfg, lcfg, batch, _bf)
             args = (layers, h, None, cache, "t2i", cfg, lcfg, 1e-5)
             df.fused_decode_step(*args, plan=plan)  # the scratch holds real inputs of the phase
+            phase_args = (layers, h, residual, *args[3:]) if phase == "prenorm" else args
             turn = [0]
 
             def alone():  # each launch on the next layer: its weights and state come from memory
-                launch(*args, plan=plan, layer=turn[0] % len(layers))
+                launch(*phase_args, plan=plan, layer=turn[0] % len(layers))
                 turn[0] += 1
 
-            # what layer 0's phase writes: z, x B C and dt after the conv step and
-            # softplus and the rolled window; or the new state, yf * w_gn and the sums of yf^2
-            if phase == "in_proj":
+            # what the checked layer's phase writes: the residual, hn and hn @ A
+            # (layer 1: from the out_proj's partials); or z, x B C and dt after
+            # the conv step and softplus and the rolled window; or the new
+            # state, yf * w_gn and the sums of yf^2 (layer 0)
+            at = 1 if phase == "prenorm" else 0
+            if phase == "prenorm":
+                written = [residual] + [plan.scratch[k] for k in ("hn", "hA")]
+            elif phase == "in_proj":
                 written = [plan.scratch[k] for k in ("z", "xbc", "dt")] + [cache.conv_state]
             else:
                 written = [cache.ssm_state[0]] + [plan.scratch[k] for k in ("ya", "sumsq")]
             updated = written[-1] if phase == "in_proj" else written[0]  # updated in place
             before = updated.clone()
-            launch(*args, plan=plan, layer=0)
+            launch(*phase_args, plan=plan, layer=at)
             want = [t.clone() for t in written]
             bound = cs.k4_phase_bytes(cfg, lcfg.r, batch)[f"k4_{phase}"] / cs.HBM_BYTES_PER_S * 1e3
-            rec = {"shape": ((batch, cfg.d_model, cfg.d_in_proj) if phase == "in_proj" else
-                             (batch, cfg.nheads, cfg.headdim, cfg.d_state)),
-                   "bound_ms": bound, "bound_by": "bytes", "phase_ms": {}, "step_ms": {}}
+            rec = {"shape": {"prenorm": (batch, cfg.d_model, lcfg.r),
+                             "in_proj": (batch, cfg.d_model, cfg.d_in_proj),
+                             "ssm": (batch, cfg.nheads, cfg.headdim, cfg.d_state)}[phase],
+                   "bound_ms": bound, "bound_by": "bytes", "phase_ms": {}, "step_ms": {},
+                   "step_exposed_ms": {}, "step_start_after_ahead_end_us": {}}
             for v, name in builds.items():
                 with only("omt_fused_decode_step", libs[v]):
                     if v == 0:
                         updated.copy_(before)
-                        launch(*args, plan=plan, layer=0)
+                        launch(*phase_args, plan=plan, layer=at)
                         torch.cuda.synchronize()
                         assert all(torch.equal(g, w) for g, w in zip(written, want)), \
                             f"the shipped build differs at B={batch}"
                     rec["phase_ms"][name] = median_ms(alone, 3, 2 * len(layers))
                     rec["step_ms"][name] = median_ms(lambda: df.fused_decode_step(*args, plan=plan),
                                                      3, 5)
+                    prof = k4_probe.profile(lambda: df.fused_decode_step(*args, plan=plan))
+                    rec["step_exposed_ms"][name] = prof["exposed_ms_per_step"]
+                    rec["step_start_after_ahead_end_us"][name] = prof["start_after_ahead_end_us"]
             emit(rows, f"{phase}_B{batch}", rec)
-            del cache, plan, written, want, updated, before
+            del cache, plan, written, want, updated, before, residual
 
     return run
 
@@ -265,6 +293,13 @@ TARGETS = {
                 8: "no early start", 32: "state loads after the wait",
                 64: "early start near the in_proj's end"},
                run_k4_phase("ssm")),
+    "k4-prenorm": ("decode_fused.cu", "omt_fused_decode_step", "OMT_K4_PRE_SKIP",
+                   {0: "as shipped", 1: "no partial or sumsq reads", 2: "no norm-weight or A reads",
+                    4: "no hn @ A", 7: "none of these", 8: "launch only", 16: "ordinary launch",
+                    32: "in_proj may start at entry", 64: "in_proj may start once hn is written",
+                    256: "in_proj may start after the first barrier",
+                    128: "out_proj does not trigger"},
+                   run_k4_phase("prenorm")),
 }
 
 

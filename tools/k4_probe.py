@@ -17,9 +17,13 @@ layers and inputs from the seed of `chip_smoke.py`, and:
   state, and through 48 layers at B=48 on `quantize_decode_params` of the
   layers (int8 in_proj and out_proj) to FILE;
 - times the 48-layer step (CUDA events around 10 queued steps) and profiles 3
-  steps at B = 16, 48 and 96 with the time of each of K4's phase kernels,
-  and the part of it that no earlier kernel overlaps (the bf16 in_proj starts
-  while the pre-norm runs, the SSM update while the in_proj runs);
+  steps (queued behind other work) at B = 16, 48 and 96 with the time of each
+  of K4's phase kernels, the part of it that no earlier kernel overlaps (the
+  bf16 pre-norm starts while the out_proj runs, the in_proj while the
+  pre-norm runs, the SSM update while the in_proj runs) and how long after
+  the end of the kernels ahead of it each starts; at those batches also the
+  pre-norm phase alone (`fused_decode_prenorm`, each of 96 launches on the
+  next layer; null for a checkout that has no such function);
 - does the same with an fp32 state at B = 8 and 16, and at B=48 on the int8
   layers.
 
@@ -43,18 +47,26 @@ PHASES = ("k4_prenorm", "k4_in_proj", "k4_ssm", "k4_out_proj", "k4_finish")
 
 def profile(step, steps: int = 3) -> dict:
     """Device ms a step of each phase kernel, summed and exposed (not
-    overlapped by an earlier kernel), from a profiler trace of `steps` steps."""
+    overlapped by an earlier kernel), and the mean µs from the end of the
+    kernels ahead of a phase's kernel to its start (negative: it started
+    while they ran), from a profiler trace of `steps` steps queued behind
+    other work, so that the host's time to enqueue them (longer under the
+    profiler) does not leave the device waiting between kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    import chip_smoke as cs
 
     step()
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cs._occupy_device(50.0)
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
     summed = dict.fromkeys(PHASES, 0.0)
     exposed = dict.fromkeys(PHASES, 0.0)
+    leads = {key: [] for key in PHASES}
     last_end = float("-inf")
     for start, end, name in sorted((e.time_range.start, e.time_range.end, e.name)
                                    for e in prof.events() if e.device_type == DeviceType.CUDA):
@@ -62,14 +74,18 @@ def profile(step, steps: int = 3) -> dict:
             if key in name:
                 summed[key] += (end - start) / 1e3 / steps
                 exposed[key] += max(0.0, end - max(start, last_end)) / 1e3 / steps
+                if last_end > float("-inf"):
+                    leads[key].append(start - last_end)  # µs
         last_end = max(last_end, end)
-    return {"ms_per_step": summed, "exposed_ms_per_step": exposed}
+    return {"ms_per_step": summed, "exposed_ms_per_step": exposed,
+            "start_after_ahead_end_us": {k: sum(v) / len(v) for k, v in leads.items() if v}}
 
 
 def probe(root: Path, out: Path) -> dict:
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+    from omnimamba_tpu_torch.ops import decode_fused
     from omnimamba_tpu_torch.ops.decode_fused import (
         fused_decode_step, prepare_fused_decode)
     from omnimamba_tpu_torch.ops.quant import quantize_decode_params
@@ -105,7 +121,7 @@ def probe(root: Path, out: Path) -> dict:
     torch.save({k: v.cpu() for k, v in saved.items()}, out)
     del saved
 
-    def timed(stack, B, key, state=bf):
+    def timed(stack, B, key, state=bf, prenorm_alone=False):
         h, _, cache = inputs(len(stack), B, state)
         plan = prepare_fused_decode(stack, "t2i", cfg, lcfg, B, bf)
 
@@ -114,10 +130,22 @@ def probe(root: Path, out: Path) -> dict:
 
         rec[key] = {"batch": B, "state": str(state), "step_ms": cs.time_ms(step, 10),
                     **profile(step)}
+        if prenorm_alone:  # the same draws on every checkout
+            residual, turn = cs.rand(gen, (B, cfg.d_model), torch.float32), [0]
+            rec[key]["prenorm_alone_ms"] = None
+            alone = getattr(decode_fused, "fused_decode_prenorm", None)
+            if alone is not None:
+
+                def phase():
+                    alone(stack, h, residual, cache, "t2i", cfg, lcfg, 1e-5, plan=plan,
+                          layer=turn[0] % len(stack))
+                    turn[0] += 1
+
+                rec[key]["prenorm_alone_ms"] = cs.time_ms(phase, 2 * len(stack))
         print(json.dumps({key: rec[key]}), flush=True)
 
     for B in (16, cs.BATCH, 2 * cs.BATCH):
-        timed(layers, B, f"bf16_B{B}")
+        timed(layers, B, f"bf16_B{B}", prenorm_alone=True)
     for B in (8, 16):
         timed(layers, B, f"bf16_B{B}_fp32_state", torch.float32)
     del layers
