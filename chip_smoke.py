@@ -109,6 +109,37 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_alone_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Median milliseconds on the device of one call with nothing beside it:
+    CUDA events around each of `iters` calls, queued behind other work (see
+    `_occupy_device`), each call behind an ordinary one-element kernel, so
+    that no call starts while the one before it runs (as a programmatic
+    dependent launch of a kernel after its own kind may)."""
+    pad = torch.zeros(1, device="cuda")
+
+    def one():
+        pad.add_(1.0)
+        fn()
+
+    for _ in range(warmup):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    host_ms = (time.perf_counter() - t0) * 1e3  # time to enqueue one call
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    _occupy_device(2.0 * host_ms * iters + 1.0)
+    for start, end in events:
+        pad.add_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
 def host_clock_ms(fn, iters: int) -> float:
     """Mean milliseconds of one call on the host's clock, enqueueing and device
     work together: `iters` calls, then a device synchronize."""
@@ -884,13 +915,26 @@ def check_decode_fused(gen, results):
         ("d_model_1024_bf16", "d1024_bf16", 1, BATCH, d1024, lora8, "t2i", bf, bf, bf),
         ("d_model_1024_no_lora_bf16", "d1024_bf16", 1, 2 * BATCH, d1024, lora8, None, bf, bf, bf),
         ("d_model_1536_bf16", "d1536_bf16", 1, BATCH, d1536, lora8, "t2i", bf, bf, bf),
+        # above 96 rows: both pair kernels with two row tiles of 96
+        ("rows_112_bf16", "full_bf16", 1, 112, full, lora8, "t2i", bf, bf, bf),
     ]
     # the pre-norm kernel each bf16 case on whole tiles must run (by name)
     prenorm_of = {"main_1_layer": "k4_prenorm_early_kernel<2, 8>",
                   "cfg_batch_no_lora": "k4_prenorm_early_kernel<2, 0>",
                   "d_model_1024_bf16": "k4_prenorm_early_kernel<1, 8>",
                   "d_model_1024_no_lora_bf16": "k4_prenorm_early_kernel<1, 0>",
-                  "d_model_1536_bf16": "k4_prenorm_kernel<"}
+                  "d_model_1536_bf16": "k4_prenorm_kernel<",
+                  "rows_112_bf16": "k4_prenorm_early_kernel<2, 8>"}
+    # the out_proj kernel each bf16 case on whole tiles must run (by name): the
+    # pair kernel with MT m16 row fragments a block (six from B=96 on: 96 rows
+    # a block, one row tile at B=96, two at 112)
+    out_proj_of = {"main_1_layer": "k4_out_proj_pair_kernel<3>",
+                   "three_rows": "k4_out_proj_pair_kernel<1>",
+                   "twenty_rows": "k4_out_proj_pair_kernel<2>",
+                   "cfg_batch_no_lora": "k4_out_proj_pair_kernel<6>",
+                   "d_model_1024_bf16": "k4_out_proj_pair_kernel<3>",
+                   "d_model_1536_bf16": "k4_out_proj_pair_kernel<3>",
+                   "rows_112_bf16": "k4_out_proj_pair_kernel<6>"}
     for name, sname, n_layer, B, cfg, lcfg, task, io, wdtype, sdtype in cases:
         layers = stack(sname)[:n_layer]
         cache0 = fused_state(gen, n_layer, B, cfg, io, sdtype)
@@ -952,6 +996,12 @@ def check_decode_fused(gen, results):
                 layers, h, residual, cache, *args, plan=plan)) if "k4_prenorm" in k]
             rec["prenorm_kernels"] = ran
             want = prenorm_of[name].replace(" ", "")
+            assert ran and all(want in k.replace(" ", "") for k in ran), (name, ran)
+        if name in out_proj_of:
+            ran = [k for k in kernel_names(lambda: fused_decode_step(
+                layers, h, residual, cache, *args, plan=plan)) if "k4_out_proj" in k]
+            rec["out_proj_kernels"] = ran
+            want = out_proj_of[name].replace(" ", "")
             assert ran and all(want in k.replace(" ", "") for k in ran), (name, ran)
         if name == "main":
             r = lcfg.r
@@ -1023,6 +1073,21 @@ def check_decode_fused(gen, results):
     results["decode_fused"]["prenorm_phase"] = {k: rec[k] for k in ("by_batch", "ptxas")
                                                 if k in rec}
 
+    rec = out_proj_phase(gen, stack("full_bf16"), full, lora8, "t2i")
+    if results.get("build_log"):  # the bf16 out_proj's pair kernels: no spills, tensor cores
+        from omnimamba_tpu_torch.ops import kernel_build
+
+        rec["ptxas"] = ptxas_of(results["build_log"], "k4_out_proj_pair")
+        rec["sass"] = sass_counts(kernel_build.build_kernels().library, "k4_out_proj_pair",
+                                  ("HMMA.16816.F32.BF16", "LDSM", "UTMALDG"))
+        assert rec["ptxas"] and len(rec["ptxas"]) == 6 and all(
+            "0 bytes spill stores" in " ".join(v) for v in rec["ptxas"].values()), rec["ptxas"]
+        assert rec["sass"] and all(c["HMMA.16816.F32.BF16"] > 0 for c in rec["sass"].values()), \
+            rec["sass"]
+    emit({"kernel_check": rec})
+    results["decode_fused"]["out_proj_phase"] = {k: rec[k] for k in ("by_batch", "ptxas", "sass")
+                                                 if k in rec}
+
     rec = ssm_phase(gen, stack("full_bf16"), full, lora8, "t2i")
     if results.get("build_log"):  # every instantiation of the SSM phase's tile kernel: no spills
         rec["ptxas"] = ptxas_of(results["build_log"], "k4_ssm_tile")
@@ -1046,15 +1111,21 @@ def check_decode_fused(gen, results):
     torch.cuda.empty_cache()
 
 
-def kernel_names(fn) -> list:
-    """The names of the device kernels one call of `fn` launches (profiler)."""
+def kernel_names(fn, calls: int = 3) -> list:
+    """The names of the device kernels that `calls` calls of `fn` launch, each
+    profiled on its own. A trace now and then lacks a kernel that ran (seen for
+    a kernel launched as a programmatic dependent first in its trace), so the
+    names of all the traces are taken together."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    names = set()
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names |= {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    return sorted(names)
 
 
 def prenorm_phase(gen, layers, cfg, lcfg, task):
@@ -1165,6 +1236,73 @@ def in_proj_phase(gen, layers, cfg, lcfg, task):
             "d_in_proj": cfg.d_in_proj, "lora_rank": lcfg.r, "dtype": str(bf), "by_batch": by_batch,
             "library_note": "torch.matmul(hn, W_in): the product alone (no LoRA term, conv step "
                             "or softplus), the yardstick for the phase's product"}
+
+
+def out_proj_phase(gen, layers, cfg, lcfg, task):
+    """K4's bf16 out_proj phase (the gated, weighted yf times W_out into the
+    fp32 K-split partials) of one layer alone, as the step launches it
+    (`fused_decode_out_proj`), at 16, 48 and 96 rows: device ms beside the
+    bytes it must move at the card's memory rate, and `torch.matmul(ya,
+    W_out)` on the same bf16 operands (one PyTorch call for the same product,
+    summed over all of K and rounded to bf16 where the phase writes each K
+    split's fp32 partial: the yardstick of the product). Each launch takes
+    the next of the 48 layers, so its weights come from device memory; the
+    `_same_layer` times repeat one layer. `ms` is the mean of launches back
+    to back, where each launch, a programmatic dependent of the one before,
+    starts fetching weights while that one runs; `ms_alone` and
+    `library_ms_alone` time each launch with nothing beside it
+    (`time_alone_ms`): one kernel against one library call. Beside them the
+    phase inside the 48-layer step (profile of 3 steps): each kernel's time
+    and the part of it that no earlier kernel overlaps, all of the
+    out_proj's the pair kernel's."""
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_out_proj, fused_decode_step, prepare_fused_decode)
+
+    bf = torch.bfloat16
+    by_batch = {}
+    for b in (16, BATCH, 2 * BATCH):
+        h = rand(gen, (b, cfg.d_model), bf)
+        cache = fused_state(gen, len(layers), b, cfg, bf, bf)
+        plan = prepare_fused_decode(layers, task, cfg, lcfg, b, bf)
+        args = (layers, h, None, cache, task, cfg, lcfg, 1e-5)
+        fused_decode_step(*args, plan=plan)  # the scratch holds a real yf * w_gn
+        w_out = [layer["mixer"]["out_proj"]["kernel"] for layer in layers]
+        ya, turn = plan.scratch["ya"], [0]
+
+        def phase():
+            fused_decode_out_proj(*args, plan=plan, layer=turn[0] % len(layers))
+            turn[0] += 1
+
+        def product():
+            torch.matmul(ya, w_out[turn[0] % len(layers)])
+            turn[0] += 1
+
+        phase_bytes = k4_phase_bytes(cfg, lcfg.r, b)["k4_out_proj"]
+        ms = time_ms(phase, 2 * len(layers))
+        prof = profile_steps(lambda i: fused_decode_step(*args, plan=plan), 3,
+                             named=K4_PHASES + ("k4_out_proj_pair",))
+        bound = phase_bytes / HBM_BYTES_PER_S * 1e3
+        by_batch[f"B{b}"] = {
+            "ms": ms, "bound_ms": bound, "share_of_bound": bound / ms, "bytes": phase_bytes,
+            "library_ms": time_ms(product, 2 * len(layers)),
+            "ms_alone": time_alone_ms(phase, 2 * len(layers)),
+            "library_ms_alone": time_alone_ms(product, 2 * len(layers)),
+            "ms_same_layer": time_ms(lambda: fused_decode_out_proj(*args, plan=plan, layer=0), 20),
+            "library_ms_same_layer": time_ms(lambda: torch.matmul(ya, w_out[0]), 20),
+            "step_ms_per_layer": {k: v / len(layers) for k, v in prof["named_ms_per_step"].items()},
+            "step_exposed_ms_per_layer": {
+                k: v / len(layers) for k, v in prof["named_exposed_ms_per_step"].items()},
+            "step_device_busy_ms": prof["device_busy_ms_per_step"],
+        }
+        # the step's out_proj time is the pair kernel's, and only its
+        named = prof["named_ms_per_step"]
+        assert 0 < named["k4_out_proj_pair"] == named["k4_out_proj"], by_batch[f"B{b}"]
+        del cache, plan
+    return {"kernel": "decode_fused", "case": "out_proj_phase", "layers": 1, "d_model": cfg.d_model,
+            "d_inner": cfg.d_inner, "dtype": str(bf), "by_batch": by_batch,
+            "library_note": "torch.matmul(ya, W_out) on the same bf16 operands: the same product "
+                            "in one call (summed over all of K, a bf16 result), the yardstick "
+                            "for the phase, which writes each K split's fp32 partial"}
 
 
 def ssm_phase(gen, layers, cfg, lcfg, task):
@@ -1791,7 +1929,8 @@ def main_path(results, card):
         }
 
     profiles = {path: profile_decode_steps(mamba, cfg, ids, embed(), path,
-                                           named=K4_PHASES + ("k4_ssm_tile", "k4_prenorm_early")
+                                           named=K4_PHASES + ("k4_ssm_tile", "k4_prenorm_early",
+                                                              "k4_out_proj_pair")
                                            if path == "fused" else ())
                 for path in ("fused", "scan")}
     profiles["fused"]["k4_phases"] = k4_phase_split(profiles["fused"], cfg, BATCH)
@@ -1801,6 +1940,8 @@ def main_path(results, card):
     named = profiles["fused"]["named_ms_per_step"]
     assert named["k4_ssm_tile"] > 0 and named["k4_ssm_tile"] == named["k4_ssm"], named
     assert named["k4_prenorm_early"] > 0 and named["k4_prenorm_early"] == named["k4_prenorm"], named
+    # and the out_proj through the pair kernel, and only through it
+    assert named["k4_out_proj_pair"] > 0 and named["k4_out_proj_pair"] == named["k4_out_proj"], named
     results["decode_fused"]["scan_step_device_ms"] = profiles["scan"]["device_busy_ms_per_step"]
 
     torch.cuda.synchronize()
@@ -2874,7 +3015,7 @@ def main() -> int:
             "dynamic_smem_bytes", "sass",
             "library_note", "scan_step_device_ms",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "prenorm_phase",
-            "in_proj_phase", "ssm_phase", "layout",
+            "in_proj_phase", "ssm_phase", "out_proj_phase", "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
                     if k in r})
         kernels.append(row)

@@ -46,7 +46,10 @@
 //                    partial sum of yf^2 per (row, head).
 //   4. out_proj      blocks tile rows x (64 columns) x (K split) of the
 //                    (B, d_inner) x (d_inner, d) product into fp32 partials
-//                    (d alone has too few columns to fill the card).
+//                    (d alone has too few columns to fill the card). With
+//                    bf16 weights it is launched as a programmatic dependent
+//                    of the SSM update and starts fetching weights while that
+//                    ends.
 //
 // Intermediates (hn, hn @ A, z, x|B|C, dt, yf * w_gn, partial sums) live in
 // scratch that the caller allocates once: about 1.7 MB at B=48, which stays in the
@@ -66,10 +69,11 @@
 //     three blocks an SM), the first stages' weights asked for before the
 //     pre-norm ends, consumer warps multiply with ldmatrix and mma.sync, the
 //     blocks trade halves of their sums through distributed shared memory and
-//     each finishes half the columns. The out_proj (and an int8 in_proj)
-//     streams its tiles through a four-stage cp.async ring into wmma products
-//     behind a block barrier a k step. Both sum in one k order, so a row's
-//     bits do not depend on B;
+//     each finishes half the rows. The out_proj takes the same design per
+//     (64 columns, K split), its first weights asked for before the SSM
+//     update ends. An int8 in_proj or out_proj streams its tiles through a
+//     four-stage cp.async ring into wmma products behind a block barrier a k
+//     step. All sum in one k order, so a row's bits do not depend on B;
 //   - fp32 activations and weights, and any shape the tiles do not fit, take
 //     fp32 multiply-adds over shared-memory tiles (bf16 x bf16
 //     products are exact in fp32, so this is the same arithmetic in another
@@ -135,6 +139,8 @@ struct K4Args {
   // layer then hn (omt_fused_decode_in_maps), copied into its launch
   // parameters; null on the other paths
   const CUtensorMap* in_maps;
+  // the same for the bf16 out_proj: W_out of each layer then ya
+  const CUtensorMap* out_maps;
 };
 
 template <typename T>
@@ -975,6 +981,22 @@ __global__ void __launch_bounds__(kSsmThreads) k4_ssm_kernel(K4Args a, int layer
 #define OMT_K4_SSM_SKIP 0
 #endif
 
+// Measurement only: tools/ablation.py k4-out-proj builds this file with
+// OMT_K4_OUT_SKIP set to a sum of 1 (no activation copies), 2 (no weight
+// copies), 4 (no products) and 8 (no exchange of the sums and no stores), or
+// to 16 (the launch alone), to time what is left of the bf16 out_proj, whose
+// results are then wrong; or to 32 (an ordinary launch, no programmatic
+// dependency), 64 (no weights asked for before the SSM update ends), 128 (the
+// SSM update lets the out_proj start at its blocks' entry, not once their
+// griddepcontrol.wait has returned), 256 (... once they have issued their
+// state stores), 512 (... only as they end),
+// 1024 (the out_proj does not let the next pre-norm start before its blocks
+// end), which change when work starts and give the shipped bits. The library
+// has 0.
+#ifndef OMT_K4_OUT_SKIP
+#define OMT_K4_OUT_SKIP 0
+#endif
+
 constexpr int kSsmTileRows = 8;  // rows a warp holds: P <= 8 warps x 8
 constexpr int kSsmTileN = 128;   // four n a lane
 
@@ -1011,6 +1033,10 @@ k4_ssm_tile_kernel(K4Args a, int layer) {
   using Raw = typename Raw4<ST>::type;
   __shared__ float warp_ss[kSsmThreads / 32];
   if (OMT_K4_SSM_SKIP & 16) return;
+  // the bf16 out_proj is launched as a programmatic dependent of this kernel:
+  // once every block has triggered, its blocks may start and fetch W_out; they
+  // read yf * w_gn only once this kernel has ended
+  if (OMT_K4_OUT_SKIP & 128) grid_launch_dependents();
 
   const int bh = blockIdx.x;
   const int b = bh / a.H;
@@ -1037,6 +1063,8 @@ k4_ssm_tile_kernel(K4Args a, int layer) {
   const float gw = to_float(layer_ptr<WT>(a, kGnW, layer)[static_cast<size_t>(h) * a.P + own]);
 
   grid_dependency_wait();  // the in_proj's outputs are complete and visible
+  // its state loads are out and the in_proj has ended: the out_proj may start
+  if (!(OMT_K4_OUT_SKIP & (128 | 256 | 512))) grid_launch_dependents();
   if (OMT_K4_SSM_SKIP & 32) ssm_tile_fetch(raw, tile, step, rows, on);
   const int conv_ch = a.d_inner + 2 * a.N;
   const float* xrow = a.xbc + static_cast<size_t>(b) * conv_ch;
@@ -1074,6 +1102,7 @@ k4_ssm_tile_kernel(K4Args a, int layer) {
     acc[i] = __fadd_rn(acc[i], dot);
     if (!(OMT_K4_SSM_SKIP & 2)) __stcs(tile + i * step, to_raw4(s, static_cast<Raw*>(nullptr)));
   }
+  if (OMT_K4_OUT_SKIP & 256) grid_launch_dependents();
   // warp_sum of each row, the rows' shuffles interleaved: every lane gets y
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -1173,17 +1202,17 @@ __global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int
 }
 
 // ---------------------------------------------------------------------------
-// phase 4 for bf16 activations, and phase 2 with an int8 in_proj: tensor cores
+// phases 2 and 4 for bf16 activations with int8 projections: tensor cores
 // ---------------------------------------------------------------------------
-// (Phase 2 with a bf16 in_proj takes the two-block clusters further below, in
-// the same sum order.) A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
+// (bf16 projections take the two-block clusters further below, in the same
+// sum order.) A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
 // 16 (w % 4) .. + 15, the k half w / 4 of every k step, and MT accumulator
 // fragments; the two halves are added, lower k first, when C is read. The (64 x 64) weight tile and
 // the (MT * 16 x 64) activation tile of each k step are copied into a ring of
 // four shared-memory stages with 16-byte cp.async, three k steps ahead of the
-// one being multiplied (24 KB of bf16 weights in flight per block, 12 KB of
-// int8). An int8 weight tile is widened to bf16 in a buffer of its own once it
-// has landed, behind one __syncthreads (wmma has no int8 x bf16 product).
+// one being multiplied (12 KB of int8 weights in flight per block). An int8
+// weight tile is widened to bf16 in a buffer of its own once it has landed,
+// behind one __syncthreads (wmma has no int8 x bf16 product).
 // Shapes are whole tiles (K and N multiples of 64,
 // every row 16-byte aligned): the caller takes the multiply-add kernels
 // otherwise. Rows past M are read from row M - 1 and never written.
@@ -1194,14 +1223,15 @@ constexpr int kLdA = kTcBK + 8;
 constexpr int kLdC = kTcBN + 4;  // floats
 constexpr int kTcMaxRank = 64;   // LoRA ranks above this take the multiply-add kernels
 
+// the k width of each K split of the tensor-core out_proj, a whole number of
+// k tiles (the last split may be shorter)
+__host__ __device__ constexpr int tc_split_width(int K, int ksplit) {
+  return ((K + ksplit - 1) / ksplit + kTcBK - 1) / kTcBK * kTcBK;
+}
+
 // bytes of one weight-tile row in a stage, and of the bf16 buffer an int8 tile is widened into
 template <typename PW>
 struct TcW;
-template <>
-struct TcW<__nv_bfloat16> {
-  static constexpr int kRowBytes = kLdW * 2;
-  static constexpr int kWideBytes = 0;
-};
 template <>
 struct TcW<int8_t> {
   static constexpr int kRowBytes = kTcBN + 16;  // rows stay 16-byte aligned
@@ -1295,15 +1325,9 @@ __device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A
     __pipeline_commit();
 
     const unsigned char* stage = smem + (t % kTcStages) * Tile::kStageBytes;
-    const __nv_bfloat16* Ws;
-    if constexpr (kInt8<PW>) {
-      __nv_bfloat16* wide = reinterpret_cast<__nv_bfloat16*>(smem + Tile::kWideOffset);
-      tc_widen_int8(stage, wide);  // the sync above: nobody still reads tile t - 1's
-      __syncthreads();
-      Ws = wide;
-    } else {
-      Ws = reinterpret_cast<const __nv_bfloat16*>(stage);
-    }
+    __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem + Tile::kWideOffset);
+    tc_widen_int8(stage, Ws);  // the sync above: nobody still reads tile t - 1's
+    __syncthreads();
     const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(stage + Tile::kWBytes);
 #pragma unroll
     for (int k16 = 0; k16 < kTcBK / 2; k16 += 16) {
@@ -1381,7 +1405,7 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
   const int m0 = blockIdx.y * MT * 16;
   const int split = blockIdx.z;
   const int K = a.d_inner;
-  const int per = ((K + a.ksplit - 1) / a.ksplit + kTcBK - 1) / kTcBK * kTcBK;
+  const int per = tc_split_width(K, a.ksplit);
   const int k_begin = min(K, split * per);
   const int k_end = min(K, k_begin + per);
   gemm_tile_tc<MT, PW>(static_cast<const bf16*>(a.ya), K, layer_ptr<PW>(a, kOutProj, layer), a.d,
@@ -1833,9 +1857,6 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
 
 template <int MT>
 cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      k4_in_proj_pair_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, InPair<MT>::kBytes);
-  if (attr != cudaSuccess) return attr;
   // programmatic dependent launch: the blocks start while the pre-norm runs
   cudaLaunchAttribute pdl;
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -1872,6 +1893,249 @@ cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream)
   }
 }
 
+// ---------------------------------------------------------------------------
+// phase 4 for bf16 activations and a bf16 out_proj: a two-block cluster per
+// (column tile, K split)
+// ---------------------------------------------------------------------------
+// The sum order is gemm_tile_tc's (k4_out_proj_tc_kernel, int8 W_out): each
+// K split's fp32 partial is lo + hi, where lo is the chain
+// of HMMA.16816.F32.BF16 over k in [0, 32) of every 64-wide k tile of the
+// split, in k order, and hi the same chain over [32, 64). Here, as in the bf16
+// in_proj above, the two chains run in the two blocks of a cluster, rank 0 lo
+// and rank 1 hi, each over the whole split: at 1.3B and B=48 the grid is 32
+// column tiles x 4 K splits x 2 = 256 blocks, each streaming 64 KB of W_out.
+// A producer warp copies the block's half of each weight tile (32 k x 64
+// columns) and of each activation tile (16 MT rows x 32 k) with one TMA copy
+// each into a ring of mbarrier-guarded stages (the in_proj's InPair ring,
+// about 64 KB: three blocks an SM); four consumer warps (16 columns and the
+// MT m16 tiles each) multiply with in_pair_tiles and never meet at a block
+// barrier in the k loop. A block takes up to 96 rows (pair_row_fragments), so
+// at B <= 96 W_out is read from device memory once; more rows take more row
+// tiles.
+//
+// The launch is a programmatic dependent of the SSM update
+// (k4_ssm_tile_kernel), whose blocks let it start once their own
+// griddepcontrol.wait has returned: the producer asks for the first stages'
+// weight tiles, which no running kernel writes, before griddepcontrol.wait,
+// and for activation tiles (yf * w_gn, the SSM update's output) only after
+// it; nothing is written before it. That wait is also what orders the stores
+// of `part` after this layer's pre-norm, which read it three kernels earlier:
+// every kernel of the chain waits for the one before it to end before it
+// ends. Where the SSM phase is an ordinary launch (k4_ssm_kernel), the wait
+// returns at once. The next layer's pre-norm is a programmatic dependent of
+// this kernel, and the blocks let it start at entry, as the int8 kernel's do.
+//
+// At the end the blocks trade halves through distributed shared memory as the
+// in_proj's do: rank 0 finishes rows 0-7 of every m16 tile and rank 1 rows
+// 8-15, each sending its sums of the other rows to its peer with st.async
+// counted on the peer's mbarrier. lo + hi is one fp32 addition (no product to
+// contract it with; the same bits either way round), and each block stores its
+// rows of part[split] through shared memory as whole 64-column rows, two
+// 128-byte lines each. Rows past B read as zeros (the TMA copy fills them)
+// and are never written. The split's k range is tc_split_width's, so a row's
+// bits are the int8 path's order and do not depend on B.
+
+// the shapes the pair kernel takes, on the bf16 tensor-core path with bf16
+// projections: whole tiles and every K split non-empty (every ksplit that
+// prepare_fused_decode picks); other shapes take k4_out_proj_kernel
+__host__ __device__ constexpr bool out_pair_fits(int d, int d_inner, int ksplit) {
+  return d % kTcBN == 0 && d_inner % kTcBK == 0 && ksplit >= 1 && ksplit <= kMaxKSplit &&
+         d_inner > (ksplit - 1) * tc_split_width(d_inner, ksplit);
+}
+
+template <int MT>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(InPair<MT>::kThreads, 3)
+k4_out_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap wmap,
+                        const __grid_constant__ CUtensorMap xmap) {
+  using P = InPair<MT>;  // the in_proj's tiles, ring and warps
+  if (OMT_K4_OUT_SKIP & 16) return;
+  // the next layer's pre-norm may start now and fetch its weights; it reads
+  // the partials only once this kernel has ended
+  if (!(OMT_K4_OUT_SKIP & 1024)) grid_launch_dependents();
+  extern __shared__ unsigned char out_pair_smem_raw[];
+  __shared__ __align__(8) uint64_t full[P::kStages], empty[P::kStages], sums_full;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(out_pair_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* sums = reinterpret_cast<float*>(ring + P::kStages * P::kStageBytes);
+  const uint32_t rank = cluster_ctarank();  // 0: the lo chain, 1: the hi chain
+  const int n0 = (blockIdx.x >> 1) * kTcBN, m0 = blockIdx.y * MT * 16, split = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = tc_split_width(a.d_inner, a.ksplit);
+  const int k_begin = split * per;
+  const int ntiles = (min(a.d_inner, k_begin + per) - k_begin) / kTcBK;
+  const int nstages = (ntiles + P::kS - 1) / P::kS;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < P::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], P::kWarps);
+    }
+    mbar_init(&sums_full, 1);  // its bytes come from the peer's st.async stores
+    mbar_arrive_expect_tx(&sums_full, P::kSumsBytes);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // this block's barriers are set, and the peer's are once
+  cluster_arrive_relaxed();  // the cluster barrier has been waited on
+
+  if (warp == P::kWarps) {
+    if (lane == 0) {
+      constexpr uint32_t kA = (OMT_K4_OUT_SKIP & 1) ? 0 : P::kABytes;
+      constexpr uint32_t kW = (OMT_K4_OUT_SKIP & 2) ? 0 : P::kWBytes;
+      prefetch_tensor_map(&wmap);  // W_out of this layer
+      prefetch_tensor_map(&xmap);  // yf * w_gn
+      auto k_row = [&](int st, int u) { return k_begin + (st * P::kS + u) * kTcBK + rank * 32; };
+      auto weights = [&](int st, int slot, int n) {  // stage st's weight tiles into its slot
+        for (int u = 0; u < n; ++u)
+          if (kW)
+            tma_load(ring + slot * P::kStageBytes + P::kS * P::kABytes + u * P::kWBytes, &wmap, n0,
+                     k_row(st, u), &full[slot]);
+      };
+      // the first stages' weights before the SSM update has ended (64: after, a measurement)
+      const int first = (OMT_K4_OUT_SKIP & 64) ? 0 : min(P::kStages, nstages);
+      for (int st = 0; st < first; ++st) {
+        const int n = min(P::kS, ntiles - st * P::kS);
+        mbar_arrive_expect_tx(&full[st], n * (kA + kW));
+        weights(st, st, n);
+      }
+      grid_dependency_wait();  // yf * w_gn is the SSM update's output
+      for (int st = 0; st < nstages; ++st) {
+        const int slot = st % P::kStages, n = min(P::kS, ntiles - st * P::kS);
+        if (st >= first) {  // into the slot once its last stage is done with
+          if (st >= P::kStages) mbar_wait<false>(&empty[slot], (st / P::kStages - 1) & 1);
+          mbar_arrive_expect_tx(&full[slot], n * (kA + kW));
+          weights(st, slot, n);
+        }
+        for (int u = 0; u < n; ++u)
+          if (kA)
+            tma_load(ring + slot * P::kStageBytes + u * P::kABytes, &xmap, k_row(st, u), m0,
+                     &full[slot]);
+      }
+    }
+    cluster_wait();
+    return;
+  }
+
+  // this lane's ldmatrix offsets, swizzle included, as in k4_in_proj_pair_kernel:
+  // the warp's columns are 16 warp .. 16 warp + 15
+  uint32_t a_off[2], b_off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a_off[h] = (lane & 15) * 64 + (((2 * h + (lane >> 4)) ^ ((lane >> 1) & 3)) << 4);
+    b_off[h] = (h * 16 + (lane & 15)) * 128 + (((2 * warp + (lane >> 4)) ^ (lane & 7)) << 4);
+  }
+
+  float acc[MT][2][4];  // [m16 tile][n8 tile][mma.sync accumulator]
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  for (int st = 0; st < nstages; ++st) {
+    const int slot = st % P::kStages;
+    mbar_wait<false>(&full[slot], (st / P::kStages) & 1);
+    const unsigned char* a_tile = ring + slot * P::kStageBytes;
+    const unsigned char* w_tile = a_tile + P::kS * P::kABytes;
+    if (!(OMT_K4_OUT_SKIP & 4)) {
+      const int n = min(P::kS, ntiles - st * P::kS);
+      if (n == P::kS) {
+        in_pair_tiles<MT, P::kS>(acc, a_tile, w_tile, a_off, b_off);
+      } else {  // the last stage of a split that is not a multiple of kS tiles
+        for (int u = 0; u < n; ++u)
+          in_pair_tiles<MT, 1>(acc, a_tile + u * P::kABytes, w_tile + u * P::kWBytes, a_off, b_off);
+      }
+    }
+    __syncwarp();  // the warp is done with the stage
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+
+  cluster_wait();  // the peer's barriers are set
+  if (OMT_K4_OUT_SKIP & 8) return;
+  // Rank 0 finishes rows 0-7 of every m16 tile, rank 1 rows 8-15: accumulators
+  // 0, 1 of lane (g, c) are row g, 2, 3 row g + 8 (columns 2 c, 2 c + 1 of the
+  // n8 tile). Each block sends its sums of the other rows to its peer, 16
+  // bytes a lane for each m16 tile (both n8 tiles), counted on the peer's
+  // sums_full.
+  const int g = lane >> 2, c = lane & 3;
+  auto slot4 = [&](int i) {  // floats: this lane's 16 bytes of m16 tile i
+    return sums + ((warp * MT + i) * 32 + lane) * 4;
+  };
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float(&x)[4] = acc[i][0];
+    const float(&y)[4] = acc[i][1];
+    st_async_remote4(slot4(i), rank ^ 1, &sums_full, rank ? x[0] : x[2], rank ? x[1] : x[3],
+                     rank ? y[0] : y[2], rank ? y[1] : y[3]);
+  }
+
+  // the ring, which every consumer warp is done with, takes lo + hi of this
+  // block's rows (row r = 8 i + g: 8 MT x 64)
+  constexpr int kLdCs = kTcBN + 8;  // floats: conflict-free float2 stores
+  float* Cs = reinterpret_cast<float*>(ring);
+  consumer_sync<P::kWarps>();
+  mbar_wait<false>(&sums_full, 0);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float4 p = load4(slot4(i));
+    const float(&x)[4] = acc[i][0];
+    const float(&y)[4] = acc[i][1];
+    float* row = Cs + (i * 8 + g) * kLdCs + warp * 16 + 2 * c;
+    *reinterpret_cast<float2*>(row) =
+        make_float2((rank ? x[2] : x[0]) + p.x, (rank ? x[3] : x[1]) + p.y);
+    *reinterpret_cast<float2*>(row + 8) =
+        make_float2((rank ? y[2] : y[0]) + p.z, (rank ? y[3] : y[1]) + p.w);
+  }
+  consumer_sync<P::kWarps>();
+
+  // thread (cg, r0) stores columns 4 cg .. 4 cg + 3 of the block's rows r0,
+  // r0 + R, ...: a half warp takes a whole 64-column row
+  grid_dependency_wait();  // returned long ago: the producer's wait came first
+  constexpr int R = P::kWarps * 2;  // rows a pass
+  const int cg = threadIdx.x & 15, r0 = threadIdx.x >> 4;
+  float* part = a.part + static_cast<size_t>(split) * a.B * a.d + n0 + cg * 4;
+#pragma unroll
+  for (int r = r0; r < 8 * MT; r += R) {
+    const int row = m0 + (r >> 3) * 16 + static_cast<int>(rank) * 8 + (r & 7);
+    if (row < a.B)
+      store4(part + static_cast<size_t>(row) * a.d, load4(Cs + r * kLdCs + cg * 4));
+  }
+}
+
+template <int MT>
+cudaError_t launch_out_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
+  // programmatic dependent launch: the blocks start while the SSM update runs
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * (a.d / kTcBN), (a.B + MT * 16 - 1) / (MT * 16), a.ksplit);
+  cfg.blockDim = dim3(InPair<MT>::kThreads);
+  cfg.dynamicSmemBytes = InPair<MT>::kBytes;
+  cfg.stream = stream;
+  if (!(OMT_K4_OUT_SKIP & 32)) {  // 32: an ordinary launch (measurement only)
+    cfg.attrs = &pdl;
+    cfg.numAttrs = 1;
+  }
+  CUtensorMap wmap, xmap;  // the host copies of this layer's W_out and of yf * w_gn
+  std::memcpy(&wmap, a.out_maps + layer, sizeof(wmap));
+  std::memcpy(&xmap, a.out_maps + a.L, sizeof(xmap));
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k4_out_proj_pair_kernel<MT>, a, layer, wmap, xmap);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_out_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
+  switch (pair_row_fragments(a.B)) {
+    case 1: return launch_out_proj_pair<1>(a, layer, stream);
+    case 2: return launch_out_proj_pair<2>(a, layer, stream);
+    case 3: return launch_out_proj_pair<3>(a, layer, stream);
+    case 4: return launch_out_proj_pair<4>(a, layer, stream);
+    case 5: return launch_out_proj_pair<5>(a, layer, stream);
+    default: return launch_out_proj_pair<6>(a, layer, stream);
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1879,47 +2143,66 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// rows per block of the out_proj (and an int8 in_proj) follow the batch: 16, 32 or 48
+// rows per block of the int8 products follow the batch: 16, 32 or 48
 inline int tc_row_fragments(int B) { return B <= 16 ? 1 : (B <= 32 ? 2 : 3); }
 
-template <int MT, typename PW>
+template <int MT>
 cudaError_t allow_smem_tc() {
-  if constexpr (kInt8<PW>) {
-    const cudaError_t err = allow_smem(k4_in_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
-    if (err != cudaSuccess) return err;
-  }
+  using PW = int8_t;
+  const cudaError_t err = allow_smem(k4_in_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
+  if (err != cudaSuccess) return err;
   return allow_smem(k4_out_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
 }
 
-template <int MT, typename PW>
+template <int MT>
 cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStream_t stream) {
+  using PW = int8_t;
   const unsigned int row_tiles = (a.B + MT * 16 - 1) / (MT * 16);
   if (out_proj) {
     const dim3 grid(a.d / kTcBN, row_tiles, a.ksplit);
     k4_out_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
-  } else if constexpr (kInt8<PW>) {
+  } else {
     const dim3 grid((2 * a.d_inner + 2 * a.N + a.H) / kTcBN, row_tiles);
     k4_in_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
   }
   return cudaGetLastError();
 }
 
-template <typename PW>
+// the int8 in_proj (out_proj false) or out_proj of `layer` on the tensor cores
 cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStream_t stream) {
-  if (!out_proj && !kInt8<PW>) return launch_in_proj_pair(a, layer, stream);
   switch (tc_row_fragments(a.B)) {
-    case 1: return launch_product_tc<1, PW>(a, layer, out_proj, stream);
-    case 2: return launch_product_tc<2, PW>(a, layer, out_proj, stream);
-    default: return launch_product_tc<3, PW>(a, layer, out_proj, stream);
+    case 1: return launch_product_tc<1>(a, layer, out_proj, stream);
+    case 2: return launch_product_tc<2>(a, layer, out_proj, stream);
+    default: return launch_product_tc<3>(a, layer, out_proj, stream);
   }
 }
 
+template <int MT>
+cudaError_t allow_smem_pair() {
+  const cudaError_t err = allow_smem(k4_in_proj_pair_kernel<MT>, InPair<MT>::kBytes);
+  if (err != cudaSuccess) return err;
+  return allow_smem(k4_out_proj_pair_kernel<MT>, InPair<MT>::kBytes);
+}
+
+// the shared memory of the products a step at B rows launches on the tensor
+// cores: the int8 kernels, or both pair kernels of bf16 projections
 template <typename PW>
-cudaError_t allow_smem_tc(int B) {
-  switch (tc_row_fragments(B)) {
-    case 1: return allow_smem_tc<1, PW>();
-    case 2: return allow_smem_tc<2, PW>();
-    default: return allow_smem_tc<3, PW>();
+cudaError_t allow_smem_products(int B) {
+  if constexpr (kInt8<PW>) {
+    switch (tc_row_fragments(B)) {
+      case 1: return allow_smem_tc<1>();
+      case 2: return allow_smem_tc<2>();
+      default: return allow_smem_tc<3>();
+    }
+  } else {
+    switch (pair_row_fragments(B)) {
+      case 1: return allow_smem_pair<1>();
+      case 2: return allow_smem_pair<2>();
+      case 3: return allow_smem_pair<3>();
+      case 4: return allow_smem_pair<4>();
+      case 5: return allow_smem_pair<5>();
+      default: return allow_smem_pair<6>();
+    }
   }
 }
 
@@ -1933,15 +2216,33 @@ constexpr bool kBothBf16 =
 template <typename IO, typename WT, typename PW>
 cudaError_t launch_in_proj(const K4Args& a, int layer, bool tensor_cores, cudaStream_t stream) {
   if constexpr (kBothBf16<IO, WT>) {
-    if (tensor_cores) return launch_product_tc<PW>(a, layer, false, stream);
+    if (tensor_cores)
+      return kInt8<PW> ? launch_product_tc(a, layer, false, stream)
+                       : launch_in_proj_pair(a, layer, stream);
   }
   const dim3 in_grid((2 * a.d_inner + 2 * a.N + a.H + kBN - 1) / kBN, (a.B + kBM - 1) / kBM);
   k4_in_proj_kernel<IO, WT, PW><<<in_grid, kGemmThreads, 0, stream>>>(a, layer);
   return cudaGetLastError();
 }
 
+// phase 4 of `layer` on the path the step takes: with `pair` (bf16 projections
+// on the tensor-core path, a shape that out_pair_fits) the pair kernel, a
+// programmatic dependent of the SSM update; with int8 projections there
+// k4_out_proj_tc_kernel; k4_out_proj_kernel otherwise
+template <typename IO, typename WT, typename PW>
+cudaError_t launch_out_proj(const K4Args& a, int layer, bool tensor_cores, bool pair,
+                            cudaStream_t stream) {
+  if (pair) return launch_out_proj_pair(a, layer, stream);
+  if constexpr (kBothBf16<IO, WT> && kInt8<PW>) {
+    if (tensor_cores) return launch_product_tc(a, layer, true, stream);
+  }
+  const dim3 out_grid((a.d + kBN - 1) / kBN, (a.B + kBM - 1) / kBM, a.ksplit);
+  k4_out_proj_kernel<IO, PW><<<out_grid, kGemmThreads, 0, stream>>>(a, layer);
+  return cudaGetLastError();
+}
+
 // phases that run_fused_decode can launch alone, for one layer (a measurement)
-enum K4Phase : int { kPhasePrenorm = 1, kPhaseInProj = 2, kPhaseSsm = 3 };
+enum K4Phase : int { kPhasePrenorm = 1, kPhaseInProj = 2, kPhaseSsm = 3, kPhaseOutProj = 4 };
 
 template <int E, int R>
 cudaError_t launch_prenorm_early(const cudaLaunchConfig_t& cfg, const K4Args& a, int layer) {
@@ -1997,36 +2298,32 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
     tensor_cores = whole_tiles;
     // the bf16 in_proj reads its tiles through the plan's tensor maps: no other path stands in
     if (tensor_cores && !kInt8<PW> && a.in_maps == nullptr) return cudaErrorInvalidValue;
-    if (tensor_cores && (err = allow_smem_tc<PW>(a.B)) != cudaSuccess) return err;
+    if (tensor_cores && (err = allow_smem_products<PW>(a.B)) != cudaSuccess) return err;
   }
   const bool early_prenorm =
       kBothBf16<IO, WT> && tensor_cores && prenorm_row_fits(a.d, a.r, a.H, a.ksplit);
+  const bool out_pair = kBothBf16<IO, WT> && !kInt8<PW> && tensor_cores &&
+                        out_pair_fits(a.d, a.d_inner, a.ksplit);
+  // which reads its tiles through the plan's tensor maps: no other path stands in
+  if (out_pair && a.out_maps == nullptr) return cudaErrorInvalidValue;
   if (layer_only >= 0 && phase_only == kPhasePrenorm)
     return launch_prenorm<IO, WT>(a, layer_only, early_prenorm, stream);
   if (layer_only >= 0 && phase_only == kPhaseInProj)
     return launch_in_proj<IO, WT, PW>(a, layer_only, tensor_cores, stream);
   if (layer_only >= 0 && phase_only == kPhaseSsm)
     return launch_ssm<IO, WT, ST>(a, layer_only, stream);
+  if (layer_only >= 0 && phase_only == kPhaseOutProj)
+    return launch_out_proj<IO, WT, PW>(a, layer_only, tensor_cores, out_pair, stream);
   if (layer_only >= 0) return cudaErrorInvalidValue;
-
-  const unsigned int row_tiles = (a.B + kBM - 1) / kBM;
-  const dim3 out_grid((a.d + kBN - 1) / kBN, row_tiles, a.ksplit);
-  const dim3 rows(a.B);
 
   for (int layer = 0; layer < a.L; ++layer) {
     if ((err = launch_prenorm<IO, WT>(a, layer, early_prenorm, stream)) != cudaSuccess) return err;
     if ((err = launch_in_proj<IO, WT, PW>(a, layer, tensor_cores, stream)) != cudaSuccess) return err;
     if ((err = launch_ssm<IO, WT, ST>(a, layer, stream)) != cudaSuccess) return err;
-    if constexpr (kBothBf16<IO, WT>) {
-      if (tensor_cores && (err = launch_product_tc<PW>(a, layer, true, stream)) != cudaSuccess)
-        return err;
-    }
-    if (!tensor_cores) {
-      k4_out_proj_kernel<IO, PW><<<out_grid, kGemmThreads, 0, stream>>>(a, layer);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
+    if ((err = launch_out_proj<IO, WT, PW>(a, layer, tensor_cores, out_pair, stream)) != cudaSuccess)
+      return err;
   }
-  k4_finish_kernel<IO><<<rows, kRowThreads, 0, stream>>>(a);
+  k4_finish_kernel<IO><<<dim3(a.B), kRowThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -2065,11 +2362,13 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // bf16 activations and weights the products run on the tensor cores; a bf16
 // in_proj there reads W_in and hn through `in_maps`, what
 // omt_fused_decode_in_maps wrote (in host memory) for these tables and this
-// hn (null otherwise; the call fails if that path finds it null).
+// hn, and a bf16 out_proj at the shapes out_pair_fits takes W_out and ya
+// through `out_maps`, written by the same function for the out_proj's tables
+// and this ya (each null otherwise; the call fails if its path finds it null).
 // Activations and weights are both bf16 or both fp32; proj_dtype is w_dtype
 // or int8. `layer_only` < 0 runs the step; a layer index runs that layer's
 // phase `phase_only` alone (1: the pre-norm, 2: the in_proj, 3: the SSM
-// update), as the step would launch it (a measurement).
+// update, 4: the out_proj), as the step would launch it (a measurement).
 // Everything is enqueued on `stream`; nothing synchronises. Returns the first
 // cudaError_t of a launch (0 = success).
 extern "C" int omt_fused_decode_step(
@@ -2078,7 +2377,7 @@ extern "C" int omt_fused_decode_step(
     void* ssm_state, const void* h_in, const void* res_in, void* h_out, void* res_out, void* hn,
     void* hA, void* z, void* xbc, void* dt, void* ya, void* sumsq, void* part, int io_dtype,
     int w_dtype, int state_dtype, int aligned16, int proj_dtype, const void* in_maps,
-    int layer_only, int phase_only, void* stream) {
+    const void* out_maps, int layer_only, int phase_only, void* stream) {
   using namespace omt;
   if (L < 1 || B < 1 || d < 1 || W < 1 || r < 0 || N % 4 != 0 || H * P != d_inner ||
       ksplit < 1 || ksplit > kMaxKSplit ||
@@ -2100,6 +2399,7 @@ extern "C" int omt_fused_decode_step(
   a.ya = ya; a.sumsq = static_cast<float*>(sumsq);
   a.part = static_cast<float*>(part);
   a.in_maps = static_cast<const CUtensorMap*>(in_maps);
+  a.out_maps = static_cast<const CUtensorMap*>(out_maps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool whole = aligned16 != 0 && d % 64 == 0 && d_inner % 64 == 0 &&
                      (2 * d_inner + 2 * N + H) % 64 == 0 && r <= kTcMaxRank;
@@ -2119,12 +2419,14 @@ extern "C" int omt_fused_decode_step(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor maps of the bf16 in_proj: for each of the L layers W_in (the host
-// array `w_in` of L device pointers to (d, n_in) bf16 matrices), read in boxes
-// of 32 k x 64 columns, then hn ((B, d) bf16), in boxes of the row tile x 32 k.
+// The tensor maps of a bf16 product of the two-block clusters: for each of the
+// L layers W (the host array `w_in` of L device pointers to (d, n_in) bf16
+// matrices), read in boxes of 32 k x 64 columns, then the activations `hn`
+// ((B, d) bf16), in boxes of the row tile x 32 k. The in_proj's are W_in and
+// hn (d = d_model), the out_proj's W_out and ya (d = d_inner, n_in = d_model).
 // Written to `maps` in host memory, (L + 1) x 128 bytes, for the caller to hand
-// to omt_fused_decode_step with these tables and this hn (each launch takes
-// its two maps as parameters).
+// to omt_fused_decode_step with these tables and these activations (each
+// launch takes its two maps as parameters).
 // Returns 0, or cudaErrorInvalidValue for shapes that are not whole tiles or a
 // map that cuTensorMapEncodeTiled refuses (a pointer or row that is not 16-byte aligned).
 extern "C" int omt_fused_decode_in_maps(const void* const* w_in, int L, int B, int d, int n_in,

@@ -19,9 +19,10 @@ makes one call per token instead of a Python loop over the layers. The two
 products are written by hand: for bf16 activations and weights the weight
 tiles stream into warp-level tensor-core products, so the weight bytes are
 the cost (the in_proj through TMA copies, two blocks of a cluster per column
-tile, the copies of its weights started while the pre-norm still runs; it
-reads W_in and the normed hidden state through tensor maps that
-``prepare_fused_decode`` encodes once); the
+tile, the copies of its weights started while the pre-norm still runs; the
+out_proj the same way per column tile and K split, its weights asked for
+while the SSM update ends; both read their weights and activations through
+tensor maps that ``prepare_fused_decode`` encodes once); the
 other case (fp32 activations and weights, and any shape that is not whole
 tiles) takes fp32 multiply-adds over shared-memory tiles, which are bound by
 operations (see the note in the source). Activations and weights of two
@@ -159,6 +160,8 @@ class FusedDecodePlan:
     # a bf16 in_proj on whole tiles (omt_fused_decode_in_maps): each launch of
     # that phase takes its two as parameters; else None
     in_maps: Optional[torch.Tensor] = None
+    # the same for a bf16 out_proj on whole tiles: W_out of each layer then ya
+    out_maps: Optional[torch.Tensor] = None
 
 
 def prepare_fused_decode(
@@ -220,16 +223,24 @@ def prepare_fused_decode(
         "sumsq": f32(batch, H), "part": f32(ksplit, batch, d),
     }
     aligned16 = all(t.data_ptr() % 16 == 0 for t in keep + list(scratch.values()))
-    in_maps = None
+
+    def tensor_maps(operand, k, n, x):
+        # (len(layers) + 1) maps: the (k, n) weight `operand` of each layer, then x (batch, k)
+        w = torch.tensor([row[OPERANDS.index(operand)] for row in ptrs], dtype=torch.int64)
+        maps = torch.empty(((len(layers) + 1) * TENSOR_MAP_BYTES,), dtype=torch.uint8)
+        kb.check_launch(kb.load_kernels().omt_fused_decode_in_maps(
+            w.data_ptr(), len(layers), batch, k, n, x.data_ptr(), maps.data_ptr()),
+            f"prepare_fused_decode: the {operand}'s tensor maps")
+        return maps
+
+    in_maps = out_maps = None
     if (dtype == torch.bfloat16 and proj_dtype == torch.bfloat16 and aligned16
             and d % TC_TILE == 0 and mixer_cfg.d_in_proj % TC_TILE == 0):
-        w_in = torch.tensor([row[OPERANDS.index("in_proj")] for row in ptrs], dtype=torch.int64)
-        in_maps = torch.empty(((len(layers) + 1) * TENSOR_MAP_BYTES,), dtype=torch.uint8)
-        kb.check_launch(kb.load_kernels().omt_fused_decode_in_maps(
-            w_in.data_ptr(), len(layers), batch, d, mixer_cfg.d_in_proj, scratch["hn"].data_ptr(),
-            in_maps.data_ptr()), "prepare_fused_decode: the in_proj's tensor maps")
+        in_maps = tensor_maps("in_proj", d, mixer_cfg.d_in_proj, scratch["hn"])
+        if di % TC_TILE == 0:
+            out_maps = tensor_maps("out_proj", di, d, scratch["ya"])
     return FusedDecodePlan(tables, tuple(keep), scratch, batch, r, ksplit, aligned16, dtype,
-                           ref.dtype, proj_dtype, in_maps)
+                           ref.dtype, proj_dtype, in_maps, out_maps)
 
 
 def fused_decode_step_plain(
@@ -404,8 +415,32 @@ def fused_decode_ssm(
             _PHASE_SSM)
 
 
+def fused_decode_out_proj(
+    layers: Sequence[Dict],
+    h: torch.Tensor,
+    residual: Optional[torch.Tensor],
+    cache,
+    task: Optional[str],
+    mixer_cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig],
+    norm_eps: float = 1e-5,
+    *,
+    plan: FusedDecodePlan,
+    layer: int,
+) -> None:
+    """The out_proj phase of ``layer`` alone, on the card, as
+    ``fused_decode_step`` launches it with these arguments: a measurement of
+    one phase. It reads the gated, weighted yf as the plan's scratch holds it
+    (from the last step) and writes the scratch's fp32 K-split partials.
+    Counts no launch."""
+    if not 0 <= layer < len(layers):
+        raise ValueError(f"layer {layer} of {len(layers)}")
+    _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer,
+            _PHASE_OUT_PROJ)
+
+
 # phases the C function launches alone (omt::K4Phase in csrc/decode_fused.cu)
-_PHASE_PRENORM, _PHASE_IN_PROJ, _PHASE_SSM = 1, 2, 3
+_PHASE_PRENORM, _PHASE_IN_PROJ, _PHASE_SSM, _PHASE_OUT_PROJ = 1, 2, 3, 4
 
 
 def _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, plan, layer_only,
@@ -453,7 +488,8 @@ def _launch(layers, h, residual, cache, task, mixer_cfg, lora_cfg, norm_eps, pla
         kb.dtype_code(h.dtype), kb.dtype_code(plan.w_dtype), kb.dtype_code(ssm.dtype),
         int(plan.aligned16 and conv.data_ptr() % 16 == 0),
         kb.I8 if plan.proj_dtype == torch.int8 else kb.dtype_code(plan.proj_dtype),
-        None if plan.in_maps is None else plan.in_maps.data_ptr(), layer_only, phase_only,
+        None if plan.in_maps is None else plan.in_maps.data_ptr(),
+        None if plan.out_maps is None else plan.out_maps.data_ptr(), layer_only, phase_only,
         kb.current_stream(h.device),
     )
     kb.check_launch(err, "fused_decode_step")

@@ -2,6 +2,7 @@
 work taken out, each build timed on the shapes of its main path.
 
     python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-ssm] [k4-prenorm]
+                              [k4-out-proj]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
@@ -42,6 +43,13 @@ entry's value, and times each build:
   launches; and the 48-layer step of each build (median of three calls of 5
   steps), where the phase starts while the out_proj runs and the in_proj
   while it runs.
+- ``k4-out-proj`` (``decode_fused.cu``, ``OMT_K4_OUT_SKIP``): K4's bf16
+  out_proj phase alone (``fused_decode_out_proj``: the product of the gated,
+  weighted yf with W_out into the fp32 K-split partials), each launch on the
+  next of the 1.3B's 48 layers, at 16, 48 and 96 rows, beside the phase's
+  bytes at the card's memory rate; each time the median of three calls of 96
+  launches; and the 48-layer step of each build (median of three calls of 5
+  steps), where the phase starts while the SSM update ends.
 
 Of every ``k4-*`` build the 48-layer step is also profiled (3 steps,
 ``tools/k4_probe.py``'s ``profile``): each phase's time that no earlier kernel
@@ -49,11 +57,13 @@ overlaps, and how long after the end of the kernels ahead of it the phase's
 kernel starts (negative: while they run).
 
 Only the build with the value 0 (and, of ``k4-in-proj``, 32, 64 and 128, of
-``k4-ssm`` 4, 8, 32 and 64, of ``k4-prenorm`` 16, 32, 64, 128 and 256, which
-change when work starts, not what it is)
-gives correct results; the build with 0 must equal the library's bits, which
-is asserted. Prints the card, one JSON line a
-measurement, then one JSON line of all with each build's ``ptxas`` lines.
+``k4-ssm`` 4, 8, 32 and 64, of ``k4-prenorm`` 16, 32, 64, 128 and 256, of
+``k4-out-proj`` 32, 64, 128, 256, 512 and 1024, which change when work
+starts, not what it computes) gives correct results; the build with 0 must
+equal the library's bits, which is asserted, and so must each ``k4-out-proj``
+build of that list (on the same inputs, restored before each check). Prints
+the card, one JSON line a measurement, then one JSON line of all with each
+build's ``ptxas`` lines.
 """
 
 from __future__ import annotations
@@ -135,9 +145,10 @@ def run_k5(libs: dict, builds: dict, rows: dict) -> None:
                 sk.BWD_BF16_CLUSTER = shipped
 
 
-def run_k4_phase(phase: str):
-    """K4's bf16 `phase` ("prenorm", "in_proj" or "ssm") through each build: the
-    phase alone, each launch on the next of the 48 layers, and the 48-layer step."""
+def run_k4_phase(phase: str, same_bits=()):
+    """K4's bf16 `phase` ("prenorm", "in_proj", "ssm" or "out_proj") through each
+    build: the phase alone, each launch on the next of the 48 layers, and the
+    48-layer step. The builds 0 and `same_bits` must give the library's bits."""
 
     def run(libs: dict, builds: dict, rows: dict) -> None:
         import chip_smoke as cs
@@ -147,7 +158,7 @@ def run_k4_phase(phase: str):
 
         cfg, lcfg = Mamba2LayerConfig(), LoraConfig()
         launch = {"prenorm": df.fused_decode_prenorm, "in_proj": df.fused_decode_in_proj,
-                  "ssm": df.fused_decode_ssm}[phase]
+                  "ssm": df.fused_decode_ssm, "out_proj": df.fused_decode_out_proj}[phase]
         gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
         layers = cs.fused_layers(gen, 48, cfg, lcfg, _bf)
         for batch in (16, cs.BATCH, 2 * cs.BATCH):
@@ -167,32 +178,51 @@ def run_k4_phase(phase: str):
             # what the checked layer's phase writes: the residual, hn and hn @ A
             # (layer 1: from the out_proj's partials); or z, x B C and dt after
             # the conv step and softplus and the rolled window; or the new
-            # state, yf * w_gn and the sums of yf^2 (layer 0)
+            # state, yf * w_gn and the sums of yf^2 (layer 0); or the fp32
+            # K-split partials (layer 0)
             at = 1 if phase == "prenorm" else 0
             if phase == "prenorm":
                 written = [residual] + [plan.scratch[k] for k in ("hn", "hA")]
             elif phase == "in_proj":
                 written = [plan.scratch[k] for k in ("z", "xbc", "dt")] + [cache.conv_state]
+            elif phase == "out_proj":
+                written = [plan.scratch["part"]]
             else:
                 written = [cache.ssm_state[0]] + [plan.scratch[k] for k in ("ya", "sumsq")]
-            updated = written[-1] if phase == "in_proj" else written[0]  # updated in place
-            before = updated.clone()
-            launch(*phase_args, plan=plan, layer=at)
-            want = [t.clone() for t in written]
+            # what the phase reads and updates in place, as the library's step
+            # left it: restored before each check (a build with work taken out
+            # runs the step with wrong, even non-finite, results)
+            read = list(plan.scratch.values()) + [cache.conv_state[at], cache.ssm_state[at],
+                                                  residual]
+            saved = [t.clone() for t in read]
+
+            def restore():
+                for t, s in zip(read, saved):
+                    t.copy_(s)
+
             bound = cs.k4_phase_bytes(cfg, lcfg.r, batch)[f"k4_{phase}"] / cs.HBM_BYTES_PER_S * 1e3
             rec = {"shape": {"prenorm": (batch, cfg.d_model, lcfg.r),
                              "in_proj": (batch, cfg.d_model, cfg.d_in_proj),
-                             "ssm": (batch, cfg.nheads, cfg.headdim, cfg.d_state)}[phase],
+                             "ssm": (batch, cfg.nheads, cfg.headdim, cfg.d_state),
+                             "out_proj": (batch, cfg.d_inner, cfg.d_model)}[phase],
                    "bound_ms": bound, "bound_by": "bytes", "phase_ms": {}, "step_ms": {},
                    "step_exposed_ms": {}, "step_start_after_ahead_end_us": {}}
             for v, name in builds.items():
+                if v == 0 or v in same_bits:  # the library's outputs
+                    restore()
+                    launch(*phase_args, plan=plan, layer=at)
+                    want = [t.clone() for t in written]
                 with only("omt_fused_decode_step", libs[v]):
-                    if v == 0:
-                        updated.copy_(before)
+                    if v == 0 or v in same_bits:  # the build's on the same inputs, bit for bit
+                        restore()
+                        if phase == "out_proj":  # NaN where the build does not write
+                            plan.scratch["part"].view(torch.uint8).fill_(0xFF)
                         launch(*phase_args, plan=plan, layer=at)
                         torch.cuda.synchronize()
-                        assert all(torch.equal(g, w) for g, w in zip(written, want)), \
-                            f"the shipped build differs at B={batch}"
+                        assert all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+                                   for g, w in zip(written, want)), \
+                            f"the build {name!r} differs from the library at B={batch}"
+                        del want
                     rec["phase_ms"][name] = median_ms(alone, 3, 2 * len(layers))
                     rec["step_ms"][name] = median_ms(lambda: df.fused_decode_step(*args, plan=plan),
                                                      3, 5)
@@ -200,7 +230,7 @@ def run_k4_phase(phase: str):
                     rec["step_exposed_ms"][name] = prof["exposed_ms_per_step"]
                     rec["step_start_after_ahead_end_us"][name] = prof["start_after_ahead_end_us"]
             emit(rows, f"{phase}_B{batch}", rec)
-            del cache, plan, written, want, updated, before, residual
+            del cache, plan, written, read, saved, residual
 
     return run
 
@@ -300,6 +330,15 @@ TARGETS = {
                     256: "in_proj may start after the first barrier",
                     128: "out_proj does not trigger"},
                    run_k4_phase("prenorm")),
+    "k4-out-proj": ("decode_fused.cu", "omt_fused_decode_step", "OMT_K4_OUT_SKIP",
+                    {0: "as shipped", 1: "no activation copies", 2: "no weight copies",
+                     3: "no copies", 4: "no products", 8: "no exchange or stores",
+                     7: "launch, barriers and stores only", 15: "launch and barriers only",
+                     16: "launch only", 32: "ordinary launch",
+                     64: "no weights before the SSM update ends",
+                     128: "SSM lets it start at entry", 256: "SSM lets it start after its stores",
+                     512: "SSM lets it start only as it ends", 1024: "no pre-norm trigger"},
+                    run_k4_phase("out_proj", same_bits=(32, 64, 128, 256, 512, 1024))),
 }
 
 

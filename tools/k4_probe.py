@@ -16,14 +16,17 @@ layers and inputs from the seed of `chip_smoke.py`, and:
   (bf16 state, LoRA rank 8, task t2i), through 48 layers at B=16 with an fp32
   state, and through 48 layers at B=48 on `quantize_decode_params` of the
   layers (int8 in_proj and out_proj) to FILE;
-- times the 48-layer step (CUDA events around 10 queued steps) and profiles 3
-  steps (queued behind other work) at B = 16, 48 and 96 with the time of each
-  of K4's phase kernels, the part of it that no earlier kernel overlaps (the
+- times the 48-layer step (CUDA events around 10 queued steps) and the
+  host's time to enqueue a step (median of five calls of 3 steps queued
+  behind other work), and profiles 3 steps (queued behind other work) at
+  B = 16, 48 and 96 with the time of each of K4's phase kernels, the part of it that no earlier kernel overlaps (the
   bf16 pre-norm starts while the out_proj runs, the in_proj while the
   pre-norm runs, the SSM update while the in_proj runs) and how long after
   the end of the kernels ahead of it each starts; at those batches also the
-  pre-norm phase alone (`fused_decode_prenorm`, each of 96 launches on the
-  next layer; null for a checkout that has no such function);
+  pre-norm phase alone (`fused_decode_prenorm`) and the out_proj phase alone
+  (`fused_decode_out_proj`), each of 96 launches on the next layer (null for
+  a checkout that has no such function), beside `torch.matmul(ya, W_out)` on
+  the same bf16 operands and layers;
 - does the same with an fp32 state at B = 8 and 16, and at B=48 on the int8
   layers.
 
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -121,31 +125,52 @@ def probe(root: Path, out: Path) -> dict:
     torch.save({k: v.cpu() for k, v in saved.items()}, out)
     del saved
 
-    def timed(stack, B, key, state=bf, prenorm_alone=False):
+    def timed(stack, B, key, state=bf, phases_alone=False):
         h, _, cache = inputs(len(stack), B, state)
         plan = prepare_fused_decode(stack, "t2i", cfg, lcfg, B, bf)
 
         def step():
             fused_decode_step(stack, h, None, cache, "t2i", cfg, lcfg, 1e-5, plan=plan)
 
+        def host_ms():  # the host's time to enqueue a step while the device is kept busy
+            cs._occupy_device(30.0)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step()
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            return dt / 3 * 1e3
+
         rec[key] = {"batch": B, "state": str(state), "step_ms": cs.time_ms(step, 10),
+                    "host_ms_per_step": statistics.median(host_ms() for _ in range(5)),
                     **profile(step)}
-        if prenorm_alone:  # the same draws on every checkout
+        if phases_alone:  # the same draws on every checkout
             residual, turn = cs.rand(gen, (B, cfg.d_model), torch.float32), [0]
-            rec[key]["prenorm_alone_ms"] = None
-            alone = getattr(decode_fused, "fused_decode_prenorm", None)
-            if alone is not None:
+            for name in ("prenorm", "out_proj"):
+                rec[key][f"{name}_alone_ms"] = None
+                alone = getattr(decode_fused, f"fused_decode_{name}", None)
+                if alone is None:
+                    continue
+                res = residual if name == "prenorm" else None
 
                 def phase():
-                    alone(stack, h, residual, cache, "t2i", cfg, lcfg, 1e-5, plan=plan,
+                    alone(stack, h, res, cache, "t2i", cfg, lcfg, 1e-5, plan=plan,
                           layer=turn[0] % len(stack))
                     turn[0] += 1
 
-                rec[key]["prenorm_alone_ms"] = cs.time_ms(phase, 2 * len(stack))
+                rec[key][f"{name}_alone_ms"] = cs.time_ms(phase, 2 * len(stack))
+            ya = plan.scratch["ya"]
+            w_out = [layer["mixer"]["out_proj"]["kernel"] for layer in stack]
+
+            def product():
+                torch.matmul(ya, w_out[turn[0] % len(stack)])
+                turn[0] += 1
+
+            rec[key]["out_proj_matmul_ms"] = cs.time_ms(product, 2 * len(stack))
         print(json.dumps({key: rec[key]}), flush=True)
 
     for B in (16, cs.BATCH, 2 * cs.BATCH):
-        timed(layers, B, f"bf16_B{B}", prenorm_alone=True)
+        timed(layers, B, f"bf16_B{B}", phases_alone=True)
     for B in (8, 16):
         timed(layers, B, f"bf16_B{B}_fp32_state", torch.float32)
     del layers
