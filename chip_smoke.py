@@ -46,6 +46,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1050,14 +1051,14 @@ def check_decode_fused(gen, results):
     assert isinstance(fused_decode_limits(stack("full_bf16")[:1], full, lora8, f32), ValueError)
 
     rec = in_proj_phase(gen, stack("full_bf16"), full, lora8, "t2i")
-    if results.get("build_log"):  # the bf16 in_proj kernels: no spills, tensor-core products
+    if results.get("build_log"):  # every pair in_proj (bf16 and int8 W_in): no spills, tensor cores
         from omnimamba_tpu_torch.ops import kernel_build
 
         rec["ptxas"] = ptxas_of(results["build_log"], "k4_in_proj_pair")
         rec["sass"] = sass_counts(kernel_build.build_kernels().library, "k4_in_proj_pair",
                                   ("HMMA.16816.F32.BF16", "LDSM", "UTMALDG"))
-        assert rec["ptxas"] and all("0 bytes spill stores" in " ".join(v)
-                                    for v in rec["ptxas"].values()), rec["ptxas"]
+        assert rec["ptxas"] and len(rec["ptxas"]) == 12 and all(
+            "0 bytes spill stores" in " ".join(v) for v in rec["ptxas"].values()), rec["ptxas"]
         assert rec["sass"] and all(c["HMMA.16816.F32.BF16"] > 0 for c in rec["sass"].values()), \
             rec["sass"]
     emit({"kernel_check": rec})
@@ -1111,18 +1112,20 @@ def check_decode_fused(gen, results):
     torch.cuda.empty_cache()
 
 
-def kernel_names(fn, calls: int = 3) -> list:
-    """The names of the device kernels that `calls` calls of `fn` launch, each
-    profiled on its own. A trace now and then lacks a kernel that ran (seen for
-    a kernel launched as a programmatic dependent first in its trace), so the
-    names of all the traces are taken together."""
+def kernel_names(fn, calls: int = 3, per_trace: int = 3) -> list:
+    """The names of the device kernels that `calls` traces of `per_trace`
+    calls of `fn` each launch. A trace now and then lacks a kernel that ran
+    (seen for kernels launched as programmatic dependents: a one-layer step's
+    in_proj was missing from three traces of one step each), so each trace
+    takes several calls and the names of all the traces are taken together."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = set()
     for _ in range(calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(per_trace):
+                fn()
             torch.cuda.synchronize()
         names |= {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
     return sorted(names)
@@ -1236,6 +1239,81 @@ def in_proj_phase(gen, layers, cfg, lcfg, task):
             "d_in_proj": cfg.d_in_proj, "lora_rank": lcfg.r, "dtype": str(bf), "by_batch": by_batch,
             "library_note": "torch.matmul(hn, W_in): the product alone (no LoRA term, conv step "
                             "or softplus), the yardstick for the phase's product"}
+
+
+def int8_in_proj_phase(gen, layers, cfg, lcfg, task):
+    """K4's int8 in_proj phase (the product with the int8 W_in and its column
+    scale, the LoRA term, conv step and softplus, on bf16 activations) of one
+    layer alone, as the step launches it (`fused_decode_in_proj`), at 16, 48
+    and 96 rows, each launch on the next of the 48 layers: launches back to
+    back (`ms`, where each launch, a programmatic dependent of the one before,
+    fetches weights while that one runs) and one launch with nothing beside it
+    (`ms_alone`: `time_alone_ms`), beside the bytes the phase must move at the
+    card's memory rate. Two yardsticks of the product alone, neither of them
+    the phase's function: K7's `qmatmul(hn, q, scale)`, the port's own int8
+    product, and `torch.matmul(hn, q as bf16)`, a bf16 product of the same
+    shape with twice the weight bytes. Beside them the phase inside the
+    48-layer int8 step (profile of 3 steps): each kernel's time and the part
+    of it that no earlier kernel overlaps, all of the in_proj's the pair
+    kernel's."""
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_in_proj, fused_decode_step, prepare_fused_decode)
+    from omnimamba_tpu_torch.ops.quant_kernel import qmatmul
+
+    bf = torch.bfloat16
+    w_in = [layer["mixer"]["in_proj"]["kernel"] for layer in layers]
+    w_bf16 = [w["q"].to(bf) for w in w_in]
+    n = 2 * len(layers)
+    by_batch = {}
+    for b in (16, BATCH, 2 * BATCH):
+        h = rand(gen, (b, cfg.d_model), bf)
+        cache = fused_state(gen, len(layers), b, cfg, bf, bf)
+        plan = prepare_fused_decode(layers, task, cfg, lcfg, b, bf)
+        assert plan.proj_dtype == torch.int8 and plan.in_maps is not None
+        args = (layers, h, None, cache, task, cfg, lcfg, 1e-5)
+        fused_decode_step(*args, plan=plan)  # the scratch holds a real hn and hn @ A
+        hn, turn = plan.scratch["hn"], [0]
+
+        def phase():
+            fused_decode_in_proj(*args, plan=plan, layer=turn[0] % len(layers))
+            turn[0] += 1
+
+        def k7():
+            w = w_in[turn[0] % len(layers)]
+            qmatmul(hn, w["q"], w["scale"])
+            turn[0] += 1
+
+        def bf16_product():
+            torch.matmul(hn, w_bf16[turn[0] % len(layers)])
+            turn[0] += 1
+
+        phase_bytes = k4_phase_bytes(cfg, lcfg.r, b, proj_bytes=1)["k4_in_proj"]
+        bound = phase_bytes / HBM_BYTES_PER_S * 1e3
+        ms, ms_alone = time_ms(phase, n), time_alone_ms(phase, n)
+        prof = profile_steps(lambda i: fused_decode_step(*args, plan=plan), 3,
+                             named=K4_PHASES + ("k4_in_proj_pair",))
+        by_batch[f"B{b}"] = {
+            "ms": ms, "ms_alone": ms_alone, "bound_ms": bound, "share_of_bound": bound / ms,
+            "share_of_bound_alone": bound / ms_alone, "bytes": phase_bytes,
+            "qmatmul_ms": time_ms(k7, n), "qmatmul_ms_alone": time_alone_ms(k7, n),
+            "bf16_matmul_ms": time_ms(bf16_product, n),
+            "bf16_matmul_ms_alone": time_alone_ms(bf16_product, n),
+            "step_ms_per_layer": {k: v / len(layers) for k, v in prof["named_ms_per_step"].items()},
+            "step_exposed_ms_per_layer": {
+                k: v / len(layers) for k, v in prof["named_exposed_ms_per_step"].items()},
+            "step_device_busy_ms": prof["device_busy_ms_per_step"],
+        }
+        # the step's in_proj time is the pair kernel's, and only its
+        named = prof["named_ms_per_step"]
+        assert 0 < named["k4_in_proj_pair"] == named["k4_in_proj"], by_batch[f"B{b}"]
+        del cache, plan
+    return {"kernel": "decode_fused_int8", "case": "int8_in_proj_phase", "layers": 1,
+            "d_model": cfg.d_model, "d_in_proj": cfg.d_in_proj, "lora_rank": lcfg.r,
+            "dtype": str(bf), "weight_dtype": "int8 in_proj", "by_batch": by_batch,
+            "yardstick_note": "qmatmul(hn, q, scale): K7, the port's int8 product alone (no "
+                              "LoRA term, conv step or softplus); torch.matmul(hn, q as bf16): a "
+                              "bf16 product of the same shape, twice the weight bytes; neither "
+                              "computes the phase's function, so library_ms stays null"}
 
 
 def out_proj_phase(gen, layers, cfg, lcfg, task):
@@ -1613,8 +1691,11 @@ def check_qmatmul(gen, results):
 def check_decode_fused_int8(gen, results):
     """K4's int8 branch (int8 in_proj and out_proj, the other weights in the
     activation type) against its plain version at 1 and 48 layers, batch 48
-    and 4, bf16 and fp32, with K4's tolerances (see BF16_STEP_ATOL_REL and
-    DEEP_TOL_REL)."""
+    and 4, bf16 and fp32, and at one bf16 layer at the int8 in_proj's row
+    tiles (17, 96 and 112 rows), with K4's tolerances (see BF16_STEP_ATOL_REL
+    and DEEP_TOL_REL); which in_proj kernel each case ran, by name; rows 0-2
+    of two bf16 steps against the 3-row step, bit for bit; the int8 in_proj
+    phase alone (`int8_in_proj_phase`) and the int8 step by phase."""
     from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
     from omnimamba_tpu_torch.ops.decode_fused import (
         fused_decode_step, fused_decode_step_plain, prepare_fused_decode)
@@ -1643,10 +1724,28 @@ def check_decode_fused_int8(gen, results):
         ("int8_awkward", "narrow_f32", 2, 3, narrow, LoraConfig(r=4), "t2i", f32, f32),
         ("int8_awkward_bf16", "narrow_bf16", 2, 5, narrow, LoraConfig(r=4), "mmu", bf, bf),
         ("int8_main", "bf16", 48, BATCH, full, lora8, "t2i", bf, bf),
+        # the int8 in_proj's row tiles: a partial second m16 fragment, one tile
+        # of 96 rows (without LoRA), two tiles
+        ("int8_1_layer_17_rows", "bf16", 1, 17, full, lora8, "mmu", bf, bf),
+        ("int8_1_layer_96_rows", "bf16", 1, 2 * BATCH, full, lora8, None, bf, bf),
+        ("int8_1_layer_112_rows", "bf16", 1, 112, full, lora8, "t2i", bf, f32),
         ("int8_fp32_1_layer", "f32", 1, BATCH, full, lora8, "t2i", f32, f32),
         ("int8_fp32_1_layer_four_rows", "f32", 1, 4, full, lora8, "mmu", f32, bf),
         ("int8_fp32_deep_four_rows", "f32", 48, 4, full, lora8, "t2i", f32, f32),
     ]
+    # the in_proj kernel each case must run (by name): on whole tiles the pair
+    # kernel of int8 weights with MT m16 row fragments a block (six from B=96
+    # on: one row tile at 96, two at 112); elsewhere the multiply-add kernel
+    in_proj_of = {"int8_1_layer": "k4_in_proj_pair_kernel<3, signed char>",
+                  "int8_1_layer_four_rows": "k4_in_proj_pair_kernel<1, signed char>",
+                  "int8_1_layer_17_rows": "k4_in_proj_pair_kernel<2, signed char>",
+                  "int8_1_layer_96_rows": "k4_in_proj_pair_kernel<6, signed char>",
+                  "int8_1_layer_112_rows": "k4_in_proj_pair_kernel<6, signed char>",
+                  "int8_awkward": "k4_in_proj_kernel<float, float, signed char>",
+                  "int8_awkward_bf16": "k4_in_proj_kernel<__nv_bfloat16, __nv_bfloat16, signed char>"}
+    # the int8 in_proj alone, beside its bound and two yardsticks of its product
+    phase_rec = int8_in_proj_phase(gen, stack("bf16"), full, lora8, "t2i")
+    emit({"kernel_check": phase_rec})
     for name, sname, n_layer, B, cfg, lcfg, task, io, sdtype in cases:
         if sname == "f32" and "bf16" in stacks:
             stacks.pop("bf16")
@@ -1688,6 +1787,26 @@ def check_decode_fused_int8(gen, results):
                                  "of the largest reference value"} if deep else
                    {"rtol": {"fp32": 0.0, "bf16": RTOL[bf]}, "atol_rel": atol_rel})
         assert all(rec[f"{k}_err_of_allowed"] <= 1.0 for k in pairs), rec
+        if name in ("int8_1_layer", "int8_1_layer_17_rows"):
+            # a row's bits do not depend on the batch: rows 0-2 of this step
+            # equal the 3-row step on the same rows, weights, residual and cache rows
+            c3 = cache0._replace(conv_state=cache0.conv_state[:, :3].clone(),
+                                 ssm_state=cache0.ssm_state[:, :3].clone())
+            h3, r3, _ = fused_decode_step(
+                layers, h[:3].contiguous(), residual[:3].contiguous(), c3, *args,
+                plan=prepare_fused_decode(layers, task, cfg, lcfg, 3, io))
+            torch.cuda.synchronize()
+            same = {"h": torch.equal(h3, h_out[:3]), "residual": torch.equal(r3, res_out[:3]),
+                    "conv_window": torch.equal(c3.conv_state, cache.conv_state[:, :3]),
+                    "ssm_state": torch.equal(c3.ssm_state, cache.ssm_state[:, :3])}
+            rec["rows_0_to_2_equal_to_3_row_step"] = same
+            assert all(same.values()), rec
+        if name in in_proj_of:
+            ran = [k for k in kernel_names(lambda: fused_decode_step(
+                layers, h, residual, cache, *args, plan=plan)) if "k4_in_proj" in k]
+            rec["in_proj_kernels"] = ran
+            want = in_proj_of[name].replace(" ", "")
+            assert ran and all(want in k.replace(" ", "") for k in ran), (name, ran)
         if name == "int8_main":
             moved = fused_step_bytes(layers, cache, h, task)
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -1710,9 +1829,14 @@ def check_decode_fused_int8(gen, results):
             rec["profile"] = profile_steps(
                 lambda i: fused_decode_step(layers, h, None, cache, *args, plan=plan), 3,
                 named=K4_PHASES)
+            # the int8 step by phase, beside each phase's bytes (int8 projections)
+            rec["k4_phases"] = k4_phase_split(
+                rec["profile"], types.SimpleNamespace(mixer=cfg, lora=lcfg, n_layer=n_layer), B,
+                proj_bytes=1)
             results["decode_fused_int8"] = dict(rec, max_abs_err=worst, shape=(n_layer, B, cfg.d_model))
         emit({"kernel_check": rec})
         del cache0, cache, ref_cache, plan
+    results["decode_fused_int8"]["int8_in_proj_phase"] = {"by_batch": phase_rec["by_batch"]}
     stacks.clear()
     torch.cuda.empty_cache()
 
@@ -2058,33 +2182,36 @@ def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4,
 K4_PHASES = ("k4_prenorm", "k4_in_proj", "k4_ssm", "k4_out_proj", "k4_finish")
 
 
-def k4_phase_bytes(m, r, B, io_bytes=2, state_bytes=2):
+def k4_phase_bytes(m, r, B, io_bytes=2, state_bytes=2, proj_bytes=None):
     """Bytes of each of K4's phases for one layer of mixer config `m`, LoRA rank
     `r`, B rows: each operand read once, each output written once (the
     out_proj's K-split partials and the other task's LoRA left out). Weights and
-    activations of `io_bytes`, the SSM state of `state_bytes`, the residual and
-    the small per-head vectors fp32."""
+    activations of `io_bytes`, the SSM state of `state_bytes`, the two
+    projections of `proj_bytes` (default `io_bytes`; 1: int8, with their fp32
+    column scales), the residual and the small per-head vectors fp32."""
     f = 4
     d, di, din, cd = m.d_model, m.d_inner, m.d_in_proj, m.d_conv_in
     e, H = io_bytes, m.nheads
+    p = e if proj_bytes is None else proj_bytes
+    scale = f if p == 1 else 0  # an int8 projection's scale, per column
     return {
         # h in, residual in and out, hn out, the norm weight, LoRA A, hn A out
         "k4_prenorm": B * d * e + 2 * B * d * f + B * d * e + d * e + d * r * e + B * r * f,
-        # W_in, LoRA B, hn and hn A in, the conv windows in and out, conv weight and
-        # bias, dt_bias, z | x B C | dt out
-        "k4_in_proj": (d * din * e + r * din * e + B * d * e + B * r * f
+        # W_in (and its scale), LoRA B, hn and hn A in, the conv windows in and
+        # out, conv weight and bias, dt_bias, z | x B C | dt out
+        "k4_in_proj": (d * din * p + din * scale + r * din * e + B * d * e + B * r * f
                        + 2 * B * (m.d_conv - 1) * cd * e + m.d_conv * cd * e + cd * e + H * f
                        + B * din * e),
         # the state in and out, z | x B C | dt in, A_log, D, the gated norm's weight,
         # yf w out, a sum of squares per (row, head)
         "k4_ssm": (2 * B * H * m.headdim * m.d_state * state_bytes + B * din * e + 2 * H * f
                    + di * e + B * di * e + B * H * f),
-        # W_out, yf w in, the fp32 product out
-        "k4_out_proj": di * d * e + B * di * e + B * d * f,
+        # W_out (and its scale), yf w in, the fp32 product out
+        "k4_out_proj": di * d * p + d * scale + B * di * e + B * d * f,
     }
 
 
-def k4_phase_split(profile, cfg, B, io_bytes=2, state_bytes=2):
+def k4_phase_split(profile, cfg, B, io_bytes=2, state_bytes=2, proj_bytes=None):
     """K4's step by phase, all layers: each phase's device ms a step from the
     decode profile (its kernels' time, and the part of it that no earlier
     kernel overlaps: the bf16 in_proj starts while the pre-norm runs), beside
@@ -2093,7 +2220,8 @@ def k4_phase_split(profile, cfg, B, io_bytes=2, state_bytes=2):
     bf16 peak, so each phase is bound by bytes."""
     named, exposed = profile["named_ms_per_step"], profile["named_exposed_ms_per_step"]
     split = {}
-    for name, per in k4_phase_bytes(cfg.mixer, cfg.lora.r, B, io_bytes, state_bytes).items():
+    for name, per in k4_phase_bytes(cfg.mixer, cfg.lora.r, B, io_bytes, state_bytes,
+                                    proj_bytes).items():
         bound = cfg.n_layer * per / HBM_BYTES_PER_S * 1e3
         split[name] = {"ms_per_step": named[name], "exposed_ms_per_step": exposed[name],
                        "bytes_per_step": cfg.n_layer * per, "bound_ms": bound,
@@ -3015,7 +3143,8 @@ def main() -> int:
             "dynamic_smem_bytes", "sass",
             "library_note", "scan_step_device_ms",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "prenorm_phase",
-            "in_proj_phase", "ssm_phase", "out_proj_phase", "layout",
+            "in_proj_phase", "ssm_phase", "out_proj_phase", "int8_in_proj_phase", "k4_phases",
+            "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
                     if k in r})
         kernels.append(row)

@@ -36,8 +36,9 @@
 //                    byte is read from device memory once; on its finished
 //                    columns a block adds the LoRA term and does the conv step
 //                    (x|B|C columns) or the softplus (dt columns). With bf16
-//                    weights it is launched as a programmatic dependent of
-//                    the pre-norm and starts fetching weights while that runs.
+//                    activations on whole tiles it is launched as a
+//                    programmatic dependent of the pre-norm and starts
+//                    fetching weights (bf16 or int8) while that runs.
 //   3. SSM update    one block per (row, head), which issues the loads of its
 //                    whole state tile at once, as a programmatic dependent of
 //                    the in_proj that starts while the in_proj runs (tiles
@@ -71,9 +72,11 @@
 //     blocks trade halves of their sums through distributed shared memory and
 //     each finishes half the rows. The out_proj takes the same design per
 //     (64 columns, K split), its first weights asked for before the SSM
-//     update ends. An int8 in_proj or out_proj streams its tiles through a
-//     four-stage cp.async ring into wmma products behind a block barrier a k
-//     step. All sum in one k order, so a row's bits do not depend on B;
+//     update ends. An int8 in_proj takes the in_proj's design with its int8
+//     weight tiles widened to bf16 in registers; an int8 out_proj streams its
+//     tiles through a four-stage cp.async ring into wmma products behind a
+//     block barrier a k step. All sum in one k order, so a row's bits do not
+//     depend on B;
 //   - fp32 activations and weights, and any shape the tiles do not fit, take
 //     fp32 multiply-adds over shared-memory tiles (bf16 x bf16
 //     products are exact in fp32, so this is the same arithmetic in another
@@ -81,8 +84,9 @@
 //     best).
 // With int8 projections (serving) the weight tiles land as int8, half the
 // bytes: the multiply-add kernels widen them on the way into shared memory,
-// the tensor-core kernels widen each landed tile to bf16 in shared memory
-// behind one __syncthreads before the product; the column scale multiplies
+// the in_proj's clusters in registers between ldmatrix and mma.sync, the
+// out_proj's wmma kernel each landed tile to bf16 in shared memory behind
+// one __syncthreads before the product; the column scale multiplies
 // the fp32 product in the epilogue (before in_proj's LoRA term, on each
 // out_proj K-split partial). The other weights keep the activation type.
 // The state update has a whole (row, head) tile of state in flight per block
@@ -135,7 +139,7 @@ struct K4Args {
   void* ya;              // (B, d_inner) io type: (yf * w_gn) rounded
   float* sumsq;          // (B, H)
   float* part;           // (ksplit, B, d)
-  // (L + 1) tensor maps in host memory for the bf16 in_proj, W_in of each
+  // (L + 1) tensor maps in host memory for the pair in_proj, W_in of each
   // layer then hn (omt_fused_decode_in_maps), copied into its launch
   // parameters; null on the other paths
   const CUtensorMap* in_maps;
@@ -182,7 +186,7 @@ __global__ void __launch_bounds__(kRowThreads) k4_prenorm_kernel(K4Args a, int l
   __shared__ float scratch[32];
   __shared__ float rstd_prev;
 
-  // the bf16 in_proj is launched as a programmatic dependent of this kernel:
+  // the pair in_proj is launched as a programmatic dependent of this kernel:
   // its blocks may start and fetch weights now; they read hn and hn @ A only
   // once this kernel has ended
   grid_launch_dependents();
@@ -1202,10 +1206,10 @@ __global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int
 }
 
 // ---------------------------------------------------------------------------
-// phases 2 and 4 for bf16 activations with int8 projections: tensor cores
+// phase 4 for bf16 activations with an int8 out_proj: tensor cores
 // ---------------------------------------------------------------------------
-// (bf16 projections take the two-block clusters further below, in the same
-// sum order.) A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
+// (the in_proj and a bf16 out_proj take the two-block clusters further below,
+// in the same sum order.) A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
 // 16 (w % 4) .. + 15, the k half w / 4 of every k step, and MT accumulator
 // fragments; the two halves are added, lower k first, when C is read. The (64 x 64) weight tile and
 // the (MT * 16 x 64) activation tile of each k step are copied into a ring of
@@ -1245,10 +1249,8 @@ struct TcTile {
   static constexpr int kWideOffset = kTcStages * kStageBytes;
   static constexpr int kPipeBytes = kWideOffset + TcW<PW>::kWideBytes;
   static constexpr int kCHalf = MT * 16 * kLdC;  // floats: C of one k half
-  static constexpr int kCBytes = 2 * kCHalf * 4;
-  // after the product the ring holds C and, behind it, the block's rows of hn @ A
-  static constexpr int kEpilogueBytes = kCBytes + MT * 16 * kTcMaxRank * 4;
-  static constexpr int kBytes = kPipeBytes > kEpilogueBytes ? kPipeBytes : kEpilogueBytes;
+  static constexpr int kCBytes = 2 * kCHalf * 4;  // after the product the ring holds C
+  static constexpr int kBytes = kPipeBytes > kCBytes ? kPipeBytes : kCBytes;
   static_assert(kWBytes % 32 == 0 && kStageBytes % 32 == 0, "wmma needs 32-byte alignment");
 };
 
@@ -1359,40 +1361,6 @@ __device__ __forceinline__ float4 tc_result4(const unsigned char* smem, int row,
   return make_float4(lo.x + hi.x, lo.y + hi.y, lo.z + hi.z, lo.w + hi.w);
 }
 
-// in_proj on whole tiles with an int8 W_in: a thread finishes 4 consecutive
-// columns of MT rows
-template <int MT, typename PW>
-__global__ void __launch_bounds__(kTcThreads) k4_in_proj_tc_kernel(K4Args a, int layer) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  using bf16 = __nv_bfloat16;
-  constexpr int kRowStep = kTcThreads / (kTcBN / 4);  // 16: a thread takes rows rl, rl + 16, ...
-  const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
-  const int n0 = blockIdx.x * kTcBN;
-  const int m0 = blockIdx.y * MT * 16;
-  gemm_tile_tc<MT, PW>(static_cast<const bf16*>(a.hn), a.d, layer_ptr<PW>(a, kInProj, layer), n_in,
-                       a.B, m0, n0, 0, a.d, tc_smem);
-  float* hAs = reinterpret_cast<float*>(tc_smem + TcTile<MT, PW>::kCBytes);  // (MT * 16, r)
-  for (int e = threadIdx.x; e < MT * 16 * a.r; e += kTcThreads)
-    hAs[e] = (m0 + e / a.r < a.B) ? a.hA[static_cast<size_t>(m0) * a.r + e] : 0.0f;
-  __syncthreads();
-
-  const int cg = threadIdx.x % (kTcBN / 4);
-  const int rl = threadIdx.x / (kTcBN / 4);
-  float4 sc = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
-  if constexpr (kInt8<PW>) sc = load4(layer_ptr<float>(a, kInScale, layer) + n0 + cg * 4);
-  int rows[MT];
-  const float* hA[MT];
-  float4 v[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    rows[i] = m0 + rl + kRowStep * i;
-    hA[i] = hAs + (rl + kRowStep * i) * a.r;
-    v[i] = tc_result4<MT, PW>(tc_smem, rl + kRowStep * i, cg * 4);
-    if constexpr (kInt8<PW>) v[i] = mul4(v[i], sc);
-  }
-  in_proj_finish4<bf16, bf16, MT>(a, layer, rows, hA, n0 + cg * 4, v, true);
-}
-
 template <int MT, typename PW>
 __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, int layer) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -1421,7 +1389,8 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 }
 
 // ---------------------------------------------------------------------------
-// phase 2 for bf16 activations and a bf16 in_proj: a two-block cluster per column tile
+// phase 2 for bf16 activations and a bf16 or int8 in_proj: a two-block
+// cluster per column tile
 // ---------------------------------------------------------------------------
 // The sum order is gemm_tile_tc's: for every 64-wide k tile in k order, k in
 // [0, 32) goes into a chain `lo` and k in [32, 64) into `hi`, each as two k16
@@ -1431,13 +1400,19 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 // of K, so the card gets two blocks per column tile of 64 and no partial sum
 // goes through device memory. Each block has four consumer warps (16 columns
 // and the MT m16 tiles of the row tile each) and a producer warp that copies
-// the block's half of each weight tile (32 k x 64 columns, 4 KB) and of each
-// activation tile (16 MT rows x 32 k) with one TMA copy each, swizzled so that
-// the ldmatrix loads have no bank conflicts, into a ring of about 64 KB: a
-// stage's `full` mbarrier counts its bytes, its `empty` mbarrier the consumer
-// warps done with it, and no block-wide barrier stands in the k loop. Weights
-// come by ldmatrix.trans from the (K, O) tile, activations by ldmatrix, into
-// mma.sync m16n8k16.
+// the block's half of each weight tile (32 k x 64 columns: 4 KB of bf16, 2 KB
+// of int8) and of each activation tile (16 MT rows x 32 k) with one TMA copy
+// each, swizzled so that the ldmatrix loads have no bank conflicts, into a
+// ring of about 64 KB: a stage's `full` mbarrier counts its bytes, its `empty`
+// mbarrier the consumer warps done with it, and no block-wide barrier stands
+// in the k loop. Weights come by ldmatrix.trans from the (K, O) tile,
+// activations by ldmatrix, into mma.sync m16n8k16. An int8 tile is read as
+// byte pairs, one ldmatrix.trans for both k16 steps, and widened to bf16 in
+// registers as K7's decode path does (qmatmul.cu pair_tiles; exact, |q| <=
+// 127): the warp's two n8 tiles are then its even and its odd columns, where
+// a bf16 tile gives columns 0-7 and 8-15, and the epilogue puts each sum at
+// its column. The HMMA operands are the wmma path's, widened the same way
+// (tc_widen_int8), so an int8 row's bits are its too.
 //
 // The launch is a programmatic dependent of the pre-norm, which lets it start
 // once the pre-norm's own griddepcontrol.wait has returned (k4_prenorm_kernel:
@@ -1449,7 +1424,8 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 // so at B <= 96 the weights are read once and every cluster of the grid is
 // resident while the pre-norm runs.
 //
-// What follows the product is in_proj_finish4's arithmetic in its order, laid
+// What follows the product is in_proj_finish4's arithmetic in its order (with
+// int8 weights after lo + hi is multiplied by the column scale), laid
 // out to shorten the tail after the last weight byte: the LoRA product (hn @
 // A) @ B of a thread's rows and columns is summed before the k loop (it does
 // not need the in_proj's), the epilogue's other operands are asked into L2
@@ -1469,8 +1445,8 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 // OMT_K4_IN_SKIP set to a sum of 1 (no activation copies), 2 (no weight
 // copies), 4 (no products) and 8 (no epilogue: no exchange of the sums, no
 // stores, conv step or softplus; the LoRA product is summed before the k loop
-// either way), or to 16 (the launch alone), to time what is left of the bf16
-// in_proj, whose results are then wrong; or to 32 (no weights asked for before
+// either way), or to 16 (the launch alone), to time what is left of the
+// in_proj (bf16 or int8), whose results are then wrong; or to 32 (no weights asked for before
 // the pre-norm ends), 64 (an ordinary launch, no programmatic dependency) or
 // 128 (no L2 prefetch of the epilogue's operands), which change when work
 // starts and give the shipped bits. The library has 0.
@@ -1478,17 +1454,25 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 #define OMT_K4_IN_SKIP 0
 #endif
 
-template <int MT>
+template <int MT, typename PW = __nv_bfloat16>
 struct InPair {
   static constexpr int kWarps = kTcBN / 16;           // consumer warps
   static constexpr int kThreads = 32 * (kWarps + 1);  // and the producer warp
-  static constexpr int kS = 2;                        // k tiles a stage
+  // k tiles a stage: 4 for int8 weights up to 48 rows, whose consumers then
+  // have four tiles' ldmatrix, widening and products to interleave (2 KB weight
+  // tiles: the stage is still under 21 KB); 2 otherwise
+  static constexpr int kS = (kInt8<PW> && MT <= 3) ? 4 : 2;
   static constexpr int kABytes = MT * 16 * 64;        // a k tile's activations: 16 MT rows x 32 bf16
-  static constexpr int kWBytes = 32 * kTcBN * 2;      // a k tile's weights: 32 k x 64 bf16
+  // a k tile's weights: 32 k x 64 of PW (bf16 4 KB, int8 2 KB)
+  static constexpr int kWBytes = 32 * kTcBN * static_cast<int>(sizeof(PW));
   static constexpr int kStageBytes = kS * (kABytes + kWBytes);
-  // about 64 KB of ring: three blocks an SM
-  static constexpr int kStages = 65536 / kStageBytes < 3 ? 3 : 65536 / kStageBytes;
   static constexpr int kSumsBytes = kWarps * MT * 4 * 32 * 4;  // the peer's half of the sums
+  // about 64 KB of ring, and no more than three blocks an SM leave beside the
+  // sums (int8 at 96 rows: 3 stages of 16 KB, not 4); at least 3 stages
+  static constexpr int kRingStages = 65536 / kStageBytes;
+  static constexpr int kFitStages = (73 * 1024 - kSumsBytes) / kStageBytes;
+  static constexpr int kMost = kRingStages < kFitStages ? kRingStages : kFitStages;
+  static constexpr int kStages = kMost < 3 ? 3 : kMost;
   static_assert(kStages * kStageBytes + kSumsBytes <= 73 * 1024, "three blocks an SM");
   static constexpr int kBytes = kStages * kStageBytes + kSumsBytes + 1024;  // + the ring's alignment
   // every tile a multiple of 1 KB: the swizzle of a TMA copy follows the
@@ -1499,19 +1483,37 @@ struct InPair {
 // N k tiles of a landed stage (activation tiles from a_tile, weight tiles from
 // w_tile on) into the accumulators of this warp's MT m16 tiles and two n8
 // tiles, in k order: for each tile, the two k16 steps of this block's k half.
-// a_off, b_off: this lane's ldmatrix offsets in a tile for k16 step h.
-template <int MT, int N>
+// a_off, b_off: this lane's ldmatrix offsets in a tile for k16 step h (int8:
+// b_off[0] for both). With int8 weights n8 tile 0 holds the warp's even
+// columns and n8 tile 1 its odd ones; with bf16 its columns 0-7 and 8-15.
+template <int MT, int N, typename PW = __nv_bfloat16>
 __device__ __forceinline__ void in_pair_tiles(float (&acc)[MT][2][4], const unsigned char* a_tile,
                                               const unsigned char* w_tile,
                                               const uint32_t (&a_off)[2],
                                               const uint32_t (&b_off)[2]) {
-  using P = InPair<MT>;
+  using P = InPair<MT, PW>;
 #pragma unroll
   for (int u = 0; u < N; ++u) {
+    // int8: r[i] holds k rows 8 i + 2c, 8 i + 2c + 1 of columns 2g, 2g + 1 (bytes
+    // 0-1, 2-3); as byte pairs down k they widen into the B fragments of k16
+    // step i / 2, column 2g (even tile) and 2g + 1 (odd tile)
+    [[maybe_unused]] uint32_t wide[2][4];  // [k16 step][b0, b1 of the even n8 tile, then of the odd]
+    if constexpr (kInt8<PW>) {
+      uint32_t r[4];
+      tc::ldsm4t(r, w_tile + u * P::kWBytes + b_off[0]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tc::widen4(__byte_perm(r[i], 0u, 0x3120), wide[i >> 1][i & 1], wide[i >> 1][2 + (i & 1)]);
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t b[4];  // b0, b1 of the warp's first n8 tile, then of its second
-      tc::ldsm4t(b, w_tile + u * P::kWBytes + b_off[h]);
+      if constexpr (kInt8<PW>) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) b[e] = wide[h][e];
+      } else {
+        tc::ldsm4t(b, w_tile + u * P::kWBytes + b_off[h]);
+      }
       uint32_t af[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) tc::ldsm4(af[i], a_tile + u * P::kABytes + i * 1024 + a_off[h]);
@@ -1534,7 +1536,7 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-// the layer's weights that the bf16 in_proj's epilogue reads, looked up in the
+// the layer's weights that the pair in_proj's epilogue reads, looked up in the
 // pointer table once, before the k loop
 struct InPairOps {
   const __nv_bfloat16* lora_b;   // (r, n_in)
@@ -1687,12 +1689,13 @@ __device__ __forceinline__ void in_pair_finish(const K4Args& a, int layer, const
 }
 
 // three blocks an SM (at most 136 registers a thread): the grid of 2 x 133
-// blocks at B <= 96 is then one wave
-template <int MT>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(InPair<MT>::kThreads, 3)
+// blocks at B <= 96 is then one wave. PW: the type of W_in, bf16 or int8
+// (then with its fp32 column scale)
+template <int MT, typename PW>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(InPair<MT, PW>::kThreads, 3)
 k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap wmap,
                        const __grid_constant__ CUtensorMap xmap) {
-  using P = InPair<MT>;
+  using P = InPair<MT, PW>;
   using bf16 = __nv_bfloat16;
   if (OMT_K4_IN_SKIP & 16) return;
   extern __shared__ unsigned char pair_smem_raw[];
@@ -1761,13 +1764,17 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
 
   // this lane's ldmatrix offsets, swizzle included: A, row l % 16 of an m16
   // tile (64-byte rows; 16-byte chunk j of row r lies at j ^ ((r >> 1) & 3)) and
-  // chunk 2 h + l / 16; W by .trans, k row 16 h + l % 16 (128-byte rows; chunk
-  // j of row r at j ^ (r & 7)) and the chunk of columns 16 warp + 8 (l / 16)
+  // chunk 2 h + l / 16; bf16 W by .trans, k row 16 h + l % 16 (128-byte rows;
+  // chunk j of row r at j ^ (r & 7)) and the chunk of columns 16 warp + 8 (l /
+  // 16); int8 W by .trans, k row l (64-byte rows, swizzled as A) and the chunk
+  // of columns 16 warp .. 16 warp + 15
   uint32_t a_off[2], b_off[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     a_off[h] = (lane & 15) * 64 + (((2 * h + (lane >> 4)) ^ ((lane >> 1) & 3)) << 4);
-    b_off[h] = (h * 16 + (lane & 15)) * 128 + (((2 * warp + (lane >> 4)) ^ (lane & 7)) << 4);
+    b_off[h] = kInt8<PW>
+                   ? lane * 64 + ((warp ^ ((lane >> 1) & 3)) << 4)
+                   : (h * 16 + (lane & 15)) * 128 + (((2 * warp + (lane >> 4)) ^ (lane & 7)) << 4);
   }
   // the columns 4 cg .. 4 cg + 3 and rows rl, rl + 16, ... (from row0) of the
   // tile that this thread finishes, see the epilogue
@@ -1776,6 +1783,10 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
   const InPairOps ops = {layer_ptr<bf16>(a, kLoraB, layer), layer_ptr<bf16>(a, kConvW, layer),
                          layer_ptr<bf16>(a, kConvB, layer), layer_ptr<bf16>(a, kDtBias, layer)};
   if (!(OMT_K4_IN_SKIP & 128)) in_pair_prefetch<MT>(a, ops, layer, row0, n0);
+  // an int8 W_in's column scale of this thread's columns, read now: it is a
+  // weight, and its load stays out of the tail after the last weight byte
+  [[maybe_unused]] float4 sc = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  if constexpr (kInt8<PW>) sc = load4(layer_ptr<float>(a, kInScale, layer) + n0 + cg * 4);
 
   // the LoRA product (hn @ A) @ B of this thread's rows and columns does not
   // need the in_proj's: it is summed now, in q order, while the first stages land
@@ -1800,10 +1811,11 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
     if (!(OMT_K4_IN_SKIP & 4)) {
       const int n = min(P::kS, ntiles - st * P::kS);
       if (n == P::kS) {
-        in_pair_tiles<MT, P::kS>(acc, a_tile, w_tile, a_off, b_off);
+        in_pair_tiles<MT, P::kS, PW>(acc, a_tile, w_tile, a_off, b_off);
       } else {  // the last stage of a K that is not a multiple of kS tiles
         for (int u = 0; u < n; ++u)
-          in_pair_tiles<MT, 1>(acc, a_tile + u * P::kABytes, w_tile + u * P::kWBytes, a_off, b_off);
+          in_pair_tiles<MT, 1, PW>(acc, a_tile + u * P::kABytes, w_tile + u * P::kWBytes, a_off,
+                                   b_off);
       }
     }
     __syncwarp();  // the warp is done with the stage
@@ -1827,35 +1839,47 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
                      rank ? acc[i][1][0] : acc[i][1][2], rank ? acc[i][1][1] : acc[i][1][3]);
 
   // the ring, which every consumer warp is done with, takes lo + hi of this
-  // block's rows (row q = 8 i + g: 8 MT x 64)
-  constexpr int kLdCs = kTcBN + 8;  // floats: conflict-free float2 stores
+  // block's rows (row q = 8 i + g: 8 MT x 64). The sums of lane (g, c) lie at
+  // columns 2c, 2c + 1 of each n8 tile: with bf16 weights columns 2c, 2c + 1
+  // and 8 + 2c, 9 + 2c of the warp's 16; with int8 weights, where the n8 tiles
+  // are its even and its odd columns, 4c .. 4c + 3
+  constexpr int kLdCs = kTcBN + (kInt8<PW> ? 16 : 8);  // floats: conflict-free stores
   float* Cs = reinterpret_cast<float*>(ring);
   consumer_sync<P::kWarps>();
   mbar_wait<false>(&sums_full, 0);
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     const float4 p = load4(sums + at + i * 128);
-    float* row = Cs + (i * 8 + g) * kLdCs + warp * 16 + 2 * c;
-    *reinterpret_cast<float2*>(row) = make_float2((rank ? acc[i][0][2] : acc[i][0][0]) + p.x,
-                                                  (rank ? acc[i][0][3] : acc[i][0][1]) + p.y);
-    *reinterpret_cast<float2*>(row + 8) = make_float2((rank ? acc[i][1][2] : acc[i][1][0]) + p.z,
-                                                      (rank ? acc[i][1][3] : acc[i][1][1]) + p.w);
+    const float x0 = (rank ? acc[i][0][2] : acc[i][0][0]) + p.x;
+    const float x1 = (rank ? acc[i][0][3] : acc[i][0][1]) + p.y;
+    const float y0 = (rank ? acc[i][1][2] : acc[i][1][0]) + p.z;
+    const float y1 = (rank ? acc[i][1][3] : acc[i][1][1]) + p.w;
+    float* row = Cs + (i * 8 + g) * kLdCs + warp * 16;
+    if constexpr (kInt8<PW>) {
+      store4(row + 4 * c, make_float4(x0, y0, x1, y1));
+    } else {
+      *reinterpret_cast<float2*>(row + 2 * c) = make_float2(x0, x1);
+      *reinterpret_cast<float2*>(row + 8 + 2 * c) = make_float2(y0, y1);
+    }
   }
   consumer_sync<P::kWarps>();
 
   // then, as in the other in_proj paths, thread (cg, rl) finishes 4 columns of
-  // MT rows: a warp takes whole 64-column rows
+  // MT rows: a warp takes whole 64-column rows; an int8 W_in's column scale
+  // (read before the k loop) multiplies lo + hi before the LoRA term is added,
+  // the wmma kernel's order
   int rows[MT];
   float4 v[MT];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     rows[i] = row0 + i * 16;
     v[i] = load4(Cs + (i * 8 + rl) * kLdCs + cg * 4);
+    if constexpr (kInt8<PW>) v[i] = mul4(v[i], sc);
   }
   in_pair_finish<MT>(a, layer, ops, rows, lo, n0 + cg * 4, v);
 }
 
-template <int MT>
+template <int MT, typename PW>
 cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
   // programmatic dependent launch: the blocks start while the pre-norm runs
   cudaLaunchAttribute pdl;
@@ -1863,8 +1887,8 @@ cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream)
   pdl.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(2 * ((2 * a.d_inner + 2 * a.N + a.H) / kTcBN), (a.B + MT * 16 - 1) / (MT * 16));
-  cfg.blockDim = dim3(InPair<MT>::kThreads);
-  cfg.dynamicSmemBytes = InPair<MT>::kBytes;
+  cfg.blockDim = dim3(InPair<MT, PW>::kThreads);
+  cfg.dynamicSmemBytes = InPair<MT, PW>::kBytes;
   cfg.stream = stream;
   if (!(OMT_K4_IN_SKIP & 64)) {  // 64: an ordinary launch (measurement only)
     cfg.attrs = &pdl;
@@ -1873,23 +1897,25 @@ cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream)
   CUtensorMap wmap, xmap;  // the host copies of this layer's W_in and of hn
   std::memcpy(&wmap, a.in_maps + layer, sizeof(wmap));
   std::memcpy(&xmap, a.in_maps + a.L, sizeof(xmap));
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, k4_in_proj_pair_kernel<MT>, a, layer, wmap, xmap);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, k4_in_proj_pair_kernel<MT, PW>, a, layer, wmap, xmap);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// rows a block of the bf16 in_proj: 16 to 96, so that up to 96 rows read each
+// rows a block of the pair kernels: 16 to 96, so that up to 96 rows read each
 // weight tile from device memory once and the grid is one wave
 inline int pair_row_fragments(int B) { return B >= 96 ? 6 : (B + 15) / 16; }
 
+template <typename PW>
 cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
   switch (pair_row_fragments(a.B)) {
-    case 1: return launch_in_proj_pair<1>(a, layer, stream);
-    case 2: return launch_in_proj_pair<2>(a, layer, stream);
-    case 3: return launch_in_proj_pair<3>(a, layer, stream);
-    case 4: return launch_in_proj_pair<4>(a, layer, stream);
-    case 5: return launch_in_proj_pair<5>(a, layer, stream);
-    default: return launch_in_proj_pair<6>(a, layer, stream);
+    case 1: return launch_in_proj_pair<1, PW>(a, layer, stream);
+    case 2: return launch_in_proj_pair<2, PW>(a, layer, stream);
+    case 3: return launch_in_proj_pair<3, PW>(a, layer, stream);
+    case 4: return launch_in_proj_pair<4, PW>(a, layer, stream);
+    case 5: return launch_in_proj_pair<5, PW>(a, layer, stream);
+    default: return launch_in_proj_pair<6, PW>(a, layer, stream);
   }
 }
 
@@ -2143,66 +2169,54 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// rows per block of the int8 products follow the batch: 16, 32 or 48
+// rows per block of the int8 out_proj follow the batch: 16, 32 or 48
 inline int tc_row_fragments(int B) { return B <= 16 ? 1 : (B <= 32 ? 2 : 3); }
 
 template <int MT>
-cudaError_t allow_smem_tc() {
+cudaError_t launch_out_proj_tc(const K4Args& a, int layer, cudaStream_t stream) {
   using PW = int8_t;
-  const cudaError_t err = allow_smem(k4_in_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
-  if (err != cudaSuccess) return err;
-  return allow_smem(k4_out_proj_tc_kernel<MT, PW>, TcTile<MT, PW>::kBytes);
-}
-
-template <int MT>
-cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStream_t stream) {
-  using PW = int8_t;
-  const unsigned int row_tiles = (a.B + MT * 16 - 1) / (MT * 16);
-  if (out_proj) {
-    const dim3 grid(a.d / kTcBN, row_tiles, a.ksplit);
-    k4_out_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
-  } else {
-    const dim3 grid((2 * a.d_inner + 2 * a.N + a.H) / kTcBN, row_tiles);
-    k4_in_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
-  }
+  const dim3 grid(a.d / kTcBN, (a.B + MT * 16 - 1) / (MT * 16), a.ksplit);
+  k4_out_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
   return cudaGetLastError();
 }
 
-// the int8 in_proj (out_proj false) or out_proj of `layer` on the tensor cores
-cudaError_t launch_product_tc(const K4Args& a, int layer, bool out_proj, cudaStream_t stream) {
+// the int8 out_proj of `layer` on the tensor cores
+cudaError_t launch_out_proj_tc(const K4Args& a, int layer, cudaStream_t stream) {
   switch (tc_row_fragments(a.B)) {
-    case 1: return launch_product_tc<1>(a, layer, out_proj, stream);
-    case 2: return launch_product_tc<2>(a, layer, out_proj, stream);
-    default: return launch_product_tc<3>(a, layer, out_proj, stream);
+    case 1: return launch_out_proj_tc<1>(a, layer, stream);
+    case 2: return launch_out_proj_tc<2>(a, layer, stream);
+    default: return launch_out_proj_tc<3>(a, layer, stream);
   }
 }
 
-template <int MT>
-cudaError_t allow_smem_pair() {
-  const cudaError_t err = allow_smem(k4_in_proj_pair_kernel<MT>, InPair<MT>::kBytes);
+// the in_proj pair kernel of MT row fragments, and beside it the out_proj's
+// pair kernel (bf16) or wmma kernel (int8, of the out_proj's own row fragments)
+template <int MT, typename PW>
+cudaError_t allow_smem_pair(int B) {
+  const cudaError_t err = allow_smem(k4_in_proj_pair_kernel<MT, PW>, InPair<MT, PW>::kBytes);
   if (err != cudaSuccess) return err;
-  return allow_smem(k4_out_proj_pair_kernel<MT>, InPair<MT>::kBytes);
+  if constexpr (kInt8<PW>) {
+    switch (tc_row_fragments(B)) {
+      case 1: return allow_smem(k4_out_proj_tc_kernel<1, PW>, TcTile<1, PW>::kBytes);
+      case 2: return allow_smem(k4_out_proj_tc_kernel<2, PW>, TcTile<2, PW>::kBytes);
+      default: return allow_smem(k4_out_proj_tc_kernel<3, PW>, TcTile<3, PW>::kBytes);
+    }
+  } else {
+    return allow_smem(k4_out_proj_pair_kernel<MT>, InPair<MT>::kBytes);
+  }
 }
 
 // the shared memory of the products a step at B rows launches on the tensor
-// cores: the int8 kernels, or both pair kernels of bf16 projections
+// cores, with projections of type PW
 template <typename PW>
 cudaError_t allow_smem_products(int B) {
-  if constexpr (kInt8<PW>) {
-    switch (tc_row_fragments(B)) {
-      case 1: return allow_smem_tc<1>();
-      case 2: return allow_smem_tc<2>();
-      default: return allow_smem_tc<3>();
-    }
-  } else {
-    switch (pair_row_fragments(B)) {
-      case 1: return allow_smem_pair<1>();
-      case 2: return allow_smem_pair<2>();
-      case 3: return allow_smem_pair<3>();
-      case 4: return allow_smem_pair<4>();
-      case 5: return allow_smem_pair<5>();
-      default: return allow_smem_pair<6>();
-    }
+  switch (pair_row_fragments(B)) {
+    case 1: return allow_smem_pair<1, PW>(B);
+    case 2: return allow_smem_pair<2, PW>(B);
+    case 3: return allow_smem_pair<3, PW>(B);
+    case 4: return allow_smem_pair<4, PW>(B);
+    case 5: return allow_smem_pair<5, PW>(B);
+    default: return allow_smem_pair<6, PW>(B);
   }
 }
 
@@ -2216,9 +2230,7 @@ constexpr bool kBothBf16 =
 template <typename IO, typename WT, typename PW>
 cudaError_t launch_in_proj(const K4Args& a, int layer, bool tensor_cores, cudaStream_t stream) {
   if constexpr (kBothBf16<IO, WT>) {
-    if (tensor_cores)
-      return kInt8<PW> ? launch_product_tc(a, layer, false, stream)
-                       : launch_in_proj_pair(a, layer, stream);
+    if (tensor_cores) return launch_in_proj_pair<PW>(a, layer, stream);
   }
   const dim3 in_grid((2 * a.d_inner + 2 * a.N + a.H + kBN - 1) / kBN, (a.B + kBM - 1) / kBM);
   k4_in_proj_kernel<IO, WT, PW><<<in_grid, kGemmThreads, 0, stream>>>(a, layer);
@@ -2234,7 +2246,7 @@ cudaError_t launch_out_proj(const K4Args& a, int layer, bool tensor_cores, bool 
                             cudaStream_t stream) {
   if (pair) return launch_out_proj_pair(a, layer, stream);
   if constexpr (kBothBf16<IO, WT> && kInt8<PW>) {
-    if (tensor_cores) return launch_product_tc(a, layer, true, stream);
+    if (tensor_cores) return launch_out_proj_tc(a, layer, stream);
   }
   const dim3 out_grid((a.d + kBN - 1) / kBN, (a.B + kBM - 1) / kBM, a.ksplit);
   k4_out_proj_kernel<IO, PW><<<out_grid, kGemmThreads, 0, stream>>>(a, layer);
@@ -2296,8 +2308,9 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
   bool tensor_cores = false;
   if constexpr (kBothBf16<IO, WT>) {
     tensor_cores = whole_tiles;
-    // the bf16 in_proj reads its tiles through the plan's tensor maps: no other path stands in
-    if (tensor_cores && !kInt8<PW> && a.in_maps == nullptr) return cudaErrorInvalidValue;
+    // the in_proj (bf16 or int8) reads its tiles through the plan's tensor maps:
+    // no other path stands in
+    if (tensor_cores && a.in_maps == nullptr) return cudaErrorInvalidValue;
     if (tensor_cores && (err = allow_smem_products<PW>(a.B)) != cudaSuccess) return err;
   }
   const bool early_prenorm =
@@ -2359,8 +2372,8 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // conv_state and every scratch array is 16-byte aligned: the in_proj epilogue
 // then takes 4-element vector accesses (d_inner and H multiples of 4), and
 // with whole tiles (d, d_inner and the in_proj width multiples of 64) and
-// bf16 activations and weights the products run on the tensor cores; a bf16
-// in_proj there reads W_in and hn through `in_maps`, what
+// bf16 activations and weights the products run on the tensor cores; the
+// in_proj there (bf16 or int8) reads W_in and hn through `in_maps`, what
 // omt_fused_decode_in_maps wrote (in host memory) for these tables and this
 // hn, and a bf16 out_proj at the shapes out_pair_fits takes W_out and ya
 // through `out_maps`, written by the same function for the out_proj's tables
@@ -2419,25 +2432,30 @@ extern "C" int omt_fused_decode_step(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor maps of a bf16 product of the two-block clusters: for each of the
-// L layers W (the host array `w_in` of L device pointers to (d, n_in) bf16
-// matrices), read in boxes of 32 k x 64 columns, then the activations `hn`
-// ((B, d) bf16), in boxes of the row tile x 32 k. The in_proj's are W_in and
-// hn (d = d_model), the out_proj's W_out and ya (d = d_inner, n_in = d_model).
+// The tensor maps of a product of the two-block clusters: for each of the L
+// layers W (the host array `w_in` of L device pointers to (d, n_in) matrices of
+// w_dtype, bf16 or int8), read in boxes of 32 k x 64 columns, then the
+// activations `hn` ((B, d) bf16), in boxes of the row tile x 32 k. The
+// in_proj's are W_in and hn (d = d_model), the out_proj's W_out and ya (d =
+// d_inner, n_in = d_model).
 // Written to `maps` in host memory, (L + 1) x 128 bytes, for the caller to hand
 // to omt_fused_decode_step with these tables and these activations (each
 // launch takes its two maps as parameters).
 // Returns 0, or cudaErrorInvalidValue for shapes that are not whole tiles or a
 // map that cuTensorMapEncodeTiled refuses (a pointer or row that is not 16-byte aligned).
 extern "C" int omt_fused_decode_in_maps(const void* const* w_in, int L, int B, int d, int n_in,
-                                        const void* hn, void* maps) {
+                                        int w_dtype, const void* hn, void* maps) {
   using namespace omt;
-  if (L < 1 || B < 1 || d % kTcBK != 0 || n_in % kTcBN != 0 || d < 1 || n_in < 1)
+  if (L < 1 || B < 1 || d % kTcBK != 0 || n_in % kTcBN != 0 || d < 1 || n_in < 1 ||
+      (w_dtype != kBF16 && w_dtype != kI8))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool int8 = w_dtype == kI8;  // 64-byte box rows: the 64-byte swizzle
   unsigned char* out = static_cast<unsigned char*>(maps);
   CUtensorMap m;
   for (int l = 0; l < L; ++l) {
-    if (!encode_tile_map(&m, w_in[l], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, d, n_in, 32, kTcBN))
+    if (!encode_tile_map(&m, w_in[l],
+                         int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         int8 ? 1 : 2, d, n_in, 32, kTcBN))
       return static_cast<int>(cudaErrorInvalidValue);
     std::memcpy(out + l * sizeof(m), &m, sizeof(m));
   }

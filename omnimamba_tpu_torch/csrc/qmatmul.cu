@@ -55,12 +55,14 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 #include "tma.cuh"
 
 namespace omt {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
+using tc::widen4;
 
 // the tensor-core paths take whole tiles: K and O multiples of these
 constexpr int kQBN = 64, kQBK = 64;
@@ -124,20 +126,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four int8 values (low byte first) as four bf16, exactly: byte v + 128 under
-// the exponent of 2^23 is the fp32 2^23 + 128 + v, minus 2^23 + 128 gives v; an
-// integer of magnitude <= 128 has zero low 16 bits in fp32, so its high half
-// is its bf16
-__device__ __forceinline__ void widen4(uint32_t v, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = v ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.0f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.0f;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.0f;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.0f;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 // Copy i of this thread's kWCopies for the stage of k step k0: the int8 weight

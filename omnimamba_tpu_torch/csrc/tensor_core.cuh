@@ -1,7 +1,7 @@
 // Helpers of the hand-written tensor-core kernels (K1's and K5's bf16
-// paths): cp.async copies, ldmatrix, mma.sync m16n8k16 on bf16 operands with
-// fp32 sums, bf16 packing, and the choice among the tile shapes those kernels
-// are built for.
+// paths, K7, K4's products): cp.async copies, ldmatrix, mma.sync m16n8k16 on
+// bf16 operands with fp32 sums, bf16 packing, int8 widened to bf16, and the
+// choice among the tile shapes K1 and K5 are built for.
 #pragma once
 
 #include <type_traits>
@@ -65,6 +65,20 @@ __device__ __forceinline__ float lo16(uint32_t v) { return __uint_as_float(v << 
 __device__ __forceinline__ float hi16(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 __device__ __forceinline__ float2 ld2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// four int8 values (low byte first) as four bf16, exactly: byte v + 128 under
+// the exponent of 2^23 is the fp32 2^23 + 128 + v, minus 2^23 + 128 gives v; an
+// integer of magnitude <= 128 has zero low 16 bits in fp32, so its high half
+// is its bf16
+__device__ __forceinline__ void widen4(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.0f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.0f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.0f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.0f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 // ldmatrix .x4 addresses for lane l of a 16 x 16 tile at `base` (row stride `ld`),

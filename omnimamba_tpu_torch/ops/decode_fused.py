@@ -33,9 +33,11 @@ still runs.
 
 int8 ``{q, scale}`` in_proj and out_proj (``ops/quant.quantize_decode_params``;
 the other weights stay in the activation type) take the same kernels with the
-weight tiles landing as int8, half the bytes: on the tensor cores each landed
-tile is widened to bf16 in shared memory before the product, in the
-multiply-add kernels it is widened on the way into shared memory. The column
+weight tiles landing as int8, half the bytes: the in_proj's clusters widen
+each tile to bf16 in registers before the product (its tensor maps are
+encoded for int8), the out_proj's tensor-core kernel widens each landed tile
+in shared memory, and the multiply-add kernels widen it on the way into
+shared memory. The column
 scale multiplies the fp32 product in the epilogue, before in_proj's LoRA term
 is added (JAX ``_mm`` then ``+ lora_scale * ...``), and each fp32 K-split
 partial of out_proj. Two table rows carry the scale pointers. The SSM state
@@ -157,8 +159,9 @@ class FusedDecodePlan:
     w_dtype: torch.dtype
     proj_dtype: torch.dtype  # w_dtype, or int8 for {q, scale} projections
     # (n_layer + 1) tensor maps in host memory, W_in of each layer then hn, for
-    # a bf16 in_proj on whole tiles (omt_fused_decode_in_maps): each launch of
-    # that phase takes its two as parameters; else None
+    # a bf16 or int8 in_proj of bf16 activations on whole tiles
+    # (omt_fused_decode_in_maps): each launch of that phase takes its two as
+    # parameters; else None
     in_maps: Optional[torch.Tensor] = None
     # the same for a bf16 out_proj on whole tiles: W_out of each layer then ya
     out_maps: Optional[torch.Tensor] = None
@@ -224,20 +227,23 @@ def prepare_fused_decode(
     }
     aligned16 = all(t.data_ptr() % 16 == 0 for t in keep + list(scratch.values()))
 
+    proj_code = kb.I8 if proj_dtype == torch.int8 else kb.dtype_code(proj_dtype)
+
     def tensor_maps(operand, k, n, x):
         # (len(layers) + 1) maps: the (k, n) weight `operand` of each layer, then x (batch, k)
         w = torch.tensor([row[OPERANDS.index(operand)] for row in ptrs], dtype=torch.int64)
         maps = torch.empty(((len(layers) + 1) * TENSOR_MAP_BYTES,), dtype=torch.uint8)
         kb.check_launch(kb.load_kernels().omt_fused_decode_in_maps(
-            w.data_ptr(), len(layers), batch, k, n, x.data_ptr(), maps.data_ptr()),
-            f"prepare_fused_decode: the {operand}'s tensor maps")
+            w.data_ptr(), len(layers), batch, k, n, proj_code, x.data_ptr(),
+            maps.data_ptr()), f"prepare_fused_decode: the {operand}'s tensor maps")
         return maps
 
+    # the in_proj's two-block clusters take bf16 or int8 weights; the out_proj's bf16 only
     in_maps = out_maps = None
-    if (dtype == torch.bfloat16 and proj_dtype == torch.bfloat16 and aligned16
+    if (dtype == torch.bfloat16 and aligned16
             and d % TC_TILE == 0 and mixer_cfg.d_in_proj % TC_TILE == 0):
         in_maps = tensor_maps("in_proj", d, mixer_cfg.d_in_proj, scratch["hn"])
-        if di % TC_TILE == 0:
+        if proj_dtype == torch.bfloat16 and di % TC_TILE == 0:
             out_maps = tensor_maps("out_proj", di, d, scratch["ya"])
     return FusedDecodePlan(tables, tuple(keep), scratch, batch, r, ksplit, aligned16, dtype,
                            ref.dtype, proj_dtype, in_maps, out_maps)

@@ -138,7 +138,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.omt_ssd_step_q8.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 6 + [ptr]
     lib.omt_fused_decode_step.argtypes = (
         [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr, ptr, i32, i32, ptr])
-    lib.omt_fused_decode_in_maps.argtypes = [ptr] + [i32] * 4 + [ptr] * 2
+    lib.omt_fused_decode_in_maps.argtypes = [ptr] + [i32] * 5 + [ptr] * 2
     lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.omt_qmatmul_pair_plan.argtypes = [i32] * 3 + [ptr]
     for fn in (lib.omt_ssd_scan_bf16_smem_bytes, lib.omt_ssd_scan_bwd_bf16_smem_bytes):

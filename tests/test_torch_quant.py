@@ -6,7 +6,8 @@ interpret mode; the whole-model decode step on int8 weights against JAX
 ``fused_decode_step`` (the Pallas kernel in interpret mode); the scaled-int8
 state step against JAX ``ssd_step`` (q and scale equal, y to 1e-5); greedy
 token streams with int8 weights and with the int8 state against JAX's. Tiny
-geometry, fp32, LoRA B factors filled so the branch counts.
+geometry (and a wide one whose int8 step takes the tensor-core tiles on the
+card), fp32, LoRA B factors filled so the branch counts.
 """
 
 import jax
@@ -27,9 +28,12 @@ from omnimamba_tpu.ops.ssd_reference import ssd_step as j_ssd_step
 from omnimamba_tpu_torch import SampleParams, generate, t2i_generate
 from omnimamba_tpu_torch.models import backbone as tbb
 from omnimamba_tpu_torch.ops import quant as tq
+from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step
 from omnimamba_tpu_torch.ops.quant_kernel import qmatmul, qmatmul_plain
 from omnimamba_tpu_torch.ops.ssd_reference import ssd_step
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
+from tests.test_torch_decode_fused import (
+    _without_lora_jax, _without_lora_torch, assert_caches_close, close)
 from tests.test_torch_helpers import bridge, decode_side, fill_lora_b, nn, tiny_models, tt
 
 L0 = 6
@@ -238,6 +242,71 @@ def test_int8_fused_step_matches_jax(quantized, task, B):
                                np.asarray(fcache.ssm)[:, :B], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(nn(out.conv_state[..., :d_inner]), np.asarray(fcache.conv_x)[:, :B],
                                rtol=1e-5, atol=1e-5)
+
+
+# The geometry of test_torch_decode_fused.py's ``wide_pair``: d_model, d_inner
+# and the in_proj width (2 * 128 + 2 * 28 + 8 = 320) are multiples of 64, so an
+# int8 step of bf16 activations there runs the in_proj's two-block clusters on
+# the card, each int8 weight tile widened to bf16 in registers. On the CPU the
+# wrapper runs the plain version, the reference the card's kernel is held against.
+_WIDE_MIXER = dict(d_model=64, d_state=28, headdim=16, expand=2, chunk_size=16)
+
+
+@pytest.fixture(scope="module")
+def wide_quantized():
+    """(jax model, torch model, jax int8 backbone params, bridged torch int8
+    params) at d_model 64, fp32, LoRA B factors filled; the int8 trees are JAX
+    ``quantize_decode_params``'s."""
+    from omnimamba_tpu import config as jcfg
+    from omnimamba_tpu.models.omnimamba import OmniMambaModel as JaxModel
+    from omnimamba_tpu_torch import config as tcfg
+    from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel as TorchModel
+    from tests.test_torch_helpers import _MAMBA, _VQ
+
+    mamba = {**_MAMBA, "d_model": _WIDE_MIXER["d_model"]}
+    jmodel = JaxModel(cfg=jcfg.MambaConfig(mixer=jcfg.Mamba2LayerConfig(**_WIDE_MIXER), **mamba),
+                      vision_cfg=jcfg.VisionConfig(), vq_cfg=jcfg.VQConfig(**_VQ), sptids={})
+    tmodel = TorchModel(cfg=tcfg.MambaConfig(mixer=tcfg.Mamba2LayerConfig(**_WIDE_MIXER), **mamba),
+                        vq_cfg=tcfg.VQConfig(**_VQ), sptids={})
+    jp = init_omnimamba(jax.random.PRNGKey(1), jmodel, with_vision=False)
+    layers = dict(jp["mamba"]["layers"])
+    layers["mixer"] = fill_lora_b(layers["mixer"], np.random.default_rng(1))
+    full = jq.quantize_decode_params({"mamba": {**jp["mamba"], "layers": layers}, "vq": jp["vq"]})
+    jq_p = {"mamba": full["mamba"], "vq": decode_side(full["vq"])}
+    return jmodel, tmodel, jq_p["mamba"], bridge(jq_p, tmodel)["mamba"]
+
+
+@pytest.mark.parametrize("lora", [True, False], ids=["lora", "no_lora"])
+@pytest.mark.parametrize("B", [16, 17, 48, 96, 112])
+def test_int8_fused_step_matches_jax_on_tensor_core_tiles(wide_quantized, B, lora):
+    """K4's int8 branch at the batches where the card's row tiling of the int8
+    in_proj changes (16 and 17 rows: one m16 fragment and a partial second;
+    48; 96, one 96-row tile; 112, two), with and without the LoRA branch: the
+    plain version against JAX ``backbone_step_fused`` on
+    ``quantize_decode_params`` (Pallas in interpret mode), fp32, 1e-5."""
+    jmodel, tmodel, jm, tm = wide_quantized
+    mixer = tmodel.cfg.mixer
+    assert mixer.d_model % 64 == 0 and mixer.d_inner % 64 == 0 and mixer.d_in_proj % 64 == 0
+    assert tq.is_quantized(tm["layers"][0]["mixer"]["in_proj"]["kernel"])
+    if not lora:
+        jm, tm = _without_lora_jax(jm), _without_lora_torch(tm)
+    rng = np.random.default_rng(600 + B)
+    L, W = tmodel.cfg.n_layer, mixer.d_conv
+    conv = (0.5 * rng.standard_normal((L, B, W - 1, mixer.d_conv_in))).astype(np.float32)
+    ssm = (0.5 * rng.standard_normal(
+        (L, B, mixer.nheads, mixer.headdim, mixer.d_state))).astype(np.float32)
+    tok = rng.integers(0, 32, (B,))
+    hj, fcache = jbb.backbone_step_fused(
+        jm, jnp.asarray(tok, jnp.int32), jnp.int32(L0),
+        to_fused_cache(jbb.BackboneCache(jnp.asarray(conv), jnp.asarray(ssm)), mixer.d_inner),
+        "t2i", jmodel.cfg, dtype=jnp.float32)
+    before = (fused_decode_step.launches, fused_decode_step.int8_launches)
+    ht, out = tbb.backbone_step_fused(tm, tt(tok), L0, tbb.BackboneCache(tt(conv), tt(ssm)),
+                                      "t2i", tmodel.cfg, dtype=torch.float32)
+    # CPU tensors: the plain version, no launch counted
+    assert (fused_decode_step.launches, fused_decode_step.int8_launches) == before
+    close(ht, hj, 1e-5)
+    assert_caches_close(fcache, out, B, mixer.d_inner, 1e-5)
 
 
 def _streams(quantized, task, ids, **kw):

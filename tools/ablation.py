@@ -1,13 +1,13 @@
 """What holds a hand-written kernel back: the kernel built with parts of its
 work taken out, each build timed on the shapes of its main path.
 
-    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-ssm] [k4-prenorm]
-                              [k4-out-proj]
+    python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-in-proj-int8]
+                              [k4-ssm] [k4-prenorm] [k4-out-proj]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
-of all targets in parallel, with the target's measurement macro set to the
-entry's value, and times each build:
+of all targets in parallel (a build that two targets share once), with the
+target's measurement macro set to the entry's value, and times each build:
 
 - ``k5`` (``ssd_scan_bwd.cu``, ``OMT_K5_SKIP``): K5's bf16 kernel through
   ``ssd_fused_bwd`` at one layer of the training step (B=90, L=328, H=64,
@@ -28,6 +28,9 @@ entry's value, and times each build:
   time the median of three calls of 96 launches; and the 48-layer step of
   each build (median of three calls of 5 steps), where the phase starts
   while the pre-norm runs.
+- ``k4-in-proj-int8`` (the same builds): the same on ``quantize_decode_params``
+  of the layers, whose int8 W_in takes the same pair kernel with its tiles
+  widened in registers; the phase's bytes count W_in as int8 with its scale.
 - ``k4-ssm`` (``decode_fused.cu``, ``OMT_K4_SSM_SKIP``): K4's SSM-update phase
   alone (``fused_decode_ssm``: the state update in place, y, the gate and the
   sums of squares), each launch on the next of the 1.3B's 48 layers, at 16, 48
@@ -51,17 +54,20 @@ entry's value, and times each build:
   launches; and the 48-layer step of each build (median of three calls of 5
   steps), where the phase starts while the SSM update ends.
 
-Of every ``k4-*`` build the 48-layer step is also profiled (3 steps,
+Of every ``k4-*`` build the phase is also timed one launch at a time, with
+nothing beside it (``phase_one_launch_ms``: ``chip_smoke.time_alone_ms``, the
+median of 96), and the 48-layer step is profiled (3 steps,
 ``tools/k4_probe.py``'s ``profile``): each phase's time that no earlier kernel
 overlaps, and how long after the end of the kernels ahead of it the phase's
 kernel starts (negative: while they run).
 
-Only the build with the value 0 (and, of ``k4-in-proj``, 32, 64 and 128, of
-``k4-ssm`` 4, 8, 32 and 64, of ``k4-prenorm`` 16, 32, 64, 128 and 256, of
-``k4-out-proj`` 32, 64, 128, 256, 512 and 1024, which change when work
-starts, not what it computes) gives correct results; the build with 0 must
-equal the library's bits, which is asserted, and so must each ``k4-out-proj``
-build of that list (on the same inputs, restored before each check). Prints
+Only the build with the value 0 (and, of ``k4-in-proj`` and
+``k4-in-proj-int8``, 32, 64 and 128, of ``k4-ssm`` 4, 8, 32 and 64, of
+``k4-prenorm`` 16, 32, 64, 128 and 256, of ``k4-out-proj`` 32, 64, 128, 256,
+512 and 1024, which change when work starts, not what it computes) gives
+correct results; the build with 0 must equal the library's bits, which is
+asserted, and so must each ``k4-in-proj-int8`` and ``k4-out-proj`` build of
+that list (on the same inputs, restored before each check). Prints
 the card, one JSON line a measurement, then one JSON line of all with each
 build's ``ptxas`` lines.
 """
@@ -145,22 +151,27 @@ def run_k5(libs: dict, builds: dict, rows: dict) -> None:
                 sk.BWD_BF16_CLUSTER = shipped
 
 
-def run_k4_phase(phase: str, same_bits=()):
+def run_k4_phase(phase: str, same_bits=(), int8=False):
     """K4's bf16 `phase` ("prenorm", "in_proj", "ssm" or "out_proj") through each
     build: the phase alone, each launch on the next of the 48 layers, and the
-    48-layer step. The builds 0 and `same_bits` must give the library's bits."""
+    48-layer step; with `int8` on the layers' `quantize_decode_params` (int8
+    in_proj and out_proj). The builds 0 and `same_bits` must give the
+    library's bits."""
 
     def run(libs: dict, builds: dict, rows: dict) -> None:
         import chip_smoke as cs
         import k4_probe
         from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
         from omnimamba_tpu_torch.ops import decode_fused as df
+        from omnimamba_tpu_torch.ops.quant import quantize_decode_params
 
         cfg, lcfg = Mamba2LayerConfig(), LoraConfig()
         launch = {"prenorm": df.fused_decode_prenorm, "in_proj": df.fused_decode_in_proj,
                   "ssm": df.fused_decode_ssm, "out_proj": df.fused_decode_out_proj}[phase]
         gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
         layers = cs.fused_layers(gen, 48, cfg, lcfg, _bf)
+        if int8:
+            layers = quantize_decode_params({"layers": layers})["layers"]
         for batch in (16, cs.BATCH, 2 * cs.BATCH):
             h = cs.rand(gen, (batch, cfg.d_model), _bf)
             residual = cs.rand(gen, (batch, cfg.d_model), _f32)  # the pre-norm's, in place
@@ -200,12 +211,14 @@ def run_k4_phase(phase: str, same_bits=()):
                 for t, s in zip(read, saved):
                     t.copy_(s)
 
-            bound = cs.k4_phase_bytes(cfg, lcfg.r, batch)[f"k4_{phase}"] / cs.HBM_BYTES_PER_S * 1e3
+            phase_bytes = cs.k4_phase_bytes(cfg, lcfg.r, batch, proj_bytes=1 if int8 else None)
+            bound = phase_bytes[f"k4_{phase}"] / cs.HBM_BYTES_PER_S * 1e3
             rec = {"shape": {"prenorm": (batch, cfg.d_model, lcfg.r),
                              "in_proj": (batch, cfg.d_model, cfg.d_in_proj),
                              "ssm": (batch, cfg.nheads, cfg.headdim, cfg.d_state),
                              "out_proj": (batch, cfg.d_inner, cfg.d_model)}[phase],
-                   "bound_ms": bound, "bound_by": "bytes", "phase_ms": {}, "step_ms": {},
+                   "bound_ms": bound, "bound_by": "bytes", "phase_ms": {}, "phase_one_launch_ms": {},
+                   "step_ms": {},
                    "step_exposed_ms": {}, "step_start_after_ahead_end_us": {}}
             for v, name in builds.items():
                 if v == 0 or v in same_bits:  # the library's outputs
@@ -224,12 +237,13 @@ def run_k4_phase(phase: str, same_bits=()):
                             f"the build {name!r} differs from the library at B={batch}"
                         del want
                     rec["phase_ms"][name] = median_ms(alone, 3, 2 * len(layers))
+                    rec["phase_one_launch_ms"][name] = cs.time_alone_ms(alone, 2 * len(layers))
                     rec["step_ms"][name] = median_ms(lambda: df.fused_decode_step(*args, plan=plan),
                                                      3, 5)
                     prof = k4_probe.profile(lambda: df.fused_decode_step(*args, plan=plan))
                     rec["step_exposed_ms"][name] = prof["exposed_ms_per_step"]
                     rec["step_start_after_ahead_end_us"][name] = prof["start_after_ahead_end_us"]
-            emit(rows, f"{phase}_B{batch}", rec)
+            emit(rows, f"{phase}{'_int8' if int8 else ''}_B{batch}", rec)
             del cache, plan, written, read, saved, residual
 
     return run
@@ -317,6 +331,12 @@ TARGETS = {
                     16: "launch only", 32: "no weights before the pre-norm ends",
                     64: "ordinary launch", 128: "no L2 prefetch for the epilogue"},
                    run_k4_phase("in_proj")),
+    "k4-in-proj-int8": ("decode_fused.cu", "omt_fused_decode_step", "OMT_K4_IN_SKIP",
+                        {0: "as shipped", 1: "no activation copies", 2: "no weight copies",
+                         3: "no copies", 4: "no widening or products", 8: "no epilogue",
+                         16: "launch only", 32: "no weights before the pre-norm ends",
+                         64: "ordinary launch", 128: "no L2 prefetch for the epilogue"},
+                        run_k4_phase("in_proj", same_bits=(32, 64, 128), int8=True)),
     "k4-ssm": ("decode_fused.cu", "omt_fused_decode_step", "OMT_K4_SSM_SKIP",
                {0: "as shipped", 1: "no state loads", 2: "no state stores",
                 3: "no state traffic", 16: "launch only", 4: "ordinary launch",
@@ -359,28 +379,34 @@ def main() -> int:
     out_dir = kb.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = kb._find_nvcc()
-    procs = {}
+    procs = {}  # (source, macro, value) -> the build
     for t in targets:
         source, _, macro, builds, _ = TARGETS[t]
         for v in builds:
+            if (source, macro, v) in procs:
+                continue
             lib = out_dir / f"lib_{macro}_{v}.so"
             cmd = [nvcc, *kb.NVCC_FLAGS, "-shared", f"-D{macro}={v}", "-o", str(lib),
                    str(kb.CSRC_DIR / source)]
-            procs[t, v] = lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)
+            procs[source, macro, v] = lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                            stderr=subprocess.STDOUT, text=True)
     shipped = kb.load_kernels()
-    libs, ptxas = {t: {} for t in targets}, {}
-    for (t, v), (lib, proc) in procs.items():
-        _, entry, macro, _, _ = TARGETS[t]
+    built, ptxas = {}, {}
+    for (source, macro, v), (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {macro}={v}:\n{log}")
         ptxas[f"{macro}={v}"] = sorted(
             {ln.split(":", 1)[1].strip() for ln in log.splitlines() if "registers" in ln})
-        cdll = ctypes.CDLL(str(lib))
-        getattr(cdll, entry).argtypes = getattr(shipped, entry).argtypes
-        getattr(cdll, entry).restype = getattr(shipped, entry).restype
-        libs[t][v] = getattr(cdll, entry)
+        built[source, macro, v] = ctypes.CDLL(str(lib))
+    libs = {t: {} for t in targets}
+    for t in targets:
+        source, entry, macro, builds, _ = TARGETS[t]
+        for v in builds:
+            fn = getattr(built[source, macro, v], entry)
+            fn.argtypes = getattr(shipped, entry).argtypes
+            fn.restype = getattr(shipped, entry).restype
+            libs[t][v] = fn
 
     rows = {}
     for t in targets:

@@ -14,8 +14,9 @@ layers and inputs from the seed of `chip_smoke.py`, and:
 - saves h, the residual, the conv windows and the SSM states after one step
   through 1 layer and through 48 layers at B=48, and through 1 layer at B=96
   (bf16 state, LoRA rank 8, task t2i), through 48 layers at B=16 with an fp32
-  state, and through 48 layers at B=48 on `quantize_decode_params` of the
-  layers (int8 in_proj and out_proj) to FILE;
+  state, and on `quantize_decode_params` of the layers (int8 in_proj and
+  out_proj) through 48 layers at B=48 and through 1 layer at B = 16 and 96,
+  to FILE;
 - times the 48-layer step (CUDA events around 10 queued steps) and the
   host's time to enqueue a step (median of five calls of 3 steps queued
   behind other work), and profiles 3 steps (queued behind other work) at
@@ -24,11 +25,13 @@ layers and inputs from the seed of `chip_smoke.py`, and:
   pre-norm runs, the SSM update while the in_proj runs) and how long after
   the end of the kernels ahead of it each starts; at those batches also the
   pre-norm phase alone (`fused_decode_prenorm`) and the out_proj phase alone
-  (`fused_decode_out_proj`), each of 96 launches on the next layer (null for
-  a checkout that has no such function), beside `torch.matmul(ya, W_out)` on
-  the same bf16 operands and layers;
-- does the same with an fp32 state at B = 8 and 16, and at B=48 on the int8
-  layers.
+  (`fused_decode_out_proj`), each of 96 launches on the next layer, back to
+  back (`_alone_ms`) and each with nothing beside it (`_one_launch_ms`; null
+  for a checkout that has no such function), beside `torch.matmul(ya, W_out)`
+  on the same bf16 operands and layers;
+- does the same with an fp32 state at B = 8 and 16, and at B = 16, 48 and 96
+  on the int8 layers, there with the in_proj phase alone
+  (`fused_decode_in_proj`) in place of the bf16 phases.
 
 Prints the card, then one JSON line. The second form asserts that every saved
 tensor of A equals B's bit for bit and prints one JSON line.
@@ -113,7 +116,9 @@ def probe(root: Path, out: Path) -> dict:
             (f"L48_B{cs.BATCH}", layers, cs.BATCH, bf),
             (f"L1_B{2 * cs.BATCH}", layers[:1], 2 * cs.BATCH, bf),
             ("L48_B16_fp32_state", layers, 16, torch.float32),
-            (f"L48_B{cs.BATCH}_int8", qlayers, cs.BATCH, bf)):
+            (f"L48_B{cs.BATCH}_int8", qlayers, cs.BATCH, bf),
+            ("L1_B16_int8", qlayers[:1], 16, bf),
+            (f"L1_B{2 * cs.BATCH}_int8", qlayers[:1], 2 * cs.BATCH, bf)):
         h, residual, cache = inputs(len(stack), B, state)
         plan = prepare_fused_decode(stack, "t2i", cfg, lcfg, B, bf)
         h_out, res_out, _ = fused_decode_step(stack, h, residual, cache, "t2i", cfg, lcfg, 1e-5,
@@ -125,7 +130,7 @@ def probe(root: Path, out: Path) -> dict:
     torch.save({k: v.cpu() for k, v in saved.items()}, out)
     del saved
 
-    def timed(stack, B, key, state=bf, phases_alone=False):
+    def timed(stack, B, key, state=bf, alone=()):
         h, _, cache = inputs(len(stack), B, state)
         plan = prepare_fused_decode(stack, "t2i", cfg, lcfg, B, bf)
 
@@ -144,21 +149,23 @@ def probe(root: Path, out: Path) -> dict:
         rec[key] = {"batch": B, "state": str(state), "step_ms": cs.time_ms(step, 10),
                     "host_ms_per_step": statistics.median(host_ms() for _ in range(5)),
                     **profile(step)}
-        if phases_alone:  # the same draws on every checkout
+        if alone:  # the same draws on every checkout
             residual, turn = cs.rand(gen, (B, cfg.d_model), torch.float32), [0]
-            for name in ("prenorm", "out_proj"):
-                rec[key][f"{name}_alone_ms"] = None
-                alone = getattr(decode_fused, f"fused_decode_{name}", None)
-                if alone is None:
+            for name in alone:
+                rec[key][f"{name}_alone_ms"] = rec[key][f"{name}_one_launch_ms"] = None
+                launch = getattr(decode_fused, f"fused_decode_{name}", None)
+                if launch is None:
                     continue
                 res = residual if name == "prenorm" else None
 
                 def phase():
-                    alone(stack, h, res, cache, "t2i", cfg, lcfg, 1e-5, plan=plan,
-                          layer=turn[0] % len(stack))
+                    launch(stack, h, res, cache, "t2i", cfg, lcfg, 1e-5, plan=plan,
+                           layer=turn[0] % len(stack))
                     turn[0] += 1
 
                 rec[key][f"{name}_alone_ms"] = cs.time_ms(phase, 2 * len(stack))
+                rec[key][f"{name}_one_launch_ms"] = cs.time_alone_ms(phase, 2 * len(stack))
+        if "out_proj" in alone:
             ya = plan.scratch["ya"]
             w_out = [layer["mixer"]["out_proj"]["kernel"] for layer in stack]
 
@@ -170,12 +177,13 @@ def probe(root: Path, out: Path) -> dict:
         print(json.dumps({key: rec[key]}), flush=True)
 
     for B in (16, cs.BATCH, 2 * cs.BATCH):
-        timed(layers, B, f"bf16_B{B}", phases_alone=True)
+        timed(layers, B, f"bf16_B{B}", alone=("prenorm", "out_proj"))
     for B in (8, 16):
         timed(layers, B, f"bf16_B{B}_fp32_state", torch.float32)
     del layers
     torch.cuda.empty_cache()
-    timed(qlayers, cs.BATCH, f"int8_B{cs.BATCH}")
+    for B in (16, cs.BATCH, 2 * cs.BATCH):
+        timed(qlayers, B, f"int8_B{B}", alone=("in_proj",))
     return rec
 
 
