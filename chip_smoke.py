@@ -927,15 +927,15 @@ def check_decode_fused(gen, results):
                   "d_model_1536_bf16": "k4_prenorm_kernel<",
                   "rows_112_bf16": "k4_prenorm_early_kernel<2, 8>"}
     # the out_proj kernel each bf16 case on whole tiles must run (by name): the
-    # pair kernel with MT m16 row fragments a block (six from B=96 on: 96 rows
-    # a block, one row tile at B=96, two at 112)
-    out_proj_of = {"main_1_layer": "k4_out_proj_pair_kernel<3>",
-                   "three_rows": "k4_out_proj_pair_kernel<1>",
-                   "twenty_rows": "k4_out_proj_pair_kernel<2>",
-                   "cfg_batch_no_lora": "k4_out_proj_pair_kernel<6>",
-                   "d_model_1024_bf16": "k4_out_proj_pair_kernel<3>",
-                   "d_model_1536_bf16": "k4_out_proj_pair_kernel<3>",
-                   "rows_112_bf16": "k4_out_proj_pair_kernel<6>"}
+    # pair kernel of bf16 weights with MT m16 row fragments a block (six from
+    # B=96 on: 96 rows a block, one row tile at B=96, two at 112)
+    out_proj_of = {"main_1_layer": "k4_out_proj_pair_kernel<3, __nv_bfloat16>",
+                   "three_rows": "k4_out_proj_pair_kernel<1, __nv_bfloat16>",
+                   "twenty_rows": "k4_out_proj_pair_kernel<2, __nv_bfloat16>",
+                   "cfg_batch_no_lora": "k4_out_proj_pair_kernel<6, __nv_bfloat16>",
+                   "d_model_1024_bf16": "k4_out_proj_pair_kernel<3, __nv_bfloat16>",
+                   "d_model_1536_bf16": "k4_out_proj_pair_kernel<3, __nv_bfloat16>",
+                   "rows_112_bf16": "k4_out_proj_pair_kernel<6, __nv_bfloat16>"}
     for name, sname, n_layer, B, cfg, lcfg, task, io, wdtype, sdtype in cases:
         layers = stack(sname)[:n_layer]
         cache0 = fused_state(gen, n_layer, B, cfg, io, sdtype)
@@ -1075,13 +1075,13 @@ def check_decode_fused(gen, results):
                                                 if k in rec}
 
     rec = out_proj_phase(gen, stack("full_bf16"), full, lora8, "t2i")
-    if results.get("build_log"):  # the bf16 out_proj's pair kernels: no spills, tensor cores
+    if results.get("build_log"):  # every pair out_proj (bf16 and int8 W_out): no spills, tensor cores
         from omnimamba_tpu_torch.ops import kernel_build
 
         rec["ptxas"] = ptxas_of(results["build_log"], "k4_out_proj_pair")
         rec["sass"] = sass_counts(kernel_build.build_kernels().library, "k4_out_proj_pair",
                                   ("HMMA.16816.F32.BF16", "LDSM", "UTMALDG"))
-        assert rec["ptxas"] and len(rec["ptxas"]) == 6 and all(
+        assert rec["ptxas"] and len(rec["ptxas"]) == 12 and all(
             "0 bytes spill stores" in " ".join(v) for v in rec["ptxas"].values()), rec["ptxas"]
         assert rec["sass"] and all(c["HMMA.16816.F32.BF16"] > 0 for c in rec["sass"].values()), \
             rec["sass"]
@@ -1241,79 +1241,98 @@ def in_proj_phase(gen, layers, cfg, lcfg, task):
                             "or softplus), the yardstick for the phase's product"}
 
 
-def int8_in_proj_phase(gen, layers, cfg, lcfg, task):
-    """K4's int8 in_proj phase (the product with the int8 W_in and its column
-    scale, the LoRA term, conv step and softplus, on bf16 activations) of one
-    layer alone, as the step launches it (`fused_decode_in_proj`), at 16, 48
-    and 96 rows, each launch on the next of the 48 layers: launches back to
-    back (`ms`, where each launch, a programmatic dependent of the one before,
-    fetches weights while that one runs) and one launch with nothing beside it
-    (`ms_alone`: `time_alone_ms`), beside the bytes the phase must move at the
-    card's memory rate. Two yardsticks of the product alone, neither of them
-    the phase's function: K7's `qmatmul(hn, q, scale)`, the port's own int8
-    product, and `torch.matmul(hn, q as bf16)`, a bf16 product of the same
-    shape with twice the weight bytes. Beside them the phase inside the
-    48-layer int8 step (profile of 3 steps): each kernel's time and the part
-    of it that no earlier kernel overlaps, all of the in_proj's the pair
-    kernel's."""
+def int8_phases(gen, layers, cfg, lcfg, task):
+    """K4's two int8 phases of one layer alone, as the step launches them, at
+    16, 48 and 96 rows, each launch on the next of the 48 layers: the in_proj
+    (`fused_decode_in_proj`: the product with the int8 W_in and its column
+    scale, the LoRA term, conv step and softplus) and the out_proj
+    (`fused_decode_out_proj`: the gated, weighted yf times the int8 W_out into
+    the fp32 K-split partials, each times the column scale), both on bf16
+    activations. Launches back to back (`ms`, where each launch, a
+    programmatic dependent of the one before, fetches weights while that one
+    runs) and one launch with nothing beside it (`ms_alone`: `time_alone_ms`),
+    beside the bytes the phase must move at the card's memory rate. Two
+    yardsticks of each product alone, neither of them the phase's function:
+    K7's `qmatmul(x, q, scale)`, the port's own int8 product, and
+    `torch.matmul(x, q as bf16)`, a bf16 product of the same shape with twice
+    the weight bytes. Beside them the phases inside the 48-layer int8 step
+    (profile of 3 steps): each kernel's time and the part of it that no
+    earlier kernel overlaps, all of the in_proj's and all of the out_proj's
+    their pair kernels'. Returns the two records."""
     from omnimamba_tpu_torch.ops.decode_fused import (
-        fused_decode_in_proj, fused_decode_step, prepare_fused_decode)
+        fused_decode_in_proj, fused_decode_out_proj, fused_decode_step, prepare_fused_decode)
     from omnimamba_tpu_torch.ops.quant_kernel import qmatmul
 
     bf = torch.bfloat16
-    w_in = [layer["mixer"]["in_proj"]["kernel"] for layer in layers]
-    w_bf16 = [w["q"].to(bf) for w in w_in]
+    # phase -> (launch, the scratch it multiplies, its int8 weights, their bf16 copies)
+    products = {}
+    for phase, launch, x, w in (("in_proj", fused_decode_in_proj, "hn", "in_proj"),
+                                ("out_proj", fused_decode_out_proj, "ya", "out_proj")):
+        ws = [layer["mixer"][w]["kernel"] for layer in layers]
+        products[phase] = (launch, x, ws, [q["q"].to(bf) for q in ws])
     n = 2 * len(layers)
-    by_batch = {}
+    by_batch = {phase: {} for phase in products}
     for b in (16, BATCH, 2 * BATCH):
         h = rand(gen, (b, cfg.d_model), bf)
         cache = fused_state(gen, len(layers), b, cfg, bf, bf)
         plan = prepare_fused_decode(layers, task, cfg, lcfg, b, bf)
-        assert plan.proj_dtype == torch.int8 and plan.in_maps is not None
+        assert plan.proj_dtype == torch.int8
+        assert plan.in_maps is not None and plan.out_maps is not None
         args = (layers, h, None, cache, task, cfg, lcfg, 1e-5)
-        fused_decode_step(*args, plan=plan)  # the scratch holds a real hn and hn @ A
-        hn, turn = plan.scratch["hn"], [0]
-
-        def phase():
-            fused_decode_in_proj(*args, plan=plan, layer=turn[0] % len(layers))
-            turn[0] += 1
-
-        def k7():
-            w = w_in[turn[0] % len(layers)]
-            qmatmul(hn, w["q"], w["scale"])
-            turn[0] += 1
-
-        def bf16_product():
-            torch.matmul(hn, w_bf16[turn[0] % len(layers)])
-            turn[0] += 1
-
-        phase_bytes = k4_phase_bytes(cfg, lcfg.r, b, proj_bytes=1)["k4_in_proj"]
-        bound = phase_bytes / HBM_BYTES_PER_S * 1e3
-        ms, ms_alone = time_ms(phase, n), time_alone_ms(phase, n)
+        fused_decode_step(*args, plan=plan)  # the scratch holds a real hn, hn @ A and yf * w_gn
         prof = profile_steps(lambda i: fused_decode_step(*args, plan=plan), 3,
-                             named=K4_PHASES + ("k4_in_proj_pair",))
-        by_batch[f"B{b}"] = {
-            "ms": ms, "ms_alone": ms_alone, "bound_ms": bound, "share_of_bound": bound / ms,
-            "share_of_bound_alone": bound / ms_alone, "bytes": phase_bytes,
-            "qmatmul_ms": time_ms(k7, n), "qmatmul_ms_alone": time_alone_ms(k7, n),
-            "bf16_matmul_ms": time_ms(bf16_product, n),
-            "bf16_matmul_ms_alone": time_alone_ms(bf16_product, n),
-            "step_ms_per_layer": {k: v / len(layers) for k, v in prof["named_ms_per_step"].items()},
-            "step_exposed_ms_per_layer": {
-                k: v / len(layers) for k, v in prof["named_exposed_ms_per_step"].items()},
-            "step_device_busy_ms": prof["device_busy_ms_per_step"],
-        }
-        # the step's in_proj time is the pair kernel's, and only its
+                             named=K4_PHASES + ("k4_in_proj_pair", "k4_out_proj_pair"))
         named = prof["named_ms_per_step"]
-        assert 0 < named["k4_in_proj_pair"] == named["k4_in_proj"], by_batch[f"B{b}"]
+        for phase, (launch, xname, ws, w_bf16) in products.items():
+            x, turn = plan.scratch[xname], [0]
+
+            def run():
+                launch(*args, plan=plan, layer=turn[0] % len(layers))
+                turn[0] += 1
+
+            def k7():
+                w = ws[turn[0] % len(layers)]
+                qmatmul(x, w["q"], w["scale"])
+                turn[0] += 1
+
+            def bf16_product():
+                torch.matmul(x, w_bf16[turn[0] % len(layers)])
+                turn[0] += 1
+
+            phase_bytes = k4_phase_bytes(cfg, lcfg.r, b, proj_bytes=1)[f"k4_{phase}"]
+            bound = phase_bytes / HBM_BYTES_PER_S * 1e3
+            ms, ms_alone = time_ms(run, n), time_alone_ms(run, n)
+            by_batch[phase][f"B{b}"] = {
+                "ms": ms, "ms_alone": ms_alone, "bound_ms": bound, "share_of_bound": bound / ms,
+                "share_of_bound_alone": bound / ms_alone, "bytes": phase_bytes,
+                "qmatmul_ms": time_ms(k7, n), "qmatmul_ms_alone": time_alone_ms(k7, n),
+                "bf16_matmul_ms": time_ms(bf16_product, n),
+                "bf16_matmul_ms_alone": time_alone_ms(bf16_product, n),
+                "step_ms_per_layer": {k: v / len(layers) for k, v in named.items()},
+                "step_exposed_ms_per_layer": {
+                    k: v / len(layers) for k, v in prof["named_exposed_ms_per_step"].items()},
+                "step_device_busy_ms": prof["device_busy_ms_per_step"],
+            }
+            # the step's time of the phase is its pair kernel's, and only its
+            assert 0 < named[f"k4_{phase}_pair"] == named[f"k4_{phase}"], by_batch[phase][f"B{b}"]
         del cache, plan
-    return {"kernel": "decode_fused_int8", "case": "int8_in_proj_phase", "layers": 1,
-            "d_model": cfg.d_model, "d_in_proj": cfg.d_in_proj, "lora_rank": lcfg.r,
-            "dtype": str(bf), "weight_dtype": "int8 in_proj", "by_batch": by_batch,
-            "yardstick_note": "qmatmul(hn, q, scale): K7, the port's int8 product alone (no "
-                              "LoRA term, conv step or softplus); torch.matmul(hn, q as bf16): a "
-                              "bf16 product of the same shape, twice the weight bytes; neither "
-                              "computes the phase's function, so library_ms stays null"}
+    common = {"kernel": "decode_fused_int8", "layers": 1, "d_model": cfg.d_model,
+              "lora_rank": lcfg.r, "dtype": str(bf)}
+    return (
+        dict(common, case="int8_in_proj_phase", d_in_proj=cfg.d_in_proj,
+             weight_dtype="int8 in_proj", by_batch=by_batch["in_proj"],
+             yardstick_note="qmatmul(hn, q, scale): K7, the port's int8 product alone (no LoRA "
+                            "term, conv step or softplus); torch.matmul(hn, q as bf16): a bf16 "
+                            "product of the same shape, twice the weight bytes; neither computes "
+                            "the phase's function, so library_ms stays null"),
+        dict(common, case="int8_out_proj_phase", d_inner=cfg.d_inner,
+             weight_dtype="int8 out_proj", by_batch=by_batch["out_proj"],
+             yardstick_note="qmatmul(ya, q, scale): K7, the port's int8 product over all of K "
+                            "(a bf16 result; the phase writes each K split's fp32 partial); "
+                            "torch.matmul(ya, q as bf16): a bf16 product of the same shape, twice "
+                            "the weight bytes; neither computes the phase's function, so "
+                            "library_ms stays null"),
+    )
 
 
 def out_proj_phase(gen, layers, cfg, lcfg, task):
@@ -1691,11 +1710,13 @@ def check_qmatmul(gen, results):
 def check_decode_fused_int8(gen, results):
     """K4's int8 branch (int8 in_proj and out_proj, the other weights in the
     activation type) against its plain version at 1 and 48 layers, batch 48
-    and 4, bf16 and fp32, and at one bf16 layer at the int8 in_proj's row
-    tiles (17, 96 and 112 rows), with K4's tolerances (see BF16_STEP_ATOL_REL
-    and DEEP_TOL_REL); which in_proj kernel each case ran, by name; rows 0-2
-    of two bf16 steps against the 3-row step, bit for bit; the int8 in_proj
-    phase alone (`int8_in_proj_phase`) and the int8 step by phase."""
+    and 4, bf16 and fp32, at one bf16 layer at the pair kernels' row tiles
+    (17, 96 and 112 rows), and at one bf16 layer of the out_proj's two- and
+    three-split layouts, with K4's tolerances (see BF16_STEP_ATOL_REL and
+    DEEP_TOL_REL); which in_proj and out_proj kernel each case ran, by name;
+    rows 0-2 of two bf16 steps against the 3-row step, bit for bit; the int8
+    in_proj and out_proj phases alone (`int8_phases`) and the int8 step by
+    phase."""
     from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
     from omnimamba_tpu_torch.ops.decode_fused import (
         fused_decode_step, fused_decode_step_plain, prepare_fused_decode)
@@ -1703,10 +1724,16 @@ def check_decode_fused_int8(gen, results):
 
     full, lora8 = Mamba2LayerConfig(), LoraConfig()
     narrow = Mamba2LayerConfig(d_model=24, d_state=20, headdim=16, d_conv=3)
+    # the out_proj's K-split layouts that the 1.3B (four splits of 1,024) does
+    # not reach, all widths multiples of 64: d_inner 2,048 in two splits, and
+    # 2,560 in three of 896, 896 and a short 768 (in_proj width 5,440)
+    d1024 = Mamba2LayerConfig(d_model=1024, headdim=32)
+    d1280 = Mamba2LayerConfig(d_model=1280, headdim=40)
     bf, f32 = torch.bfloat16, torch.float32
     sizes = {"bf16": (48, full, lora8, bf), "f32": (48, full, lora8, f32),
              "narrow_f32": (2, narrow, LoraConfig(r=4), f32),
-             "narrow_bf16": (2, narrow, LoraConfig(r=4), bf)}
+             "narrow_bf16": (2, narrow, LoraConfig(r=4), bf),
+             "d1024_bf16": (1, d1024, lora8, bf), "d1280_bf16": (1, d1280, lora8, bf)}
     stacks = {}
 
     def stack(name):
@@ -1729,6 +1756,8 @@ def check_decode_fused_int8(gen, results):
         ("int8_1_layer_17_rows", "bf16", 1, 17, full, lora8, "mmu", bf, bf),
         ("int8_1_layer_96_rows", "bf16", 1, 2 * BATCH, full, lora8, None, bf, bf),
         ("int8_1_layer_112_rows", "bf16", 1, 112, full, lora8, "t2i", bf, f32),
+        ("int8_d_model_1024", "d1024_bf16", 1, BATCH, d1024, lora8, "t2i", bf, bf),
+        ("int8_d_model_1280", "d1280_bf16", 1, BATCH, d1280, lora8, "mmu", bf, bf),
         ("int8_fp32_1_layer", "f32", 1, BATCH, full, lora8, "t2i", f32, f32),
         ("int8_fp32_1_layer_four_rows", "f32", 1, 4, full, lora8, "mmu", f32, bf),
         ("int8_fp32_deep_four_rows", "f32", 48, 4, full, lora8, "t2i", f32, f32),
@@ -1743,9 +1772,23 @@ def check_decode_fused_int8(gen, results):
                   "int8_1_layer_112_rows": "k4_in_proj_pair_kernel<6, signed char>",
                   "int8_awkward": "k4_in_proj_kernel<float, float, signed char>",
                   "int8_awkward_bf16": "k4_in_proj_kernel<__nv_bfloat16, __nv_bfloat16, signed char>"}
-    # the int8 in_proj alone, beside its bound and two yardsticks of its product
-    phase_rec = int8_in_proj_phase(gen, stack("bf16"), full, lora8, "t2i")
-    emit({"kernel_check": phase_rec})
+    # the out_proj kernel each case must run (by name): on whole tiles the pair
+    # kernel of int8 weights with the in_proj's row fragments; elsewhere the
+    # multiply-add kernel
+    out_proj_of = {"int8_1_layer": "k4_out_proj_pair_kernel<3, signed char>",
+                   "int8_1_layer_four_rows": "k4_out_proj_pair_kernel<1, signed char>",
+                   "int8_1_layer_17_rows": "k4_out_proj_pair_kernel<2, signed char>",
+                   "int8_1_layer_96_rows": "k4_out_proj_pair_kernel<6, signed char>",
+                   "int8_1_layer_112_rows": "k4_out_proj_pair_kernel<6, signed char>",
+                   "int8_d_model_1024": "k4_out_proj_pair_kernel<3, signed char>",
+                   "int8_d_model_1280": "k4_out_proj_pair_kernel<3, signed char>",
+                   "int8_awkward": "k4_out_proj_kernel<float, signed char>",
+                   "int8_awkward_bf16": "k4_out_proj_kernel<__nv_bfloat16, signed char>"}
+    # the int8 in_proj and out_proj alone, beside their bounds and two
+    # yardsticks of each product
+    phase_recs = int8_phases(gen, stack("bf16"), full, lora8, "t2i")
+    for phase_rec in phase_recs:
+        emit({"kernel_check": phase_rec})
     for name, sname, n_layer, B, cfg, lcfg, task, io, sdtype in cases:
         if sname == "f32" and "bf16" in stacks:
             stacks.pop("bf16")
@@ -1801,12 +1844,16 @@ def check_decode_fused_int8(gen, results):
                     "ssm_state": torch.equal(c3.ssm_state, cache.ssm_state[:, :3])}
             rec["rows_0_to_2_equal_to_3_row_step"] = same
             assert all(same.values()), rec
-        if name in in_proj_of:
-            ran = [k for k in kernel_names(lambda: fused_decode_step(
-                layers, h, residual, cache, *args, plan=plan)) if "k4_in_proj" in k]
-            rec["in_proj_kernels"] = ran
-            want = in_proj_of[name].replace(" ", "")
-            assert ran and all(want in k.replace(" ", "") for k in ran), (name, ran)
+        if name in in_proj_of or name in out_proj_of:
+            names = kernel_names(lambda: fused_decode_step(
+                layers, h, residual, cache, *args, plan=plan))
+            for key, of in (("in_proj", in_proj_of), ("out_proj", out_proj_of)):
+                if name not in of:
+                    continue
+                ran = [k for k in names if f"k4_{key}" in k]
+                rec[f"{key}_kernels"] = ran
+                want = of[name].replace(" ", "")
+                assert ran and all(want in k.replace(" ", "") for k in ran), (name, ran)
         if name == "int8_main":
             moved = fused_step_bytes(layers, cache, h, task)
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -1836,7 +1883,8 @@ def check_decode_fused_int8(gen, results):
             results["decode_fused_int8"] = dict(rec, max_abs_err=worst, shape=(n_layer, B, cfg.d_model))
         emit({"kernel_check": rec})
         del cache0, cache, ref_cache, plan
-    results["decode_fused_int8"]["int8_in_proj_phase"] = {"by_batch": phase_rec["by_batch"]}
+    for phase_rec in phase_recs:
+        results["decode_fused_int8"][phase_rec["case"]] = {"by_batch": phase_rec["by_batch"]}
     stacks.clear()
     torch.cuda.empty_cache()
 
@@ -3143,7 +3191,8 @@ def main() -> int:
             "dynamic_smem_bytes", "sass",
             "library_note", "scan_step_device_ms",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "prenorm_phase",
-            "in_proj_phase", "ssm_phase", "out_proj_phase", "int8_in_proj_phase", "k4_phases",
+            "in_proj_phase", "ssm_phase", "out_proj_phase", "int8_in_proj_phase",
+            "int8_out_proj_phase", "k4_phases",
             "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
                     if k in r})

@@ -48,9 +48,9 @@
 //   4. out_proj      blocks tile rows x (64 columns) x (K split) of the
 //                    (B, d_inner) x (d_inner, d) product into fp32 partials
 //                    (d alone has too few columns to fill the card). With
-//                    bf16 weights it is launched as a programmatic dependent
-//                    of the SSM update and starts fetching weights while that
-//                    ends.
+//                    bf16 activations on whole tiles it is launched as a
+//                    programmatic dependent of the SSM update and starts
+//                    fetching weights (bf16 or int8) while that ends.
 //
 // Intermediates (hn, hn @ A, z, x|B|C, dt, yf * w_gn, partial sums) live in
 // scratch that the caller allocates once: about 1.7 MB at B=48, which stays in the
@@ -72,11 +72,9 @@
 //     blocks trade halves of their sums through distributed shared memory and
 //     each finishes half the rows. The out_proj takes the same design per
 //     (64 columns, K split), its first weights asked for before the SSM
-//     update ends. An int8 in_proj takes the in_proj's design with its int8
-//     weight tiles widened to bf16 in registers; an int8 out_proj streams its
-//     tiles through a four-stage cp.async ring into wmma products behind a
-//     block barrier a k step. All sum in one k order, so a row's bits do not
-//     depend on B;
+//     update ends. Int8 projections take the same two designs with their int8
+//     weight tiles widened to bf16 in registers. All sum in one k order, so a
+//     row's bits do not depend on B;
 //   - fp32 activations and weights, and any shape the tiles do not fit, take
 //     fp32 multiply-adds over shared-memory tiles (bf16 x bf16
 //     products are exact in fp32, so this is the same arithmetic in another
@@ -84,11 +82,10 @@
 //     best).
 // With int8 projections (serving) the weight tiles land as int8, half the
 // bytes: the multiply-add kernels widen them on the way into shared memory,
-// the in_proj's clusters in registers between ldmatrix and mma.sync, the
-// out_proj's wmma kernel each landed tile to bf16 in shared memory behind
-// one __syncthreads before the product; the column scale multiplies
-// the fp32 product in the epilogue (before in_proj's LoRA term, on each
-// out_proj K-split partial). The other weights keep the activation type.
+// the clusters of both products in registers between ldmatrix and mma.sync;
+// the column scale multiplies the fp32 product in the epilogue (before
+// in_proj's LoRA term, on each out_proj K-split partial). The other weights
+// keep the activation type.
 // The state update has a whole (row, head) tile of state in flight per block
 // from its first cycles, fetched while the in_proj runs, in the step
 // kernel's arithmetic and order; the pre-norm has its weights in registers
@@ -97,10 +94,6 @@
 // card partly idle at each boundary.
 // All sums are taken in a fixed order (no atomics): a step gives the same bits
 // on every run.
-#include <cooperative_groups.h>
-#include <cuda_pipeline.h>
-#include <mma.h>
-
 #include <cstring>
 #include <type_traits>
 
@@ -143,7 +136,7 @@ struct K4Args {
   // layer then hn (omt_fused_decode_in_maps), copied into its launch
   // parameters; null on the other paths
   const CUtensorMap* in_maps;
-  // the same for the bf16 out_proj: W_out of each layer then ya
+  // the same for the pair out_proj (bf16 or int8): W_out of each layer then ya
   const CUtensorMap* out_maps;
 };
 
@@ -304,10 +297,10 @@ __global__ void __launch_bounds__(kRowThreads) k4_prenorm_kernel(K4Args a, int l
 // alone), to time what is left of the early pre-norm, whose results are then
 // wrong; or to 16 (an ordinary launch, no programmatic dependency), 32 (the
 // in_proj may start at the pre-norm's first instruction), 64 (the in_proj may
-// start once hn is written), 128 (the out_proj does not let the pre-norm start
-// before its blocks end) or 256 (the in_proj may start once the row's sum of
-// squares is known), which change when work starts and give the shipped bits.
-// The library has 0.
+// start once hn is written) or 256 (the in_proj may start once the row's sum
+// of squares is known), which change when work starts and give the shipped
+// bits; the out_proj's trigger of the pre-norm is OMT_K4_OUT_SKIP's 1024. The
+// library has 0.
 #ifndef OMT_K4_PRE_SKIP
 #define OMT_K4_PRE_SKIP 0
 #endif
@@ -985,18 +978,18 @@ __global__ void __launch_bounds__(kSsmThreads) k4_ssm_kernel(K4Args a, int layer
 #define OMT_K4_SSM_SKIP 0
 #endif
 
-// Measurement only: tools/ablation.py k4-out-proj builds this file with
-// OMT_K4_OUT_SKIP set to a sum of 1 (no activation copies), 2 (no weight
-// copies), 4 (no products) and 8 (no exchange of the sums and no stores), or
-// to 16 (the launch alone), to time what is left of the bf16 out_proj, whose
-// results are then wrong; or to 32 (an ordinary launch, no programmatic
-// dependency), 64 (no weights asked for before the SSM update ends), 128 (the
-// SSM update lets the out_proj start at its blocks' entry, not once their
-// griddepcontrol.wait has returned), 256 (... once they have issued their
-// state stores), 512 (... only as they end),
-// 1024 (the out_proj does not let the next pre-norm start before its blocks
-// end), which change when work starts and give the shipped bits. The library
-// has 0.
+// Measurement only: tools/ablation.py k4-out-proj (k4-out-proj-int8 on int8
+// layers) builds this file with OMT_K4_OUT_SKIP set to a sum of 1 (no
+// activation copies), 2 (no weight copies), 4 (no products) and 8 (no
+// exchange of the sums and no stores), or to 16 (the launch alone), to time
+// what is left of the pair out_proj (bf16 or int8), whose results are then
+// wrong; or to 32 (an ordinary launch, no programmatic dependency), 64 (no
+// weights asked for before the SSM update ends), 128 (the SSM update lets the
+// out_proj start at its blocks' entry, not once their griddepcontrol.wait has
+// returned), 256 (... once they have issued their state stores), 512 (...
+// only as they end) or 1024 (the out_proj does not let the next pre-norm start
+// before its blocks end), which change when work starts and give the shipped
+// bits. The library has 0.
 #ifndef OMT_K4_OUT_SKIP
 #define OMT_K4_OUT_SKIP 0
 #endif
@@ -1037,7 +1030,7 @@ k4_ssm_tile_kernel(K4Args a, int layer) {
   using Raw = typename Raw4<ST>::type;
   __shared__ float warp_ss[kSsmThreads / 32];
   if (OMT_K4_SSM_SKIP & 16) return;
-  // the bf16 out_proj is launched as a programmatic dependent of this kernel:
+  // the pair out_proj is launched as a programmatic dependent of this kernel:
   // once every block has triggered, its blocks may start and fetch W_out; they
   // read yf * w_gn only once this kernel has ended
   if (OMT_K4_OUT_SKIP & 128) grid_launch_dependents();
@@ -1206,26 +1199,11 @@ __global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int
 }
 
 // ---------------------------------------------------------------------------
-// phase 4 for bf16 activations with an int8 out_proj: tensor cores
+// the tensor-core products of bf16 activations: tile widths
 // ---------------------------------------------------------------------------
-// (the in_proj and a bf16 out_proj take the two-block clusters further below,
-// in the same sum order.) A block of 8 warps takes MT * 16 rows x 64 columns; warp w owns columns
-// 16 (w % 4) .. + 15, the k half w / 4 of every k step, and MT accumulator
-// fragments; the two halves are added, lower k first, when C is read. The (64 x 64) weight tile and
-// the (MT * 16 x 64) activation tile of each k step are copied into a ring of
-// four shared-memory stages with 16-byte cp.async, three k steps ahead of the
-// one being multiplied (12 KB of int8 weights in flight per block). An int8
-// weight tile is widened to bf16 in a buffer of its own once it has landed,
-// behind one __syncthreads (wmma has no int8 x bf16 product).
-// Shapes are whole tiles (K and N multiples of 64,
-// every row 16-byte aligned): the caller takes the multiply-add kernels
-// otherwise. Rows past M are read from row M - 1 and never written.
 
-constexpr int kTcThreads = 256, kTcBN = 64, kTcBK = 64, kTcStages = 4;
-constexpr int kLdW = kTcBN + 8;  // bf16 elements; the padding spreads the rows over the banks
-constexpr int kLdA = kTcBK + 8;
-constexpr int kLdC = kTcBN + 4;  // floats
-constexpr int kTcMaxRank = 64;   // LoRA ranks above this take the multiply-add kernels
+constexpr int kTcBN = 64, kTcBK = 64;  // columns and k rows of a weight tile
+constexpr int kTcMaxRank = 64;         // LoRA ranks above this take the multiply-add kernels
 
 // the k width of each K split of the tensor-core out_proj, a whole number of
 // k tiles (the last split may be shorter)
@@ -1233,172 +1211,17 @@ __host__ __device__ constexpr int tc_split_width(int K, int ksplit) {
   return ((K + ksplit - 1) / ksplit + kTcBK - 1) / kTcBK * kTcBK;
 }
 
-// bytes of one weight-tile row in a stage, and of the bf16 buffer an int8 tile is widened into
-template <typename PW>
-struct TcW;
-template <>
-struct TcW<int8_t> {
-  static constexpr int kRowBytes = kTcBN + 16;  // rows stay 16-byte aligned
-  static constexpr int kWideBytes = kTcBK * kLdW * 2;
-};
-
-template <int MT, typename PW>
-struct TcTile {
-  static constexpr int kWBytes = kTcBK * TcW<PW>::kRowBytes;
-  static constexpr int kStageBytes = kWBytes + MT * 16 * kLdA * 2;
-  static constexpr int kWideOffset = kTcStages * kStageBytes;
-  static constexpr int kPipeBytes = kWideOffset + TcW<PW>::kWideBytes;
-  static constexpr int kCHalf = MT * 16 * kLdC;  // floats: C of one k half
-  static constexpr int kCBytes = 2 * kCHalf * 4;  // after the product the ring holds C
-  static constexpr int kBytes = kPipeBytes > kCBytes ? kPipeBytes : kCBytes;
-  static_assert(kWBytes % 32 == 0 && kStageBytes % 32 == 0, "wmma needs 32-byte alignment");
-};
-
-template <int MT, typename PW>
-__device__ __forceinline__ void tc_copy_tile(const __nv_bfloat16* __restrict__ A, int lda,
-                                             const PW* __restrict__ Wm, int ldw, int M, int m0,
-                                             int n0, int k0, unsigned char* stage) {
-  const int tid = threadIdx.x;
-  constexpr int kChunks = kTcBN * static_cast<int>(sizeof(PW)) / 16;  // 16-byte chunks a row
-#pragma unroll
-  for (int j = 0; j < kTcBK * kChunks / kTcThreads; ++j) {
-    const int c = tid + j * kTcThreads;
-    const int row = c / kChunks;
-    const int ch = (c % kChunks) * 16;  // bytes
-    __pipeline_memcpy_async(
-        stage + row * TcW<PW>::kRowBytes + ch,
-        reinterpret_cast<const unsigned char*>(Wm + static_cast<size_t>(k0 + row) * ldw + n0) + ch,
-        16);
-  }
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(stage + TcTile<MT, PW>::kWBytes);
-#pragma unroll
-  for (int c = tid; c < MT * 16 * (kTcBK / 8); c += kTcThreads) {
-    const int row = c / (kTcBK / 8);
-    const int ch = (c % (kTcBK / 8)) * 8;
-    __pipeline_memcpy_async(As + row * kLdA + ch,
-                            A + static_cast<size_t>(min(m0 + row, M - 1)) * lda + k0 + ch, 16);
-  }
-}
-
-// the landed (64 x 64) int8 weight tile of a stage, widened to bf16 (exact: |q| <= 127)
-__device__ __forceinline__ void tc_widen_int8(const unsigned char* stage, __nv_bfloat16* wide) {
-  static_assert(kTcThreads * 16 == kTcBK * kTcBN, "16 int8 values a thread");
-  const int row = threadIdx.x >> 2, c16 = (threadIdx.x & 3) * 16;
-  const int4 raw = *reinterpret_cast<const int4*>(stage + row * TcW<int8_t>::kRowBytes + c16);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  __align__(16) __nv_bfloat16 v[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = __float2bfloat16_rn(static_cast<float>(b[i]));
-  uint4* dst = reinterpret_cast<uint4*>(wide + row * kLdW + c16);
-  dst[0] = reinterpret_cast<const uint4*>(v)[0];
-  dst[1] = reinterpret_cast<const uint4*>(v)[1];
-}
-
-// C is left in `smem` for the caller as two fp32 (MT * 16 x 64) halves with row
-// stride kLdC, kCHalf floats apart: the lower and the upper k half
-template <int MT, typename PW>
-__device__ __forceinline__ void gemm_tile_tc(const __nv_bfloat16* __restrict__ A, int lda,
-                                             const PW* __restrict__ Wm, int ldw,
-                                             int M, int m0, int n0, int k_begin, int k_end,
-                                             unsigned char* smem) {
-  namespace wmma = nvcuda::wmma;
-  using Tile = TcTile<MT, PW>;
-  const int warp_n = (threadIdx.x >> 5) & 3;
-  const int warp_k = threadIdx.x >> 7;
-  const int ntiles = (k_end - k_begin) / kTcBK;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) wmma::fill_fragment(acc[i], 0.0f);
-
-  for (int t = 0; t < kTcStages - 1; ++t) {
-    if (t < ntiles)
-      tc_copy_tile<MT, PW>(A, lda, Wm, ldw, M, m0, n0, k_begin + t * kTcBK,
-                           smem + t * Tile::kStageBytes);
-    __pipeline_commit();
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    __pipeline_wait_prior(kTcStages - 2);  // this thread's copies of tile t have landed
-    __syncthreads();  // everyone's have, and everyone is done with tile t - 1
-    const int ahead = t + kTcStages - 1;   // goes into the stage tile t - 1 used
-    if (ahead < ntiles)
-      tc_copy_tile<MT, PW>(A, lda, Wm, ldw, M, m0, n0, k_begin + ahead * kTcBK,
-                           smem + (ahead % kTcStages) * Tile::kStageBytes);
-    __pipeline_commit();
-
-    const unsigned char* stage = smem + (t % kTcStages) * Tile::kStageBytes;
-    __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem + Tile::kWideOffset);
-    tc_widen_int8(stage, Ws);  // the sync above: nobody still reads tile t - 1's
-    __syncthreads();
-    const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(stage + Tile::kWBytes);
-#pragma unroll
-    for (int k16 = 0; k16 < kTcBK / 2; k16 += 16) {
-      const int kk = warp_k * (kTcBK / 2) + k16;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, Ws + kk * kLdW + warp_n * 16, kLdW);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, As + i * 16 * kLdA + kk, kLdA);
-        wmma::mma_sync(acc[i], fa, fb, acc[i]);
-      }
-    }
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();  // the ring is free: reuse it for C
-  float* Cs = reinterpret_cast<float*>(smem) + warp_k * Tile::kCHalf;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    wmma::store_matrix_sync(Cs + i * 16 * kLdC + warp_n * 16, acc[i], kLdC, wmma::mem_row_major);
-  __syncthreads();
-}
-
-// four consecutive columns of row `row` of the finished tile: lower k half + upper
-template <int MT, typename PW>
-__device__ __forceinline__ float4 tc_result4(const unsigned char* smem, int row, int c4) {
-  const float* Cs = reinterpret_cast<const float*>(smem) + row * kLdC + c4;
-  const float4 lo = load4(Cs), hi = load4(Cs + TcTile<MT, PW>::kCHalf);
-  return make_float4(lo.x + hi.x, lo.y + hi.y, lo.z + hi.z, lo.w + hi.w);
-}
-
-template <int MT, typename PW>
-__global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, int layer) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  using bf16 = __nv_bfloat16;
-  // the next layer's pre-norm may be launched as a programmatic dependent of
-  // this kernel: its blocks may start now and fetch the layer's weights; they
-  // read the partials only once this kernel has ended
-  if (!(OMT_K4_PRE_SKIP & 128)) grid_launch_dependents();
-  const int n0 = blockIdx.x * kTcBN;
-  const int m0 = blockIdx.y * MT * 16;
-  const int split = blockIdx.z;
-  const int K = a.d_inner;
-  const int per = tc_split_width(K, a.ksplit);
-  const int k_begin = min(K, split * per);
-  const int k_end = min(K, k_begin + per);
-  gemm_tile_tc<MT, PW>(static_cast<const bf16*>(a.ya), K, layer_ptr<PW>(a, kOutProj, layer), a.d,
-                       a.B, m0, n0, k_begin, k_end, tc_smem);
-  float* part = a.part + static_cast<size_t>(split) * a.B * a.d;
-  for (int e = threadIdx.x; e < MT * 16 * (kTcBN / 4); e += kTcThreads) {
-    const int row = e / (kTcBN / 4), c4 = (e % (kTcBN / 4)) * 4;
-    if (m0 + row >= a.B) continue;
-    float4 v = tc_result4<MT, PW>(tc_smem, row, c4);
-    if constexpr (kInt8<PW>) v = mul4(v, load4(layer_ptr<float>(a, kOutScale, layer) + n0 + c4));
-    store4(part + static_cast<size_t>(m0 + row) * a.d + n0 + c4, v);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // phase 2 for bf16 activations and a bf16 or int8 in_proj: a two-block
 // cluster per column tile
 // ---------------------------------------------------------------------------
-// The sum order is gemm_tile_tc's: for every 64-wide k tile in k order, k in
-// [0, 32) goes into a chain `lo` and k in [32, 64) into `hi`, each as two k16
-// steps of HMMA.16816.F32.BF16 (a wmma m16n16k16 product is two of them, one
-// per n8 half of its columns), and the result is lo + hi. Here the two chains
-// run in the two blocks of a cluster, rank 0 lo and rank 1 hi, each over all
-// of K, so the card gets two blocks per column tile of 64 and no partial sum
-// goes through device memory. Each block has four consumer warps (16 columns
+// The sum order of both tensor-core products: for every 64-wide k tile in k
+// order, k in [0, 32) goes into a chain `lo` and k in [32, 64) into `hi`, each
+// as two k16 steps of HMMA.16816.F32.BF16 in k order (one per n8 tile of
+// columns), and the result is lo + hi. The two chains run in the two blocks
+// of a cluster, rank 0 lo and rank 1 hi, each over all of K, so the card gets
+// two blocks per column tile of 64 and no partial sum goes through device
+// memory. Each block has four consumer warps (16 columns
 // and the MT m16 tiles of the row tile each) and a producer warp that copies
 // the block's half of each weight tile (32 k x 64 columns: 4 KB of bf16, 2 KB
 // of int8) and of each activation tile (16 MT rows x 32 k) with one TMA copy
@@ -1411,8 +1234,8 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 // registers as K7's decode path does (qmatmul.cu pair_tiles; exact, |q| <=
 // 127): the warp's two n8 tiles are then its even and its odd columns, where
 // a bf16 tile gives columns 0-7 and 8-15, and the epilogue puts each sum at
-// its column. The HMMA operands are the wmma path's, widened the same way
-// (tc_widen_int8), so an int8 row's bits are its too.
+// its column. The HMMA operands are the bf16 values of the int8 weights, so
+// the products do not depend on where a column sits.
 //
 // The launch is a programmatic dependent of the pre-norm, which lets it start
 // once the pre-norm's own griddepcontrol.wait has returned (k4_prenorm_kernel:
@@ -1437,9 +1260,9 @@ __global__ void __launch_bounds__(kTcThreads) k4_out_proj_tc_kernel(K4Args a, in
 // same either way round) goes through shared memory once, so that a warp
 // finishes whole 64-column rows (the conv windows and the stores take whole
 // 128-byte lines), 4 columns of MT rows a thread. A row's bits therefore do
-// not depend on B, and equal those of the wmma path this replaces. Shapes are
-// whole tiles, as for gemm_tile_tc. Rows past B read as zeros (the TMA copy
-// fills them) and are never written.
+// not depend on B. Shapes are whole tiles (K and N multiples of 64, every row
+// 16-byte aligned): the caller takes the multiply-add kernels otherwise. Rows
+// past B read as zeros (the TMA copy fills them) and are never written.
 
 // Measurement only: tools/ablation.py k4-in-proj builds this file with
 // OMT_K4_IN_SKIP set to a sum of 1 (no activation copies), 2 (no weight
@@ -1867,7 +1690,7 @@ k4_in_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap 
   // then, as in the other in_proj paths, thread (cg, rl) finishes 4 columns of
   // MT rows: a warp takes whole 64-column rows; an int8 W_in's column scale
   // (read before the k loop) multiplies lo + hi before the LoRA term is added,
-  // the wmma kernel's order
+  // JAX's order (_mm, then the LoRA term)
   int rows[MT];
   float4 v[MT];
 #pragma unroll
@@ -1920,24 +1743,26 @@ cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream)
 }
 
 // ---------------------------------------------------------------------------
-// phase 4 for bf16 activations and a bf16 out_proj: a two-block cluster per
-// (column tile, K split)
+// phase 4 for bf16 activations and a bf16 or int8 out_proj: a two-block
+// cluster per (column tile, K split)
 // ---------------------------------------------------------------------------
-// The sum order is gemm_tile_tc's (k4_out_proj_tc_kernel, int8 W_out): each
-// K split's fp32 partial is lo + hi, where lo is the chain
-// of HMMA.16816.F32.BF16 over k in [0, 32) of every 64-wide k tile of the
-// split, in k order, and hi the same chain over [32, 64). Here, as in the bf16
-// in_proj above, the two chains run in the two blocks of a cluster, rank 0 lo
-// and rank 1 hi, each over the whole split: at 1.3B and B=48 the grid is 32
-// column tiles x 4 K splits x 2 = 256 blocks, each streaming 64 KB of W_out.
-// A producer warp copies the block's half of each weight tile (32 k x 64
-// columns) and of each activation tile (16 MT rows x 32 k) with one TMA copy
-// each into a ring of mbarrier-guarded stages (the in_proj's InPair ring,
-// about 64 KB: three blocks an SM); four consumer warps (16 columns and the
-// MT m16 tiles each) multiply with in_pair_tiles and never meet at a block
-// barrier in the k loop. A block takes up to 96 rows (pair_row_fragments), so
-// at B <= 96 W_out is read from device memory once; more rows take more row
-// tiles.
+// The sum order is the in_proj's (above): each K split's fp32 partial is lo +
+// hi, where lo is the chain of HMMA.16816.F32.BF16 over k in [0, 32) of every
+// 64-wide k tile of the split, in k order, and hi the same chain over [32,
+// 64); with an int8 W_out the partial is then multiplied by the column scale
+// (JAX's _mm with quant=True: the scale on the fp32 product of each split).
+// As in the in_proj, the two chains run in the two blocks of a cluster, rank
+// 0 lo and rank 1 hi, each over the whole split: at 1.3B and B=48 the grid is
+// 32 column tiles x 4 K splits x 2 = 256 blocks, each streaming 64 KB of a
+// bf16 W_out or 32 KB of an int8 one. A producer warp copies the block's half
+// of each weight tile (32 k x 64 columns: 4 KB of bf16, 2 KB of int8) and of
+// each activation tile (16 MT rows x 32 k) with one TMA copy each into a ring
+// of mbarrier-guarded stages (the in_proj's InPair ring, about 64 KB: three
+// blocks an SM); four consumer warps (16 columns and the MT m16 tiles each)
+// multiply with in_pair_tiles, an int8 tile widened in registers, and never
+// meet at a block barrier in the k loop. A block takes up to 96 rows
+// (pair_row_fragments), so at B <= 96 W_out is read from device memory once;
+// more rows take more row tiles.
 //
 // The launch is a programmatic dependent of the SSM update
 // (k4_ssm_tile_kernel), whose blocks let it start once their own
@@ -1949,7 +1774,7 @@ cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream)
 // every kernel of the chain waits for the one before it to end before it
 // ends. Where the SSM phase is an ordinary launch (k4_ssm_kernel), the wait
 // returns at once. The next layer's pre-norm is a programmatic dependent of
-// this kernel, and the blocks let it start at entry, as the int8 kernel's do.
+// this kernel, and the blocks let it start at entry.
 //
 // At the end the blocks trade halves through distributed shared memory as the
 // in_proj's do: rank 0 finishes rows 0-7 of every m16 tile and rank 1 rows
@@ -1957,23 +1782,25 @@ cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream)
 // counted on the peer's mbarrier. lo + hi is one fp32 addition (no product to
 // contract it with; the same bits either way round), and each block stores its
 // rows of part[split] through shared memory as whole 64-column rows, two
-// 128-byte lines each. Rows past B read as zeros (the TMA copy fills them)
-// and are never written. The split's k range is tc_split_width's, so a row's
-// bits are the int8 path's order and do not depend on B.
+// 128-byte lines each; with an int8 W_out each storing thread multiplies its
+// four columns by their scale, read before the k loop, on the way. Rows past B
+// read as zeros (the TMA copy fills them) and are never written. The split's k
+// range is tc_split_width's, so a row's bits do not depend on B.
 
-// the shapes the pair kernel takes, on the bf16 tensor-core path with bf16
-// projections: whole tiles and every K split non-empty (every ksplit that
+// the shapes the pair kernel takes, on the bf16 tensor-core path with bf16 or
+// int8 projections: whole tiles and every K split non-empty (every ksplit that
 // prepare_fused_decode picks); other shapes take k4_out_proj_kernel
 __host__ __device__ constexpr bool out_pair_fits(int d, int d_inner, int ksplit) {
   return d % kTcBN == 0 && d_inner % kTcBK == 0 && ksplit >= 1 && ksplit <= kMaxKSplit &&
          d_inner > (ksplit - 1) * tc_split_width(d_inner, ksplit);
 }
 
-template <int MT>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(InPair<MT>::kThreads, 3)
+// PW: the type of W_out, bf16 or int8 (then with its fp32 column scale)
+template <int MT, typename PW>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(InPair<MT, PW>::kThreads, 3)
 k4_out_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap wmap,
                         const __grid_constant__ CUtensorMap xmap) {
-  using P = InPair<MT>;  // the in_proj's tiles, ring and warps
+  using P = InPair<MT, PW>;  // the in_proj's tiles, ring and warps
   if (OMT_K4_OUT_SKIP & 16) return;
   // the next layer's pre-norm may start now and fetch its weights; it reads
   // the partials only once this kernel has ended
@@ -2047,8 +1874,17 @@ k4_out_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     a_off[h] = (lane & 15) * 64 + (((2 * h + (lane >> 4)) ^ ((lane >> 1) & 3)) << 4);
-    b_off[h] = (h * 16 + (lane & 15)) * 128 + (((2 * warp + (lane >> 4)) ^ (lane & 7)) << 4);
+    if constexpr (kInt8<PW>)
+      b_off[h] = lane * 64 + ((warp ^ ((lane >> 1) & 3)) << 4);
+    else
+      b_off[h] = (h * 16 + (lane & 15)) * 128 + (((2 * warp + (lane >> 4)) ^ (lane & 7)) << 4);
   }
+  // an int8 W_out's column scale of the four columns this thread stores (see
+  // the stores below): a weight, read now so that its load stays out of the
+  // tail after the last weight byte
+  [[maybe_unused]] float4 sc = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  if constexpr (kInt8<PW>)
+    sc = load4(layer_ptr<float>(a, kOutScale, layer) + n0 + (threadIdx.x & 15) * 4);
 
   float acc[MT][2][4];  // [m16 tile][n8 tile][mma.sync accumulator]
 #pragma unroll
@@ -2066,10 +1902,11 @@ k4_out_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap
     if (!(OMT_K4_OUT_SKIP & 4)) {
       const int n = min(P::kS, ntiles - st * P::kS);
       if (n == P::kS) {
-        in_pair_tiles<MT, P::kS>(acc, a_tile, w_tile, a_off, b_off);
+        in_pair_tiles<MT, P::kS, PW>(acc, a_tile, w_tile, a_off, b_off);
       } else {  // the last stage of a split that is not a multiple of kS tiles
         for (int u = 0; u < n; ++u)
-          in_pair_tiles<MT, 1>(acc, a_tile + u * P::kABytes, w_tile + u * P::kWBytes, a_off, b_off);
+          in_pair_tiles<MT, 1, PW>(acc, a_tile + u * P::kABytes, w_tile + u * P::kWBytes, a_off,
+                                   b_off);
       }
     }
     __syncwarp();  // the warp is done with the stage
@@ -2096,8 +1933,11 @@ k4_out_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap
   }
 
   // the ring, which every consumer warp is done with, takes lo + hi of this
-  // block's rows (row r = 8 i + g: 8 MT x 64)
-  constexpr int kLdCs = kTcBN + 8;  // floats: conflict-free float2 stores
+  // block's rows (row r = 8 i + g: 8 MT x 64). The sums of lane (g, c) lie at
+  // columns 2c, 2c + 1 of each n8 tile: with bf16 weights columns 2c, 2c + 1
+  // and 8 + 2c, 9 + 2c of the warp's 16; with int8 weights, where the n8 tiles
+  // are its even and its odd columns, 4c .. 4c + 3
+  constexpr int kLdCs = kTcBN + (kInt8<PW> ? 16 : 8);  // floats: conflict-free stores
   float* Cs = reinterpret_cast<float*>(ring);
   consumer_sync<P::kWarps>();
   mbar_wait<false>(&sums_full, 0);
@@ -2106,16 +1946,23 @@ k4_out_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap
     const float4 p = load4(slot4(i));
     const float(&x)[4] = acc[i][0];
     const float(&y)[4] = acc[i][1];
-    float* row = Cs + (i * 8 + g) * kLdCs + warp * 16 + 2 * c;
-    *reinterpret_cast<float2*>(row) =
-        make_float2((rank ? x[2] : x[0]) + p.x, (rank ? x[3] : x[1]) + p.y);
-    *reinterpret_cast<float2*>(row + 8) =
-        make_float2((rank ? y[2] : y[0]) + p.z, (rank ? y[3] : y[1]) + p.w);
+    if constexpr (kInt8<PW>) {
+      store4(Cs + (i * 8 + g) * kLdCs + warp * 16 + 4 * c,
+             make_float4((rank ? x[2] : x[0]) + p.x, (rank ? y[2] : y[0]) + p.z,
+                         (rank ? x[3] : x[1]) + p.y, (rank ? y[3] : y[1]) + p.w));
+    } else {
+      float* row = Cs + (i * 8 + g) * kLdCs + warp * 16 + 2 * c;
+      *reinterpret_cast<float2*>(row) =
+          make_float2((rank ? x[2] : x[0]) + p.x, (rank ? x[3] : x[1]) + p.y);
+      *reinterpret_cast<float2*>(row + 8) =
+          make_float2((rank ? y[2] : y[0]) + p.z, (rank ? y[3] : y[1]) + p.w);
+    }
   }
   consumer_sync<P::kWarps>();
 
   // thread (cg, r0) stores columns 4 cg .. 4 cg + 3 of the block's rows r0,
-  // r0 + R, ...: a half warp takes a whole 64-column row
+  // r0 + R, ...: a half warp takes a whole 64-column row; an int8 W_out's
+  // partial is lo + hi times the column scale
   grid_dependency_wait();  // returned long ago: the producer's wait came first
   constexpr int R = P::kWarps * 2;  // rows a pass
   const int cg = threadIdx.x & 15, r0 = threadIdx.x >> 4;
@@ -2123,12 +1970,15 @@ k4_out_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap
 #pragma unroll
   for (int r = r0; r < 8 * MT; r += R) {
     const int row = m0 + (r >> 3) * 16 + static_cast<int>(rank) * 8 + (r & 7);
-    if (row < a.B)
-      store4(part + static_cast<size_t>(row) * a.d, load4(Cs + r * kLdCs + cg * 4));
+    if (row < a.B) {
+      float4 v = load4(Cs + r * kLdCs + cg * 4);
+      if constexpr (kInt8<PW>) v = mul4(v, sc);
+      store4(part + static_cast<size_t>(row) * a.d, v);
+    }
   }
 }
 
-template <int MT>
+template <int MT, typename PW>
 cudaError_t launch_out_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
   // programmatic dependent launch: the blocks start while the SSM update runs
   cudaLaunchAttribute pdl;
@@ -2136,8 +1986,8 @@ cudaError_t launch_out_proj_pair(const K4Args& a, int layer, cudaStream_t stream
   pdl.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(2 * (a.d / kTcBN), (a.B + MT * 16 - 1) / (MT * 16), a.ksplit);
-  cfg.blockDim = dim3(InPair<MT>::kThreads);
-  cfg.dynamicSmemBytes = InPair<MT>::kBytes;
+  cfg.blockDim = dim3(InPair<MT, PW>::kThreads);
+  cfg.dynamicSmemBytes = InPair<MT, PW>::kBytes;
   cfg.stream = stream;
   if (!(OMT_K4_OUT_SKIP & 32)) {  // 32: an ordinary launch (measurement only)
     cfg.attrs = &pdl;
@@ -2146,19 +1996,21 @@ cudaError_t launch_out_proj_pair(const K4Args& a, int layer, cudaStream_t stream
   CUtensorMap wmap, xmap;  // the host copies of this layer's W_out and of yf * w_gn
   std::memcpy(&wmap, a.out_maps + layer, sizeof(wmap));
   std::memcpy(&xmap, a.out_maps + a.L, sizeof(xmap));
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, k4_out_proj_pair_kernel<MT>, a, layer, wmap, xmap);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, k4_out_proj_pair_kernel<MT, PW>, a, layer, wmap, xmap);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+template <typename PW>
 cudaError_t launch_out_proj_pair(const K4Args& a, int layer, cudaStream_t stream) {
   switch (pair_row_fragments(a.B)) {
-    case 1: return launch_out_proj_pair<1>(a, layer, stream);
-    case 2: return launch_out_proj_pair<2>(a, layer, stream);
-    case 3: return launch_out_proj_pair<3>(a, layer, stream);
-    case 4: return launch_out_proj_pair<4>(a, layer, stream);
-    case 5: return launch_out_proj_pair<5>(a, layer, stream);
-    default: return launch_out_proj_pair<6>(a, layer, stream);
+    case 1: return launch_out_proj_pair<1, PW>(a, layer, stream);
+    case 2: return launch_out_proj_pair<2, PW>(a, layer, stream);
+    case 3: return launch_out_proj_pair<3, PW>(a, layer, stream);
+    case 4: return launch_out_proj_pair<4, PW>(a, layer, stream);
+    case 5: return launch_out_proj_pair<5, PW>(a, layer, stream);
+    default: return launch_out_proj_pair<6, PW>(a, layer, stream);
   }
 }
 
@@ -2169,41 +2021,12 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// rows per block of the int8 out_proj follow the batch: 16, 32 or 48
-inline int tc_row_fragments(int B) { return B <= 16 ? 1 : (B <= 32 ? 2 : 3); }
-
-template <int MT>
-cudaError_t launch_out_proj_tc(const K4Args& a, int layer, cudaStream_t stream) {
-  using PW = int8_t;
-  const dim3 grid(a.d / kTcBN, (a.B + MT * 16 - 1) / (MT * 16), a.ksplit);
-  k4_out_proj_tc_kernel<MT, PW><<<grid, kTcThreads, TcTile<MT, PW>::kBytes, stream>>>(a, layer);
-  return cudaGetLastError();
-}
-
-// the int8 out_proj of `layer` on the tensor cores
-cudaError_t launch_out_proj_tc(const K4Args& a, int layer, cudaStream_t stream) {
-  switch (tc_row_fragments(a.B)) {
-    case 1: return launch_out_proj_tc<1>(a, layer, stream);
-    case 2: return launch_out_proj_tc<2>(a, layer, stream);
-    default: return launch_out_proj_tc<3>(a, layer, stream);
-  }
-}
-
-// the in_proj pair kernel of MT row fragments, and beside it the out_proj's
-// pair kernel (bf16) or wmma kernel (int8, of the out_proj's own row fragments)
+// the in_proj's and the out_proj's pair kernels of MT row fragments
 template <int MT, typename PW>
-cudaError_t allow_smem_pair(int B) {
+cudaError_t allow_smem_pair() {
   const cudaError_t err = allow_smem(k4_in_proj_pair_kernel<MT, PW>, InPair<MT, PW>::kBytes);
   if (err != cudaSuccess) return err;
-  if constexpr (kInt8<PW>) {
-    switch (tc_row_fragments(B)) {
-      case 1: return allow_smem(k4_out_proj_tc_kernel<1, PW>, TcTile<1, PW>::kBytes);
-      case 2: return allow_smem(k4_out_proj_tc_kernel<2, PW>, TcTile<2, PW>::kBytes);
-      default: return allow_smem(k4_out_proj_tc_kernel<3, PW>, TcTile<3, PW>::kBytes);
-    }
-  } else {
-    return allow_smem(k4_out_proj_pair_kernel<MT>, InPair<MT>::kBytes);
-  }
+  return allow_smem(k4_out_proj_pair_kernel<MT, PW>, InPair<MT, PW>::kBytes);
 }
 
 // the shared memory of the products a step at B rows launches on the tensor
@@ -2211,12 +2034,12 @@ cudaError_t allow_smem_pair(int B) {
 template <typename PW>
 cudaError_t allow_smem_products(int B) {
   switch (pair_row_fragments(B)) {
-    case 1: return allow_smem_pair<1, PW>(B);
-    case 2: return allow_smem_pair<2, PW>(B);
-    case 3: return allow_smem_pair<3, PW>(B);
-    case 4: return allow_smem_pair<4, PW>(B);
-    case 5: return allow_smem_pair<5, PW>(B);
-    default: return allow_smem_pair<6, PW>(B);
+    case 1: return allow_smem_pair<1, PW>();
+    case 2: return allow_smem_pair<2, PW>();
+    case 3: return allow_smem_pair<3, PW>();
+    case 4: return allow_smem_pair<4, PW>();
+    case 5: return allow_smem_pair<5, PW>();
+    default: return allow_smem_pair<6, PW>();
   }
 }
 
@@ -2237,16 +2060,14 @@ cudaError_t launch_in_proj(const K4Args& a, int layer, bool tensor_cores, cudaSt
   return cudaGetLastError();
 }
 
-// phase 4 of `layer` on the path the step takes: with `pair` (bf16 projections
-// on the tensor-core path, a shape that out_pair_fits) the pair kernel, a
-// programmatic dependent of the SSM update; with int8 projections there
-// k4_out_proj_tc_kernel; k4_out_proj_kernel otherwise
+// phase 4 of `layer` on the path the step takes: with `pair` (bf16 or int8
+// projections on the tensor-core path, a shape that out_pair_fits) the pair
+// kernel, a programmatic dependent of the SSM update; k4_out_proj_kernel
+// otherwise
 template <typename IO, typename WT, typename PW>
-cudaError_t launch_out_proj(const K4Args& a, int layer, bool tensor_cores, bool pair,
-                            cudaStream_t stream) {
-  if (pair) return launch_out_proj_pair(a, layer, stream);
-  if constexpr (kBothBf16<IO, WT> && kInt8<PW>) {
-    if (tensor_cores) return launch_out_proj_tc(a, layer, stream);
+cudaError_t launch_out_proj(const K4Args& a, int layer, bool pair, cudaStream_t stream) {
+  if constexpr (kBothBf16<IO, WT>) {
+    if (pair) return launch_out_proj_pair<PW>(a, layer, stream);
   }
   const dim3 out_grid((a.d + kBN - 1) / kBN, (a.B + kBM - 1) / kBM, a.ksplit);
   k4_out_proj_kernel<IO, PW><<<out_grid, kGemmThreads, 0, stream>>>(a, layer);
@@ -2315,8 +2136,8 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
   }
   const bool early_prenorm =
       kBothBf16<IO, WT> && tensor_cores && prenorm_row_fits(a.d, a.r, a.H, a.ksplit);
-  const bool out_pair = kBothBf16<IO, WT> && !kInt8<PW> && tensor_cores &&
-                        out_pair_fits(a.d, a.d_inner, a.ksplit);
+  const bool out_pair =
+      kBothBf16<IO, WT> && tensor_cores && out_pair_fits(a.d, a.d_inner, a.ksplit);
   // which reads its tiles through the plan's tensor maps: no other path stands in
   if (out_pair && a.out_maps == nullptr) return cudaErrorInvalidValue;
   if (layer_only >= 0 && phase_only == kPhasePrenorm)
@@ -2326,15 +2147,14 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
   if (layer_only >= 0 && phase_only == kPhaseSsm)
     return launch_ssm<IO, WT, ST>(a, layer_only, stream);
   if (layer_only >= 0 && phase_only == kPhaseOutProj)
-    return launch_out_proj<IO, WT, PW>(a, layer_only, tensor_cores, out_pair, stream);
+    return launch_out_proj<IO, WT, PW>(a, layer_only, out_pair, stream);
   if (layer_only >= 0) return cudaErrorInvalidValue;
 
   for (int layer = 0; layer < a.L; ++layer) {
     if ((err = launch_prenorm<IO, WT>(a, layer, early_prenorm, stream)) != cudaSuccess) return err;
     if ((err = launch_in_proj<IO, WT, PW>(a, layer, tensor_cores, stream)) != cudaSuccess) return err;
     if ((err = launch_ssm<IO, WT, ST>(a, layer, stream)) != cudaSuccess) return err;
-    if ((err = launch_out_proj<IO, WT, PW>(a, layer, tensor_cores, out_pair, stream)) != cudaSuccess)
-      return err;
+    if ((err = launch_out_proj<IO, WT, PW>(a, layer, out_pair, stream)) != cudaSuccess) return err;
   }
   k4_finish_kernel<IO><<<dim3(a.B), kRowThreads, 0, stream>>>(a);
   return cudaGetLastError();
@@ -2375,7 +2195,7 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // bf16 activations and weights the products run on the tensor cores; the
 // in_proj there (bf16 or int8) reads W_in and hn through `in_maps`, what
 // omt_fused_decode_in_maps wrote (in host memory) for these tables and this
-// hn, and a bf16 out_proj at the shapes out_pair_fits takes W_out and ya
+// hn, and the out_proj (bf16 or int8) at the shapes out_pair_fits takes W_out and ya
 // through `out_maps`, written by the same function for the out_proj's tables
 // and this ya (each null otherwise; the call fails if its path finds it null).
 // Activations and weights are both bf16 or both fp32; proj_dtype is w_dtype

@@ -33,10 +33,9 @@ still runs.
 
 int8 ``{q, scale}`` in_proj and out_proj (``ops/quant.quantize_decode_params``;
 the other weights stay in the activation type) take the same kernels with the
-weight tiles landing as int8, half the bytes: the in_proj's clusters widen
-each tile to bf16 in registers before the product (its tensor maps are
-encoded for int8), the out_proj's tensor-core kernel widens each landed tile
-in shared memory, and the multiply-add kernels widen it on the way into
+weight tiles landing as int8, half the bytes: the clusters of both products
+widen each tile to bf16 in registers before the product (their tensor maps
+are encoded for int8), and the multiply-add kernels widen it on the way into
 shared memory. The column
 scale multiplies the fp32 product in the epilogue, before in_proj's LoRA term
 is added (JAX ``_mm`` then ``+ lora_scale * ...``), and each fp32 K-split
@@ -163,7 +162,7 @@ class FusedDecodePlan:
     # (omt_fused_decode_in_maps): each launch of that phase takes its two as
     # parameters; else None
     in_maps: Optional[torch.Tensor] = None
-    # the same for a bf16 out_proj on whole tiles: W_out of each layer then ya
+    # the same for the out_proj (bf16 or int8) on whole tiles: W_out of each layer then ya
     out_maps: Optional[torch.Tensor] = None
 
 
@@ -238,12 +237,12 @@ def prepare_fused_decode(
             maps.data_ptr()), f"prepare_fused_decode: the {operand}'s tensor maps")
         return maps
 
-    # the in_proj's two-block clusters take bf16 or int8 weights; the out_proj's bf16 only
+    # the two-block clusters of both products take bf16 or int8 weights
     in_maps = out_maps = None
     if (dtype == torch.bfloat16 and aligned16
             and d % TC_TILE == 0 and mixer_cfg.d_in_proj % TC_TILE == 0):
         in_maps = tensor_maps("in_proj", d, mixer_cfg.d_in_proj, scratch["hn"])
-        if proj_dtype == torch.bfloat16 and di % TC_TILE == 0:
+        if di % TC_TILE == 0:
             out_maps = tensor_maps("out_proj", di, d, scratch["ya"])
     return FusedDecodePlan(tables, tuple(keep), scratch, batch, r, ksplit, aligned16, dtype,
                            ref.dtype, proj_dtype, in_maps, out_maps)

@@ -616,34 +616,23 @@ def test_prenorm_phase_refuses_a_layer_out_of_range(pair):
                              layer=0)
 
 
-# The geometries where the card's out_proj dispatch or K-split layout changes
-# (out_pair_fits and tc_split_width in csrc/decode_fused.cu): d_inner 512 is
-# one K split, 1,536 two of 768, and 2,560 three of 896, 896 and a short 768.
-# All are whole tensor-core tiles (d_model and d_inner multiples of 64), so the
-# card runs the pair out_proj at up to 96 rows a block; 8, 32 and 64 heads (the
-# JAX kernel's head tiles of 16 divide them). On the CPU the wrapper
-# runs the plain version, the reference the card's kernels are held against.
-_OUT_PROJ_MIXERS = {
-    512: dict(d_model=256, d_state=16, headdim=64, expand=2, chunk_size=16),
-    1536: dict(d_model=768, d_state=16, headdim=48, expand=2, chunk_size=16),
-    2560: dict(d_model=1280, d_state=16, headdim=40, expand=2, chunk_size=16),
-}
-
-
 @pytest.fixture(scope="module")
 def out_proj_pairs():
-    """d_inner -> (jax model, torch model, jax backbone params, bridged torch
-    params), fp32, LoRA B factors filled; each made on first use."""
+    """(d_inner, int8) -> (jax model, torch model, jax backbone params, bridged
+    torch params) of ``_OUT_PROJ_MIXERS[d_inner]``, fp32, LoRA B factors
+    filled; with int8, the trees are JAX ``quantize_decode_params``'s; each
+    made on first use."""
     from omnimamba_tpu import config as jcfg
     from omnimamba_tpu.models.omnimamba import OmniMambaModel as JaxModel
+    from omnimamba_tpu.ops.quant import quantize_decode_params
     from omnimamba_tpu_torch import config as tcfg
     from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel as TorchModel
-    from tests.test_torch_helpers import _MAMBA, _VQ
+    from tests.test_torch_helpers import _MAMBA, _OUT_PROJ_MIXERS, _VQ
 
     made = {}
 
-    def get(d_inner):
-        if d_inner not in made:
+    def get(d_inner, int8=False):
+        if (d_inner, int8) not in made:
             mixer = _OUT_PROJ_MIXERS[d_inner]
             mamba = {**_MAMBA, "d_model": mixer["d_model"]}
             jmodel = JaxModel(cfg=jcfg.MambaConfig(mixer=jcfg.Mamba2LayerConfig(**mixer), **mamba),
@@ -656,23 +645,23 @@ def out_proj_pairs():
             layers = dict(jp["mamba"]["layers"])
             layers["mixer"] = fill_lora_b(layers["mixer"], np.random.default_rng(4))
             jp = {"mamba": {**jp["mamba"], "layers": layers}, "vq": decode_side(jp["vq"])}
-            made[d_inner] = jmodel, tmodel, jp["mamba"], bridge(jp, tmodel)["mamba"]
-        return made[d_inner]
+            if int8:
+                jp = quantize_decode_params(jp)
+            made[d_inner, int8] = jmodel, tmodel, jp["mamba"], bridge(jp, tmodel)["mamba"]
+        return made[d_inner, int8]
 
     return get
 
 
-@pytest.mark.parametrize("B", [1, 16, 17, 48, 96, 112])
-@pytest.mark.parametrize("d_inner", [512, 1536, 2560], ids=["ksplit1", "ksplit2", "ksplit3_short"])
-def test_fused_step_matches_jax_on_the_out_proj(out_proj_pairs, d_inner, B):
-    """The fused step where the card's out_proj changes (one, two or three K
-    splits, the last one short; 1 to 112 rows, the edges of the pair kernel's
-    16-row fragments and 96-row tiles, and of the int8 kernel's 16-, 32- and
-    48-row tiles) against JAX's ``backbone_step_fused`` (Pallas in interpret
-    mode), fp32: every output within 1e-5."""
+def check_out_proj_step(out_proj_pairs, d_inner, B, int8):
+    """The port's fused step on ``out_proj_pairs(d_inner, int8)`` against
+    JAX's ``backbone_step_fused`` (Pallas in interpret mode), fp32: every
+    output within 1e-5, and no launch counted (CPU tensors: the plain
+    version)."""
     from omnimamba_tpu_torch.ops.decode_fused import MAX_KSPLIT, TC_TILE
+    from omnimamba_tpu_torch.ops.quant import is_quantized
 
-    jmodel, tmodel, jm, tm = out_proj_pairs(d_inner)
+    jmodel, tmodel, jm, tm = out_proj_pairs(d_inner, int8)
     mixer = tmodel.cfg.mixer
     ksplit = min(MAX_KSPLIT, -(-d_inner // 1024))
     per = -(-(-(-d_inner // ksplit)) // TC_TILE) * TC_TILE  # tc_split_width
@@ -680,6 +669,7 @@ def test_fused_step_matches_jax_on_the_out_proj(out_proj_pairs, d_inner, B):
     assert mixer.d_inner == d_inner and mixer.d_model % TC_TILE == 0
     assert (ksplit, per, last) == {512: (1, 512, 512), 1536: (2, 768, 768),
                                    2560: (3, 896, 768)}[d_inner]
+    assert is_quantized(tm["layers"][0]["mixer"]["out_proj"]["kernel"]) == int8
     rng = np.random.default_rng(400 + B + d_inner)
     L, W = tmodel.cfg.n_layer, mixer.d_conv
     conv = (0.5 * rng.standard_normal((L, B, W - 1, mixer.d_conv_in))).astype(np.float32)
@@ -690,12 +680,22 @@ def test_fused_step_matches_jax_on_the_out_proj(out_proj_pairs, d_inner, B):
         jm, jnp.asarray(tok, jnp.int32), jnp.int32(L0),
         to_fused_cache(jbb.BackboneCache(jnp.asarray(conv), jnp.asarray(ssm)), mixer.d_inner),
         "t2i", jmodel.cfg, dtype=jnp.float32)
-    before = fused_decode_step.launches
+    before = (fused_decode_step.launches, fused_decode_step.int8_launches)
     ht, out = tbb.backbone_step_fused(tm, tt(tok), L0, tbb.BackboneCache(tt(conv), tt(ssm)),
                                       "t2i", tmodel.cfg, dtype=torch.float32)
-    assert fused_decode_step.launches == before  # CPU tensors: the plain version
+    assert (fused_decode_step.launches, fused_decode_step.int8_launches) == before
     close(ht, hj, 1e-5)
     assert_caches_close(fcache, out, B, mixer.d_inner, 1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 16, 17, 48, 96, 112])
+@pytest.mark.parametrize("d_inner", [512, 1536, 2560], ids=["ksplit1", "ksplit2", "ksplit3_short"])
+def test_fused_step_matches_jax_on_the_out_proj(out_proj_pairs, d_inner, B):
+    """The fused step where the card's out_proj changes (one, two or three K
+    splits, the last one short; 1 to 112 rows, the edges of the pair kernel's
+    16-row fragments and 96-row tiles) against JAX's ``backbone_step_fused``
+    (Pallas in interpret mode), fp32: every output within 1e-5."""
+    check_out_proj_step(out_proj_pairs, d_inner, B, int8=False)
 
 
 def test_out_proj_phase_refuses_a_layer_out_of_range(pair):

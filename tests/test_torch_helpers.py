@@ -42,6 +42,21 @@ def tiny_models():
     return jm, tm
 
 
+# The geometries where the card's out_proj dispatch or K-split layout changes
+# (out_pair_fits and tc_split_width in csrc/decode_fused.cu): d_inner 512 is
+# one K split, 1,536 two of 768, and 2,560 three of 896, 896 and a short 768.
+# All are whole tensor-core tiles (d_model and d_inner multiples of 64), so the
+# card runs the pair out_proj at up to 96 rows a block, with bf16 or int8
+# weights; 8, 32 and 64 heads (the JAX kernel's head tiles of 16 divide them).
+# On the CPU the wrapper runs the plain version, the reference the card's
+# kernels are held against.
+_OUT_PROJ_MIXERS = {
+    512: dict(d_model=256, d_state=16, headdim=64, expand=2, chunk_size=16),
+    1536: dict(d_model=768, d_state=16, headdim=48, expand=2, chunk_size=16),
+    2560: dict(d_model=1280, d_state=16, headdim=40, expand=2, chunk_size=16),
+}
+
+
 def to_numpy(tree):
     """Every leaf of a JAX pytree as a numpy array (bf16 widened to fp32)."""
     def leaf(a):

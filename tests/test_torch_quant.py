@@ -32,8 +32,9 @@ from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step
 from omnimamba_tpu_torch.ops.quant_kernel import qmatmul, qmatmul_plain
 from omnimamba_tpu_torch.ops.ssd_reference import ssd_step
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
-from tests.test_torch_decode_fused import (
-    _without_lora_jax, _without_lora_torch, assert_caches_close, close)
+from tests.test_torch_decode_fused import (  # out_proj_pairs: a fixture
+    _without_lora_jax, _without_lora_torch, assert_caches_close, check_out_proj_step, close,
+    out_proj_pairs)
 from tests.test_torch_helpers import bridge, decode_side, fill_lora_b, nn, tiny_models, tt
 
 L0 = 6
@@ -307,6 +308,17 @@ def test_int8_fused_step_matches_jax_on_tensor_core_tiles(wide_quantized, B, lor
     assert (fused_decode_step.launches, fused_decode_step.int8_launches) == before
     close(ht, hj, 1e-5)
     assert_caches_close(fcache, out, B, mixer.d_inner, 1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 16, 17, 48, 96, 112])
+@pytest.mark.parametrize("d_inner", [512, 1536, 2560], ids=["ksplit1", "ksplit2", "ksplit3_short"])
+def test_int8_fused_step_matches_jax_on_the_out_proj(out_proj_pairs, d_inner, B):
+    """K4's int8 branch where the card's int8 out_proj changes (one, two or
+    three K splits, the last one short; 1 to 112 rows, the edges of the pair
+    kernel's 16-row fragments and 96-row tiles): the plain version against
+    JAX ``backbone_step_fused`` on ``quantize_decode_params`` (Pallas in
+    interpret mode), fp32, every output within 1e-5, no launch counted."""
+    check_out_proj_step(out_proj_pairs, d_inner, B, int8=True)
 
 
 def _streams(quantized, task, ids, **kw):

@@ -2,7 +2,7 @@
 work taken out, each build timed on the shapes of its main path.
 
     python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-in-proj-int8]
-                              [k4-ssm] [k4-prenorm] [k4-out-proj]
+                              [k4-ssm] [k4-prenorm] [k4-out-proj] [k4-out-proj-int8]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
@@ -53,6 +53,10 @@ target's measurement macro set to the entry's value, and times each build:
   bytes at the card's memory rate; each time the median of three calls of 96
   launches; and the 48-layer step of each build (median of three calls of 5
   steps), where the phase starts while the SSM update ends.
+- ``k4-out-proj-int8`` (the same builds): the
+  same on ``quantize_decode_params`` of the layers, whose int8 W_out takes the
+  same pair kernel with its tiles widened in registers; the phase's bytes
+  count W_out as int8 with its scale.
 
 Of every ``k4-*`` build the phase is also timed one launch at a time, with
 nothing beside it (``phase_one_launch_ms``: ``chip_smoke.time_alone_ms``, the
@@ -63,11 +67,12 @@ kernel starts (negative: while they run).
 
 Only the build with the value 0 (and, of ``k4-in-proj`` and
 ``k4-in-proj-int8``, 32, 64 and 128, of ``k4-ssm`` 4, 8, 32 and 64, of
-``k4-prenorm`` 16, 32, 64, 128 and 256, of ``k4-out-proj`` 32, 64, 128, 256,
-512 and 1024, which change when work starts, not what it computes) gives
-correct results; the build with 0 must equal the library's bits, which is
-asserted, and so must each ``k4-in-proj-int8`` and ``k4-out-proj`` build of
-that list (on the same inputs, restored before each check). Prints
+``k4-prenorm`` 16, 32, 64 and 256, of ``k4-out-proj`` 32, 64, 128, 256,
+512 and 1024 and of ``k4-out-proj-int8`` the same, which change when work
+starts, not what it computes) gives correct results; the build with 0 must
+equal the library's bits, which is asserted, and so must each
+``k4-in-proj-int8``, ``k4-out-proj`` and ``k4-out-proj-int8`` build of that
+list (on the same inputs, restored before each check). Prints
 the card, one JSON line a measurement, then one JSON line of all with each
 build's ``ptxas`` lines.
 """
@@ -347,8 +352,7 @@ TARGETS = {
                    {0: "as shipped", 1: "no partial or sumsq reads", 2: "no norm-weight or A reads",
                     4: "no hn @ A", 7: "none of these", 8: "launch only", 16: "ordinary launch",
                     32: "in_proj may start at entry", 64: "in_proj may start once hn is written",
-                    256: "in_proj may start after the first barrier",
-                    128: "out_proj does not trigger"},
+                    256: "in_proj may start after the first barrier"},
                    run_k4_phase("prenorm")),
     "k4-out-proj": ("decode_fused.cu", "omt_fused_decode_step", "OMT_K4_OUT_SKIP",
                     {0: "as shipped", 1: "no activation copies", 2: "no weight copies",
@@ -360,6 +364,9 @@ TARGETS = {
                      512: "SSM lets it start only as it ends", 1024: "no pre-norm trigger"},
                     run_k4_phase("out_proj", same_bits=(32, 64, 128, 256, 512, 1024))),
 }
+TARGETS["k4-out-proj-int8"] = (
+    *TARGETS["k4-out-proj"][:4],
+    run_k4_phase("out_proj", same_bits=(32, 64, 128, 256, 512, 1024), int8=True))
 
 
 def main() -> int:

@@ -30,17 +30,26 @@ layers and inputs from the seed of `chip_smoke.py`, and:
   for a checkout that has no such function), beside `torch.matmul(ya, W_out)`
   on the same bf16 operands and layers;
 - does the same with an fp32 state at B = 8 and 16, and at B = 16, 48 and 96
-  on the int8 layers, there with the in_proj phase alone
-  (`fused_decode_in_proj`) in place of the bf16 phases.
+  on the int8 layers, there with the in_proj and out_proj phases alone
+  (`fused_decode_in_proj`, `fused_decode_out_proj`) in place of the bf16
+  phases, the out_proj beside `torch.matmul(ya, q as bf16)`;
+- writes the SASS of each of K4's kernels in the checkout's library
+  (`cuobjdump -sass`, addresses and encodings taken out, branch labels and
+  internal subroutines numbered in order within each kernel) to
+  FILE.sass.json, by name.
 
 Prints the card, then one JSON line. The second form asserts that every saved
-tensor of A equals B's bit for bit and prints one JSON line.
+tensor of A equals B's bit for bit and prints one JSON line; where both
+FILE.sass.json exist, it also names each of A's K4 kernels whose SASS a
+kernel of B has, those whose SASS none has, and of these, where B has a
+kernel of the same name, the first instruction that differs.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -88,6 +97,40 @@ def profile(step, steps: int = 3) -> dict:
             "start_after_ahead_end_us": {k: sum(v) / len(v) for k, v in leads.items() if v}}
 
 
+def k4_sass(library: Path) -> dict:
+    """Demangled name -> SASS of each of K4's kernels (names holding `k4_`) in
+    `library`: the instructions alone, without addresses or encodings, with
+    each branch label and each numbered internal subroutine (the slow paths
+    of division and the like, numbered across the library) renamed by its
+    order of appearance in the kernel, so that one kernel compiled under two
+    names, or beside other kernels, reads the same."""
+    from omnimamba_tpu_torch.ops import kernel_build
+
+    bin_dir = Path(kernel_build._find_nvcc()).parent
+    dump = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    kernels, name = {}, None
+    for ln in dump.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            kernels[name] = [] if "k4_" in name else None
+            continue
+        instr = re.match(r"\s*/\*[0-9a-f]+\*/(.*?);", ln)  # an instruction line: its address
+        if name and kernels[name] is not None and instr:
+            kernels[name].append(" ".join(instr.group(1).split()))
+    kernels = {k: v for k, v in kernels.items() if v is not None}
+    demangled = subprocess.run([str(bin_dir / "cu++filt")], input="\n".join(kernels),
+                               check=True, capture_output=True, text=True).stdout.splitlines()
+    out = {}
+    for (mangled, lines), pretty in zip(kernels.items(), demangled):
+        text, names = "\n".join(lines), {}
+        numbered = r"\.L_x_\d+|__internal_\d+_"
+        for sym in re.findall(numbered, text):
+            names.setdefault(sym, f"<{len(names)}>")
+        out[pretty or mangled] = re.sub(numbered, lambda m: names[m.group(0)], text)
+    return out
+
+
 def probe(root: Path, out: Path) -> dict:
     sys.path.insert(0, str(root))
     import chip_smoke as cs
@@ -129,6 +172,11 @@ def probe(root: Path, out: Path) -> dict:
         del cache, plan
     torch.save({k: v.cpu() for k, v in saved.items()}, out)
     del saved
+    from omnimamba_tpu_torch.ops import kernel_build
+
+    sass = k4_sass(kernel_build.build_kernels().library)
+    Path(f"{out}.sass.json").write_text(json.dumps(sass))
+    rec["sass_kernels"] = sorted(sass)
 
     def timed(stack, B, key, state=bf, alone=()):
         h, _, cache = inputs(len(stack), B, state)
@@ -165,9 +213,10 @@ def probe(root: Path, out: Path) -> dict:
 
                 rec[key][f"{name}_alone_ms"] = cs.time_ms(phase, 2 * len(stack))
                 rec[key][f"{name}_one_launch_ms"] = cs.time_alone_ms(phase, 2 * len(stack))
-        if "out_proj" in alone:
+        if "out_proj" in alone:  # an int8 W_out as bf16: twice the weight bytes
             ya = plan.scratch["ya"]
             w_out = [layer["mixer"]["out_proj"]["kernel"] for layer in stack]
+            w_out = [w["q"].to(bf) if isinstance(w, dict) else w for w in w_out]
 
             def product():
                 torch.matmul(ya, w_out[turn[0] % len(stack)])
@@ -183,7 +232,7 @@ def probe(root: Path, out: Path) -> dict:
     del layers
     torch.cuda.empty_cache()
     for B in (16, cs.BATCH, 2 * cs.BATCH):
-        timed(qlayers, B, f"int8_B{B}", alone=("in_proj",))
+        timed(qlayers, B, f"int8_B{B}", alone=("in_proj", "out_proj"))
     return rec
 
 
@@ -193,6 +242,17 @@ def compare(a: Path, b: Path) -> dict:
     equal = {k: torch.equal(ta[k], tb[k]) for k in ta}
     rec = {"compare": [str(a), str(b)], "bits_equal": equal,
            "max_abs_diff": {k: (ta[k].float() - tb[k].float()).abs().max().item() for k in ta}}
+    sa, sb = Path(f"{a}.sass.json"), Path(f"{b}.sass.json")
+    if sa.exists() and sb.exists():
+        ka, kb = json.loads(sa.read_text()), json.loads(sb.read_text())
+        rec["sass_of_a_in_b"] = {n: [m for m, t in kb.items() if t == text] for n, text in ka.items()}
+        rec["sass_of_a_not_in_b"] = [n for n, m in rec["sass_of_a_in_b"].items() if not m]
+        # of those that B has by the same name: the first instruction that differs
+        rec["sass_first_difference"] = {
+            n: next(((i, x, y) for i, (x, y) in enumerate(zip(ka[n].splitlines(),
+                                                                kb[n].splitlines())) if x != y),
+                    "one is a prefix of the other")
+            for n in rec["sass_of_a_not_in_b"] if n in kb}
     print(json.dumps(rec), flush=True)
     assert all(equal.values()), rec
     return rec
