@@ -672,12 +672,45 @@ def check_norms(gen, results):
         emit({"kernel_check": rec})
 
 
+# K6b's cases: name, rows-shape, d, dtype, weight dtype, timed, columns beside z
+# in its matrix, and whether the row kernel (`gated_rms_norm_bwd_row_kernel`:
+# bf16 rows of 1024 J elements, J <= 4, starting on 16 bytes) takes it rather
+# than `gated_rms_norm_bwd_kernel`. On the training path z is a column slice of
+# the in_proj output, y is the scan's output and g the out_proj's input
+# cotangent, both contiguous.
+_bf, _f32 = torch.bfloat16, torch.float32
+GATED_BWD_CASES = [
+    ("train", (TRAIN_BATCH, TRAIN_LEN), 4096, _bf, _bf, True, 4096 + 256 + 64, True),
+    ("train_b9", (TRAIN_BATCH // 10, TRAIN_LEN), 4096, _bf, _bf, True, 4096 + 256 + 64, True),
+    ("fp32", (5, 7), 4096, _f32, _f32, False, 4096 + 256 + 64, False),
+    ("awkward", (3, 5), 250, _f32, _bf, False, 0, False),
+    ("awkward_bf16", (7,), 1001, _bf, _f32, False, 0, False),
+    ("awkward_odd_stride", (3, 5), 252, _bf, _bf, False, 251, False),
+    ("more_rows_than_blocks", (1200,), 252, _bf, _bf, False, 0, False),
+    ("d2048_bf16", (5, 7), 2048, _bf, _bf, False, 0, True),
+    ("d1024_fp32_weight", (3, 5), 1024, _bf, _f32, False, 0, True),
+    ("d3072_z_slice", (4, 5), 3072, _bf, _bf, False, 64, True),
+    ("d2048_row_stride_of_4", (5, 7), 2048, _bf, _bf, False, 4, False),
+]
+
+
+def gated_bwd_inputs(gen, lead, d, dtype, wdtype, beside):
+    """y, z (a column slice where `beside` columns lie next to it), g and the
+    weight of one of `GATED_BWD_CASES`."""
+    yv = rand(gen, (*lead, d), dtype)
+    z = sliced(gen, lead, (d, beside), dtype)[0] if beside else rand(gen, (*lead, d), dtype)
+    g = rand(gen, (*lead, d), dtype)
+    w = (1.0 + 0.1 * rand(gen, (d,), torch.float32)).to(wdtype)
+    return yv, z, g, w
+
+
 def check_norms_bwd(gen, results):
     """K6a and K6b against their plain versions, at one layer of the training
-    step and at awkward shapes."""
+    step and at awkward shapes; for K6b, which of its two kernels each case ran
+    (profiler names) and how many of its blocks fit on an SM."""
     from omnimamba_tpu_torch.ops.norms import add_norm_bwd_plain, gated_rms_norm_bwd_plain
     from omnimamba_tpu_torch.ops.norms_kernel import (
-        fused_add_rms_norm_bwd, fused_gated_rms_norm_bwd)
+        BWD_BLOCKS, fused_add_rms_norm_bwd, fused_gated_rms_norm_bwd, gated_bwd_blocks_per_sm)
 
     bf, f32 = torch.bfloat16, torch.float32
     train = (TRAIN_BATCH, TRAIN_LEN)
@@ -742,22 +775,10 @@ def check_norms_bwd(gen, results):
             results["add_rms_norm_bwd"] = dict(rec, max_abs_err=max(ex, ey, ew))
         emit({"kernel_check": rec})
 
-    # name, rows-shape, d, dtype, weight dtype, timed, columns beside z in its matrix
-    # (on the training path z is a column slice of the in_proj output, y is the
-    # scan's output and g the out_proj's input cotangent, both contiguous)
-    gated_cases = [
-        ("train", train, 4096, bf, bf, True, 4096 + 256 + 64),
-        ("fp32", (5, 7), 4096, f32, f32, False, 4096 + 256 + 64),
-        ("awkward", (3, 5), 250, f32, bf, False, 0),
-        ("awkward_bf16", (7,), 1001, bf, f32, False, 0),
-        ("awkward_odd_stride", (3, 5), 252, bf, bf, False, 251),
-        ("more_rows_than_blocks", (1200,), 252, bf, bf, False, 0),
-    ]
-    for name, lead, d, dtype, wdtype, timed, beside in gated_cases:
-        yv = rand(gen, (*lead, d), dtype)
-        z = sliced(gen, lead, (d, beside), dtype)[0] if beside else rand(gen, (*lead, d), dtype)
-        g = rand(gen, (*lead, d), dtype)
-        w = (1.0 + 0.1 * rand(gen, (d,), f32)).to(wdtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    launches = []  # one call of each case, for the kernel names below
+    for name, lead, d, dtype, wdtype, timed, beside, row_kernel in GATED_BWD_CASES:
+        yv, z, g, w = gated_bwd_inputs(gen, lead, d, dtype, wdtype, beside)
         dy, dz, dw = fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5)
         torch.cuda.synchronize()
         dw2 = fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5)[2]
@@ -772,6 +793,14 @@ def check_norms_bwd(gen, results):
                "rtol": RTOL[dtype], "atol_rel": ATOL_REL,
                "same_bits_on_a_second_run": bool(torch.equal(dw, dw2))}
         assert ry <= 1.0 and rz <= 1.0 and rw <= 1.0 and rec["same_bits_on_a_second_run"], rec
+        rec["blocks_per_sm"] = gated_bwd_blocks_per_sm(yv, z, g, w)
+        # the row kernel's grid (at most BWD_BLOCKS) runs in one wave
+        assert not row_kernel or rec["blocks_per_sm"] * sms >= BWD_BLOCKS, rec
+        launches.append(lambda yv=yv, z=z, g=g, w=w: fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5))
+        if name == "train" and results.get("build_log"):  # its 8 instantiations: no spills
+            rec["ptxas"] = ptxas_of(results["build_log"], "gated_rms_norm_bwd_row_kernel")
+            assert rec["ptxas"] and len(rec["ptxas"]) == 8 and all(
+                "0 bytes spill stores" in " ".join(v) for v in rec["ptxas"].values()), rec["ptxas"]
         if timed:
             moved = nbytes(yv, z, g, w, dy, dz, dw)
             rows = yv.numel() // d
@@ -785,8 +814,23 @@ def check_norms_bwd(gen, results):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_moved=moved, library_ms=None,
             )
-            results["gated_rms_norm_bwd"] = dict(rec, max_abs_err=max(ey, ez, ew))
+            if name == "train":
+                results["gated_rms_norm_bwd"] = dict(rec, max_abs_err=max(ey, ez, ew))
+            else:
+                results["gated_rms_norm_bwd"][name] = {
+                    k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bytes_moved")}
         emit({"kernel_check": rec})
+
+    # which of K6b's two kernels each case ran, by name, from one trace of them all
+    ran = kernel_names_per_call(launches, "gated_rms_norm_bwd")
+    rec = {"kernel": "gated_rms_norm_bwd", "case": "kernel_of_each_case",
+           "kernel_name": {c[0]: k for c, k in zip(GATED_BWD_CASES, ran)}}
+    emit({"kernel_check": rec})
+    assert len(ran) == len(GATED_BWD_CASES), rec
+    for (name, *_, row_kernel), k in zip(GATED_BWD_CASES, ran):
+        want = "gated_rms_norm_bwd_row_kernel<" if row_kernel else "gated_rms_norm_bwd_kernel<"
+        assert want in k, (name, k)
+    results["gated_rms_norm_bwd"]["kernel_name"] = ran[0]
 
 
 def fused_layers(gen, n_layer, mixer_cfg, lora_cfg, wdtype):
@@ -1129,6 +1173,21 @@ def kernel_names(fn, calls: int = 3, per_trace: int = 3) -> list:
             torch.cuda.synchronize()
         names |= {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
     return sorted(names)
+
+
+def kernel_names_per_call(fns, key: str) -> list:
+    """The name of the device kernel holding `key` that each of `fns` launches
+    (one each), in order, from one profiler trace of them all in turn, each
+    call ended by a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+            torch.cuda.synchronize()
+    return [name for _, name in sorted((e.time_range.start, e.name) for e in prof.events()
+                                       if e.device_type == DeviceType.CUDA and key in e.name)]
 
 
 def prenorm_phase(gen, layers, cfg, lcfg, task):
@@ -3044,7 +3103,9 @@ def train_path(results, card):
     split = np.median(splits, axis=0)
     profile = profile_steps(
         lambda i: trainer.step_fn(trainer.state, loader[0], trainer.generator), 1, top=24,
-        named=("ssd_scan_bwd", "ssd_bwd_reduce", "ssd_scan_bf16_kernel", "ssd_scan_kernel"))
+        named=("ssd_scan_bwd", "ssd_bwd_reduce", "ssd_scan_bf16_kernel", "ssd_scan_kernel",
+               "gated_rms_norm_bwd", "norm_dw_reduce_cols", "add_rms_norm_bwd",
+               "norm_dw_reduce_kernel"))
     after_first = step_s[1:]
     med = float(np.median(after_first))
     emit({"train_times": {
@@ -3057,8 +3118,9 @@ def train_path(results, card):
         "kernel_launches_per_step": profile["kernel_launches_per_step"],
         "device_ms_per_step_by_kind": profile["device_ms_per_step_by_kind"],
         "top_kernels": profile["top_kernels"],
-        # K5 (its kernel, then its two summing kernels) and K1 (its tensor-core kernel,
-        # then its multiply-add kernel), device ms of the profiled step
+        # K5 (its kernel, then its two summing kernels), K1 (its tensor-core kernel,
+        # then its multiply-add kernel), K6b (its kernel, then its dw sum) and K6a
+        # (the same), device ms of the profiled step
         "named_ms_per_step": profile["named_ms_per_step"],
         "note": "host clock, each ending in a device synchronize; the split is the median of "
                 "three hand-driven steps; idle share and kernels from one profiled step",
@@ -3186,6 +3248,7 @@ def main() -> int:
         row.update({k: r[k] for k in keys})
         row.update({k: r[k] for k in (
             "case", "shape", "dtype", "bytes_moved", "host_us", "prefill", "fp32_state", "train",
+            "train_b9", "kernel_name", "blocks_per_sm",
             "launches_fused_path", "launches_train", "launches_per_train_step", "flops",
             "chunk_states_bytes", "bound_with_states_ms", "ms_median_of_5_launches", "ptxas",
             "dynamic_smem_bytes", "sass",

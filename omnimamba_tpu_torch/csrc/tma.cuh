@@ -1,6 +1,7 @@
 // Helpers of the kernels fed by the Tensor Memory Accelerator (K7's decode
-// path, K4's bf16 in_proj): mbarriers, TMA tile copies, two-block clusters,
-// programmatic dependent launch, and the encoding of a 2-D tensor map.
+// path, K4's bf16 in_proj and out_proj, K6b's bf16 row kernel): mbarriers, TMA
+// tile and bulk copies, two-block clusters, programmatic dependent launch, and
+// the encoding of a 2-D tensor map.
 #pragma once
 
 #include <cuda.h>
@@ -122,6 +123,23 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from `src` into `dst` of this block, both 16-byte
+// aligned, as one bulk copy whose bytes are counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from `src` (16-byte aligned) into L2, as one bulk prefetch
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(reinterpret_cast<uint64_t>(src)),
+               "r"(bytes)
+               : "memory");
 }
 
 // launched as a programmatic dependent of the kernel ahead of it in the stream

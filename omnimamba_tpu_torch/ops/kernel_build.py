@@ -141,14 +141,15 @@ def load_kernels() -> ctypes.CDLL:
     lib.omt_fused_decode_in_maps.argtypes = [ptr] + [i32] * 5 + [ptr] * 2
     lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.omt_qmatmul_pair_plan.argtypes = [i32] * 3 + [ptr]
+    lib.omt_gated_rms_norm_bwd_blocks_per_sm.argtypes = [i64] * 3 + [i32] * 4
     for fn in (lib.omt_ssd_scan_bf16_smem_bytes, lib.omt_ssd_scan_bwd_bf16_smem_bytes):
         fn.argtypes = [i32, i32]
         fn.restype = i64
     for fn in (lib.omt_add_rms_norm, lib.omt_gated_rms_norm, lib.omt_add_rms_norm_bwd,
                lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_step_q8, lib.omt_ssd_scan,
                lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step, lib.omt_fused_decode_in_maps,
-               lib.omt_qmatmul,
-               lib.omt_qmatmul_pair_plan):
+               lib.omt_qmatmul, lib.omt_qmatmul_pair_plan,
+               lib.omt_gated_rms_norm_bwd_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 

@@ -20,6 +20,15 @@ grid is sequential and accumulates dw in one output block). No atomics: a
 backward gives the same bits on every run. At one-token decode (a few dozen
 rows) the launch, not the bytes, is the cost.
 
+The gated backward's bf16 rows of width 1024 J (J <= 4, starts on 16 bytes:
+every call of the training path) take a kernel of their own: y and z kept
+bf16 in a two-stage shared-memory ring that bulk copies fill, g read from
+L2, the next row requested while the current one finishes, sigmoid(z)
+computed once, the block's dw share in shared memory and summed by a kernel
+that keeps many partial rows in flight. Four of its blocks fit on an SM, so
+the grid of ``BWD_BLOCKS`` runs in one wave; its rows, sums and order are
+the other kernel's, so dy, dz and dw have the same bits.
+
 Both wrappers are differentiable: where a gradient is asked for they run
 through ``torch.autograd.Function``s that save what the JAX VJPs save
 (``(y, w)``; ``(y, z, w)``; rstd is recomputed) and whose backward is the
@@ -224,6 +233,23 @@ def fused_gated_rms_norm_bwd(
         kb.check_launch(err, "fused_gated_rms_norm_bwd")
         fused_gated_rms_norm_bwd.launches += 1
     return dy, dz, dw
+
+
+def gated_bwd_blocks_per_sm(y, z, g, weight) -> int:
+    """Blocks per SM of the kernel ``fused_gated_rms_norm_bwd`` launches for
+    these CUDA tensors: its grid of at most ``BWD_BLOCKS`` runs in one wave
+    where this times the SMs reaches ``BWD_BLOCKS``."""
+    if not y.is_cuda:
+        raise ValueError("gated_bwd_blocks_per_sm asks the card about its kernels: give CUDA tensors")
+    d = y.shape[-1]
+    (y2, y_rs), (z2, z_rs), (g2, g_rs) = kb.as_rows(y, 1), kb.as_rows(z, 1), kb.as_rows(g, 1)
+    w = _check_weight(weight, d, y.device)
+    n = kb.load_kernels().omt_gated_rms_norm_bwd_blocks_per_sm(
+        y_rs, z_rs, g_rs, d, kb.dtype_code(y2.dtype), kb.dtype_code(w.dtype),
+        _vectorizable(d, (y_rs, z_rs, g_rs), (y2, z2, g2, w)))
+    if n < 0:
+        kb.check_launch(-n, "gated_bwd_blocks_per_sm")
+    return n
 
 
 class _GatedRmsNorm(torch.autograd.Function):

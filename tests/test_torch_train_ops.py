@@ -280,26 +280,68 @@ def test_add_norm_bwd_types_and_absent_outputs():
     assert torch.equal(dx2, dx) and torch.equal(dy2.to(torch.bfloat16), dx)
 
 
-def test_gated_norm_bwd_plain_vs_interpreted_pallas():
-    """K6b's plain version against the VJP of
-    ``norms_pallas.fused_gated_rms_norm`` in interpret mode."""
-    rng = np.random.default_rng(2)
-    B, L, d = 2, 11, 256
-    y = rng.standard_normal((B, L, d)).astype(np.float32)
-    z = rng.standard_normal((B, L, d)).astype(np.float32)
-    w = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
-    g = rng.standard_normal((B, L, d)).astype(np.float32)
-    want = jax.grad(lambda y, z, w: jnp.sum(j_fused_gated(y, z, w, 1e-5, True) * g),
-                    argnums=(0, 1, 2))(jnp.asarray(y), jnp.asarray(z), jnp.asarray(w))
-    got = tnorms.gated_rms_norm_bwd_plain(tt(y), tt(z), tt(g), tt(w), 1e-5)
-    again = fused_gated_rms_norm_bwd(tt(y), tt(z), tt(g), tt(w), 1e-5)
-    for a, a2, b in zip(got, again, want):
-        assert _rel_err(a, b) < 1e-4 and torch.equal(a, a2)
+# name: (rows-shape, d, bf16 inputs, weight dtype, columns beside z in its matrix on
+# the port's side: z a column slice there, as on the model's path)
+GATED_BWD_CASES = {
+    "fp32": ((2, 11), 256, False, np.float32, 0),
+    "bf16_d4096_z_slice": ((2, 3), 4096, True, "bfloat16", 320),
+    "fp32_awkward": ((3, 5), 250, False, np.float32, 0),
+    "bf16_more_rows_than_blocks": ((1200,), 252, True, "bfloat16", 0),
+    "bf16_fp32_weight": ((7,), 1001, True, np.float32, 0),
+}
 
-    leaves = [tt(v).requires_grad_() for v in (y, z, w)]
+
+def _per_element_ok(got, want, rtol, atol_rel):
+    """|got - want| <= rtol |want| + atol_rel max|want| at every element."""
+    g, w = nn(got).astype(np.float32), np.asarray(want, np.float32)
+    return bool(np.all(np.abs(g - w) <= rtol * np.abs(w) + atol_rel * np.abs(w).max()))
+
+
+@pytest.mark.parametrize("name", list(GATED_BWD_CASES))
+def test_gated_norm_bwd_plain_vs_interpreted_pallas(name):
+    """K6b's plain version against the VJP of
+    ``norms_pallas.fused_gated_rms_norm`` in interpret mode, on the same
+    values. fp32 outputs within 1e-4 of the gradient's largest value; bf16 dy
+    and dz element by element within 2^-7 of the value plus 2e-5 of the largest
+    (one rounding of fp32 sums taken in another order), dw (fp32 on the port's
+    side) within 1e-4. JAX returns dw in the weight's type, so a bf16 weight
+    goes into JAX widened to fp32 (the same values): its dw is then fp32 too."""
+    lead, d, bf16, wdtype, beside = GATED_BWD_CASES[name]
+    rng = np.random.default_rng(2)
+    xdtype = jnp.bfloat16 if bf16 else jnp.float32
+    y = jnp.asarray(rng.standard_normal((*lead, d)).astype(np.float32)).astype(xdtype)
+    wide = jnp.asarray(rng.standard_normal((*lead, d + beside)).astype(np.float32)).astype(xdtype)
+    g = jnp.asarray(rng.standard_normal((*lead, d)).astype(np.float32)).astype(xdtype)
+    w = jnp.asarray((1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)).astype(
+        jnp.bfloat16 if wdtype == "bfloat16" else jnp.float32)
+    z = wide[..., :d]
+    want = jax.grad(lambda y, z, w: jnp.sum(j_fused_gated(y, z, w, 1e-5, True).astype(jnp.float32)
+                                            * g.astype(jnp.float32)),
+                    argnums=(0, 1, 2))(y, z, w.astype(jnp.float32))
+    assert want[2].dtype == jnp.float32
+
+    tz = tt(wide)[..., :d]
+    assert tz.is_contiguous() == (beside == 0)
+    args = (tt(y), tz, tt(g), tt(w), 1e-5)
+    got = tnorms.gated_rms_norm_bwd_plain(*args)
+    again = fused_gated_rms_norm_bwd(*args)
+    assert got[2].dtype == torch.float32
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        if bf16:
+            assert _per_element_ok(a, b, 2.0 ** -7, 2e-5)
+        else:
+            assert _rel_err(a, b) < 1e-4
+    assert _rel_err(got[2], want[2]) < 1e-4
+
+    # and through the wrapper's autograd Function
+    leaves = [t.clone().requires_grad_() for t in (tt(y), tz, tt(w))]
     out = fused_gated_rms_norm(*leaves, 1e-5)
-    for a, b in zip(torch.autograd.grad((out * tt(g)).sum(), leaves), want):
-        assert _rel_err(a, b) < 1e-4
+    grads = torch.autograd.grad((out.float() * tt(g).float()).sum(), leaves)
+    for a, b in zip(grads, got):
+        assert torch.equal(a, b.to(a.dtype))
 
 
 def test_gated_norm_bwd_on_a_column_slice():

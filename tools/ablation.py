@@ -2,7 +2,7 @@
 work taken out, each build timed on the shapes of its main path.
 
     python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-in-proj-int8]
-                              [k4-ssm] [k4-prenorm] [k4-out-proj] [k4-out-proj-int8]
+                              [k4-ssm] [k4-prenorm] [k4-out-proj] [k4-out-proj-int8] [k6b]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
@@ -57,6 +57,17 @@ target's measurement macro set to the entry's value, and times each build:
   same on ``quantize_decode_params`` of the layers, whose int8 W_out takes the
   same pair kernel with its tiles widened in registers; the phase's bytes
   count W_out as int8 with its scale.
+- ``k6b`` (``norms.cu``, ``OMT_K6B_SKIP``): K6b, the gated norm's backward,
+  through ``fused_gated_rms_norm_bwd`` at one layer of the training step
+  (90 x 328 rows of 4096, bf16, z a column slice) and at B=9; each time the
+  median of five single launches, beside the bytes at the card's memory
+  rate, and the device time of the row pass and of the dw sum (profiler, five
+  launches); then the parent kernel (build 32) with a grid of 396 blocks, one
+  wave at three an SM (other dw bits). Build 32 sends every shape to the
+  parent kernel; its dy, dz and dw, and those of the other builds that keep
+  the bits, must equal the library's bit for bit at every case of
+  ``chip_smoke.GATED_BWD_CASES`` that the row kernel takes, which is
+  asserted.
 
 Of every ``k4-*`` build the phase is also timed one launch at a time, with
 nothing beside it (``phase_one_launch_ms``: ``chip_smoke.time_alone_ms``, the
@@ -69,10 +80,12 @@ Only the build with the value 0 (and, of ``k4-in-proj`` and
 ``k4-in-proj-int8``, 32, 64 and 128, of ``k4-ssm`` 4, 8, 32 and 64, of
 ``k4-prenorm`` 16, 32, 64 and 256, of ``k4-out-proj`` 32, 64, 128, 256,
 512 and 1024 and of ``k4-out-proj-int8`` the same, which change when work
-starts, not what it computes) gives correct results; the build with 0 must
-equal the library's bits, which is asserted, and so must each
-``k4-in-proj-int8``, ``k4-out-proj`` and ``k4-out-proj-int8`` build of that
-list (on the same inputs, restored before each check). Prints
+starts, not what it computes; of ``k6b`` 32, 64, 128, 256 and 1024, which
+change the kernel, when bytes are asked for, how often the sigmoid is
+computed or which kernel sums dw) gives correct results; the build with 0
+must equal the library's bits, which is asserted, and so must each
+``k4-in-proj-int8``, ``k4-out-proj``, ``k4-out-proj-int8`` and ``k6b`` build
+of that list (on the same inputs, restored before each check). Prints
 the card, one JSON line a measurement, then one JSON line of all with each
 build's ``ptxas`` lines.
 """
@@ -254,6 +267,47 @@ def run_k4_phase(phase: str, same_bits=(), int8=False):
     return run
 
 
+def run_k6b(libs: dict, builds: dict, rows: dict) -> None:
+    import chip_smoke as cs
+    from omnimamba_tpu_torch.ops import norms_kernel as nk
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for name, lead, d, dtype, wdtype, timed, beside, row_kernel in cs.GATED_BWD_CASES:
+        if not row_kernel:
+            continue
+        y, z, g, w = cs.gated_bwd_inputs(gen, lead, d, dtype, wdtype, beside)
+
+        def run():
+            return nk.fused_gated_rms_norm_bwd(y, z, g, w, 1e-5)
+
+        want = run()  # the library's
+        for v in (0, 32, 64, 128, 256, 1024):  # the shipped build and those keeping its bits
+            with only("omt_gated_rms_norm_bwd", libs[v]):
+                assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                           for a, b in zip(run(), want)), f"build {v} differs at {name}"
+        rec = {"shape": (*lead, d), "weight_dtype": str(wdtype), "z_row_stride": z.stride(-2),
+               "bits_equal_to_the_parent_kernel": True}
+        del want
+        if timed:
+            rec.update(bound_ms=cs.nbytes(y, z, g, w, *run()) / cs.HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes", ms={}, row_pass_ms={}, dw_sum_ms={})
+            for v, build in builds.items():
+                with only("omt_gated_rms_norm_bwd", libs[v]):
+                    rec["ms"][build] = median_ms(run, 5, 1, 1)
+                    split = cs.profile_steps(lambda i: run(), 5, top=4, named=(
+                        "gated_rms_norm_bwd", "norm_dw_reduce"))["named_ms_per_step"]
+                    rec["row_pass_ms"][build] = split["gated_rms_norm_bwd"]
+                    rec["dw_sum_ms"][build] = split["norm_dw_reduce"]
+            shipped = nk.BWD_BLOCKS
+            try:  # the parent kernel in one wave at three blocks an SM (other dw bits)
+                nk.BWD_BLOCKS = 3 * torch.cuda.get_device_properties(0).multi_processor_count
+                with only("omt_gated_rms_norm_bwd", libs[32]):
+                    rec["ms"][f"the parent kernel, {nk.BWD_BLOCKS} blocks"] = median_ms(run, 5, 1, 1)
+            finally:
+                nk.BWD_BLOCKS = shipped
+        emit(rows, name, rec)
+
+
 # name -> (rows, K, O, (O, K) table, out dtype)
 K7_DECODE_SHAPES = {
     "step_in_proj": (48, 2048, 8512, False, _bf),
@@ -363,6 +417,13 @@ TARGETS = {
                      128: "SSM lets it start at entry", 256: "SSM lets it start after its stores",
                      512: "SSM lets it start only as it ends", 1024: "no pre-norm trigger"},
                     run_k4_phase("out_proj", same_bits=(32, 64, 128, 256, 512, 1024))),
+    "k6b": ("norms.cu", "omt_gated_rms_norm_bwd", "OMT_K6B_SKIP",
+            {0: "as shipped", 1: "no input loads", 2: "no dy / dz stores",
+             4: "no second-pass arithmetic", 8: "no sigmoid", 28: "loads and stores only",
+             23: "launch and barriers only", 64: "the next row asked for a row ahead",
+             128: "sigmoid again in the second pass", 256: "no L2 prefetch of g",
+             1024: "the parent's dw sum", 32: "the parent kernel for every shape"},
+            run_k6b),
 }
 TARGETS["k4-out-proj-int8"] = (
     *TARGETS["k4-out-proj"][:4],
