@@ -1977,19 +1977,115 @@ def q8_tie_window(state0, x, dt, A, Bm, unrounded, scale):
     return Q8_ULPS * 2.0 ** -24 * (mag / ns + v * (rel + 1.0))
 
 
+@contextlib.contextmanager
+def only(entry: str, fn):
+    """The library's wrappers see `fn` as its function `entry`, and the shipped
+    library's others, while inside."""
+    from omnimamba_tpu_torch.ops import kernel_build as kb
+
+    shipped, load = kb.load_kernels(), kb.load_kernels
+
+    class _Only:
+        def __getattr__(self, name):
+            return fn if name == entry else getattr(shipped, name)
+
+    kb.load_kernels = _Only
+    try:
+        yield
+    finally:
+        kb.load_kernels = load
+
+
+def variant_entry(source: str, entry: str, macro: str, value: int):
+    """`entry` of `source` (under csrc) built on its own with `macro` set to
+    `value` (a measurement macro: the parent kernel of a shape, for one),
+    with the shipped library's signature."""
+    import ctypes
+
+    from omnimamba_tpu_torch.ops import kernel_build as kb
+
+    lib = kb.BUILD_DIR / "variants" / f"lib_{macro}_{value}_{kb._source_hash()}.so"
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([kb._find_nvcc(), *kb.NVCC_FLAGS, "-shared", f"-D{macro}={value}", "-o",
+                        str(lib), str(kb.CSRC_DIR / source)], check=True, capture_output=True)
+    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    shipped = getattr(kb.load_kernels(), entry)
+    fn.argtypes, fn.restype = shipped.argtypes, shipped.restype
+    return fn
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit, NaNs by their payload."""
+    if a.is_floating_point():
+        a, b = (t.view(torch.int32 if t.element_size() == 4 else torch.int16) for t in (a, b))
+    return torch.equal(a, b)
+
+
+# the K2 int8 kernels by profiler name: the tile kernel where q8_tile_fits(P, N)
+# (P a multiple of 8 up to 64, N a multiple of 4 up to 128), the row kernel elsewhere
+Q8_TILE, Q8_ROW = "ssd_step_q8_tile_kernel", "ssd_step_q8_kernel"
+# layers' states a timed launch walks through, so that each reads q from device memory
+STATE_LAYERS = 48
+
+
+def q8_edge_inputs(gen):
+    """Inputs whose new state holds the quotients where the requantize is
+    easiest to get wrong, (8, 2, 8, 1, 128) fp32: A = 0 (decay 1), dt = 1 and
+    the old q 0, so s' = x[p] B[n] exactly, x[p] = 2^e for e from -90 to 75
+    (the new scale from 1e-20 to beyond the fast division's 2^72). Batch rows
+    0-3: amax 127 m (the scale m, for m = 3, 5, 6.5, 0.375) and the rest
+    m (k + 0.5) for random k, exactly at a rounding tie and one ulp to either
+    side; 4: random; 5: zeros; 6: a NaN; 7: an infinity."""
+    B, H, P, G, N = 8, 2, 8, 1, 128
+    f32 = torch.float32
+    Bm = rand(gen, (B, G, N), f32)
+    for b, m in enumerate((3.0, 5.0, 6.5, 0.375)):
+        k = torch.randint(-127, 127, (N,), generator=gen, device="cuda").float()
+        tie = m * (k + 0.5)
+        side = torch.randint(-1, 2, (N,), generator=gen, device="cuda")
+        tie = torch.where(side > 0, torch.nextafter(tie, torch.full_like(tie, 1e30)),
+                          torch.where(side < 0, torch.nextafter(tie, torch.full_like(tie, -1e30)), tie))
+        tie[0] = 127.0 * m
+        Bm[b, 0] = tie
+    Bm[5] = 0.0
+    Bm[6, 0, 5] = float("nan")
+    Bm[7, 0, 9] = float("inf")
+    e = torch.arange(H * P, device="cuda", dtype=f32).view(1, H, P) * 11.0 - 90.0
+    x = torch.exp2(e).expand(B, H, P).contiguous()
+    dt = torch.ones((B, H), device="cuda", dtype=f32)
+    A = torch.zeros((H,), device="cuda", dtype=f32)
+    Cm = rand(gen, (B, G, N), f32)
+    D = rand(gen, (H,), f32)
+    state0 = {"q": torch.zeros((B, H, P, N), dtype=torch.int8, device="cuda"),
+              "scale": torch.ones((B, H, P), dtype=f32, device="cuda")}
+    return x, dt, A, Bm, Cm, D, state0
+
+
 def check_ssd_step_int8(gen, results):
     """K2's int8-state branch against the plain int8 step: y and the scale by
-    the kernels' rule, q equal but for values within `q8_tie_window` of .5."""
+    the kernels' rule, q equal but for values within `q8_tie_window` of .5.
+    Which kernel each case ran, by profiler name; where the tile kernel ran, q,
+    scale and y against the row kernel (the parent kernel of those shapes,
+    built with OMT_K2_Q8_SKIP=32) bit for bit, and at rows built to hit
+    rounding ties, the range edges of the fast division and non-finite
+    values. Timed cases: one state, and each launch on the next of 48 layers'
+    states (q from device memory) beside the row kernel and a `copy_` of the
+    same q and scale bytes."""
     from omnimamba_tpu_torch.ops.quant import dequantize_ssm_state, quantize_ssm_state
     from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused, ssd_step_plain
 
     bf, f32 = torch.bfloat16, torch.float32
+    parent = variant_entry("ssd_step.cu", "omt_ssd_step_q8", "OMT_K2_Q8_SKIP", 32)
     cases = [
         # name, (B, H, P, G, N), x dtype, with D, timed
         ("main", (BATCH, 64, 64, 1, 128), bf, True, True),
         ("one_row", (1, 64, 64, 1, 128), bf, True, False),
         ("fp32", (BATCH, 64, 64, 1, 128), f32, True, False),
         ("awkward", (3, 6, 24, 2, 20), f32, False, False),
+        ("b16", (16, 64, 64, 1, 128), bf, True, True),
+        ("b96", (96, 64, 64, 1, 128), bf, True, True),
+        ("n256", (2, 4, 16, 1, 256), f32, True, False),  # beyond the tile kernel
     ]
     for name, (B, H, P, G, N), dtype, with_d, timed in cases:
         x, dt, A, Bm, Cm, D = ssd_inputs(gen, B, 1, H, P, G, N, dtype, True)
@@ -2024,20 +2120,76 @@ def check_ssd_step_int8(gen, results):
                "rtol": [RTOL[dtype], 0.0], "atol_rel": ATOL_REL}
         assert ry <= 1.0 and rs <= 1.0, rec
         assert rec["q_max_diff"] <= 1 and rec["q_diffs_not_at_a_tie"] == 0, rec
+        scratch = {k: v.clone() for k, v in state0.items()}
+        names = []
+        for _ in range(3):  # seen once: three traces of a 64-block launch that held no kernel
+            names = [n for n in kernel_names(lambda: ssd_step_fused(x, dt, A, Bm, Cm, D, scratch))
+                     if "ssd_step_q8" in n]
+            if names:
+                break
+        rec["kernel_name"] = names
+        want = Q8_ROW if name == "n256" else Q8_TILE
+        assert len(names) == 1 and want in names[0] and not (want == Q8_ROW and Q8_TILE in names[0]), rec
+        if want == Q8_TILE:
+            with only("omt_ssd_step_q8", parent):
+                y_p, s_p = ssd_step_fused(x, dt, A, Bm, Cm, D, {k: v.clone() for k, v in state0.items()})
+            rec["bits_equal_to_the_row_kernel"] = (bits_equal(y, y_p) and bits_equal(state["q"], s_p["q"])
+                                                   and bits_equal(state["scale"], s_p["scale"]))
+            assert rec["bits_equal_to_the_row_kernel"], rec
         if timed:
             moved = nbytes(x, dt, A, Bm, Cm, D, y) + 2 * nbytes(state0["q"], state0["scale"])
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = 8 * B * H * P * N / PEAK_OPS[f32] * 1e3
+            layers = [{k: v.clone() for k, v in state0.items()} for _ in range(STATE_LAYERS)]
+            turn = iter(range(1 << 30))
+
+            def step(launch=None):
+                st = layers[next(turn) % STATE_LAYERS]
+                if launch is None:
+                    return ssd_step_fused(x, dt, A, Bm, Cm, D, st)
+                with only("omt_ssd_step_q8", launch):
+                    return ssd_step_fused(x, dt, A, Bm, Cm, D, st)
+
+            def copy():
+                i = next(turn)
+                src, dst = layers[i % STATE_LAYERS], layers[(i + STATE_LAYERS // 2) % STATE_LAYERS]
+                dst["q"].copy_(src["q"])
+                dst["scale"].copy_(src["scale"])
+
+            hbm = 2 * STATE_LAYERS
             rec.update(
                 ms=time_ms(lambda: ssd_step_fused(x, dt, A, Bm, Cm, D, state), 50),
+                ms_from_hbm=time_ms(step, hbm),
+                row_kernel_ms_from_hbm=time_ms(lambda: step(parent), hbm),
+                copy_ms_from_hbm=time_ms(copy, hbm),
                 host_us=host_us(lambda: ssd_step_fused(x, dt, A, Bm, Cm, D, state)),
                 plain_ms=time_ms(lambda: ssd_step_plain(x, dt, A, Bm, Cm, D, state0), 10),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_moved=moved, library_ms=None,
+                library_note="none: copy_ms_from_hbm is a copy_ of the same q and scale bytes, "
+                             "a yardstick of the bytes and not the function",
             )
-            results["ssd_step_int8"] = dict(rec, max_abs_err=max(ey, es))
+            del layers
+            if name == "main":
+                results["ssd_step_int8"] = dict(rec, max_abs_err=max(ey, es))
         emit({"kernel_check": rec})
+
+    # rows built to hit ties, the fast division's range edges and non-finite values:
+    # the tile kernel against the row kernel, bit for bit
+    x, dt, A, Bm, Cm, D, state0 = q8_edge_inputs(gen)
+    s_t, s_r = ({k: v.clone() for k, v in state0.items()} for _ in range(2))
+    y_t = ssd_step_fused(x, dt, A, Bm, Cm, D, s_t)[0]
+    with only("omt_ssd_step_q8", parent):
+        y_r = ssd_step_fused(x, dt, A, Bm, Cm, D, s_r)[0]
+    torch.cuda.synchronize()
+    rec = {"kernel": "ssd_step_int8", "case": "edges", "shape": tuple(state0["q"].shape[:3]) + (1, 128),
+           "dtype": str(f32), "nonfinite_y_rows": int((~torch.isfinite(y_t)).sum()),
+           "q_nonzero": int((s_t["q"] != 0).sum()),
+           "bits_equal_to_the_row_kernel": (bits_equal(y_t, y_r) and bits_equal(s_t["q"], s_r["q"])
+                                            and bits_equal(s_t["scale"], s_r["scale"]))}
+    emit({"kernel_check": rec})
+    assert rec["bits_equal_to_the_row_kernel"], rec
 
 
 # ---------------------------------------------------------------------------
@@ -2263,10 +2415,10 @@ def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4,
     from omnimamba_tpu_torch.models.backbone import (
         apply_head, backbone_forward, backbone_step, backbone_step_fused)
     from omnimamba_tpu_torch.ops.decode_fused import prepare_fused_decode
-    from omnimamba_tpu_torch.ops.quant import quantize_ssm_state
+    from omnimamba_tpu_torch.ops.quant import quantize_ssm_state_by_layer
 
     _, cache = backbone_forward(mamba, emb, "t2i", cfg, return_cache=True)
-    cache = cache._replace(ssm_state=quantize_ssm_state(cache.ssm_state) if int8_state
+    cache = cache._replace(ssm_state=quantize_ssm_state_by_layer(cache.ssm_state) if int8_state
                            else cache.ssm_state.to(torch.bfloat16))
     tok = ids[:, 0] % cfg.vqvae_vocab_size
     if decode_impl == "fused":
@@ -2475,16 +2627,19 @@ def int8_path(params, model, text_ids, bf16_tokens, results, card):
     }
     path_kw = {"fused": {}, "scan_int8_state": {"cache_dtype": "int8"}}
     t2i_generate(qparams, model, text_ids, sample=greedy, decode_image=False)  # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    launches, report, tokens_by = {}, {}, {}
+    launches, report, tokens_by, peak_gib = {}, {}, {}, 0.0
     for path, kw in path_kw.items():
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         t = time.time()
         images, tokens = t2i_generate(qparams, model, text_ids, sample=greedy, **kw)
         torch.cuda.synchronize()
         total_s = time.time() - t
+        peak = torch.cuda.max_memory_allocated()
+        peak_gib = max(peak_gib, peak / 2**30)
         launches[path] = {k: w.launches for k, w in wrappers.items()}
         tokens_by[path] = tokens
         report[path] = {
@@ -2495,8 +2650,9 @@ def int8_path(params, model, text_ids, bf16_tokens, results, card):
             "images_finite": (tuple(images.shape) == (BATCH, 256, 256, 3)
                               and bool(torch.isfinite(images.float()).all())),
             "launches": launches[path], "launches_expected": expect[path],
+            # the path's own peak: above what was allocated when it started (the weights)
+            "own_peak_gib": (peak - resident) / 2**30,
         }
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     def embed():
         return caption_embed(qmamba, embed_text(qmamba, ids, torch.bfloat16)) + qmamba["pos_embed"][:, :PROMPT]
@@ -3252,7 +3408,8 @@ def main() -> int:
             "launches_fused_path", "launches_train", "launches_per_train_step", "flops",
             "chunk_states_bytes", "bound_with_states_ms", "ms_median_of_5_launches", "ptxas",
             "dynamic_smem_bytes", "sass",
-            "library_note", "scan_step_device_ms",
+            "library_note", "scan_step_device_ms", "ms_from_hbm", "row_kernel_ms_from_hbm",
+            "copy_ms_from_hbm",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "prenorm_phase",
             "in_proj_phase", "ssm_phase", "out_proj_phase", "int8_in_proj_phase",
             "int8_out_proj_phase", "k4_phases",

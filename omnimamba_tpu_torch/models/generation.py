@@ -36,7 +36,7 @@ from omnimamba_tpu_torch.models.backbone import (
     backbone_step_fused,
 )
 from omnimamba_tpu_torch.ops.decode_fused import fused_decode_limits, prepare_fused_decode
-from omnimamba_tpu_torch.ops.quant import quantize_ssm_state
+from omnimamba_tpu_torch.ops.quant import quantize_ssm_state_by_layer
 from omnimamba_tpu_torch.ops.sampling import (
     SampleParams,
     apply_repetition_penalty,
@@ -133,7 +133,7 @@ def generate(
     if isinstance(cache_dtype, str) and cache_dtype == "auto":
         cache_dtype = torch.bfloat16 if B >= 16 else None
     if int8_state:
-        cache = cache._replace(ssm_state=quantize_ssm_state(cache.ssm_state))
+        cache = cache._replace(ssm_state=quantize_ssm_state_by_layer(cache.ssm_state))
     elif cache_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported cache_dtype {cache_dtype}")
     elif cache_dtype is not None:

@@ -146,6 +146,20 @@ def quantize_ssm_state(state: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"q": q.contiguous(), "scale": scale.contiguous()}
 
 
+def quantize_ssm_state_by_layer(state: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``quantize_ssm_state`` of a stacked (n_layer, ..., P, N) state, one
+    layer at a time into q and scale allocated once: the same bits, with
+    temporaries the size of one layer's state in place of several the size of
+    the whole stack's."""
+    q = torch.empty(state.shape, dtype=torch.int8, device=state.device)
+    scale = torch.empty(state.shape[:-1], dtype=torch.float32, device=state.device)
+    for i in range(state.shape[0]):
+        layer = quantize_ssm_state(state[i])
+        q[i].copy_(layer["q"])
+        scale[i].copy_(layer["scale"])
+    return {"q": q, "scale": scale}
+
+
 def dequantize_ssm_state(state) -> torch.Tensor:
     """fp32 view of an SSM state in either representation."""
     if isinstance(state, dict):

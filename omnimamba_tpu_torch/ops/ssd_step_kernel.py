@@ -25,10 +25,16 @@ returned.
 A scaled-int8 state ``{"q": (B, H, P, N) int8, "scale": (B, H, P) fp32}``
 (``ops/quant.quantize_ssm_state``) takes the kernel's int8 branch: the TPU
 side computes it in XLA code (``ssd_reference.py:118-147``), here it is a
-kernel too, one warp per (b, h, p) row of N values in registers that
+kernel too, a warp per (b, h, p) row of N values in registers that
 dequantizes, updates, sums y from the unrounded new state, and requantizes
 with round-half-to-even; q and scale are updated in place. Bytes a row: N
-int8 and one fp32 scale, against 2N for a bf16 state.
+int8 and one fp32 scale, against 2N for a bf16 state. With P a multiple of 8
+up to 64 and N a multiple of 4 up to 128 (``q8_tile_fits``: every shipped
+config) it runs ``ssd_step_q8_tile_kernel``, which is bound by the
+instructions it issues, about 24 an element, not by bytes: every row of a
+warp loaded at once, no conversion instruction, the division as the fast
+path of ``div.rn.f32`` with the reciprocal once a row; it gives the row
+kernel's q, scale and y bit for bit, and that kernel keeps the other shapes.
 """
 
 from __future__ import annotations

@@ -175,17 +175,27 @@ def test_matmul_any_and_lookup_any_match_jax():
             np.testing.assert_array_equal(nn(got), ref)
 
 
-@pytest.mark.parametrize("decay", ["one", "random"])
-@pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("with_d", [True, False])
-def test_int8_state_step_matches_jax(B, with_d, decay):
+# (B, with D, decay, (H, P, G, N)): every case at (4, 8, 1, 16); with D and a
+# random decay, three rows a warp with lanes past N (the tile kernel's shapes
+# on the card) and N = 256 (the kernel it leaves to the row kernel)
+_INT8_STEP_CASES = [
+    pytest.param(B, with_d, decay, (4, 8, 1, 16), id=f"{with_d}-{B}-{decay}")
+    for decay in ("one", "random") for B in (1, 3) for with_d in (True, False)
+] + [
+    pytest.param(B, True, "random", shape, id=f"True-{B}-random-{'x'.join(map(str, shape))}")
+    for shape in ((6, 24, 2, 20), (4, 16, 1, 256)) for B in (1, 3)
+]
+
+
+@pytest.mark.parametrize("B, with_d, decay, shape", _INT8_STEP_CASES)
+def test_int8_state_step_matches_jax(B, with_d, decay, shape):
     """With A = 0 the decay exp(dt A) is exactly 1 on both sides and q and
     scale must be bit-equal. With a random A the two frameworks' exp differ
     in the last bit, so the new state can too: the scale is held to 2 ulp and
     q may differ by one unit only where the value lies within 1e-4 of a
     rounding boundary."""
     rng = np.random.default_rng(B + 10 * with_d)
-    H, P, G, N = 4, 8, 1, 16
+    H, P, G, N = shape
     x = rng.standard_normal((B, H, P)).astype(np.float32)
     dt = np.log1p(np.exp(rng.standard_normal((B, H)) - 1.0)).astype(np.float32)
     A = -np.exp(0.5 * rng.standard_normal(H)).astype(np.float32)
@@ -216,6 +226,21 @@ def test_int8_state_step_matches_jax(B, with_d, decay):
     assert sk is tstate and sk["q"] is q_obj
     assert torch.equal(sk["q"], st["q"]) and torch.equal(sk["scale"], st["scale"])
     assert torch.equal(yk, yt)
+
+
+def test_quantize_ssm_state_by_layer_bit_equal():
+    """The prefill state quantized one layer at a time (what generate does
+    with cache_dtype="int8") gives the bits of the whole stack quantized at
+    once, all-zero rows included."""
+    rng = np.random.default_rng(5)
+    s = rng.standard_normal((3, 2, 4, 8, 16)).astype(np.float32) * np.float32(10.0) ** rng.integers(
+        -30, 30, (3, 2, 4, 8, 1))
+    s[1, 0, 2] = 0.0
+    whole = tq.quantize_ssm_state(tt(s))
+    by_layer = tq.quantize_ssm_state_by_layer(tt(s))
+    assert by_layer["q"].dtype == torch.int8 and by_layer["scale"].dtype == torch.float32
+    assert torch.equal(by_layer["q"], whole["q"])
+    assert torch.equal(by_layer["scale"].view(torch.int32), whole["scale"].view(torch.int32))
 
 
 @pytest.mark.parametrize("task", ["t2i", "mmu"])

@@ -2,7 +2,7 @@
 work taken out, each build timed on the shapes of its main path.
 
     python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-in-proj-int8]
-                              [k4-ssm] [k4-prenorm] [k4-out-proj] [k4-out-proj-int8] [k6b]
+                              [k4-ssm] [k4-prenorm] [k4-out-proj] [k4-out-proj-int8] [k6b] [k2-q8]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
@@ -68,6 +68,19 @@ target's measurement macro set to the entry's value, and times each build:
   the bits, must equal the library's bit for bit at every case of
   ``chip_smoke.GATED_BWD_CASES`` that the row kernel takes, which is
   asserted.
+- ``k2-q8`` (``ssd_step.cu``, ``OMT_K2_Q8_SKIP``): K2's int8-state branch
+  through ``ssd_step_fused`` (bf16 x, H=64, P=64, G=1, N=128) at B = 16, 48
+  and 96, each launch on the next of 48 layers' states so that q comes from
+  device memory; each time the median of three calls of 96 launches, beside
+  the bytes at the card's memory rate and a ``copy_`` of the same q and scale
+  bytes; the shipped build is read again after the others, for the spread.
+  Builds 8, 32 (the parent kernel for every shape), 64, 128, 256, 512 and
+  1024 keep the bits: their q, scale and y, and the shipped build's, must
+  equal the library's bit for bit at each B, which is asserted. Then
+  ``tools/q8_div_check.cu`` holds the tile kernel's division and rounding
+  against the parent's for every fp32 dividend up to 128 times each of 256
+  divisors in its fast range (and four outside it), asserting no
+  disagreement in the range.
 
 Of every ``k4-*`` build the phase is also timed one launch at a time, with
 nothing beside it (``phase_one_launch_ms``: ``chip_smoke.time_alone_ms``, the
@@ -82,10 +95,13 @@ Only the build with the value 0 (and, of ``k4-in-proj`` and
 512 and 1024 and of ``k4-out-proj-int8`` the same, which change when work
 starts, not what it computes; of ``k6b`` 32, 64, 128, 256 and 1024, which
 change the kernel, when bytes are asked for, how often the sigmoid is
-computed or which kernel sums dw) gives correct results; the build with 0
-must equal the library's bits, which is asserted, and so must each
-``k4-in-proj-int8``, ``k4-out-proj``, ``k4-out-proj-int8`` and ``k6b`` build
-of that list (on the same inputs, restored before each check). Prints
+computed or which kernel sums dw; of ``k2-q8`` 8, 32, 64, 128, 256, 512 and 1024, which change
+how the same values are computed, by which kernel, in how many passes, with
+or without a prefetch, at four or five blocks an SM) gives
+correct results; the build with 0 must equal the library's bits, which is
+asserted, and so must each ``k4-in-proj-int8``, ``k4-out-proj``,
+``k4-out-proj-int8``, ``k6b`` and ``k2-q8`` build of that list (on the same
+inputs, restored before each check). Prints
 the card, one JSON line a measurement, then one JSON line of all with each
 build's ``ptxas`` lines.
 """
@@ -93,12 +109,12 @@ build's ``ptxas`` lines.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -121,23 +137,12 @@ def emit(rows: dict, key, rec) -> None:
     print(json.dumps({key: rec}), flush=True)
 
 
-@contextlib.contextmanager
 def only(entry: str, fn):
     """The library's wrappers see `fn` as its function `entry`, and the shipped
     library's others, while inside."""
-    from omnimamba_tpu_torch.ops import kernel_build as kb
+    import chip_smoke as cs
 
-    shipped, load = kb.load_kernels(), kb.load_kernels
-
-    class _Only:
-        def __getattr__(self, name):
-            return fn if name == entry else getattr(shipped, name)
-
-    kb.load_kernels = _Only
-    try:
-        yield
-    finally:
-        kb.load_kernels = load
+    return cs.only(entry, fn)
 
 
 def run_k5(libs: dict, builds: dict, rows: dict) -> None:
@@ -308,6 +313,101 @@ def run_k6b(libs: dict, builds: dict, rows: dict) -> None:
         emit(rows, name, rec)
 
 
+def run_k2_q8(libs: dict, builds: dict, rows: dict) -> None:
+    import chip_smoke as cs
+    from omnimamba_tpu_torch.ops.quant import quantize_ssm_state
+    from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    H, P, G, N = 64, 64, 1, 128
+    for B in (16, cs.BATCH, 96):
+        x, dt, A, Bm, Cm, D = cs.ssd_inputs(gen, B, 1, H, P, G, N, _bf, True)
+        x, dt, Bm, Cm = x[:, 0], dt[:, 0], Bm[:, 0], Cm[:, 0]
+        state0 = quantize_ssm_state(cs.rand(gen, (B, H, P, N), _f32, 0.5))
+
+        def run(state):
+            return ssd_step_fused(x, dt, A, Bm, Cm, D, state)
+
+        fresh = {k: v.clone() for k, v in state0.items()}
+        y_want = run(fresh)[0]  # the library's
+        for v in (0, 8, 32, 64, 128, 256, 512, 1024):  # the builds that keep the bits
+            st = {k: t.clone() for k, t in state0.items()}
+            with only("omt_ssd_step_q8", libs[v]):
+                y = run(st)[0]
+            assert all(cs.bits_equal(a, b) for a, b in (
+                (y, y_want), (st["q"], fresh["q"]), (st["scale"], fresh["scale"]))), (
+                f"build {v} differs at B={B}")
+        moved = cs.nbytes(x, dt, A, Bm, Cm, D, y_want) + 2 * cs.nbytes(state0["q"], state0["scale"])
+        layers = [{k: t.clone() for k, t in state0.items()} for _ in range(cs.STATE_LAYERS)]
+        turn = iter(range(1 << 30))
+
+        def step():
+            return run(layers[next(turn) % cs.STATE_LAYERS])
+
+        def copy():
+            i = next(turn)
+            src = layers[i % cs.STATE_LAYERS]
+            dst = layers[(i + cs.STATE_LAYERS // 2) % cs.STATE_LAYERS]
+            dst["q"].copy_(src["q"])
+            dst["scale"].copy_(src["scale"])
+
+        iters = 2 * cs.STATE_LAYERS
+        rec = {"shape": (B, H, P, G, N), "x_dtype": str(_bf), "bytes_moved": moved,
+               "bound_ms": moved / cs.HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "bits_equal_to_the_library": [0, 8, 32, 64, 128, 256, 512, 1024], "ms": {},
+               "copy_ms": median_ms(copy, 3, iters)}
+        for v, build in builds.items():
+            for layer in layers:  # each build from the same states
+                layer["q"].copy_(state0["q"])
+                layer["scale"].copy_(state0["scale"])
+            with only("omt_ssd_step_q8", libs[v]):
+                rec["ms"][build] = median_ms(step, 3, iters)
+        with only("omt_ssd_step_q8", libs[0]):  # the spread between readings of one build
+            rec["ms"]["as shipped, again"] = median_ms(step, 3, iters)
+        del layers
+        emit(rows, f"B={B}", rec)
+    emit(rows, "division", q8_division_check(gen))
+
+
+def q8_division_check(gen) -> dict:
+    """``tools/q8_div_check.cu``: the tile kernel's division and rounding
+    against the parent's ``__float2int_rn(a / b)`` for every fp32 a with
+    |a| <= 128 b, at divisors b in the tile kernel's fast range [2^-72, 2^72]
+    (its edges, 1e-20, the scale of a row of zeros, and random ones) and a
+    few outside it, where the kernel takes the parent's code; the range must
+    give no disagreement, which is asserted."""
+    import chip_smoke as cs
+    from omnimamba_tpu_torch.ops import kernel_build as kb
+
+    lib = kb.BUILD_DIR / "ablation" / "lib_q8_div_check.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kb._find_nvcc(), *kb.NVCC_FLAGS, "-shared", f"-I{kb.CSRC_DIR}", "-o", str(lib),
+                    str(ROOT / "tools" / "q8_div_check.cu")], check=True, capture_output=True)
+    check = ctypes.CDLL(str(lib)).omt_q8_div_check
+    check.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    edges = [2.0 ** -72, 2.0 ** 72, 1e-20, 1.0, 3.0, 1.0 / 127.0]
+    drawn = torch.exp2(torch.rand(250, generator=gen, device="cuda", dtype=torch.float64) * 144 - 72)
+    inside = torch.cat([torch.tensor(edges, device="cuda", dtype=torch.float64), drawn]).float()
+    inside = inside.clamp(2.0 ** -72, 2.0 ** 72)
+    outside = torch.tensor([2.0 ** -100, 2.0 ** -90, 2.0 ** 90, 2.0 ** 110], device="cuda")
+    bs = torch.cat([inside, outside])
+    bad = torch.zeros(len(bs), dtype=torch.int64, device="cuda")
+    first = torch.zeros(len(bs), dtype=torch.int32, device="cuda")
+    t0 = time.time()
+    err = check(bs.data_ptr(), len(bs), bad.data_ptr(), first.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    kb.check_launch(err, "q8 division check")
+    torch.cuda.synchronize()
+    n = len(inside)
+    rec = {"divisors_in_range": n, "dividends_each": "every fp32 a with |a| <= 128 b",
+           "disagreements_in_range": int(bad[:n].sum()),
+           "outside": {f"{b:.3g}": int(c) for b, c in zip(outside.tolist(), bad[n:].tolist())},
+           "seconds": time.time() - t0}
+    assert rec["disagreements_in_range"] == 0, (rec, bs[:n][bad[:n] > 0].tolist(),
+                                                first[:n][bad[:n] > 0].tolist())
+    return rec
+
+
 # name -> (rows, K, O, (O, K) table, out dtype)
 K7_DECODE_SHAPES = {
     "step_in_proj": (48, 2048, 8512, False, _bf),
@@ -424,6 +524,14 @@ TARGETS = {
              128: "sigmoid again in the second pass", 256: "no L2 prefetch of g",
              1024: "the parent's dw sum", 32: "the parent kernel for every shape"},
             run_k6b),
+    "k2-q8": ("ssd_step.cu", "omt_ssd_step_q8", "OMT_K2_Q8_SKIP",
+              {0: "as shipped", 1: "no state loads", 2: "no state stores",
+               4: "no requantize arithmetic", 8: "the conversions through I2F / F2I / `/`",
+               16: "launch only", 64: "eight rows a pass", 128: "no L2 prefetch of the next wave",
+               256: "five blocks an SM", 512: "the widening alone through I2F",
+               1024: "N at run time",
+               32: "the parent kernel for every shape"},
+              run_k2_q8),
 }
 TARGETS["k4-out-proj-int8"] = (
     *TARGETS["k4-out-proj"][:4],
