@@ -584,6 +584,7 @@ def check_norms(gen, results):
     add_cases = [
         ("decode", (BATCH,), 2048, torch.bfloat16, torch.bfloat16, True, True),
         ("prefill", (BATCH, PROMPT), 2048, torch.bfloat16, torch.bfloat16, True, True),
+        ("train", (TRAIN_BATCH, TRAIN_LEN), 2048, torch.bfloat16, torch.bfloat16, True, True),
         ("no_residual", (BATCH, PROMPT), 2048, torch.bfloat16, torch.bfloat16, False, False),
         ("fp32", (5, 7), 2048, torch.float32, torch.float32, True, False),
         ("awkward", (3, 5), 250, torch.float32, torch.bfloat16, False, False),
@@ -619,11 +620,12 @@ def check_norms(gen, results):
                 library_ms=time_ms(lambda: F.rms_norm(summed, (d,), w, 1e-5), 100)
                 if hasattr(F, "rms_norm") else None,
             )
+            rec["kernel_name"] = norm_kernel_names(lambda: fused_add_rms_norm(x, res, w, 1e-5))
             if name == "decode":
                 results["add_rms_norm"] = dict(rec, max_abs_err=max(eo, ey))
             else:
-                results["add_rms_norm"]["prefill"] = {
-                    k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bytes_moved", "library_ms")}
+                results["add_rms_norm"][name] = {k: rec[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bytes_moved", "library_ms", "kernel_name")}
         emit({"kernel_check": rec})
 
     # name, rows-shape, d, x dtype, weight dtype, timed, columns beside z in its matrix.
@@ -632,6 +634,8 @@ def check_norms(gen, results):
     gated_cases = [
         ("decode", (BATCH,), 4096, torch.bfloat16, torch.bfloat16, True, 4096 + 256 + 64),
         ("prefill", (BATCH, PROMPT), 4096, torch.bfloat16, torch.bfloat16, True, 4096 + 256 + 64),
+        ("train", (TRAIN_BATCH, TRAIN_LEN), 4096, torch.bfloat16, torch.bfloat16, True,
+         4096 + 256 + 64),
         ("fp32", (5, 7), 4096, torch.float32, torch.float32, False, 4096 + 256 + 64),
         ("awkward", (3, 5), 250, torch.float32, torch.bfloat16, False, 0),
         ("awkward_bf16", (7,), 1001, torch.bfloat16, torch.float32, False, 0),
@@ -664,12 +668,260 @@ def check_norms(gen, results):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_moved=moved, library_ms=None,
             )
+            rec["kernel_name"] = norm_kernel_names(lambda: fused_gated_rms_norm(yv, z, w, 1e-5))
             if name == "decode":
                 results["gated_rms_norm"] = dict(rec, max_abs_err=eo)
             else:
-                results["gated_rms_norm"]["prefill"] = {
-                    k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bytes_moved")}
+                results["gated_rms_norm"][name] = {
+                    k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bytes_moved", "kernel_name")}
         emit({"kernel_check": rec})
+    check_norm_rows(gen, results)
+
+
+# K3a and K3b at decode's rows: `norm_rows_kernel` of csrc/norms.cu where
+# norm_rows_fits holds (bf16 rows of d = 1024 E, E <= 4, at most NORM_ROWS_MAX
+# of them); the row-per-block kernels (`add_rms_norm_kernel`,
+# `gated_rms_norm_kernel`) elsewhere, and for every shape in the build with
+# OMT_K3_SKIP=16
+NORM_ROWS_KERNEL, NORM_ROWS_MAX = "norm_rows_kernel", 256
+NORM_ENTRIES = ("omt_add_rms_norm", "omt_gated_rms_norm")
+
+
+def norm_kernel_names(fn) -> list:
+    return [n for n in kernel_names(fn) if "norm" in n]
+
+
+def norm_parent_entries() -> dict:
+    """The two forward entries of norms.cu built with OMT_K3_SKIP=16: the
+    row-per-block kernels for every shape, the parent of norm_rows_kernel's."""
+    return {e: variant_entry("norms.cu", e, "OMT_K3_SKIP", 16) for e in NORM_ENTRIES}
+
+
+@contextlib.contextmanager
+def parent_norms(entries: dict):
+    """The norm wrappers launch the parent kernels (`norm_parent_entries`) while inside."""
+    with only(NORM_ENTRIES[0], entries[NORM_ENTRIES[0]]), only(NORM_ENTRIES[1], entries[NORM_ENTRIES[1]]):
+        yield
+
+
+def norm_rows_inputs(gen, kind: str, rows: int, d: int, wdtype, variant: str):
+    """(x, residual or None, w) of K3a ("add"; variant "residual" or
+    "no_residual") or (y, z, w) of K3b ("gated"; z "z_slice", the first d
+    columns of a wider matrix as the mixer passes it, or "z_contiguous"), bf16
+    rows. The weight is made last: a call right after runs just behind the
+    kernel that wrote it."""
+    bf = torch.bfloat16
+    a = rand(gen, (rows, d), bf)
+    if kind == "add":
+        b = rand(gen, (rows, d), torch.float32) if variant == "residual" else None
+    elif variant == "z_slice":
+        b = sliced(gen, (rows,), (d, 4096 + 256 + 64), bf)[0]
+    else:
+        b = rand(gen, (rows, d), bf)
+    return a, b, (1.0 + 0.1 * rand(gen, (d,), torch.float32)).to(wdtype)
+
+
+def norm_edge_inputs(kind: str, d: int, wdtype):
+    """Rows built to hit the edges, (10, d): K3a's x (bf16) and residual (fp32);
+    K3b's y and z (bf16). Row 0 zeros; 1 values near the largest finite (K3a:
+    the residual near fp32's, so x + residual overflows in places); 2 near the
+    smallest normal; 3 subnormals; 4 a sum of squares that overflows from
+    finite squares; 5 NaN; 6 +inf and -inf; 7 K3a: x + residual cancelling to
+    zero, K3b: z from -90 to -80 (expf(-z) near its overflow) and z = 88, 89;
+    8 z = +-1e4 and +-inf with finite y; 9 magnitudes from 2^-60 to 2^60."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    R, f32, bf = 10, torch.float32, torch.bfloat16
+    a = torch.randn((R, d), generator=gen, device="cuda")
+    b = torch.randn((R, d), generator=gen, device="cuda")
+    sign = torch.sign(torch.randn((R, d), generator=gen, device="cuda"))
+    a[0], b[0] = 0.0, 0.0
+    a[1] = 3.3e38 * sign[1]
+    a[2], b[2] = a[2] * 1.2e-38, b[2] * 1.2e-38
+    a[3], b[3] = a[3] * 3e-40, b[3] * 3e-42
+    a[4] = 1e19 * sign[4]
+    a[5, 7], b[5, 11], a[5, 100] = float("nan"), float("nan"), float("nan")
+    a[6, 3], b[6, 5], a[6, 9], b[6, 13] = float("inf"), float("-inf"), float("-inf"), float("inf")
+    a[9] = a[9] * torch.exp2(torch.randint(-60, 61, (d,), generator=gen, device="cuda").float())
+    w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(wdtype)
+    if kind == "add":
+        b[1] = 3.4e38 * sign[1]
+        x = a.to(bf)
+        b[7] = -x[7].float()
+        b[7, ::2] = b[7, ::2] * 1.5
+        return x, b.to(f32), w
+    b[1], b[4] = 1.0, 10.0
+    b[7] = -90.0 + 10.0 * torch.rand((d,), generator=gen, device="cuda")
+    b[7, 0], b[7, 1] = 88.0, 89.0
+    b[8] = 1e4 * sign[8]
+    b[8, :4] = torch.tensor([float("inf"), float("-inf"), float("inf"), float("-inf")], device="cuda")
+    return a.to(bf), b.to(bf), w
+
+
+def weight_written_just_before(gen, fns: dict, parent: dict) -> dict:
+    """K3a (d = 2048, a residual) and K3b (d = 4096, z a column slice) at
+    BATCH rows, bf16 and fp32 weights, with a weight that the kernel launched
+    just before the call wrote, against the parent kernel with the same weight
+    settled, bit for bit: the last of a long copy into a buffer of NaNs, five
+    times; a product and conversion made just before; `torch.ones` made after
+    the rows; a strided weight that the wrapper copies. The decode-rows kernel
+    runs behind the kernel ahead of it as a programmatic dependent, so a read of
+    the weight before that kernel ends would show here."""
+    rec = {}
+    for kind, d, variant in (("add", 2048, "residual"), ("gated", 4096, "z_slice")):
+        fn = fns[kind][0]
+        for wdtype in (torch.bfloat16, torch.float32):
+            a, b, w = norm_rows_inputs(gen, kind, BATCH, d, wdtype, variant)
+            n = 1 << 25  # the copy ahead: 64 or 128 MB
+            big = torch.empty((n + d,), dtype=wdtype, device="cuda")
+            src = torch.cat([torch.zeros((n,), dtype=wdtype, device="cuda"), w])
+            ones = torch.ones((d,), dtype=wdtype, device="cuda")
+            w_strided = torch.stack([w, w], -1)[:, 0]
+            assert not w_strided.is_contiguous()
+            with parent_norms(parent):
+                want = _as_tuple(fn(a, b, w, 1e-5))
+                want_ones = _as_tuple(fn(a, b, ones, 1e-5))
+            torch.cuda.synchronize()
+            got = []
+            for _ in range(5):
+                big.fill_(float("nan"))
+                torch.cuda.synchronize()
+                big.copy_(src)
+                got.append(_as_tuple(fn(a, b, big[n:], 1e-5)))
+            got.append(_as_tuple(fn(a, b, w.float().mul(1.0).to(wdtype), 1e-5)))
+            got.append(_as_tuple(fn(a, b, w_strided, 1e-5)))
+            torch.cuda.synchronize()
+            a2, b2 = a.clone(), b.clone()  # the rows, then the weight
+            got_ones = _as_tuple(fn(a2, b2, torch.ones((d,), dtype=wdtype, device="cuda"), 1e-5))
+            key = f"{kind} {wdtype}"
+            rec[key] = [all(bits_equal(g, p) for g, p in zip(outs, want)) for outs in got] + [
+                all(bits_equal(g, p) for g, p in zip(got_ones, want_ones))]
+            assert all(rec[key]), (key, rec[key])
+            names = set()
+            for _ in range(3):
+                names |= set(norm_kernel_names(lambda: fn(a, b, w_strided, 1e-5)))
+                if any(NORM_ROWS_KERNEL in nm for nm in names):
+                    break
+            assert any(NORM_ROWS_KERNEL in nm for nm in names), (key, names)
+            del big, src
+    return rec
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def check_norm_rows(gen, results):
+    """K3a and K3b at decode's rows against the parent kernels (the
+    row-per-block kernels, `norm_parent_entries`) bit for bit: out and y, NaNs
+    by payload, at rows 1, 16, 48, 96, 256, NORM_ROWS_MAX and one more (the
+    parent kernel on both sides) of d = 1024, 2048, 3072, 4096, K3a with and
+    without a residual, K3b with z contiguous and a column slice, bf16 and
+    fp32 weights, each also within tolerance of the plain version; which
+    kernel each case ran, by profiler name; the edge rows of
+    `norm_edge_inputs`; a weight that the kernel just ahead wrote
+    (`weight_written_just_before`). Then the device time of each at rows 1,
+    16, 48, 96, 256 and NORM_ROWS_MAX (K3a d = 2048 with a residual, K3b
+    d = 4096 with z a column slice, bf16 weights), each launch on the next of
+    STATE_LAYERS inputs, back to back (`time_ms`) and one launch alone
+    (`time_alone_ms`), beside the parent kernel in the same process."""
+    from omnimamba_tpu_torch.ops.norms import add_norm_plain, gated_rms_norm_plain
+    from omnimamba_tpu_torch.ops.norms_kernel import fused_add_rms_norm, fused_gated_rms_norm
+
+    parent = norm_parent_entries()
+    fns = {"add": (fused_add_rms_norm, add_norm_plain), "gated": (fused_gated_rms_norm, gated_rms_norm_plain)}
+    variants = {"add": ("residual", "no_residual"), "gated": ("z_slice", "z_contiguous")}
+    bf, f32 = torch.bfloat16, torch.float32
+    groups, worst = {}, 0.0
+    for kind, (fn, plain) in fns.items():
+        for d in (1024, 2048, 3072, 4096):
+            for variant in variants[kind]:
+                for wdtype in (bf, f32):
+                    calls = groups.setdefault((kind, d, variant, wdtype), [])
+                    for rows in sorted({1, 16, 48, 96, 256, NORM_ROWS_MAX, NORM_ROWS_MAX + 1}):
+                        args = norm_rows_inputs(gen, kind, rows, d, wdtype, variant)
+                        got = _as_tuple(fn(*args, 1e-5))
+                        with parent_norms(parent):
+                            want = _as_tuple(fn(*args, 1e-5))
+                        ref = _as_tuple(plain(*args, 1e-5))
+                        rec = {"kernel": kind, "rows": rows, "d": d, "variant": variant,
+                               "weight": str(wdtype)}
+                        differ = [int((_bits(g) != _bits(p)).sum()) for g, p in zip(got, want)]
+                        assert not any(differ), dict(rec, elements_that_differ=differ)
+                        _, r = errors(got[0], ref[0])
+                        worst = max(worst, r)
+                        assert r <= 1.0 and (kind == "gated" or torch.equal(got[1], ref[1])), rec
+                        calls.append(lambda fn=fn, args=args: fn(*args, 1e-5))
+    # which kernel each group of cases ran, by profiler name: the decode-rows
+    # kernel of the group's template arguments up to NORM_ROWS_MAX rows, the
+    # parent beyond. A trace now and then lacks a kernel launched as a
+    # programmatic dependent, so a group takes up to three traces.
+    taken = {}
+    for (kind, d, variant, wdtype), calls in groups.items():
+        new = (f"{NORM_ROWS_KERNEL}<{str(kind == 'gated').lower()}, {d // 1024}, "
+               f"{'__nv_bfloat16' if wdtype == bf else 'float'}, {str(variant == 'residual').lower()}>")
+        old = f"{kind}_rms_norm_kernel"
+        seen = set()
+        for _ in range(3):
+            seen |= set(kernel_names_per_call(calls + calls, "norm"))
+            if any(new in n for n in seen) and any(old in n for n in seen):
+                break
+        key = (kind, d, variant, str(wdtype))
+        assert all(new in n or old in n for n in seen), (key, seen)
+        assert any(new in n for n in seen) and any(old in n for n in seen), (key, seen)
+        for n in seen:
+            taken[n] = taken.get(n, 0) + 1
+    n_cases = sum(len(c) for c in groups.values())
+    edges = {}
+    for kind, (fn, _) in fns.items():
+        for d in (1024, 2048, 3072, 4096):
+            for wdtype in (bf, f32):
+                args = norm_edge_inputs(kind, d, wdtype)
+                got = _as_tuple(fn(*args, 1e-5))
+                with parent_norms(parent):
+                    want = _as_tuple(fn(*args, 1e-5))
+                key = f"{kind} d={d} {wdtype}"
+                edges[key] = {"bits_equal": all(bits_equal(g, p) for g, p in zip(got, want)),
+                              "nonfinite_out": int((~torch.isfinite(got[0].float())).sum()),
+                              "rows_that_differ": [
+                                  int(r) for g, p in zip(got, want)
+                                  for r in torch.nonzero((_bits(g) != _bits(p)).any(-1)).flatten()]}
+                assert edges[key]["bits_equal"], (key, edges[key])
+    fresh = weight_written_just_before(gen, fns, parent)
+    rec = {"kernel": "norm_rows", "cases": n_cases, "bits_equal_to_the_parent_kernel": True,
+           "weight_written_just_before": fresh,
+           "worst_out_err_of_allowed_against_plain": worst, "edge_rows": edges,
+           "kernel_names_and_groups": taken}
+    emit({"kernel_check": rec})
+
+    times = {}
+    for kind, d, variant in (("add", 2048, "residual"), ("gated", 4096, "z_slice")):
+        fn = fns[kind][0]
+        times[kind] = {}
+        for rows in sorted({1, 16, BATCH, 96, 256, NORM_ROWS_MAX}):
+            layers = [norm_rows_inputs(gen, kind, rows, d, bf, variant) for _ in range(STATE_LAYERS)]
+            turn = iter(range(1 << 30))
+
+            def call():
+                return fn(*layers[next(turn) % STATE_LAYERS], 1e-5)
+
+            outs = _as_tuple(call())
+            moved = nbytes(*layers[0]) + nbytes(*outs)
+            if kind == "gated":  # the slice's rows, not the matrix it lies in
+                moved = nbytes(layers[0][0], layers[0][2], *outs) + layers[0][1].numel() * 2
+            n = 2 * STATE_LAYERS
+            rec = {"rows": rows, "d": d, "bytes_moved": moved,
+                   "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "ms": time_ms(call, n), "ms_alone": time_alone_ms(call, n)}
+            with parent_norms(parent):
+                rec.update(parent_ms=time_ms(call, n), parent_ms_alone=time_alone_ms(call, n))
+            rec["ms_again"] = time_ms(call, n)
+            times[kind][rows] = rec
+            del layers
+    emit({"kernel_check": {"kernel": "norm_rows", "times_from_48_inputs": times}})
+    for kind, name in (("add", "add_rms_norm"), ("gated", "gated_rms_norm")):
+        results[name]["decode_rows"] = times[kind]
+        results[name]["ms_from_hbm"] = times[kind][BATCH]["ms"]
+        results[name]["parent_kernel_ms_from_hbm"] = times[kind][BATCH]["parent_ms"]
 
 
 # K6b's cases: name, rows-shape, d, dtype, weight dtype, timed, columns beside z
@@ -2015,11 +2267,14 @@ def variant_entry(source: str, entry: str, macro: str, value: int):
     return fn
 
 
+def _bits(t):
+    """A float tensor's bits as integers of its width (NaNs by their payload)."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16) if t.is_floating_point() else t
+
+
 def bits_equal(a, b) -> bool:
     """Equal bit for bit, NaNs by their payload."""
-    if a.is_floating_point():
-        a, b = (t.view(torch.int32 if t.element_size() == 4 else torch.int16) for t in (a, b))
-    return torch.equal(a, b)
+    return torch.equal(_bits(a), _bits(b))
 
 
 # the K2 int8 kernels by profiler name: the tile kernel where q8_tile_fits(P, N)
@@ -2676,6 +2931,11 @@ def int8_path(params, model, text_ids, bf16_tokens, results, card):
             device_busy_ms_per_step=prof["device_busy_ms_per_step"],
             top_kernels=prof["top_kernels"][:6])
 
+    k3 = norms_in_int8_state_loop(qmamba, cfg, ids, embed, tokens_by["scan_int8_state"])
+    report["scan_int8_state"]["k3_against_parent"] = k3
+    for name in ("add_rms_norm", "gated_rms_norm"):
+        results[name]["int8_state_step"] = k3
+
     first = _first_divergence(tokens_by["fused"], bf16_tokens)
     first_state = _first_divergence(tokens_by["scan_int8_state"], tokens_by["fused"])
     rec = {
@@ -2705,6 +2965,55 @@ def int8_path(params, model, text_ids, bf16_tokens, results, card):
     results["decode_fused_int8"]["launches"] = launches["fused"]["decode_fused_int8"]
     results["ssd_step_int8"]["launches"] = launches["scan_int8_state"]["ssd_step_int8"]
     return qmamba
+
+
+def norms_in_int8_state_loop(qmamba, cfg, ids, embed, tokens):
+    """K3a and K3b in the int8-state layer loop at B=48: the decode-rows kernel
+    against the parent kernels (`norm_parent_entries`) in this process, each
+    reached through `parent_norms`. For
+    each, a profiled window of 4 steps (K3's device time a step, device busy,
+    idle share) and greedy generations in turns (parent, new, new, parent): the
+    host clock of each, its step median, and its tokens, which must equal
+    `tokens` (the int8-state path's run)."""
+    from omnimamba_tpu_torch import SampleParams
+    from omnimamba_tpu_torch.models.generation import generate
+    from omnimamba_tpu_torch.ops import kernel_build
+
+    parent = norm_parent_entries()
+    named = (NORM_ROWS_KERNEL, "add_rms_norm_kernel", "gated_rms_norm_kernel", "ssd_step_q8")
+    out = {"processes": "one: the parent kernels swapped in through `only`", "runs": []}
+
+    def run(label):
+        stamps = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        seq = generate(qmamba, cfg, input_ids=ids, input_embeddings=embed(), task="t2i",
+                       max_length=PROMPT + cfg.num_tokens, sample=SampleParams(top_k=1),
+                       cache_dtype="int8", token_callback=lambda _tok: stamps.append(time.time()))
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        got = seq.sequences[:, PROMPT:]
+        assert torch.equal(got, tokens), f"{label}: the int8-state tokens changed"
+        out["runs"].append({"kernels": label, "total_s": total,
+                            "decode_step_ms_median": float(np.median(np.diff(stamps)) * 1e3)})
+
+    # both through `only`, so that the host's cost a call is the same
+    shipped = {e: getattr(kernel_build.load_kernels(), e) for e in NORM_ENTRIES}
+    for label in ("parent", "norm_rows", "norm_rows", "parent"):
+        with parent_norms(parent if label == "parent" else shipped):
+            run(label)
+            if label not in out:
+                prof = profile_decode_steps(qmamba, cfg, ids, embed(), "scan", int8_state=True,
+                                            named=named)
+                out[label] = {"k3_ms_per_step": sum(prof["named_ms_per_step"][k] for k in named[:3]),
+                              "named_ms_per_step": prof["named_ms_per_step"],
+                              "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+                              "device_idle_share": prof["device_idle_share"],
+                              "wall_ms_per_step": prof["wall_ms_per_step"],
+                              "kernel_launches_per_step": prof["kernel_launches_per_step"]}
+    assert out["norm_rows"]["named_ms_per_step"][NORM_ROWS_KERNEL] > 0, out
+    assert out["parent"]["named_ms_per_step"][NORM_ROWS_KERNEL] == 0, out
+    return out
 
 
 def _solo_stream(mamba, cfg, prompt_ids, emb, new, dtype, cache_dtype):
@@ -3409,7 +3718,8 @@ def main() -> int:
             "chunk_states_bytes", "bound_with_states_ms", "ms_median_of_5_launches", "ptxas",
             "dynamic_smem_bytes", "sass",
             "library_note", "scan_step_device_ms", "ms_from_hbm", "row_kernel_ms_from_hbm",
-            "copy_ms_from_hbm",
+            "copy_ms_from_hbm", "decode_rows", "parent_kernel_ms_from_hbm", "host_us_parts",
+            "int8_state_step",
             "state_dtype_ms", "fused_against_scan_ms", "small_batch_profile", "prenorm_phase",
             "in_proj_phase", "ssm_phase", "out_proj_phase", "int8_in_proj_phase",
             "int8_out_proj_phase", "k4_phases",

@@ -1355,10 +1355,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NW * 32) : "memory");
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
 // the layer's weights that the pair in_proj's epilogue reads, looked up in the
 // pointer table once, before the k loop
 struct InPairOps {

@@ -170,6 +170,10 @@ def as_rows(t: torch.Tensor, inner: int) -> Tuple[torch.Tensor, int]:
     evenly from row to row. A column slice of a wider matrix (the mixer's
     x | B | C and z) qualifies and goes in as it is; any other layout is
     copied to a contiguous tensor first."""
+    if t.is_contiguous():
+        return t, math.prod(t.shape[-inner:])
+    if t.dim() == 2 and inner == 1 and t.stride(1) == 1:  # a column slice of a matrix
+        return t, t.stride(0)
     row = 1
     for size, stride in zip(reversed(t.shape[-inner:]), reversed(t.stride()[-inner:])):
         if size != 1 and stride != row:
@@ -194,9 +198,10 @@ def check_launch(err: int, name: str) -> None:
 def current_stream(device: torch.device) -> int:
     """PyTorch's current stream on ``device`` as a raw ``cudaStream_t``. A launch
     goes to the current device, so a tensor on another card is refused."""
-    if device.index is not None and device.index != torch.cuda.current_device():
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
         raise RuntimeError(
             f"tensor lies on {device} but the current CUDA device is "
-            f"cuda:{torch.cuda.current_device()}; use torch.cuda.device(...)"
+            f"cuda:{current}; use torch.cuda.device(...)"
         )
-    return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(current)  # without building a torch.cuda.Stream

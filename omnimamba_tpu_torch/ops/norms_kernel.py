@@ -17,8 +17,16 @@ have no counterpart: a forward block takes one row; a backward grid is a
 fixed number of blocks, each walking its rows and keeping its share of dw in
 shared memory, and a second kernel sums those shares in block order (the TPU
 grid is sequential and accumulates dw in one output block). No atomics: a
-backward gives the same bits on every run. At one-token decode (a few dozen
-rows) the launch, not the bytes, is the cost.
+backward gives the same bits on every run.
+
+At decode's few rows (bf16, width 1024 E with E <= 4, at most 256 rows)
+both forwards take one kernel of their own, ``norm_rows_kernel``: a thread
+for every four elements of a row, the row kept in registers, launched as a
+programmatic dependent of the kernel ahead of it so that its launch and a
+prefetch of its weight into L2 overlap that kernel's end. It reads every
+input only after that kernel has ended, so that kernel may be the one that
+wrote any of them. Its sums and products are the other kernels', so out and y
+have the same bits.
 
 The gated backward's bf16 rows of width 1024 J (J <= 4, starts on 16 bytes:
 every call of the training path) take a kernel of their own: y and z kept
@@ -81,8 +89,8 @@ def _add_norm_forward(x, residual, weight, eps):
         if residual.dtype != torch.float32 or residual.shape != x.shape or residual.device != x.device:
             raise ValueError("residual must be float32 with x's shape and device")
         res2, res_rs = kb.as_rows(residual, 1)
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    y = torch.empty_like(x, dtype=torch.float32, memory_format=torch.contiguous_format)
     rows = x.numel() // d if d else 0
     if rows:
         ptrs = [x2, w, out, y] + ([res2] if res2 is not None else [])
@@ -186,7 +194,7 @@ def _gated_norm_forward(y, z, weight, eps):
     d = y.shape[-1]
     (y2, y_rs), (z2, z_rs) = kb.as_rows(y, 1), kb.as_rows(z, 1)
     w = _check_weight(weight, d, y.device)
-    out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    out = torch.empty_like(y, memory_format=torch.contiguous_format)
     rows = y.numel() // d if d else 0
     if rows:
         err = kb.load_kernels().omt_gated_rms_norm(

@@ -265,16 +265,14 @@ def test_step_refuses_int8_state():
     assert sk is t["state"] and torch.equal(sk["q"], s8["q"]) and torch.equal(yk, y8)
 
 
-@pytest.mark.parametrize("with_res", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_add_norm_kernel_plain_vs_jax(with_res, dtype):
+def _check_add_norm(shape, with_res, dtype, seed):
     """Plain version of the add+RMSNorm kernel against ``add_norm`` and the
     Pallas forward in interpret mode; tolerances of tests/test_norms_pallas.py
     (y 1e-6; out 1e-5 in fp32, 2e-2 in bf16)."""
-    rng = np.random.default_rng(0)
-    B, L, d = 2, 13, 256
-    xn = np.asarray(jnp.asarray(rng.standard_normal((B, L, d)), jnp.dtype(dtype)).astype(jnp.float32))
-    rn = rng.standard_normal((B, L, d)).astype(np.float32) if with_res else None
+    rng = np.random.default_rng(seed)
+    d = shape[-1]
+    xn = np.asarray(jnp.asarray(rng.standard_normal(shape), jnp.dtype(dtype)).astype(jnp.float32))
+    rn = rng.standard_normal(shape).astype(np.float32) if with_res else None
     wn = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
     xj = jnp.asarray(xn, jnp.dtype(dtype))
     rj = None if rn is None else jnp.asarray(rn)
@@ -294,21 +292,56 @@ def test_add_norm_kernel_plain_vs_jax(with_res, dtype):
         close(out_t, np.asarray(out_j.astype(jnp.float32)), tol)
 
 
+@pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gated_norm_kernel_plain_vs_jax(dtype):
-    rng = np.random.default_rng(1)
-    shape = (2, 13, 256)
+def test_add_norm_kernel_plain_vs_jax(with_res, dtype):
+    _check_add_norm((2, 13, 256), with_res, dtype, 0)
+
+
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("d", [1024, 2048])
+@pytest.mark.parametrize("rows", [1, 3, 48])
+def test_add_norm_kernel_decode_rows_plain_vs_jax(rows, d, with_res):
+    """The rows the decode-rows kernel takes on the card (bf16, d = 1024 E, at
+    most 256 of them), as the layer loop gives them: (rows, d)."""
+    _check_add_norm((rows, d), with_res, "bfloat16", 100 + rows + d)
+
+
+def _check_gated_norm(shape, dtype, seed, beside=0):
+    """Plain version of the gated RMSNorm kernel against ``gated_rms_norm`` and
+    the Pallas forward in interpret mode (out 1e-5 in fp32, 2e-2 in bf16). With
+    ``beside``, z is the first d columns of a matrix ``beside`` columns wider,
+    as the mixer passes the in_proj output's slice."""
+    rng = np.random.default_rng(seed)
+    d = shape[-1]
     cast = lambda a: np.asarray(jnp.asarray(a, jnp.dtype(dtype)).astype(jnp.float32))  # noqa: E731
-    yn, zn = cast(rng.standard_normal(shape)), cast(rng.standard_normal(shape))
-    wn = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    yn = cast(rng.standard_normal(shape))
+    zwide = cast(rng.standard_normal((*shape[:-1], d + beside)))
+    zn = zwide[..., :d]
+    wn = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
     t_dt = torch.float32 if dtype == "float32" else torch.bfloat16
-    out_t = fused_gated_rms_norm(tt(yn, t_dt), tt(zn, t_dt), tt(wn), 1e-5)
+    z_t = tt(zwide, t_dt)[..., :d]
+    assert z_t.stride(-2) == d + beside
+    out_t = fused_gated_rms_norm(tt(yn, t_dt), z_t, tt(wn), 1e-5)
     assert torch.equal(out_t, tnorms.gated_rms_norm(tt(yn, t_dt), tt(zn, t_dt), tt(wn), 1e-5))
     yj, zj = jnp.asarray(yn, jnp.dtype(dtype)), jnp.asarray(zn, jnp.dtype(dtype))
     tol = 1e-5 if dtype == "float32" else 2e-2
     for out_j in (jnorms.gated_rms_norm(yj, zj, jnp.asarray(wn), 1e-5),
                   j_fused_gated(yj, zj, jnp.asarray(wn), 1e-5, True)):
         close(out_t, np.asarray(out_j.astype(jnp.float32)), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_norm_kernel_plain_vs_jax(dtype):
+    _check_gated_norm((2, 13, 256), dtype, 1)
+
+
+@pytest.mark.parametrize("d", [1024, 4096])
+@pytest.mark.parametrize("rows", [1, 3, 48])
+def test_gated_norm_kernel_decode_rows_plain_vs_jax(rows, d):
+    """The rows the decode-rows kernel takes on the card (bf16, d = 1024 E), z
+    a column slice of the in_proj output (2 d + 2 N + H wide at the 1.3B)."""
+    _check_gated_norm((rows, d), "bfloat16", 200 + rows + d, beside=d + 2 * 128 + 64)
 
 
 def test_rms_norm():

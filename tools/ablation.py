@@ -3,6 +3,7 @@ work taken out, each build timed on the shapes of its main path.
 
     python3 tools/ablation.py [k5] [k7-decode] [k7-prefill] [k4-in-proj] [k4-in-proj-int8]
                               [k4-ssm] [k4-prenorm] [k4-out-proj] [k4-out-proj-int8] [k6b] [k2-q8]
+                              [k3-decode]
 
 needs one NVIDIA GPU and nvcc. For each target named (all if none is), it
 builds the target's source once for each entry of its ``builds``, all builds
@@ -81,6 +82,18 @@ target's measurement macro set to the entry's value, and times each build:
   against the parent's for every fp32 dividend up to 128 times each of 256
   divisors in its fast range (and four outside it), asserting no
   disagreement in the range.
+- ``k3-decode`` (``norms.cu``, ``OMT_K3_SKIP``): K3a (d = 2048, fp32 residual)
+  and K3b (d = 4096, z a column slice) through ``fused_add_rms_norm`` and
+  ``fused_gated_rms_norm`` at decode's 48 rows of bf16 with bf16 weights, each
+  launch on the next of 48 inputs; each time the median of three calls of 96
+  launches back to back and of three medians of 96 single launches
+  (``chip_smoke.time_alone_ms``), beside the bytes at the card's memory rate;
+  the shipped build is read again after the others; then build 64 (no cutoff
+  of rows) against build 16 (the parent kernels for every shape) at 256 to
+  2,048 rows, each launch on the next of 48 inputs, build 64 read before and
+  after build 16, each reading timed both ways. Builds 2, 4, 16 and 64 keep
+  the bits: their out and y, and the shipped build's, must equal the
+  library's, which is asserted.
 
 Of every ``k4-*`` build the phase is also timed one launch at a time, with
 nothing beside it (``phase_one_launch_ms``: ``chip_smoke.time_alone_ms``, the
@@ -369,6 +382,62 @@ def run_k2_q8(libs: dict, builds: dict, rows: dict) -> None:
     emit(rows, "division", q8_division_check(gen))
 
 
+def run_k3_decode(libs: dict, builds: dict, rows: dict) -> None:
+    import chip_smoke as cs
+    from omnimamba_tpu_torch.ops import norms_kernel as nk
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for kind, d, variant in (("add", 2048, "residual"), ("gated", 4096, "z_slice")):
+        fn = nk.fused_add_rms_norm if kind == "add" else nk.fused_gated_rms_norm
+        layers = [cs.norm_rows_inputs(gen, kind, cs.BATCH, d, _bf, variant)
+                  for _ in range(cs.STATE_LAYERS)]
+        turn = iter(range(1 << 30))
+
+        def call():
+            return fn(*layers[next(turn) % cs.STATE_LAYERS], 1e-5)
+
+        want = [cs._as_tuple(fn(*args, 1e-5)) for args in layers[:4]]  # the library's
+        for v in (0, 2, 4, 16, 64):  # the builds that keep the bits
+            with cs.parent_norms(libs[v]):
+                got = [cs._as_tuple(fn(*args, 1e-5)) for args in layers[:4]]
+            assert all(cs.bits_equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w)), (
+                f"build {v} differs for {kind}")
+        outs = want[0]
+        moved = cs.nbytes(layers[0][0], layers[0][2], *outs) + layers[0][1].numel() * (
+            2 if kind == "gated" else 4)
+        n = 2 * cs.STATE_LAYERS
+        rec = {"rows": cs.BATCH, "d": d, "variant": variant, "bytes_moved": moved,
+               "bound_ms": moved / cs.HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "bits_equal_to_the_library": [0, 2, 4, 16, 64], "ms": {}, "ms_alone": {}}
+        for v, build in builds.items():
+            with cs.parent_norms(libs[v]):
+                rec["ms"][build] = median_ms(call, 3, n)
+                rec["ms_alone"][build] = statistics.median(cs.time_alone_ms(call, n) for _ in range(3))
+        with cs.parent_norms(libs[0]):  # the spread between readings of one build
+            rec["ms"]["as shipped, again"] = median_ms(call, 3, n)
+        del layers
+        emit(rows, "K3a" if kind == "add" else "K3b", rec)
+
+        # where the decode-rows kernel stops beating the parent: build 64 (no
+        # cutoff) against build 16 (the parent) from 256 rows up
+        rec = {"d": d, "variant": variant, "ms": {}, "ms_alone": {}}
+        for n_rows in (256, 384, 512, 640, 768, 1024, 2048):
+            layers = [cs.norm_rows_inputs(gen, kind, n_rows, d, _bf, variant)
+                      for _ in range(cs.STATE_LAYERS)]
+
+            def call_rows():
+                return fn(*layers[next(turn) % cs.STATE_LAYERS], 1e-5)
+
+            rec["ms"][n_rows], rec["ms_alone"][n_rows] = {}, {}
+            for v in (64, 16, 64):
+                with cs.parent_norms(libs[v]):
+                    rec["ms"][n_rows].setdefault(builds[v], []).append(median_ms(call_rows, 3, n))
+                    rec["ms_alone"][n_rows].setdefault(builds[v], []).append(
+                        statistics.median(cs.time_alone_ms(call_rows, n) for _ in range(3)))
+            del layers
+        emit(rows, f"{'K3a' if kind == 'add' else 'K3b'} rows", rec)
+
+
 def q8_division_check(gen) -> dict:
     """``tools/q8_div_check.cu``: the tile kernel's division and rounding
     against the parent's ``__float2int_rn(a / b)`` for every fp32 a with
@@ -524,6 +593,10 @@ TARGETS = {
              128: "sigmoid again in the second pass", 256: "no L2 prefetch of g",
              1024: "the parent's dw sum", 32: "the parent kernel for every shape"},
             run_k6b),
+    "k3-decode": ("norms.cu", ("omt_add_rms_norm", "omt_gated_rms_norm"), "OMT_K3_SKIP",
+                  {0: "as shipped", 1: "launch only", 2: "no weight prefetch",
+                   4: "ordinary launch", 64: "no row cutoff", 16: "the parent kernel"},
+                  run_k3_decode),
     "k2-q8": ("ssd_step.cu", "omt_ssd_step_q8", "OMT_K2_Q8_SKIP",
               {0: "as shipped", 1: "no state loads", 2: "no state stores",
                4: "no requantize arithmetic", 8: "the conversions through I2F / F2I / `/`",
@@ -579,10 +652,13 @@ def main() -> int:
     for t in targets:
         source, entry, macro, builds, _ = TARGETS[t]
         for v in builds:
-            fn = getattr(built[source, macro, v], entry)
-            fn.argtypes = getattr(shipped, entry).argtypes
-            fn.restype = getattr(shipped, entry).restype
-            libs[t][v] = fn
+            fns = {}
+            for e in entry if isinstance(entry, tuple) else (entry,):
+                fns[e] = getattr(built[source, macro, v], e)
+                fns[e].argtypes = getattr(shipped, e).argtypes
+                fns[e].restype = getattr(shipped, e).restype
+            # a target of one entry gets its function; one of several, them by name
+            libs[t][v] = fns if isinstance(entry, tuple) else fns[entry]
 
     rows = {}
     for t in targets:

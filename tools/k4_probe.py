@@ -97,8 +97,8 @@ def profile(step, steps: int = 3) -> dict:
             "start_after_ahead_end_us": {k: sum(v) / len(v) for k, v in leads.items() if v}}
 
 
-def k4_sass(library: Path) -> dict:
-    """Demangled name -> SASS of each of K4's kernels (names holding `k4_`) in
+def k4_sass(library: Path, match: str = "k4_") -> dict:
+    """Demangled name -> SASS of each of K4's kernels (names holding `match`) in
     `library`: the instructions alone, without addresses or encodings, with
     each branch label and each numbered internal subroutine (the slow paths
     of division and the like, numbered across the library) renamed by its
@@ -113,7 +113,7 @@ def k4_sass(library: Path) -> dict:
     for ln in dump.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-            kernels[name] = [] if "k4_" in name else None
+            kernels[name] = [] if match in name else None
             continue
         instr = re.match(r"\s*/\*[0-9a-f]+\*/(.*?);", ln)  # an instruction line: its address
         if name and kernels[name] is not None and instr:
