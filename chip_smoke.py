@@ -10,6 +10,14 @@ paths at the full 1.3B width and depth with random weights made from a seed:
 - greedy text-to-image generation at batch 48 through both decode paths (the
   whole-model decode kernel and the layer-by-layer step), then a kernel run
   of the decode engine against a plain-version run end to end;
+- image understanding (MMU) at batch 8: the DINOv2-L/14 and SigLIP so400m/14
+  towers at 384 px and the projector on synthetic images, then greedy
+  answers of 32 tokens through both decode paths in bf16 (the logit gap of
+  the two paths on one stream held to twice the same gap on the
+  text-to-image path) and in fp32 (their streams must be equal), and a stop
+  forced by eos; K1, K3a, K3b and
+  K4's mmu LoRA branch are held against their plain versions at this
+  path's shapes first;
 - int8 serving: the same generation on `quantize_decode_params` of the bf16
   weights through both paths (the layer-by-layer one with the scaled-int8
   state), the continuous-batching slot engine on 64 requests, and
@@ -28,7 +36,8 @@ exits with code 2 and prints no result.
 Lines on standard output, one JSON object each unless noted:
   the card as `nvidia-smi --query-gpu=name,power.limit` gives it (plain text),
   {"card": ...} {"build": ...} {"kernel_check": ...}* {"qmatmul_m_sweep": ...} {"main_path": ...}
-  {"decode_profile": ...} {"times": ...} {"fidelity": ...} {"int8_path": ...} {"slot_engine": ...}
+  {"decode_profile": ...} {"times": ...} {"mmu_path": ...} {"mmu_times": ...}
+  {"mmu_decode_profile": ...} {"fidelity": ...} {"int8_path": ...} {"slot_engine": ...}
   {"speculative": ...} {"plain_vs_kernel": ...}*
   {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
   {"remat_threshold": ...} {"kernels": [...]} and, last,
@@ -2600,6 +2609,458 @@ def main_path(results, card):
     return params, model, text_ids, tokens_by["fused"]
 
 
+# ---------------------------------------------------------------------------
+# the understanding (MMU) path: the 1.3B backbone with both 384-px towers
+# ---------------------------------------------------------------------------
+MMU_BATCH = 8  # images a batch
+MMU_WORDS = 26  # question words; with "USER:" and "ASSISTANT:" 28 ids after the 4 specials
+MMU_NEW = 32  # greedy tokens of each answer
+MMU_IMAGE = (480, 640)  # the synthetic images, resized to 384 x 384 on the card
+MMU_PATCHES = 729  # 27 x 27 patches of 14 px at 384 px
+MMU_PROMPT = 4 + MMU_WORDS + 2 + MMU_PATCHES  # L0 = 761: 47 chunks of 16 and a ragged 9
+MMU_EOS = 0  # <|endoftext|>
+MMU_STOP = 5  # the step at which a replayed stream is made to give eos in every row
+# bf16 towers and projector against the same weights with fp32 pixels (the
+# towers then run in fp32): 24 + 27 blocks and the projector, each rounding
+# its products and residual adds to bf16 (measured: 1.5% of the largest fp32
+# feature at worst). Each feature is held to 2^-5 of the largest fp32 feature
+# and the mean error to 2^-7 of it.
+MMU_FEAT_TOL_REL, MMU_FEAT_MEAN_TOL_REL = 2.0 ** -5, 2.0 ** -7
+# In bf16 the fused and the layer-by-layer decode round at other points, so on
+# one replayed stream their logits part by a share of each step's largest
+# logit; the text-to-image path of the same weights, which shares all but the
+# task's LoRA factors, its positions and its head, parts as far (measured with
+# the LoRA B factors moved off zero: 2.8% and 3.2% at worst). The
+# understanding path's gap is held to twice the
+# text-to-image one: a fault of its own branch that showed only in bf16 would
+# widen its gap beyond the rounding the two paths share.
+MMU_LOGIT_GAP_OVER_T2I = 2.0
+
+
+def check_mmu_kernels(gen, results):
+    """The kernels of the MMU path at its shapes against their plain versions:
+    K1 and the prefill's K3a / K3b on the prefill of B=8 rows of L0 = 761
+    (4 + 28 text ids and 729 image positions; a ragged last chunk), and K4's
+    mmu LoRA branch through 4 full-width layers in fp32."""
+    from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_step, fused_decode_step_plain, prepare_fused_decode)
+    from omnimamba_tpu_torch.ops.norms import add_norm_plain, gated_rms_norm_plain
+    from omnimamba_tpu_torch.ops.norms_kernel import fused_add_rms_norm, fused_gated_rms_norm
+    from omnimamba_tpu_torch.ops.ssd_kernel import PLAIN_CHUNK, ssd_fused, ssd_fused_plain
+
+    bf, f32 = torch.bfloat16, torch.float32
+    B, L = MMU_BATCH, MMU_PROMPT
+
+    def bound(moved, ops, dtype):
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS[dtype] * 1e3
+        return {"bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes_moved": moved}
+
+    # K1: one layer of the prefill, x | B | C slices of the conv output, with D
+    shape = (B, L, 64, 64, 1, 128)
+    x, dt, A, Bm, Cm, D = ssd_inputs(gen, *shape, bf)
+    y, s = ssd_fused(x, dt, A, Bm, Cm, D)
+    torch.cuda.synchronize()
+    y_ref, s_ref = ssd_fused_plain(x, dt, A, Bm, Cm, D)
+    ey, ry = errors(y, y_ref, BWD_BF16_ATOL_REL, RTOL[bf])
+    es, rs = errors(s, s_ref, BWD_BF16_ATOL_REL, RTOL[bf])
+    rec = {"kernel": "ssd_scan", "case": "mmu_prefill", "shape": shape, "dtype": str(bf),
+           "last_chunk_rows": L % PLAIN_CHUNK, "y_abs_err": ey, "y_err_of_allowed": ry,
+           "state_abs_err": es, "state_err_of_allowed": rs, "rtol": RTOL[bf],
+           "atol_rel": BWD_BF16_ATOL_REL,
+           "ms": time_ms(lambda: ssd_fused(x, dt, A, Bm, Cm, D), 20),
+           "plain_ms": time_ms(lambda: ssd_fused_plain(x, dt, A, Bm, Cm, D), 3, 1),
+           "library_ms": None,
+           **bound(nbytes(x, dt, A, Bm, Cm, D, y, s), scan_flops(B, L, 64, 64, 128, PLAIN_CHUNK), bf)}
+    emit({"kernel_check": rec})
+    assert ry <= 1.0 and rs <= 1.0, rec
+    results["ssd_scan"]["mmu"] = {k: rec[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bytes_moved", "y_abs_err", "state_abs_err")}
+    del x, dt, A, Bm, Cm, D, y, s, y_ref, s_ref
+
+    # K3a: the pre-norm of every prefill layer, 6,088 rows of 2,048, fp32 residual
+    xa = rand(gen, (B, L, 2048), bf)
+    res = rand(gen, (B, L, 2048), f32)
+    w = (1.0 + 0.1 * rand(gen, (2048,), f32)).to(bf)
+    out, ysum = fused_add_rms_norm(xa, res, w, 1e-5)
+    torch.cuda.synchronize()
+    out_ref, y_ref = add_norm_plain(xa, res, w, 1e-5)
+    eo, ro = errors(out, out_ref)
+    summed = y_ref.to(bf)
+    rec = {"kernel": "add_rms_norm", "case": "mmu_prefill", "shape": (B, L, 2048), "dtype": str(bf),
+           "out_abs_err": eo, "out_err_of_allowed": ro, "y_abs_err": errors(ysum, y_ref)[0],
+           "rtol": RTOL[bf], "atol_rel": ATOL_REL,
+           "ms": time_ms(lambda: fused_add_rms_norm(xa, res, w, 1e-5), 50),
+           "plain_ms": time_ms(lambda: add_norm_plain(xa, res, w, 1e-5), 10),
+           # F.rms_norm computes the norm half only (no residual add, no fp32 stream out)
+           "library_ms": time_ms(lambda: F.rms_norm(summed, (2048,), w, 1e-5), 50)
+           if hasattr(F, "rms_norm") else None,
+           "kernel_name": norm_kernel_names(lambda: fused_add_rms_norm(xa, res, w, 1e-5)),
+           **bound(nbytes(xa, res, w, out, ysum), 6 * B * L * 2048, f32)}
+    emit({"kernel_check": rec})
+    assert ro <= 1.0 and rec["y_abs_err"] == 0.0, rec
+    results["add_rms_norm"]["mmu"] = {k: rec[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bytes_moved", "library_ms", "kernel_name",
+        "out_abs_err")}
+    del xa, res, out, ysum, out_ref, y_ref, summed
+
+    # K3b: the gated norm, 6,088 rows of 4,096, z the first columns of the in_proj output
+    yv = rand(gen, (B, L, 4096), bf)
+    z = sliced(gen, (B, L), (4096, 4096 + 256 + 64), bf)[0]
+    wg = (1.0 + 0.1 * rand(gen, (4096,), f32)).to(bf)
+    out = fused_gated_rms_norm(yv, z, wg, 1e-5)
+    torch.cuda.synchronize()
+    eo, ro = errors(out, gated_rms_norm_plain(yv, z, wg, 1e-5))
+    rec = {"kernel": "gated_rms_norm", "case": "mmu_prefill", "shape": (B, L, 4096),
+           "dtype": str(bf), "z": "slice of a wider matrix", "out_abs_err": eo,
+           "out_err_of_allowed": ro, "rtol": RTOL[bf], "atol_rel": ATOL_REL,
+           "ms": time_ms(lambda: fused_gated_rms_norm(yv, z, wg, 1e-5), 50),
+           "plain_ms": time_ms(lambda: gated_rms_norm_plain(yv, z, wg, 1e-5), 10),
+           "library_ms": None,
+           "kernel_name": norm_kernel_names(lambda: fused_gated_rms_norm(yv, z, wg, 1e-5)),
+           **bound(nbytes(yv, z, wg, out), 10 * B * L * 4096, f32)}
+    emit({"kernel_check": rec})
+    assert ro <= 1.0, rec
+    results["gated_rms_norm"]["mmu"] = {k: rec[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bytes_moved", "kernel_name", "out_abs_err")}
+    del yv, z, out
+
+    # K4: the mmu LoRA branch, 4 full-width layers, fp32 weights, activations and state
+    full, lora8 = Mamba2LayerConfig(), LoraConfig()
+    layers = fused_layers(gen, 4, full, lora8, f32)
+    cache0 = fused_state(gen, 4, B, full, f32, f32)
+    h, residual = rand(gen, (B, full.d_model), f32), rand(gen, (B, full.d_model), f32)
+    args = ("mmu", full, lora8, 1e-5)
+    ref_cache = cache0._replace(conv_state=cache0.conv_state.clone(),
+                                ssm_state=cache0.ssm_state.clone())
+    h_ref, res_ref, _ = fused_decode_step_plain(layers, h, residual, ref_cache, *args)
+    cache = cache0._replace(conv_state=cache0.conv_state.clone(), ssm_state=cache0.ssm_state.clone())
+    h_out, res_out, _ = fused_decode_step(layers, h, residual, cache, *args,
+                                          plan=prepare_fused_decode(layers, "mmu", full, lora8, B, f32))
+    torch.cuda.synchronize()
+    rec = {"kernel": "decode_fused", "case": "mmu_4_layers_fp32", "layers": 4, "batch": B,
+           "task": "mmu", "dtype": str(f32), "rtol": RTOL[f32], "atol_rel": ATOL_REL}
+    for key, (got, want) in {"h": (h_out, h_ref), "residual": (res_out, res_ref),
+                             "conv_window": (cache.conv_state, ref_cache.conv_state),
+                             "ssm_state": (cache.ssm_state, ref_cache.ssm_state)}.items():
+        rec[f"{key}_abs_err"], rec[f"{key}_err_of_allowed"] = errors(got, want)
+    emit({"kernel_check": rec})
+    assert all(v <= 1.0 for k, v in rec.items() if k.endswith("_err_of_allowed")), rec
+    results["decode_fused"]["mmu_4_layers_fp32"] = {
+        k: v for k, v in rec.items() if k.endswith("_abs_err")}
+
+
+def _mmu_questions(tokenizer, rng, sptids):
+    """MMU_BATCH questions of MMU_WORDS words in the phi1.5 conversation wrap,
+    as the understanding CLI builds them: (B, 4 + 28) ids."""
+    from omnimamba_tpu_torch.data.conversation import conv_templates
+
+    words = ("what", "is", "the", "color", "of", "cat", "dog", "sky", "in", "this", "image",
+             "how", "many", "people", "are", "there", "on", "left", "right", "side", "a", "red",
+             "car", "near", "tree", "behind")
+    rows = []
+    for _ in range(MMU_BATCH):
+        conv = conv_templates["phi1.5"].copy()
+        conv.append_message(conv.roles[0], " ".join(rng.choice(words, MMU_WORDS)) + "?")
+        conv.append_message(conv.roles[1], None)
+        ids = list(tokenizer(conv.get_prompt().strip())["input_ids"])
+        rows.append([sptids["<|mmu|>"], sptids["<|soi|>"], sptids["<|eoi|>"], sptids["<|sot|>"]]
+                    + ids)
+    return np.asarray(rows, np.int64)
+
+
+def _lora_moved(gen, mamba):
+    """`mamba` with every tensor shared but the LoRA B factors, which are zero
+    at init and here moved off it (as `fused_layers` does), so that each
+    task's LoRA branch counts in its logits."""
+    layers = []
+    for layer in mamba["layers"]:
+        lora = {k: rand(gen, v.shape, v.dtype, 0.02) if k.endswith("_B") else v
+                for k, v in layer["mixer"]["lora"].items()}
+        layers.append({**layer, "mixer": {**layer["mixer"], "lora": lora}})
+    return {**mamba, "layers": layers}
+
+
+def mmu_path(params, model, text_ids, t2i_tokens, results, card):
+    """Image understanding at full width and depth: the 1.3B backbone of the
+    main path with the DINOv2-L/14 (reg4) and SigLIP so400m/14 towers at
+    384 px and the fused GELU projector, random bf16 weights, B=8 synthetic
+    images, questions through `OfflineTokenizer` and `UniversalPrompting`'s
+    specials in the CLI's conversation wrap, greedy decoding of MMU_NEW tokens
+    with the eos id set, through `mmu_image_features` and `mmu_generate` with
+    decode_impl "fused" and "scan" (counters set to 0 before each and read
+    after). In bf16 the two paths round at other points (K4 inside its step,
+    the layer loop in the library's products), so their greedy streams part
+    where a top-2 margin is small. Both paths replay the fused stream, and
+    each step's largest logit gap between them, against the step's largest
+    logit, is held to MMU_LOGIT_GAP_OVER_T2I times the same gap on the
+    text-to-image path of the same weights (`text_ids`, `t2i_tokens`), with
+    the LoRA B factors moved off zero for both. The same generation in fp32,
+    where only the order of the sums differs, must give equal streams."""
+    from omnimamba_tpu_torch import OmniMambaModel, SampleParams, VisionConfig, VQConfig
+    from omnimamba_tpu_torch.data.prompting import UniversalPrompting
+    from omnimamba_tpu_torch.data.tokenizer import OfflineTokenizer
+    from omnimamba_tpu_torch.data.transforms import dinosiglip_transform
+    from omnimamba_tpu_torch.models.backbone import apply_head, caption_embed, embed_text
+    from omnimamba_tpu_torch.models.generation import generate
+    from omnimamba_tpu_torch.models.omnimamba import mmu_generate, mmu_image_features
+    from omnimamba_tpu_torch.models.projector import apply_projector, init_projector
+    from omnimamba_tpu_torch.models.vit import init_vit, vit_features
+
+    bf = torch.bfloat16
+    mamba = params["mamba"]
+    uni = UniversalPrompting(OfflineTokenizer())
+    vcfg = VisionConfig()
+    t2i_cfg = model.cfg
+    cfg = dataclasses.replace(model.cfg, vocab_size=len(uni.text_tokenizer))  # 50287 ids
+    model = OmniMambaModel(cfg=cfg, vq_cfg=VQConfig(), sptids=uni.sptids_dict, vision_cfg=vcfg)
+    assert cfg.padded_vocab_size == mamba["embedding"].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    t0 = time.time()
+    mparams = {"mamba": mamba,
+               "vision": {"dino": init_vit(gen, vcfg.dino, bf), "siglip": init_vit(gen, vcfg.siglip, bf)},
+               "projector": init_projector(gen, vcfg.embed_dim, cfg.d_model, model.projector_arch, bf)}
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_vision = sum(t.numel() for t in _leaves(mparams["vision"]))
+    n_proj = sum(t.numel() for t in _leaves(mparams["projector"]))
+    rng = np.random.default_rng(SEED + 2)
+    raw = torch.as_tensor(rng.integers(0, 256, (MMU_BATCH, *MMU_IMAGE, 3), dtype=np.uint8),
+                          device="cuda")
+    ids = torch.as_tensor(_mmu_questions(uni.text_tokenizer, rng, uni.sptids_dict), device="cuda")
+
+    # ---- the towers and the projector: bf16, and fp32 pixels as the reference ----
+    px32 = dinosiglip_transform(raw, vcfg)
+    px = {k: v.to(bf) for k, v in px32.items()}
+    feats = mmu_image_features(mparams, model, px)
+    feats32 = mmu_image_features(mparams, model, px32)
+    torch.cuda.synchronize()
+    scale = feats32.abs().max().item()
+    diff = (feats.float() - feats32).abs()
+    feat_check = {"shape": list(feats.shape), "dtype": str(feats.dtype), "finite": bool(
+        torch.isfinite(feats.float()).all()), "max_abs_err_vs_fp32": diff.max().item(),
+        "mean_abs_err_vs_fp32": diff.mean().item(), "fp32_max_abs": scale,
+        "tol_rel": MMU_FEAT_TOL_REL, "mean_tol_rel": MMU_FEAT_MEAN_TOL_REL}
+    del feats32, diff
+    dino_in, sig_in = px["dino"], px["siglip"]
+    sig_feats = vit_features(mparams["vision"]["siglip"], sig_in, vcfg.siglip)
+    cat = torch.cat([vit_features(mparams["vision"]["dino"], dino_in, vcfg.dino), sig_feats], -1)
+    del sig_feats
+    vision_ms = {
+        "transform_ms": time_ms(lambda: dinosiglip_transform(raw, vcfg), 3, 1),
+        "dino_ms": time_ms(lambda: vit_features(mparams["vision"]["dino"], dino_in, vcfg.dino), 3, 1),
+        "siglip_ms": time_ms(lambda: vit_features(mparams["vision"]["siglip"], sig_in, vcfg.siglip),
+                             3, 1),
+        "projector_ms": time_ms(lambda: apply_projector(mparams["projector"], cat), 5, 1),
+        "features_host_clock_ms": host_clock_ms(lambda: mmu_image_features(mparams, model, px), 3),
+    }
+    del cat
+    # where a tower's time goes, by kernel; and its attention core as the JAX
+    # code writes it (products on fp32 operands, fp32 softmax) beside the
+    # library's fused attention on the same bf16 q, k, v (a yardstick: it
+    # rounds elsewhere), at SigLIP's shape
+    for name in ("dino", "siglip"):
+        prof = profile_steps(lambda i, n=name: vit_features(
+            mparams["vision"][n], px[n], getattr(vcfg, n)), 2, top=6)
+        vision_ms[f"{name}_profile"] = {k: prof[k] for k in (
+            "device_busy_ms_per_step", "device_ms_per_step_by_kind", "top_kernels")}
+    heads, width = vcfg.siglip.num_heads, vcfg.siglip.width
+    q, k, v = (rand(gen, (MMU_BATCH, heads, MMU_PATCHES, width // heads), bf) for _ in range(3))
+
+    def written():
+        scores = q.float() @ k.float().transpose(-1, -2)
+        attn = torch.softmax(scores * (width // heads) ** -0.5, dim=-1).to(bf)
+        return (attn.float() @ v.float()).to(bf)
+
+    vision_ms["siglip_attention_core_ms"] = time_ms(written, 3, 1)
+    vision_ms["siglip_attention_core_sdpa_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v), 3, 1)
+    del q, k, v
+
+    # ---- generation through both decode paths ----
+    L0 = ids.shape[1] + MMU_PATCHES
+    assert L0 == MMU_PROMPT, (L0, MMU_PROMPT)
+    greedy = SampleParams(top_k=1)
+    wrappers = kernel_wrappers()
+
+    def run(path, eos=MMU_EOS):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = mmu_generate(mparams, model, ids, feats, max_length=L0 + MMU_NEW, sample=greedy,
+                           eos_token_id=eos, decode_impl=path)
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    def steps_run(n):
+        """Decode steps behind n generated tokens: the first token comes from
+        the prefill logits, and the eos watch reads a step's tokens once the
+        next step is queued, so a stop at n < MMU_NEW ran one step past it."""
+        return min(n, MMU_NEW - 1)
+
+    def expected(path, steps):
+        prefill = {"ssd_scan": cfg.n_layer, "add_rms_norm": cfg.n_layer,
+                   "gated_rms_norm": cfg.n_layer}
+        no_other = dict.fromkeys(BACKWARD_KERNELS + INT8_KERNELS, 0)
+        if path == "fused":
+            return dict(prefill, decode_fused=steps, ssd_step=0, **no_other)
+        return {"ssd_scan": cfg.n_layer, "ssd_step": cfg.n_layer * steps,
+                "add_rms_norm": cfg.n_layer * (steps + 1),
+                "gated_rms_norm": cfg.n_layer * (steps + 1), "decode_fused": 0, **no_other}
+
+    run("fused")  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    outs, launches, seconds = {}, {}, {}
+    for path in ("fused", "scan"):
+        for w in wrappers.values():
+            w.launches = 0
+        outs[path], seconds[path] = run(path)
+        launches[path] = {k: w.launches for k, w in wrappers.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    expect = {p: expected(p, steps_run(outs[p].num_generated)) for p in outs}
+    tok = {p: outs[p].sequences[:, L0:] for p in outs}
+    equal = bool(torch.equal(tok["fused"], tok["scan"]))
+    streams = {"bf16_equal": equal, "num_generated": {p: outs[p].num_generated for p in outs},
+               "distinct_tokens": int(torch.unique(tok["fused"]).numel()),
+               "in_range": bool(int(tok["fused"].min()) >= 0
+                                and int(tok["fused"].max()) < cfg.padded_vocab_size),
+               "image_span_ids_zero": bool(int(outs["fused"].sequences[:, 2:2 + MMU_PATCHES]
+                                               .abs().max()) == 0)}
+    # ---- where the bf16 streams part: the fused stream replayed through both
+    # paths; each step's largest logit gap between them against the step's
+    # largest logit, beside the same gap on the text-to-image path (its first
+    # MMU_BATCH rows and MMU_NEW steps); both with LoRA factors that count ----
+    spliced = outs["fused"].sequences
+    text = embed_text(mamba, ids, bf)
+    emb = torch.cat([text[:, :2], feats, text[:, 2:]], dim=1)
+    t2i_ids = torch.as_tensor(text_ids[:MMU_BATCH], device="cuda")
+    t2i_emb = caption_embed(mamba, embed_text(mamba, t2i_ids, bf)) + mamba["pos_embed"][:, :PROMPT]
+    replays = {"mmu": (cfg, spliced[:, :L0], emb, spliced),
+               "t2i": (t2i_cfg, t2i_ids, t2i_emb,
+                       torch.cat([t2i_ids, t2i_tokens[:MMU_BATCH, :MMU_NEW]], dim=1))}
+    logit_gap, lg = {}, {}
+    lmamba = _lora_moved(gen, mamba)
+    for task, (tcfg, pids, pemb, teacher) in replays.items():
+        lg[task] = {path: torch.stack(generate(
+            lmamba, tcfg, input_ids=pids, input_embeddings=pemb, task=task,
+            max_length=pids.shape[1] + MMU_NEW, sample=greedy, teacher_outputs=teacher,
+            decode_impl=path, return_logits=True).logits) for path in ("fused", "scan")}
+        gap = ((lg[task]["fused"] - lg[task]["scan"]).abs().amax(dim=(1, 2))
+               / lg[task]["fused"].abs().amax(dim=(1, 2)))  # (steps,)
+        logit_gap[task] = {"worst": gap.max().item(), "median": gap.median().item(),
+                           "by_step": gap.tolist()}
+    logit_gap.update(mmu_worst_over_t2i_worst=logit_gap["mmu"]["worst"] / logit_gap["t2i"]["worst"],
+                     tol_over_t2i=MMU_LOGIT_GAP_OVER_T2I, lora_b="0.02 * randn")
+    del lg, lmamba, replays, t2i_emb
+    # the scan path replaying the fused stream with the weights of the run:
+    # its argmax and top-2 margin at each step
+    scan_lg = torch.stack(generate(
+        mamba, cfg, input_ids=spliced[:, :L0], input_embeddings=emb, task="mmu",
+        max_length=L0 + MMU_NEW, sample=greedy, teacher_outputs=spliced, decode_impl="scan",
+        return_logits=True).logits)  # (steps, B, V)
+    top2 = torch.topk(scan_lg, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = scan_lg.argmax(-1) == tok["fused"].T[: scan_lg.shape[0]]
+    streams.update(scan_argmax_agrees_on_fused_stream_share=float(agree.float().mean()),
+                   min_top2_margin=margin.min().item(),
+                   margin_where_disagree=margin[~agree].tolist()[:8],
+                   bf16_logit_gap_fused_vs_scan=logit_gap)
+    streams["first_divergence_step_by_row"] = _first_divergence(tok["fused"], tok["scan"]).tolist()
+    del scan_lg, top2
+
+    # ---- the same generation in fp32 (weights, features, activations), where
+    # the two paths differ only in the order of their fp32 sums: equal streams ----
+    mamba32 = _cast(mamba, torch.float32)
+    text32 = embed_text(mamba32, ids, torch.float32)
+    feats32 = mmu_image_features(mparams, model, px32)
+    emb32 = torch.cat([text32[:, :2], feats32, text32[:, 2:]], dim=1)
+    fp32 = {}
+    for path in ("fused", "scan"):
+        fp32[path] = generate(mamba32, cfg, input_ids=spliced[:, :L0], input_embeddings=emb32,
+                              task="mmu", max_length=L0 + MMU_NEW, sample=greedy,
+                              eos_token_id=MMU_EOS, decode_impl=path).sequences[:, L0:]
+    fp32_equal = bool(torch.equal(fp32["fused"], fp32["scan"]))
+    streams.update(fp32_equal=fp32_equal, fp32_first_divergence_step_by_row=_first_divergence(
+        fp32["fused"], fp32["scan"]).tolist(),
+        fp32_equal_share_with_bf16_fused=float((fp32["fused"] == tok["fused"]).float().mean()))
+    del mamba32, text32, feats32, emb32
+
+    # ---- prefill / decode split from per-token host stamps ----
+    split = {}
+    for path in ("fused", "scan"):
+        stamps = []
+        torch.cuda.synchronize()
+        t_start = time.time()
+        generate(mamba, cfg, input_ids=spliced[:, :L0], input_embeddings=emb, task="mmu",
+                 max_length=L0 + MMU_NEW, sample=greedy, eos_token_id=MMU_EOS, decode_impl=path,
+                 token_callback=lambda _tok: stamps.append(time.time()))
+        step_ms = np.diff(np.asarray(stamps)) * 1e3
+        split[path] = {"prefill_and_first_token_ms": (stamps[0] - t_start) * 1e3,
+                       "decode_step_ms_median": float(np.median(step_ms)),
+                       "decode_step_ms_p90": float(np.percentile(step_ms, 90)),
+                       "tokens_per_s": MMU_BATCH * outs[path].num_generated / seconds[path],
+                       "generation_s": seconds[path]}
+    # ---- P3, the eos watch: a replayed stream made to give eos in every row
+    # at step MMU_STOP stops there, one decode step past it; and the fused
+    # generation with the eos id set against none (no watch), in turns ----
+    forced = spliced.clone()
+    forced[:, L0 + MMU_STOP - 1] = MMU_EOS
+    stop_at = int((forced[:, L0:] == MMU_EOS).all(0).int().argmax()) + 1
+    for w in wrappers.values():
+        w.launches = 0
+    stopped = generate(mamba, cfg, input_ids=spliced[:, :L0], input_embeddings=emb, task="mmu",
+                       max_length=L0 + MMU_NEW, sample=greedy, eos_token_id=MMU_EOS,
+                       teacher_outputs=forced, decode_impl="fused")
+    eos_watch = {"forced_stop_step": stop_at, "num_generated": stopped.num_generated,
+                 "decode_fused_launches": wrappers["decode_fused"].launches,
+                 "decode_fused_launches_expected": steps_run(stop_at),
+                 "zeros_after_stop": bool(int(stopped.sequences[:, L0 + stop_at:].abs().max()) == 0)}
+    by_eos = {"set": [], "none": []}
+    for which in ("set", "none", "none", "set") * 2:
+        by_eos[which].append(run("fused", MMU_EOS if which == "set" else None)[1])
+    eos_watch.update(generation_s_eos_set=by_eos["set"], generation_s_no_eos=by_eos["none"])
+    # B=8 < 16: cache_dtype="auto" keeps the SSM state in fp32
+    profiles = {path: profile_decode_steps(mamba, cfg, ids, emb, path, task="mmu",
+                                           state_dtype=torch.float32)
+                for path in ("fused", "scan")}
+
+    # ---- the head as it is: the whole bf16 table widened to fp32 every call ----
+    table = mamba["embedding"]
+    h8 = rand(gen, (MMU_BATCH, cfg.d_model), bf)
+    head = {"apply_head_ms": time_ms(lambda: apply_head(mamba, h8, "mmu"), 10),
+            "widen_table_ms": time_ms(lambda: table.float(), 10),
+            "table_fp32_copy_bytes": table.numel() * 4,
+            "bytes_a_call": table.numel() * (2 + 4 + 4) + h8.numel() * (2 + 4) + MMU_BATCH * table.shape[0] * 4,
+            "bf16_product_fp32_out_ms": time_ms(
+                lambda: torch.matmul(h8, table.T).float(), 10),
+            "note": "apply_head reads the bf16 table, writes and reads its fp32 copy; the last "
+                    "yardstick is a bf16 product (bf16 out, then widened), not the same rounding"}
+
+    report = {"model": "OmniMamba-1.3B + dinosiglip-vit-so-384px", "batch": MMU_BATCH,
+              "image": list(MMU_IMAGE), "prompt_ids": int(ids.shape[1]), "prefill_len": L0,
+              "new_tokens": MMU_NEW, "eos_watch": eos_watch,
+              "vision_params": n_vision, "projector_params": n_proj, "init_s": init_s,
+              "features": feat_check, "streams": streams,
+              "launches": launches, "launches_expected": expect, "peak_memory_gib": peak_gib}
+    emit({"mmu_path": report})
+    emit({"mmu_times": {"card": card, **vision_ms, **split, "head": head,
+                        "note": "device ms from CUDA events; generation and step times on the "
+                                "host clock, each ending in a device synchronize"}})
+    emit({"mmu_decode_profile": dict(profiles, card=card)})
+    assert feat_check["finite"] and feat_check["max_abs_err_vs_fp32"] <= MMU_FEAT_TOL_REL * scale \
+        and feat_check["mean_abs_err_vs_fp32"] <= MMU_FEAT_MEAN_TOL_REL * scale, feat_check
+    assert streams["in_range"] and streams["image_span_ids_zero"], streams
+    for path in ("fused", "scan"):
+        assert launches[path] == expect[path], (path, launches[path], expect[path])
+    assert eos_watch["num_generated"] == stop_at and eos_watch["zeros_after_stop"], eos_watch
+    assert eos_watch["decode_fused_launches"] == steps_run(stop_at), eos_watch
+    assert logit_gap["mmu"]["worst"] <= MMU_LOGIT_GAP_OVER_T2I * logit_gap["t2i"]["worst"], logit_gap
+    assert fp32_equal, streams
+    for name in wrappers:
+        results[name]["launches_mmu_path"] = {p: launches[p][name] for p in launches}
+
+
 def fidelity_phase(params, model, text_ids, card):
     """1.3B greedy text-to-image at B=48 with the weights of the main path:
     the bf16 stream (K1 rounding its product operands where the JAX kernel
@@ -2662,34 +3123,35 @@ def fidelity_phase(params, model, text_ids, card):
 
 
 def profile_decode_steps(mamba, cfg, ids, emb, decode_impl: str, steps: int = 4, int8_state=False,
-                         named=()):
+                         named=(), task="t2i", state_dtype=torch.bfloat16):
     """Device-busy share of the decode step of one path, from a profiler trace
     of a few steady steps: wall time per step against the summed kernel time
     (and that of the kernels named in `named`, see `profile_steps`). The SSM
-    state is bf16, or scaled int8 with `int8_state`."""
+    state is `state_dtype`, or scaled int8 with `int8_state`."""
     from omnimamba_tpu_torch.models.backbone import (
         apply_head, backbone_forward, backbone_step, backbone_step_fused)
     from omnimamba_tpu_torch.ops.decode_fused import prepare_fused_decode
     from omnimamba_tpu_torch.ops.quant import quantize_ssm_state_by_layer
 
-    _, cache = backbone_forward(mamba, emb, "t2i", cfg, return_cache=True)
+    _, cache = backbone_forward(mamba, emb, task, cfg, return_cache=True)
     cache = cache._replace(ssm_state=quantize_ssm_state_by_layer(cache.ssm_state) if int8_state
-                           else cache.ssm_state.to(torch.bfloat16))
-    tok = ids[:, 0] % cfg.vqvae_vocab_size
+                           else cache.ssm_state.to(state_dtype))
+    tok = ids[:, 0] % (cfg.vqvae_vocab_size if task == "t2i" else cfg.vocab_size)
     if decode_impl == "fused":
-        plan = prepare_fused_decode(mamba["layers"], "t2i", cfg.mixer, cfg.lora, BATCH, emb.dtype)
+        plan = prepare_fused_decode(mamba["layers"], task, cfg.mixer, cfg.lora, ids.shape[0],
+                                    emb.dtype)
 
         def backbone(pos):
-            return backbone_step_fused(mamba, tok, pos, cache, "t2i", cfg, dtype=emb.dtype, plan=plan)
+            return backbone_step_fused(mamba, tok, pos, cache, task, cfg, dtype=emb.dtype, plan=plan)
     else:
         def backbone(pos):
-            return backbone_step(mamba, tok, pos, cache, "t2i", cfg, dtype=emb.dtype)
+            return backbone_step(mamba, tok, pos, cache, task, cfg, dtype=emb.dtype)
 
     def step(pos):
         hidden, _ = backbone(pos)
-        return apply_head(mamba, hidden, "t2i").argmax(-1)
+        return apply_head(mamba, hidden, task).argmax(-1)
 
-    return profile_steps(lambda i: step(PROMPT + i), steps, named=named)
+    return profile_steps(lambda i: step(emb.shape[1] + i), steps, named=named)
 
 
 # K4's four kernels a layer (and the one after the last layer), by name
@@ -3690,10 +4152,13 @@ def main() -> int:
         return out
 
     for check in (check_ssd_scan, check_ssd_scan_bwd, check_ssd_step, check_norms, check_norms_bwd,
-                  check_decode_fused, check_qmatmul, check_decode_fused_int8, check_ssd_step_int8):
+                  check_decode_fused, check_qmatmul, check_decode_fused_int8, check_ssd_step_int8,
+                  check_mmu_kernels):
         phase(check, gen, results)
 
     params, model, text_ids, bf16_tokens = phase(main_path, results, card)
+    phase(mmu_path, params, model, text_ids, bf16_tokens, results, card)
+    torch.cuda.empty_cache()
     phase(fidelity_phase, params, model, text_ids, card)
     qmamba = phase(int8_path, params, model, text_ids, bf16_tokens, results, card)
     phase(slot_engine_phase, qmamba, model.cfg, card)
@@ -3724,7 +4189,8 @@ def main() -> int:
             "in_proj_phase", "ssm_phase", "out_proj_phase", "int8_in_proj_phase",
             "int8_out_proj_phase", "k4_phases",
             "layout",
-            "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep")
+            "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep",
+            "mmu", "mmu_4_layers_fp32", "launches_mmu_path")
                     if k in r})
         kernels.append(row)
     emit({"card": card, "seconds_total": time.time() - t_all, "seconds_by_phase": phase_s})

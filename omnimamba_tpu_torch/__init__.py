@@ -9,14 +9,19 @@ package so a reader finds the counterpart:
   ops/     SSD scan (oracle / chunked / kernels, forward and backward),
            decode-step kernels, causal conv, norms and their kernels (forward
            and backward), int8 weight quantization and the int8 matmul
-           kernel, samplers, the kernel build
+           kernel, samplers, the kernel build, the image resize
   models/  Mamba-2 mixer, blocks, backbone + dual heads, decode engine,
-           speculative decoding, VQ-16 decode side, the text-to-image
-           composition and the losses
+           speculative decoding, VQ-16 decode side, the DINOv2 and SigLIP
+           towers, the vision projector, the text-to-image and
+           understanding compositions and the losses
+  data/    tokenizer (offline and byte-level BPE), UniversalPrompting,
+           conversation templates, prompt builders, image transforms
   serve/   the continuous-batching slot engine
   train/   schedule, stage freezing, AdamW; the training step and loop
   utils/   parameter bridge from and to the JAX pytree, checkpoints, device
            resolution
+  factory  the model bundle, parameters and prompting from a TrainConfig
+  scripts/ the understanding and text-to-image command lines
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; a kernel wrapper uses its plain tensor version only for a
@@ -27,18 +32,25 @@ __version__ = "0.1.0"
 
 from omnimamba_tpu_torch.config import (  # noqa: F401
     MODEL_REGISTRY,
+    VISION_BACKBONES,
     VQ_MODELS,
     LoraConfig,
     Mamba2LayerConfig,
     MambaConfig,
     TrainConfig,
+    ViTConfig,
+    VisionConfig,
     VQConfig,
 )
+from omnimamba_tpu_torch.factory import build_model  # noqa: F401
 from omnimamba_tpu_torch.models.generation import GenerateOutput, generate  # noqa: F401
 from omnimamba_tpu_torch.models.omnimamba import (  # noqa: F401
     OmniMambaModel,
     init_omnimamba,
     lm_loss,
+    mmu_embed_sequence,
+    mmu_generate,
+    mmu_image_features,
     t2i_generate,
     t2i_loss,
 )

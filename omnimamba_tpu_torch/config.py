@@ -9,9 +9,10 @@ packages (the port imports nothing from the JAX package):
 - ``LoraConfig``         dual-task LoRA on every mixer's in_proj
 - ``MambaConfig``        backbone (embeddings, 48 blocks, dual heads)
 - ``VQConfig``           LlamaGen VQ-16 tokenizer
+- ``ViTConfig``          one ViT featurizer (timm geometry)
+- ``VisionConfig``       the fused DINOv2 + SigLIP towers, ``VISION_BACKBONES``
+- ``SpecialTokens``      the ten tokens added to the GPT-NeoX vocabulary
 - ``TrainConfig``        the YAML ``train:`` block and the trainer's defaults
-
-The ViT and vision configs arrive with the slice that uses them.
 """
 
 from __future__ import annotations
@@ -194,6 +195,150 @@ def vq_8() -> VQConfig:
 
 
 VQ_MODELS = {"VQ-16": vq_16, "VQ-8": vq_8}
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    """A single ViT featurizer (timm-compatible geometry)."""
+
+    img_size: int = 384
+    patch_size: int = 14
+    width: int = 1024
+    depth: int = 24
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    num_reg_tokens: int = 0  # DINOv2 "reg4" uses 4
+    use_cls_token: bool = True
+    use_swiglu: bool = False  # DINOv2-L uses a plain MLP
+    layerscale: bool = False  # DINOv2 uses LayerScale
+    norm_eps: float = 1e-6
+    # data preprocessing
+    mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    interpolation: str = "bicubic"
+    # eval-transform crop fraction; scale_size = floor(img_size / crop_pct)
+    crop_pct: float = 1.0
+
+    @property
+    def grid(self) -> int:
+        return self.img_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid
+
+
+def dinov2_l_reg4_384() -> ViTConfig:
+    """DINOv2-L/14 with 4 registers at 384 px (729 patches)."""
+    return ViTConfig(
+        img_size=384, patch_size=14, width=1024, depth=24, num_heads=16,
+        num_reg_tokens=4, use_cls_token=True, layerscale=True,
+        mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
+    )
+
+
+def siglip_so400m_384() -> ViTConfig:
+    """SigLIP so400m/14 at 384 px (729 patches, no cls token)."""
+    return ViTConfig(
+        img_size=384, patch_size=14, width=1152, depth=27, num_heads=16,
+        mlp_ratio=3.7362,  # so400m: mlp hidden 4304
+        num_reg_tokens=0, use_cls_token=False, layerscale=False,
+        mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
+    )
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    """The fused DINOv2 + SigLIP backbone: two towers whose patch features
+    are concatenated."""
+
+    dino: ViTConfig = field(default_factory=dinov2_l_reg4_384)
+    siglip: ViTConfig = field(default_factory=siglip_so400m_384)
+    resize_strategy: str = "resize-naive"
+
+    @property
+    def embed_dim(self) -> int:
+        """Concatenated feature width: 1024 + 1152 = 2176."""
+        return self.dino.width + self.siglip.width
+
+    @property
+    def num_patches(self) -> int:
+        if self.dino.num_patches != self.siglip.num_patches:
+            raise ValueError("the two towers must give the same number of patches")
+        return self.dino.num_patches
+
+
+def _dinosiglip_tiny() -> VisionConfig:
+    """Toy dual backbone for CPU runs."""
+    return VisionConfig(
+        dino=ViTConfig(
+            img_size=56, patch_size=14, width=64, depth=2, num_heads=2,
+            num_reg_tokens=4, layerscale=True,
+        ),
+        siglip=ViTConfig(
+            img_size=56, patch_size=14, width=64, depth=2, num_heads=2,
+            use_cls_token=False,
+        ),
+    )
+
+
+def clip_vit_l_336() -> ViTConfig:
+    """CLIP-L/14 at 336 px."""
+    return ViTConfig(
+        img_size=336, patch_size=14, width=1024, depth=24, num_heads=16,
+        num_reg_tokens=0, use_cls_token=True, layerscale=False,
+        mean=(0.4815, 0.4578, 0.4082), std=(0.2686, 0.2613, 0.2758),
+    )
+
+
+def in1k_vit_l() -> ViTConfig:
+    """ViT-L/16 at 224 px, supervised on ImageNet-1k."""
+    return ViTConfig(
+        img_size=224, patch_size=16, width=1024, depth=24, num_heads=16,
+        num_reg_tokens=0, use_cls_token=True, layerscale=False,
+    )
+
+
+def _dinoclip_336() -> VisionConfig:
+    """DINOv2-L reg4 + CLIP-L, both at 336 px (576 patches a tower)."""
+    return VisionConfig(
+        dino=dataclasses.replace(dinov2_l_reg4_384(), img_size=336),
+        siglip=clip_vit_l_336(),
+    )
+
+
+def _single(name_cfg):
+    def make():
+        # one featurizer in both slots
+        return VisionConfig(dino=name_cfg(), siglip=name_cfg())
+
+    return make
+
+
+# the shipped model uses dinosiglip-vit-so-384px; the other entries are
+# configurations only
+VISION_BACKBONES = {
+    "dinosiglip-vit-so-384px": VisionConfig,
+    "dinosiglip-tiny": _dinosiglip_tiny,
+    "dinoclip-vit-l-336px": _dinoclip_336,
+    "clip-vit-l-336px": _single(clip_vit_l_336),
+    "siglip-vit-so400m-384px": _single(siglip_so400m_384),
+    "dinov2-vit-l-384px": _single(dinov2_l_reg4_384),
+    "in1k-vit-l-224px": _single(in1k_vit_l),
+}
+
+
+@dataclass(frozen=True)
+class SpecialTokens:
+    """The tokens added to the GPT-NeoX tokenizer: ``[PAD]`` first, then the
+    nine specials, so with a base vocabulary of 50277 the ids are
+    50277..50286."""
+
+    order: Tuple[str, ...] = (
+        "<|soi|>", "<|eoi|>", "<|sot|>", "<|eot|>", "<|t2i|>",
+        "<|mmu|>", "<|soc|>", "<|eoc|>", "<|lvg|>",
+    )
+    pad_token: str = "[PAD]"
 
 
 @dataclass

@@ -17,12 +17,17 @@ Semantics kept from the JAX engine:
   consume the cond half's token
 - ragged batches through ``prompt_lengths``
 
-Everything stays on the device inside the loop; the host reads a value only
-for the eos test (when ``eos_token_id`` is given) and for ``token_callback``.
+Everything stays on the device inside the loop. The eos test never drains
+the device's queue: each token is copied to pinned host memory behind an
+event, and the host waits for a token's copy only once it has queued the next
+step (``_EosWatch``). One step runs past a stop, and the result is cut back
+to the step where it happened, so it is the one a read after every token
+gives.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -43,6 +48,37 @@ from omnimamba_tpu_torch.ops.sampling import (
     sample_token,
 )
 from omnimamba_tpu_torch.utils.device import require_on, resolve_device
+
+
+class _EosWatch:
+    """The first step at which every row gave eos, read without draining the
+    device's queue: ``push`` copies step n's tokens to pinned host memory and
+    records an event; ``stop(keep=1)`` waits for the copies of all but the
+    newest step, whose device work is still queued behind them."""
+
+    def __init__(self, eos_token_id: int, T_new: int, B: int, device: torch.device):
+        self.eos = eos_token_id
+        self.host = torch.empty((T_new, B), dtype=torch.long, pin_memory=device.type == "cuda")
+        self.pending = collections.deque()  # (step, event or None)
+
+    def push(self, n: int, tok: torch.Tensor) -> None:
+        self.host[n - 1].copy_(tok, non_blocking=tok.is_cuda)
+        copied = None
+        if tok.is_cuda:
+            copied = torch.cuda.Event()
+            copied.record()
+        self.pending.append((n, copied))
+
+    def stop(self, keep: int) -> int:
+        """Take all but the newest ``keep`` steps off the queue, oldest first:
+        the first of them at which every row gave eos, else 0."""
+        while len(self.pending) > keep:
+            n, copied = self.pending.popleft()
+            if copied is not None:
+                copied.synchronize()
+            if bool((self.host[n - 1] == self.eos).all()):
+                return n
+        return 0
 
 
 class GenerateOutput(NamedTuple):
@@ -68,6 +104,7 @@ def generate(
     decode_impl: str = "auto",  # auto | fused | scan
     token_callback: Optional[Callable[[np.ndarray], None]] = None,
     prompt_lengths: Optional[torch.Tensor] = None,  # (B,) ragged true lengths
+    penalty_mask: Optional[torch.Tensor] = None,  # (B or 1, L0) bool: prompt ids penalized
     return_logits: bool = False,
     device="cuda",
 ) -> GenerateOutput:
@@ -98,8 +135,15 @@ def generate(
     token from its own last real position, and decode positions advance per
     row, so every row's stream equals running it alone at B=1.
 
+    ``penalty_mask``: which prompt positions enter the repetition penalty's
+    set (default: all, or the true prompt of each ragged row). The
+    understanding path leaves out its image span, whose ids are placeholders.
+
     ``return_logits``: also return the fp32 logits each token was sampled
     from (after the guidance mix), one (B, V) tensor per step.
+
+    Generation stops at the first step at which every row gave
+    ``eos_token_id``; later positions of ``sequences`` are zero.
     """
     device = resolve_device(device)
     require_on(device, input_ids=input_ids, input_embeddings=input_embeddings)
@@ -166,9 +210,14 @@ def generate(
     tokens = torch.zeros((B, T_new), dtype=torch.long, device=device)
     kept_logits: Optional[List[torch.Tensor]] = [] if return_logits else None
     pmask = None
-    if sample.repetition_penalty != 1.0 and prompt_lengths is not None:
-        # ragged rows: right-pad tokens must not enter the penalty set
-        pmask = torch.arange(L0, device=device)[None, :] < prompt_lengths[:, None]
+    if sample.repetition_penalty != 1.0:
+        if penalty_mask is not None:
+            pmask = torch.as_tensor(penalty_mask, device=device).bool().expand(B, L0)
+        if prompt_lengths is not None:
+            # ragged rows: right-pad tokens must not enter the penalty set
+            real = torch.arange(L0, device=device)[None, :] < prompt_lengths[:, None]
+            pmask = real if pmask is None else pmask & real
+    watch = None if eos_token_id is None else _EosWatch(eos_token_id, T_new, B, device)
 
     n = 0
     while n < T_new:
@@ -191,12 +240,23 @@ def generate(
         if teacher_outputs is not None:
             # teacher indexed by absolute position L0+n
             tok = teacher_outputs[:, L0 + n].to(device=device, dtype=torch.long)
+        seen = tok
         if token_callback is not None:
-            token_callback(tok.cpu().numpy().astype(np.int32))
+            seen = tok.cpu()  # the callback reads every token; the watch reads this copy
+            token_callback(seen.numpy().astype(np.int32))
         tokens[:, n] = tok
         n += 1
-        if eos_token_id is not None and bool((tok == eos_token_id).all()):
-            break
+        if watch is not None:
+            watch.push(n, seen)
+            # step n's copy is read once step n + 1 is queued, the last at once;
+            # a callback's token is on the host already
+            stop = watch.stop(keep=0 if n == T_new or token_callback is not None else 1)
+            if stop:
+                tokens[:, stop:] = 0  # the step run past the stop
+                if kept_logits is not None:
+                    del kept_logits[stop:]
+                n = stop
+                break
         if n == T_new:
             break  # the last token needs no further logits
         # next logits: position id = prompt length + tokens sampled before this one

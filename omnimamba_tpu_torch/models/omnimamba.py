@@ -1,15 +1,18 @@
-"""OmniMamba top-level composition: the text-to-image path and the training
-losses of the backbone.
+"""OmniMamba top-level composition: the text-to-image and understanding
+paths and the training losses of the backbone.
 
 Counterpart of ``omnimamba_tpu/models/omnimamba.py``. One params dict:
 
     params = {
-      "mamba": backbone (embeddings + 48 blocks + heads, backbone.py)
-      "vq":    VQ-16 decode side                       (vq.py)
+      "mamba":     backbone (embeddings + 48 blocks + heads, backbone.py)
+      "vision":    {"dino": ..., "siglip": ...}             (vit.py)
+      "projector": vision -> d_model MLP                    (projector.py)
+      "vq":        VQ-16 decode side                        (vq.py)
     }
 
-The understanding path (vision towers, projector, ``mmu_generate``,
-``mmu_loss``) arrives with its slice.
+The understanding (MMU) sequence: [emb(<|mmu|> <|soi|>) | 729 projected
+patches | emb(<|eoi|> <|sot|> text)], decoded through the mmu LoRA and the
+text head. ``mmu_loss`` (stage-2 training) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from omnimamba_tpu_torch.config import MambaConfig, VQConfig
+from omnimamba_tpu_torch.config import MambaConfig, VisionConfig, VQConfig
 from omnimamba_tpu_torch.models.backbone import (
     apply_head,
     backbone_forward,
@@ -29,17 +32,22 @@ from omnimamba_tpu_torch.models.backbone import (
     init_backbone,
 )
 from omnimamba_tpu_torch.models.generation import generate
+from omnimamba_tpu_torch.models.projector import apply_projector, init_projector
+from omnimamba_tpu_torch.models.vit import dinosiglip_features, init_vit
 from omnimamba_tpu_torch.models.vq import init_vq, vq_decode_code
 from omnimamba_tpu_torch.ops.sampling import SampleParams
 from omnimamba_tpu_torch.utils.device import require_on, resolve_device
 
 
 class OmniMambaModel(NamedTuple):
-    """Static configuration bundle for the functional API."""
+    """Static configuration bundle for the functional API. A bundle without
+    ``vision_cfg`` has no vision towers and no projector."""
 
     cfg: MambaConfig
     vq_cfg: VQConfig
     sptids: Dict[str, int]
+    vision_cfg: Optional[VisionConfig] = None
+    projector_arch: str = "fused-gelu-mlp"
 
 
 def init_omnimamba(
@@ -48,10 +56,19 @@ def init_omnimamba(
     dtype: torch.dtype = torch.float32,
     device="cuda",
     *,
+    with_vision: bool = True,
     with_vq: bool = True,
 ) -> Dict:
-    """Random parameters for the backbone and, for t2i, the VQ decode side."""
+    """Random parameters for the backbone; for mmu (where the bundle has a
+    ``vision_cfg``) the two towers and the projector; for t2i the VQ decode
+    side."""
     params: Dict = {"mamba": init_backbone(generator, model.cfg, dtype, device)}
+    if model.cfg.mmu_task and with_vision and model.vision_cfg is not None:
+        vcfg = model.vision_cfg
+        params["vision"] = {"dino": init_vit(generator, vcfg.dino, dtype, device),
+                            "siglip": init_vit(generator, vcfg.siglip, dtype, device)}
+        params["projector"] = init_projector(
+            generator, vcfg.embed_dim, model.cfg.d_model, model.projector_arch, dtype, device)
     if model.cfg.t2i_task and with_vq:
         params["vq"] = init_vq(generator, model.vq_cfg, dtype, device)
     return params
@@ -112,11 +129,55 @@ def t2i_loss(
     return _shift_and_ce(apply_head(mamba, hidden, "t2i"), labels)
 
 
+def _mmu_wrap_ids(sptids: Dict[str, int], input_ids: torch.Tensor) -> torch.Tensor:
+    """[<|mmu|> <|soi|> <|eoi|> <|sot|>] ++ text."""
+    B = input_ids.shape[0]
+    specials = torch.tensor(
+        [sptids["<|mmu|>"], sptids["<|soi|>"], sptids["<|eoi|>"], sptids["<|sot|>"]],
+        dtype=input_ids.dtype, device=input_ids.device)
+    return torch.cat([specials.expand(B, 4), input_ids], dim=1)
+
+
+def mmu_embed_sequence(
+    params: Dict,
+    model: OmniMambaModel,
+    input_ids: torch.Tensor,  # (B, T) text ids, starting at the question
+    image_features: torch.Tensor,  # (B, N, d_model) projected patches (or zeros)
+    labels: Optional[torch.Tensor] = None,  # (B, T) text labels
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+):
+    """The spliced training sequence: the four specials wrapped around the
+    image span, then the text; labels ignore everything through <|sot|>.
+    Returns (embeddings (B, 4 + N + T, d), labels or None)."""
+    wrapped = _mmu_wrap_ids(model.sptids, input_ids.long())
+    text_emb = embed_text(params["mamba"], wrapped, dtype)
+    emb = torch.cat([text_emb[:, :2], image_features.to(dtype), text_emb[:, 2:]], dim=1)
+    out_labels = None
+    if labels is not None:
+        B, n_img = input_ids.shape[0], image_features.shape[1]
+        ignore = torch.full((B, 4 + n_img), IGNORE_INDEX, dtype=torch.long, device=labels.device)
+        out_labels = torch.cat([ignore, labels.long()], dim=1)
+    return emb, out_labels
+
+
+def mmu_image_features(params: Dict, model: OmniMambaModel,
+                       pixel_values: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The towers' concatenated features through the projector: (B, N,
+    d_model), in the pixels' type."""
+    if model.vision_cfg is None:
+        raise ValueError("this model bundle has no vision_cfg: it has no towers")
+    feats = dinosiglip_features(params["vision"]["dino"], params["vision"]["siglip"],
+                                pixel_values, model.vision_cfg)
+    return apply_projector(params["projector"], feats, model.projector_arch)
+
+
 def mmu_loss(*args, **kwargs):
-    """The understanding loss runs the vision towers and the projector."""
+    """The understanding training loss of stage 2."""
     raise NotImplementedError(
-        "mmu_loss needs models/vit.py and models/projector.py, which arrive with the "
-        "understanding slice (ROADMAP: slice 3, MMU inference); the stage-2 unified step follows it"
+        "mmu_loss, the stage-2 training loss, is not ported yet: it comes with the stage-2 "
+        "unified step and utils/convert (ROADMAP: Q1 item 2, slice 3b); MMU inference "
+        "(mmu_generate, mmu_image_features) is ported"
     )
 
 
@@ -196,3 +257,82 @@ def t2i_generate(
     if not decode_image:
         return None, tokens
     return vq_decode_code(params["vq"], tokens, model.vq_cfg), tokens
+
+
+def mmu_generate(
+    params: Dict,
+    model: OmniMambaModel,
+    input_ids,  # (B, T0): [<|mmu|> <|soi|> <|eoi|> <|sot|>] ++ text
+    image_features: torch.Tensor,  # (B, N, d_model) projected patches
+    *,
+    max_length: int = 2048,
+    sample: SampleParams = SampleParams(top_k=1),
+    eos_token_id: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    cache_dtype="auto",
+    decode_impl: str = "auto",
+    draft_params: Optional[Dict] = None,
+    draft_layers: Optional[int] = None,
+    draft_mode: str = "model",  # model | ngram
+    k_draft: int = 8,
+    text_lengths=None,  # (B,) ragged true text lengths, the 4 specials included
+    return_logits: bool = False,
+    device="cuda",
+):
+    """Visual question answering: embeddings [2 specials | N image | rest of
+    the text], then ``generate(task="mmu")``. ``max_length`` counts the image
+    span. Returns ``GenerateOutput`` (``SpecDecodeOutput`` on the speculative
+    branch); ``sequences`` hold 0 at the image span.
+
+    The image span's ids are placeholders, so they never enter the
+    repetition penalty's set (the JAX package fills them with 0 and so
+    penalises token 0 at every step).
+
+    ``draft_params`` / ``draft_layers`` / ``draft_mode="ngram"`` take the
+    speculative greedy path (``models/speculative.py``, B=1, no repetition
+    penalty); in fp32 its stream is the plain greedy one.
+
+    ``text_lengths`` (B,): ragged batching. ``input_ids`` are right-padded;
+    row i's true text is its first text_lengths[i] ids, and its stream equals
+    its B=1 stream.
+
+    Runs on ``device``; the parameters and the features must lie there.
+    """
+    device = resolve_device(device)
+    mamba = params["mamba"]
+    table = mamba["embedding"]
+    require_on(device, embedding=table["q"] if isinstance(table, dict) else table,
+               image_features=image_features)
+    input_ids = torch.as_tensor(input_ids, device=device).long()
+    B, n_img = input_ids.shape[0], image_features.shape[1]
+    text_emb = embed_text(mamba, input_ids, dtype)
+    emb = torch.cat([text_emb[:, :2], image_features.to(dtype), text_emb[:, 2:]], dim=1)
+    splice_ids = torch.cat([input_ids[:, :2], input_ids.new_zeros((B, n_img)), input_ids[:, 2:]],
+                           dim=1)
+    if draft_params is not None or draft_layers is not None or draft_mode != "model":
+        from omnimamba_tpu_torch.models.speculative import speculative_generate
+
+        if sample.top_k != 1 or sample.repetition_penalty != 1.0:
+            raise ValueError("speculative decode is greedy, without a repetition penalty")
+        if text_lengths is not None:
+            raise ValueError("speculative decode takes no ragged text_lengths; use the plain path")
+        if generator is not None:
+            raise ValueError("speculative decode is deterministic (greedy); generator unused")
+        if draft_params is not None and "mamba" in draft_params:
+            draft_params = draft_params["mamba"]
+        return speculative_generate(
+            mamba, model.cfg, input_ids=splice_ids, input_embeddings=emb, task="mmu",
+            max_length=max_length, draft_params=draft_params, draft_layers=draft_layers,
+            draft_mode=draft_mode, k_draft=k_draft, eos_token_id=eos_token_id,
+            cache_dtype=cache_dtype, device=device)
+    penalty_mask = torch.ones((1, splice_ids.shape[1]), dtype=torch.bool, device=device)
+    penalty_mask[:, 2:2 + n_img] = False
+    return generate(
+        mamba, model.cfg, input_ids=splice_ids, input_embeddings=emb, task="mmu",
+        max_length=max_length, sample=sample, eos_token_id=eos_token_id, generator=generator,
+        cache_dtype=cache_dtype, decode_impl=decode_impl,
+        prompt_lengths=None if text_lengths is None
+        else torch.as_tensor(text_lengths, device=device).long() + n_img,
+        penalty_mask=penalty_mask, return_logits=return_logits, device=device,
+    )

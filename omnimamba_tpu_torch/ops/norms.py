@@ -31,6 +31,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float = 1e-5
+) -> torch.Tensor:
+    """LayerNorm of the ViT towers with the JAX package's rounding: fp32 mean
+    and variance, ``rsqrt``, then the weight and the bias in fp32, then a
+    cast back to x.dtype."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
 def add_norm_plain(
     x: torch.Tensor,
     residual: Optional[torch.Tensor],
@@ -108,9 +123,9 @@ def add_norm(
     eps: float = 1e-5,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused residual add + RMSNorm of a pre-norm block with an fp32 residual
-    stream: returns (normed in x.dtype, new_residual fp32). The LayerNorm,
-    bias and post-norm variants of the JAX ``add_norm`` belong to the ViT
-    towers and arrive with them."""
+    stream: returns (normed in x.dtype, new_residual fp32). The towers'
+    LayerNorm is ``layer_norm``; no model of the port takes the JAX
+    ``add_norm``'s bias and post-norm variants."""
     from omnimamba_tpu_torch.ops.norms_kernel import fused_add_rms_norm
 
     return fused_add_rms_norm(x, residual, weight, eps)

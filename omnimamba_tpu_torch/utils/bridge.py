@@ -11,7 +11,10 @@ What changes on the way:
 - the conv taps ``weight_x`` / ``weight_bc`` (and biases) become one
   ``weight`` / ``bias`` over the ``x | bc`` channels;
 - linear kernels stay ``(in, out)`` (the port applies ``x @ W``);
-- VQ conv kernels go from HWIO to OIHW;
+- VQ conv kernels, the towers' patch kernels and the ldpnet position conv go
+  from HWIO to OIHW;
+- the towers' blocks, stacked on axis 0, become a list of per-block dicts;
+  their ``qkv`` kernel stays fused ``(d, 3d)``;
 - an int8-quantized tree (``quantize_decode_params``) keeps its ``q`` leaves
   int8 and its ``scale`` leaves float32 whatever ``dtype`` says; the in_proj
   parts' ``q`` and ``scale`` are concatenated along the columns like dense
@@ -19,7 +22,8 @@ What changes on the way:
   is taken as it is.
 
 Every leaf of the input must be consumed: a leaf the port has no place for
-(vision towers, projector, VQ encoder, ...) raises instead of being dropped.
+(the VQ encoder) raises instead of being dropped. ``to_jax_tree`` undoes
+every step for the backbone, the towers and the projector, bit for bit.
 """
 
 from __future__ import annotations
@@ -114,6 +118,39 @@ def _hwio_to_oihw(node):
     return node
 
 
+def _oihw_to_hwio(node):
+    if isinstance(node, dict):
+        return {
+            k: v.permute(2, 3, 1, 0).contiguous()
+            if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 4
+            else _oihw_to_hwio(v)
+            for k, v in node.items()
+        }
+    return node
+
+
+def _unstack(node, n: int) -> list:
+    """A tree whose leaves are stacked on axis 0 -> a list of ``n`` trees, one
+    per index; every leaf must hold ``n`` entries."""
+    def pick(node, i):
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        if node.shape[0] != n:
+            raise ValueError(f"stacked leaf has {node.shape[0]} entries, expected {n}")
+        return node[i].contiguous()
+
+    return [pick(node, i) for i in range(n)]
+
+
+def _unstack_blocks(tower: Dict) -> Dict:
+    """A tower whose ``blocks`` leaves are stacked on axis 0 -> a list of
+    per-block dicts."""
+    first = tower["blocks"]
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return {**tower, "blocks": _unstack(tower["blocks"], first.shape[0])}
+
+
 def _in_proj(leaves: _Leaves, mix: Tuple):
     """The fused in_proj kernel, dense or ``{"q", "scale"}``, from the four
     column slices or from JAX ``fuse_in_proj``'s ``fused`` entry."""
@@ -154,14 +191,7 @@ def _bridge_layers(leaves: _Leaves, n_layer: int):
                 *[leaves.take(*mix, "lora", f"{task}_B_{p}") for p in _IN_PROJ_PARTS])
         stacked["mixer"]["lora"] = lora
 
-    def layer(node, i):
-        if isinstance(node, dict):
-            return {k: layer(v, i) for k, v in node.items()}
-        if node.shape[0] != n_layer:
-            raise ValueError(f"stacked leaf has {node.shape[0]} layers, config says {n_layer}")
-        return node[i].contiguous()
-
-    return [layer(stacked, i) for i in range(n_layer)]
+    return _unstack(stacked, n_layer)
 
 
 def from_jax_params(
@@ -171,7 +201,8 @@ def from_jax_params(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
 ) -> Dict:
-    """Convert ``{"mamba": ..., "vq": ...}`` (numpy leaves) for
+    """Convert ``{"mamba": ..., "vision": ..., "projector": ..., "vq": ...}``
+    (numpy leaves; any of them) for
     ``model`` (an ``OmniMambaModel`` of the port). ``dtype=None`` keeps each
     leaf's own float type. Raises ``ValueError`` listing every leaf that was
     not consumed."""
@@ -179,13 +210,22 @@ def from_jax_params(
     leaves = _Leaves(params_numpy, dtype, resolve_device(device))
     out: Dict = {}
 
-    mamba: Dict = {}
-    for key in ("embedding", "img_embeddings", "pos_embed", "caption_embed",
-                "mmu_pos_embed", "norm_f"):
-        if leaves.has("mamba", key):
-            mamba[key] = leaves.take_tree("mamba", key)
-    mamba["layers"] = _bridge_layers(leaves, model.cfg.n_layer)
-    out["mamba"] = mamba
+    if leaves.has("mamba"):
+        mamba: Dict = {}
+        for key in ("embedding", "img_embeddings", "pos_embed", "caption_embed",
+                    "mmu_pos_embed", "norm_f"):
+            if leaves.has("mamba", key):
+                mamba[key] = leaves.take_tree("mamba", key)
+        mamba["layers"] = _bridge_layers(leaves, model.cfg.n_layer)
+        out["mamba"] = mamba
+
+    if leaves.has("vision"):
+        out["vision"] = {
+            name: _hwio_to_oihw(_unstack_blocks(leaves.take_tree("vision", name)))
+            for name in ("dino", "siglip") if leaves.has("vision", name)
+        }
+    if leaves.has("projector"):
+        out["projector"] = _hwio_to_oihw(leaves.take_tree("projector"))
 
     if leaves.has("vq"):
         vq = {"codebook": leaves.take("vq", "codebook")}
@@ -196,23 +236,25 @@ def from_jax_params(
     if leaves.flat:
         left = sorted("/".join(map(str, k)) for k in leaves.flat)
         raise ValueError(
-            f"{len(left)} parameter leaves have no place in the port yet (the vision "
-            "towers, the projector and the VQ encoder arrive with later slices): "
+            f"{len(left)} parameter leaves have no place in the port yet (the VQ "
+            "encoder arrives with a later slice): "
             + ", ".join(left[:8]) + (" ..." if len(left) > 8 else "")
         )
     return out
 
 
 def to_jax_tree(port_tree: Dict, model) -> Dict:
-    """The inverse of ``from_jax_params`` for the backbone: a tree shaped like
-    the port's ``{"mamba": ...}`` (parameters, gradients or updated
-    parameters) as numpy arrays under the JAX package's names. The fused
-    in_proj kernel and LoRA B factors are cut back into their ``z | x | bc |
-    dt`` column slices, the conv taps and biases into ``x | bc``, and the
-    per-layer dicts are stacked on a leading layer axis. Tests use it to
-    compare the two packages leaf by leaf."""
-    if set(port_tree) != {"mamba"}:
-        raise ValueError(f"to_jax_tree converts the backbone only, got {sorted(port_tree)}")
+    """The inverse of ``from_jax_params`` for the backbone, the towers and the
+    projector: a tree shaped like the port's (parameters, gradients or
+    updated parameters) as numpy arrays under the JAX package's names. The
+    fused in_proj kernel and LoRA B factors are cut back into their ``z | x |
+    bc | dt`` column slices, the conv taps and biases into ``x | bc``, the
+    per-layer and per-block dicts are stacked on a leading axis and OIHW
+    kernels go back to HWIO. Tests use it to compare the two packages leaf
+    by leaf."""
+    if not set(port_tree) <= {"mamba", "vision", "projector"}:
+        raise ValueError(
+            f"to_jax_tree converts the backbone, the towers and the projector, got {sorted(port_tree)}")
     mixer_cfg = model.cfg.mixer
     di, gn2, H = mixer_cfg.d_inner, 2 * mixer_cfg.ngroups * mixer_cfg.d_state, mixer_cfg.nheads
     widths = dict(zip(_IN_PROJ_PARTS, (di, di, gn2, H)))
@@ -256,7 +298,19 @@ def to_jax_tree(port_tree: Dict, model) -> Dict:
             return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
         return np.stack(nodes)
 
-    mamba = port_tree["mamba"]
-    out = {k: tree(v) for k, v in mamba.items() if k != "layers"}
-    out["layers"] = stack([layer(p) for p in mamba["layers"]])
-    return {"mamba": out}
+    result = {}
+    if "mamba" in port_tree:
+        mamba = port_tree["mamba"]
+        out = {k: tree(v) for k, v in mamba.items() if k != "layers"}
+        out["layers"] = stack([layer(p) for p in mamba["layers"]])
+        result["mamba"] = out
+    if "vision" in port_tree:
+        result["vision"] = {}
+        for name, tower in port_tree["vision"].items():
+            tower = _oihw_to_hwio(tower)
+            conv = {k: tree(v) for k, v in tower.items() if k != "blocks"}
+            conv["blocks"] = stack([tree(b) for b in tower["blocks"]])
+            result["vision"][name] = conv
+    if "projector" in port_tree:
+        result["projector"] = tree(_oihw_to_hwio(port_tree["projector"]))
+    return result

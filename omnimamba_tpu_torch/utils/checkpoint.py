@@ -80,3 +80,30 @@ class CheckpointManager:
 
     def close(self) -> None:
         """Nothing is held open; kept for the JAX manager's interface."""
+
+
+def load_params(path: str, params: Any) -> Any:
+    """Copy the parameters of a checkpoint written by ``CheckpointManager``
+    (a ``step_<n>.pt`` file, or a directory: its latest step) into the
+    tensors of ``params``, cast to their types, and return ``params``. A saved
+    leaf with no place in ``params`` or another shape raises; leaves the
+    checkpoint does not hold (the vision towers of a text-to-image run) keep
+    their values."""
+    if os.path.isdir(path):
+        manager = CheckpointManager(path)
+        step = manager.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {path}")
+        path = manager._path(step)
+    saved = torch.load(path, map_location="cpu", weights_only=True)["params"]
+    live = dict(named_leaves(params))
+    unknown = sorted(set(saved) - set(live))
+    if unknown:
+        raise ValueError(f"{len(unknown)} checkpoint leaves have no place in the model: {unknown[:8]}")
+    with torch.no_grad():
+        for name, tensor in saved.items():
+            if tuple(tensor.shape) != tuple(live[name].shape):
+                raise ValueError(
+                    f"{name}: checkpoint shape {tuple(tensor.shape)}, model {tuple(live[name].shape)}")
+            live[name].copy_(tensor.to(live[name].dtype))
+    return params

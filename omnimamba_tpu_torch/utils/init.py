@@ -24,3 +24,11 @@ def trunc_normal(gen, shape, std, dtype, device) -> torch.Tensor:
     u = lo + u * (1.0 - 2.0 * lo)
     x = torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
     return (std * x.clamp(-2.0, 2.0)).to(dtype)
+
+
+def linear_uniform(gen, d_in, d_out, dtype, device) -> dict:
+    """A linear layer ``{"kernel" (d_in, d_out), "bias"}`` with both drawn from
+    U(+-1/sqrt(d_in)), as the JAX package's towers and projector draw them."""
+    bound = 1.0 / math.sqrt(d_in)
+    return {"kernel": uniform(gen, (d_in, d_out), bound, dtype, device),
+            "bias": uniform(gen, (d_out,), bound, dtype, device)}

@@ -29,6 +29,20 @@ _VQ = dict(codebook_size=32, codebook_embed_dim=8, ch=16, num_res_blocks=1,
            encoder_ch_mult=(1, 2), decoder_ch_mult=(1, 2), z_channels=16)
 
 
+# the tiny model's specials, inside its 64-row table (ids as in tests/test_omnimamba.py)
+SPTIDS = {"<|soi|>": 50, "<|eoi|>": 51, "<|sot|>": 52, "<|eot|>": 53, "<|t2i|>": 54,
+          "<|mmu|>": 55, "<|soc|>": 56, "<|eoc|>": 57, "<|lvg|>": 58, "<|pad|>": 49}
+
+
+def tiny_mmu_models():
+    """The tiny backbone with the tiny towers (``_dinosiglip_tiny``: 56 px,
+    16 patches, widths 64) and the fused GELU projector, in each package."""
+    jm, tm = tiny_models()
+    jm = jm._replace(vision_cfg=jcfg._dinosiglip_tiny(), sptids=SPTIDS)
+    tm = tm._replace(vision_cfg=tcfg._dinosiglip_tiny(), sptids=SPTIDS)
+    return jm, tm
+
+
 def tiny_models():
     """The same tiny geometry as a model bundle of each package."""
     jm = JaxModel(

@@ -286,8 +286,10 @@ def test_bridge_consumes_every_leaf(pair):
                                   k_j.transpose(3, 2, 0, 1))
 
     extra = to_numpy(jp)
-    extra["vq"] = {**extra["vq"], "quant_conv": {"kernel": np.zeros((1, 1, 16, 8), np.float32)}}
-    extra["projector"] = {"fc1": {"kernel": np.zeros((4, 4), np.float32)}}
+    # the VQ encoder side has no place in the port yet (the projector has one since
+    # the understanding slice)
+    extra["vq"] = {**extra["vq"], "quant_conv": {"kernel": np.zeros((1, 1, 16, 8), np.float32)},
+                   "encoder": {"conv_in": {"kernel": np.zeros((3, 3, 3, 4), np.float32)}}}
     with pytest.raises(ValueError, match="2 parameter leaves"):
         from_jax_params(extra, tmodel, device="cpu")
 

@@ -15,7 +15,11 @@ import omnimamba_tpu_torch
 from omnimamba_tpu_torch import (
     MambaConfig, OmniMambaModel, VQConfig, from_jax_params, generate, init_omnimamba, t2i_generate,
 )
-from omnimamba_tpu_torch.config import TrainConfig
+from omnimamba_tpu_torch.config import TrainConfig, ViTConfig
+from omnimamba_tpu_torch.factory import build_model
+from omnimamba_tpu_torch.models.omnimamba import mmu_generate
+from omnimamba_tpu_torch.models.projector import init_projector
+from omnimamba_tpu_torch.models.vit import init_vit
 from omnimamba_tpu_torch.models.backbone import init_backbone
 from omnimamba_tpu_torch.models.vq import init_vq
 from omnimamba_tpu_torch.ops import kernel_build
@@ -51,6 +55,15 @@ def test_imports_neither_jax_nor_the_jax_package():
     # the serving slice's modules are among them
     assert {"omnimamba_tpu_torch.ops.quant", "omnimamba_tpu_torch.ops.quant_kernel",
             "omnimamba_tpu_torch.serve.continuous", "omnimamba_tpu_torch.models.speculative"} <= set(mods)
+    # and the understanding slice's: nothing of them loads regex or PIL, which
+    # the card's machine may lack, until a BPE tokenizer or a PIL image is made
+    assert {"omnimamba_tpu_torch.models.vit", "omnimamba_tpu_torch.models.projector",
+            "omnimamba_tpu_torch.ops.resize", "omnimamba_tpu_torch.factory",
+            "omnimamba_tpu_torch.data.tokenizer", "omnimamba_tpu_torch.data.bpe",
+            "omnimamba_tpu_torch.data.prompting", "omnimamba_tpu_torch.data.conversation",
+            "omnimamba_tpu_torch.data.prompt_builder", "omnimamba_tpu_torch.data.transforms",
+            "omnimamba_tpu_torch.scripts.inference_mmu",
+            "omnimamba_tpu_torch.scripts.inference_t2i"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -58,7 +71,7 @@ def test_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m == 'triton' or m == 'omnimamba_tpu' "
-        "or m.startswith('omnimamba_tpu.')]\n"
+        "or m.startswith('omnimamba_tpu.') or m in ('regex', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n"
     )
@@ -136,6 +149,10 @@ ENTRY_POINTS = {
     "make_train_step": lambda m, p: make_train_step(m, None, TrainConfig(mmu_task=False)),
     "Trainer": lambda m, p: Trainer(m, p, TrainConfig(mmu_task=False, stage="align"), []),
     "SlotEngine": lambda m, p: SlotEngine(quantize_decode_params(p["mamba"]), m.cfg),
+    "mmu_generate": lambda m, p: mmu_generate(p, m, [[1, 2, 3, 4]], torch.zeros(1, 2, 32)),
+    "build_model": lambda m, p: build_model(TrainConfig(omnimamba_model="OmniMamba-Tiny")),
+    "init_vit": lambda m, p: init_vit(torch.Generator(), ViTConfig(img_size=28, width=16, depth=1)),
+    "init_projector": lambda m, p: init_projector(torch.Generator(), 8, 4),
     "speculative_generate": lambda m, p: speculative_generate(
         p["mamba"], m.cfg, input_ids=torch.zeros(1, 4, dtype=torch.long),
         input_embeddings=torch.zeros(1, 4, 32), task="t2i", max_length=8, draft_layers=1),
