@@ -26,11 +26,19 @@ paths at the full 1.3B width and depth with random weights made from a seed:
   kernels against the same through the plain versions (3 layers, fp32), then
   `Trainer.train(max_steps=3)` at batch 90 in bf16 (halved until it fits),
   the split of a step, one profiled step, and the memory peaks behind the
-  rule that resolves remat="proj".
+  rule that resolves remat="proj";
+- stage-2 unified training: K1, K5, K3a/b and K6a/b at its shapes, the loss
+  (t2i + mmu) and every gradient through the kernels against the plain
+  versions (3 layers, fp32, both towers whole), then `Trainer.train(max_steps=3)`
+  at 1.3B with both 384-px towers frozen, fed by `CombinedLoader` over
+  synthetic COCO and LLaVA files (48 t2i rows of 329 and 3 mmu rows of 1,182
+  a step, bf16; the t2i batch halved until it fits), the split of a step, the
+  towers' time and peak, one profiled step; a 4-layer draft distilled from
+  the trained target and its acceptance; the training CLI for 2 steps.
 
 The launch counters show that each path went through its kernels. Any failed
 phase ends the run with a non-zero exit code; nothing is caught but the
-out-of-memory error that halves the training batch. Without a CUDA device it
+out-of-memory error that halves the training batches. Without a CUDA device it
 exits with code 2 and prints no result.
 
 Lines on standard output, one JSON object each unless noted:
@@ -40,7 +48,8 @@ Lines on standard output, one JSON object each unless noted:
   {"mmu_decode_profile": ...} {"fidelity": ...} {"int8_path": ...} {"slot_engine": ...}
   {"speculative": ...} {"plain_vs_kernel": ...}*
   {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
-  {"remat_threshold": ...} {"kernels": [...]} and, last,
+  {"remat_threshold": ...} {"stage2_plain_vs_kernel": ...} {"stage2_path": ...}
+  {"stage2_times": ...} {"distill": ...} {"train_cli": ...} {"kernels": [...]} and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 fp32 comparisons run with TF32 off for matrix products and convolutions.
@@ -195,6 +204,27 @@ def errors(got, want, atol_rel=None, rtol=None):
     rtol = RTOL[got.dtype] if rtol is None else rtol
     allowed = rtol * w.abs() + atol_rel * max(w.abs().max().item(), 1e-30)
     return err.max().item(), (err / allowed).max().item()
+
+
+def _bound(moved, ops, dtype):
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[dtype] * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes_moved": moved}
+
+
+def _errs(rec, pairs, atol_rel=None, rtol=None):
+    """Each (name, kernel output, plain output) into `rec`; the worst abs error."""
+    worst = 0.0
+    for key, got, want in pairs:
+        e, r = errors(got, want, atol_rel, rtol)
+        rec[f"{key}_abs_err"], rec[f"{key}_err_of_allowed"] = e, r
+        worst = max(worst, e)
+    return worst
+
+
+def _allowed(rec):
+    return all(v <= 1.0 for k, v in rec.items() if k.endswith("_err_of_allowed"))
 
 
 def rand(gen, shape, dtype, scale=1.0):
@@ -2652,12 +2682,6 @@ def check_mmu_kernels(gen, results):
     bf, f32 = torch.bfloat16, torch.float32
     B, L = MMU_BATCH, MMU_PROMPT
 
-    def bound(moved, ops, dtype):
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_OPS[dtype] * 1e3
-        return {"bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes_moved": moved}
-
     # K1: one layer of the prefill, x | B | C slices of the conv output, with D
     shape = (B, L, 64, 64, 1, 128)
     x, dt, A, Bm, Cm, D = ssd_inputs(gen, *shape, bf)
@@ -2673,7 +2697,7 @@ def check_mmu_kernels(gen, results):
            "ms": time_ms(lambda: ssd_fused(x, dt, A, Bm, Cm, D), 20),
            "plain_ms": time_ms(lambda: ssd_fused_plain(x, dt, A, Bm, Cm, D), 3, 1),
            "library_ms": None,
-           **bound(nbytes(x, dt, A, Bm, Cm, D, y, s), scan_flops(B, L, 64, 64, 128, PLAIN_CHUNK), bf)}
+           **_bound(nbytes(x, dt, A, Bm, Cm, D, y, s), scan_flops(B, L, 64, 64, 128, PLAIN_CHUNK), bf)}
     emit({"kernel_check": rec})
     assert ry <= 1.0 and rs <= 1.0, rec
     results["ssd_scan"]["mmu"] = {k: rec[k] for k in (
@@ -2698,7 +2722,7 @@ def check_mmu_kernels(gen, results):
            "library_ms": time_ms(lambda: F.rms_norm(summed, (2048,), w, 1e-5), 50)
            if hasattr(F, "rms_norm") else None,
            "kernel_name": norm_kernel_names(lambda: fused_add_rms_norm(xa, res, w, 1e-5)),
-           **bound(nbytes(xa, res, w, out, ysum), 6 * B * L * 2048, f32)}
+           **_bound(nbytes(xa, res, w, out, ysum), 6 * B * L * 2048, f32)}
     emit({"kernel_check": rec})
     assert ro <= 1.0 and rec["y_abs_err"] == 0.0, rec
     results["add_rms_norm"]["mmu"] = {k: rec[k] for k in (
@@ -2720,7 +2744,7 @@ def check_mmu_kernels(gen, results):
            "plain_ms": time_ms(lambda: gated_rms_norm_plain(yv, z, wg, 1e-5), 10),
            "library_ms": None,
            "kernel_name": norm_kernel_names(lambda: fused_gated_rms_norm(yv, z, wg, 1e-5)),
-           **bound(nbytes(yv, z, wg, out), 10 * B * L * 4096, f32)}
+           **_bound(nbytes(yv, z, wg, out), 10 * B * L * 4096, f32)}
     emit({"kernel_check": rec})
     assert ro <= 1.0, rec
     results["gated_rms_norm"]["mmu"] = {k: rec[k] for k in (
@@ -2750,6 +2774,38 @@ def check_mmu_kernels(gen, results):
     assert all(v <= 1.0 for k, v in rec.items() if k.endswith("_err_of_allowed")), rec
     results["decode_fused"]["mmu_4_layers_fp32"] = {
         k: v for k, v in rec.items() if k.endswith("_abs_err")}
+    del layers, cache0, cache, ref_cache
+
+    # K4's mmu branch at the MMU path's own step: 48 layers, B=8, bf16 weights and
+    # activations, the fp32 state that cache_dtype="auto" keeps below B=16; timed
+    layers = fused_layers(gen, 48, full, lora8, bf)
+    cache0 = fused_state(gen, 48, B, full, bf, f32)
+    h = rand(gen, (B, full.d_model), bf)
+    plan = prepare_fused_decode(layers, "mmu", full, lora8, B, bf)
+    ref_cache = cache0._replace(conv_state=cache0.conv_state.clone(),
+                                ssm_state=cache0.ssm_state.clone())
+    h_ref, res_ref, _ = fused_decode_step_plain(layers, h, None, ref_cache, *args)
+    cache = cache0._replace(conv_state=cache0.conv_state.clone(), ssm_state=cache0.ssm_state.clone())
+    h_out, res_out, _ = fused_decode_step(layers, h, None, cache, *args, plan=plan)
+    torch.cuda.synchronize()
+    rec = {"kernel": "decode_fused", "case": "mmu_48_layers_b8", "layers": 48, "batch": B,
+           "task": "mmu", "dtype": str(bf), "state_dtype": str(f32), "rtol": RTOL[bf],
+           "atol_rel": DEEP_TOL_REL}
+    worst = _errs(rec, [("h", h_out, h_ref), ("residual", res_out, res_ref),
+                        ("conv_window", cache.conv_state, ref_cache.conv_state),
+                        ("ssm_state", cache.ssm_state, ref_cache.ssm_state)], DEEP_TOL_REL, RTOL[bf])
+    per_layer = k4_phase_bytes(full, lora8.r, B, io_bytes=2, state_bytes=4)
+    step = lambda: fused_decode_step(layers, h, None, cache, *args, plan=plan)  # noqa: E731
+    rec.update(ms=time_ms(step, 10), host_us=host_us(step, 20),
+               plain_ms=time_ms(lambda: fused_decode_step_plain(layers, h, None, ref_cache, *args),
+                                2, 1),
+               library_ms=None, bytes_by_phase={k: 48 * v for k, v in per_layer.items()},
+               **_bound(48 * sum(per_layer.values()), fused_step_flops(B, 48, full, lora8.r), bf))
+    emit({"kernel_check": rec})
+    assert _allowed(rec), rec
+    results["decode_fused"]["mmu_48_layers_b8"] = dict(
+        {k: rec[k] for k in ("ms", "host_us", "plain_ms", "bound_ms", "bound_by", "bytes_moved",
+                             "state_dtype")}, max_abs_err=worst)
 
 
 def _mmu_questions(tokenizer, rng, sptids):
@@ -4113,6 +4169,573 @@ def _trains_in_align_t2i(path: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# stage-2 unified training: the kernels at its shapes, kernels against plain
+# versions end to end, the path at 1.3B, draft distillation, the training CLI
+# ---------------------------------------------------------------------------
+
+STAGE2_T2I_BATCH = 48  # batch_size_t2i of config/config_stage2.yaml
+STAGE2_MMU_BATCH = 3  # batch_size_mmu
+STAGE2_CAPTION = 73  # the COCO caption block: [<|t2i|> <|sot|> 68 ids <|eot|> <|soi|> <|eoi|>]
+STAGE2_T2I_LEN = STAGE2_CAPTION + 256  # 329: 20 chunks of 16 and a ragged 9
+STAGE2_MMU_TEXT = 449  # the finetune rows' max_length
+STAGE2_MMU_LEN = 4 + MMU_PATCHES + STAGE2_MMU_TEXT  # 1,182: 73 chunks of 16 and a ragged 14
+STAGE2_STEPS = 3
+
+
+def check_stage2_kernels(gen, results):
+    """The training kernels at the stage-2 step's shapes against their plain
+    versions, one layer of each flow: K1 (chunk states on) and K5 on the t2i
+    flow's 48 rows of 329 and the mmu flow's 3 rows of 1,182 (ragged last
+    chunks of 9 and 14), K3a / K6a on 2,048 columns and K3b / K6b on 4,096 of
+    each flow's rows (15,792 and 3,546); with the blocks each scan launch
+    fills."""
+    from omnimamba_tpu_torch.ops.norms import (
+        add_norm_bwd_plain, add_norm_plain, gated_rms_norm_bwd_plain, gated_rms_norm_plain)
+    from omnimamba_tpu_torch.ops.norms_kernel import (
+        BWD_BLOCKS, fused_add_rms_norm, fused_add_rms_norm_bwd, fused_gated_rms_norm,
+        fused_gated_rms_norm_bwd, gated_bwd_blocks_per_sm)
+    from omnimamba_tpu_torch.ops.ssd_kernel import (
+        PLAIN_CHUNK, ssd_bwd_plain, ssd_fused, ssd_fused_bwd, ssd_fused_plain)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bytes_moved")
+    for flow, (B, L) in (("t2i", (STAGE2_T2I_BATCH, STAGE2_T2I_LEN)),
+                         ("mmu", (STAGE2_MMU_BATCH, STAGE2_MMU_LEN))):
+        case = f"stage2_{flow}"
+        shape = (B, L, 64, 64, 1, 128)
+        scan = {"chunks": -(-L // PLAIN_CHUNK), "last_chunk_rows": L % PLAIN_CHUNK or PLAIN_CHUNK,
+                "blocks": B * 64, "sms": sms}
+
+        # K1, chunk states on, as the training forward runs it
+        x, dt, A, Bm, Cm, D = ssd_inputs(gen, *shape, bf)
+        y, s, h = ssd_fused(x, dt, A, Bm, Cm, D, return_chunk_states=True)
+        torch.cuda.synchronize()
+        rec = {"kernel": "ssd_scan", "case": case, "shape": shape, "dtype": str(bf), **scan,
+               "rtol": RTOL[bf], "atol_rel": BWD_BF16_ATOL_REL}
+        worst = _errs(rec, zip(("y", "state", "chunk_states"), (y, s, h),
+                               ssd_fused_plain(x, dt, A, Bm, Cm, D, return_chunk_states=True)),
+                      BWD_BF16_ATOL_REL, RTOL[bf])
+        moved = nbytes(x, dt, A, Bm, Cm, D, y, s)
+        flops = scan_flops(B, L, 64, 64, 128, PLAIN_CHUNK)
+        rec.update(ms=time_ms(lambda: ssd_fused(x, dt, A, Bm, Cm, D, return_chunk_states=True), 5),
+                   plain_ms=time_ms(lambda: ssd_fused_plain(x, dt, A, Bm, Cm, D), 2, 1),
+                   library_ms=None, chunk_states_bytes=nbytes(h),
+                   bound_with_states_ms=max((moved + nbytes(h)) / HBM_BYTES_PER_S * 1e3,
+                                            flops / PEAK_OPS[bf] * 1e3),
+                   **_bound(moved, flops, bf))
+        emit({"kernel_check": rec})
+        assert _allowed(rec), rec
+        results["ssd_scan"][case] = {k: rec[k] for k in keep + (
+            "chunks", "last_chunk_rows", "blocks", "bound_with_states_ms", "chunk_states_bytes")}
+        results["ssd_scan"][case]["max_abs_err"] = worst
+
+        # K5 from those chunk states
+        gy = rand(gen, (B, L, 64, 64), bf)
+        got = ssd_fused_bwd(x, dt, A, Bm, Cm, D, h, gy, None)
+        torch.cuda.synchronize()
+        rec = {"kernel": "ssd_scan_bwd", "case": case, "shape": shape, "dtype": str(bf), **scan,
+               "rtol": RTOL[bf], "atol_rel": BWD_BF16_ATOL_REL}
+        want = ssd_bwd_plain(x, dt, A, Bm, Cm, D, h, gy, None)
+        worst = _errs(rec, [(k, g, w) for k, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"),
+                                                         got, want) if w is not None],
+                      BWD_BF16_ATOL_REL, RTOL[bf])
+        del want
+        moved = nbytes(x, dt, A, Bm, Cm, D, gy, *got)
+        flops = scan_bwd_flops(B, L, 64, 64, 128, PLAIN_CHUNK)
+        rec.update(ms=time_ms(lambda: ssd_fused_bwd(x, dt, A, Bm, Cm, D, h, gy, None), 3),
+                   plain_ms=time_ms(lambda: ssd_bwd_plain(x, dt, A, Bm, Cm, D, h, gy, None), 1, 1),
+                   library_ms=None,
+                   bound_with_states_ms=max((moved + nbytes(h)) / HBM_BYTES_PER_S * 1e3,
+                                            flops / PEAK_OPS[bf] * 1e3),
+                   **_bound(moved, flops, bf))
+        emit({"kernel_check": rec})
+        assert _allowed(rec), rec
+        results["ssd_scan_bwd"][case] = {k: rec[k] for k in keep + (
+            "chunks", "last_chunk_rows", "blocks", "bound_with_states_ms")}
+        results["ssd_scan_bwd"][case]["max_abs_err"] = worst
+        del x, dt, A, Bm, Cm, D, y, s, h, gy, got
+
+        # K3a and K6a on the flow's rows, fp32 residual stream
+        R = B * L
+        xa, res = rand(gen, (R, 2048), bf), rand(gen, (R, 2048), f32)
+        w = (1.0 + 0.1 * rand(gen, (2048,), f32)).to(bf)
+        out, ysum = fused_add_rms_norm(xa, res, w, 1e-5)
+        torch.cuda.synchronize()
+        out_ref, y_ref = add_norm_plain(xa, res, w, 1e-5)
+        rec = {"kernel": "add_rms_norm", "case": case, "shape": (R, 2048), "dtype": str(bf),
+               "rtol": RTOL[bf], "atol_rel": ATOL_REL}
+        worst = _errs(rec, [("out", out, out_ref), ("y", ysum, y_ref)])
+        summed = y_ref.to(bf)
+        rec.update(ms=time_ms(lambda: fused_add_rms_norm(xa, res, w, 1e-5), 20),
+                   plain_ms=time_ms(lambda: add_norm_plain(xa, res, w, 1e-5), 5),
+                   # F.rms_norm computes the norm half only (no residual add, no fp32 stream out)
+                   library_ms=time_ms(lambda: F.rms_norm(summed, (2048,), w, 1e-5), 20)
+                   if hasattr(F, "rms_norm") else None,
+                   **_bound(nbytes(xa, res, w, out, ysum), 6 * R * 2048, f32))
+        emit({"kernel_check": rec})
+        assert _allowed(rec) and rec["y_abs_err"] == 0.0, rec
+        results["add_rms_norm"][case] = dict({k: rec[k] for k in keep}, max_abs_err=worst)
+        del out_ref, y_ref, summed, xa, res, out
+
+        g, dres = rand(gen, (R, 2048), bf), rand(gen, (R, 2048), f32)
+        dx, dy, dw = fused_add_rms_norm_bwd(ysum, g, w, dres, 1e-5)
+        torch.cuda.synchronize()
+        rec = {"kernel": "add_rms_norm_bwd", "case": case, "shape": (R, 2048), "dtype": str(bf),
+               "rtol": RTOL[bf], "atol_rel": ATOL_REL}
+        worst = _errs(rec, zip(("dx", "dy", "dw"), (dx, dy, dw),
+                               add_norm_bwd_plain(ysum, g, w, dres, 1e-5)))
+        lib_ms = None
+        if hasattr(F, "rms_norm"):  # the norm half's backward only, through autograd
+            summed = ysum.to(bf).requires_grad_()
+            wl = w.clone().requires_grad_()
+            lib_out = F.rms_norm(summed, (2048,), wl, 1e-5)
+            lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (summed, wl), g,
+                                                         retain_graph=True), 10)
+            del lib_out, summed, wl
+        rec.update(ms=time_ms(lambda: fused_add_rms_norm_bwd(ysum, g, w, dres, 1e-5), 20),
+                   plain_ms=time_ms(lambda: add_norm_bwd_plain(ysum, g, w, dres, 1e-5), 5),
+                   library_ms=lib_ms,
+                   **_bound(nbytes(ysum, g, w, dres, dx, dy, dw), 12 * R * 2048, f32))
+        emit({"kernel_check": rec})
+        assert _allowed(rec), rec
+        results["add_rms_norm_bwd"][case] = dict({k: rec[k] for k in keep}, max_abs_err=worst)
+        del ysum, g, dres, dx, dy, dw
+
+        # K3b and K6b, z a column slice of the in_proj output
+        yv = rand(gen, (R, 4096), bf)
+        z = sliced(gen, (R,), (4096, 4096 + 256 + 64), bf)[0]
+        wg = (1.0 + 0.1 * rand(gen, (4096,), f32)).to(bf)
+        out = fused_gated_rms_norm(yv, z, wg, 1e-5)
+        torch.cuda.synchronize()
+        rec = {"kernel": "gated_rms_norm", "case": case, "shape": (R, 4096), "dtype": str(bf),
+               "z": "slice of a wider matrix", "rtol": RTOL[bf], "atol_rel": ATOL_REL}
+        worst = _errs(rec, [("out", out, gated_rms_norm_plain(yv, z, wg, 1e-5))])
+        rec.update(ms=time_ms(lambda: fused_gated_rms_norm(yv, z, wg, 1e-5), 20),
+                   plain_ms=time_ms(lambda: gated_rms_norm_plain(yv, z, wg, 1e-5), 5),
+                   library_ms=None, **_bound(nbytes(yv, z, wg, out), 10 * R * 4096, f32))
+        emit({"kernel_check": rec})
+        assert _allowed(rec), rec
+        results["gated_rms_norm"][case] = dict({k: rec[k] for k in keep}, max_abs_err=worst)
+
+        g = rand(gen, (R, 4096), bf)
+        gy_, gz, gw = fused_gated_rms_norm_bwd(yv, z, g, wg, 1e-5)
+        torch.cuda.synchronize()
+        rec = {"kernel": "gated_rms_norm_bwd", "case": case, "shape": (R, 4096), "dtype": str(bf),
+               "z": "slice of a wider matrix", "rtol": RTOL[bf], "atol_rel": ATOL_REL}
+        worst = _errs(rec, zip(("dy", "dz", "dw"), (gy_, gz, gw),
+                               gated_rms_norm_bwd_plain(yv, z, g, wg, 1e-5)))
+        # which kernel ran, by profiler name (a trace now and then holds no event of
+        # it: up to three tries); its grid must fit one wave, as the row kernel's does
+        names = set()
+        for _ in range(3):
+            names |= set(kernel_names_per_call(
+                [lambda: fused_gated_rms_norm_bwd(yv, z, g, wg, 1e-5)] * 3, "gated_rms_norm_bwd"))
+            if names:
+                break
+        rec.update(ms=time_ms(lambda: fused_gated_rms_norm_bwd(yv, z, g, wg, 1e-5), 20),
+                   plain_ms=time_ms(lambda: gated_rms_norm_bwd_plain(yv, z, g, wg, 1e-5), 5),
+                   library_ms=None, kernel_name=sorted(names),
+                   blocks_per_sm=gated_bwd_blocks_per_sm(yv, z, g, wg),
+                   **_bound(nbytes(yv, z, g, wg, gy_, gz, gw), 30 * R * 4096, f32))
+        emit({"kernel_check": rec})
+        assert _allowed(rec), rec
+        assert rec["blocks_per_sm"] * sms >= BWD_BLOCKS, rec
+        assert not names or any("gated_rms_norm_bwd_row_kernel<" in n for n in names), rec
+        results["gated_rms_norm_bwd"][case] = dict(
+            {k: rec[k] for k in keep + ("kernel_name", "blocks_per_sm")}, max_abs_err=worst)
+        del yv, z, g, out, gy_, gz, gw
+        torch.cuda.empty_cache()
+
+
+def _stage2_model(dtype=torch.bfloat16, seed=SEED):
+    """(train config, model, params, prompting): the 1.3B bundle with both
+    384-px towers, the projector and the VQ, built by `factory.build_model`
+    from config/config_stage2.yaml's values (the card has no PyYAML to read
+    the file); every loss logged."""
+    from omnimamba_tpu_torch.config import TrainConfig
+    from omnimamba_tpu_torch.factory import build_model
+
+    tcfg = TrainConfig(omnimamba_model="OmniMamba-1.3B", image_backbone="dinosiglip-vit-so-384px",
+                       dataset="datasets/pretokenized_coco_train2014.jsonl", stage="finetune",
+                       t2i_task=True, mmu_task=True, batch_size_t2i=STAGE2_T2I_BATCH,
+                       batch_size_mmu=STAGE2_MMU_BATCH, lr=1e-4, max_steps=150000,
+                       warmup_steps=0, logging_steps=1, bf16=True)
+    model, params, uni = build_model(tcfg, dtype=dtype, seed=seed, device="cuda")
+    return tcfg, model, params, uni
+
+
+def _mixed_batch(rng, cfg, n_t2i, n_mmu):
+    """One stage-2 batch of synthetic ids: the t2i flow's caption blocks and
+    image ids, the mmu flow's raw 480 x 640 images (row i has one where i is
+    even), 449 text ids and labels (half of them ignored)."""
+    ids = rng.integers(0, 50277, (n_mmu, STAGE2_MMU_TEXT))
+    return {
+        "t2i_flow": {"inputs": rng.integers(0, cfg.vqvae_vocab_size, (n_t2i, 256)),
+                     "caption_ids": rng.integers(0, 50277, (n_t2i, STAGE2_CAPTION))},
+        "mmu_flow": {"pixel_values": rng.integers(0, 256, (n_mmu, *MMU_IMAGE, 3), dtype=np.uint8),
+                     "input_ids": ids,
+                     "labels": np.where(rng.random(ids.shape) < 0.5, -100, ids),
+                     "multimodal_mask": np.arange(n_mmu) % 2 == 0},
+    }
+
+
+def stage2_plain_vs_kernel():
+    """The stage-2 loss (t2i + mmu) and the gradient of every trainable leaf
+    (stage finetune: the backbone and the projector) at full width, 3 layers,
+    fp32, the two towers whole, on one mixed batch (2 t2i rows of 329, 2 mmu
+    rows of 1,182, one of them text only): once through the kernels, once
+    through the plain versions differentiated by autograd, then the kernel
+    run with every block checkpointed, which must give the same bits."""
+    from omnimamba_tpu_torch import MambaConfig, OmniMambaModel, VQConfig, init_omnimamba
+    from omnimamba_tpu_torch.config import VISION_BACKBONES, TrainConfig
+    from omnimamba_tpu_torch.data.tokenizer import default_sptids
+    from omnimamba_tpu_torch.models.omnimamba import mmu_loss, t2i_loss
+    from omnimamba_tpu_torch.train.optimizer import make_optimizer
+    from omnimamba_tpu_torch.train.trainer import prepare_batch
+
+    cfg = dataclasses.replace(MambaConfig(), n_layer=3, t2i_task=True, mmu_task=True)
+    model = OmniMambaModel(cfg=cfg, vq_cfg=VQConfig(), sptids=default_sptids(),
+                           vision_cfg=VISION_BACKBONES["dinosiglip-vit-so-384px"]())
+    tcfg = TrainConfig(stage="finetune")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params = init_omnimamba(gen, model, torch.float32, "cuda", with_vq=False)
+    for layer in params["mamba"]["layers"]:  # LoRA B starts at zero; make both branches count
+        lora = layer["mixer"]["lora"]
+        for k in ("t2i_B", "mmu_B"):
+            lora[k] = 0.02 * torch.randn(lora[k].shape, generator=gen, device="cuda")
+    make_optimizer(params, tcfg)
+    named = [(n, t) for n, t in _paths(params) if t.requires_grad]
+    leaves = [t for _, t in named]
+    assert not any(n.startswith("vision") for n, _ in named)
+    batch = prepare_batch(_mixed_batch(np.random.default_rng(SEED + 5), cfg, 2, 2), model,
+                          torch.device("cuda"))
+    t2i, mmu = batch["t2i_flow"], batch["mmu_flow"]
+
+    def run(remat):
+        lt = t2i_loss(params, model, t2i["inputs"], t2i["caption_ids"], dtype=torch.float32,
+                      remat=remat)
+        lm = mmu_loss(params, model, mmu["pixel_values"], mmu["input_ids"], mmu["labels"],
+                      mmu["multimodal_mask"], dtype=torch.float32, remat=remat)
+        grads = torch.autograd.grad(lt + lm, leaves, allow_unused=True)
+        return lt.detach(), lm.detach(), grads
+
+    wrappers = kernel_wrappers()
+    counts, out = {}, {}
+    for remat in (False, True):
+        for w in wrappers.values():
+            w.launches = 0
+        out[remat] = run(remat)
+        counts[remat] = {k: w.launches for k, w in wrappers.items() if w.launches}
+    n = 2 * model.cfg.n_layer  # two flows
+    forward = ("ssd_scan", "add_rms_norm", "gated_rms_norm")
+    assert counts[False] == {**dict.fromkeys(forward, n), **dict.fromkeys(BACKWARD_KERNELS, n)}, counts
+    assert counts[True] == {**dict.fromkeys(forward, 2 * n), **dict.fromkeys(BACKWARD_KERNELS, n)}, counts
+    with plain_versions():
+        plain = run(False)
+    assert counts[True] == {k: w.launches for k, w in wrappers.items() if w.launches}, \
+        "plain run launched a kernel"
+    tol_rel = 1e-4
+    worst, worst_leaf, unused = 0.0, "", []
+    for (name, _), gk, gp, gr in zip(named, out[False][2], plain[2], out[True][2]):
+        if gp is None:
+            assert gk is None and gr is None, name
+            unused.append(name)
+            continue
+        assert torch.isfinite(gk).all(), name
+        share = (gk - gp).abs().max().item() / (tol_rel * max(gp.abs().max().item(), 1e-30))
+        if share > worst:
+            worst, worst_leaf = share, name
+        assert torch.equal(gk, gr), (name, "checkpointing changed a gradient")
+    rel = [abs(k.item() - p.item()) / abs(p.item()) for k, p in zip(out[False][:2], plain[:2])]
+    rec = {"layers": model.cfg.n_layer, "d_model": model.cfg.d_model, "dtype": "torch.float32",
+           "t2i_rows": 2, "t2i_len": STAGE2_T2I_LEN, "mmu_rows": 2, "mmu_len": STAGE2_MMU_LEN,
+           "mmu_rows_with_image": 1, "towers": "dinosiglip-vit-so-384px, whole depth, frozen",
+           "loss_t2i_kernel": out[False][0].item(), "loss_t2i_plain": plain[0].item(),
+           "loss_mmu_kernel": out[False][1].item(), "loss_mmu_plain": plain[1].item(),
+           "loss_rel_err": rel, "gradient_leaves": len(named) - len(unused),
+           "unused_leaves": sorted(set(unused)), "worst_gradient_err_of_allowed": worst,
+           "worst_leaf": worst_leaf, "tol_rel": tol_rel, "checkpointed_equals_bit_for_bit": True,
+           "launches": counts[False], "launches_checkpointed": counts[True]}
+    emit({"stage2_plain_vs_kernel": rec})
+    assert max(rel) <= 1e-5 and worst <= 1.0, rec
+    assert torch.equal(out[False][0], out[True][0]) and torch.equal(out[False][1], out[True][1]), rec
+    del params, out, plain
+    torch.cuda.empty_cache()
+
+
+def _stage2_data(root, uni, batch_t2i):
+    """The stage-2 CombinedLoader on synthetic files under `root`: a
+    pretokenized COCO JSONL and LLaVA instruction rows whose images are .npy
+    files of 480 x 640 pixels, every third row text only, read in order, so
+    each mmu batch of 3 holds 2 rows with an image."""
+    from omnimamba_tpu_torch.data.coco import (
+        MSCOCOFeatureDataset, coco_collate, make_synthetic_coco_jsonl)
+    from omnimamba_tpu_torch.data.llava import (
+        FinetuneDataset, PaddedCollatorForLanguageModeling, make_synthetic_llava_json)
+    from omnimamba_tpu_torch.data.loader import CombinedLoader, DataLoader
+
+    coco = make_synthetic_coco_jsonl(f"{root}/coco.jsonl", n=batch_t2i * (STAGE2_STEPS + 1),
+                                     seed=SEED)
+    ann = make_synthetic_llava_json(f"{root}/llava.json", n=STAGE2_MMU_BATCH * (STAGE2_STEPS + 1),
+                                    image_shape=MMU_IMAGE, text_only_every=3)
+    mmu = FinetuneDataset(ann, root, uni.text_tokenizer, max_length=STAGE2_MMU_TEXT,
+                          eot_id=uni.sptids_dict["<|eot|>"], multimodal_only=False)
+    collate = PaddedCollatorForLanguageModeling(STAGE2_MMU_TEXT, uni.text_tokenizer.pad_token_id)
+    return CombinedLoader({
+        "t2i_flow": DataLoader(MSCOCOFeatureDataset(coco, uni), batch_t2i, coco_collate, seed=SEED),
+        "mmu_flow": DataLoader(mmu, STAGE2_MMU_BATCH, collate, shuffle=False),
+    })
+
+
+def stage2_path(results, card):
+    """Stage-2 unified training at the full 1.3B width and depth with both
+    384-px towers (frozen) and the projector: `Trainer.train(max_steps=3)` fed
+    by `CombinedLoader` over synthetic COCO and LLaVA files, 48 t2i rows of 329
+    and 3 mmu rows of 1,182 a step, bf16, launch counters set to 0 just before
+    and read just after; then the split of a step, the towers' time and peak
+    with and without autograd, and one profiled step. Returns the trained
+    backbone for the distillation phase."""
+    import tempfile
+
+    from omnimamba_tpu_torch.models.omnimamba import mmu_loss, t2i_loss
+    from omnimamba_tpu_torch.models.vit import dinosiglip_features
+    from omnimamba_tpu_torch.train.optimizer import make_schedule
+    from omnimamba_tpu_torch.train.trainer import (
+        Trainer, clip_and_apply, prepare_batch, resolve_remat)
+
+    wrappers = kernel_wrappers()
+    tries, batch_t2i = [], STAGE2_T2I_BATCH
+    with tempfile.TemporaryDirectory() as root:
+        while True:
+            tcfg, model, params, uni = _stage2_model()
+            tcfg.batch_size_t2i = batch_t2i
+            before = {name: t.detach().clone() for name, t in _paths(params)
+                      if not name.startswith(("vision", "vq"))}
+            frozen_sums = {name: t.float().sum().item() for name, t in _paths(params)
+                           if name.startswith(("vision", "vq"))}
+            loader = _stage2_data(root, uni, batch_t2i)
+            log = _StepLog()
+            trainer = Trainer(model, params, tcfg, loader, dtype=torch.bfloat16,
+                              metrics_writer=log, log_fn=lambda line: None)
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_start = time.time()
+            try:
+                state, _ = trainer.train(max_steps=STAGE2_STEPS)
+            except torch.cuda.OutOfMemoryError:
+                tries.append({"batch_t2i": batch_t2i, "fits": False,
+                              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+                del trainer, params, before, loader
+                torch.cuda.empty_cache()
+                batch_t2i //= 2
+                assert batch_t2i >= 1, tries
+                continue
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrappers.items()}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            tries.append({"batch_t2i": batch_t2i, "fits": True, "peak_memory_gib": peak_gib})
+            break
+        batch = prepare_batch(next(iter(loader)), model, torch.device("cuda"))
+
+    n, steps = model.cfg.n_layer, STAGE2_STEPS
+    # the mmu flow checkpoints every block (remat_mmu None), the t2i flow where
+    # its own tokens (15,792 at 48 rows) pass REMAT_TOKENS; checkpointing runs
+    # every forward again
+    t2i_tokens, mmu_tokens = batch_t2i * STAGE2_T2I_LEN, STAGE2_MMU_BATCH * STAGE2_MMU_LEN
+    t2i_remat = resolve_remat(tcfg.remat, t2i_tokens)
+    fwd = n * steps * ((2 if t2i_remat else 1) + 2)
+    expect = {"ssd_scan": fwd, "add_rms_norm": fwd, "gated_rms_norm": fwd, "ssd_step": 0,
+              "decode_fused": 0, **dict.fromkeys(BACKWARD_KERNELS, 2 * n * steps),
+              **dict.fromkeys(INT8_KERNELS, 0)}
+    rows = log.rows
+    step_s = np.diff(np.asarray([t_start] + log.stamps))
+    moved = {name: (t.detach() != before[name]).any().item() for name, t in _paths(params)
+             if name in before}
+    frozen_moved = sorted(name for name, t in _paths(params)
+                          if name in frozen_sums and t.float().sum().item() != frozen_sums[name])
+    mask = batch["mmu_flow"]["multimodal_mask"]
+    rec = {
+        "model": "OmniMamba-1.3B", "towers": "dinosiglip-vit-so-384px", "n_layer": n,
+        "d_model": model.cfg.d_model, "stage": tcfg.stage, "dtype": "torch.bfloat16",
+        "batch_t2i": batch_t2i, "batch_mmu": STAGE2_MMU_BATCH, "t2i_len": STAGE2_T2I_LEN,
+        "mmu_len": STAGE2_MMU_LEN, "mmu_rows_with_image": int(mask.sum().item()),
+        "t2i_tokens_per_step": t2i_tokens, "mmu_tokens_per_step": mmu_tokens, "steps": steps,
+        "remat_t2i": t2i_remat, "remat_mmu": True,
+        "batch_tries": tries, "losses": [r["loss"] for r in rows],
+        "losses_t2i": [r["loss_t2i"] for r in rows], "losses_mmu": [r["loss_mmu"] for r in rows],
+        "grad_norms": [r["grad_norm"] for r in rows], "state_step": state.step,
+        "launches": launches, "launches_expected": expect,
+        "trainable_leaves": sum(t.requires_grad for _, t in _paths(params)),
+        "trainable_parameters": sum(t.numel() for _, t in _paths(params) if t.requires_grad),
+        "frozen_leaves_that_moved": frozen_moved,
+        "backbone_moved": any(m for k, m in moved.items() if "layers" in k and "in_proj" in k),
+        "projector_moved": any(m for k, m in moved.items() if k.startswith("projector")),
+    }
+    emit({"stage2_path": rec})
+    assert len(rows) == steps and all(np.isfinite(rec["losses"])), rec
+    assert all(v > 0 for v in rec["losses_t2i"] + rec["losses_mmu"]), rec
+    assert state.step == steps and launches == expect, rec
+    assert rec["mmu_rows_with_image"] == 2 and batch["mmu_flow"]["input_ids"].shape[1] + 4 + \
+        MMU_PATCHES == STAGE2_MMU_LEN, rec
+    assert not frozen_moved and rec["backbone_moved"] and rec["projector_moved"], rec
+    del before
+    for name in expect:
+        if name not in INT8_KERNELS:
+            results[name]["launches_stage2"] = launches[name]
+            results[name]["launches_per_stage2_step"] = launches[name] // steps
+
+    # ---- the towers: time, and no autograd graph (the peak is that of no_grad) ----
+    px = batch["mmu_flow"]["pixel_values"]
+    vis = params["vision"]
+
+    def towers():
+        return dinosiglip_features(vis["dino"], vis["siglip"], px, model.vision_cfg, remat=True)
+
+    peaks = {}
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad):
+            towers()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            feats = towers()
+            torch.cuda.synchronize()
+            peaks[grad] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            assert feats.grad_fn is None and not feats.requires_grad
+            del feats
+    towers_ms = time_ms(towers, 3, 1)
+
+    # ---- the split of one step: forward, backward (with its recompute), update ----
+    leaves = [t for _, t in _paths(params) if t.requires_grad]
+    schedule = make_schedule(tcfg)
+    t2i, mmu = batch["t2i_flow"], batch["mmu_flow"]
+
+    def manual_step():
+        marks = [time.time()]
+        loss = t2i_loss(params, model, t2i["inputs"], t2i["caption_ids"], dtype=torch.bfloat16,
+                        generator=trainer.generator, remat=t2i_remat)
+        loss = loss + mmu_loss(params, model, mmu["pixel_values"], mmu["input_ids"],
+                               mmu["labels"], mmu["multimodal_mask"], dtype=torch.bfloat16,
+                               generator=trainer.generator, remat=True)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        trainer.state, _ = clip_and_apply(trainer.state, trainer.tx, schedule, grads)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        return np.diff(marks)
+
+    split = np.median(np.asarray([manual_step() for _ in range(2)]), axis=0)
+    profile = profile_steps(
+        lambda i: trainer.step_fn(trainer.state, batch, trainer.generator), 1, top=24,
+        named=("ssd_scan_bwd", "ssd_bwd_reduce", "ssd_scan_bf16_kernel", "gated_rms_norm_bwd",
+               "norm_dw_reduce_cols", "add_rms_norm_bwd", "norm_dw_reduce_kernel",
+               "add_rms_norm_kernel", "gated_rms_norm_kernel"))
+    med = float(np.median(step_s[1:]))
+    emit({"stage2_times": {
+        "card": card, "batch_t2i": batch_t2i, "batch_mmu": STAGE2_MMU_BATCH,
+        "step_s": [float(v) for v in step_s], "step_s_median_after_first": med,
+        "t2i_tokens_per_s": t2i_tokens / med, "mmu_tokens_per_s": mmu_tokens / med,
+        "forward_s": float(split[0]), "backward_s": float(split[1]),
+        "optimizer_s": float(split[2]), "peak_memory_gib": peak_gib,
+        "towers_ms": towers_ms, "towers_pixels": "fp32 (the towers run in fp32 on bf16 weights)",
+        "towers_peak_gib_grad_enabled": peaks[True], "towers_peak_gib_no_grad": peaks[False],
+        "device_busy_ms_per_step": profile["device_busy_ms_per_step"],
+        "device_idle_share": profile["device_idle_share"],
+        "kernel_launches_per_step": profile["kernel_launches_per_step"],
+        "device_ms_per_step_by_kind": profile["device_ms_per_step_by_kind"],
+        "top_kernels": profile["top_kernels"],
+        "named_ms_per_step": profile["named_ms_per_step"],
+        "launches_per_step": {k: launches[k] // steps for k in (
+            "ssd_scan", "add_rms_norm", "gated_rms_norm", "ssd_scan_bwd", "add_rms_norm_bwd",
+            "gated_rms_norm_bwd")},
+        "note": "host clock, each step ending in a device synchronize (the loss read); the split "
+                "is the median of two hand-driven steps; idle share and kernels from one "
+                "profiled step; the towers' time is one call at the step's 3 rows",
+    }})
+    # a frozen tower saves nothing for a backward: its peak with autograd on is
+    # that of no_grad (within one MiB)
+    assert peaks[True] <= peaks[False] + 2**-10, peaks
+    mamba = params["mamba"]
+    del params, trainer, state, batch, px, vis, leaves, loader
+    torch.cuda.empty_cache()
+    return mamba, model.cfg, batch_t2i
+
+
+def distill_phase(mamba, cfg, results, card):
+    """A 4-layer draft distilled from the 1.3B target: the target's greedy
+    streams of 8 random prompts (K4 through `generate`), 2 AdamW steps of the
+    draft (K1 / K5 forward and backward), then the acceptance of the draft in
+    speculative decoding on 2 held-out prompts; launch counters set to 0 just
+    before and read just after."""
+    from omnimamba_tpu_torch.train.distill import acceptance_eval, distill_draft
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    logs = []
+    t0 = time.time()
+    draft, draft_cfg, metrics = distill_draft(
+        mamba, cfg, m_layers=4, steps=2, batch=8, prompt_len=16, gen_len=48, pool_batches=1,
+        lr=3e-4, generator=torch.Generator(device="cuda").manual_seed(SEED), dtype=torch.bfloat16,
+        log_every=1, log=logs.append)
+    torch.cuda.synchronize()
+    t_distill = time.time() - t0
+    ev = acceptance_eval(mamba, cfg, draft, draft_cfg, n_prompts=2, prompt_len=16, gen_len=48,
+                         k_draft=8, dtype=torch.bfloat16,
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    rec = {"card": card, "draft_layers": draft_cfg.n_layer, "target_layers": cfg.n_layer,
+           "pool": "1 x 8 prompts of 16 ids, 48 greedy tokens each", "steps": 2,
+           "log": logs, "last_step": metrics, "distill_s": t_distill,
+           "acceptance": ev["acceptance"], "drafted": ev["drafted"], "accepted": ev["accepted"],
+           "stream_identical": ev["stream_identical"], "launches": launches,
+           "note": "bf16 at random weights: the verify pass sums a window where plain decoding "
+                   "takes a step a token, so a near-tie can part the streams"}
+    emit({"distill": rec})
+    assert all(np.isfinite(v) for v in metrics.values()) and ev["drafted"] > 0, rec
+    assert all(launches.get(k, 0) > 0 for k in ("decode_fused", "ssd_scan", "ssd_scan_bwd")), rec
+    for name, count in launches.items():
+        results[name]["launches_distill"] = count
+
+
+def train_cli_phase(batch_t2i, card):
+    """The training CLI's `main` on the card with synthetic data for 2 steps:
+    its own 1.3B model, towers, VQ and loaders; launch counters set to 0 just
+    before and read just after."""
+    import tempfile
+
+    from omnimamba_tpu_torch.scripts import train as cli
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        state, metrics = cli.main(["--synthetic-data", "--max-steps", "2", "--batch-t2i",
+                                   str(batch_t2i), "--output-dir", root])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    rec = {"card": card, "argv": ["--synthetic-data", "--max-steps", "2", "--batch-t2i",
+                                  str(batch_t2i)],
+           "state_step": state.step, "seconds_with_build_and_data": seconds,
+           **{k: float(v) for k, v in metrics.items()}, "launches": launches}
+    emit({"train_cli": rec})
+    assert state.step == 2 and np.isfinite(rec["loss"]) and rec["loss_mmu"] > 0, rec
+    assert launches.get("ssd_scan_bwd", 0) > 0, rec
+    del state, metrics
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4153,7 +4776,7 @@ def main() -> int:
 
     for check in (check_ssd_scan, check_ssd_scan_bwd, check_ssd_step, check_norms, check_norms_bwd,
                   check_decode_fused, check_qmatmul, check_decode_fused_int8, check_ssd_step_int8,
-                  check_mmu_kernels):
+                  check_mmu_kernels, check_stage2_kernels):
         phase(check, gen, results)
 
     params, model, text_ids, bf16_tokens = phase(main_path, results, card)
@@ -4169,6 +4792,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(train_plain_vs_kernel)
     phase(train_path, results, card)
+    torch.cuda.empty_cache()
+    phase(stage2_plain_vs_kernel)
+    mamba, cfg, batch_t2i = phase(stage2_path, results, card)
+    phase(distill_phase, mamba, cfg, results, card)
+    del mamba
+    torch.cuda.empty_cache()
+    phase(train_cli_phase, batch_t2i, card)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -4190,7 +4820,9 @@ def main() -> int:
             "int8_out_proj_phase", "k4_phases",
             "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep",
-            "mmu", "mmu_4_layers_fp32", "launches_mmu_path")
+            "mmu", "mmu_4_layers_fp32", "mmu_48_layers_b8", "launches_mmu_path",
+            "stage2_t2i", "stage2_mmu", "launches_stage2", "launches_per_stage2_step",
+            "launches_distill")
                     if k in r})
         kernels.append(row)
     emit({"card": card, "seconds_total": time.time() - t_all, "seconds_by_phase": phase_s})

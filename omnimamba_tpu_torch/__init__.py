@@ -11,17 +11,19 @@ package so a reader finds the counterpart:
            and backward), int8 weight quantization and the int8 matmul
            kernel, samplers, the kernel build, the image resize
   models/  Mamba-2 mixer, blocks, backbone + dual heads, decode engine,
-           speculative decoding, VQ-16 decode side, the DINOv2 and SigLIP
+           speculative decoding, the VQ-16 tokenizer, the DINOv2 and SigLIP
            towers, the vision projector, the text-to-image and
            understanding compositions and the losses
   data/    tokenizer (offline and byte-level BPE), UniversalPrompting,
-           conversation templates, prompt builders, image transforms
+           conversation templates, prompt builders, image transforms, the
+           COCO and LLaVA datasets, the loaders
   serve/   the continuous-batching slot engine
-  train/   schedule, stage freezing, AdamW; the training step and loop
+  train/   schedule, stage freezing, AdamW; the training step and loop;
+           draft distillation
   utils/   parameter bridge from and to the JAX pytree, checkpoints, device
-           resolution
+           resolution, converters of the published torch state dicts
   factory  the model bundle, parameters and prompting from a TrainConfig
-  scripts/ the understanding and text-to-image command lines
+  scripts/ the understanding, text-to-image and training command lines
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; a kernel wrapper uses its plain tensor version only for a
@@ -51,6 +53,7 @@ from omnimamba_tpu_torch.models.omnimamba import (  # noqa: F401
     mmu_embed_sequence,
     mmu_generate,
     mmu_image_features,
+    mmu_loss,
     t2i_generate,
     t2i_loss,
 )

@@ -387,6 +387,9 @@ class TrainConfig:
     # selective policies ("proj_xbd", "proj_ssd", "proj_conv_ssd", "dots")
     # are refused until they are ported.
     remat: Any = "proj"
+    # the mmu flow's checkpointing in a mixed (stage-2) step: None checkpoints
+    # every block of it (its 1,182-token rows); True / False as ``remat``
+    remat_mmu: Any = None
 
     def __post_init__(self):
         if {k: v for k, v in self.mesh_shape.items() if v != 1}:

@@ -8,7 +8,8 @@ can ship uint8 and the card does the rest. ``host_vit_transform`` is the
 PIL path, byte for byte the torchvision pipeline; it imports PIL when
 called, so nothing else here needs PIL.
 
-Also the [-1, 1] scaling of the VQ tokenizer's pixels.
+Also the raw COCO images' square centre crop (``center_crop_resize``, PIL
+imported when called) and the [-1, 1] scaling of the VQ tokenizer's pixels.
 """
 
 from __future__ import annotations
@@ -128,6 +129,17 @@ def host_dinosiglip_transform(
         "dino": host_vit_transform(img, cfg.dino, strategy),
         "siglip": host_vit_transform(img, cfg.siglip, strategy),
     }
+
+
+def center_crop_resize(img: np.ndarray, size: int) -> np.ndarray:
+    """uint8 (H, W, 3) -> uint8 (size, size, 3): the central square of side
+    min(H, W), resized with PIL's Lanczos filter (the T2I raw-image path)."""
+    from PIL import Image
+
+    h, w = img.shape[:2]
+    crop = min(h, w)
+    img = img[(h - crop) // 2:(h + crop) // 2, (w - crop) // 2:(w + crop) // 2]
+    return np.asarray(Image.fromarray(img).resize((size, size), Image.LANCZOS)).astype(np.uint8)
 
 
 def to_vq_range(img_uint8: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ Counterpart of ``omnimamba_tpu/models/omnimamba.py``. One params dict:
 
 The understanding (MMU) sequence: [emb(<|mmu|> <|soi|>) | 729 projected
 patches | emb(<|eoi|> <|sot|> text)], decoded through the mmu LoRA and the
-text head. ``mmu_loss`` (stage-2 training) is not ported yet.
+text head; ``mmu_loss`` trains on it (stage 2), with zero image features on
+text-only rows.
 """
 
 from __future__ import annotations
@@ -162,23 +163,43 @@ def mmu_embed_sequence(
 
 
 def mmu_image_features(params: Dict, model: OmniMambaModel,
-                       pixel_values: Dict[str, torch.Tensor]) -> torch.Tensor:
+                       pixel_values: Dict[str, torch.Tensor], remat: bool = False) -> torch.Tensor:
     """The towers' concatenated features through the projector: (B, N,
-    d_model), in the pixels' type."""
+    d_model), in the pixels' type. ``remat``: see ``vit.vit_features`` (it
+    checkpoints only a tower that trains)."""
     if model.vision_cfg is None:
         raise ValueError("this model bundle has no vision_cfg: it has no towers")
     feats = dinosiglip_features(params["vision"]["dino"], params["vision"]["siglip"],
-                                pixel_values, model.vision_cfg)
+                                pixel_values, model.vision_cfg, remat=remat)
     return apply_projector(params["projector"], feats, model.projector_arch)
 
 
-def mmu_loss(*args, **kwargs):
-    """The understanding training loss of stage 2."""
-    raise NotImplementedError(
-        "mmu_loss, the stage-2 training loss, is not ported yet: it comes with the stage-2 "
-        "unified step and utils/convert (ROADMAP: Q1 item 2, slice 3b); MMU inference "
-        "(mmu_generate, mmu_image_features) is ported"
-    )
+def mmu_loss(
+    params: Dict,
+    model: OmniMambaModel,
+    pixel_values: Dict[str, torch.Tensor],  # {"dino", "siglip"}: (B, H, W, 3) normalised
+    input_ids: torch.Tensor,  # (B, T) text ids, starting at the question
+    labels: torch.Tensor,  # (B, T) text labels
+    multimodal_mask: torch.Tensor,  # (B,) bool: the row has a real image
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    generator: Optional[torch.Generator] = None,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Understanding training loss (stage 2): the towers and the projector on
+    every row, zero features where ``multimodal_mask`` is False (a text-only
+    row's pixels are a dummy), the spliced sequence through the mmu LoRA and
+    the text head, shift-by-one cross entropy on the text labels.
+    ``generator`` draws the LoRA dropout masks (None: no dropout); ``remat``
+    checkpoints every block of the backbone (and of a tower that trains). The
+    inputs and the parameters must lie on one device."""
+    feats = mmu_image_features(params, model, pixel_values, remat=remat)
+    mask = torch.as_tensor(multimodal_mask, device=feats.device).bool()
+    feats = torch.where(mask[:, None, None], feats, 0.0)
+    emb, full_labels = mmu_embed_sequence(params, model, input_ids, feats, labels, dtype=dtype)
+    mamba = params["mamba"]
+    hidden, _ = backbone_forward(mamba, emb, "mmu", model.cfg, generator=generator, remat=remat)
+    return _shift_and_ce(apply_head(mamba, hidden, "mmu"), full_labels)
 
 
 def lm_loss(

@@ -116,11 +116,24 @@ def _block(blk: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x + h
 
 
+def _needs_grad(node) -> bool:
+    if isinstance(node, dict):
+        return any(_needs_grad(v) for v in node.values())
+    if isinstance(node, list):
+        return any(_needs_grad(v) for v in node)
+    return isinstance(node, torch.Tensor) and node.requires_grad
+
+
 def vit_features(params: Dict, pixels: torch.Tensor, cfg: ViTConfig, *,
-                 out_offset: int = 2) -> torch.Tensor:
+                 out_offset: int = 2, remat: bool = False) -> torch.Tensor:
     """(B, H, W, 3) normalised pixels -> (B, N, d) patch tokens of block
     depth - out_offset, prefix tokens stripped, no final norm. Runs in the
-    pixels' type, on their device."""
+    pixels' type, on their device.
+
+    A frozen tower (no leaf with ``requires_grad``) on pixels that need no
+    gradient builds no autograd graph. ``remat`` checkpoints every block
+    (``torch.utils.checkpoint``), and only where a block leaf requires grad:
+    a frozen tower keeps nothing for a backward anyway."""
     B = pixels.shape[0]
     d = cfg.width
     kernel = params["patch_embed"]["kernel"].to(pixels.dtype)
@@ -136,14 +149,22 @@ def vit_features(params: Dict, pixels: torch.Tensor, cfg: ViTConfig, *,
     n_prefix = sum(t.shape[1] for t in prefix)
     if prefix:
         x = torch.cat(prefix + [x], dim=1)
-    for blk in params["blocks"][: cfg.depth - out_offset + 1]:
-        x = _block(blk, x, cfg)
+    blocks = params["blocks"][: cfg.depth - out_offset + 1]
+    remat = remat and torch.is_grad_enabled() and _needs_grad(blocks)
+    for blk in blocks:
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(_block, blk, x, cfg, use_reentrant=False)
+        else:
+            x = _block(blk, x, cfg)
     return x[:, n_prefix:]
 
 
 def dinosiglip_features(dino_params: Dict, siglip_params: Dict, pixels: Dict[str, torch.Tensor],
-                        cfg: VisionConfig) -> torch.Tensor:
-    """The concatenated (B, N, dino.width + siglip.width) features."""
-    dino = vit_features(dino_params, pixels["dino"], cfg.dino)
-    sig = vit_features(siglip_params, pixels["siglip"], cfg.siglip)
+                        cfg: VisionConfig, remat: bool = False) -> torch.Tensor:
+    """The concatenated (B, N, dino.width + siglip.width) features;
+    ``remat`` as in ``vit_features``."""
+    dino = vit_features(dino_params, pixels["dino"], cfg.dino, remat=remat)
+    sig = vit_features(siglip_params, pixels["siglip"], cfg.siglip, remat=remat)
     return torch.cat([dino, sig], dim=-1)

@@ -1,5 +1,6 @@
-"""LlamaGen VQ-16 image tokenizer: the decode side (codebook lookup and
-decoder) that turns generated tokens into pixels.
+"""LlamaGen VQ-16 image tokenizer: the encoder and the nearest-code
+quantizer that turn pixels into tokens, and the decode side (codebook
+lookup and decoder) that turns generated tokens into pixels.
 
 Counterpart of ``omnimamba_tpu/models/vq.py``. The public functions keep the
 JAX package's NHWC layout for latents and images, so both packages can be
@@ -8,14 +9,17 @@ as PyTorch's convolution wants them (``utils/bridge`` converts HWIO kernels).
 GroupNorm statistics are fp32 with eps 1e-6 and min(32, C) groups.
 
 An fp32 convolution on a CUDA device runs in TF32 unless
-``torch.backends.cudnn.allow_tf32`` is False; set it so where an fp32 result
-is compared on the card. The encoder waits for the slice that needs it.
+``torch.backends.cudnn.allow_tf32`` is False, and the code distances decide
+an argmax: ``vq_encode`` turns TF32 off for its convolutions and products
+while it runs, so its codes are those of fp32 arithmetic. The decoder keeps
+the caller's setting; set it off where an fp32 image is compared on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,10 +42,11 @@ def _conv_init(gen, kh, kw, cin, cout, dtype, device):
     }
 
 
-def conv2d(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 'same' convolution with an OIHW kernel."""
+def conv2d(p: Dict, x: torch.Tensor, stride: int = 1, same: bool = True) -> torch.Tensor:
+    """Convolution with an OIHW kernel: 'same' padding, or none."""
     k = p["kernel"].to(x.dtype)
-    return F.conv2d(x, k, p["bias"].to(x.dtype), padding=(k.shape[2] // 2, k.shape[3] // 2))
+    padding = (k.shape[2] // 2, k.shape[3] // 2) if same else 0
+    return F.conv2d(x, k, p["bias"].to(x.dtype), stride=stride, padding=padding)
 
 
 def group_norm(p: Dict, x: torch.Tensor, groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
@@ -104,6 +109,60 @@ def attn_block(p: Dict, x: torch.Tensor) -> torch.Tensor:
     out = torch.bmm(attn.float(), v.float()).to(x.dtype)  # (B, HW, C)
     out = out.transpose(1, 2).reshape(B, C, H, W)
     return x + conv2d(p["proj_out"], out)
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+
+def init_encoder(gen, cfg: VQConfig, dtype, device) -> Dict:
+    ch = cfg.ch
+    in_mult = (1,) + tuple(cfg.encoder_ch_mult)
+    n_lv = len(cfg.encoder_ch_mult)
+    p: Dict = {"conv_in": _conv_init(gen, 3, 3, 3, ch, dtype, device)}
+    levels = []
+    for i in range(n_lv):
+        c, cout = ch * in_mult[i], ch * cfg.encoder_ch_mult[i]
+        lvl = {"res": [], "attn": []}
+        for _ in range(cfg.num_res_blocks):
+            lvl["res"].append(_init_resnet_block(gen, c, cout, dtype, device))
+            c = cout
+            if i == n_lv - 1:
+                lvl["attn"].append(_init_attn_block(gen, c, dtype, device))
+        if i != n_lv - 1:
+            lvl["downsample"] = _conv_init(gen, 3, 3, c, c, dtype, device)
+        levels.append(lvl)
+    p["levels"] = levels
+    cmid = ch * cfg.encoder_ch_mult[-1]
+    p["mid"] = {
+        "res1": _init_resnet_block(gen, cmid, cmid, dtype, device),
+        "attn": _init_attn_block(gen, cmid, dtype, device),
+        "res2": _init_resnet_block(gen, cmid, cmid, dtype, device),
+    }
+    p["norm_out"] = _gn_init(cmid, dtype, device)
+    p["conv_out"] = _conv_init(gen, 3, 3, cmid, cfg.z_channels, dtype, device)
+    return p
+
+
+def encoder_forward(p: Dict, x: torch.Tensor, cfg: VQConfig) -> torch.Tensor:
+    """Image (B, H, W, 3) NHWC -> latents (B, H / 2^(levels - 1), ...,
+    z_channels) NHWC."""
+    h = conv2d(p["conv_in"], x.permute(0, 3, 1, 2))
+    n_lv = len(cfg.encoder_ch_mult)
+    for i, lvl in enumerate(p["levels"]):
+        for j in range(cfg.num_res_blocks):
+            h = resnet_block(lvl["res"][j], h)
+            if lvl.get("attn"):  # only the deepest level carries attention
+                h = attn_block(lvl["attn"][j], h)
+        if i != n_lv - 1:
+            # pad one row and one column at the far side, then a stride-2 conv
+            h = conv2d(lvl["downsample"], F.pad(h, (0, 1, 0, 1)), stride=2, same=False)
+    h = resnet_block(p["mid"]["res1"], h)
+    h = attn_block(p["mid"]["attn"], h)
+    h = resnet_block(p["mid"]["res2"], h)
+    h = conv2d(p["conv_out"], swish(group_norm(p["norm_out"], h)))
+    return h.permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -170,19 +229,24 @@ def init_vq(
     dtype: torch.dtype = torch.float32,
     device="cuda",
 ) -> Dict:
-    """Decode-side parameters: codebook, post_quant_conv, decoder."""
+    """Every parameter: codebook, decoder and post_quant_conv (the decode
+    side), encoder and quant_conv."""
     device = resolve_device(device)
     codebook = uniform(
         generator, (cfg.codebook_size, cfg.codebook_embed_dim),
         1.0 / cfg.codebook_size, torch.float32, device)
     if cfg.codebook_l2_norm:
         codebook = codebook / torch.linalg.norm(codebook, dim=-1, keepdim=True)
-    return {
+    params = {
         "decoder": init_decoder(generator, cfg, dtype, device),
         "post_quant_conv": _conv_init(
             generator, 1, 1, cfg.codebook_embed_dim, cfg.z_channels, dtype, device),
         "codebook": codebook.to(dtype),
     }
+    params["encoder"] = init_encoder(generator, cfg, dtype, device)
+    params["quant_conv"] = _conv_init(
+        generator, 1, 1, cfg.z_channels, cfg.codebook_embed_dim, dtype, device)
+    return params
 
 
 def _normalized_codebook(params: Dict, cfg: VQConfig) -> torch.Tensor:
@@ -192,10 +256,66 @@ def _normalized_codebook(params: Dict, cfg: VQConfig) -> torch.Tensor:
     return cb
 
 
-def quantize(params: Dict, indices: torch.Tensor, cfg: VQConfig) -> torch.Tensor:
-    """Lookup side of the quantizer: token ids -> (l2-normalized) codebook
-    entries in fp32. The nearest-entry search belongs to the encoder."""
+def codebook_lookup(params: Dict, indices: torch.Tensor, cfg: VQConfig) -> torch.Tensor:
+    """Token ids -> (l2-normalized) codebook entries in fp32."""
     return _normalized_codebook(params, cfg)[indices]
+
+
+class VQEncodeOutput(NamedTuple):
+    quant: torch.Tensor  # (B, h, w, e_dim) straight-through quantized latents, z's type
+    indices: torch.Tensor  # (B, h, w) int64 code ids
+    vq_loss: torch.Tensor
+    commit_loss: torch.Tensor
+    entropy_loss: torch.Tensor
+
+
+def quantize(params: Dict, z: torch.Tensor, cfg: VQConfig, training: bool = False) -> VQEncodeOutput:
+    """Nearest code of each latent (B, h, w, e_dim): with the l2 norm the
+    largest fp32 dot product with the normalised codebook (the smallest
+    distance). ``training`` adds the codebook, commitment and entropy
+    losses; the latents pass a straight-through gradient."""
+    zf = z.float()
+    if cfg.codebook_l2_norm:
+        zf = zf / torch.linalg.norm(zf, dim=-1, keepdim=True)
+    cb = _normalized_codebook(params, cfg)
+    sim = torch.einsum("bhwe,ve->bhwv", zf, cb)
+    indices = torch.argmax(sim, dim=-1)
+    z_q = cb[indices]
+    zero = torch.zeros((), dtype=torch.float32, device=z.device)
+    vq_loss = commit_loss = entropy_loss = zero
+    if training:
+        vq_loss = torch.mean(torch.square(z_q - zf.detach()))
+        commit_loss = cfg.commit_loss_beta * torch.mean(torch.square(z_q.detach() - zf))
+        if cfg.entropy_loss_ratio > 0:
+            d = sim.reshape(-1, cfg.codebook_size) / 0.01
+            probs = torch.softmax(d, dim=-1)
+            log_probs = torch.log_softmax(d + 1e-5, dim=-1)
+            avg_probs = probs.mean(dim=0)
+            avg_entropy = -torch.sum(avg_probs * torch.log(avg_probs + 1e-5))
+            sample_entropy = -torch.mean(torch.sum(probs * log_probs, dim=-1))
+            entropy_loss = cfg.entropy_loss_ratio * (sample_entropy - avg_entropy)
+    z_q_st = zf + (z_q - zf).detach()
+    return VQEncodeOutput(z_q_st.to(z.dtype), indices, vq_loss, commit_loss, entropy_loss)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+
+
+def vq_encode(params: Dict, img: torch.Tensor, cfg: VQConfig, training: bool = False) -> VQEncodeOutput:
+    """Image (B, H, W, 3) in [-1, 1] -> codes (B, H/16, W/16) for the
+    published VQ-16 (``quantize``), TF32 off while it runs."""
+    with _no_tf32():
+        h = encoder_forward(params["encoder"], img, cfg)
+        p = params["quant_conv"]
+        h = conv2d(p, h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return quantize(params, h, cfg, training)
 
 
 def vq_decode(params: Dict, quant: torch.Tensor, cfg: VQConfig) -> torch.Tensor:
@@ -219,5 +339,5 @@ def vq_decode_code(
                 raise ValueError(f"{T} tokens do not form a square grid; pass grid=")
             grid = (g, g)
         indices = indices.reshape(B, *grid)
-    z_q = quantize(params, indices, cfg).to(params["post_quant_conv"]["kernel"].dtype)
+    z_q = codebook_lookup(params, indices, cfg).to(params["post_quant_conv"]["kernel"].dtype)
     return vq_decode(params, z_q, cfg)

@@ -15,9 +15,11 @@ What differs from the JAX trainer:
 - the parameters and the AdamW state are updated **in place**; a step
   returns a ``TrainState`` holding the same objects and ``step + 1``;
 - ``remat="proj"`` chooses between checkpointing every block and keeping
-  every activation from the tokens of a step (``resolve_remat``); the
+  every activation from the tokens of the t2i flow (``resolve_remat``); the
+  mmu flow takes ``cfg.remat_mmu`` (None: every block checkpointed); the
   selective policies of the JAX package are refused until they are ported;
-- ``mmu_loss`` is not ported yet, so a step takes t2i flows only.
+- an mmu flow's ``pixel_values`` may be raw uint8 (B, H, W, 3): the step
+  moves them to the device and applies the towers' transform there.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 import torch
 
 from omnimamba_tpu_torch.config import TrainConfig
+from omnimamba_tpu_torch.data.transforms import dinosiglip_transform
 from omnimamba_tpu_torch.models.backbone import check_remat
 from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel, mmu_loss, t2i_loss
 from omnimamba_tpu_torch.train.optimizer import make_optimizer, make_schedule, named_leaves
@@ -74,6 +77,22 @@ def _tree_to(batch, device):
     return torch.as_tensor(batch, device=device)
 
 
+def prepare_batch(batch, model: OmniMambaModel, device: torch.device, stacked: bool = False):
+    """The batch on ``device``; an mmu flow's raw uint8 ``pixel_values`` (B, H,
+    W, 3), or (accum, B, H, W, 3) when ``stacked``, become the towers' inputs
+    ``{"dino", "siglip"}`` there (``data/transforms.dinosiglip_transform``)."""
+    batch = _tree_to(batch, device)
+    mmu = batch.get("mmu_flow")
+    if mmu is not None and not isinstance(mmu["pixel_values"], dict):
+        raw = mmu["pixel_values"]
+        if stacked:
+            per = [dinosiglip_transform(r, model.vision_cfg) for r in raw]
+            mmu["pixel_values"] = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        else:
+            mmu["pixel_values"] = dinosiglip_transform(raw, model.vision_cfg)
+    return batch
+
+
 def clip_and_apply(state: TrainState, tx, schedule, grads: List[torch.Tensor]):
     """Clip ``grads`` (of the trainable leaves, in their order) to a global
     norm of 1.0, apply one AdamW update at the schedule's rate and return
@@ -106,13 +125,20 @@ def make_train_step(
     micro-batches one after the other, accumulates their gradients in fp32
     and applies one update.
 
-    batch = {"t2i_flow": {"inputs": (B, 256) int, "caption_ids": (B, 72) int}}.
-    ``generator`` draws the LoRA dropout masks; None means no dropout. The
-    metrics are 0-dim tensors on the device (``loss``, ``grad_norm``,
-    ``loss_t2i``, ``loss_mmu``)."""
+    batch = {
+      "t2i_flow": {"inputs": (B, 256) int, "caption_ids": (B, 73) int},
+      "mmu_flow": {"pixel_values": {"dino", "siglip"}: (B, H, W, 3) float, or raw
+                   uint8 (B, H, W, 3), "input_ids": (B, T), "labels": (B, T),
+                   "multimodal_mask": (B,) bool},
+    }; either flow may be missing. ``loss = loss_t2i + loss_mmu``.
+    ``generator`` draws the LoRA dropout masks, the t2i flow's first, then
+    the mmu flow's; None means no dropout. The metrics are 0-dim tensors on
+    the device (``loss``, ``grad_norm``, ``loss_t2i``, ``loss_mmu``)."""
     device = resolve_device(device)
     schedule = make_schedule(cfg)
     accum = max(int(cfg.grad_accum or 1), 1)
+    # the mmu flow's rows are 1,182 tokens long: checkpoint them unless told not to
+    remat_mmu = check_remat(True if cfg.remat_mmu is None else cfg.remat_mmu)
 
     def loss_fn(params, batch, generator):
         zero = torch.zeros((), dtype=torch.float32, device=device)
@@ -120,16 +146,19 @@ def make_train_step(
         if cfg.t2i_task and "t2i_flow" in batch:
             flow = batch["t2i_flow"]
             b, n_cap = flow["caption_ids"].shape
-            tokens = b * (n_cap + flow["inputs"].shape[1])
+            tokens = b * (n_cap + flow["inputs"].shape[1])  # only this flow's tokens count
             loss_t2i = t2i_loss(
                 params, model, flow["inputs"], flow["caption_ids"], dtype=dtype,
                 generator=generator, remat=resolve_remat(cfg.remat, tokens))
         if cfg.mmu_task and "mmu_flow" in batch:
-            loss_mmu = mmu_loss()
+            flow = batch["mmu_flow"]
+            loss_mmu = mmu_loss(
+                params, model, flow["pixel_values"], flow["input_ids"], flow["labels"],
+                flow["multimodal_mask"], dtype=dtype, generator=generator, remat=remat_mmu)
         return loss_t2i + loss_mmu, {"loss_t2i": loss_t2i, "loss_mmu": loss_mmu}
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
-        batch = _tree_to(batch, device)
+        batch = prepare_batch(batch, model, device, stacked=accum > 1)
         leaves = _trainable(state.params)
         if accum == 1:
             loss, parts = loss_fn(state.params, batch, generator)
@@ -310,25 +339,33 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, metric_key_prefix: str = "eval"):
-        """Average t2i loss over the eval loader. Eval batches are bare t2i
-        dicts ({"inputs", "caption_ids"}) or flow-keyed dicts carrying
-        "t2i_flow"; an "mmu_flow" waits for ``mmu_loss``."""
+        """Average per-task losses over the eval loader. Eval batches are bare
+        t2i dicts ({"inputs", "caption_ids"}) or flow-keyed dicts carrying
+        "t2i_flow" and / or "mmu_flow" (the training batch schema); each
+        present flow contributes its own averaged loss, without dropout."""
         if self.eval_loader is None:
             raise ValueError("no eval loader configured")
-        total, count = 0.0, 0
+        totals, counts = {"t2i": 0.0, "mmu": 0.0}, {"t2i": 0, "mmu": 0}
+        params = self.state.params
         for batch in self.eval_loader:
-            if "mmu_flow" in batch:
-                mmu_loss()
-            t2i = batch.get("t2i_flow", batch if "inputs" in batch else None)
+            if "inputs" in batch:
+                batch = {"t2i_flow": batch}
+            batch = prepare_batch(batch, self.model, self.device)
+            t2i = batch.get("t2i_flow")
             if t2i is not None:
-                t2i = _tree_to(t2i, self.device)
-                total += float(t2i_loss(self.state.params, self.model, t2i["inputs"],
-                                        t2i["caption_ids"], dtype=self.dtype))
-                count += 1
-        metrics = {}
-        if count:
-            metrics[f"{metric_key_prefix}_t2i_loss"] = total / count
-            metrics[f"{metric_key_prefix}_loss"] = total / count  # t2i-only loaders' key
+                totals["t2i"] += float(t2i_loss(params, self.model, t2i["inputs"],
+                                                t2i["caption_ids"], dtype=self.dtype))
+                counts["t2i"] += 1
+            mmu = batch.get("mmu_flow")
+            if mmu is not None:
+                totals["mmu"] += float(mmu_loss(
+                    params, self.model, mmu["pixel_values"], mmu["input_ids"], mmu["labels"],
+                    mmu["multimodal_mask"], dtype=self.dtype))
+                counts["mmu"] += 1
+        metrics = {f"{metric_key_prefix}_{task}_loss": totals[task] / counts[task]
+                   for task in ("t2i", "mmu") if counts[task]}
+        if counts["t2i"] and not counts["mmu"]:  # t2i-only loaders' key
+            metrics[f"{metric_key_prefix}_loss"] = metrics[f"{metric_key_prefix}_t2i_loss"]
         self.log_fn(str(metrics))
         if self.metrics_writer is not None:
             self.metrics_writer.log(self.state.step, metrics)

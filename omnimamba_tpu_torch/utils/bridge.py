@@ -22,8 +22,8 @@ What changes on the way:
   is taken as it is.
 
 Every leaf of the input must be consumed: a leaf the port has no place for
-(the VQ encoder) raises instead of being dropped. ``to_jax_tree`` undoes
-every step for the backbone, the towers and the projector, bit for bit.
+raises instead of being dropped. ``to_jax_tree`` undoes every step for the
+backbone, the towers, the projector and the VQ model, bit for bit.
 """
 
 from __future__ import annotations
@@ -126,6 +126,8 @@ def _oihw_to_hwio(node):
             else _oihw_to_hwio(v)
             for k, v in node.items()
         }
+    if isinstance(node, list):
+        return [_oihw_to_hwio(v) for v in node]
     return node
 
 
@@ -229,32 +231,32 @@ def from_jax_params(
 
     if leaves.has("vq"):
         vq = {"codebook": leaves.take("vq", "codebook")}
-        for key in ("decoder", "post_quant_conv"):
-            vq[key] = _hwio_to_oihw(leaves.take_tree("vq", key))
+        for key in ("decoder", "post_quant_conv", "encoder", "quant_conv"):
+            if leaves.has("vq", key):
+                vq[key] = _hwio_to_oihw(leaves.take_tree("vq", key))
         out["vq"] = vq
 
     if leaves.flat:
         left = sorted("/".join(map(str, k)) for k in leaves.flat)
         raise ValueError(
-            f"{len(left)} parameter leaves have no place in the port yet (the VQ "
-            "encoder arrives with a later slice): "
+            f"{len(left)} parameter leaves have no place in the port: "
             + ", ".join(left[:8]) + (" ..." if len(left) > 8 else "")
         )
     return out
 
 
 def to_jax_tree(port_tree: Dict, model) -> Dict:
-    """The inverse of ``from_jax_params`` for the backbone, the towers and the
-    projector: a tree shaped like the port's (parameters, gradients or
-    updated parameters) as numpy arrays under the JAX package's names. The
-    fused in_proj kernel and LoRA B factors are cut back into their ``z | x |
-    bc | dt`` column slices, the conv taps and biases into ``x | bc``, the
-    per-layer and per-block dicts are stacked on a leading axis and OIHW
-    kernels go back to HWIO. Tests use it to compare the two packages leaf
-    by leaf."""
-    if not set(port_tree) <= {"mamba", "vision", "projector"}:
+    """The inverse of ``from_jax_params``: a tree shaped like the port's
+    (parameters, gradients or updated parameters) as numpy arrays under the
+    JAX package's names. The fused in_proj kernel and LoRA B factors are cut
+    back into their ``z | x | bc | dt`` column slices, the conv taps and
+    biases into ``x | bc``, the per-layer and per-block dicts are stacked on
+    a leading axis and OIHW kernels go back to HWIO (the VQ model's lists
+    stay lists). Tests use it to compare the two packages leaf by leaf."""
+    if not set(port_tree) <= {"mamba", "vision", "projector", "vq"}:
         raise ValueError(
-            f"to_jax_tree converts the backbone, the towers and the projector, got {sorted(port_tree)}")
+            "to_jax_tree converts the backbone, the towers, the projector and the VQ model, "
+            f"got {sorted(port_tree)}")
     mixer_cfg = model.cfg.mixer
     di, gn2, H = mixer_cfg.d_inner, 2 * mixer_cfg.ngroups * mixer_cfg.d_state, mixer_cfg.nheads
     widths = dict(zip(_IN_PROJ_PARTS, (di, di, gn2, H)))
@@ -266,6 +268,8 @@ def to_jax_tree(port_tree: Dict, model) -> Dict:
     def tree(node):
         if isinstance(node, dict):
             return {k: tree(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [tree(v) for v in node]
         return arr(node)
 
     def columns(t, sizes):
@@ -313,4 +317,6 @@ def to_jax_tree(port_tree: Dict, model) -> Dict:
             result["vision"][name] = conv
     if "projector" in port_tree:
         result["projector"] = tree(_oihw_to_hwio(port_tree["projector"]))
+    if "vq" in port_tree:
+        result["vq"] = tree(_oihw_to_hwio(port_tree["vq"]))
     return result

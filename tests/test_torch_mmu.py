@@ -342,14 +342,21 @@ def test_build_model_and_checkpoint(tmp_path):
                        params["mamba"]["layers"][1]["mixer"]["D"])
     assert not torch.equal(loaded["vision"]["dino"]["pos_embed"],
                            params["vision"]["dino"]["pos_embed"])  # not in the checkpoint: seed 1
-    for field in ("omnimamba_ckpt", "vq_ckpt", "mamba_pretrain"):
-        with pytest.raises(NotImplementedError, match="Q1 item 2"):
-            build_model(tiny_train_cfg(**{field: "weights.pth"}), device="cpu")
 
+    # a published state dict (.pth) loads through utils/convert: backbone and projector
+    from tests.test_factory_load import _full_omnimamba_sd
 
-def test_mmu_loss_still_raises():
-    with pytest.raises(NotImplementedError, match="Q1 item 2"):
-        tom.mmu_loss()
+    sd = _full_omnimamba_sd(jcfg.MODEL_REGISTRY["OmniMamba-Tiny"]().resized(50287),
+                            np.random.default_rng(3))
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, tmp_path / "omni.pth")
+    _, from_pth, _ = build_model(tiny_train_cfg(omnimamba_ckpt=str(tmp_path / "omni.pth")),
+                                 device="cpu")
+    assert torch.equal(from_pth["mamba"]["embedding"],
+                       torch.from_numpy(sd["llm_backbone.mamba.backbone.embedding.weight"]))
+    assert torch.equal(from_pth["projector"]["fc1"]["kernel"],
+                       torch.from_numpy(sd["projector.projector.0.weight"]).T)
+    with pytest.raises(FileNotFoundError):
+        build_model(tiny_train_cfg(mamba_pretrain=str(tmp_path / "missing.pth")), device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -253,7 +253,7 @@ def test_vq_decoder(pair):
     img_t = tvq.vq_decode_code(tp["vq"], tt(ids), tmodel.vq_cfg)
     assert img_t.shape == (2, 8, 8, 3)
     close(img_t, img_j, 1e-4)
-    close(tvq.quantize(tp["vq"], tt(ids), tmodel.vq_cfg),
+    close(tvq.codebook_lookup(tp["vq"], tt(ids), tmodel.vq_cfg),
           jvq._normalized_codebook(jp["vq"], jmodel.vq_cfg)[jnp.asarray(ids)], 1e-6)
     with pytest.raises(ValueError, match="square"):
         tvq.vq_decode_code(tp["vq"], tt(ids[:, :15]), tmodel.vq_cfg)
@@ -286,10 +286,9 @@ def test_bridge_consumes_every_leaf(pair):
                                   k_j.transpose(3, 2, 0, 1))
 
     extra = to_numpy(jp)
-    # the VQ encoder side has no place in the port yet (the projector has one since
-    # the understanding slice)
-    extra["vq"] = {**extra["vq"], "quant_conv": {"kernel": np.zeros((1, 1, 16, 8), np.float32)},
-                   "encoder": {"conv_in": {"kernel": np.zeros((3, 3, 3, 4), np.float32)}}}
+    # leaves of no parameter of the port (the VQ encoder has one)
+    extra["vq"] = {**extra["vq"], "codebook_used": np.zeros((32,), np.float32)}
+    extra["mamba"] = {**extra["mamba"], "lm_head": {"kernel": np.zeros((32, 64), np.float32)}}
     with pytest.raises(ValueError, match="2 parameter leaves"):
         from_jax_params(extra, tmodel, device="cpu")
 

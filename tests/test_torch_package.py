@@ -35,6 +35,8 @@ from omnimamba_tpu_torch.ops.quant_kernel import qmatmul
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
 from omnimamba_tpu_torch.models.speculative import speculative_generate
 from omnimamba_tpu_torch.serve.continuous import SlotEngine
+from omnimamba_tpu_torch.scripts import train as train_cli
+from omnimamba_tpu_torch.train.distill import acceptance_eval, distill_draft
 from omnimamba_tpu_torch.train.trainer import Trainer, make_train_step
 
 torch.set_num_threads(1)
@@ -156,6 +158,10 @@ ENTRY_POINTS = {
     "speculative_generate": lambda m, p: speculative_generate(
         p["mamba"], m.cfg, input_ids=torch.zeros(1, 4, dtype=torch.long),
         input_embeddings=torch.zeros(1, 4, 32), task="t2i", max_length=8, draft_layers=1),
+    "distill_draft": lambda m, p: distill_draft(p["mamba"], m.cfg, m_layers=1, steps=1),
+    "acceptance_eval": lambda m, p: acceptance_eval(p["mamba"], m.cfg, p["mamba"], m.cfg,
+                                                    prompts=[[1, 2, 3]]),
+    "train_cli": lambda m, p: train_cli.main(["--synthetic-data", "--max-steps", "1"]),
 }
 
 

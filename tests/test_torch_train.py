@@ -432,19 +432,16 @@ def test_train_config_from_yaml_equals_jax(path):
     j = dataclasses.asdict(jcfg.TrainConfig.from_yaml(path))
     t = dataclasses.asdict(tcfg.TrainConfig.from_yaml(path))
     assert j.pop("scan_impl") == "auto"  # no counterpart in the port: a CUDA tensor takes the kernels
-    assert j.pop("remat_mmu") is None  # read by mmu_loss only, which is not ported yet
     assert t == j
 
 
 def test_train_config_defaults_equal_jax():
     j = dataclasses.asdict(jcfg.TrainConfig())
     j.pop("scan_impl")
-    j.pop("remat_mmu")
     assert dataclasses.asdict(tcfg.TrainConfig()) == j
 
 
 UNPORTED = {
-    "mmu_loss": lambda tm: tomni.mmu_loss(),
     "remat_proj_xbd": lambda tm: ttrainer.resolve_remat("proj_xbd", 100),
     "remat_proj_ssd": lambda tm: ttrainer.resolve_remat("proj_ssd", 100),
     "remat_proj_conv_ssd": lambda tm: ttrainer.resolve_remat("proj_conv_ssd", 100),
