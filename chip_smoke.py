@@ -22,6 +22,13 @@ paths at the full 1.3B width and depth with random weights made from a seed:
   weights through both paths (the layer-by-layer one with the scaled-int8
   state), the continuous-batching slot engine on 64 requests, and
   speculative decoding with three drafts against plain greedy decoding;
+- the HTTP serving front end (`serve/server.py`) on the MMU path's params
+  with the LoRA B factors moved off zero: the batchers (t2i 16, mmu 8) and
+  the speculative lane under concurrent clients, the continuous lane (16
+  slots), a merged-t2i int8 service; requests sent one at a time against
+  `t2i_generate` / `mmu_generate` called directly, bit for bit; K4's
+  LoRA-free branch (after `merge_lora`) is held against its plain version at
+  48 layers and the serving batches first;
 - stage-1 text-to-image training: the loss and every gradient through the
   kernels against the same through the plain versions (3 layers, fp32), then
   `Trainer.train(max_steps=3)` at batch 90 in bf16 (halved until it fits),
@@ -46,7 +53,7 @@ Lines on standard output, one JSON object each unless noted:
   {"card": ...} {"build": ...} {"kernel_check": ...}* {"qmatmul_m_sweep": ...} {"main_path": ...}
   {"decode_profile": ...} {"times": ...} {"mmu_path": ...} {"mmu_times": ...}
   {"mmu_decode_profile": ...} {"fidelity": ...} {"int8_path": ...} {"slot_engine": ...}
-  {"speculative": ...} {"plain_vs_kernel": ...}*
+  {"speculative": ...} {"serve_path": ...} {"plain_vs_kernel": ...}*
   {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
   {"remat_threshold": ...} {"stage2_plain_vs_kernel": ...} {"stage2_path": ...}
   {"stage2_times": ...} {"distill": ...} {"train_cli": ...} {"kernels": [...]} and, last,
@@ -1202,6 +1209,7 @@ def check_decode_fused(gen, results):
     from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
     from omnimamba_tpu_torch.ops.decode_fused import (
         fused_decode_limits, fused_decode_step, fused_decode_step_plain, prepare_fused_decode)
+    from omnimamba_tpu_torch.utils.lora import merge_lora
 
     full, lora8 = Mamba2LayerConfig(), LoraConfig()
     # d_in_proj = 139: no 4-element alignment anywhere, K = 24 below one k tile
@@ -1228,7 +1236,11 @@ def check_decode_fused(gen, results):
 
     def stack(name):
         if name not in stacks:
-            stacks[name] = fused_layers(gen, *sizes[name])
+            if name.startswith("merged_"):  # LoRA folded into in_proj: K4's rank-0 branch
+                task = name.split("_")[1]
+                stacks[name] = merge_lora(stack("full_bf16"), task, lora8)
+            else:
+                stacks[name] = fused_layers(gen, *sizes[name])
         return stacks[name]
 
     cases = [
@@ -1253,6 +1265,12 @@ def check_decode_fused(gen, results):
         ("d_model_1536_bf16", "d1536_bf16", 1, BATCH, d1536, lora8, "t2i", bf, bf, bf),
         # above 96 rows: both pair kernels with two row tiles of 96
         ("rows_112_bf16", "full_bf16", 1, 112, full, lora8, "t2i", bf, bf, bf),
+        # the serving shapes after merge_lora (no lora subtree: rank 0): the
+        # T2I lane's batch of 16 with the bf16 state of cache_dtype="auto",
+        # the MMU lane's batch of 8 with its fp32 state
+        ("merged_48_layers_b16_bf16", "merged_t2i_bf16", 48, 16, full, lora8, None, bf, bf, bf),
+        ("merged_mmu_48_layers_b8_fp32_state", "merged_mmu_bf16", 48, 8, full, lora8, "mmu",
+         bf, bf, f32),
     ]
     # the pre-norm kernel each bf16 case on whole tiles must run (by name)
     prenorm_of = {"main_1_layer": "k4_prenorm_early_kernel<2, 8>",
@@ -1260,7 +1278,9 @@ def check_decode_fused(gen, results):
                   "d_model_1024_bf16": "k4_prenorm_early_kernel<1, 8>",
                   "d_model_1024_no_lora_bf16": "k4_prenorm_early_kernel<1, 0>",
                   "d_model_1536_bf16": "k4_prenorm_kernel<",
-                  "rows_112_bf16": "k4_prenorm_early_kernel<2, 8>"}
+                  "rows_112_bf16": "k4_prenorm_early_kernel<2, 8>",
+                  "merged_48_layers_b16_bf16": "k4_prenorm_early_kernel<2, 0>",
+                  "merged_mmu_48_layers_b8_fp32_state": "k4_prenorm_early_kernel<2, 0>"}
     # the out_proj kernel each bf16 case on whole tiles must run (by name): the
     # pair kernel of bf16 weights with MT m16 row fragments a block (six from
     # B=96 on: 96 rows a block, one row tile at B=96, two at 112)
@@ -1270,7 +1290,9 @@ def check_decode_fused(gen, results):
                    "cfg_batch_no_lora": "k4_out_proj_pair_kernel<6, __nv_bfloat16>",
                    "d_model_1024_bf16": "k4_out_proj_pair_kernel<3, __nv_bfloat16>",
                    "d_model_1536_bf16": "k4_out_proj_pair_kernel<3, __nv_bfloat16>",
-                   "rows_112_bf16": "k4_out_proj_pair_kernel<6, __nv_bfloat16>"}
+                   "rows_112_bf16": "k4_out_proj_pair_kernel<6, __nv_bfloat16>",
+                   "merged_48_layers_b16_bf16": "k4_out_proj_pair_kernel<1, __nv_bfloat16>",
+                   "merged_mmu_48_layers_b8_fp32_state": "k4_out_proj_pair_kernel<1, __nv_bfloat16>"}
     for name, sname, n_layer, B, cfg, lcfg, task, io, wdtype, sdtype in cases:
         layers = stack(sname)[:n_layer]
         cache0 = fused_state(gen, n_layer, B, cfg, io, sdtype)
@@ -1284,6 +1306,8 @@ def check_decode_fused(gen, results):
         cache = cache0._replace(conv_state=cache0.conv_state.clone(),
                                 ssm_state=cache0.ssm_state.clone())
         plan = prepare_fused_decode(layers, task, cfg, lcfg, B, io)
+        if name.startswith("merged_"):
+            assert "lora" not in layers[0]["mixer"] and plan.rank == 0, name
         conv_ptr, ssm_ptr = cache.conv_state.data_ptr(), cache.ssm_state.data_ptr()
         h_out, res_out, cache_out = fused_decode_step(layers, h, residual, cache, *args, plan=plan)
         torch.cuda.synchronize()
@@ -2071,6 +2095,7 @@ def check_decode_fused_int8(gen, results):
     from omnimamba_tpu_torch.ops.decode_fused import (
         fused_decode_step, fused_decode_step_plain, prepare_fused_decode)
     from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+    from omnimamba_tpu_torch.utils.lora import merge_lora
 
     full, lora8 = Mamba2LayerConfig(), LoraConfig()
     narrow = Mamba2LayerConfig(d_model=24, d_state=20, headdim=16, d_conv=3)
@@ -2088,7 +2113,9 @@ def check_decode_fused_int8(gen, results):
 
     def stack(name):
         if name not in stacks:
-            layers = fused_layers(gen, *sizes[name])
+            layers = fused_layers(gen, *sizes[name.replace("merged_", "")])
+            if name.startswith("merged_"):  # merged, then quantized: K4's rank-0 int8 branch
+                layers = merge_lora(layers, "t2i", lora8)
             stacks[name] = quantize_decode_params({"layers": layers})["layers"]
             del layers
         return stacks[name]
@@ -2108,6 +2135,9 @@ def check_decode_fused_int8(gen, results):
         ("int8_1_layer_112_rows", "bf16", 1, 112, full, lora8, "t2i", bf, f32),
         ("int8_d_model_1024", "d1024_bf16", 1, BATCH, d1024, lora8, "t2i", bf, bf),
         ("int8_d_model_1280", "d1280_bf16", 1, BATCH, d1280, lora8, "mmu", bf, bf),
+        # the int8 service of a merged deployment at the T2I lane's batch (after
+        # the bf16 stack's cases: its stack takes that one's place)
+        ("merged_int8_48_layers_b16", "merged_bf16", 48, 16, full, lora8, None, bf, bf),
         ("int8_fp32_1_layer", "f32", 1, BATCH, full, lora8, "t2i", f32, f32),
         ("int8_fp32_1_layer_four_rows", "f32", 1, 4, full, lora8, "mmu", f32, bf),
         ("int8_fp32_deep_four_rows", "f32", 48, 4, full, lora8, "t2i", f32, f32),
@@ -2120,6 +2150,7 @@ def check_decode_fused_int8(gen, results):
                   "int8_1_layer_17_rows": "k4_in_proj_pair_kernel<2, signed char>",
                   "int8_1_layer_96_rows": "k4_in_proj_pair_kernel<6, signed char>",
                   "int8_1_layer_112_rows": "k4_in_proj_pair_kernel<6, signed char>",
+                  "merged_int8_48_layers_b16": "k4_in_proj_pair_kernel<1, signed char>",
                   "int8_awkward": "k4_in_proj_kernel<float, float, signed char>",
                   "int8_awkward_bf16": "k4_in_proj_kernel<__nv_bfloat16, __nv_bfloat16, signed char>"}
     # the out_proj kernel each case must run (by name): on whole tiles the pair
@@ -2130,6 +2161,7 @@ def check_decode_fused_int8(gen, results):
                    "int8_1_layer_17_rows": "k4_out_proj_pair_kernel<2, signed char>",
                    "int8_1_layer_96_rows": "k4_out_proj_pair_kernel<6, signed char>",
                    "int8_1_layer_112_rows": "k4_out_proj_pair_kernel<6, signed char>",
+                   "merged_int8_48_layers_b16": "k4_out_proj_pair_kernel<1, signed char>",
                    "int8_d_model_1024": "k4_out_proj_pair_kernel<3, signed char>",
                    "int8_d_model_1280": "k4_out_proj_pair_kernel<3, signed char>",
                    "int8_awkward": "k4_out_proj_kernel<float, signed char>",
@@ -2140,8 +2172,9 @@ def check_decode_fused_int8(gen, results):
     for phase_rec in phase_recs:
         emit({"kernel_check": phase_rec})
     for name, sname, n_layer, B, cfg, lcfg, task, io, sdtype in cases:
-        if sname == "f32" and "bf16" in stacks:
-            stacks.pop("bf16")
+        if sname == "merged_bf16" or (sname == "f32" and stacks.keys() & {"bf16", "merged_bf16"}):
+            for key in ("bf16", "merged_bf16"):
+                stacks.pop(key, None)
             torch.cuda.empty_cache()
         layers = stack(sname)[:n_layer]
         cache0 = fused_state(gen, n_layer, B, cfg, io, sdtype)
@@ -2154,6 +2187,8 @@ def check_decode_fused_int8(gen, results):
         cache = cache0._replace(conv_state=cache0.conv_state.clone(), ssm_state=cache0.ssm_state.clone())
         plan = prepare_fused_decode(layers, task, cfg, lcfg, B, io)
         assert plan.proj_dtype == torch.int8
+        if name.startswith("merged_"):
+            assert "lora" not in layers[0]["mixer"] and plan.rank == 0, name
         h_out, res_out, _ = fused_decode_step(layers, h, residual, cache, *args, plan=plan)
         torch.cuda.synchronize()
         pairs = {"h": (h_out, h_ref), "residual": (res_out, res_ref),
@@ -3115,6 +3150,7 @@ def mmu_path(params, model, text_ids, t2i_tokens, results, card):
     assert fp32_equal, streams
     for name in wrappers:
         results[name]["launches_mmu_path"] = {p: launches[p][name] for p in launches}
+    return mparams, model, uni
 
 
 def fidelity_phase(params, model, text_ids, card):
@@ -3760,6 +3796,330 @@ def speculative_phase(mamba, qmamba, cfg, card):
     emit({"speculative": rec})
     assert all(v["identical"] for v in exact.values()), exact
     assert all(v["tok_per_s"] > 0 for v in rec["drafts"].values())
+
+
+# ---------------------------------------------------------------------------
+# phase: the HTTP serving front end at 1.3B with both towers
+# ---------------------------------------------------------------------------
+SERVE_T2I_BATCH = 16
+SERVE_MMU_BATCH = 8
+SERVE_MMU_NEW = 32  # answer tokens a request
+SERVE_IMAGES = ((384, 384), (384, 512))  # (H, W) of the synthetic PNGs: the towers' side, and wider
+# what each lane's traffic launches, by counter (K1, K3a, K3b, K4 bf16 and int8, K7, K2)
+SERVE_KERNELS = ("ssd_scan", "add_rms_norm", "gated_rms_norm", "decode_fused", "decode_fused_int8",
+                 "qmatmul", "ssd_step")
+
+
+def _http(url, obj=None, timeout=300.0):
+    """(status, body, seconds) of one request (GET without `obj`)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if obj is None else json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    return code, body, time.perf_counter() - t
+
+
+def _burst(url, payloads):
+    """Every payload from a client thread of its own, all at once:
+    (responses, latencies in s, wall seconds)."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(payloads)) as ex:
+        t = time.perf_counter()
+        outs = list(ex.map(lambda p: _http(url, p), payloads))
+        wall = time.perf_counter() - t
+    return [o[:2] for o in outs], [o[2] for o in outs], wall
+
+
+def _latency(seconds):
+    return {"p50_ms": float(np.percentile(seconds, 50)) * 1e3,
+            "p95_ms": float(np.percentile(seconds, 95)) * 1e3, "n": len(seconds)}
+
+
+def _start_server(service, **kw):
+    import threading
+
+    from omnimamba_tpu_torch.serve.server import make_server
+
+    server = make_server(service, "127.0.0.1", 0, max_wait_ms=50.0, **kw)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def serve_path(params, model, uni, results, card):
+    """The HTTP front end (`serve/server.py`) in process on 127.0.0.1 with
+    the MMU path's 1.3B params and both 384-px towers (random bf16 weights,
+    the LoRA B factors moved off zero so that a merge changes the weights):
+    a server of t2i batch 16 and mmu batch 8 with the speculative lane, sent
+    32 T2I requests from 32 client threads (half fixed blocks, half
+    raw_caption), 16 MMU requests with PNGs of two sizes, 4 low_latency
+    requests one at a time; a second server with the continuous lane (16
+    slots, chunk 16), sent 32 MMU requests; a third on a merged-t2i, int8
+    service, sent 16 T2I requests. Every response must be 200; requests sent
+    one at a time must give the bits of `t2i_generate` / `mmu_generate`
+    called directly on the service's params; every lane's thread must be
+    alive at the end and join. Each lane's traffic runs alone between the
+    launch counters' reset and read."""
+    import base64
+    import threading
+
+    from omnimamba_tpu_torch.data.transforms import from_vq_range
+    from omnimamba_tpu_torch.models.omnimamba import mmu_generate, t2i_generate
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_step, fused_decode_step_plain, prepare_fused_decode)
+    from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+    from omnimamba_tpu_torch.ops.sampling import SampleParams
+    from omnimamba_tpu_torch.serve.png import decode_png, encode_png
+    from omnimamba_tpu_torch.serve.server import OmniMambaService
+    from omnimamba_tpu_torch.utils.lora import merge_lora
+
+    cfg, L = model.cfg, model.cfg.n_layer
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params = {**params, "mamba": _lora_moved(gen, params["mamba"])}
+    service = OmniMambaService(model, params, uni, t2i_batch=SERVE_T2I_BATCH,
+                               mmu_batch=SERVE_MMU_BATCH, mmu_max_new=SERVE_MMU_NEW)
+    calls = {"t2i": 0, "mmu": 0, "speculative": 0}  # batch-function calls by lane
+
+    def counted(lane, fn):
+        def run(payloads):
+            calls[lane] += 1
+            return fn(payloads)
+        return run
+
+    service.t2i_batch_fn = counted("t2i", service.t2i_batch_fn)
+    service.mmu_batch_fn = counted("mmu", service.mmu_batch_fn)
+    service.mmu_single_fn = counted("speculative", service.mmu_single_fn)
+    wrappers = kernel_wrappers()
+
+    def lane_traffic(fn):
+        """fn() with the launch counters set to 0 just before and read just
+        after; and the lanes' batch-function calls in between."""
+        for w in wrappers.values():
+            w.launches = 0
+        before = dict(calls)
+        out = fn()
+        return out, {k: wrappers[k].launches for k in SERVE_KERNELS}, {
+            k: calls[k] - before[k] for k in calls}
+
+    rng = np.random.default_rng(SEED + 5)
+    words = ("a", "red", "cat", "on", "the", "mat", "near", "blue", "sky", "tree", "dog", "car")
+
+    def prompt(n):
+        return " ".join(rng.choice(words, n))
+
+    t2i_reqs = [{"prompt": prompt(4 + i % 9), **({"raw_caption": True} if i % 2 else {})}
+                for i in range(32)]
+    images = [rng.integers(0, 256, (*SERVE_IMAGES[i % 2], 3), dtype=np.uint8) for i in range(16)]
+    t0 = time.perf_counter()
+    pngs = [base64.b64encode(encode_png(img)).decode() for img in images]
+    png_encode_request_ms = (time.perf_counter() - t0) / len(images) * 1e3
+    mmu_reqs = [{"image_png_b64": pngs[i], "question": prompt(3 + i % 7) + "?"} for i in range(16)]
+    rec = {"card": card, "t2i_batch": SERVE_T2I_BATCH, "mmu_batch": SERVE_MMU_BATCH,
+           "mmu_max_new": SERVE_MMU_NEW, "images_hw": [list(s) for s in SERVE_IMAGES]}
+    launches, checks, lat, exact = {}, {}, {}, {}
+    greedy = SampleParams(top_k=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- server 1: the two batchers and the speculative lane ----
+    server, url = _start_server(service)
+    checks["healthz"] = _http(url + "/healthz")[:2] == (200, {"status": "ok"})
+    _burst(url + "/v1/t2i", t2i_reqs[:2])  # warm-up: library plans, allocator growth
+    _burst(url + "/v1/mmu", mmu_reqs[:2])
+    (resp, secs, wall), launches["t2i"], n_calls = lane_traffic(
+        lambda: _burst(url + "/v1/t2i", t2i_reqs))
+    checks["t2i_200"] = all(c == 200 for c, _ in resp)
+    t2i_pixels = [decode_png(base64.b64decode(b["image_png_b64"])) for _, b in resp]
+    checks["t2i_shapes"] = all(p.shape == (256, 256, 3) for p in t2i_pixels)
+    nb = n_calls["t2i"]
+    lat["t2i"] = dict(_latency(secs), wall_s=wall, images_per_s=len(t2i_reqs) / wall, batches=nb)
+    checks["t2i_launches"] = launches["t2i"] == dict(
+        dict.fromkeys(SERVE_KERNELS, 0), ssd_scan=L * nb, add_rms_norm=L * nb,
+        gated_rms_norm=L * nb, decode_fused=(cfg.num_tokens - 1) * nb)
+
+    # one t2i_generate of a full batch, alone, beside the lane's images/s
+    ids16, lens16 = service.t2i_inputs(t2i_reqs[:SERVE_T2I_BATCH])
+    t2i_generate(service.params, model, ids16, sample=greedy, text_lengths=lens16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t2i_generate(service.params, model, ids16, sample=greedy, text_lengths=lens16)
+    torch.cuda.synchronize()
+    lat["t2i"]["t2i_generate_alone_b16_images_per_s"] = SERVE_T2I_BATCH / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for img in t2i_pixels[:16]:
+        encode_png(img)
+    rec["png_encode_ms"] = {"t2i_256x256": (time.perf_counter() - t0) / 16 * 1e3,
+                            "request_images": png_encode_request_ms}
+
+    # requests sent one at a time give the direct call's bits
+    for i in (0, 1):  # a fixed block and a raw caption
+        code, body, _ = _http(url + "/v1/t2i", t2i_reqs[i])
+        ids, lens = service.t2i_inputs([t2i_reqs[i]] * SERVE_T2I_BATCH)
+        with torch.no_grad():
+            imgs, _ = t2i_generate(service.params, model, ids, sample=greedy, text_lengths=lens)
+        want = from_vq_range(imgs[0]).cpu().numpy()
+        exact[f"t2i_{'raw_caption' if i else 'fixed_block'}"] = code == 200 and np.array_equal(
+            decode_png(base64.b64decode(body["image_png_b64"])), want)
+
+    (resp, secs, wall), launches["mmu"], n_calls = lane_traffic(
+        lambda: _burst(url + "/v1/mmu", mmu_reqs))
+    checks["mmu_200"] = all(c == 200 and isinstance(b.get("text"), str) for c, b in resp)
+    nb = n_calls["mmu"]
+    lat["mmu"] = dict(_latency(secs), wall_s=wall, batches=nb)
+    got = launches["mmu"]
+    checks["mmu_launches"] = (got["ssd_scan"] == got["add_rms_norm"] == got["gated_rms_norm"] == L * nb
+                              and 0 < got["decode_fused"] <= (SERVE_MMU_NEW - 1) * nb
+                              and got["qmatmul"] == got["decode_fused_int8"] == 0)
+    dec = {}
+    for i, hw in enumerate(SERVE_IMAGES):
+        t0 = time.perf_counter()
+        for req in mmu_reqs[i::2]:
+            service.load_image(req["image_png_b64"])
+        dec[f"{hw[0]}x{hw[1]}"] = (time.perf_counter() - t0) / len(mmu_reqs[i::2]) * 1e3
+    rec["png_decode_and_resize_ms_per_request"] = dec
+    eos = int(uni.text_tokenizer.eos_token_id)
+    for i in (0, 1):  # the towers' size, and an image the service resizes
+        code, body, _ = _http(url + "/v1/mmu", mmu_reqs[i])
+        prompt_ids = service.mmu_prompt(mmu_reqs[i])
+        ids = np.full((SERVE_MMU_BATCH, -(-len(prompt_ids) // 32) * 32), int(uni.pad_id), np.int64)
+        ids[:, : len(prompt_ids)] = prompt_ids
+        with torch.no_grad():
+            feats = service.mmu_features([service.mmu_image(mmu_reqs[i])] * SERVE_MMU_BATCH)
+            total = ids.shape[1] + feats.shape[1]
+            out = mmu_generate(service.params, model, ids, feats, max_length=total + SERVE_MMU_NEW,
+                               eos_token_id=eos,
+                               text_lengths=np.full(SERVE_MMU_BATCH, len(prompt_ids)))
+        want = service.mmu_answer(out.sequences[0, total:total + out.num_generated].cpu().numpy())
+        hw = SERVE_IMAGES[i]
+        exact[f"mmu_{hw[0]}x{hw[1]}"] = code == 200 and body["text"] == want
+
+    def low_latency():
+        return [_http(url + "/v1/mmu", {**mmu_reqs[i], "low_latency": True}) for i in range(4)]
+
+    outs, launches["speculative"], n_calls = lane_traffic(low_latency)
+    checks["speculative_200"] = all(c == 200 and b.get("lane") == "speculative" for c, b, _ in outs)
+    lat["speculative"] = dict(_latency([s for _, _, s in outs]), calls=n_calls["speculative"])
+    checks["speculative_launches"] = launches["speculative"]["ssd_scan"] > 0
+    junk = {"image_png_b64": base64.b64encode(b"not an image").decode(), "question": "?"}
+    checks["bad_image_400"] = _http(url + "/v1/mmu", junk)[0] == 400
+
+    # one T2I batch alone, then while MMU clients send requests without pause;
+    # a wait long enough for all 16 makes each burst one batch, counted
+    batch16 = t2i_reqs[:SERVE_T2I_BATCH]
+    wait, server.t2i_batcher.max_wait = server.t2i_batcher.max_wait, 5.0
+    n0 = calls["t2i"]
+    alone = _burst(url + "/v1/t2i", batch16)[2]
+    n1 = calls["t2i"]
+    stop_mmu, mmu_codes = threading.Event(), []
+
+    def mmu_client(k):
+        while not stop_mmu.is_set():
+            mmu_codes.append(_http(url + "/v1/mmu", mmu_reqs[k])[0])
+
+    clients = [threading.Thread(target=mmu_client, args=(k,)) for k in range(SERVE_MMU_BATCH)]
+    for c in clients:
+        c.start()
+    time.sleep(1.0)  # the MMU lane busy first
+    beside = _burst(url + "/v1/t2i", batch16)
+    n2 = calls["t2i"]
+    stop_mmu.set()
+    for c in clients:
+        c.join(timeout=300)
+    server.t2i_batcher.max_wait = wait
+    checks["t2i_beside_mmu_200"] = all(c == 200 for c, _ in beside[0]) and all(
+        c == 200 for c in mmu_codes)
+    checks["t2i_batch_of_16_is_one_batch"] = n1 - n0 == n2 - n1 == 1
+    rec["t2i_batch_s"] = {"alone": alone, "while_mmu_traffic": beside[2],
+                          "batches": [n1 - n0, n2 - n1], "mmu_requests_meanwhile": len(mmu_codes)}
+
+    # ---- the fused step at the T2I lane's batch, merged (rank 0) against unmerged (rank 8) ----
+    merged = merge_lora(service.params, "t2i", cfg.lora)["mamba"]["layers"]
+    step_ms = {}
+    for name, layers in (("unmerged_rank_8", service.params["mamba"]["layers"]),
+                         ("merged_rank_0", merged)):
+        cache = fused_state(gen, L, SERVE_T2I_BATCH, cfg.mixer, torch.bfloat16, torch.bfloat16)
+        h = rand(gen, (SERVE_T2I_BATCH, cfg.d_model), torch.bfloat16)
+        plan = prepare_fused_decode(layers, "t2i", cfg.mixer, cfg.lora, SERVE_T2I_BATCH,
+                                    torch.bfloat16)
+        step_ms[name] = time_ms(lambda: fused_decode_step(
+            layers, h, None, cache, "t2i", cfg.mixer, cfg.lora, plan=plan), 10)
+        step_ms[f"{name}_plan_rank"] = plan.rank
+        step_ms[f"{name}_bound_ms"] = fused_step_bytes(
+            layers, cache, h, "t2i" if plan.rank else None) / HBM_BYTES_PER_S * 1e3
+        step_ms[f"{name}_plain_ms"] = time_ms(lambda: fused_decode_step_plain(
+            layers, h, None, cache, "t2i", cfg.mixer, cfg.lora, 1e-5), 2, 1)
+    del merged
+    rec["fused_step_ms_b16_bf16_state"] = step_ms
+    checks["merged_rank_0"] = step_ms["merged_rank_0_plan_rank"] == 0 < step_ms[
+        "unmerged_rank_8_plan_rank"]
+
+    # ---- server 2: the continuous lane ----
+    server2, url2 = _start_server(service, continuous_mmu=True, continuous_slots=16,
+                                  continuous_chunk=16)
+    lane = server2.cont_lane
+    rec["continuous_warmup_s"], rec["continuous_warmup_prompt_lens"] = lane.warmup_s, lane.warmup_lens
+    admitted, submit = [], lane.engine.submit
+
+    def record(*a, **k):
+        admitted.append(submit(*a, **k))
+        return admitted[-1]
+
+    lane.engine.submit = record
+    cont_reqs = [mmu_reqs[i % 16] for i in range(32)]
+    (resp, secs, wall), launches["continuous"], _ = lane_traffic(
+        lambda: _burst(url2 + "/v1/mmu", cont_reqs))
+    checks["continuous_200"] = all(c == 200 and b.get("lane") == "continuous" for c, b in resp)
+    useful = sum(len(r.tokens) for r in admitted)
+    lat["continuous"] = dict(_latency(secs), wall_s=wall, useful_tokens=useful,
+                             useful_tokens_per_s=useful / wall)
+    checks["continuous_launches"] = (launches["continuous"]["decode_fused"] > 0
+                                     and launches["continuous"]["decode_fused"] % 16 == 0)
+
+    # ---- server 3: a merged-t2i, int8 service ----
+    qparams = quantize_decode_params(merge_lora(params, "t2i", cfg.lora))
+    service3 = OmniMambaService(model, qparams, uni, t2i_batch=SERVE_T2I_BATCH,
+                                mmu_batch=SERVE_MMU_BATCH, mmu_max_new=SERVE_MMU_NEW,
+                                merge_lora_task="t2i")
+    service3.t2i_batch_fn = counted("t2i", service3.t2i_batch_fn)
+    server3, url3 = _start_server(service3)
+    _burst(url3 + "/v1/t2i", t2i_reqs[:2])  # warm-up
+    (resp, secs, wall), launches["int8_merged_t2i"], n_calls = lane_traffic(
+        lambda: _burst(url3 + "/v1/t2i", t2i_reqs[:16]))
+    checks["int8_merged_200"] = all(c == 200 for c, _ in resp)
+    nb = n_calls["t2i"]
+    lat["int8_merged_t2i"] = dict(_latency(secs), wall_s=wall, images_per_s=16 / wall, batches=nb)
+    got = launches["int8_merged_t2i"]
+    checks["int8_merged_launches"] = (got["decode_fused_int8"] == (cfg.num_tokens - 1) * nb
+                                      and got["decode_fused"] == 0 and got["qmatmul"] > 0)
+    code, body, _ = _http(url3 + "/v1/mmu", mmu_reqs[0])
+    checks["merged_refuses_mmu"] = code == 500 and "merged for task 't2i'" in body["error"]
+    rec["peak_memory_gib_every_lane_up"] = torch.cuda.max_memory_allocated() / 2**30
+
+    servers = {"batchers": server, "continuous": server2, "int8_merged": server3}
+    alive = {n: sorted(k for k, t in s.lanes.items() if t.is_alive()) for n, s in servers.items()}
+    checks["lanes_alive"] = all(alive[n] == sorted(s.lanes) for n, s in servers.items())
+    for s in servers.values():
+        s.shutdown()
+        s.server_close()
+        s.stop_batchers()
+    checks["lanes_joined"] = not any(t.is_alive() for s in servers.values() for t in s.lanes.values())
+    rec.update(latency=lat, launches=launches, exact=exact, lanes=alive, checks=checks,
+               note="latencies and wall times on the host clock, from the client's send to its "
+                    "response; fused step ms from CUDA events; PNG ms on the host")
+    emit({"serve_path": rec})
+    assert all(checks.values()), checks
+    assert all(exact.values()), exact
+    for name in ("ssd_scan", "add_rms_norm", "gated_rms_norm", "decode_fused", "qmatmul",
+                 "decode_fused_int8"):
+        results[name]["launches_serve"] = {lane: counts[name] for lane, counts in launches.items()}
+    del qparams, service, service3
 
 
 # ---------------------------------------------------------------------------
@@ -4780,13 +5140,15 @@ def main() -> int:
         phase(check, gen, results)
 
     params, model, text_ids, bf16_tokens = phase(main_path, results, card)
-    phase(mmu_path, params, model, text_ids, bf16_tokens, results, card)
+    mparams, mmodel, uni = phase(mmu_path, params, model, text_ids, bf16_tokens, results, card)
     torch.cuda.empty_cache()
     phase(fidelity_phase, params, model, text_ids, card)
     qmamba = phase(int8_path, params, model, text_ids, bf16_tokens, results, card)
     phase(slot_engine_phase, qmamba, model.cfg, card)
     phase(speculative_phase, params["mamba"], qmamba, model.cfg, card)
-    del params, qmamba, bf16_tokens
+    torch.cuda.empty_cache()
+    phase(serve_path, {**mparams, "vq": params["vq"]}, mmodel, uni, results, card)
+    del params, qmamba, bf16_tokens, mparams
     torch.cuda.empty_cache()
     phase(plain_vs_kernel)
     torch.cuda.empty_cache()
@@ -4820,7 +5182,7 @@ def main() -> int:
             "int8_out_proj_phase", "k4_phases",
             "layout",
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep",
-            "mmu", "mmu_4_layers_fp32", "mmu_48_layers_b8", "launches_mmu_path",
+            "mmu", "mmu_4_layers_fp32", "mmu_48_layers_b8", "launches_mmu_path", "launches_serve",
             "stage2_t2i", "stage2_mmu", "launches_stage2", "launches_per_stage2_step",
             "launches_distill")
                     if k in r})

@@ -13,16 +13,16 @@ no other path for a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import math
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
-from typing import List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -116,10 +116,31 @@ def build_kernels() -> BuildInfo:
     return BuildInfo(lib, True, time.time() - t0, commands, "\n".join(logs))
 
 
-@functools.lru_cache(maxsize=1)
+# "lib": the library once loaded; "tried": a build and load has started. Threads
+# that ask at once (a server's lanes on their first requests) wait for one
+# build, and one that failed is not tried again in the process
+_LOADED: Dict[str, object] = {}
+_LOAD_LOCK = threading.Lock()
+
+
 def load_kernels() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use. Every exported function
-    returns the ``cudaError_t`` of its launch as an int."""
+    """The loaded kernel library, built on first use (once a process, under a
+    lock). Every exported function returns the ``cudaError_t`` of its launch
+    as an int."""
+    lib = _LOADED.get("lib")
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        if "lib" not in _LOADED:
+            if "tried" in _LOADED:
+                raise RuntimeError("the kernel library failed to build or load earlier in this "
+                                   "process (the first call raised the cause)")
+            _LOADED["tried"] = True
+            _LOADED["lib"] = _load()
+        return _LOADED["lib"]
+
+
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_kernels().library))
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
     # pointers and the stream are c_void_p: an unannotated Python int would be

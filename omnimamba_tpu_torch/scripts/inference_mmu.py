@@ -9,8 +9,8 @@ to <|endoftext|>.
 
 The image is a ``.npy`` of uint8 pixels (H, W, 3), or any file PIL reads
 where PIL is installed. Without ``--ckpt`` the weights are random, made from
-``--seed``. The LoRA adapters stay unmerged (``utils/lora.merge_lora`` is not
-ported yet). Prints the list of answers.
+``--seed``. The mmu LoRA is folded into in_proj (``utils/lora.merge_lora``)
+unless ``--no-merge-lora`` is given. Prints the list of answers.
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ def read_image(path: str) -> np.ndarray:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
-        description="Answer questions about an image with OmniMamba (the PyTorch port). "
-        "LoRA stays unmerged: utils/lora.merge_lora is not ported yet.")
+        description="Answer questions about an image with OmniMamba (the PyTorch port).")
     p.add_argument("--image_path", type=str, required=True,
                    help=".npy of uint8 pixels (H, W, 3), or an image file PIL reads")
     p.add_argument("--question", type=str, required=True, help="questions separated by ' *** '")
@@ -49,6 +48,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--ckpt", type=str, default=None,
                    help="a checkpoint of the port (step_<n>.pt or its directory)")
     p.add_argument("--max-length", type=int, default=2048, help="prompt, image span and answer")
+    p.add_argument("--no-merge-lora", action="store_true",
+                   help="keep LoRA unmerged (the default merges the mmu adapters into in_proj: "
+                   "no LoRA product a decode step)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     p.add_argument("--seed", type=int, default=0, help="random weights when there is no --ckpt")
@@ -70,6 +72,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     from omnimamba_tpu_torch.factory import build_model
     from omnimamba_tpu_torch.models.omnimamba import mmu_generate, mmu_image_features
     from omnimamba_tpu_torch.ops.sampling import SampleParams
+    from omnimamba_tpu_torch.utils.lora import merge_lora
 
     cfg = TrainConfig.from_yaml(args.config) if args.config else TrainConfig()
     cfg.mmu_task = True
@@ -78,6 +81,8 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     dtype = getattr(torch, args.dtype)
     model, params, uni = build_model(cfg, stage="inference", seed=args.seed, dtype=dtype,
                                      with_vq=False, device=args.device)
+    if not args.no_merge_lora and model.cfg.lora is not None:
+        params = merge_lora(params, "mmu", model.cfg.lora)
 
     raw = torch.as_tensor(read_image(args.image_path), device=args.device)[None]
     with torch.no_grad():

@@ -8,8 +8,8 @@
 
 ``--out`` ending in ``.npy`` saves the uint8 pixels with numpy; any other name
 is written by PIL. Without ``--ckpt`` the weights are random, made from
-``--seed``. The LoRA adapters stay unmerged (``utils/lora.merge_lora`` is not
-ported yet).
+``--seed``. The t2i LoRA is folded into in_proj (``utils/lora.merge_lora``)
+unless ``--no-merge-lora`` is given.
 """
 
 from __future__ import annotations
@@ -37,8 +37,7 @@ def caption_block(uni, prompt: str) -> np.ndarray:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
-        description="Generate images with OmniMamba (the PyTorch port). "
-        "LoRA stays unmerged: utils/lora.merge_lora is not ported yet.")
+        description="Generate images with OmniMamba (the PyTorch port).")
     p.add_argument("--prompt", type=str, required=True)
     p.add_argument("--config", type=str, default=None,
                    help="a YAML train config (needs PyYAML); default: the 1.3B model")
@@ -51,6 +50,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--cfg-scale", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0, help="sampling, and random weights")
     p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--no-merge-lora", action="store_true",
+                   help="keep LoRA unmerged (the default merges the t2i adapters into in_proj: "
+                   "no LoRA product a decode step)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     return p.parse_args(argv)
@@ -63,6 +65,7 @@ def main(argv: Optional[List[str]] = None) -> np.ndarray:
     from omnimamba_tpu_torch.factory import build_model
     from omnimamba_tpu_torch.models.omnimamba import t2i_generate
     from omnimamba_tpu_torch.ops.sampling import SampleParams
+    from omnimamba_tpu_torch.utils.lora import merge_lora
 
     cfg = TrainConfig.from_yaml(args.config) if args.config else TrainConfig()
     cfg.mmu_task = False  # no towers for text-to-image
@@ -71,6 +74,8 @@ def main(argv: Optional[List[str]] = None) -> np.ndarray:
     dtype = getattr(torch, args.dtype)
     model, params, uni = build_model(cfg, stage="inference", seed=args.seed, dtype=dtype,
                                      device=args.device)
+    if not args.no_merge_lora and model.cfg.lora is not None:
+        params = merge_lora(params, "t2i", model.cfg.lora)
 
     text_ids = np.stack([caption_block(uni, args.prompt)] * args.batch)
     cfg_scale = args.cfg_scale if args.cfg_scale > 0 else None

@@ -16,6 +16,9 @@ is one row write into the (n_layer, n_slots, ...) decode state:
   the plan's pointers stay valid and in-flight slots are untouched;
 - finished slots (eos or budget) free at chunk boundaries and are reused at
   once; the tokens after eos are trimmed;
+- ``cancel`` takes a request out of the queue at once, or frees its slot at
+  the next chunk boundary; either way its ``done`` event is set, with an
+  error;
 - the host reads tokens once per ``chunk``-step CHUNK: the chunk's steps stay
   on the device, with no value read between them.
 
@@ -62,7 +65,7 @@ from omnimamba_tpu_torch.utils.device import resolve_device
 _MASK32 = 0xFFFFFFFF
 
 
-@dataclass
+@dataclass(eq=False)  # compared by identity
 class _Request:
     emb: np.ndarray  # (L, d) spliced input embeddings
     prompt_len: int
@@ -76,6 +79,7 @@ class _Request:
     done: threading.Event = field(default_factory=threading.Event)
     tokens: List[int] = field(default_factory=list)
     first_token: Optional[int] = None
+    error: Optional[str] = None  # set by cancel: the request ended without its answer
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -419,6 +423,29 @@ class SlotEngine:
             if not any_finished:
                 return  # no slot freed during admission: nothing more to admit
 
+    def cancel(self, req: _Request, error: str = "cancelled") -> None:
+        """End ``req`` with ``error``: a queued request leaves the queue, one
+        that holds a slot frees it at the next chunk boundary. Its ``done``
+        event is set at once. A request that has finished is left as it is."""
+        with self._lock:
+            if req.done.is_set():
+                return
+            req.error = error
+            if req in self._queue:
+                self._queue.remove(req)
+        req.done.set()
+
+    def pending(self) -> List[_Request]:
+        """The queued requests and those that hold a slot."""
+        with self._lock:
+            return list(self._queue) + [r for r in self._req if r is not None]
+
+    def _free_cancelled(self) -> None:
+        for slot in range(self.n_slots):
+            req = self._req[slot]
+            if self._active[slot] and req is not None and req.error is not None:
+                self._finish(slot)
+
     def _finish(self, slot: int):
         req = self._req[slot]
         self._active[slot] = False
@@ -429,6 +456,7 @@ class SlotEngine:
     def tick(self) -> int:
         """One engine iteration: admit, decode one chunk, harvest. Returns the
         number of ACTIVE slots that advanced (0 = idle)."""
+        self._free_cancelled()
         self._admit()
         n_active = int(self._active.sum())
         if n_active == 0:
