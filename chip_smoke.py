@@ -31,9 +31,13 @@ paths at the full 1.3B width and depth with random weights made from a seed:
   48 layers and the serving batches first;
 - stage-1 text-to-image training: the loss and every gradient through the
   kernels against the same through the plain versions (3 layers, fp32), then
-  `Trainer.train(max_steps=3)` at batch 90 in bf16 (halved until it fits),
-  the split of a step, one profiled step, and the memory peaks behind the
-  rule that resolves remat="proj";
+  `Trainer.train(max_steps=3)` at batch 90 in bf16 (halved until it fits)
+  under the checkpoint rung that remat="proj" resolves to, the split of a
+  step, one profiled step; then the selective checkpoint policies: each
+  one's gradients against none (3 layers, fp32, bit for bit) and its
+  launches, its peak memory, bytes a token and time at 1.3B (B=8, 16), the
+  largest batch each rung of the ladder fits, and the B=90 step under the
+  resolved rung beside the same with every block checkpointed;
 - stage-2 unified training: K1, K5, K3a/b and K6a/b at its shapes, the loss
   (t2i + mmu) and every gradient through the kernels against the plain
   versions (3 layers, fp32, both towers whole), then `Trainer.train(max_steps=3)`
@@ -41,7 +45,8 @@ paths at the full 1.3B width and depth with random weights made from a seed:
   synthetic COCO and LLaVA files (48 t2i rows of 329 and 3 mmu rows of 1,182
   a step, bf16; the t2i batch halved until it fits), the split of a step, the
   towers' time and peak, one profiled step; a 4-layer draft distilled from
-  the trained target and its acceptance; the training CLI for 2 steps.
+  the trained target and its acceptance; the training CLI for 2 steps (the
+  native COCO reader, `--tensorboard`).
 
 The launch counters show that each path went through its kernels. Any failed
 phase ends the run with a non-zero exit code; nothing is caught but the
@@ -55,7 +60,8 @@ Lines on standard output, one JSON object each unless noted:
   {"mmu_decode_profile": ...} {"fidelity": ...} {"int8_path": ...} {"slot_engine": ...}
   {"speculative": ...} {"serve_path": ...} {"plain_vs_kernel": ...}*
   {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
-  {"remat_threshold": ...} {"stage2_plain_vs_kernel": ...} {"stage2_path": ...}
+  {"remat_policies": ...} {"remat_threshold": ...} {"stage2_plain_vs_kernel": ...}
+  {"stage2_path": ...}
   {"stage2_times": ...} {"distill": ...} {"train_cli": ...} {"kernels": [...]} and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -67,6 +73,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4343,7 +4350,7 @@ def train_path(results, card):
     from omnimamba_tpu_torch.config import TrainConfig
     from omnimamba_tpu_torch.models.omnimamba import t2i_loss
     from omnimamba_tpu_torch.train.optimizer import make_schedule
-    from omnimamba_tpu_torch.train.trainer import REMAT_TOKENS, Trainer, clip_and_apply, resolve_remat
+    from omnimamba_tpu_torch.train.trainer import REMAT_LADDER, Trainer, clip_and_apply, resolve_remat
 
     cfg = MambaConfig()
     model = OmniMambaModel(cfg=cfg, vq_cfg=VQConfig(), sptids={})
@@ -4387,10 +4394,8 @@ def train_path(results, card):
         break
 
     n = cfg.n_layer
-    fwd = n * steps * (2 if remat else 1)  # checkpointing runs every forward again
-    expect = {"ssd_scan": fwd, "add_rms_norm": fwd, "gated_rms_norm": fwd, "ssd_step": 0,
-              "decode_fused": 0, **dict.fromkeys(BACKWARD_KERNELS, n * steps),
-              **dict.fromkeys(INT8_KERNELS, 0)}
+    expect = {"ssd_step": 0, "decode_fused": 0, **dict.fromkeys(INT8_KERNELS, 0),
+              **{k: v * steps for k, v in remat_launches(remat, n).items()}}
     losses = [row["loss"] for row in log.rows]
     step_s = np.diff(np.asarray([t_start] + log.stamps))
     # gate 4's checks: the mixer core is frozen, the image embeddings and the LoRA move
@@ -4399,7 +4404,7 @@ def train_path(results, card):
     rec = {
         "model": "OmniMamba-1.3B", "n_layer": n, "d_model": cfg.d_model, "stage": tcfg.stage,
         "batch": batch, "seq_len": TRAIN_LEN, "tokens_per_step": tokens, "steps": steps,
-        "remat": tcfg.remat, "remat_resolved": remat, "remat_rule_tokens": REMAT_TOKENS,
+        "remat": tcfg.remat, "remat_resolved": remat, "remat_ladder": REMAT_LADDER,
         "lr": tcfg.lr, "warmup_steps": tcfg.warmup_steps, "dtype": "torch.bfloat16",
         "batch_tries": tries, "losses": losses, "grad_norms": [r["grad_norm"] for r in log.rows],
         "state_step": state.step, "launches": launches, "launches_expected": expect,
@@ -4469,51 +4474,214 @@ def train_path(results, card):
                 "three hand-driven steps; idle share and kernels from one profiled step",
     }})
 
-    # ---- what remat="proj" rests on: peak memory and time of one forward and
-    # backward with and without checkpointing at two small batches ----
-    peaks = []
-    for b in (8, 16):
-        sub = {k: v[:b] for k, v in flow.items()}
-        for ck in (False, True):
-            def fwd_bwd():
-                loss = t2i_loss(params, model, sub["inputs"], sub["caption_ids"],
-                                dtype=torch.bfloat16, generator=trainer.generator, remat=ck)
-                torch.autograd.grad(loss, leaves, allow_unused=True)
-            fwd_bwd()
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            fwd_bwd()
-            torch.cuda.synchronize()
-            peaks.append({"batch": b, "tokens": b * TRAIN_LEN, "checkpointing": ck,
-                          "seconds": time.time() - t0,
-                          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-                          "held_before_gib": base / 2**30})
-    # the largest batch the rule still runs without checkpointing must fit
-    edge = (REMAT_TOKENS - 1) // TRAIN_LEN
-    if 16 < edge <= flow["inputs"].shape[0]:
-        assert not resolve_remat("proj", edge * TRAIN_LEN)
-        sub = {k: v[:edge] for k, v in flow.items()}
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        loss = t2i_loss(params, model, sub["inputs"], sub["caption_ids"], dtype=torch.bfloat16,
-                        generator=trainer.generator, remat=False)
-        torch.autograd.grad(loss, leaves, allow_unused=True)
+    return types.SimpleNamespace(params=params, model=model, flow=flow, leaves=leaves,
+                                 generator=trainer.generator, trainer=trainer)
+
+
+# of the card's memory: the peak a ladder rung may plan for (at 90% the allocator could
+# not place a 10.8-GiB chunk-state buffer beside 15 GiB of free but split segments)
+FIT_SHARE = 0.85
+
+
+def remat_choices():
+    """False, True and every selective policy's name."""
+    from omnimamba_tpu_torch.ops.remat import POLICIES
+
+    return (False, True, *POLICIES)
+
+
+def remat_launches(remat, n):
+    """Launches of the training kernels in one forward and backward of `n`
+    layers: every checkpointed block runs its forward again, K1 too unless the
+    policy keeps its outputs."""
+    from omnimamba_tpu_torch.ops.remat import POLICIES
+
+    again = remat is not False
+    k1_again = again and "ssd_out" not in POLICIES.get(remat, ())
+    return {"ssd_scan": n * (1 + k1_again), "add_rms_norm": n * (1 + again),
+            "gated_rms_norm": n * (1 + again), **dict.fromkeys(BACKWARD_KERNELS, n)}
+
+
+def _fp32_bits_under_policies(wrappers):
+    """Every policy against remat=False at full width, 3 layers, fp32, with
+    LoRA dropout: the loss and every gradient bit for bit, and the launches of
+    each kernel of one forward and backward."""
+    from omnimamba_tpu_torch import MambaConfig, OmniMambaModel, VQConfig, init_omnimamba
+    from omnimamba_tpu_torch.models.omnimamba import t2i_loss
+
+    cfg = dataclasses.replace(MambaConfig(), n_layer=3)
+    model = OmniMambaModel(cfg=cfg, vq_cfg=VQConfig(), sptids={})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    params = init_omnimamba(gen, model, torch.float32, "cuda", with_vq=False)
+    for layer in params["mamba"]["layers"]:  # LoRA B starts at zero; make the branch count
+        lora = layer["mixer"]["lora"]
+        lora["t2i_B"] = 0.02 * torch.randn(
+            lora["t2i_B"].shape, generator=gen, device="cuda", dtype=torch.float32)
+    leaves = [t for _, t in _require_grad(params)]
+    flow = _synthetic_t2i_batch(np.random.default_rng(SEED + 3), cfg, 2)["t2i_flow"]
+    img, cap = (torch.as_tensor(flow[k], device="cuda") for k in ("inputs", "caption_ids"))
+
+    def run(remat):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        for w in wrappers.values():
+            w.launches = 0
+        loss = t2i_loss(params, model, img, cap, dtype=torch.float32, generator=g, remat=remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         torch.cuda.synchronize()
-        peaks.append({"batch": edge, "tokens": edge * TRAIN_LEN, "checkpointing": False,
-                      "seconds": time.time() - t0, "largest_batch_below_the_rule": True,
-                      "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
-        del loss
-    by = {(r["batch"], r["checkpointing"]): r for r in peaks}
-    per_token = {ck: (by[(16, ck)]["peak_memory_gib"] - by[(8, ck)]["peak_memory_gib"])
-                 / (8 * TRAIN_LEN) * 2**30 for ck in (False, True)}
+        return loss.detach(), grads, {k: w.launches for k, w in wrappers.items() if w.launches}
+
+    loss0, grads0, launches0 = run(False)
+    assert launches0 == remat_launches(False, cfg.n_layer), launches0
+    out = {}
+    for remat in remat_choices()[1:]:
+        loss, grads, launches = run(remat)
+        same = [a is None and b is None or (a is not None and b is not None and torch.equal(a, b))
+                for a, b in zip(grads0, grads)]
+        out[str(remat)] = {"loss_bits_equal": bool(torch.equal(loss, loss0)),
+                           "gradient_leaves_bits_equal": sum(same), "gradient_leaves": len(same),
+                           "launches": launches,
+                           "launches_expected": remat_launches(remat, cfg.n_layer)}
+    return out
+
+
+def _split_product_bits(gen):
+    """in_proj at 1.3B as one product and as the two that the training forward
+    takes (z; x | bc | dt): the same bits?"""
+    from omnimamba_tpu_torch.config import Mamba2LayerConfig
+
+    mixer = Mamba2LayerConfig()
+    d, di, width = mixer.d_model, mixer.d_inner, mixer.d_in_proj
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        W = rand(gen, (d, width), dtype, 1.0 / d ** 0.5)
+        for rows in (8 * TRAIN_LEN, TRAIN_BATCH * TRAIN_LEN):
+            x = rand(gen, (rows, d), dtype)
+            joint = x @ W
+            parts = (x @ W[:, :di], x @ W[:, di:])
+            diff = max((joint[:, :di] - parts[0]).abs().max().item(),
+                       (joint[:, di:] - parts[1]).abs().max().item())
+            out[f"{str(dtype)[6:]}_rows_{rows}"] = {
+                "bits_equal": bool(torch.equal(joint[:, :di], parts[0])
+                                   and torch.equal(joint[:, di:], parts[1])),
+                "max_abs_diff": diff, "max_abs": joint.abs().max().item()}
+            del x, joint, parts
+    return out
+
+
+def remat_policies(ctx, results, card):
+    """The selective checkpoint policies (`ops/remat.py`): at full width, 3
+    layers, fp32, with dropout, every policy's loss and gradients against
+    remat=False bit for bit and its launches; in_proj as one product and as
+    two; at 1.3B in bf16 (the model `train_path` trained, its AdamW state
+    held), each choice's peak memory, bytes a token, forward-and-backward
+    time and launches at B=8 and B=16 x 328; then the ladder of remat="proj":
+    each rung at the largest batch it plans for (`FIT_SHARE` of the card)
+    beside the next rung there, each choice left out of the ladder at its
+    largest batch beside the rung the ladder takes there, and the B=90 step
+    under the rung "proj" resolves to beside every block checkpointed. Times
+    are one forward and backward of `t2i_loss` (no optimizer step), host clock
+    ending in a synchronize; in a pair each choice runs twice after the
+    allocator's cache is emptied and the second run counts."""
+    from omnimamba_tpu_torch.models.omnimamba import t2i_loss
+    from omnimamba_tpu_torch.train.trainer import REMAT_LADDER, resolve_remat
+
+    wrappers = kernel_wrappers()
+    small = _fp32_bits_under_policies(wrappers)
+    split = _split_product_bits(torch.Generator(device="cuda").manual_seed(SEED + 5))
+    torch.cuda.empty_cache()
+
+    model, leaves, n = ctx.model, ctx.leaves, ctx.model.cfg.n_layer
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows_max = 320
+    flow = {k: v.repeat(-(-rows_max // v.shape[0]), 1)[:rows_max] for k, v in ctx.flow.items()}
+
+    def fwd_bwd(remat, rows):
+        loss = t2i_loss(ctx.params, model, flow["inputs"][:rows], flow["caption_ids"][:rows],
+                        dtype=torch.bfloat16, generator=ctx.generator, remat=remat)
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    def measured(remat, rows):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        fwd_bwd(remat, rows)
+        torch.cuda.synchronize()
+        return {"remat": remat, "batch": rows, "tokens": rows * TRAIN_LEN,
+                "seconds": time.time() - t0,
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "held_before_gib": base / 2**30,
+                "launches": {k: w.launches for k, w in wrappers.items() if w.launches}}
+
+    choices = remat_choices()
+    for remat in choices:  # warm: the allocator grows to B=16's needs
+        fwd_bwd(remat, 16)
+    runs = [measured(remat, rows) for rows in (8, 16) for _ in range(2) for remat in choices]
+    by = {}
+    for r in runs:
+        by.setdefault((str(r["remat"]), r["batch"]), []).append(r)
+    per = {}
+    for remat in choices:
+        a, b = by[(str(remat), 8)][-1], by[(str(remat), 16)][-1]
+        slope = (b["peak_memory_gib"] - a["peak_memory_gib"]) * 2**30 / (8 * TRAIN_LEN)
+        base = a["peak_memory_gib"] - slope * 8 * TRAIN_LEN / 2**30
+        per[str(remat)] = {
+            "bytes_per_token": slope, "base_gib": base,
+            "seconds_b8": [r["seconds"] for r in by[(str(remat), 8)]],
+            "seconds_b16": [r["seconds"] for r in by[(str(remat), 16)]],
+            "launches_b16": b["launches"], "launches_expected": remat_launches(remat, n),
+            # the largest batch that plans for FIT_SHARE of the card
+            "planned_batch": min(rows_max, int(
+                (FIT_SHARE * total / 2**30 - base) * 2**30 / max(slope, 1.0) / TRAIN_LEN))}
+    emit({"remat_policies": {"card": card, "fp32_3_layers": small, "split_in_proj": split,
+                             "bf16_48_layers": per,
+                             "note": "B=8 and B=16 x 328, two rounds over the choices after a warm "
+                                     "one at B=16; bytes a token from the second round's peaks"}})
+
+    def alone(remat, rows):
+        """A second run on a cache emptied before the first: near the card's
+        limit a run after another choice's pays for the allocator's reshuffle."""
+        torch.cuda.empty_cache()
+        return [measured(remat, rows) for _ in range(2)]
+
+    def pair(a, b, rows):
+        ra, rb = alone(a, rows), alone(b, rows)
+        return {"batch": rows, "tokens": rows * TRAIN_LEN, "a": a, "b": b,
+                "a_seconds": [r["seconds"] for r in ra], "b_seconds": [r["seconds"] for r in rb],
+                "a_peak_gib": ra[1]["peak_memory_gib"], "b_peak_gib": rb[1]["peak_memory_gib"],
+                "a_faster": ra[1]["seconds"] < rb[1]["seconds"]}
+
+    rungs = [r for r, _ in REMAT_LADDER] + [True]
+    # each rung at its largest batch, beside the next rung there
+    ladder = [pair(r, nxt, per[str(r)]["planned_batch"]) for r, nxt in zip(rungs, rungs[1:])]
+    largest_true = alone(True, per["True"]["planned_batch"])[1]
+    # each choice the ladder leaves out, at its largest batch, beside the rung taken there
+    left_out = [pair(r, resolve_remat("proj", per[str(r)]["planned_batch"] * TRAIN_LEN),
+                     per[str(r)]["planned_batch"]) for r in choices if r not in rungs]
+    rung = resolve_remat("proj", TRAIN_BATCH * TRAIN_LEN)
+    b90 = pair(rung, True, TRAIN_BATCH)
     emit({"remat_threshold": {
-        "card": card, "runs": peaks, "bytes_per_token_kept": per_token[False],
-        "bytes_per_token_checkpointed": per_token[True], "rule_tokens": REMAT_TOKENS,
-        "device_memory_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
+        "card": card, "ladder": REMAT_LADDER, "fit_share": FIT_SHARE,
+        "device_memory_gib": total / 2**30,
+        "bytes_per_token": {k: v["bytes_per_token"] for k, v in per.items()},
+        "planned_batch": {k: v["planned_batch"] for k, v in per.items()},
+        "rung_beside_next": ladder, "true_at_its_largest": largest_true,
+        "left_out_beside_rung": left_out, "b90": b90,
+        "note": "one forward and backward of t2i_loss, host clock ending in a synchronize, the "
+                "trainer's parameters and AdamW state held; each choice run twice on an emptied "
+                "cache, the second run compared",
     }})
+    for remat, row in small.items():
+        assert row["loss_bits_equal"] and row["gradient_leaves_bits_equal"] == row[
+            "gradient_leaves"], (remat, row)
+        assert row["launches"] == row["launches_expected"], (remat, row)
+    for remat, row in per.items():
+        assert row["launches_b16"] == row["launches_expected"], (remat, row)
+    for name in ("ssd_scan", "add_rms_norm", "gated_rms_norm", *BACKWARD_KERNELS):
+        results[name]["launches_remat_policies"] = {k: v["launches_b16"][name]
+                                                    for k, v in per.items()}
 
 
 def _paths(params):
@@ -4901,15 +5069,13 @@ def stage2_path(results, card):
         batch = prepare_batch(next(iter(loader)), model, torch.device("cuda"))
 
     n, steps = model.cfg.n_layer, STAGE2_STEPS
-    # the mmu flow checkpoints every block (remat_mmu None), the t2i flow where
-    # its own tokens (15,792 at 48 rows) pass REMAT_TOKENS; checkpointing runs
-    # every forward again
+    # the mmu flow checkpoints every block (remat_mmu None), the t2i flow takes
+    # the ladder's rung for its own tokens (15,792 at 48 rows)
     t2i_tokens, mmu_tokens = batch_t2i * STAGE2_T2I_LEN, STAGE2_MMU_BATCH * STAGE2_MMU_LEN
     t2i_remat = resolve_remat(tcfg.remat, t2i_tokens)
-    fwd = n * steps * ((2 if t2i_remat else 1) + 2)
-    expect = {"ssd_scan": fwd, "add_rms_norm": fwd, "gated_rms_norm": fwd, "ssd_step": 0,
-              "decode_fused": 0, **dict.fromkeys(BACKWARD_KERNELS, 2 * n * steps),
-              **dict.fromkeys(INT8_KERNELS, 0)}
+    t2i_step, mmu_step = remat_launches(t2i_remat, n), remat_launches(True, n)
+    expect = {"ssd_step": 0, "decode_fused": 0, **dict.fromkeys(INT8_KERNELS, 0),
+              **{k: (t2i_step[k] + mmu_step[k]) * steps for k in t2i_step}}
     rows = log.rows
     step_s = np.diff(np.asarray([t_start] + log.stamps))
     moved = {name: (t.detach() != before[name]).any().item() for name, t in _paths(params)
@@ -5074,22 +5240,32 @@ def train_cli_phase(batch_t2i, card):
 
     from omnimamba_tpu_torch.scripts import train as cli
 
+    import warnings
+
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
-    with tempfile.TemporaryDirectory() as root:
+    argv = ["--synthetic-data", "--max-steps", "2", "--batch-t2i", str(batch_t2i), "--tensorboard"]
+    with tempfile.TemporaryDirectory() as root, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
         t0 = time.time()
-        state, metrics = cli.main(["--synthetic-data", "--max-steps", "2", "--batch-t2i",
-                                   str(batch_t2i), "--output-dir", root])
+        state, metrics = cli.main(argv + ["--output-dir", root])
         torch.cuda.synchronize()
         seconds = time.time() - t0
+        (run,) = [d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d))]
+        tb_files = os.listdir(os.path.join(root, run, "tb")) if os.path.isdir(
+            os.path.join(root, run, "tb")) else []
     launches = {k: w.launches for k, w in wrappers.items() if w.launches}
-    rec = {"card": card, "argv": ["--synthetic-data", "--max-steps", "2", "--batch-t2i",
-                                  str(batch_t2i)],
+    rec = {"card": card, "argv": argv, "t2i_reader": "native (csrc/omnidata.cpp)",
            "state_step": state.step, "seconds_with_build_and_data": seconds,
-           **{k: float(v) for k, v in metrics.items()}, "launches": launches}
+           **{k: float(v) for k, v in metrics.items()}, "launches": launches,
+           "tensorboard_files": tb_files,
+           "warnings": sorted({str(w.message)[:160] for w in caught
+                               if issubclass(w.category, RuntimeWarning)})}
     emit({"train_cli": rec})
     assert state.step == 2 and np.isfinite(rec["loss"]) and rec["loss_mmu"] > 0, rec
+    # the sink writes where tensorboard is installed and warns where it is not
+    assert bool(tb_files) != any("tensorboard unavailable" in w for w in rec["warnings"]), rec
     assert launches.get("ssd_scan_bwd", 0) > 0, rec
     del state, metrics
     torch.cuda.empty_cache()
@@ -5153,7 +5329,9 @@ def main() -> int:
     phase(plain_vs_kernel)
     torch.cuda.empty_cache()
     phase(train_plain_vs_kernel)
-    phase(train_path, results, card)
+    train_ctx = phase(train_path, results, card)
+    phase(remat_policies, train_ctx, results, card)
+    del train_ctx
     torch.cuda.empty_cache()
     phase(stage2_plain_vs_kernel)
     mamba, cfg, batch_t2i = phase(stage2_path, results, card)
@@ -5184,7 +5362,7 @@ def main() -> int:
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep",
             "mmu", "mmu_4_layers_fp32", "mmu_48_layers_b8", "launches_mmu_path", "launches_serve",
             "stage2_t2i", "stage2_mmu", "launches_stage2", "launches_per_stage2_step",
-            "launches_distill")
+            "launches_distill", "launches_remat_policies")
                     if k in r})
         kernels.append(row)
     emit({"card": card, "seconds_total": time.time() - t_all, "seconds_by_phase": phase_s})

@@ -5,25 +5,29 @@ nothing of the JAX package.
 Layer map (bottom-up), same sub-packages and function names as the JAX
 package so a reader finds the counterpart:
 
-  csrc/    hand-written CUDA kernels (sm_90a), built at first use
+  csrc/    hand-written CUDA kernels (sm_90a) and the native COCO reader
+           (C++), built at first use
   ops/     SSD scan (oracle / chunked / kernels, forward and backward),
            decode-step kernels, causal conv, norms and their kernels (forward
            and backward), int8 weight quantization and the int8 matmul
-           kernel, samplers, the kernel build, the image resize
+           kernel, samplers, the kernel build, the image resize, the
+           selective checkpoint policies
   models/  Mamba-2 mixer, blocks, backbone + dual heads, decode engine,
            speculative decoding, the VQ-16 tokenizer, the DINOv2 and SigLIP
            towers, the vision projector, the text-to-image and
            understanding compositions and the losses
   data/    tokenizer (offline and byte-level BPE), UniversalPrompting,
            conversation templates, prompt builders, image transforms, the
-           COCO and LLaVA datasets, the loaders
+           COCO and LLaVA datasets, the loaders, the native COCO reader
   serve/   the continuous-batching slot engine
-  train/   schedule, stage freezing, AdamW; the training step and loop;
-           draft distillation
+  train/   schedule, stage freezing, AdamW; the training step and loop, the
+           metric sinks; draft distillation
   utils/   parameter bridge from and to the JAX pytree, checkpoints, device
-           resolution, converters of the published torch state dicts
+           resolution, converters of the published torch state dicts, the
+           rank-0 logger, tracing and timing
   factory  the model bundle, parameters and prompting from a TrainConfig
-  scripts/ the understanding, text-to-image and training command lines
+  scripts/ the understanding, text-to-image, training, serving and
+           pretokenizing command lines
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; a kernel wrapper uses its plain tensor version only for a

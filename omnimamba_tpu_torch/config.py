@@ -382,13 +382,13 @@ class TrainConfig:
     # any other mesh until parallel/ is ported
     mesh_shape: Dict[str, int] = field(default_factory=lambda: {"dp": 1, "tp": 1})
     # gradient checkpointing over the blocks. True: checkpoint every block;
-    # False: keep every activation; "proj": choose between the two from the
-    # tokens of a step (train/trainer.resolve_remat). The JAX package's
-    # selective policies ("proj_xbd", "proj_ssd", "proj_conv_ssd", "dots")
-    # are refused until they are ported.
+    # False: keep every activation; "proj_xbd", "proj_ssd", "proj_conv_ssd",
+    # "dots": checkpoint every block but keep the intermediates the policy names
+    # (ops/remat.py); "proj": the rung of a ladder of these chosen by the tokens
+    # of a step (train/trainer.resolve_remat, measured on the card)
     remat: Any = "proj"
     # the mmu flow's checkpointing in a mixed (stage-2) step: None checkpoints
-    # every block of it (its 1,182-token rows); True / False as ``remat``
+    # every block of it (its 1,182-token rows); otherwise as ``remat`` names it
     remat_mmu: Any = None
 
     def __post_init__(self):

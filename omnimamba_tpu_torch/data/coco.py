@@ -25,6 +25,26 @@ MAX_CAPTION_TOKENS = 68
 NULL_PROMPT = "A picture"  # the null condition of classifier-free guidance
 
 
+class CaptionBlock:
+    """A caption's 73-id block: [<|t2i|> <|sot|> | 68 left-padded caption ids
+    | <|eot|> <|soi|> <|eoi|>]."""
+
+    def __init__(self, uni_prompting):
+        self.tokenizer = uni_prompting.text_tokenizer
+        self.pad_token_id = int(self.tokenizer.pad_token_id)
+        sp = uni_prompting.sptids_dict
+        self.prefix = np.array([sp["<|t2i|>"], sp["<|sot|>"]], np.int64)
+        self.suffix = np.array([sp["<|eot|>"], sp["<|soi|>"], sp["<|eoi|>"]], np.int64)
+
+    def __call__(self, caption: str) -> np.ndarray:
+        ids = np.asarray(self.tokenizer(caption)["input_ids"], np.int64)
+        block = np.full(MAX_CAPTION_TOKENS, self.pad_token_id, np.int64)
+        n = min(len(ids), MAX_CAPTION_TOKENS)
+        if n:
+            block[-n:] = ids[:n]  # left padded
+        return np.concatenate([self.prefix, block, self.suffix])
+
+
 class MSCOCOFeatureDataset:
     """Items (image ids (256,), caption block (73,)); with ``sample_num`` an
     eval set of the first ``sample_num`` shuffled rows, items (caption block
@@ -40,11 +60,7 @@ class MSCOCOFeatureDataset:
         drop_cond_prob: float = 0.0,
         seed: int = 0,
     ):
-        self.uni_prompting = uni_prompting
-        self.pad_token_id = int(uni_prompting.text_tokenizer.pad_token_id)
-        sp = uni_prompting.sptids_dict
-        self.prefix = np.array([sp["<|t2i|>"], sp["<|sot|>"]], np.int64)
-        self.suffix = np.array([sp["<|eot|>"], sp["<|soi|>"], sp["<|eoi|>"]], np.int64)
+        self.caption_block = CaptionBlock(uni_prompting)
         self.drop_cond_prob = drop_cond_prob
         self.rng = random.Random(seed)
         self.eval = sample_num is not None
@@ -56,14 +72,6 @@ class MSCOCOFeatureDataset:
     def __len__(self) -> int:
         return len(self.lines)
 
-    def _caption_block(self, caption: str) -> np.ndarray:
-        ids = np.asarray(self.uni_prompting.text_tokenizer(caption)["input_ids"], np.int64)
-        block = np.full(MAX_CAPTION_TOKENS, self.pad_token_id, np.int64)
-        n = min(len(ids), MAX_CAPTION_TOKENS)
-        if n:
-            block[-n:] = ids[:n]  # left padded
-        return np.concatenate([self.prefix, block, self.suffix])
-
     def __getitem__(self, index: int):
         data = json.loads(self.lines[index])
         captions = data["captions"]
@@ -71,7 +79,7 @@ class MSCOCOFeatureDataset:
             caption = NULL_PROMPT
         else:
             caption = captions[self.rng.randint(0, len(captions) - 1)]
-        block = self._caption_block(caption)
+        block = self.caption_block(caption)
         if self.eval:
             return block[:-1], caption
         return np.asarray(data["tokens"], np.int64), block
@@ -85,11 +93,32 @@ def coco_collate(examples: List[Tuple[np.ndarray, np.ndarray]]) -> Dict[str, np.
     }
 
 
+def read_rgb_uint8(path: str) -> np.ndarray:
+    """The image at ``path`` as uint8 (H, W, 3): a ``.npy`` file of such
+    pixels as it is, any other file through PIL (a missing PIL raises,
+    naming the file)."""
+    if path.endswith(".npy"):
+        img = np.load(path)
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"{path}: expected uint8 pixels (H, W, 3), got {img.dtype} "
+                             f"{img.shape}")
+        return img
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: decoding this image needs PIL, which is not installed; install Pillow or "
+            "give the images as .npy files of uint8 pixels (H, W, 3)") from e
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"), np.uint8)
+
+
 class MSCOCODatabase:
     """Raw COCO images and their captions from the captions annotation JSON
     ({"images": [...], "annotations": [...]}): items (image (size, size, 3)
     float32 in [-1, 1], NHWC, [caption, ...]). The image is the centre square
-    resized by ``data/transforms.center_crop_resize``; decoding needs PIL."""
+    resized by ``data/transforms.center_crop_resize``; files other than
+    ``.npy`` pixels need PIL to decode (``read_rgb_uint8``)."""
 
     def __init__(self, root: str, ann_file: str, size: int = 256):
         self.root = root
@@ -106,13 +135,11 @@ class MSCOCODatabase:
         return len(self.keys)
 
     def __getitem__(self, index: int):
-        from PIL import Image
-
         from omnimamba_tpu_torch.data.transforms import center_crop_resize
 
         key = self.keys[index]
-        img = Image.open(os.path.join(self.root, self.files[key])).convert("RGB")
-        arr = center_crop_resize(np.asarray(img, np.uint8), self.size)
+        img = read_rgb_uint8(os.path.join(self.root, self.files[key]))
+        arr = center_crop_resize(img, self.size)
         return arr.astype(np.float32) / 127.5 - 1.0, list(self.captions.get(key, []))
 
 

@@ -133,12 +133,16 @@ def host_dinosiglip_transform(
 
 def center_crop_resize(img: np.ndarray, size: int) -> np.ndarray:
     """uint8 (H, W, 3) -> uint8 (size, size, 3): the central square of side
-    min(H, W), resized with PIL's Lanczos filter (the T2I raw-image path)."""
-    from PIL import Image
-
+    min(H, W), resized with PIL's Lanczos filter (the T2I raw-image path). A
+    square already of side ``size`` is returned as it is, as PIL returns it,
+    without PIL."""
     h, w = img.shape[:2]
     crop = min(h, w)
     img = img[(h - crop) // 2:(h + crop) // 2, (w - crop) // 2:(w + crop) // 2]
+    if crop == size:
+        return np.ascontiguousarray(img, np.uint8)
+    from PIL import Image
+
     return np.asarray(Image.fromarray(img).resize((size, size), Image.LANCZOS)).astype(np.uint8)
 
 

@@ -34,6 +34,7 @@ from omnimamba_tpu_torch.models.mamba2 import Mamba2Cache, init_mamba2
 from omnimamba_tpu_torch.ops.decode_fused import FusedDecodePlan, fused_decode_step
 from omnimamba_tpu_torch.ops.norms import rms_norm
 from omnimamba_tpu_torch.ops.quant import is_quantized, lookup_any, matmul_any
+from omnimamba_tpu_torch.ops.remat import BlockTape, check_remat, running
 from omnimamba_tpu_torch.utils.device import resolve_device
 from omnimamba_tpu_torch.utils.init import normal, trunc_normal, uniform
 
@@ -164,43 +165,34 @@ def _final_norm(params, h, residual, eps, dtype):
     return rms_norm(h.float() + residual, params["norm_f"]["weight"], eps).to(dtype)
 
 
-def check_remat(remat) -> bool:
-    """``remat`` as a bool. The JAX package's selective checkpoint policies
-    (save only named intermediates of a block) have no counterpart yet."""
-    if remat is True or remat is False:
-        return remat
-    raise NotImplementedError(
-        f"remat={remat!r}: the port checkpoints whole blocks (True) or nothing (False); the "
-        "selective policies 'proj_xbd', 'proj_ssd', 'proj_conv_ssd' and 'dots' are not ported "
-        "yet (ROADMAP: selective checkpoint policies)"
-    )
-
-
-def _checkpointed(run, generator: Optional[torch.Generator], *args):
-    """``run(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): only the
-    arguments are kept and the block runs again in the backward. The
-    recompute starts from the generator state the first run started from, so
-    it draws the same dropout masks, and leaves the generator where it found
-    it."""
+def _checkpointed(run, generator: Optional[torch.Generator], remat, *args):
+    """``run(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): with
+    ``remat=True`` only the arguments are kept and the block runs again in the
+    backward; a policy's name also keeps the named intermediates it lists
+    (``ops/remat.BlockTape``), which the second run takes instead of
+    computing them. The second run starts from the generator state the first
+    run started from, so it draws the same dropout masks, and leaves the
+    generator where it found it."""
     from torch.utils.checkpoint import checkpoint
 
-    if generator is None:
-        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
-    entry = generator.get_state()
+    tape = BlockTape(remat)
+    entry = None if generator is None else generator.get_state()
     first = [True]
 
-    def replay(*a):
-        if first[0]:
-            first[0] = False
-            return run(*a)
+    def once(*a):
+        replaying, first[0] = not first[0], False
+        if not replaying or generator is None:
+            with running(tape, replaying):
+                return run(*a)
         now = generator.get_state()
         generator.set_state(entry)
         try:
-            return run(*a)
+            with running(tape, replaying):
+                return run(*a)
         finally:
             generator.set_state(now)
 
-    return checkpoint(replay, *args, use_reentrant=False, preserve_rng_state=False)
+    return checkpoint(once, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def backbone_forward(
@@ -214,7 +206,7 @@ def backbone_forward(
     initial_cache: Optional[BackboneCache] = None,
     valid_len: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
-    remat: bool = False,
+    remat=False,
 ) -> Tuple[torch.Tensor, Optional[BackboneCache]]:
     """Full-sequence forward over all layers -> final-normed hidden states.
 
@@ -222,7 +214,10 @@ def backbone_forward(
     dropout; it takes the place of the JAX ``dropout_key``), ``remat=True``
     checkpoints every block (``torch.utils.checkpoint``; only a block's inputs
     stay alive and its forward runs again in the backward, with the same
-    masks), ``remat=False`` keeps every activation.
+    masks), ``remat=False`` keeps every activation, and a policy's name
+    (``"proj"``, ``"proj_xbd"``, ``"proj_ssd"``, ``"proj_conv_ssd"``,
+    ``"dots"``; ``ops/remat.py``) checkpoints every block but keeps the
+    intermediates it names. No choice changes a value or a gradient.
 
     mmu adds ``mmu_pos_embed[:, :L]``; t2i positions were already added by the
     caller. ``initial_cache``/``valid_len``: continuation prefill from an
@@ -230,7 +225,7 @@ def backbone_forward(
     positions themselves (``add_mmu_pos=False`` for mmu windows).
     """
     check_supported(cfg)
-    remat = check_remat(remat) and torch.is_grad_enabled()
+    remat = check_remat(remat) if torch.is_grad_enabled() else False
     B, L, d = embeddings.shape
     h = embeddings
     if task == "mmu" and add_mmu_pos:
@@ -255,7 +250,10 @@ def backbone_forward(
                 initial_cache=icache, valid_len=valid_len, generator=generator,
             )
 
-        h, residual, cache = _checkpointed(run, generator, h, residual) if remat else run(h, residual)
+        if remat is False:
+            h, residual, cache = run(h, residual)
+        else:
+            h, residual, cache = _checkpointed(run, generator, remat, h, residual)
         caches.append(cache)
     final = _final_norm(params, h, residual, cfg.norm_eps, embeddings.dtype)
 

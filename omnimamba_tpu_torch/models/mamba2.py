@@ -47,10 +47,12 @@ from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
 from omnimamba_tpu_torch.ops.conv import (
     causal_conv1d,
     causal_conv1d_step,
+    causal_conv1d_train,
     conv_state_from_sequence,
 )
 from omnimamba_tpu_torch.ops.norms import gated_rms_norm
 from omnimamba_tpu_torch.ops.quant import dequantize_ssm_state, matmul_any
+from omnimamba_tpu_torch.ops.remat import keeps, kept_product
 from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
 from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
@@ -116,6 +118,11 @@ def init_mamba2(
     return params
 
 
+def _product(train: bool, name: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w``; in the training forward, the named intermediate ``name``."""
+    return kept_product((name,), a, w) if train else a @ w
+
+
 def _project_parts(
     params: Dict,
     x: torch.Tensor,  # (..., d_model)
@@ -123,12 +130,28 @@ def _project_parts(
     cfg: Mamba2LayerConfig,
     lora_cfg: Optional[LoraConfig],
     generator: Optional[torch.Generator] = None,
+    split_z: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """in_proj (+ task LoRA) as one product, split into the {z, x, bc, dt}
-    column slices. With a ``generator`` the LoRA branch sees ``x`` after
+    """in_proj (+ task LoRA) split into the {z, x, bc, dt} column slices. One
+    product, or with ``split_z`` (the training forward) two: z and x | bc |
+    dt, as the JAX forward computes them, named ``in_proj_z_out`` and
+    ``in_proj_out`` for the checkpoint policies (``ops/remat.py``), as are the
+    LoRA products (``lora_a_out``, ``lora_b_out``). The two give the one
+    product's bits on the CPU and, on an H100, in bf16 at 2,624 and 29,520
+    rows and in fp32 at 29,520; in fp32 at 2,624 rows cuBLAS sums the
+    narrower product in another order (1.1e-5 off on values up to 5.5:
+    ``chip_smoke.py``'s ``remat_policies``). Every checkpoint choice runs
+    the same two. With a ``generator`` the LoRA branch sees ``x`` after
     dropout (keep probability ``1 - lora_cfg.dropout``, kept values scaled
     up); ``generator=None`` means no dropout."""
-    full = matmul_any(x, params["in_proj"]["kernel"])
+    di, gn2 = cfg.d_inner, 2 * cfg.ngroups * cfg.d_state
+    kernel = params["in_proj"]["kernel"]
+    if split_z:
+        outs = [kept_product(("in_proj_z_out",), x, kernel[:, :di]),
+                kept_product(("in_proj_out",), x, kernel[:, di:])]
+        cols = [slice(0, di), slice(di, None)]
+    else:
+        outs, cols = [matmul_any(x, kernel)], [slice(None)]
     if task is not None and "lora" in params and lora_cfg is not None:
         lp = params["lora"]
         xl = x
@@ -137,14 +160,33 @@ def _project_parts(
             keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
             xl = torch.where(keep, x / keep_p, torch.zeros((), dtype=x.dtype, device=x.device))
         for i in range(lora_cfg.lora_nums):
-            h = xl @ lp[f"{task}_A"][i]  # (..., r)
-            full = torch.add(full, h @ lp[f"{task}_B"][i], alpha=lora_cfg.scaling)
-    di, gn2 = cfg.d_inner, 2 * cfg.ngroups * cfg.d_state
+            h = _product(split_z, "lora_a_out", xl, lp[f"{task}_A"][i])  # (..., r)
+            b = lp[f"{task}_B"][i]
+            outs = [torch.add(o, _product(split_z, "lora_b_out", h, b[:, c]),
+                              alpha=lora_cfg.scaling) for o, c in zip(outs, cols)]
+    if split_z:
+        z, xbd = outs
+        return {"z": z, "xbc": xbd[..., : di + gn2], "dt": xbd[..., di + gn2 :]}
+    full = outs[0]
     return {
         "z": full[..., :di],
         "xbc": full[..., di : 2 * di + gn2],
         "dt": full[..., 2 * di + gn2 :],
     }
+
+
+def _records_grad(params: Dict, x: torch.Tensor) -> bool:
+    """Whether autograd records this forward: grad mode is on and ``x`` or a
+    parameter of the mixer requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+
+    def any_grad(node):
+        if isinstance(node, dict):
+            return any(any_grad(v) for v in node.values())
+        return isinstance(node, torch.Tensor) and node.requires_grad
+
+    return x.requires_grad or any_grad(params)
 
 
 def _dt_activation(dt_raw: torch.Tensor, dt_bias: torch.Tensor, cfg: Mamba2LayerConfig):
@@ -177,7 +219,10 @@ def mamba2_forward(
     """Full-sequence forward (prefill and training).
 
     ``generator``: LoRA dropout for training (see ``_project_parts``); None
-    means no dropout.
+    means no dropout. Where autograd records the forward (from a zero state),
+    in_proj is two products and the conv one autograd Function (two, x and
+    bc apart, where a policy keeps x's), each named for the checkpoint
+    policies (``ops/remat.py``); every policy gives the same values.
 
     With ``return_cache=True`` also returns the final (conv, ssm) state so a
     decode loop can continue.
@@ -194,12 +239,26 @@ def mamba2_forward(
     B, L, _ = x.shape
     H, P, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
 
-    parts = _project_parts(params, x, task, cfg, lora_cfg, generator)
+    # the training forward takes the operators a checkpoint policy can name
+    train = initial_cache is None and _records_grad(params, x)
+    parts = _project_parts(params, x, task, cfg, lora_cfg, generator, split_z=train)
     z, xbc_raw = parts["z"], parts["xbc"]
     conv = params["conv"]
     halo = initial_cache.conv_state if initial_cache is not None else None
-    xbc = causal_conv1d(xbc_raw, conv["weight"], conv["bias"], initial_state=halo)
-    xs, Bm, Cm = _split_xbc(xbc, cfg)
+    if train and keeps("conv_out"):
+        # the policy keeps the conv of x alone, as JAX names it: x and bc apart
+        di, w, b = cfg.d_inner, conv["weight"], conv["bias"]
+        xs = causal_conv1d_train(xbc_raw[..., :di], w[:, :di], b[:di], ("conv_out",))
+        bc = causal_conv1d_train(xbc_raw[..., di:], w[:, di:], b[di:], ("conv_bc_out",))
+        gn = cfg.ngroups * cfg.d_state
+        Bm, Cm = bc[..., :gn], bc[..., gn:]
+    elif train:
+        # one call: the conv is per channel, so x's columns come out as above
+        xbc = causal_conv1d_train(xbc_raw, conv["weight"], conv["bias"], ())
+        xs, Bm, Cm = _split_xbc(xbc, cfg)
+    else:
+        xbc = causal_conv1d(xbc_raw, conv["weight"], conv["bias"], initial_state=halo)
+        xs, Bm, Cm = _split_xbc(xbc, cfg)
     dt = _dt_activation(parts["dt"], params["dt_bias"], cfg)
     if valid_len is not None:
         v = torch.as_tensor(valid_len, device=x.device).reshape(-1, 1, 1)
@@ -228,7 +287,10 @@ def mamba2_forward(
 
     y = y.reshape(B, L, cfg.d_inner)
     y = gated_rms_norm(y, z, params["norm"]["weight"], cfg.norm_eps)
-    out = matmul_any(y, params["out_proj"]["kernel"])
+    if train:
+        out = kept_product(("out_proj_out",), y, params["out_proj"]["kernel"])
+    else:
+        out = matmul_any(y, params["out_proj"]["kernel"])
 
     cache = None
     if return_cache:

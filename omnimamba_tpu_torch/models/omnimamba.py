@@ -107,7 +107,7 @@ def t2i_loss(
     *,
     dtype: torch.dtype = torch.bfloat16,
     generator: Optional[torch.Generator] = None,
-    remat: bool = False,
+    remat=False,
 ) -> torch.Tensor:
     """Text-to-image training loss: the caption block without its last id,
     the image tokens, then that last id; only image positions carry labels.
@@ -184,16 +184,17 @@ def mmu_loss(
     *,
     dtype: torch.dtype = torch.bfloat16,
     generator: Optional[torch.Generator] = None,
-    remat: bool = False,
+    remat=False,
 ) -> torch.Tensor:
     """Understanding training loss (stage 2): the towers and the projector on
     every row, zero features where ``multimodal_mask`` is False (a text-only
     row's pixels are a dummy), the spliced sequence through the mmu LoRA and
     the text head, shift-by-one cross entropy on the text labels.
-    ``generator`` draws the LoRA dropout masks (None: no dropout); ``remat``
-    checkpoints every block of the backbone (and of a tower that trains). The
+    ``generator`` draws the LoRA dropout masks (None: no dropout); ``remat``:
+    True or a policy's name checkpoints every block of the backbone (see
+    ``backbone.backbone_forward``) and every block of a tower that trains. The
     inputs and the parameters must lie on one device."""
-    feats = mmu_image_features(params, model, pixel_values, remat=remat)
+    feats = mmu_image_features(params, model, pixel_values, remat=bool(remat))
     mask = torch.as_tensor(multimodal_mask, device=feats.device).bool()
     feats = torch.where(mask[:, None, None], feats, 0.0)
     emb, full_labels = mmu_embed_sequence(params, model, input_ids, feats, labels, dtype=dtype)
@@ -210,13 +211,15 @@ def lm_loss(
     *,
     dtype: torch.dtype = torch.bfloat16,
     generator: Optional[torch.Generator] = None,
+    remat=False,
 ) -> torch.Tensor:
     """Pure language-modelling loss: a text-only sequence through the mmu
-    LoRA and head, no image splice, no mmu positional table."""
+    LoRA and head, no image splice, no mmu positional table. ``remat``: see
+    ``backbone.backbone_forward`` (the JAX function has no such argument)."""
     mamba = params["mamba"]
     emb = embed_text(mamba, input_ids.long(), dtype)
     hidden, _ = backbone_forward(
-        mamba, emb, "mmu", model.cfg, add_mmu_pos=False, generator=generator)
+        mamba, emb, "mmu", model.cfg, add_mmu_pos=False, generator=generator, remat=remat)
     return _shift_and_ce(apply_head(mamba, hidden, "mmu"), labels)
 
 

@@ -1,5 +1,6 @@
 """Builds the CUDA sources under ``csrc/`` into one shared library and loads
-it with ``ctypes``.
+it with ``ctypes``; builds the host library of ``csrc/omnidata.cpp`` (the
+native COCO reader, ``data/native.py``) with ``g++`` the same way.
 
 Nothing here runs when the module is imported. The first kernel launch (or an
 explicit ``build_kernels()``) compiles every ``*.cu`` with ``nvcc`` for
@@ -173,6 +174,45 @@ def _load() -> ctypes.CDLL:
                lib.omt_gated_rms_norm_bwd_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
+
+
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-Wall", "-shared")
+
+
+def build_host_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler (``$CXX``, else
+    ``g++``) into ``build/lib<name>_<hash>.so`` unless an up-to-date one
+    exists; returns its path. A failed build raises with the compiler's
+    output."""
+    src = CSRC_DIR / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + src.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}_{h}.so"
+    if lib.exists():
+        return lib
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"no C++ compiler ($CXX or g++ on PATH) to build {src}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = os.path.join(tmp, lib.name)
+        cmd = [cxx, *GXX_FLAGS, str(src), "-o", out]
+        done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{done.stdout}")
+        os.replace(out, lib)  # atomic: a concurrent process sees all or nothing
+    return lib
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library of ``csrc/<name>.cpp``, built on first use
+    under the CUDA library's lock. A build that failed raises again at the
+    next call."""
+    with _LOAD_LOCK:
+        lib = build_host_library(name)
+        key = str(lib)
+        if key not in _LOADED:
+            _LOADED[key] = ctypes.CDLL(key)
+        return _LOADED[key]
 
 
 def dtype_code(dtype) -> int:

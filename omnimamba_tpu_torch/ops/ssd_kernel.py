@@ -21,7 +21,9 @@ rows of a ragged batch are handled by the caller. With
 chunk, (B, C, H, P, N), the residual the backward starts each chunk from.
 
 ``ssd_fused`` is differentiable: where a gradient is asked for it runs
-through ``torch.autograd.Function`` around the two kernels. The backward
+through ``torch.autograd.Function`` around the two kernels, whose outputs a
+checkpoint policy can keep (``ops/remat.py``): the backward then feeds K5
+the kept chunk states without launching K1 again. The backward
 walks the chunks of one sequence in reverse and carries the (P, N) adjoint
 of the state as the forward carries the state; the decay matrix of a chunk
 is rebuilt there and never stored. Its derivation is the one of
@@ -68,6 +70,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from omnimamba_tpu_torch.ops import kernel_build as kb
+from omnimamba_tpu_torch.ops.remat import kept
 from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
 
 PLAIN_CHUNK = 16  # chunk of the plain versions; equals kChunk of csrc/ssd_scan.cu
@@ -332,7 +335,10 @@ class _SSDFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bmat, Cmat, D):
-        y, final_state, states = _scan_forward(x, dt, A, Bmat, Cmat, D, True)
+        # a policy that keeps K1's outputs hands them back in the backward's
+        # second forward, and the kernel does not run again (ops/remat.py)
+        y, final_state, states = kept(
+            ("ssd_out", "ssd_resid"), lambda: _scan_forward(x, dt, A, Bmat, Cmat, D, True))
         ctx.has_D = D is not None
         ctx.save_for_backward(x, dt, A, Bmat, Cmat, states, *([D] if ctx.has_D else []))
         ctx.set_materialize_grads(False)

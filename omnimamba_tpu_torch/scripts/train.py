@@ -11,9 +11,12 @@ Without ``--config`` the config is ``TrainConfig()``, the values of
 ``--synthetic-data`` (or where the configured COCO file is missing) the t2i
 flow reads a synthetic pretokenized JSONL, and the mmu flow reads synthetic
 instruction rows whose images are ``.npy`` files (reading other image files
-needs PIL). A run writes ``metrics.jsonl`` and checkpoints under
-``<output_dir>/<model>_<time>/``. There are no mesh flags: the port runs on
-one card.
+needs PIL). The t2i flow reads through the native reader (``data/native.py``,
+built with g++ at first use). A run writes ``metrics.jsonl`` and checkpoints
+under ``<output_dir>/<model>_<time>/``; ``--tensorboard`` adds TensorBoard
+scalars under ``tb/`` and ``--wandb`` a wandb run (each warns and drops its
+metrics where its package is missing). There are no mesh flags: the port runs
+on one card.
 """
 
 from __future__ import annotations
@@ -40,16 +43,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--grad-accum", type=int, default=None,
                    help="override cfg.grad_accum (micro-batches an optimizer step)")
     p.add_argument("--output-dir", type=str, default=None, help="override cfg.output_dir")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also write TensorBoard scalars to <run>/tb")
+    p.add_argument("--wandb", action="store_true", help="also log to wandb where it is installed")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
 def build_loaders(cfg, uni, out_dir: str, synthetic: bool):
     """{"t2i_flow": ..., "mmu_flow": ...} for the tasks the config runs."""
-    from omnimamba_tpu_torch.data.coco import (
-        MSCOCOFeatureDataset, coco_collate, make_synthetic_coco_jsonl)
+    from omnimamba_tpu_torch.data.coco import make_synthetic_coco_jsonl
     from omnimamba_tpu_torch.data.llava import get_dataset_and_collator, make_synthetic_llava_json
     from omnimamba_tpu_torch.data.loader import DataLoader
+    from omnimamba_tpu_torch.data.native import NativeCocoDataset, NativeCocoLoader
 
     loaders = {}
     if cfg.t2i_task:
@@ -58,8 +64,8 @@ def build_loaders(cfg, uni, out_dir: str, synthetic: bool):
             path = make_synthetic_coco_jsonl(os.path.join(out_dir, "synthetic_coco.jsonl"),
                                              n=max(cfg.batch_size_t2i * 4, 64))
             print(f"[data] synthetic t2i jsonl at {path}")
-        loaders["t2i_flow"] = DataLoader(MSCOCOFeatureDataset(path, uni), cfg.batch_size_t2i,
-                                         coco_collate, num_threads=cfg.num_workers)
+        loaders["t2i_flow"] = NativeCocoLoader(NativeCocoDataset(path, uni), cfg.batch_size_t2i)
+        print("[data] t2i via the native mmap reader (csrc/omnidata.cpp)")
     if cfg.mmu_task:
         ann = None
         if synthetic:
@@ -91,7 +97,8 @@ def main(argv: Optional[List[str]] = None):
     from omnimamba_tpu_torch.config import TrainConfig
     from omnimamba_tpu_torch.data.loader import CombinedLoader
     from omnimamba_tpu_torch.factory import build_model
-    from omnimamba_tpu_torch.train.trainer import MetricsWriter, Trainer
+    from omnimamba_tpu_torch.train.trainer import (
+        MetricsWriter, MultiWriter, TensorBoardWriter, Trainer, WandbWriter)
     from omnimamba_tpu_torch.utils.checkpoint import CheckpointManager
     from omnimamba_tpu_torch.utils.device import resolve_device
 
@@ -122,6 +129,11 @@ def main(argv: Optional[List[str]] = None):
         print(f"[eval] every {cfg.eval_steps} steps on {eval_loader.n} training batches "
               "(no eval split configured)")
     metrics = MetricsWriter(os.path.join(out_dir, "metrics.jsonl"))
+    if args.tensorboard or args.wandb:
+        metrics = MultiWriter(
+            metrics,
+            TensorBoardWriter(os.path.join(out_dir, "tb")) if args.tensorboard else None,
+            WandbWriter(run_name=os.path.basename(out_dir)) if args.wandb else None)
     trainer = Trainer(model, params, cfg, combined, dtype=dtype,
                       checkpoint_manager=CheckpointManager(os.path.join(out_dir, "ckpts"),
                                                            cfg.save_total_limit),

@@ -14,37 +14,53 @@ What differs from the JAX trainer:
 - a ``torch.Generator`` takes the place of the PRNG key (LoRA dropout);
 - the parameters and the AdamW state are updated **in place**; a step
   returns a ``TrainState`` holding the same objects and ``step + 1``;
-- ``remat="proj"`` chooses between checkpointing every block and keeping
-  every activation from the tokens of the t2i flow (``resolve_remat``); the
-  mmu flow takes ``cfg.remat_mmu`` (None: every block checkpointed); the
-  selective policies of the JAX package are refused until they are ported;
+- ``remat="proj"`` climbs a ladder of checkpoint policies by the tokens of
+  the t2i flow (``resolve_remat``; rungs measured on the card, not the JAX
+  trainer's); the mmu flow takes ``cfg.remat_mmu`` (None: every block
+  checkpointed; a policy's name as the t2i flow);
 - an mmu flow's ``pixel_values`` may be raw uint8 (B, H, W, 3): the step
   moves them to the device and applies the towers' transform there.
+
+Metric sinks: ``MetricsWriter`` (JSONL), ``TensorBoardWriter``,
+``WandbWriter`` and ``MultiWriter``, as in the JAX trainer.
 """
 
 from __future__ import annotations
 
 import json
 import time
+import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 from omnimamba_tpu_torch.config import TrainConfig
 from omnimamba_tpu_torch.data.transforms import dinosiglip_transform
-from omnimamba_tpu_torch.models.backbone import check_remat
 from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel, mmu_loss, t2i_loss
+from omnimamba_tpu_torch.ops.remat import check_remat
 from omnimamba_tpu_torch.train.optimizer import make_optimizer, make_schedule, named_leaves
 from omnimamba_tpu_torch.utils.device import resolve_device
 
-# remat="proj": checkpoint every block from this many tokens a step on.
-# Measured on an NVIDIA H100 80GB HBM3 (700 W) at 1.3B in bf16 by chip_smoke.py,
-# phase remat_threshold (PERF.md section 6 has the peaks): without
-# checkpointing a step keeps 9.9 MB a token (6.3 MB of them the fp32 chunk
-# states of the scan) on top of 3.7 GiB, so 6,399 tokens peak near 63 of the
-# card's 79 GiB and run faster than with checkpointing (17% at 2,624 tokens,
-# 21% at 5,248); from 6,400 on every block is checkpointed (0.84 MB a token).
-REMAT_TOKENS = 6400
+# remat="proj": the rung of checkpointing a step of this many tokens takes,
+# the first whose limit lies above them; from the last limit on every block is
+# checkpointed and nothing else kept (True). Measured on an NVIDIA H100 80GB
+# HBM3 (700 W) at 1.3B in bf16, stage 1 (align), by chip_smoke.py's phases
+# remat_policies and remat_threshold (PERF.md section 6): a token keeps 9.65 MB
+# without checkpointing, 2.48 under "dots", 1.66 under "proj", 1.27 under
+# "proj_xbd" and 0.84 under True, on top of what the trainer holds (3.6 GiB);
+# each limit is where the rung's peak would reach 85% of the card's 79.2 GiB.
+# At its largest batch each rung's forward and backward beat the next rung's
+# in every run (B=21: 0.36 s against 0.49-0.55; B=82-84: 1.71-1.76 against
+# 1.75-1.80; B=123-125: 2.61-2.66 against 2.65-2.70; B=161-164: 3.45-3.53
+# against 3.51-3.59), and B=90 (29,520 tokens) takes "proj": 1.92-1.94 s
+# against 1.99-2.03 under True. "proj_ssd" and "proj_conv_ssd" keep K1's fp32
+# chunk states (8.41 and 8.80 MB a token) and fit 400-700 tokens more than no
+# checkpointing, at the card's limit: beside "dots" there, "proj_ssd" took
+# 0.53-0.64 s against 0.53-0.54 and "proj_conv_ssd" 0.44-1.31 against 0.51-0.52
+# (the allocator reshuffling near the limit); neither is a rung. A step that
+# holds more (stage 2's AdamW state over the backbone, the towers) has less
+# room.
+REMAT_LADDER = ((False, 7000), ("dots", 27500), ("proj", 41200), ("proj_xbd", 54000))
 
 
 class TrainState(NamedTuple):
@@ -60,10 +76,15 @@ def create_train_state(params, cfg: TrainConfig, stage: Optional[str] = None):
     return TrainState(params=params, opt_state=tx, step=0), tx
 
 
-def resolve_remat(remat, tokens: int) -> bool:
-    """The config's ``remat`` as a bool for a step of ``tokens`` tokens."""
+def resolve_remat(remat, tokens: int):
+    """The config's ``remat`` for a step of ``tokens`` tokens: ``"proj"``
+    climbs ``REMAT_LADDER``; True, False and the other policies' names stand
+    as they are."""
     if remat == "proj":
-        return tokens >= REMAT_TOKENS
+        for rung, limit in REMAT_LADDER:
+            if tokens < limit:
+                return rung
+        return True
     return check_remat(remat)
 
 
@@ -137,7 +158,8 @@ def make_train_step(
     device = resolve_device(device)
     schedule = make_schedule(cfg)
     accum = max(int(cfg.grad_accum or 1), 1)
-    # the mmu flow's rows are 1,182 tokens long: checkpoint them unless told not to
+    # the mmu flow's rows are 1,182 tokens long: checkpoint every block of them
+    # unless told otherwise
     remat_mmu = check_remat(True if cfg.remat_mmu is None else cfg.remat_mmu)
 
     def loss_fn(params, batch, generator):
@@ -235,6 +257,60 @@ class MetricsWriter:
 
     def close(self):
         self._fh.close()
+
+
+class TensorBoardWriter:
+    """TensorBoard scalar sink through ``torch.utils.tensorboard`` (which
+    needs the ``tensorboard`` package). Without it the writer warns once and
+    drops every scalar."""
+
+    def __init__(self, log_dir: str):
+        self._w = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._w = SummaryWriter(log_dir=log_dir)
+        except ImportError as e:
+            warnings.warn(f"[metrics] tensorboard unavailable ({e}); scalars dropped",
+                          RuntimeWarning, stacklevel=2)
+
+    def log(self, step: int, metrics: dict):
+        if self._w is None:
+            return
+        for k, v in metrics.items():
+            try:
+                self._w.add_scalar(k, float(v), step)
+            except (TypeError, ValueError):  # a value that is not a scalar
+                pass
+
+    def close(self):
+        if self._w is not None:
+            self._w.close()
+
+
+class WandbWriter:
+    """wandb sink, where the ``wandb`` package is installed (its login and
+    mode are the environment's). Without it the writer warns once and drops
+    every metric."""
+
+    def __init__(self, project: str = "omnimamba-tpu", run_name: str = ""):
+        self._wandb = None
+        try:
+            import wandb
+        except ImportError as e:
+            warnings.warn(f"[metrics] wandb unavailable ({e}); metrics dropped",
+                          RuntimeWarning, stacklevel=2)
+            return
+        wandb.init(project=project, name=run_name or None)
+        self._wandb = wandb
+
+    def log(self, step: int, metrics: dict):
+        if self._wandb is not None:
+            self._wandb.log(dict(metrics), step=step)
+
+    def close(self):
+        if self._wandb is not None:
+            self._wandb.finish()
 
 
 class MultiWriter:

@@ -66,6 +66,10 @@ def test_imports_neither_jax_nor_the_jax_package():
             "omnimamba_tpu_torch.data.prompt_builder", "omnimamba_tpu_torch.data.transforms",
             "omnimamba_tpu_torch.scripts.inference_mmu",
             "omnimamba_tpu_torch.scripts.inference_t2i"} <= set(mods)
+    # the host side of training and the checkpoint policies
+    assert {"omnimamba_tpu_torch.ops.remat", "omnimamba_tpu_torch.data.native",
+            "omnimamba_tpu_torch.utils.logging", "omnimamba_tpu_torch.utils.profiling",
+            "omnimamba_tpu_torch.scripts.pretokenize_coco"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -115,7 +119,9 @@ def test_csrc_ships_as_package_data():
     assert {"common.cuh", "ssd_step_row.cuh", "norms.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
             "ssd_step.cu", "decode_fused.cu", "qmatmul.cu"} <= names
     pyproject = (ROOT / "pyproject.toml").read_text()
-    assert re.search(r'omnimamba_tpu_torch\s*=\s*\["csrc/\*\.cu", "csrc/\*\.cuh"\]', pyproject)
+    assert re.search(
+        r'omnimamba_tpu_torch\s*=\s*\["csrc/\*\.cu", "csrc/\*\.cuh", "csrc/\*\.cpp"\]', pyproject)
+    assert "omnidata.cpp" in names  # the native COCO reader's source (data/native.py)
 
 
 def test_build_lists_every_header_the_sources_include():

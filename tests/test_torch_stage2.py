@@ -271,9 +271,13 @@ def test_mixed_grad_accum_matches_large_batch(jax_tree):
 
 
 def test_remat_resolves_per_flow():
-    """The t2i flow counts only its own tokens against REMAT_TOKENS; the mmu
-    flow takes remat_mmu (None: checkpointed)."""
-    assert ttrainer.resolve_remat("proj", 48 * (73 + 256)) is True  # stage 2's t2i flow
+    """The t2i flow counts only its own tokens against the ladder
+    (``REMAT_LADDER``); the mmu flow takes remat_mmu (None: checkpointed)."""
+    def rung(tokens):
+        return next((r for r, limit in ttrainer.REMAT_LADDER if tokens < limit), True)
+
+    t2i = 48 * (73 + 256)  # stage 2's t2i flow alone
+    assert ttrainer.resolve_remat("proj", t2i) == rung(t2i) is not False
     assert ttrainer.resolve_remat("proj", 8 * (73 + 256)) is False
     assert tcfg.TrainConfig().remat_mmu is None is jcfg.TrainConfig().remat_mmu
 

@@ -23,7 +23,6 @@ from omnimamba_tpu.train import trainer as jtrainer
 from omnimamba_tpu_torch import config as tcfg
 from omnimamba_tpu_torch.models import mamba2 as tmamba2
 from omnimamba_tpu_torch.models import omnimamba as tomni
-from omnimamba_tpu_torch.models.backbone import backbone_forward
 from omnimamba_tpu_torch.train import optimizer as topt
 from omnimamba_tpu_torch.train import trainer as ttrainer
 from omnimamba_tpu_torch.utils.bridge import to_jax_tree
@@ -442,10 +441,6 @@ def test_train_config_defaults_equal_jax():
 
 
 UNPORTED = {
-    "remat_proj_xbd": lambda tm: ttrainer.resolve_remat("proj_xbd", 100),
-    "remat_proj_ssd": lambda tm: ttrainer.resolve_remat("proj_ssd", 100),
-    "remat_proj_conv_ssd": lambda tm: ttrainer.resolve_remat("proj_conv_ssd", 100),
-    "remat_dots": lambda tm: backbone_forward({}, torch.zeros(1, 2, 4), "t2i", tm.cfg, remat="dots"),
     "mesh_dp2": lambda tm: tcfg.TrainConfig(mesh_shape={"dp": 2, "tp": 1}),
     "mesh_tp4": lambda tm: tcfg.TrainConfig(mesh_shape={"dp": 1, "tp": 4}),
 }
@@ -459,8 +454,10 @@ def test_what_still_raises_names_its_roadmap_item(name):
 
 
 def test_remat_rule_resolves_by_tokens():
-    assert ttrainer.resolve_remat("proj", ttrainer.REMAT_TOKENS) is True
-    assert ttrainer.resolve_remat("proj", ttrainer.REMAT_TOKENS - 1) is False
+    (first, first_limit), last_limit = ttrainer.REMAT_LADDER[0], ttrainer.REMAT_LADDER[-1][1]
+    assert first is False and ttrainer.resolve_remat("proj", first_limit - 1) is False
+    assert ttrainer.resolve_remat("proj", last_limit - 1) is ttrainer.REMAT_LADDER[-1][0]
+    assert ttrainer.resolve_remat("proj", last_limit) is True
     assert ttrainer.resolve_remat(True, 1) is True and ttrainer.resolve_remat(False, 10**9) is False
     assert tcfg.TrainConfig().remat == "proj" == jcfg.TrainConfig().remat
     assert tcfg.TrainConfig(mesh_shape={"dp": 1, "tp": 1}).mesh_shape == {"dp": 1, "tp": 1}
