@@ -46,7 +46,18 @@ paths at the full 1.3B width and depth with random weights made from a seed:
   a step, bf16; the t2i batch halved until it fits), the split of a step, the
   towers' time and peak, one profiled step; a 4-layer draft distilled from
   the trained target and its acceptance; the training CLI for 2 steps (the
-  native COCO reader, `--tensorboard`).
+  native COCO reader, `--tensorboard`);
+- training across ranks (`multi_rank`): stage-1 T2I at 1.3B, 48 layers, bf16,
+  16 rows of 329 a global step, 3 steps, as one rank without a process group,
+  as dp=2 and fsdp=2 (two rank processes sharing cuda:0 over gloo) and as dp=1
+  over NCCL (one rank): losses, gradient norms and updated leaves against the
+  one-rank run, each rank's peak (fsdp's below dp's), launches, the bytes each
+  collective moved against the count a step must move, and the loss and every
+  gradient at 3 layers in fp32;
+- the sequence-parallel prefill (`sequence_parallel`): one 16,384-token mmu
+  window without positions at 1.3B, 48 layers, bf16, over 2 sp ranks on
+  cuda:0 (gloo) against one rank's `backbone_forward`, and at 3 layers in fp32;
+  K1 at the slice's shape against its plain version first.
 
 The launch counters show that each path went through its kernels. Any failed
 phase ends the run with a non-zero exit code; nothing is caught but the
@@ -62,7 +73,8 @@ Lines on standard output, one JSON object each unless noted:
   {"train_plain_vs_kernel": ...} {"train_path": ...} {"train_times": ...}
   {"remat_policies": ...} {"remat_threshold": ...} {"stage2_plain_vs_kernel": ...}
   {"stage2_path": ...}
-  {"stage2_times": ...} {"distill": ...} {"train_cli": ...} {"kernels": [...]} and, last,
+  {"stage2_times": ...} {"distill": ...} {"train_cli": ...} {"multi_rank": ...}
+  {"sequence_parallel": ...} {"kernels": [...]} and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 fp32 comparisons run with TF32 off for matrix products and convolutions.
@@ -5274,6 +5286,492 @@ def train_cli_phase(batch_t2i, card):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# slice 6a: training across ranks (dp, fsdp) and the sequence-parallel prefill.
+# One card: the ranks are processes on cuda:0 that talk over gloo on CUDA tensors
+# (tools/collective_probe.py: gloo takes all_reduce, all_gather_into_tensor and
+# reduce_scatter_tensor there), and one process runs the same collectives over NCCL
+# at a world of one. Times of ranks that share one card are no scaling figure.
+# ---------------------------------------------------------------------------
+
+MR_ROWS = 16  # rows of a global step
+MR_STEPS = 3
+MR_LEN = STAGE2_T2I_LEN  # 329: the 73-id caption block and 256 image tokens
+MR_LR = 8e-4  # config/config_stage1_t2i.yaml's peak, without its warm-up: the leaves move in bf16
+MR_FP32_LAYERS, MR_FP32_ROWS = 3, 4
+# bf16 at 48 layers, each rank case against the one-rank run (PERF.md section 6,
+# stated before the first run): every step's loss within MR_LOSS_RTOL of it, its gradient
+# norm within MR_GNORM_RTOL, and no element of an updated trainable leaf further from it
+# than Adam's steps can move an element the other way (2 lr a step) plus one bf16 rounding
+# of the leaf's largest value
+MR_LOSS_RTOL, MR_GNORM_RTOL = 2e-3, 2e-2
+# ... and on the whole leaf and on every slice fsdp cuts it into, the difference from the
+# one-rank leaf within MR_UPDATE_RTOL of the one-rank update (both as L2 norms): an update
+# never applied gives 1, one of the wrong sign about 2 (the phase plants both). A leaf
+# that the one-rank run did not move (the mmu LoRA factors: the t2i flow does not use
+# them) must stay as it was, bit for bit
+MR_UPDATE_RTOL = 0.5
+# fp32 at 3 layers: the loss and every gradient leaf within 1e-5 of the one-rank run's
+# largest value (of the leaf)
+MR_FP32_TOL = 1e-5
+SP_LEN, SP_RANKS = 16384, 2  # the mmu prefill of one long-context window, no positions
+# bf16 sp prefill at 48 layers against one rank's backbone_forward: DEEP_TOL_REL's rule
+# (2^-7 of the value plus 2^-6 of the largest); fp32 at 3 layers: 1e-5 of the largest
+SP_FP32_TOL = 1e-5
+SIX_KERNELS = ("ssd_scan", "add_rms_norm", "gated_rms_norm", *BACKWARD_KERNELS)
+
+
+def _mr_model(n_layer=None):
+    """The 1.3B of the stage-1 path, LoRA dropout off (every case draws the
+    same nothing), optionally cut to ``n_layer``."""
+    from omnimamba_tpu_torch import MambaConfig, OmniMambaModel, VQConfig
+
+    cfg = MambaConfig()
+    cfg = dataclasses.replace(cfg, lora=dataclasses.replace(cfg.lora, dropout=0.0),
+                              n_layer=n_layer or cfg.n_layer)
+    return OmniMambaModel(cfg=cfg, vq_cfg=VQConfig(), sptids={})
+
+
+def _mr_params(model, dtype, seed):
+    from omnimamba_tpu_torch import init_omnimamba
+
+    return init_omnimamba(torch.Generator(device="cuda").manual_seed(seed), model, dtype, "cuda",
+                          with_vq=False)
+
+
+def _mr_train_cfg(**kw):
+    from omnimamba_tpu_torch.config import TrainConfig
+
+    return TrainConfig(**{**dict(stage="align", t2i_task=True, mmu_task=False,
+                                 batch_size_t2i=MR_ROWS, lr=MR_LR, warmup_steps=0,
+                                 max_steps=100000, logging_steps=1, remat=True), **kw})
+
+
+def _mr_batches(model, rows, steps, seed):
+    rng = np.random.default_rng(seed)
+    cfg = model.cfg
+    return [{"t2i_flow": {
+        "inputs": rng.integers(0, cfg.vqvae_vocab_size, (rows, cfg.num_tokens)),
+        "caption_ids": rng.integers(0, cfg.vocab_size, (rows, STAGE2_CAPTION))}}
+        for _ in range(steps)]
+
+
+def _mr_expected_traffic(params, mesh):
+    """Bytes each collective must move in one step of the stage-1 path under
+    ``mesh``: every block's slices gathered twice (its forward, then the
+    second forward of its checkpoint), every other slice that the t2i flow
+    reads once (all but the mmu positions, which are frozen in this stage);
+    every trainable slice's gradient reduce-scattered once; the gradients of
+    the trainable leaves kept whole, the flow's label count (fp32), the three
+    metric shares and, under fsdp, the slices' norm all-reduced."""
+    from omnimamba_tpu_torch.parallel.mesh import axis_size
+    from omnimamba_tpu_torch.parallel.sharding import logical_shape, shard_of
+
+    gather = scatter = reduce_ = 0
+    for path, t in _paths(params):
+        if path == "mamba/mmu_pos_embed":
+            continue
+        whole = int(np.prod(logical_shape(t))) * t.element_size()
+        if shard_of(t) is not None:
+            gather += whole * (2 if path.startswith("mamba/layers/") else 1)
+            scatter += whole if t.requires_grad else 0
+        elif t.requires_grad:
+            reduce_ += whole
+    reduce_ += 4 + 3 * 4 + (4 if axis_size(mesh, "fsdp") > 1 else 0)
+    return {"all_gather": gather, "reduce_scatter": scatter, "all_reduce": reduce_}
+
+
+def _mr_trainable(params):
+    return {p: t for p, t in _paths(params) if t.requires_grad}
+
+
+def _mr_run(model, params, tcfg, batches, mesh, wrappers):
+    """``Trainer.train(max_steps=MR_STEPS)``; counters set to 0 just before and
+    read just after. Returns (record, trainer)."""
+    from omnimamba_tpu_torch.parallel.sharding import COLLECTIVES, reset_collective_counts
+    from omnimamba_tpu_torch.train.trainer import Trainer
+
+    log = _StepLog()
+    trainer = Trainer(model, params, tcfg, batches, mesh=mesh, dtype=torch.bfloat16,
+                      metrics_writer=log, log_fn=lambda *a: None)
+    for w in wrappers.values():
+        w.launches = 0
+    reset_collective_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, metrics = trainer.train(max_steps=MR_STEPS)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    rec = {"steps": state.step, "seconds": total,
+           "launches": {k: w.launches for k, w in wrappers.items() if w.launches},
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "collective_bytes_per_step": {k: v["bytes"] / MR_STEPS for k, v in COLLECTIVES.items()},
+           "collective_calls_per_step": {k: v["calls"] / MR_STEPS for k, v in COLLECTIVES.items()},
+           "last_metrics": {k: float(v) for k, v in metrics.items()}}
+    if log.rows:  # rank 0's sink: every step's metrics and a stamp at its end
+        rec["losses"] = [r["loss"] for r in log.rows]
+        rec["grad_norms"] = [r["grad_norm"] for r in log.rows]
+        rec["step_s"] = [float(v) for v in np.diff(np.asarray([t0] + log.stamps))]
+    return rec, trainer
+
+
+def _mr_fp32_grads(mesh):
+    """Loss and the whole gradient of every leaf at 3 layers, fp32, finetune
+    (every leaf trains), through ``make_grad_fn`` under ``mesh`` (None: one rank)."""
+    from omnimamba_tpu_torch.parallel import shard_batch, shard_params
+    from omnimamba_tpu_torch.parallel.sharding import shard_of, whole_tensor
+    from omnimamba_tpu_torch.train.optimizer import make_optimizer
+    from omnimamba_tpu_torch.train.trainer import make_grad_fn
+
+    model = _mr_model(MR_FP32_LAYERS)
+    params = _mr_params(model, torch.float32, SEED + 21)
+    tcfg = _mr_train_cfg(stage="finetune", batch_size_t2i=MR_FP32_ROWS)
+    make_optimizer(params, tcfg)  # marks every leaf trainable
+    batch = _mr_batches(model, MR_FP32_ROWS, 1, SEED + 22)[0]
+    if mesh is not None:
+        params, batch = shard_params(mesh, params), shard_batch(mesh, batch)
+    loss, _, grads, _ = make_grad_fn(model, tcfg, mesh=mesh, dtype=torch.float32,
+                                     device="cuda")(params, batch, None)
+    leaves = [(p, t) for p, t in _paths(params) if t.requires_grad]
+    return loss.item(), {p: whole_tensor(g, shard_of(t)) for (p, t), g in zip(leaves, grads)}
+
+
+def _mr_hold_leaf(got, want, start, spec):
+    """One updated leaf (fp32 on the card) of a rank case against the
+    one-rank run, on the whole leaf and on every slice ``spec`` cuts it into
+    (the whole leaf alone without one): the L2 norm of got - want as a share
+    of the one-rank update's (the largest over the regions; where the
+    one-rank run did not move a region, 0 if it is bit for bit the same and
+    inf otherwise), whether the one-rank run moved the leaf, and the least
+    share that two planted faults reach on the regions it moved: the update
+    never applied (``start``) and applied with its sign turned (None where
+    it moved none)."""
+    from omnimamba_tpu_torch.parallel.sharding import local_slice
+
+    regions = [None] if spec is None else [None] + [dataclasses.replace(spec, index=i)
+                                                    for i in range(spec.size)]
+
+    def norm(x, region):
+        return torch.linalg.vector_norm(x if region is None else local_slice(x, region)).item()
+
+    def share(x, region):
+        update, diff = norm(want - start, region), norm(x - want, region)
+        return diff / update if update > 0 else (0.0 if diff == 0 else float("inf"))
+
+    moved = [r for r in regions if norm(want - start, r) > 0]
+    return {"update_share": max(share(got, r) for r in regions), "moved": bool(moved),
+            "planted_skip_least": min((share(start, r) for r in moved), default=None),
+            "planted_sign_least": min((share(2 * start - got, r) for r in moved), default=None)}
+
+
+def _mr_rank(rank, world, job):
+    """One rank of the multi_rank phase: the cases of ``job`` one after the
+    other in this process (each from fresh parameters), then the fp32 check
+    under each case's mesh. Compares itself with the one-rank run's files."""
+    from omnimamba_tpu_torch.parallel import create_mesh, shard_batch, shard_params
+    from omnimamba_tpu_torch.parallel.sharding import shard_of, whole_tensor
+
+    from omnimamba_tpu_torch.train.optimizer import make_optimizer
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = kernel_wrappers()
+    ref = torch.load(job["reference"], map_location="cpu", weights_only=True)
+    model = _mr_model()
+    out = {"rank": rank, "world": world, "cases": {}}
+    for case, shape in job["cases"]:
+        mesh = create_mesh(shape, "cuda")
+        params = _mr_params(model, torch.bfloat16, SEED + 20)
+        tcfg = _mr_train_cfg()
+        make_optimizer(params, tcfg)  # the align stage's trainable leaves, before the cut
+        start = {p: t.detach().clone() for p, t in _mr_trainable(params).items()}
+        params = shard_params(mesh, params)
+        batches = [shard_batch(mesh, b) for b in _mr_batches(model, MR_ROWS, MR_STEPS, SEED + 23)]
+        rec, trainer = _mr_run(model, params, tcfg, batches, mesh, wrappers)
+        rec["expected_collective_bytes_per_step"] = _mr_expected_traffic(trainer.state.params, mesh)
+        rec["slices"] = sum(shard_of(t) is not None for _, t in _paths(trainer.state.params))
+        leaves = {}
+        for path, t in _mr_trainable(trainer.state.params).items():
+            got, want = whole_tensor(t).float(), ref["params"][path].to("cuda").float()
+            first = start[path].float()
+            leaves[path] = {"max_abs_diff": (got - want).abs().max().item(),
+                            "max_abs_ref": want.abs().max().item(),
+                            "max_abs_update_ref": (want - first).abs().max().item(),
+                            "equal_share": (got == want).float().mean().item(),
+                            **_mr_hold_leaf(got, want, first, shard_of(t))}
+            del got, want, first
+        rec["leaves"] = leaves
+        del trainer, params, batches, start
+        torch.cuda.empty_cache()
+        loss, grads = _mr_fp32_grads(mesh)
+        worst, worst_leaf = 0.0, ""
+        for path, g in grads.items():
+            want = ref["fp32_grads"][path].to("cuda")
+            share = (g - want).abs().max().item() / (
+                MR_FP32_TOL * max(want.abs().max().item(), 1e-30))
+            if share > worst:
+                worst, worst_leaf = share, path
+        rec["fp32_3_layers"] = {"loss": loss, "loss_rel_err": abs(loss - ref["fp32_loss"]) / abs(
+            ref["fp32_loss"]), "gradient_leaves": len(grads), "worst_err_of_allowed": worst,
+            "worst_leaf": worst_leaf}
+        del grads
+        torch.cuda.empty_cache()
+        out["cases"][case] = rec
+    return out
+
+
+def multi_rank_phase(results, card):
+    """Stage-1 T2I training at 1.3B (48 layers, bf16, every block
+    checkpointed), 16 rows of 329 tokens a global step, 3 steps, one seed, no
+    dropout, in four cases: (a) one rank, no process group; (b) dp=2 and (c)
+    fsdp=2, two ranks on cuda:0 over gloo; (d) dp=1 over NCCL, one rank.
+    Each rank case against (a): losses, gradient norms, the updated trainable
+    leaves; each rank's peak ((c) below (b)), seconds a step, launches of the
+    six training kernels, bytes each collective moved against the count a
+    step must move. Then the fp32 check at 3 layers: loss and every gradient
+    leaf of each case against (a)'s."""
+    import shutil
+    import tempfile
+
+    from omnimamba_tpu_torch.parallel.launch import run_ranks
+
+    wrappers = kernel_wrappers()
+    model = _mr_model()
+    tmp = tempfile.mkdtemp(prefix="omt_multi_rank_")
+    try:
+        # (a): one rank, no process group
+        params = _mr_params(model, torch.bfloat16, SEED + 20)
+        rec_a, trainer = _mr_run(model, params, _mr_train_cfg(),
+                                 _mr_batches(model, MR_ROWS, MR_STEPS, SEED + 23), None, wrappers)
+        ref = {"params": {p: t.detach().cpu() for p, t in _mr_trainable(trainer.state.params).items()}}
+        del trainer, params
+        torch.cuda.empty_cache()
+        ref["fp32_loss"], grads = _mr_fp32_grads(None)
+        ref["fp32_grads"] = {p: g.cpu() for p, g in grads.items()}
+        del grads
+        torch.cuda.empty_cache()
+        path = os.path.join(tmp, "one_rank.pt")
+        torch.save(ref, path)
+        del ref
+        job = {"reference": path}
+        gloo = run_ranks(_mr_rank, 2, ({**job, "cases": [("dp_2", {"dp": 2}),
+                                                          ("fsdp_2", {"fsdp": 2})]},),
+                         backend="gloo", timeout=600)
+        nccl = run_ranks(_mr_rank, 1, ({**job, "cases": [("nccl_dp_1", {"dp": 1})]},),
+                         backend="nccl", timeout=300)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    expect = {k: v * MR_STEPS for k, v in remat_launches(True, model.cfg.n_layer).items()}
+    assert {k: rec_a["launches"].get(k, 0) for k in SIX_KERNELS} == expect, rec_a["launches"]
+    cases = {"one_rank": {"ranks": [rec_a]}}
+    for name, ranks in (("dp_2", gloo), ("fsdp_2", gloo), ("nccl_dp_1", nccl)):
+        cases[name] = {"ranks": [r["cases"][name] for r in ranks]}
+    line = {"card": card, "model": "OmniMamba-1.3B", "n_layer": model.cfg.n_layer,
+            "dtype": "torch.bfloat16", "stage": "align", "remat": True, "rows_per_step": MR_ROWS,
+            "seq_len": MR_LEN, "steps": MR_STEPS, "lr": MR_LR,
+            "tolerance": {"loss_rtol": MR_LOSS_RTOL, "grad_norm_rtol": MR_GNORM_RTOL,
+                          "leaf": "2 lr a step + 2^-7 max|leaf|",
+                          "leaf_update": "|got - one rank| <= 0.5 |one-rank update| (L2) on "
+                                         "every leaf and fsdp slice; bit for bit where it "
+                                         "did not move",
+                          "fp32_3_layers": MR_FP32_TOL},
+            "note": "two ranks share one card (gloo on CUDA tensors): seconds a step are no "
+                    "scaling figure; NCCL runs at a world of one",
+            "cases": {}}
+    ok = True
+    for name, case in cases.items():
+        ranks = case["ranks"]
+        first = ranks[0]
+        summary = {
+            "ranks": len(ranks), "losses": first["losses"], "grad_norms": first["grad_norms"],
+            "s_per_step_median_after_first": float(np.median(first["step_s"][1:])),
+            "step_s": first["step_s"],
+            "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in ranks],
+            "launches_per_rank_per_step": [{k: r["launches"].get(k, 0) / MR_STEPS
+                                            for k in SIX_KERNELS} for r in ranks],
+            "collective_bytes_per_step": first["collective_bytes_per_step"],
+            "collective_calls_per_step": first["collective_calls_per_step"]}
+        if name != "one_rank":
+            summary["expected_collective_bytes_per_step"] = first["expected_collective_bytes_per_step"]
+            summary["slices"] = first["slices"]
+            summary["loss_rel_diff"] = [abs(a - b) / abs(b) for a, b in
+                                        zip(first["losses"], rec_a["losses"])]
+            summary["grad_norm_rel_diff"] = [abs(a - b) / abs(b) for a, b in
+                                             zip(first["grad_norms"], rec_a["grad_norms"])]
+            leaves = first["leaves"]
+            rel = {p: v["max_abs_diff"] / max(v["max_abs_ref"], 1e-30) for p, v in leaves.items()}
+            worst = max(rel, key=rel.get)
+            summary["updated_leaves"] = {
+                "count": len(leaves), "greatest_rel_diff": rel[worst], "worst_leaf": worst,
+                "greatest_diff_in_lr": max(v["max_abs_diff"] for v in leaves.values()) / MR_LR,
+                "bit_equal_leaves": sum(v["equal_share"] == 1.0 for v in leaves.values()),
+                "least_equal_share": min(v["equal_share"] for v in leaves.values())}
+            moved = [p for p, v in leaves.items() if v["moved"]]
+            summary["updated_leaves"]["still_in_one_rank"] = len(leaves) - len(moved)
+            for key in ("update_share", "planted_skip_least", "planted_sign_least"):
+                pick, among = (max, leaves) if key == "update_share" else (min, moved)
+                leaf = pick(among, key=lambda p: leaves[p][key])
+                summary["updated_leaves"][key] = {"value": leaves[leaf][key], "leaf": leaf}
+            summary["leaves_within"] = all(
+                v["max_abs_diff"] <= 2 * MR_LR * MR_STEPS + 2.0 ** -7 * v["max_abs_ref"]
+                and v["update_share"] <= MR_UPDATE_RTOL for v in leaves.values())
+            # the check fails an update skipped or turned on every leaf and slice that moved
+            summary["planted_faults_fail"] = bool(moved) and all(
+                min(leaves[p]["planted_skip_least"], leaves[p]["planted_sign_least"])
+                > MR_UPDATE_RTOL for p in moved)
+            summary["fp32_3_layers"] = first["fp32_3_layers"]
+            ok &= (max(summary["loss_rel_diff"]) <= MR_LOSS_RTOL
+                   and max(summary["grad_norm_rel_diff"]) <= MR_GNORM_RTOL
+                   and summary["leaves_within"] and summary["planted_faults_fail"]
+                   and first["fp32_3_layers"]["loss_rel_err"] <= MR_FP32_TOL
+                   and first["fp32_3_layers"]["worst_err_of_allowed"] <= 1.0
+                   and all(r["collective_bytes_per_step"] == first["collective_bytes_per_step"]
+                           for r in ranks)
+                   and first["collective_bytes_per_step"]
+                   == summary["expected_collective_bytes_per_step"])
+        ok &= all({k: r["launches"].get(k, 0) for k in SIX_KERNELS} == expect for r in ranks)
+        line["cases"][name] = summary
+    peaks = {n: max(line["cases"][n]["peak_memory_gib_by_rank"]) for n in ("dp_2", "fsdp_2")}
+    line["fsdp_peak_below_dp"] = peaks["fsdp_2"] < peaks["dp_2"]
+    emit({"multi_rank": line})
+    assert ok and line["fsdp_peak_below_dp"], line
+    for name in SIX_KERNELS:
+        results[name]["launches_dp"] = cases["dp_2"]["ranks"][0]["launches"][name] // MR_STEPS
+        results[name]["launches_fsdp"] = cases["fsdp_2"]["ranks"][0]["launches"][name] // MR_STEPS
+
+
+def _sp_inputs(n_layer, dtype, seed):
+    from omnimamba_tpu_torch.models.backbone import init_backbone
+
+    cfg = _mr_model(n_layer).cfg
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_backbone(gen, cfg, dtype, "cuda")
+    emb = (0.5 * torch.randn((1, SP_LEN, cfg.d_model), generator=gen, device="cuda",
+                             dtype=torch.float32)).to(dtype)
+    return cfg, params, emb
+
+
+def _sp_rank(rank, world, job):
+    """One rank of the sequence_parallel phase: its slice of the window
+    through ``backbone_forward_sp`` (bf16, 48 layers, timed on a second run;
+    the launches and the bytes gathered from one), then fp32 at 3 layers."""
+    from omnimamba_tpu_torch.models.backbone import backbone_forward_sp
+    from omnimamba_tpu_torch.parallel import create_mesh
+    from omnimamba_tpu_torch.parallel.sharding import COLLECTIVES, reset_collective_counts
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = kernel_wrappers()
+    mesh = create_mesh({"sp": world}, "cuda")
+    per = SP_LEN // world
+    out = {"rank": rank}
+    for key, n_layer, dtype, seed in (("bf16", None, torch.bfloat16, SEED + 30),
+                                      ("fp32", 3, torch.float32, SEED + 31)):
+        cfg, params, emb = _sp_inputs(n_layer, dtype, seed)
+        local = emb[:, rank * per:(rank + 1) * per].contiguous()
+        del emb
+        with torch.no_grad():
+            backbone_forward_sp(params, local, "mmu", cfg, mesh, add_mmu_pos=False)  # warm
+            for w in wrappers.values():
+                w.launches = 0
+            reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            hidden = backbone_forward_sp(params, local, "mmu", cfg, mesh, add_mmu_pos=False)
+            torch.cuda.synchronize()
+            out[key] = {"seconds": time.time() - t0, "hidden": hidden.cpu(),
+                        "launches": {k: w.launches for k, w in wrappers.items() if w.launches},
+                        "gathered_bytes_per_layer": COLLECTIVES["all_gather"]["bytes"] / cfg.n_layer,
+                        "gathers_per_layer": COLLECTIVES["all_gather"]["calls"] / cfg.n_layer,
+                        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del params, local, hidden
+        torch.cuda.empty_cache()
+    return out
+
+
+def sequence_parallel_phase(results, card):
+    """The mmu prefill of one 16,384-token window without positions
+    (``add_mmu_pos=False``) at 1.3B, 48 layers, bf16, over 2 sp ranks on
+    cuda:0 (gloo), against one rank's ``backbone_forward`` on the same
+    embeddings; fp32 at 3 layers. K1 at the slice's shape against its plain
+    version first."""
+    from omnimamba_tpu_torch.models.backbone import backbone_forward
+    from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused, ssd_fused_plain
+    from omnimamba_tpu_torch.parallel.launch import run_ranks
+
+    # K1 on one rank's slice (1, 8192, 64, 64), bf16 and fp32, as check_ssd_scan holds it
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    k1 = {}
+    for dtype, atol_rel, rtol in ((torch.bfloat16, BWD_BF16_ATOL_REL, 2.0 ** -7),
+                                  (torch.float32, None, None)):
+        x, dt, A, Bm, Cm, D = ssd_inputs(gen, 1, SP_LEN // SP_RANKS, 64, 64, 1, 128, dtype)
+        with torch.no_grad():
+            got, want = ssd_fused(x, dt, A, Bm, Cm, D), ssd_fused_plain(x, dt, A, Bm, Cm, D)
+        rec = {}
+        _errs(rec, [("y", got[0], want[0]), ("state", got[1], want[1])], atol_rel, rtol)
+        k1[str(dtype).split(".")[-1]] = rec
+        del x, dt, A, Bm, Cm, D, got, want
+    # one rank's forward of the whole window: the reference
+    wrappers = kernel_wrappers()
+    refs = {}
+    for key, n_layer, dtype, seed in (("bf16", None, torch.bfloat16, SEED + 30),
+                                      ("fp32", 3, torch.float32, SEED + 31)):
+        cfg, params, emb = _sp_inputs(n_layer, dtype, seed)
+        with torch.no_grad():
+            backbone_forward(params, emb, "mmu", cfg, add_mmu_pos=False)  # warm
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ref, _ = backbone_forward(params, emb, "mmu", cfg, add_mmu_pos=False)
+            torch.cuda.synchronize()
+        refs[key] = {"seconds": time.time() - t0, "hidden": ref,
+                     "launches": {k: w.launches for k, w in wrappers.items() if w.launches}}
+        del params, emb
+        torch.cuda.empty_cache()
+    ranks = run_ranks(_sp_rank, SP_RANKS, ({},), backend="gloo", timeout=600)
+    line = {"card": card, "model": "OmniMamba-1.3B", "task": "mmu", "add_mmu_pos": False,
+            "batch": 1, "seq_len": SP_LEN, "n_sp": SP_RANKS, "backend": "gloo on cuda:0",
+            "k1_at_the_slice": k1,
+            "note": "two ranks share one card: seconds are no scaling figure"}
+    ok = _allowed(k1["bfloat16"]) and _allowed(k1["float32"])
+    for key, n_layer in (("bf16", 48), ("fp32", MR_FP32_LAYERS)):
+        want = refs[key]["hidden"]
+        got = torch.cat([r[key]["hidden"] for r in ranks], dim=1).to(want.device)
+        if key == "bf16":
+            err, share = errors(got, want, atol_rel=DEEP_TOL_REL, rtol=2.0 ** -7)
+            shares = [errors(got[:, i * (SP_LEN // SP_RANKS):(i + 1) * (SP_LEN // SP_RANKS)],
+                             want[:, i * (SP_LEN // SP_RANKS):(i + 1) * (SP_LEN // SP_RANKS)],
+                             atol_rel=DEEP_TOL_REL, rtol=2.0 ** -7)[1] for i in range(SP_RANKS)]
+        else:
+            err, share = errors(got, want, atol_rel=SP_FP32_TOL, rtol=0.0)
+            shares = None
+        line[key] = {
+            "layers": n_layer, "max_abs_err": err, "err_of_allowed": share,
+            "err_of_allowed_by_slice": shares,
+            "tolerance": "2^-7 |ref| + 2^-6 max|ref|" if key == "bf16" else "1e-5 max|ref|",
+            "seconds_by_rank": [r[key]["seconds"] for r in ranks],
+            "one_rank_seconds": refs[key]["seconds"],
+            "launches_by_rank": [r[key]["launches"] for r in ranks],
+            "one_rank_launches": refs[key]["launches"],
+            "gathered_bytes_per_layer": ranks[0][key]["gathered_bytes_per_layer"],
+            "gathers_per_layer": ranks[0][key]["gathers_per_layer"],
+            "peak_memory_gib_by_rank": [r[key]["peak_memory_gib"] for r in ranks]}
+        ok &= share <= 1.0
+        for r in ranks:
+            ok &= all(r[key]["launches"].get(k, 0) == n_layer
+                      for k in ("ssd_scan", "add_rms_norm", "gated_rms_norm"))
+            ok &= not any(r[key]["launches"].get(k, 0) for k in BACKWARD_KERNELS)
+    emit({"sequence_parallel": line})
+    assert ok, line
+    for name in SIX_KERNELS:
+        results[name]["launches_sp"] = line["bf16"]["launches_by_rank"][0].get(name, 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one CUDA device",
@@ -5339,6 +5837,10 @@ def main() -> int:
     del mamba
     torch.cuda.empty_cache()
     phase(train_cli_phase, batch_t2i, card)
+    torch.cuda.empty_cache()
+    phase(multi_rank_phase, results, card)
+    torch.cuda.empty_cache()
+    phase(sequence_parallel_phase, results, card)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -5362,7 +5864,8 @@ def main() -> int:
             "out_dtype", "shapes", "launches_scan_path", "profile", "m_tile", "m_sweep",
             "mmu", "mmu_4_layers_fp32", "mmu_48_layers_b8", "launches_mmu_path", "launches_serve",
             "stage2_t2i", "stage2_mmu", "launches_stage2", "launches_per_stage2_step",
-            "launches_distill", "launches_remat_policies")
+            "launches_distill", "launches_remat_policies", "launches_dp", "launches_fsdp",
+            "launches_sp")
                     if k in r})
         kernels.append(row)
     emit({"card": card, "seconds_total": time.time() - t_all, "seconds_by_phase": phase_s})

@@ -19,7 +19,9 @@ package so a reader finds the counterpart:
   data/    tokenizer (offline and byte-level BPE), UniversalPrompting,
            conversation templates, prompt builders, image transforms, the
            COCO and LLaVA datasets, the loaders, the native COCO reader
-  serve/   the continuous-batching slot engine
+  serve/   the continuous-batching slot engine, the HTTP front end
+  parallel/ training across ranks (dp, fsdp) over torch.distributed, the
+           sequence-parallel prefill, the launcher of rank processes
   train/   schedule, stage freezing, AdamW; the training step and loop, the
            metric sinks; draft distillation
   utils/   parameter bridge from and to the JAX pytree, checkpoints, device

@@ -341,6 +341,23 @@ class SpecialTokens:
     pad_token: str = "[PAD]"
 
 
+def check_mesh_shape(shape: Dict[str, int]) -> None:
+    """Raise for a training mesh the port cannot run: an axis other than dp,
+    fsdp and tp, a size below 1, or tp > 1 (head-parallel tp cuts d_inner,
+    over which the gated RMSNorm normalises: it needs a partial-sum form of
+    K3b, K6b and K4's gated phase, slice 6b)."""
+    unknown = sorted(set(shape) - {"dp", "fsdp", "tp"})
+    if unknown:
+        raise ValueError(f"mesh_shape={shape}: a training mesh has the axes dp, fsdp and tp, "
+                         f"not {unknown}")
+    if any(int(v) < 1 for v in shape.values()):
+        raise ValueError(f"mesh_shape={shape}: every axis needs at least one rank")
+    if int(shape.get("tp", 1)) > 1:
+        raise NotImplementedError(
+            f"mesh_shape={shape}: tp > 1 (head-parallel tensor parallelism) needs a "
+            "partial-sum gated RMSNorm and arrives with slice 6b (ROADMAP: slice 6b)")
+
+
 @dataclass
 class TrainConfig:
     """Mirrors the YAML ``train:`` block and the training script's defaults.
@@ -378,8 +395,8 @@ class TrainConfig:
     eval_steps: int = 0
     seed: int = 0
     num_workers: int = 16
-    # kept for config-surface parity: the port runs on one card and refuses
-    # any other mesh until parallel/ is ported
+    # the training mesh (parallel/mesh.py): dp and fsdp of any size, an absent
+    # dp taking the ranks left over; tp > 1 raises until slice 6b
     mesh_shape: Dict[str, int] = field(default_factory=lambda: {"dp": 1, "tp": 1})
     # gradient checkpointing over the blocks. True: checkpoint every block;
     # False: keep every activation; "proj_xbd", "proj_ssd", "proj_conv_ssd",
@@ -392,11 +409,7 @@ class TrainConfig:
     remat_mmu: Any = None
 
     def __post_init__(self):
-        if {k: v for k, v in self.mesh_shape.items() if v != 1}:
-            raise NotImplementedError(
-                f"mesh_shape={self.mesh_shape}: the port runs on one card; meshes arrive "
-                "with parallel/ (ROADMAP: slice 6, multi-GPU)"
-            )
+        check_mesh_shape(self.mesh_shape)
 
     @classmethod
     def from_yaml(cls, path: str) -> "TrainConfig":

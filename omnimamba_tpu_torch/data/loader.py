@@ -8,6 +8,12 @@ daemon threads. ``CombinedLoader`` is lightning's ``max_size_cycle``: an
 epoch is as long as the longest loader, the shorter ones start again when
 they run out.
 
+Across ranks (``shard=(index, count)``) every rank draws the same global
+batches from the same seed and collates only its own contiguous rows of
+each (``own_rows``): no rank reads or decodes another rank's items, and
+the rows are those ``parallel/sharding.shard_batch`` cuts from the global
+batch.
+
 A prefetching iterator that ends early (a ``break``, ``close()``, or its
 last reference dropped) tells its threads to stop and does not wait for
 them: a thread still collating finishes that batch and exits, and being a
@@ -18,9 +24,21 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+
+def own_rows(indices: np.ndarray, shard: Optional[Tuple[int, int]]) -> np.ndarray:
+    """This rank's contiguous part of a global batch's item indices;
+    ``shard`` is (rank index, number of ranks), None for all of them."""
+    if shard is None:
+        return indices
+    index, count = shard
+    if len(indices) % count:
+        raise ValueError(f"a batch of {len(indices)} rows does not split over {count} ranks")
+    per = len(indices) // count
+    return indices[index * per:(index + 1) * per]
 
 
 class _Slot:
@@ -34,7 +52,8 @@ class _Slot:
 
 
 class DataLoader:
-    """Epochs of ``batch_size`` items of ``dataset`` through ``collate_fn``."""
+    """Epochs of ``batch_size`` items of ``dataset`` through ``collate_fn``;
+    with ``shard``, this rank's rows of each (``own_rows``)."""
 
     def __init__(
         self,
@@ -46,6 +65,7 @@ class DataLoader:
         seed: int = 0,
         num_threads: int = 8,
         prefetch: int = 4,
+        shard: Optional[Tuple[int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -55,6 +75,7 @@ class DataLoader:
         self.seed = seed
         self.num_threads = num_threads
         self.prefetch = prefetch
+        self.shard = shard
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -70,7 +91,7 @@ class DataLoader:
         return [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
 
     def _fetch(self, indices: np.ndarray):
-        return self.collate_fn([self.dataset[int(i)] for i in indices])
+        return self.collate_fn([self.dataset[int(i)] for i in own_rows(indices, self.shard)])
 
     def __iter__(self) -> Iterator:
         batches = self._batch_indices()

@@ -20,11 +20,12 @@ as in the JAX reader.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from omnimamba_tpu_torch.data.coco import CaptionBlock
+from omnimamba_tpu_torch.data.loader import own_rows
 from omnimamba_tpu_torch.ops import kernel_build
 
 
@@ -115,12 +116,14 @@ class NativeCocoLoader:
     """Epoch iterator over a ``NativeCocoDataset``: each epoch a new order
     (``default_rng(seed + epoch).permutation``), full batches only, each
     filled by one C++ call. Takes the place of ``data/loader.DataLoader`` in
-    the t2i flow."""
+    the t2i flow; ``shard`` as there (this rank's rows of each batch)."""
 
-    def __init__(self, dataset: NativeCocoDataset, batch_size: int, seed: int = 0):
+    def __init__(self, dataset: NativeCocoDataset, batch_size: int, seed: int = 0,
+                 shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.shard = shard
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -132,5 +135,5 @@ class NativeCocoLoader:
         epoch = self.epoch
         self.epoch += 1
         for b in range(n):
-            yield self.dataset.read_batch(idx[b * self.batch_size:(b + 1) * self.batch_size],
-                                          epoch=epoch)
+            rows = own_rows(idx[b * self.batch_size:(b + 1) * self.batch_size], self.shard)
+            yield self.dataset.read_batch(rows, epoch=epoch)

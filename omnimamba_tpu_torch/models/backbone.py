@@ -14,10 +14,14 @@ Embedding extras:
 - mmu: ``mmu_pos_embed`` (1, 1500, d);
 - text ``embedding`` (padded vocab).
 
-Linear kernels are stored ``(in, out)`` and applied as ``x @ W``. For
-serving, the tables, ``project_in`` and the mixers' projections may be int8
-``{"q", "scale"}`` entries (``ops/quant.quantize_decode_params``); lookups and
-products go through ``lookup_any`` / ``matmul_any``, which take either form.
+Linear kernels are stored ``(in, out)`` and applied as ``x @ W``. Under
+fsdp (``parallel/sharding.py``) a parameter may be a rank's slice: the
+full-sequence path gathers each leaf whole where it is used (a block's
+leaves inside the block), and ``gather_tables`` gathers a tied table once
+for a loss that uses it twice. For serving, the tables, ``project_in`` and
+the mixers' projections may be int8 ``{"q", "scale"}`` entries
+(``ops/quant.quantize_decode_params``); lookups and products go through
+``lookup_any`` / ``matmul_any``, which take either form.
 """
 
 from __future__ import annotations
@@ -30,11 +34,12 @@ import torch.nn.functional as F
 
 from omnimamba_tpu_torch.config import MambaConfig
 from omnimamba_tpu_torch.models.blocks import block_forward, block_step
-from omnimamba_tpu_torch.models.mamba2 import Mamba2Cache, init_mamba2
+from omnimamba_tpu_torch.models.mamba2 import Mamba2Cache, init_mamba2, mamba2_forward_sp_local
 from omnimamba_tpu_torch.ops.decode_fused import FusedDecodePlan, fused_decode_step
-from omnimamba_tpu_torch.ops.norms import rms_norm
+from omnimamba_tpu_torch.ops.norms import add_norm, rms_norm
 from omnimamba_tpu_torch.ops.quant import is_quantized, lookup_any, matmul_any
 from omnimamba_tpu_torch.ops.remat import BlockTape, check_remat, running
+from omnimamba_tpu_torch.parallel.sharding import whole
 from omnimamba_tpu_torch.utils.device import resolve_device
 from omnimamba_tpu_torch.utils.init import normal, trunc_normal, uniform
 
@@ -123,18 +128,19 @@ def _fused_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_text(params: Dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return lookup_any(params["embedding"], ids, dtype)
+    return lookup_any(whole(params["embedding"]), ids, dtype)
 
 
 def embed_image_tokens(params: Dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """img_embeddings: table lookup + FusedMLP project_in."""
-    e = lookup_any(params["img_embeddings"]["word_embeddings"], ids, dtype)
-    return _fused_mlp(params["img_embeddings"]["project_in"], e)
+    tables = whole(params["img_embeddings"])
+    e = lookup_any(tables["word_embeddings"], ids, dtype)
+    return _fused_mlp(tables["project_in"], e)
 
 
 def caption_embed(params: Dict, x: torch.Tensor) -> torch.Tensor:
     """CaptionEmbedder MLP: no biases, tanh-approximated GELU."""
-    p = params["caption_embed"]
+    p = whole(params["caption_embed"])
     h = F.gelu(x @ p["fc1"]["kernel"].to(x.dtype), approximate="tanh")
     return h @ p["fc2"]["kernel"].to(x.dtype)
 
@@ -162,7 +168,17 @@ def layer_state(state, i: int):
 
 
 def _final_norm(params, h, residual, eps, dtype):
-    return rms_norm(h.float() + residual, params["norm_f"]["weight"], eps).to(dtype)
+    return rms_norm(h.float() + residual, whole(params["norm_f"]["weight"]), eps).to(dtype)
+
+
+def gather_tables(params: Dict, *keys: str) -> Dict:
+    """The backbone's tree with the entries ``keys`` gathered whole: a table
+    that a loss uses twice (a tied table: its lookup and the head) is then
+    gathered, and its gradient reduce-scattered, once. Every other leaf is
+    gathered where it is used (a block's leaves inside the block), or not at
+    all where the flow does not use it. Without fsdp slices the tree comes
+    back as it is."""
+    return {k: whole(v) if k in keys else v for k, v in params.items()}
 
 
 def _checkpointed(run, generator: Optional[torch.Generator], remat, *args):
@@ -229,7 +245,7 @@ def backbone_forward(
     B, L, d = embeddings.shape
     h = embeddings
     if task == "mmu" and add_mmu_pos:
-        pe = params["mmu_pos_embed"][:, :L].to(h.dtype)
+        pe = whole(params["mmu_pos_embed"])[:, :L].to(h.dtype)
         if pe.shape[1] < L:
             # beyond the table the positions carry no learned signal: zeros
             pe = F.pad(pe, (0, 0, 0, L - pe.shape[1]))
@@ -244,8 +260,9 @@ def backbone_forward(
             icache = Mamba2Cache(initial_cache.conv_state[i],
                                  layer_state(initial_cache.ssm_state, i))
         def run(h, residual, layer=layer, icache=icache):
+            # gathered here, so a checkpointed block gathers again in its second forward
             return block_forward(
-                layer, h, residual, task, cfg.mixer, cfg.lora,
+                whole(layer), h, residual, task, cfg.mixer, cfg.lora,
                 norm_eps=cfg.norm_eps, return_cache=return_cache,
                 initial_cache=icache, valid_len=valid_len, generator=generator,
             )
@@ -264,6 +281,44 @@ def backbone_forward(
             ssm_state=torch.stack([c.ssm_state for c in caches]),
         )
     return final, out_cache
+
+
+def backbone_forward_sp(
+    params: Dict,
+    embeddings: torch.Tensor,  # (B, Lloc, d): this rank's slice along L
+    task: str,
+    cfg: MambaConfig,
+    mesh,
+    *,
+    add_mmu_pos: bool = True,
+) -> torch.Tensor:
+    """Whole-model sequence-parallel prefill over the ``sp`` ranks of
+    ``mesh``, each holding the next slice of the sequence, all of one length:
+    every block runs on its slice and passes SSM states and conv halos
+    across ranks (``mamba2.mamba2_forward_sp_local``). Returns this slice of
+    the final-normed hidden states. Pure Mamba-2 stacks; no gradient.
+
+    The mmu positions are the slice's own (rank r of slices of Lloc reads
+    ``mmu_pos_embed[r Lloc:(r + 1) Lloc]``), and positions past the table
+    get zeros, as ``backbone_forward`` gives them on one rank. JAX's function
+    clamps each slice's start to the table's end instead, so past its 1,500
+    positions the two JAX functions disagree (R7, not copied)."""
+    check_supported(cfg)
+    group = mesh.get_group("sp")
+    B, Lloc, d = embeddings.shape
+    h = embeddings
+    if task == "mmu" and add_mmu_pos:
+        start = mesh.get_local_rank("sp") * Lloc
+        pe = params["mmu_pos_embed"][:, start:start + Lloc].to(h.dtype)
+        if pe.shape[1] < Lloc:  # past the table: no learned signal, zeros
+            pe = F.pad(pe, (0, 0, 0, Lloc - pe.shape[1]))
+        h = h + pe
+    residual = None
+    for layer in params["layers"]:
+        normed, residual = add_norm(h, residual, layer["norm"]["weight"], cfg.norm_eps)
+        h = mamba2_forward_sp_local(layer["mixer"], normed, task, cfg.mixer, cfg.lora,
+                                    group=group)
+    return _final_norm(params, h, residual, cfg.norm_eps, embeddings.dtype)
 
 
 def _decode_embed(params, token_ids, pos, task, cfg, dtype):
@@ -364,6 +419,7 @@ def apply_head(params: Dict, hidden: torch.Tensor, task: str) -> torch.Tensor:
         table = params["embedding"]
     else:
         raise ValueError(task)
+    table = whole(table)
     if is_quantized(table):
         return matmul_any(hidden, table, transpose=True, out_dtype=torch.float32)
     return hidden.float() @ table.float().T

@@ -56,6 +56,7 @@ from omnimamba_tpu_torch.ops.remat import keeps, kept_product
 from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
 from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
+from omnimamba_tpu_torch.parallel.sequence import halo_left, ssd_sp_local
 from omnimamba_tpu_torch.utils.init import uniform
 
 TASKS = ("t2i", "mmu")
@@ -308,6 +309,37 @@ def mamba2_forward(
                 full, 1, idx[:, :, None].expand(B, W1, full.shape[-1]))
         cache = Mamba2Cache(conv_state=conv_state.contiguous(), ssm_state=final_state)
     return out, cache
+
+
+def mamba2_forward_sp_local(
+    params: Dict,
+    x: torch.Tensor,  # (B, Lloc, d_model): this rank's slice of the sequence
+    task: Optional[str],
+    cfg: Mamba2LayerConfig,
+    lora_cfg: Optional[LoraConfig] = None,
+    *,
+    group=None,
+) -> torch.Tensor:
+    """The mixer's prefill on one rank's slice of a sequence cut over the
+    ranks of ``group`` (``parallel/sequence.py``): the conv takes the
+    previous rank's last W-1 inputs as its left context (``halo_left``, x
+    and bc in one gather: the conv is per channel), the scan passes states
+    across ranks (``ssd_sp_local``: K1 from a zero state, then the
+    correction), then K3b and out_proj. Without a gradient, as prefill runs."""
+    B, L, _ = x.shape
+    H, P, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
+    parts = _project_parts(params, x, task, cfg, lora_cfg)
+    conv = params["conv"]
+    halo = halo_left(parts["xbc"], cfg.d_conv - 1, group)
+    xbc = causal_conv1d(parts["xbc"], conv["weight"], conv["bias"], initial_state=halo)
+    xs, Bm, Cm = _split_xbc(xbc, cfg)
+    dt = _dt_activation(parts["dt"], params["dt_bias"], cfg)
+    A = -torch.exp(params["A_log"].float())
+    y, _ = ssd_sp_local(xs.reshape(B, L, H, P), dt, A, Bm.reshape(B, L, G, N),
+                        Cm.reshape(B, L, G, N), params["D"], group=group)
+    y = gated_rms_norm(y.reshape(B, L, cfg.d_inner), parts["z"], params["norm"]["weight"],
+                       cfg.norm_eps)
+    return matmul_any(y, params["out_proj"]["kernel"])
 
 
 def init_cache(

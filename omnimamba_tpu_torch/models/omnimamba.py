@@ -30,6 +30,7 @@ from omnimamba_tpu_torch.models.backbone import (
     caption_embed,
     embed_image_tokens,
     embed_text,
+    gather_tables,
     init_backbone,
 )
 from omnimamba_tpu_torch.models.generation import generate
@@ -37,6 +38,7 @@ from omnimamba_tpu_torch.models.projector import apply_projector, init_projector
 from omnimamba_tpu_torch.models.vit import dinosiglip_features, init_vit
 from omnimamba_tpu_torch.models.vq import init_vq, vq_decode_code
 from omnimamba_tpu_torch.ops.sampling import SampleParams
+from omnimamba_tpu_torch.parallel.sharding import whole
 from omnimamba_tpu_torch.utils.device import require_on, resolve_device
 
 
@@ -82,21 +84,34 @@ def init_omnimamba(
 IGNORE_INDEX = -100
 
 
+REDUCTIONS = ("mean", "sum_and_count")
+
+
 def cross_entropy(
-    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = IGNORE_INDEX
-) -> torch.Tensor:
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = IGNORE_INDEX,
+    reduction: str = "mean",
+):
     """Mean cross entropy over the positions whose label is not
-    ``ignore_index``, computed in fp32; 0 where every label is ignored."""
+    ``ignore_index``, computed in fp32; 0 where every label is ignored.
+    ``reduction="sum_and_count"`` gives (the fp32 sum, the number of those
+    positions) instead: ranks that each hold some rows divide their sums by
+    the count over every rank, which the mean of their means is not where
+    rows differ in their labels."""
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"reduction must be one of {REDUCTIONS}, not {reduction!r}")
     flat = labels.reshape(-1).long()
     total = F.cross_entropy(
         logits.reshape(-1, logits.shape[-1]).float(), flat,
         ignore_index=ignore_index, reduction="sum")
-    return total / torch.clamp((flat != ignore_index).sum(), min=1)
+    count = (flat != ignore_index).sum()
+    if reduction == "sum_and_count":
+        return total, count
+    return total / torch.clamp(count, min=1)
 
 
-def _shift_and_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _shift_and_ce(logits: torch.Tensor, labels: torch.Tensor, reduction: str = "mean"):
     """Shift-by-one language-model loss: position t predicts label t + 1."""
-    return cross_entropy(logits[:, :-1], labels[:, 1:])
+    return cross_entropy(logits[:, :-1], labels[:, 1:], reduction=reduction)
 
 
 def t2i_loss(
@@ -108,14 +123,15 @@ def t2i_loss(
     dtype: torch.dtype = torch.bfloat16,
     generator: Optional[torch.Generator] = None,
     remat=False,
-) -> torch.Tensor:
+    reduction: str = "mean",
+):
     """Text-to-image training loss: the caption block without its last id,
     the image tokens, then that last id; only image positions carry labels.
     ``generator`` draws the LoRA dropout masks (None: no dropout); ``remat``:
-    see ``backbone.backbone_forward``. The ids and the parameters must lie on
-    one device."""
+    see ``backbone.backbone_forward``; ``reduction``: see ``cross_entropy``.
+    The ids and the parameters must lie on one device."""
     cfg = model.cfg
-    mamba = params["mamba"]
+    mamba = gather_tables(params["mamba"], "img_embeddings")  # the lookup and the tied head
     image_ids, caption_ids = image_ids.long(), caption_ids.long()
     img_emb = embed_image_tokens(mamba, image_ids, dtype)  # (B, 256, d)
     txt = caption_embed(mamba, embed_text(mamba, caption_ids, dtype))
@@ -125,9 +141,9 @@ def t2i_loss(
     ignore = image_ids.new_full((B, 1), IGNORE_INDEX)
     labels = torch.cat([ignore.expand(B, n_cap - 1), image_ids, ignore], dim=1)
     L = emb.shape[1]
-    emb = emb + mamba["pos_embed"][:, :L].to(dtype)
+    emb = emb + whole(mamba["pos_embed"])[:, :L].to(dtype)
     hidden, _ = backbone_forward(mamba, emb, "t2i", cfg, generator=generator, remat=remat)
-    return _shift_and_ce(apply_head(mamba, hidden, "t2i"), labels)
+    return _shift_and_ce(apply_head(mamba, hidden, "t2i"), labels, reduction)
 
 
 def _mmu_wrap_ids(sptids: Dict[str, int], input_ids: torch.Tensor) -> torch.Tensor:
@@ -169,9 +185,10 @@ def mmu_image_features(params: Dict, model: OmniMambaModel,
     checkpoints only a tower that trains)."""
     if model.vision_cfg is None:
         raise ValueError("this model bundle has no vision_cfg: it has no towers")
-    feats = dinosiglip_features(params["vision"]["dino"], params["vision"]["siglip"],
+    vision = whole(params["vision"])
+    feats = dinosiglip_features(vision["dino"], vision["siglip"],
                                 pixel_values, model.vision_cfg, remat=remat)
-    return apply_projector(params["projector"], feats, model.projector_arch)
+    return apply_projector(whole(params["projector"]), feats, model.projector_arch)
 
 
 def mmu_loss(
@@ -185,22 +202,25 @@ def mmu_loss(
     dtype: torch.dtype = torch.bfloat16,
     generator: Optional[torch.Generator] = None,
     remat=False,
-) -> torch.Tensor:
+    reduction: str = "mean",
+):
     """Understanding training loss (stage 2): the towers and the projector on
     every row, zero features where ``multimodal_mask`` is False (a text-only
     row's pixels are a dummy), the spliced sequence through the mmu LoRA and
     the text head, shift-by-one cross entropy on the text labels.
     ``generator`` draws the LoRA dropout masks (None: no dropout); ``remat``:
     True or a policy's name checkpoints every block of the backbone (see
-    ``backbone.backbone_forward``) and every block of a tower that trains. The
-    inputs and the parameters must lie on one device."""
+    ``backbone.backbone_forward``) and every block of a tower that trains;
+    ``reduction``: see ``cross_entropy``. The inputs and the parameters must
+    lie on one device."""
     feats = mmu_image_features(params, model, pixel_values, remat=bool(remat))
     mask = torch.as_tensor(multimodal_mask, device=feats.device).bool()
     feats = torch.where(mask[:, None, None], feats, 0.0)
-    emb, full_labels = mmu_embed_sequence(params, model, input_ids, feats, labels, dtype=dtype)
-    mamba = params["mamba"]
+    mamba = gather_tables(params["mamba"], "embedding")  # the lookup and the tied head
+    emb, full_labels = mmu_embed_sequence({"mamba": mamba}, model, input_ids, feats, labels,
+                                          dtype=dtype)
     hidden, _ = backbone_forward(mamba, emb, "mmu", model.cfg, generator=generator, remat=remat)
-    return _shift_and_ce(apply_head(mamba, hidden, "mmu"), full_labels)
+    return _shift_and_ce(apply_head(mamba, hidden, "mmu"), full_labels, reduction)
 
 
 def lm_loss(

@@ -121,6 +121,8 @@ def build_kernels() -> BuildInfo:
 # that ask at once (a server's lanes on their first requests) wait for one
 # build, and one that failed is not tried again in the process
 _LOADED: Dict[str, object] = {}
+# the host (C++) libraries by path, apart: _LOADED says whether the CUDA library was touched
+_HOST_LOADED: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
 
 
@@ -210,9 +212,9 @@ def load_host_library(name: str) -> ctypes.CDLL:
     with _LOAD_LOCK:
         lib = build_host_library(name)
         key = str(lib)
-        if key not in _LOADED:
-            _LOADED[key] = ctypes.CDLL(key)
-        return _LOADED[key]
+        if key not in _HOST_LOADED:
+            _HOST_LOADED[key] = ctypes.CDLL(key)
+        return _HOST_LOADED[key]
 
 
 def dtype_code(dtype) -> int:

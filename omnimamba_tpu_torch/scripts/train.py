@@ -1,10 +1,13 @@
-"""Training from the command line, on one card. Counterpart of
-``scripts/train.py``: the same config surface (stages align / finetune, the
-t2i and mmu flows side by side), the port's ``Trainer`` underneath.
+"""Training from the command line, on one card or across cards. Counterpart
+of ``scripts/train.py``: the same config surface (stages align / finetune, the
+t2i and mmu flows side by side, the mesh flags), the port's ``Trainer``
+underneath.
 
     python -m omnimamba_tpu_torch.scripts.train --synthetic-data --max-steps 3
     python -m omnimamba_tpu_torch.scripts.train --config config/config_stage2.yaml \\
         [--batch-t2i 48] [--batch-mmu 3] [--grad-accum 1] [--device cuda]
+    torchrun --nproc-per-node 8 -m omnimamba_tpu_torch.scripts.train --dp 8 ...
+    torchrun --nproc-per-node 8 -m omnimamba_tpu_torch.scripts.train --fsdp 8 ...
 
 Without ``--config`` the config is ``TrainConfig()``, the values of
 ``config/config_stage2.yaml`` (reading a YAML needs PyYAML). With
@@ -15,8 +18,17 @@ needs PIL). The t2i flow reads through the native reader (``data/native.py``,
 built with g++ at first use). A run writes ``metrics.jsonl`` and checkpoints
 under ``<output_dir>/<model>_<time>/``; ``--tensorboard`` adds TensorBoard
 scalars under ``tb/`` and ``--wandb`` a wandb run (each warns and drops its
-metrics where its package is missing). There are no mesh flags: the port runs
-on one card.
+metrics where its package is missing).
+
+Under ``torchrun`` each process is one rank on ``cuda:LOCAL_RANK`` (NCCL;
+gloo with ``--device cpu``) of the mesh ``--dp`` x ``--fsdp`` (``--dp 0``, the
+default, takes the ranks the other axes leave; without flags a non-trivial
+``mesh_shape`` of the config wins, else every rank is dp). The batch sizes
+are the global batch's: each rank reads and collates only its own rows.
+Rank 0 names the run, writes the synthetic data, prints, and writes the
+metrics and the checkpoints. ``--tp`` above 1 raises: head-parallel tp is
+slice 6b. Without torchrun and without mesh flags the run is the one-card
+run.
 """
 
 from __future__ import annotations
@@ -25,13 +37,15 @@ import argparse
 import itertools
 import os
 from datetime import datetime
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="Train OmniMamba (the PyTorch port) on one card.")
+    p = argparse.ArgumentParser(description="Train OmniMamba (the PyTorch port) on one card, "
+                                "or across cards under torchrun.")
     p.add_argument("--config", type=str, default=None,
                    help="a YAML train config (needs PyYAML); default: TrainConfig(), the "
                    "stage-2 values")
@@ -46,38 +60,70 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--tensorboard", action="store_true",
                    help="also write TensorBoard scalars to <run>/tb")
     p.add_argument("--wandb", action="store_true", help="also log to wandb where it is installed")
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (one rank a card, NCCL) or cpu (gloo across ranks)")
+    p.add_argument("--dp", type=int, default=0, help="data-parallel ranks; 0: the ranks left over")
+    p.add_argument("--fsdp", type=int, default=1, help="ranks the parameters are cut over")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks: above 1 raises "
+                   "(slice 6b)")
     return p.parse_args(argv)
 
 
-def build_loaders(cfg, uni, out_dir: str, synthetic: bool):
-    """{"t2i_flow": ..., "mmu_flow": ...} for the tasks the config runs."""
+def mesh_shape(args, cfg) -> dict:
+    """The mesh the flags ask for: ``--dp`` where given, ``--fsdp`` and
+    ``--tp`` above 1; without flags a non-trivial ``cfg.mesh_shape``, else
+    {} (every rank on dp)."""
+    shape = {}
+    if args.dp:
+        shape["dp"] = args.dp
+    if args.fsdp > 1:
+        shape["fsdp"] = args.fsdp
+    if args.tp > 1:
+        shape["tp"] = args.tp
+    if not shape:
+        shape = {k: v for k, v in dict(cfg.mesh_shape or {}).items() if v > 1}
+    return shape
+
+
+def build_loaders(cfg, uni, out_dir: str, synthetic: bool,
+                  shard: Optional[Tuple[int, int]] = None, rank: int = 0):
+    """{"t2i_flow": ..., "mmu_flow": ...} for the tasks the config runs; with
+    ``shard`` (rank index, ranks) each loader gives this rank's rows. Rank 0
+    writes the synthetic files, the others wait for them."""
     from omnimamba_tpu_torch.data.coco import make_synthetic_coco_jsonl
     from omnimamba_tpu_torch.data.llava import get_dataset_and_collator, make_synthetic_llava_json
     from omnimamba_tpu_torch.data.loader import DataLoader
     from omnimamba_tpu_torch.data.native import NativeCocoDataset, NativeCocoLoader
 
+    say = print if rank == 0 else (lambda *a, **k: None)
+    coco = ann = None
+    if cfg.t2i_task:
+        coco = cfg.dataset
+        if synthetic or not os.path.exists(coco):
+            coco = os.path.join(out_dir, "synthetic_coco.jsonl")
+            if rank == 0:
+                make_synthetic_coco_jsonl(coco, n=max(cfg.batch_size_t2i * 4, 64))
+            say(f"[data] synthetic t2i jsonl at {coco}")
+    if cfg.mmu_task and synthetic:
+        ann = os.path.join(out_dir, "synthetic_llava.json")
+        if rank == 0:
+            make_synthetic_llava_json(ann, n=max(cfg.batch_size_mmu * 4, 16),
+                                      image_shape=(480, 640))
+        say(f"[data] synthetic mmu json at {ann}")
+    if dist.is_initialized():
+        dist.barrier()  # the files rank 0 wrote are in place
+
     loaders = {}
     if cfg.t2i_task:
-        path = cfg.dataset
-        if synthetic or not os.path.exists(path):
-            path = make_synthetic_coco_jsonl(os.path.join(out_dir, "synthetic_coco.jsonl"),
-                                             n=max(cfg.batch_size_t2i * 4, 64))
-            print(f"[data] synthetic t2i jsonl at {path}")
-        loaders["t2i_flow"] = NativeCocoLoader(NativeCocoDataset(path, uni), cfg.batch_size_t2i)
-        print("[data] t2i via the native mmap reader (csrc/omnidata.cpp)")
+        loaders["t2i_flow"] = NativeCocoLoader(NativeCocoDataset(coco, uni), cfg.batch_size_t2i,
+                                               shard=shard)
+        say("[data] t2i via the native mmap reader (csrc/omnidata.cpp)")
     if cfg.mmu_task:
-        ann = None
-        if synthetic:
-            ann = make_synthetic_llava_json(os.path.join(out_dir, "synthetic_llava.json"),
-                                            n=max(cfg.batch_size_mmu * 4, 16),
-                                            image_shape=(480, 640))
-            print(f"[data] synthetic mmu json at {ann}")
         ds, collator = get_dataset_and_collator(
             cfg.stage, uni.text_tokenizer, eot_id=uni.sptids_dict["<|eot|>"], max_length=449,
             annotation_json=ann, image_dir=os.path.dirname(ann) if ann else None)
         loaders["mmu_flow"] = DataLoader(ds, cfg.batch_size_mmu, collator,
-                                         num_threads=cfg.num_workers)
+                                         num_threads=cfg.num_workers, shard=shard)
     return loaders
 
 
@@ -94,16 +140,17 @@ class _EvalSample:
 
 def main(argv: Optional[List[str]] = None):
     """Train as the arguments say; returns (state, last metrics)."""
-    from omnimamba_tpu_torch.config import TrainConfig
+    from omnimamba_tpu_torch.config import TrainConfig, check_mesh_shape
     from omnimamba_tpu_torch.data.loader import CombinedLoader
     from omnimamba_tpu_torch.factory import build_model
+    from omnimamba_tpu_torch.parallel import (
+        batch_sharding, create_mesh, init_distributed, shard_params)
     from omnimamba_tpu_torch.train.trainer import (
         MetricsWriter, MultiWriter, TensorBoardWriter, Trainer, WandbWriter)
     from omnimamba_tpu_torch.utils.checkpoint import CheckpointManager
     from omnimamba_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
     cfg = TrainConfig.from_yaml(args.config) if args.config else TrainConfig()
     if args.max_steps:
         cfg.max_steps = args.max_steps
@@ -116,25 +163,46 @@ def main(argv: Optional[List[str]] = None):
     if args.output_dir:
         cfg.output_dir = args.output_dir
 
-    run_name = f"{cfg.omnimamba_model}_{datetime.now().strftime('%Y-%m-%d_%H-%M-%S-%f')}"
-    out_dir = os.path.join(cfg.output_dir, run_name)
+    shape = mesh_shape(args, cfg)
+    check_mesh_shape(shape)
+    mesh, rank, shard = None, 0, None
+    if "RANK" in os.environ or dist.is_initialized():  # under torchrun (or a launcher's group)
+        info = init_distributed(args.device)
+        device, rank = info.device, info.rank
+        mesh = create_mesh(shape, device.type)
+        shard = batch_sharding(mesh)
+        if rank == 0:
+            sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            print(f"[mesh] {sizes} over {info.world_size} ranks ({dist.get_backend()})")
+    elif any(v > 1 for v in shape.values()):
+        raise ValueError(f"the mesh {shape} needs that many ranks: start the run under torchrun")
+    else:
+        device = resolve_device(args.device)
+    say = print if rank == 0 else (lambda *a, **k: None)
+
+    names = [f"{cfg.omnimamba_model}_{datetime.now().strftime('%Y-%m-%d_%H-%M-%S-%f')}"]
+    if mesh is not None:
+        dist.broadcast_object_list(names, src=0)  # rank 0 names the run
+    out_dir = os.path.join(cfg.output_dir, names[0])
     os.makedirs(out_dir, exist_ok=True)
 
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     model, params, uni = build_model(cfg, dtype=dtype, device=device)
-    combined = CombinedLoader(build_loaders(cfg, uni, out_dir, args.synthetic_data))
+    if mesh is not None:
+        params = shard_params(mesh, params)
+    combined = CombinedLoader(build_loaders(cfg, uni, out_dir, args.synthetic_data, shard, rank))
     eval_loader = None
     if cfg.eval_steps:
         eval_loader = _EvalSample(combined)
-        print(f"[eval] every {cfg.eval_steps} steps on {eval_loader.n} training batches "
-              "(no eval split configured)")
+        say(f"[eval] every {cfg.eval_steps} steps on {eval_loader.n} training batches "
+            "(no eval split configured)")
     metrics = MetricsWriter(os.path.join(out_dir, "metrics.jsonl"))
     if args.tensorboard or args.wandb:
         metrics = MultiWriter(
             metrics,
             TensorBoardWriter(os.path.join(out_dir, "tb")) if args.tensorboard else None,
             WandbWriter(run_name=os.path.basename(out_dir)) if args.wandb else None)
-    trainer = Trainer(model, params, cfg, combined, dtype=dtype,
+    trainer = Trainer(model, params, cfg, combined, mesh=mesh, dtype=dtype,
                       checkpoint_manager=CheckpointManager(os.path.join(out_dir, "ckpts"),
                                                            cfg.save_total_limit),
                       metrics_writer=metrics, eval_loader=eval_loader, device=device)
@@ -144,7 +212,7 @@ def main(argv: Optional[List[str]] = None):
         if previous.latest_step() is not None:
             trainer.state = previous.restore(trainer.state, None, trainer.generator)
             resume_step = trainer.state.step
-            print(f"[resume] from {cfg.resume_dir} step {resume_step}")
+            say(f"[resume] from {cfg.resume_dir} step {resume_step}")
     try:
         return trainer.train(resume_step=resume_step)
     finally:

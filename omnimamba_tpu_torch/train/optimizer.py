@@ -21,29 +21,20 @@ in_proj and the LoRA B factors are stored fused, so a leaf's rank is its
 logical rank (the JAX package subtracts the stacked layer axis). A frozen
 leaf gets ``requires_grad=False`` and no optimizer state. The update itself
 is ``torch.optim.AdamW``: the JAX package computes it in no kernel of its own.
+Under fsdp each rank's AdamW holds the moments of its own slices
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from omnimamba_tpu_torch.config import TrainConfig
-
-
-def named_leaves(node, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
-    """(path, tensor) for every tensor of a parameter tree, depth first in
-    insertion order; list entries are named by their index."""
-    if isinstance(node, dict):
-        for k, v in node.items():
-            yield from named_leaves(v, f"{prefix}/{k}" if prefix else str(k))
-    elif isinstance(node, (list, tuple)):
-        for i, v in enumerate(node):
-            yield from named_leaves(v, f"{prefix}/{i}" if prefix else str(i))
-    elif isinstance(node, torch.Tensor):
-        yield prefix, node
+from omnimamba_tpu_torch.parallel.sharding import logical_shape
+from omnimamba_tpu_torch.utils.tree import named_leaves  # noqa: F401 - imported from here too
 
 
 def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -101,8 +92,10 @@ def trainable_mask(params: Dict, stage: str, cfg: TrainConfig) -> Dict[str, bool
 
 
 def decay_mask(params: Dict) -> Dict[str, bool]:
-    """path -> True where weight decay applies: rank >= 2 inside ``mamba``."""
-    return {path: path.startswith("mamba") and leaf.dim() >= 2
+    """path -> True where weight decay applies: rank >= 2 inside ``mamba``.
+    The rank is the whole leaf's, also for an fsdp slice
+    (``parallel/sharding.logical_shape``)."""
+    return {path: path.startswith("mamba") and len(logical_shape(leaf)) >= 2
             for path, leaf in named_leaves(params)}
 
 

@@ -1,4 +1,5 @@
-"""The training step and the loop around it, on one card.
+"""The training step and the loop around it, on one card or over the ranks of
+a (dp, fsdp) mesh.
 
 Counterpart of ``omnimamba_tpu/train/trainer.py``. A step computes
 ``loss = loss_t2i + loss_mmu`` over one combined batch, differentiates the
@@ -6,9 +7,26 @@ trainable leaves (frozen leaves carry ``requires_grad=False``, so autograd
 never builds their backward), clips to a global norm of 1.0, applies AdamW
 and reports both per-task losses.
 
+With a ``mesh`` (``parallel/mesh.create_mesh``), each rank runs the step on
+its own rows of the global batch (``parallel/sharding.shard_batch``; the
+loader hands each rank only its rows) and the step is the global batch's:
+
+- each flow's loss on a rank is its rows' sum over the count of labelled
+  positions on every rank, so the shares of the ranks sum to the global
+  mean, rows with unequal label counts included;
+- under fsdp the leaves are slices (``shard_params``): the model gathers a
+  leaf where it uses it and autograd reduce-scatters its gradient; the dp
+  ranks then sum the slices' gradients, and every rank sums the gradients
+  of leaves kept whole;
+- the gradient norm is the global one (the slices' squares summed over
+  fsdp), and clipping and AdamW run on each rank's slices;
+- metrics are the global batch's, identical on every rank; only rank 0 logs
+  and writes metrics and checkpoints;
+- ``tp > 1`` raises: head-parallel tp is slice 6b.
+
 What differs from the JAX trainer:
 
-- nothing is jitted or sharded: no ``mesh``, ``shard_batch`` or ``donate``;
+- nothing is jitted; no ``donate``: the step updates in place;
 - there is no ``scan_impl``: a CUDA tensor takes the kernels (forward and
   backward), a CPU tensor their plain versions;
 - a ``torch.Generator`` takes the place of the PRNG key (LoRA dropout);
@@ -22,7 +40,8 @@ What differs from the JAX trainer:
   moves them to the device and applies the towers' transform there.
 
 Metric sinks: ``MetricsWriter`` (JSONL), ``TensorBoardWriter``,
-``WandbWriter`` and ``MultiWriter``, as in the JAX trainer.
+``WandbWriter`` and ``MultiWriter``, as in the JAX trainer; across ranks only
+rank 0 writes.
 """
 
 from __future__ import annotations
@@ -33,13 +52,17 @@ import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from omnimamba_tpu_torch.config import TrainConfig
 from omnimamba_tpu_torch.data.transforms import dinosiglip_transform
 from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel, mmu_loss, t2i_loss
 from omnimamba_tpu_torch.ops.remat import check_remat
+from omnimamba_tpu_torch.parallel.mesh import AXES, axis_size
+from omnimamba_tpu_torch.parallel.sharding import all_reduce_flat, rank_seed, shard_of
 from omnimamba_tpu_torch.train.optimizer import make_optimizer, make_schedule, named_leaves
 from omnimamba_tpu_torch.utils.device import resolve_device
+from omnimamba_tpu_torch.utils.logging import Overwatch
 
 # remat="proj": the rung of checkpointing a step of this many tokens takes,
 # the first whose limit lies above them; from the last limit on every block is
@@ -114,12 +137,75 @@ def prepare_batch(batch, model: OmniMambaModel, device: torch.device, stacked: b
     return batch
 
 
-def clip_and_apply(state: TrainState, tx, schedule, grads: List[torch.Tensor]):
+def check_train_mesh(mesh) -> None:
+    """Raise for a mesh the training step cannot run on: ``tp > 1`` (slice
+    6b), an extra axis of more than one rank, or a mesh that leaves ranks of
+    the process group out."""
+    if mesh is None:
+        return
+    if axis_size(mesh, "tp") > 1:
+        raise NotImplementedError(
+            f"tp={axis_size(mesh, 'tp')}: head-parallel tp cuts d_inner, over which the gated "
+            "RMSNorm normalises; it needs a partial-sum form of K3b, K6b and K4's gated phase "
+            "and arrives with slice 6b (ROADMAP: slice 6b)")
+    extra = {ax: axis_size(mesh, ax) for ax in mesh.mesh_dim_names
+             if ax not in AXES and axis_size(mesh, ax) > 1}
+    if extra:
+        raise ValueError(f"a training mesh is dp x fsdp x tp; it has {extra} besides")
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a training mesh covers every rank: {mesh.size()} of "
+                         f"{dist.get_world_size()}")
+
+
+def _global_means(parts: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """{flow: (sum, count) of this rank's rows} -> {flow: sum / the count on
+    every rank}: this rank's share of each flow's global mean (one
+    ``all_reduce`` of the counts, in fp32: exact below 2^24 labelled positions)."""
+    counts = torch.stack([count for _, count in parts.values()]).float()
+    counts = all_reduce_flat([counts])[0]
+    return {k: total / torch.clamp(c, min=1.0) for (k, (total, _)), c in zip(parts.items(), counts)}
+
+
+def _sync_gradients(mesh, leaves: List[torch.Tensor], grads: List[torch.Tensor]):
+    """The global batch's gradients from this rank's: a slice's gradient was
+    summed over fsdp by the gather's backward, so dp sums it; the gradient of
+    a leaf kept whole is summed over every rank."""
+    out = list(grads)
+    cut = [i for i, p in enumerate(leaves) if shard_of(p) is not None]
+    kept = [i for i, p in enumerate(leaves) if shard_of(p) is None]
+    groups = [(kept, None)]
+    if axis_size(mesh, "dp") > 1:
+        groups.append((cut, mesh.get_group("dp")))
+    for idx, group in groups:
+        if idx:
+            for i, g in zip(idx, all_reduce_flat([out[i] for i in idx], group)):
+                out[i] = g
+    return out
+
+
+def _global_norm(mesh, leaves: List[torch.Tensor], grads: List[torch.Tensor]) -> torch.Tensor:
+    """fp32 norm of the global gradient: the squares of the slices summed
+    over fsdp, plus those of the leaves every rank holds whole."""
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    cut = sum((torch.sum(torch.square(g.float())) for p, g in zip(leaves, grads)
+               if shard_of(p) is not None), zero)
+    kept = sum((torch.sum(torch.square(g.float())) for p, g in zip(leaves, grads)
+                if shard_of(p) is None), zero)
+    if axis_size(mesh, "fsdp") > 1:
+        cut = all_reduce_flat([cut], mesh.get_group("fsdp"))[0]
+    return torch.sqrt(cut + kept)
+
+
+def clip_and_apply(state: TrainState, tx, schedule, grads: List[torch.Tensor],
+                   gnorm: Optional[torch.Tensor] = None):
     """Clip ``grads`` (of the trainable leaves, in their order) to a global
     norm of 1.0, apply one AdamW update at the schedule's rate and return
-    (new state, fp32 global norm before clipping). No host synchronisation."""
+    (new state, fp32 global norm before clipping). ``gnorm``: the norm where
+    the caller has it (across ranks); else it is taken over ``grads``. No
+    host synchronisation."""
     leaves = _trainable(state.params)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
     scale = torch.where(gnorm < 1.0, torch.ones_like(gnorm), 1.0 / gnorm)
     for leaf, g in zip(leaves, grads):
         leaf.grad = (g.float() * scale).to(leaf.dtype)
@@ -131,11 +217,93 @@ def clip_and_apply(state: TrainState, tx, schedule, grads: List[torch.Tensor]):
     return TrainState(state.params, tx, state.step + 1), gnorm
 
 
+def make_grad_fn(
+    model: OmniMambaModel,
+    cfg: TrainConfig,
+    *,
+    mesh=None,
+    dtype: torch.dtype = torch.bfloat16,
+    device="cuda",
+):
+    """Returns grads(params, batch, generator) -> (loss, parts, grads, norm):
+    a training step without its update. ``grads`` are the gradients of the
+    trainable leaves of ``params``, in ``named_leaves`` order (zeros where a
+    leaf takes no part), the global batch's: across ranks summed as
+    ``make_train_step`` says, each a rank's slice under fsdp; ``norm`` is
+    their fp32 global norm, ``loss`` and ``parts`` (``loss_t2i``,
+    ``loss_mmu``) detached 0-dim tensors. Arguments as ``make_train_step``."""
+    device = resolve_device(device)
+    check_train_mesh(mesh)
+    accum = max(int(cfg.grad_accum or 1), 1)
+    # the mmu flow's rows are 1,182 tokens long: checkpoint every block of them
+    # unless told otherwise
+    remat_mmu = check_remat(True if cfg.remat_mmu is None else cfg.remat_mmu)
+    reduction = "mean" if mesh is None else "sum_and_count"
+
+    def loss_fn(params, batch, generator):
+        parts = {}
+        if cfg.t2i_task and "t2i_flow" in batch:
+            flow = batch["t2i_flow"]
+            b, n_cap = flow["caption_ids"].shape
+            tokens = b * (n_cap + flow["inputs"].shape[1])  # this rank's rows of this flow
+            parts["loss_t2i"] = t2i_loss(
+                params, model, flow["inputs"], flow["caption_ids"], dtype=dtype,
+                generator=generator, remat=resolve_remat(cfg.remat, tokens), reduction=reduction)
+        if cfg.mmu_task and "mmu_flow" in batch:
+            flow = batch["mmu_flow"]
+            parts["loss_mmu"] = mmu_loss(
+                params, model, flow["pixel_values"], flow["input_ids"], flow["labels"],
+                flow["multimodal_mask"], dtype=dtype, generator=generator, remat=remat_mmu,
+                reduction=reduction)
+        if mesh is not None and parts:
+            parts = _global_means(parts)
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        loss_t2i, loss_mmu = parts.get("loss_t2i", zero), parts.get("loss_mmu", zero)
+        return loss_t2i + loss_mmu, {"loss_t2i": loss_t2i, "loss_mmu": loss_mmu}
+
+    def grad_fn(params, batch, generator: Optional[torch.Generator] = None):
+        batch = prepare_batch(batch, model, device, stacked=accum > 1)
+        leaves = _trainable(params)
+        if accum == 1:
+            loss, parts = loss_fn(params, batch, generator)
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+            parts = {k: v.detach() for k, v in parts.items()}
+        else:
+            # one micro-batch of activations alive at a time; fp32 sums, since
+            # a bf16 += would lose low bits across the micro-batches
+            sums = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+            seen: Dict[str, List[torch.Tensor]] = {"loss": [], "loss_t2i": [], "loss_mmu": []}
+            for i in range(accum):
+                micro = _index(batch, i)
+                l, p = loss_fn(params, micro, generator)
+                for s, g in zip(sums, torch.autograd.grad(l, leaves, allow_unused=True)):
+                    if g is not None:
+                        s += g.float()
+                for k, v in {"loss": l, **p}.items():
+                    seen[k].append(v.detach())
+            grads = [(s / accum).to(p.dtype) for s, p in zip(sums, leaves)]
+            means = {k: torch.stack(v).mean() for k, v in seen.items()}
+            loss, parts = means.pop("loss"), means
+        if mesh is None:
+            return loss.detach(), parts, grads, torch.sqrt(
+                sum(torch.sum(torch.square(g.float())) for g in grads))
+        grads = _sync_gradients(mesh, leaves, grads)
+        # each rank holds its share of each mean: their sum is the global batch's
+        shares = all_reduce_flat([torch.stack([loss.detach(), parts["loss_t2i"],
+                                               parts["loss_mmu"]])])[0]
+        parts = {"loss_t2i": shares[1], "loss_mmu": shares[2]}
+        return shares[0], parts, grads, _global_norm(mesh, leaves, grads)
+
+    return grad_fn
+
+
 def make_train_step(
     model: OmniMambaModel,
     tx,
     cfg: TrainConfig,
     *,
+    mesh=None,
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
 ):
@@ -152,59 +320,20 @@ def make_train_step(
                    uint8 (B, H, W, 3), "input_ids": (B, T), "labels": (B, T),
                    "multimodal_mask": (B,) bool},
     }; either flow may be missing. ``loss = loss_t2i + loss_mmu``.
+    With a ``mesh`` the batch holds this rank's rows (``shard_batch``), and the
+    state's parameters are its slices under fsdp (``shard_params``); every
+    rank of the mesh must call the step, with the same flows.
     ``generator`` draws the LoRA dropout masks, the t2i flow's first, then
     the mmu flow's; None means no dropout. The metrics are 0-dim tensors on
-    the device (``loss``, ``grad_norm``, ``loss_t2i``, ``loss_mmu``)."""
-    device = resolve_device(device)
+    the device (``loss``, ``grad_norm``, ``loss_t2i``, ``loss_mmu``), the
+    global batch's."""
+    grad_fn = make_grad_fn(model, cfg, mesh=mesh, dtype=dtype, device=device)
     schedule = make_schedule(cfg)
-    accum = max(int(cfg.grad_accum or 1), 1)
-    # the mmu flow's rows are 1,182 tokens long: checkpoint every block of them
-    # unless told otherwise
-    remat_mmu = check_remat(True if cfg.remat_mmu is None else cfg.remat_mmu)
-
-    def loss_fn(params, batch, generator):
-        zero = torch.zeros((), dtype=torch.float32, device=device)
-        loss_t2i, loss_mmu = zero, zero
-        if cfg.t2i_task and "t2i_flow" in batch:
-            flow = batch["t2i_flow"]
-            b, n_cap = flow["caption_ids"].shape
-            tokens = b * (n_cap + flow["inputs"].shape[1])  # only this flow's tokens count
-            loss_t2i = t2i_loss(
-                params, model, flow["inputs"], flow["caption_ids"], dtype=dtype,
-                generator=generator, remat=resolve_remat(cfg.remat, tokens))
-        if cfg.mmu_task and "mmu_flow" in batch:
-            flow = batch["mmu_flow"]
-            loss_mmu = mmu_loss(
-                params, model, flow["pixel_values"], flow["input_ids"], flow["labels"],
-                flow["multimodal_mask"], dtype=dtype, generator=generator, remat=remat_mmu)
-        return loss_t2i + loss_mmu, {"loss_t2i": loss_t2i, "loss_mmu": loss_mmu}
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
-        batch = prepare_batch(batch, model, device, stacked=accum > 1)
-        leaves = _trainable(state.params)
-        if accum == 1:
-            loss, parts = loss_fn(state.params, batch, generator)
-            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-            parts = {k: v.detach() for k, v in parts.items()}
-        else:
-            # one micro-batch of activations alive at a time; fp32 sums, since
-            # a bf16 += would lose low bits across the micro-batches
-            sums = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-            seen: Dict[str, List[torch.Tensor]] = {"loss": [], "loss_t2i": [], "loss_mmu": []}
-            for i in range(accum):
-                micro = _index(batch, i)
-                l, p = loss_fn(state.params, micro, generator)
-                for s, g in zip(sums, torch.autograd.grad(l, leaves, allow_unused=True)):
-                    if g is not None:
-                        s += g.float()
-                for k, v in {"loss": l, **p}.items():
-                    seen[k].append(v.detach())
-            grads = [(s / accum).to(p.dtype) for s, p in zip(sums, leaves)]
-            means = {k: torch.stack(v).mean() for k, v in seen.items()}
-            loss, parts = means.pop("loss"), means
-        state, gnorm = clip_and_apply(state, tx, schedule, grads)
-        return state, {"loss": loss.detach(), "grad_norm": gnorm, **parts}
+        loss, parts, grads, gnorm = grad_fn(state.params, batch, generator)
+        state, gnorm = clip_and_apply(state, tx, schedule, grads, gnorm)
+        return state, {"loss": loss, "grad_norm": gnorm, **parts}
 
     return step
 
@@ -245,27 +374,38 @@ def accumulate_batches(loader, accum: int):
         )
 
 
+def _rank_zero() -> bool:
+    """Whether this process writes metrics: rank 0 of its process group (or
+    of the launcher's ``RANK``), the only process of a one-card run."""
+    return Overwatch.rank() == 0
+
+
 class MetricsWriter:
-    """JSONL metrics sink."""
+    """JSONL metrics sink; on a rank other than 0 it opens nothing and drops
+    every row."""
 
     def __init__(self, path: str):
         self.path = path
-        self._fh = open(path, "a", buffering=1)
+        self._fh = open(path, "a", buffering=1) if _rank_zero() else None
 
     def log(self, step: int, metrics: dict):
-        self._fh.write(json.dumps({"step": step, **metrics}) + "\n")
+        if self._fh is not None:
+            self._fh.write(json.dumps({"step": step, **metrics}) + "\n")
 
     def close(self):
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
 
 
 class TensorBoardWriter:
     """TensorBoard scalar sink through ``torch.utils.tensorboard`` (which
     needs the ``tensorboard`` package). Without it the writer warns once and
-    drops every scalar."""
+    drops every scalar; on a rank other than 0 it writes nothing."""
 
     def __init__(self, log_dir: str):
         self._w = None
+        if not _rank_zero():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -291,10 +431,12 @@ class TensorBoardWriter:
 class WandbWriter:
     """wandb sink, where the ``wandb`` package is installed (its login and
     mode are the environment's). Without it the writer warns once and drops
-    every metric."""
+    every metric; on a rank other than 0 it starts no run."""
 
     def __init__(self, project: str = "omnimamba-tpu", run_name: str = ""):
         self._wandb = None
+        if not _rank_zero():
+            return
         try:
             import wandb
         except ImportError as e:
@@ -329,7 +471,14 @@ class MultiWriter:
 
 
 class Trainer:
-    """The training loop: max_steps, logging, checkpoint and eval cadence."""
+    """The training loop: max_steps, logging, checkpoint and eval cadence.
+
+    With a ``mesh`` every rank of it runs a ``Trainer`` over its own loader,
+    which hands it its own rows of each global batch (``DataLoader(shard=...)``
+    or ``shard_batch``), and under fsdp over the slices of ``shard_params``.
+    The dropout generator of rank r starts from ``rank_seed(cfg.seed, r)``.
+    Only rank 0 calls ``log_fn`` and the metrics writer; a checkpoint is
+    written by rank 0 with every rank taking part (``utils/checkpoint.py``)."""
 
     def __init__(
         self,
@@ -338,6 +487,7 @@ class Trainer:
         cfg: TrainConfig,
         combined_loader,
         *,
+        mesh=None,
         dtype: torch.dtype = torch.bfloat16,
         checkpoint_manager=None,
         log_fn: Callable = print,
@@ -345,27 +495,38 @@ class Trainer:
         eval_loader=None,
         device="cuda",
     ):
+        check_train_mesh(mesh)
+        if axis_size(mesh, "fsdp") > 1 and not any(
+                shard_of(t) is not None for _, t in named_leaves(params)):
+            raise ValueError("under fsdp the trainer takes this rank's slices: "
+                             "parallel.shard_params(mesh, params)")
         self.model = model
         self.cfg = cfg
         self.loader = combined_loader
-        self.log_fn = log_fn
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else dist.get_rank()
+        self.log_fn = log_fn if self.rank == 0 else (lambda *a, **k: None)
         self.checkpoint_manager = checkpoint_manager
-        self.metrics_writer = metrics_writer
+        self.metrics_writer = metrics_writer if self.rank == 0 else None
         self.eval_loader = eval_loader
         self.dtype = dtype
         self.device = resolve_device(device)
         self.state, self.tx = create_train_state(params, cfg)
-        self.step_fn = make_train_step(model, self.tx, cfg, dtype=dtype, device=self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.step_fn = make_train_step(model, self.tx, cfg, mesh=mesh, dtype=dtype,
+                                       device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(cfg.seed, self.rank))
 
     def train(self, resume_step: int = 0, max_steps: Optional[int] = None):
         """Run the loop from ``resume_step`` (a restored state carries its own
         step and generator state). On any exception an emergency checkpoint
-        is written before it is raised again."""
+        is written before it is raised again, on one card only: across ranks
+        the save gathers from every rank, which a failing rank cannot count
+        on."""
         try:
             return self._train_inner(resume_step, max_steps)
         except BaseException:
-            if self.checkpoint_manager is not None:
+            if self.checkpoint_manager is not None and self.mesh is None:
                 try:
                     self.checkpoint_manager.save(self.state.step, self.state, self.generator)
                     self.log_fn(f"[emergency] saved checkpoint at step {self.state.step}")
@@ -418,25 +579,35 @@ class Trainer:
         """Average per-task losses over the eval loader. Eval batches are bare
         t2i dicts ({"inputs", "caption_ids"}) or flow-keyed dicts carrying
         "t2i_flow" and / or "mmu_flow" (the training batch schema); each
-        present flow contributes its own averaged loss, without dropout."""
+        present flow contributes its own averaged loss, without dropout. With
+        a mesh each rank holds its rows of a batch and a batch's loss is the
+        global batch's."""
         if self.eval_loader is None:
             raise ValueError("no eval loader configured")
         totals, counts = {"t2i": 0.0, "mmu": 0.0}, {"t2i": 0, "mmu": 0}
         params = self.state.params
+        reduction = "mean" if self.mesh is None else "sum_and_count"
+
+        def mean(loss):  # across ranks: the sum of the ranks' shares of the global mean
+            if self.mesh is None:
+                return float(loss)
+            return float(all_reduce_flat([_global_means({"": loss})[""]])[0])
+
         for batch in self.eval_loader:
             if "inputs" in batch:
                 batch = {"t2i_flow": batch}
             batch = prepare_batch(batch, self.model, self.device)
             t2i = batch.get("t2i_flow")
             if t2i is not None:
-                totals["t2i"] += float(t2i_loss(params, self.model, t2i["inputs"],
-                                                t2i["caption_ids"], dtype=self.dtype))
+                totals["t2i"] += mean(t2i_loss(params, self.model, t2i["inputs"],
+                                               t2i["caption_ids"], dtype=self.dtype,
+                                               reduction=reduction))
                 counts["t2i"] += 1
             mmu = batch.get("mmu_flow")
             if mmu is not None:
-                totals["mmu"] += float(mmu_loss(
+                totals["mmu"] += mean(mmu_loss(
                     params, self.model, mmu["pixel_values"], mmu["input_ids"], mmu["labels"],
-                    mmu["multimodal_mask"], dtype=self.dtype))
+                    mmu["multimodal_mask"], dtype=self.dtype, reduction=reduction))
                 counts["mmu"] += 1
         metrics = {f"{metric_key_prefix}_{task}_loss": totals[task] / counts[task]
                    for task in ("t2i", "mmu") if counts[task]}

@@ -9,6 +9,17 @@ a reader sees a whole checkpoint or none; the oldest are removed beyond
 and plain containers only, nothing is unpickled into code) and copies **into**
 the tensors of the state it is given, so the optimizer keeps pointing at the
 live parameters.
+
+Across ranks (a process group is initialised) every rank calls ``save`` and
+``restore``. ``save`` gathers each fsdp slice and its AdamW moments whole,
+so the file is the one a card writes, whatever the mesh; rank 0 alone
+copies them to host memory and writes the file, and every rank waits at a
+barrier until it is in place. The file also holds
+every rank's generator state (``"generators"``, by rank; ``"generator"`` is
+rank 0's). ``restore`` copies each rank's slice out of the whole leaves and
+moments, so a checkpoint moves between world sizes and meshes; a rank takes
+its own generator state where the file has one for its rank and keeps its
+own stream otherwise.
 """
 
 from __future__ import annotations
@@ -18,7 +29,9 @@ import re
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
+from omnimamba_tpu_torch.parallel.sharding import local_slice, shard_of, whole_tensor
 from omnimamba_tpu_torch.train.optimizer import named_leaves
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -42,19 +55,30 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: Any, generator: Optional[torch.Generator] = None) -> None:
-        """Write ``state`` (a ``TrainState``) as the checkpoint of ``step``."""
-        payload = {
-            "step": int(state.step),
-            "params": {path: leaf.detach().cpu() for path, leaf in named_leaves(state.params)},
-            "opt_state": state.opt_state.state_dict(),
-            "generator": None if generator is None else generator.get_state(),
-        }
-        tmp = self._path(step) + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self._path(step))
-        if self.save_total_limit and self.save_total_limit > 0:
-            for old in self.all_steps()[: -self.save_total_limit]:
-                os.remove(self._path(old))
+        """Write ``state`` (a ``TrainState``) as the checkpoint of ``step``
+        (across ranks: every rank calls it, rank 0 writes)."""
+        ranked = dist.is_available() and dist.is_initialized()
+        writes = not ranked or dist.get_rank() == 0
+        # every rank takes part in each gather; only the writer keeps a host copy
+        params = {path: _host(whole_tensor(leaf), writes)
+                  for path, leaf in named_leaves(state.params)}
+        opt_state = _whole_moments(state.opt_state, keep=writes)
+        gen_state = None if generator is None else generator.get_state()
+        generators = [gen_state]
+        if ranked:
+            generators = [None] * dist.get_world_size()
+            dist.all_gather_object(generators, gen_state)
+        if writes:
+            payload = {"step": int(state.step), "params": params, "opt_state": opt_state,
+                       "generator": generators[0], "generators": generators}
+            tmp = self._path(step) + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, self._path(step))
+            if self.save_total_limit and self.save_total_limit > 0:
+                for old in self.all_steps()[: -self.save_total_limit]:
+                    os.remove(self._path(old))
+        if ranked:
+            dist.barrier()
 
     def restore(self, state_template: Any, step: Optional[int] = None,
                 generator: Optional[torch.Generator] = None) -> Any:
@@ -72,14 +96,61 @@ class CheckpointManager:
                 f"checkpoint and state differ in {sorted(set(saved) ^ set(live))[:8]} ...")
         with torch.no_grad():
             for path, leaf in live.items():
-                leaf.copy_(saved[path].to(leaf.dtype))
-        state_template.opt_state.load_state_dict(payload["opt_state"])
-        if generator is not None and payload["generator"] is not None:
-            generator.set_state(payload["generator"])
+                leaf.copy_(_own_part(saved[path], leaf).to(leaf.dtype))
+        tx = state_template.opt_state
+        tx.load_state_dict(_own_moments(payload["opt_state"], tx))
+        rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        gens = payload.get("generators") or [payload["generator"]]
+        if generator is not None and rank < len(gens) and gens[rank] is not None:
+            generator.set_state(gens[rank])
         return state_template._replace(step=payload["step"])
 
     def close(self) -> None:
         """Nothing is held open; kept for the JAX manager's interface."""
+
+
+def _own_part(full: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of a saved whole leaf for the live ``leaf`` (the
+    whole leaf where ``leaf`` is whole)."""
+    spec = shard_of(leaf)
+    return full if spec is None else local_slice(full, spec)
+
+
+def _optimizer_params(tx) -> List[torch.Tensor]:
+    """The optimizer's parameters in its state dict's index order."""
+    return [p for group in tx.param_groups for p in group["params"]]
+
+
+def _host(t: torch.Tensor, keep: bool) -> Optional[torch.Tensor]:
+    """A host copy of ``t`` where ``keep``, else None (``t`` is dropped)."""
+    return t.cpu() if keep else None
+
+
+def _whole_moments(tx, keep: bool = True) -> dict:
+    """``tx.state_dict()`` with every moment of an fsdp slice gathered whole
+    and copied to the host (every rank gathers, in index order; where
+    ``keep`` is False the moments are dropped once gathered and come back as
+    None)."""
+    sd = tx.state_dict()
+    params = _optimizer_params(tx)
+    state = {}
+    for idx, entry in sd["state"].items():
+        p = params[idx]
+        state[idx] = {k: (_host(whole_tensor(v, shard_of(p)), keep)
+                          if torch.is_tensor(v) and v.shape == p.shape and v.dim() else v)
+                      for k, v in entry.items()}
+    return {**sd, "state": state}
+
+
+def _own_moments(sd: dict, tx) -> dict:
+    """A saved (whole) optimizer state dict cut to this rank's slices."""
+    params = _optimizer_params(tx)
+    state = {}
+    for idx, entry in sd["state"].items():
+        p = params[int(idx)]
+        state[idx] = {k: (_own_part(v, p) if torch.is_tensor(v) and v.dim() else v)
+                      for k, v in entry.items()}
+    return {**sd, "state": state}
 
 
 def load_params(path: str, params: Any) -> Any:
