@@ -57,7 +57,19 @@ paths at the full 1.3B width and depth with random weights made from a seed:
 - the sequence-parallel prefill (`sequence_parallel`): one 16,384-token mmu
   window without positions at 1.3B, 48 layers, bf16, over 2 sp ranks on
   cuda:0 (gloo) against one rank's `backbone_forward`, and at 3 layers in fp32;
-  K1 at the slice's shape against its plain version first.
+  K1 at the slice's shape against its plain version first;
+- tensor parallelism over heads (`check_tensor_parallel_kernels`, then
+  `tensor_parallel`): K3b-tp and K6b-tp (each rank's columns, the row sums
+  added by hand) against their plain versions and one rank's K3b / K6b at the
+  prefill, decode and training rows; K4-tp at 48 layers (rank 0's and rank 1's
+  slices one layer after the other, each layer's blocks gathered by hand)
+  against one rank's K4 bit for bit (bf16 and int8 weights, bf16 and fp32
+  state; fp32 at 4 layers) and against its plain version; then two tp ranks on
+  cuda:0 over gloo: one stage-1 step at tp=2 and at dp=1 x fsdp=1 x tp=2 (48
+  layers, 16 rows of 329) and the fp32 step at 3 layers against one rank's,
+  and greedy t2i generation at B=48 through K4-tp and with the scaled-int8
+  state against one rank's streams and logits, with the launches and the
+  bytes each tp collective moved against the count.
 
 The launch counters show that each path went through its kernels. Any failed
 phase ends the run with a non-zero exit code; nothing is caught but the
@@ -74,7 +86,7 @@ Lines on standard output, one JSON object each unless noted:
   {"remat_policies": ...} {"remat_threshold": ...} {"stage2_plain_vs_kernel": ...}
   {"stage2_path": ...}
   {"stage2_times": ...} {"distill": ...} {"train_cli": ...} {"multi_rank": ...}
-  {"sequence_parallel": ...} {"kernels": [...]} and, last,
+  {"sequence_parallel": ...} {"tensor_parallel": ...} {"kernels": [...]} and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 fp32 comparisons run with TF32 off for matrix products and convolutions.
@@ -91,6 +103,7 @@ import subprocess
 import sys
 import time
 import types
+from typing import Optional
 
 import numpy as np
 import torch
@@ -919,14 +932,16 @@ def check_norm_rows(gen, results):
     # which kernel each group of cases ran, by profiler name: the decode-rows
     # kernel of the group's template arguments up to NORM_ROWS_MAX rows, the
     # parent beyond. A trace now and then lacks a kernel launched as a
-    # programmatic dependent, so a group takes up to three traces.
+    # programmatic dependent or beside one (the parent at 257 rows was missing
+    # from three traces of a group in a row once), so a group takes up to six.
     taken = {}
     for (kind, d, variant, wdtype), calls in groups.items():
         new = (f"{NORM_ROWS_KERNEL}<{str(kind == 'gated').lower()}, {d // 1024}, "
-               f"{'__nv_bfloat16' if wdtype == bf else 'float'}, {str(variant == 'residual').lower()}>")
+               f"{'__nv_bfloat16' if wdtype == bf else 'float'}, {str(variant == 'residual').lower()}, "
+               "(omt::RowSums)0>")
         old = f"{kind}_rms_norm_kernel"
         seen = set()
-        for _ in range(3):
+        for _ in range(6):
             seen |= set(kernel_names_per_call(calls + calls, "norm"))
             if any(new in n for n in seen) and any(old in n for n in seen):
                 break
@@ -1024,10 +1039,12 @@ def gated_bwd_inputs(gen, lead, d, dtype, wdtype, beside):
 def check_norms_bwd(gen, results):
     """K6a and K6b against their plain versions, at one layer of the training
     step and at awkward shapes; for K6b, which of its two kernels each case ran
-    (profiler names) and how many of its blocks fit on an SM."""
+    (the launcher's test and profiler names) and how many of its blocks fit on
+    an SM."""
     from omnimamba_tpu_torch.ops.norms import add_norm_bwd_plain, gated_rms_norm_bwd_plain
     from omnimamba_tpu_torch.ops.norms_kernel import (
-        BWD_BLOCKS, fused_add_rms_norm_bwd, fused_gated_rms_norm_bwd, gated_bwd_blocks_per_sm)
+        BWD_BLOCKS, fused_add_rms_norm_bwd, fused_gated_rms_norm_bwd, gated_bwd_blocks_per_sm,
+        gated_bwd_kernel_of)
 
     bf, f32 = torch.bfloat16, torch.float32
     train = (TRAIN_BATCH, TRAIN_LEN)
@@ -1113,10 +1130,12 @@ def check_norms_bwd(gen, results):
         rec["blocks_per_sm"] = gated_bwd_blocks_per_sm(yv, z, g, w)
         # the row kernel's grid (at most BWD_BLOCKS) runs in one wave
         assert not row_kernel or rec["blocks_per_sm"] * sms >= BWD_BLOCKS, rec
-        launches.append(lambda yv=yv, z=z, g=g, w=w: fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5))
-        if name == "train" and results.get("build_log"):  # its 8 instantiations: no spills
+        launches.append(((yv, z, g, w),
+                         lambda yv=yv, z=z, g=g, w=w: fused_gated_rms_norm_bwd(yv, z, g, w, 1e-5)))
+        if name == "train" and results.get("build_log"):
+            # its 24 instantiations (J 1-4 x the weight's type x RowSums): no spills
             rec["ptxas"] = ptxas_of(results["build_log"], "gated_rms_norm_bwd_row_kernel")
-            assert rec["ptxas"] and len(rec["ptxas"]) == 8 and all(
+            assert rec["ptxas"] and len(rec["ptxas"]) == 24 and all(
                 "0 bytes spill stores" in " ".join(v) for v in rec["ptxas"].values()), rec["ptxas"]
         if timed:
             moved = nbytes(yv, z, g, w, dy, dz, dw)
@@ -1138,16 +1157,30 @@ def check_norms_bwd(gen, results):
                     k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bytes_moved")}
         emit({"kernel_check": rec})
 
-    # which of K6b's two kernels each case ran, by name, from one trace of them all
-    ran = kernel_names_per_call(launches, "gated_rms_norm_bwd")
-    rec = {"kernel": "gated_rms_norm_bwd", "case": "kernel_of_each_case",
-           "kernel_name": {c[0]: k for c, k in zip(GATED_BWD_CASES, ran)}}
+    # which of K6b's two kernels each case ran: the launcher's own test for these
+    # tensors, and the names in profiler traces of the case alone (three calls a
+    # trace, up to five traces). A trace now and then holds no event of a kernel
+    # that ran (one case's five traces in a row once), so a case whose traces
+    # hold none is listed; every name a trace holds must be the launcher's kernel.
+    taken, traced = {}, {}
+    for (name, *_), (args, fn) in zip(GATED_BWD_CASES, launches):
+        taken[name] = gated_bwd_kernel_of(*args)
+        names = set()
+        for _ in range(5):
+            names |= set(kernel_names_per_call([fn] * 3, "gated_rms_norm_bwd"))
+            if names:
+                break
+        traced[name] = sorted(names)
+    rec = {"kernel": "gated_rms_norm_bwd", "case": "kernel_of_each_case", "launcher": taken,
+           "kernel_name": traced, "cases_no_trace_held": [c for c, n in traced.items() if not n]}
     emit({"kernel_check": rec})
-    assert len(ran) == len(GATED_BWD_CASES), rec
-    for (name, *_, row_kernel), k in zip(GATED_BWD_CASES, ran):
-        want = "gated_rms_norm_bwd_row_kernel<" if row_kernel else "gated_rms_norm_bwd_kernel<"
-        assert want in k, (name, k)
-    results["gated_rms_norm_bwd"]["kernel_name"] = ran[0]
+    for name, *_, row_kernel in GATED_BWD_CASES:
+        want = "gated_rms_norm_bwd_row_kernel" if row_kernel else "gated_rms_norm_bwd_kernel"
+        assert taken[name] == want, (name, rec)
+        assert all(f"{want}<" in n for n in traced[name]), (name, rec)
+    assert len(rec["cases_no_trace_held"]) < len(GATED_BWD_CASES), rec
+    first = GATED_BWD_CASES[0][0]
+    results["gated_rms_norm_bwd"]["kernel_name"] = (traced[first] or [taken[first]])[0]
 
 
 def fused_layers(gen, n_layer, mixer_cfg, lora_cfg, wdtype):
@@ -4166,9 +4199,13 @@ def plain_versions():
     def fused_plain(*args, plan=None):
         return fused_decode_step_plain(*args)
 
+    def gated_plain(y, z, weight, eps, tp=None):  # one card: no tp cut
+        assert tp is None, "plain_versions runs on one card"
+        return gated_rms_norm_plain(y, z, weight, eps)
+
     saved = (blocks.add_norm, mamba2.gated_rms_norm, mamba2.ssd_fused, mamba2.ssd_step_fused,
              backbone.fused_decode_step)
-    blocks.add_norm, mamba2.gated_rms_norm = add_norm_plain, gated_rms_norm_plain
+    blocks.add_norm, mamba2.gated_rms_norm = add_norm_plain, gated_plain
     mamba2.ssd_fused, mamba2.ssd_step_fused = ssd_fused_plain, step_plain_in_place
     backbone.fused_decode_step = fused_plain
     try:
@@ -4733,7 +4770,7 @@ def check_stage2_kernels(gen, results):
         add_norm_bwd_plain, add_norm_plain, gated_rms_norm_bwd_plain, gated_rms_norm_plain)
     from omnimamba_tpu_torch.ops.norms_kernel import (
         BWD_BLOCKS, fused_add_rms_norm, fused_add_rms_norm_bwd, fused_gated_rms_norm,
-        fused_gated_rms_norm_bwd, gated_bwd_blocks_per_sm)
+        fused_gated_rms_norm_bwd, gated_bwd_blocks_per_sm, gated_bwd_kernel_of)
     from omnimamba_tpu_torch.ops.ssd_kernel import (
         PLAIN_CHUNK, ssd_bwd_plain, ssd_fused, ssd_fused_bwd, ssd_fused_plain)
 
@@ -4876,11 +4913,13 @@ def check_stage2_kernels(gen, results):
         rec.update(ms=time_ms(lambda: fused_gated_rms_norm_bwd(yv, z, g, wg, 1e-5), 20),
                    plain_ms=time_ms(lambda: gated_rms_norm_bwd_plain(yv, z, g, wg, 1e-5), 5),
                    library_ms=None, kernel_name=sorted(names),
+                   launcher_kernel=gated_bwd_kernel_of(yv, z, g, wg),
                    blocks_per_sm=gated_bwd_blocks_per_sm(yv, z, g, wg),
                    **_bound(nbytes(yv, z, g, wg, gy_, gz, gw), 30 * R * 4096, f32))
         emit({"kernel_check": rec})
         assert _allowed(rec), rec
         assert rec["blocks_per_sm"] * sms >= BWD_BLOCKS, rec
+        assert rec["launcher_kernel"] == "gated_rms_norm_bwd_row_kernel", rec
         assert not names or any("gated_rms_norm_bwd_row_kernel<" in n for n in names), rec
         results["gated_rms_norm_bwd"][case] = dict(
             {k: rec[k] for k in keep + ("kernel_name", "blocks_per_sm")}, max_abs_err=worst)
@@ -5385,8 +5424,8 @@ def _mr_trainable(params):
     return {p: t for p, t in _paths(params) if t.requires_grad}
 
 
-def _mr_run(model, params, tcfg, batches, mesh, wrappers):
-    """``Trainer.train(max_steps=MR_STEPS)``; counters set to 0 just before and
+def _mr_run(model, params, tcfg, batches, mesh, wrappers, steps=MR_STEPS):
+    """``Trainer.train(max_steps=steps)``; counters set to 0 just before and
     read just after. Returns (record, trainer)."""
     from omnimamba_tpu_torch.parallel.sharding import COLLECTIVES, reset_collective_counts
     from omnimamba_tpu_torch.train.trainer import Trainer
@@ -5400,14 +5439,14 @@ def _mr_run(model, params, tcfg, batches, mesh, wrappers):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    state, metrics = trainer.train(max_steps=MR_STEPS)
+    state, metrics = trainer.train(max_steps=steps)
     torch.cuda.synchronize()
     total = time.time() - t0
     rec = {"steps": state.step, "seconds": total,
            "launches": {k: w.launches for k, w in wrappers.items() if w.launches},
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "collective_bytes_per_step": {k: v["bytes"] / MR_STEPS for k, v in COLLECTIVES.items()},
-           "collective_calls_per_step": {k: v["calls"] / MR_STEPS for k, v in COLLECTIVES.items()},
+           "collective_bytes_per_step": {k: v["bytes"] / steps for k, v in COLLECTIVES.items()},
+           "collective_calls_per_step": {k: v["calls"] / steps for k, v in COLLECTIVES.items()},
            "last_metrics": {k: float(v) for k, v in metrics.items()}}
     if log.rows:  # rank 0's sink: every step's metrics and a stamp at its end
         rec["losses"] = [r["loss"] for r in log.rows]
@@ -5420,7 +5459,7 @@ def _mr_fp32_grads(mesh):
     """Loss and the whole gradient of every leaf at 3 layers, fp32, finetune
     (every leaf trains), through ``make_grad_fn`` under ``mesh`` (None: one rank)."""
     from omnimamba_tpu_torch.parallel import shard_batch, shard_params
-    from omnimamba_tpu_torch.parallel.sharding import shard_of, whole_tensor
+    from omnimamba_tpu_torch.parallel.sharding import whole_like
     from omnimamba_tpu_torch.train.optimizer import make_optimizer
     from omnimamba_tpu_torch.train.trainer import make_grad_fn
 
@@ -5434,7 +5473,7 @@ def _mr_fp32_grads(mesh):
     loss, _, grads, _ = make_grad_fn(model, tcfg, mesh=mesh, dtype=torch.float32,
                                      device="cuda")(params, batch, None)
     leaves = [(p, t) for p, t in _paths(params) if t.requires_grad]
-    return loss.item(), {p: whole_tensor(g, shard_of(t)) for (p, t), g in zip(leaves, grads)}
+    return loss.item(), {p: whole_like(g, t) for (p, t), g in zip(leaves, grads)}
 
 
 def _mr_hold_leaf(got, want, start, spec):
@@ -5630,8 +5669,9 @@ def multi_rank_phase(results, card):
                    and first["fp32_3_layers"]["worst_err_of_allowed"] <= 1.0
                    and all(r["collective_bytes_per_step"] == first["collective_bytes_per_step"]
                            for r in ranks)
-                   and first["collective_bytes_per_step"]
-                   == summary["expected_collective_bytes_per_step"])
+                   # the counters that moved bytes (tp's are there too, at 0 here)
+                   and {k: v for k, v in first["collective_bytes_per_step"].items() if v}
+                   == {k: v for k, v in summary["expected_collective_bytes_per_step"].items() if v})
         ok &= all({k: r["launches"].get(k, 0) for k in SIX_KERNELS} == expect for r in ranks)
         line["cases"][name] = summary
     peaks = {n: max(line["cases"][n]["peak_memory_gib_by_rank"]) for n in ("dp_2", "fsdp_2")}
@@ -5772,6 +5812,726 @@ def sequence_parallel_phase(results, card):
         results[name]["launches_sp"] = line["bf16"]["launches_by_rank"][0].get(name, 0)
 
 
+# ---------------------------------------------------------------------------
+# phases: tensor parallelism over heads (K3b-tp, K6b-tp, K4-tp; tp=2 on cuda:0)
+# ---------------------------------------------------------------------------
+
+TP = 2  # tp ranks; two processes share cuda:0 over gloo, as in multi_rank
+TP_GEN_NEW = 32  # new tokens of the tp generations (B = BATCH)
+TP_STEPS = 2  # K4-tp token steps held against one rank's K4
+# K4-tp against one rank's K4 (same inputs, 48 layers): bit for bit, h, the
+# residual and both caches, in bf16 and int8 (PERF.md section 6, stated before the
+# first run: a rank's K splits are one rank's on the same 1,024-row boundaries and
+# its heads one rank's heads, summed in one rank's order); the fp32 path at 4 layers
+# likewise
+# K3b-tp / K6b-tp against one rank's K3b / K6b on the same rows: the rule of the
+# file (RTOL of the type + ATOL_REL of the largest value): the row's sum is taken
+# in another order, so a bf16 output may round the other way
+# tp generations against one rank's: in fp32 at MR_FP32_LAYERS layers (both decode
+# paths) the teacher-forced logits within MR_FP32_TOL of the largest, asserted; in
+# bf16 at 48 layers the greedy streams' agreement and the teacher-forced logits
+# against DEEP_TOL_REL's rule are reported, and the int8-state stream's agreement
+# must reach TP_INT8_AGREE (JAX's test_int8_state_decode_under_tp_mesh). The bf16
+# logits are not held to DEEP_TOL_REL: tp sums out_proj's and the gated norm's
+# rows in another order in every layer of the prefill (and of every step on the
+# layer loop), one more rounding flip a layer than one rank's own paths differ by,
+# and at 48 bf16 layers that reached 1.23-1.74 of the rule (PERF.md, section 6)
+TP_INT8_AGREE = 0.7
+TP_KERNELS = ("gated_rms_norm_tp", "gated_rms_norm_tp_bwd", "decode_fused_tp")
+TP_KERNEL_FILES = {
+    # the partial-sum forms of the TPU kernels: each rank's part of a row's sum
+    "gated_rms_norm_tp": ("omnimamba_tpu_torch/csrc/norms.cu",
+                          "omnimamba_tpu/ops/norms_pallas.py:280"),
+    "gated_rms_norm_tp_bwd": ("omnimamba_tpu_torch/csrc/norms.cu",
+                              "omnimamba_tpu/ops/norms_pallas.py:307"),
+    "decode_fused_tp": ("omnimamba_tpu_torch/csrc/decode_fused.cu",
+                        "omnimamba_tpu/ops/decode_fused.py:447"),
+}
+
+
+def tp_kernel_wrappers():
+    """The launch counters of the three tp kernels (apart from
+    kernel_wrappers, whose full count dicts the other phases compare)."""
+    from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step
+    from omnimamba_tpu_torch.ops.norms_kernel import (
+        gated_norm_apply, gated_norm_bwd_finish, gated_norm_bwd_sums, gated_norm_sums)
+
+    return {"gated_rms_norm_tp": _Count(gated_norm_apply),
+            "gated_rms_norm_tp_sums": _Count(gated_norm_sums),
+            "gated_rms_norm_tp_bwd": _Count(gated_norm_bwd_finish),
+            "gated_rms_norm_tp_bwd_sums": _Count(gated_norm_bwd_sums),
+            "decode_fused_tp": _Count(fused_decode_step, "tp_launches"),
+            "decode_fused_tp_int8": _Count(fused_decode_step, "tp_int8_launches")}
+
+
+class _OneRankMesh:
+    """Rank ``index`` of a tp mesh with no process group: what
+    ``shard_params`` reads, for the checks that add the ranks' parts by hand."""
+
+    mesh_dim_names = ("dp", "fsdp", "tp")
+
+    def __init__(self, index):
+        self.index = index
+
+    def size(self, dim=None):
+        return TP if dim in (None, 2) else 1
+
+    def get_local_rank(self, axis):
+        return self.index if axis == "tp" else 0
+
+    def get_group(self, axis):
+        return None
+
+
+def _tp_rows(y, r):
+    d = y.shape[-1] // TP
+    return y[..., r * d:(r + 1) * d]
+
+
+def check_tensor_parallel_kernels(gen, results):
+    """K3b-tp and K6b-tp (each rank's columns of a row, their partial sums added
+    by hand) against their plain versions and against one rank's K3b / K6b on
+    the whole rows; K4-tp at 48 layers, rank 0's and rank 1's slices one layer
+    after the other with each layer's blocks gathered by hand, against one
+    rank's K4 bit for bit (bf16, int8; fp32 at 4 layers), and against its plain
+    version (1 layer bf16, 4 layers fp32). Times one rank's share of each."""
+    from omnimamba_tpu_torch.ops.norms import (
+        gated_norm_apply_plain, gated_norm_bwd_finish_plain, gated_norm_bwd_sums_plain,
+        gated_norm_sums_plain)
+    from omnimamba_tpu_torch.ops.norms_kernel import (
+        fused_gated_rms_norm, fused_gated_rms_norm_bwd, gated_norm_apply, gated_norm_bwd_finish,
+        gated_norm_bwd_sums, gated_norm_sums)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    d_full = 4096
+    # name, rows-shape, dtype, timed: the tp generation's decode rows and prefill, the
+    # tensor_parallel training step's rows (one rank's: tp ranks take every row)
+    cases = [("prefill", (BATCH, PROMPT), bf, True), ("decode", (BATCH,), bf, True),
+             ("train", (MR_ROWS, MR_LEN), bf, True), ("fp32", (5, 7), f32, False)]
+    for name, lead, dtype, timed in cases:
+        y = rand(gen, (*lead, d_full), dtype)
+        z = sliced(gen, lead, (d_full, 256 + 64), dtype)[0]  # a column slice, as in_proj's z
+        g = rand(gen, (*lead, d_full), dtype)
+        w = (1.0 + 0.1 * rand(gen, (d_full,), f32)).to(dtype)
+        parts = [(_tp_rows(y, r), _tp_rows(z, r), _tp_rows(g, r), _tp_rows(w, r)) for r in range(TP)]
+        sums = [gated_norm_sums(yr, zr) for yr, zr, _, _ in parts]
+        total = sums[0] + sums[1]
+        outs = [gated_norm_apply(yr, zr, wr, total, d_full) for yr, zr, _, wr in parts]
+        dots = [gated_norm_bwd_sums(yr, zr, gr, wr) for yr, zr, gr, wr in parts]
+        dot = dots[0] + dots[1]
+        bwd = [gated_norm_bwd_finish(yr, zr, gr, wr, total, dot, d_full)
+               for yr, zr, gr, wr in parts]
+        torch.cuda.synchronize()
+        fwd_rec = {"kernel": "gated_rms_norm_tp", "case": name, "shape": (*lead, d_full // TP),
+                   "tp": TP, "dtype": str(dtype), "rtol": RTOL[dtype], "atol_rel": ATOL_REL}
+        bwd_rec = dict(fwd_rec, kernel="gated_rms_norm_tp_bwd")
+        pairs_f, pairs_b = [], []
+        for r, (yr, zr, gr, wr) in enumerate(parts):
+            pairs_f += [(f"sums_{r}", sums[r], gated_norm_sums_plain(yr, zr)),
+                        (f"out_{r}", outs[r], gated_norm_apply_plain(yr, zr, wr, total, d_full))]
+            want = gated_norm_bwd_finish_plain(yr, zr, gr, wr, total, dot, d_full)
+            pairs_b += [(f"dots_{r}", dots[r], gated_norm_bwd_sums_plain(yr, zr, gr, wr)),
+                        (f"dy_{r}", bwd[r][0], want[0]), (f"dz_{r}", bwd[r][1], want[1]),
+                        (f"dw_{r}", bwd[r][2], want[2])]
+        # against one rank's K3b / K6b on the whole rows
+        one = fused_gated_rms_norm(y, z, w, 1e-5)
+        one_b = fused_gated_rms_norm_bwd(y, z, g, w, 1e-5)
+        pairs_f.append(("out_vs_one_rank_k3b", torch.cat(outs, dim=-1), one))
+        pairs_b += [("dy_vs_one_rank_k6b", torch.cat([b[0] for b in bwd], dim=-1), one_b[0]),
+                    ("dz_vs_one_rank_k6b", torch.cat([b[1] for b in bwd], dim=-1), one_b[1]),
+                    ("dw_vs_one_rank_k6b", torch.cat([b[2] for b in bwd], dim=-1), one_b[2])]
+        ef, eb = _errs(fwd_rec, pairs_f), _errs(bwd_rec, pairs_b)
+        assert _allowed(fwd_rec) and _allowed(bwd_rec), (fwd_rec, bwd_rec)
+        if timed:
+            y0, z0, g0, w0 = parts[0]
+            rows = y0.numel() // y0.shape[-1]
+            dl = d_full // TP
+
+            def fwd():
+                return gated_norm_apply(y0, z0, w0, gated_norm_sums(y0, z0), d_full)
+
+            def fwd_plain():
+                return gated_norm_apply_plain(y0, z0, w0, gated_norm_sums_plain(y0, z0), d_full)
+
+            def bwd0():
+                return gated_norm_bwd_finish(y0, z0, g0, w0, total, gated_norm_bwd_sums(y0, z0, g0, w0),
+                                             d_full)
+
+            def bwd_plain():
+                return gated_norm_bwd_finish_plain(y0, z0, g0, w0, total,
+                                                   gated_norm_bwd_sums_plain(y0, z0, g0, w0), d_full)
+
+            # each input read once, each output written once (the row sums too)
+            moved_f = nbytes(y0, z0, w0, outs[0], sums[0])
+            moved_b = nbytes(y0, z0, g0, w0, total, dot, bwd[0][0], bwd[0][1], bwd[0][2], dots[0])
+            fwd_rec.update(ms=time_ms(fwd, 50), plain_ms=time_ms(fwd_plain, 10),
+                           host_us=host_us(fwd), library_ms=None,
+                           one_rank_k3b_ms=time_ms(lambda: fused_gated_rms_norm(y, z, w, 1e-5), 50),
+                           **_bound(moved_f, 10 * rows * dl, f32))
+            bwd_rec.update(ms=time_ms(bwd0, 20), plain_ms=time_ms(bwd_plain, 5),
+                           host_us=host_us(bwd0, 50), library_ms=None,
+                           one_rank_k6b_ms=time_ms(
+                               lambda: fused_gated_rms_norm_bwd(y, z, g, w, 1e-5), 20),
+                           **_bound(moved_b, 30 * rows * dl, f32))
+            keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_moved", "host_us")
+            if name == "prefill":
+                results["gated_rms_norm_tp"] = dict(fwd_rec, max_abs_err=ef)
+            elif "gated_rms_norm_tp" in results:
+                results["gated_rms_norm_tp"][name] = {k: fwd_rec[k] for k in keys}
+            if name == "train":
+                results["gated_rms_norm_tp_bwd"] = dict(bwd_rec, max_abs_err=eb)
+            else:
+                results.setdefault("tp_bwd_cases", {})[name] = {k: bwd_rec[k] for k in keys}
+        emit({"kernel_check": fwd_rec})
+        emit({"kernel_check": bwd_rec})
+    results["gated_rms_norm_tp_bwd"].update(results.pop("tp_bwd_cases", {}))
+    # K7 at a tp=2 rank's int8 shapes: in_proj's 4,416 columns, out_proj's 2,048 rows,
+    # project_in's fc1 columns and fc2 rows, at decode's and the prefill's rows
+    from omnimamba_tpu_torch.ops.quant import quantize_linear
+    from omnimamba_tpu_torch.ops.quant_kernel import qmatmul, qmatmul_plain
+
+    for name, M, K, O in (("in_proj", BATCH, 2048, 4416), ("in_proj", BATCH * PROMPT, 2048, 4416),
+                          ("out_proj", BATCH, 2048, 2048), ("out_proj", BATCH * PROMPT, 2048, 2048),
+                          ("project_in_fc1", BATCH, 2048, 4096),
+                          ("project_in_fc2", BATCH, 4096, 2048)):
+        qe = quantize_linear(rand(gen, (K, O), f32, 0.02), (0,))
+        x = rand(gen, (M, K), bf)
+        rec = {"kernel": "qmatmul", "case": f"tp_rank_{name}", "shape": (M, K, O),
+               "rtol": RTOL[bf], "atol_rel": ATOL_REL}
+        _errs(rec, [("y", qmatmul(x, qe["q"], qe["scale"], False, bf),
+                     qmatmul_plain(x, qe["q"], qe["scale"], False, bf))])
+        emit({"kernel_check": rec})
+        assert _allowed(rec), rec
+    check_decode_fused_tp(gen, results)
+
+
+def _tp_layers(layers, r):
+    """Rank r's slices of a stack of layers (``shard_params``' tp rules)."""
+    from omnimamba_tpu_torch.parallel import shard_params
+
+    return shard_params(_OneRankMesh(r), {"layers": layers})["layers"]
+
+
+def _tp_cache(cache, r, mixer_cfg):
+    """Rank r's part of a one-rank decode cache: x_r | bc channels, its heads."""
+    from omnimamba_tpu_torch.models.backbone import BackboneCache
+
+    di, heads = mixer_cfg.d_inner // TP, mixer_cfg.nheads // TP
+    conv = torch.cat([cache.conv_state[..., r * di:(r + 1) * di],
+                      cache.conv_state[..., mixer_cfg.d_inner:]], dim=-1).contiguous()
+    return BackboneCache(conv, cache.ssm_state[:, :, r * heads:(r + 1) * heads].contiguous())
+
+
+def _k4_tp_steps(layers_r, h, caches, task, mcfg, lcfg, steps):
+    """``steps`` K4-tp token steps of every rank in one process: each layer of
+    rank 0 then rank 1, then every rank's block copied into every rank's
+    gathered scratch in rank order (what the all-gather does). Returns
+    [(h_out, res_out)] of each rank's last step."""
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_finish, fused_decode_layer, prepare_fused_decode)
+
+    plans = [prepare_fused_decode(lr, task, mcfg, lcfg, h.shape[0], h.dtype) for lr in layers_r]
+    outs = []
+    for _ in range(steps):
+        res = [torch.empty(h.shape, dtype=torch.float32, device="cuda") for _ in range(TP)]
+        for layer in range(len(layers_r[0])):
+            for r in range(TP):
+                fused_decode_layer(layers_r[r], h, None, caches[r], task, mcfg, lcfg, plan=plans[r],
+                                   layer=layer, res_out=res[r])
+            for r in range(TP):
+                for q in range(TP):
+                    plans[r].scratch["gathered"][q].copy_(plans[q].scratch["local"])
+        outs = [(fused_decode_finish(layers_r[r], h, None, caches[r], task, mcfg, lcfg,
+                                     plan=plans[r], res_out=res[r]), res[r]) for r in range(TP)]
+    return outs, plans
+
+
+def check_decode_fused_tp(gen, results):
+    from omnimamba_tpu_torch.config import LoraConfig, Mamba2LayerConfig
+    from omnimamba_tpu_torch.ops.decode_fused import (
+        fused_decode_finish, fused_decode_finish_plain, fused_decode_layer,
+        fused_decode_layer_plain, fused_decode_step, prepare_fused_decode)
+    from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+
+    full, lora8 = Mamba2LayerConfig(), LoraConfig()
+    bf, f32 = torch.bfloat16, torch.float32
+    base = {"bf16": fused_layers(gen, 48, full, lora8, bf)}
+    base["int8"] = quantize_decode_params({"layers": base["bf16"]})["layers"]
+    # name, stack, layers, io, state dtype, task
+    cases = [("bf16_48_layers", "bf16", 48, bf, bf, "t2i"),
+             ("int8_48_layers", "int8", 48, bf, bf, "t2i"),
+             ("bf16_48_layers_fp32_state", "bf16", 48, bf, f32, "mmu"),
+             ("fp32_4_layers", "fp32", 4, f32, f32, "t2i")]
+    for name, stack, n_layer, io, sdtype, task in cases:
+        if stack == "fp32":
+            layers = _cast(base["bf16"][:n_layer], f32)
+        else:
+            layers = base[stack][:n_layer]
+        layers_r = [_tp_layers(layers, r) for r in range(TP)]
+        cache = fused_state(gen, n_layer, BATCH, full, io, sdtype)
+        caches = [_tp_cache(cache, r, full) for r in range(TP)]
+        h = rand(gen, (BATCH, full.d_model), io)
+        one = None
+        for _ in range(TP_STEPS):
+            one = fused_decode_step(layers, h, None, cache, task, full, lora8)
+        outs, plans = _k4_tp_steps(layers_r, h, caches, task, full, lora8, TP_STEPS)
+        torch.cuda.synchronize()
+        whole = _tp_cache_join(caches, full)
+        rec = {"kernel": "decode_fused_tp", "case": name, "tp": TP, "layers": n_layer,
+               "batch": BATCH, "io": str(io), "state": str(sdtype), "steps": TP_STEPS,
+               "ranks_equal": all(bits_equal(outs[r][0], outs[0][0]) and
+                                  bits_equal(outs[r][1], outs[0][1]) for r in range(TP)),
+               "h_bit_for_bit_with_one_rank": bits_equal(outs[0][0], one[0]),
+               "residual_bit_for_bit": bits_equal(outs[0][1], one[1]),
+               "conv_state_bit_for_bit": bits_equal(whole.conv_state, cache.conv_state),
+               "ssm_state_bit_for_bit": bits_equal(whole.ssm_state, cache.ssm_state),
+               "h_max_abs_diff": (outs[0][0].float() - one[0].float()).abs().max().item()}
+        rec["bit_for_bit"] = all(rec[k] for k in (
+            "ranks_equal", "h_bit_for_bit_with_one_rank", "residual_bit_for_bit",
+            "conv_state_bit_for_bit", "ssm_state_bit_for_bit"))
+        emit({"kernel_check": rec})
+        assert rec["bit_for_bit"], rec
+        if name == "bf16_48_layers":
+            main = rec
+            # one rank's share of a token step on the device (its 48 C calls and the
+            # finish; the gathered scratch as the last step left it), beside its plain
+            # version and one rank's whole K4
+            res0 = torch.empty(h.shape, dtype=f32, device="cuda")
+
+            def rank0_step():
+                for layer in range(n_layer):
+                    fused_decode_layer(layers_r[0], h, None, caches[0], task, full, lora8,
+                                       plan=plans[0], layer=layer, res_out=res0)
+                return fused_decode_finish(layers_r[0], h, None, caches[0], task, full, lora8,
+                                           plan=plans[0], res_out=res0)
+
+            def rank0_plain():
+                res, out = None, h
+                for layer in range(n_layer):
+                    res, part, yf = fused_decode_layer_plain(
+                        layers_r[0][layer], out, res, caches[0].conv_state[layer],
+                        caches[0].ssm_state[layer], task, full, lora8, h0=0,
+                        heads=full.nheads // TP)
+                    out = fused_decode_finish_plain(part, torch.sum(yf * yf, -1), full.d_inner,
+                                                    full.norm_eps, io)
+                return out
+
+            one_plan = prepare_fused_decode(layers, task, full, lora8, BATCH, io)
+            moved = fused_step_bytes(layers_r[0], caches[0], h, task)
+            main.update(
+                ms=time_ms(rank0_step, 10), host_us=host_us(rank0_step, 10),
+                plain_ms=time_ms(rank0_plain, 2),
+                one_rank_k4_ms=time_ms(lambda: fused_decode_step(
+                    layers, h, None, cache, task, full, lora8, plan=one_plan), 10),
+                library_ms=None,
+                **_bound(moved, fused_step_flops(BATCH, n_layer, full, lora8.r) / TP, bf))
+            main["max_abs_err"] = rec["h_max_abs_diff"]
+        del layers_r, cache, caches, plans
+        torch.cuda.empty_cache()
+    # against the plain version: one layer in bf16, four in fp32 (the rule of
+    # check_decode_fused: BF16_STEP_ATOL_REL at one bf16 layer)
+    plain = {}
+    for pname, stack, n_layer, io, atol in (("bf16_1_layer", "bf16", 1, bf, BF16_STEP_ATOL_REL),
+                                            ("fp32_4_layers", "fp32", 4, f32, None)):
+        layers = base["bf16"][:n_layer] if stack == "bf16" else _cast(base["bf16"][:n_layer], f32)
+        layers_r = [_tp_layers(layers, r) for r in range(TP)]
+        cache = fused_state(gen, n_layer, BATCH, full, io, io)
+        caches = [_tp_cache(cache, r, full) for r in range(TP)]
+        pcaches = [type(c)(c.conv_state.clone(), c.ssm_state.clone()) for c in caches]
+        h = rand(gen, (BATCH, full.d_model), io)
+        outs, _ = _k4_tp_steps(layers_r, h, caches, "t2i", full, lora8, 1)
+        res, out = None, h
+        for layer in range(n_layer):
+            got = [fused_decode_layer_plain(layers_r[r][layer], out, res, pcaches[r].conv_state[layer],
+                                            pcaches[r].ssm_state[layer], "t2i", full, lora8,
+                                            h0=r * full.nheads // TP, heads=full.nheads // TP)
+                   for r in range(TP)]
+            res = got[0][0]
+            out = fused_decode_finish_plain(got[0][1] + got[1][1],
+                                            torch.sum(got[0][2] ** 2, -1) + torch.sum(got[1][2] ** 2, -1),
+                                            full.d_inner, full.norm_eps, io)
+        rec = {"kernel": "decode_fused_tp", "case": f"plain_{pname}", "layers": n_layer}
+        worst = _errs(rec, [("h", outs[0][0], out), ("residual", outs[0][1], res),
+                            ("ssm_state", caches[0].ssm_state, pcaches[0].ssm_state),
+                            ("conv_state", caches[1].conv_state, pcaches[1].conv_state)], atol)
+        emit({"kernel_check": rec})
+        assert _allowed(rec), rec
+        plain[pname] = worst
+        del layers_r, cache, caches, pcaches
+    main["max_abs_err_vs_plain"] = plain
+    main["max_abs_err"] = max(plain.values())
+    results["decode_fused_tp"] = main
+    del base
+    torch.cuda.empty_cache()
+
+
+def _tp_cache_join(caches, mixer_cfg):
+    """One rank's cache from every rank's part (``_tp_cache``'s inverse)."""
+    from omnimamba_tpu_torch.models.backbone import BackboneCache
+
+    di = mixer_cfg.d_inner // TP
+    conv = torch.cat([c.conv_state[..., :di] for c in caches] + [caches[0].conv_state[..., di:]],
+                     dim=-1)
+    return BackboneCache(conv, torch.cat([c.ssm_state for c in caches], dim=2))
+
+
+def _tp_train_traffic(params, model_cfg, rows, seq_len=MR_LEN, image=256, act_bytes=2,
+                      remat=True):
+    """Bytes each collective must move in one stage-1 step at tp=TP (dp and
+    fsdp 1) of ``rows`` rows of ``seq_len`` tokens, ``image`` of them image
+    tokens, activations of ``act_bytes``: in each block's forward the gated
+    norm's row sums (fp32; again in a checkpointed block's second forward)
+    and out_proj's partial (fp32) all-reduced, in its backward the norm's
+    dots and the stream's gradient where it enters the block; project_in's
+    fc2 partial (fp32) forward and its input's gradient backward (the image table
+    trains in both stages run here); the trainer's tp sum of the gradient
+    parts each rank holds a share of, and the norm's two cut sums."""
+    from omnimamba_tpu_torch.parallel.sharding import tp_of
+
+    d, tokens, a = model_cfg.d_model, rows * seq_len, act_bytes
+    # a checkpointed block's second forward stops at its last saved tensor (torch's
+    # early stop), out_proj's product: its partial (fp32) is not reduced again; the
+    # stream's gradient comes back in its own type
+    per_block = (1 + int(bool(remat))) * 4 * tokens + 4 * tokens * d + 4 * tokens + a * tokens * d
+    image = 4 * rows * image * d + a * rows * image * d
+    partial = 0
+    for _, t in _paths(params):
+        cut = tp_of(t)
+        if cut is None or not t.requires_grad:
+            continue
+        for dim, _, length in cut.partial_ranges():
+            n = t.numel() if dim is None else t.numel() // t.shape[dim] * length
+            partial += n * t.element_size()
+    return {"tp_all_reduce": model_cfg.n_layer * per_block + image,
+            "all_reduce": partial + 2 * 4}
+
+
+def _tp_gen_traffic(model_cfg, batch, prompt, new, ksplit, fused):
+    """Bytes each tp collective must move in one greedy t2i generation of
+    ``new`` tokens at tp=TP: the prefill's row sums and out_proj partials a
+    layer (fp32, as every partial product); each of the new - 1 steps'
+    project_in fc2 partial, and
+    a layer's step either K4-tp's one all-gather of every rank's K-split
+    partials and sums of squares (fp32) or the layer loop's row sums and
+    out_proj partial; one broadcast of each token."""
+    d, L, heads = model_cfg.d_model, model_cfg.n_layer, model_cfg.mixer.nheads // TP
+    steps = new - 1
+    reduce_ = L * (4 * batch * prompt + 4 * batch * prompt * d) + steps * 4 * batch * d
+    gather = 0
+    if fused:
+        gather = steps * L * TP * 4 * (ksplit * batch * d + batch * heads)
+    else:
+        reduce_ += steps * L * (4 * batch + 4 * batch * d)
+    return {"tp_all_reduce": reduce_, "tp_all_gather": gather, "tp_broadcast": new * batch * 8}
+
+
+def _tp_reference(job_path):
+    """The one-rank references of the tensor_parallel phase, computed here
+    and saved for the ranks: one stage-1 step at 48 layers (losses, norms,
+    updated trainable leaves), the fp32 step at 3 layers, the t2i
+    generations' streams and the logits of the streams replayed."""
+    from omnimamba_tpu_torch.models.generation import generate
+
+    wrappers = kernel_wrappers()
+    model = _mr_model()
+    params = _mr_params(model, torch.bfloat16, SEED + 40)
+    rec, trainer = _mr_run(model, params, _mr_train_cfg(), _mr_batches(model, MR_ROWS, 1, SEED + 41),
+                           None, wrappers, steps=1)
+    ref = {"train": rec,
+           "params": {p: t.detach().cpu() for p, t in _mr_trainable(trainer.state.params).items()}}
+    del trainer, params
+    torch.cuda.empty_cache()
+    ref["fp32_loss"], grads = _mr_fp32_grads(None)
+    ref["fp32_grads"] = {p: g.cpu() for p, g in grads.items()}
+    del grads
+    torch.cuda.empty_cache()
+    ref["gen"], ref["replay_logits"] = {}, {}
+    for gmodel, dtype, runs in _tp_gen_sets():
+        mamba, ids, emb = _tp_gen_inputs(gmodel, dtype)
+        for name, kw in runs:
+            with torch.no_grad():
+                out = generate(mamba, gmodel.cfg, input_ids=ids, input_embeddings=emb, task="t2i",
+                               max_length=PROMPT + TP_GEN_NEW, sample=_greedy(), device="cuda",
+                               **kw)
+                ref["gen"][name] = out.sequences.cpu()
+                # the stream replayed: the yardstick of the tp model's replay of it
+                ref["replay_logits"][name] = torch.stack(generate(
+                    mamba, gmodel.cfg, input_ids=ids, input_embeddings=emb, task="t2i",
+                    max_length=PROMPT + TP_GEN_NEW, sample=_greedy(), device="cuda",
+                    teacher_outputs=out.sequences, return_logits=True, **kw).logits).cpu()
+        del mamba, emb
+        torch.cuda.empty_cache()
+    torch.save(ref, job_path)
+
+
+_TP_GEN_RUNS = (("fused_bf16", {"decode_impl": "fused"}),
+                ("int8_state", {"cache_dtype": "int8"}))
+# the same backbone cut to MR_FP32_LAYERS layers in fp32 with an fp32 state, both
+# decode paths: the tp logic at full width, its replayed logits held to one rank's
+# within MR_FP32_TOL
+_TP_FP32_RUNS = (("fused_fp32", {"decode_impl": "fused", "cache_dtype": None}),
+                 ("scan_fp32", {"decode_impl": "scan", "cache_dtype": None}))
+
+
+def _tp_gen_sets():
+    """(model, weight type, runs) of the tp generations."""
+    return ((_mr_model(), torch.bfloat16, _TP_GEN_RUNS),
+            (_mr_model(MR_FP32_LAYERS), torch.float32, _TP_FP32_RUNS))
+
+
+def _greedy():
+    from omnimamba_tpu_torch import SampleParams
+
+    return SampleParams(top_k=1)
+
+
+def _tp_gen_inputs(model, dtype=torch.bfloat16):
+    """The 1.3B backbone (``dtype``, seed SEED + 42) and the t2i prompt of the
+    tp generations: BATCH caption blocks of PROMPT ids through caption_embed."""
+    from omnimamba_tpu_torch.models.backbone import caption_embed, embed_text, init_backbone
+
+    cfg = model.cfg
+    mamba = init_backbone(torch.Generator(device="cuda").manual_seed(SEED + 42), cfg, dtype, "cuda")
+    ids = torch.as_tensor(np.random.default_rng(SEED + 43).integers(0, cfg.vocab_size,
+                                                                     (BATCH, PROMPT)), device="cuda")
+    with torch.no_grad():
+        emb = caption_embed(mamba, embed_text(mamba, ids, dtype))
+        emb = emb + mamba["pos_embed"][:, :PROMPT]
+    return mamba, ids, emb
+
+
+def _tp_rank(rank, world, job):
+    """One rank of the tensor_parallel phase: the stage-1 step under each mesh
+    of ``job`` (against the one-rank step's file), the fp32 gradients at 3
+    layers, then the two t2i generations at tp=TP with the launches and the
+    bytes of each tp collective counted, and the one-rank streams replayed
+    through the tp model for their logits."""
+    from omnimamba_tpu_torch.models.generation import generate
+    from omnimamba_tpu_torch.parallel import create_mesh, shard_batch, shard_params
+    from omnimamba_tpu_torch.parallel.sharding import (
+        COLLECTIVES, reset_collective_counts, whole_tensor)
+    from omnimamba_tpu_torch.train.optimizer import make_optimizer
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = {**kernel_wrappers(), **tp_kernel_wrappers()}
+    ref = torch.load(job["reference"], map_location="cpu", weights_only=True)
+    model = _mr_model()
+    out = {"rank": rank, "cases": {}}
+    for case, shape in job["cases"]:
+        mesh = create_mesh(shape, "cuda")
+        params = _mr_params(model, torch.bfloat16, SEED + 40)
+        tcfg = _mr_train_cfg()
+        make_optimizer(params, tcfg)
+        start = {p: t.detach().clone() for p, t in _mr_trainable(params).items()}
+        params = shard_params(mesh, params)
+        batches = [shard_batch(mesh, b) for b in _mr_batches(model, MR_ROWS, 1, SEED + 41)]
+        rec, trainer = _mr_run(model, params, tcfg, batches, mesh, wrappers, steps=1)
+        rec["expected_collective_bytes_per_step"] = _tp_train_traffic(trainer.state.params,
+                                                                      model.cfg, MR_ROWS)
+        leaves = {}
+        for path, t in _mr_trainable(trainer.state.params).items():
+            got, want = whole_tensor(t).float(), ref["params"][path].to("cuda").float()
+            first = start[path].float()
+            leaves[path] = {"max_abs_diff": (got - want).abs().max().item(),
+                            "max_abs_ref": want.abs().max().item(),
+                            "max_abs_move_ref": (want - first).abs().max().item(),
+                            "equal_share": (got == want).float().mean().item(),
+                            **_mr_hold_leaf(got, want, first, None)}
+        rec["leaves"] = leaves
+        del trainer, params, batches, start
+        torch.cuda.empty_cache()
+        loss, grads = _mr_fp32_grads(mesh)
+        worst, worst_leaf = 0.0, ""
+        for path, g in grads.items():
+            want = ref["fp32_grads"][path].to("cuda")
+            share = (g - want).abs().max().item() / (MR_FP32_TOL * max(want.abs().max().item(), 1e-30))
+            if share > worst:
+                worst, worst_leaf = share, path
+        rec["fp32_3_layers"] = {"loss_rel_err": abs(loss - ref["fp32_loss"]) / abs(ref["fp32_loss"]),
+                                "gradient_leaves": len(grads), "worst_err_of_allowed": worst,
+                                "worst_leaf": worst_leaf}
+        del grads
+        torch.cuda.empty_cache()
+        out["cases"][case] = rec
+    # the generations at tp=TP
+    mesh = create_mesh({"tp": TP}, "cuda")
+    out["gen"] = {}
+    for gmodel, dtype, runs in _tp_gen_sets():
+        mamba, ids, emb = _tp_gen_inputs(gmodel, dtype)
+        mamba = shard_params(mesh, mamba)
+        for name, kw in runs:
+            with torch.no_grad():
+                generate(mamba, gmodel.cfg, input_ids=ids, input_embeddings=emb, task="t2i",
+                         max_length=PROMPT + 4, sample=_greedy(), device="cuda", **kw)  # warm
+                for w in wrappers.values():
+                    w.launches = 0
+                reset_collective_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                seqs = generate(mamba, gmodel.cfg, input_ids=ids, input_embeddings=emb,
+                                task="t2i", max_length=PROMPT + TP_GEN_NEW, sample=_greedy(),
+                                device="cuda", **kw).sequences
+                torch.cuda.synchronize()
+                seconds = time.time() - t0
+                launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+                moved = {k: v["bytes"] for k, v in COLLECTIVES.items() if v["calls"]}
+                calls = {k: v["calls"] for k, v in COLLECTIVES.items() if v["calls"]}
+                want = ref["gen"][name].to("cuda")
+                replay = generate(mamba, gmodel.cfg, input_ids=ids, input_embeddings=emb,
+                                  task="t2i", max_length=PROMPT + TP_GEN_NEW, sample=_greedy(),
+                                  device="cuda", teacher_outputs=want, return_logits=True,
+                                  **kw).logits
+            fp32 = dtype == torch.float32
+            lerr, lshare = errors(torch.stack(replay), ref["replay_logits"][name].to("cuda"),
+                                  atol_rel=MR_FP32_TOL if fp32 else DEEP_TOL_REL,
+                                  rtol=0.0 if fp32 else 2.0 ** -7)
+            out["gen"][name] = {"sequences": seqs.cpu(), "seconds": seconds, "launches": launches,
+                                "collective_bytes": moved, "collective_calls": calls,
+                                "replay_logits_max_abs_err": lerr,
+                                "replay_logits_err_of_allowed": lshare}
+        del mamba, emb
+        torch.cuda.empty_cache()
+    return out
+
+
+def tensor_parallel_phase(results, card):
+    """Tensor parallelism over heads at 1.3B (48 layers, bf16) over TP ranks
+    on cuda:0 (gloo): one stage-1 step at tp=2 and at dp=1 x fsdp=1 x tp=2
+    (16 rows of 329, every block checkpointed) against one rank's (losses,
+    norms, the updated leaves by multi_rank's L2 rule), the fp32 step at 3
+    layers (every gradient leaf), then greedy t2i generation at B=48 through
+    K4-tp (bf16 weights and state) and through the layer loop with the
+    scaled-int8 state, and at 3 layers in fp32 through both, against one
+    rank's streams and logits; launches of the three tp kernels and the bytes
+    each tp collective moved against the count. A leaf's element bound is a
+    flipped one-rank move plus one rounding: 2 max(lr, the one-rank run's
+    largest move of the leaf) + 2^-7 max|leaf| (Adam's first step with bf16
+    moments moves an element by up to ~1% more than lr)."""
+    import shutil
+    import tempfile
+
+    from omnimamba_tpu_torch.parallel.launch import run_ranks
+
+    tmp = tempfile.mkdtemp(prefix="omt_tp_")
+    try:
+        path = os.path.join(tmp, "one_rank.pt")
+        _tp_reference(path)
+        ranks = run_ranks(_tp_rank, TP, ({"reference": path, "cases": [
+            ("tp_2", {"tp": TP}), ("dp_1_fsdp_1_tp_2", {"dp": 1, "fsdp": 1, "tp": TP})]},),
+            backend="gloo", timeout=900)
+        ref = torch.load(path, map_location="cpu", weights_only=True)
+        del ref["replay_logits"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    model = _mr_model()
+    ok = True
+    line = {"card": card, "model": "OmniMamba-1.3B", "n_layer": model.cfg.n_layer, "tp": TP,
+            "backend": "gloo on cuda:0", "dtype": "torch.bfloat16",
+            "note": "two ranks share one card: seconds are no scaling figure",
+            "train": {"rows_per_step": MR_ROWS, "seq_len": MR_LEN, "stage": "align",
+                      "remat": True, "one_rank": {k: ref["train"][k] for k in (
+                          "losses", "grad_norms", "step_s", "peak_memory_gib")}, "cases": {}},
+            "generate": {"batch": BATCH, "prompt": PROMPT, "new_tokens": TP_GEN_NEW, "runs": {}}}
+    for case in ranks[0]["cases"]:
+        recs = [r["cases"][case] for r in ranks]
+        first = recs[0]
+        leaves = first["leaves"]
+        rel = {p: v["max_abs_diff"] / max(v["max_abs_ref"], 1e-30) for p, v in leaves.items()}
+        moved = [p for p, v in leaves.items() if v["moved"]]
+        summary = {
+            "losses": first["losses"], "grad_norms": first["grad_norms"], "step_s": first["step_s"],
+            "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in recs],
+            "loss_rel_diff": abs(first["losses"][0] - ref["train"]["losses"][0])
+            / abs(ref["train"]["losses"][0]),
+            "grad_norm_rel_diff": abs(first["grad_norms"][0] - ref["train"]["grad_norms"][0])
+            / abs(ref["train"]["grad_norms"][0]),
+            "updated_leaves": {"count": len(leaves), "worst_rel_diff": max(rel.values()),
+                               "worst_leaf": max(rel, key=rel.get),
+                               "update_share_max": max(v["update_share"] for v in leaves.values())},
+            "launches_per_rank": [r["launches"] for r in recs],
+            "collective_bytes_per_step": first["collective_bytes_per_step"],
+            "collective_calls_per_step": first["collective_calls_per_step"],
+            "expected_collective_bytes_per_step": first["expected_collective_bytes_per_step"],
+            "fp32_3_layers": first["fp32_3_layers"]}
+        element = {p: v["max_abs_diff"] / (2 * max(MR_LR, v["max_abs_move_ref"])
+                                           + 2.0 ** -7 * v["max_abs_ref"])
+                   for p, v in leaves.items()}
+        worst = max(element, key=element.get)
+        summary["element_rule_worst"] = {"leaf": worst, "share": element[worst],
+                                         **{k: leaves[worst][k] for k in (
+                                             "max_abs_diff", "max_abs_ref", "max_abs_move_ref",
+                                             "equal_share")}}
+        summary["leaves_within"] = all(
+            element[p] <= 1.0 and v["update_share"] <= MR_UPDATE_RTOL for p, v in leaves.items())
+        summary["planted_faults_fail"] = bool(moved) and all(
+            min(leaves[p]["planted_skip_least"], leaves[p]["planted_sign_least"]) > MR_UPDATE_RTOL
+            for p in moved)
+        got_bytes = {k: v for k, v in first["collective_bytes_per_step"].items() if v}
+        ok &= (summary["loss_rel_diff"] <= MR_LOSS_RTOL
+               and summary["grad_norm_rel_diff"] <= MR_GNORM_RTOL
+               and summary["leaves_within"] and summary["planted_faults_fail"]
+               and first["fp32_3_layers"]["loss_rel_err"] <= MR_FP32_TOL
+               and first["fp32_3_layers"]["worst_err_of_allowed"] <= 1.0
+               and got_bytes == first["expected_collective_bytes_per_step"]
+               and all(r["last_metrics"] == first["last_metrics"] for r in recs))
+        n = model.cfg.n_layer
+        ok &= all(r["launches"].get("gated_rms_norm_tp", 0) == 2 * n
+                  and r["launches"].get("gated_rms_norm_tp_sums", 0) == 2 * n
+                  and r["launches"].get("gated_rms_norm_tp_bwd", 0) == n
+                  and r["launches"].get("gated_rms_norm_tp_bwd_sums", 0) == n
+                  and not r["launches"].get("gated_rms_norm", 0)
+                  and not r["launches"].get("gated_rms_norm_bwd", 0) for r in recs)
+        line["train"]["cases"][case] = summary
+    for gmodel, dtype, gen_runs in _tp_gen_sets():
+        n = gmodel.cfg.n_layer
+        for name, kw in gen_runs:
+            runs = [r["gen"][name] for r in ranks]
+            want = ref["gen"][name]
+            seqs = [r["sequences"] for r in runs]
+            new = slice(PROMPT, PROMPT + TP_GEN_NEW)
+            agree = (seqs[0][:, new] == want[:, new]).float().mean().item()
+            fused, fp32 = kw.get("decode_impl") == "fused", dtype == torch.float32
+            expect = _tp_gen_traffic(gmodel.cfg, BATCH, PROMPT, TP_GEN_NEW, 2, fused)
+            rec = {"kw": {k: str(v) for k, v in kw.items()}, "layers": n, "dtype": str(dtype),
+                   "ranks_same_stream": all(torch.equal(s, seqs[0]) for s in seqs),
+                   "agreement_with_one_rank": agree,
+                   "replay_logits_max_abs_err": runs[0]["replay_logits_max_abs_err"],
+                   "replay_logits_err_of_allowed": runs[0]["replay_logits_err_of_allowed"],
+                   "replay_tolerance": ("MR_FP32_TOL of the largest, asserted" if fp32 else
+                                        "DEEP_TOL_REL's rule, reported: see TP_GEN_RUNS' note"),
+                   "seconds_by_rank": [r["seconds"] for r in runs],
+                   "launches": runs[0]["launches"], "collective_bytes": runs[0]["collective_bytes"],
+                   "collective_calls": runs[0]["collective_calls"],
+                   "expected_collective_bytes": expect}
+            ok &= rec["ranks_same_stream"] and all(
+                r["collective_bytes"] == {k: v for k, v in expect.items() if v} for r in runs)
+            if fp32:
+                ok &= all(r["replay_logits_err_of_allowed"] <= 1.0 for r in runs)
+            if fused:
+                ok &= runs[0]["launches"].get("decode_fused_tp", 0) == TP_GEN_NEW - 1
+                ok &= not runs[0]["launches"].get("decode_fused", 0)
+            else:
+                step = "ssd_step_int8" if kw.get("cache_dtype") == "int8" else "ssd_step"
+                ok &= runs[0]["launches"].get(step, 0) == n * (TP_GEN_NEW - 1)
+                ok &= runs[0]["launches"].get("gated_rms_norm_tp", 0) == n * TP_GEN_NEW
+            if name == "int8_state":
+                ok &= agree >= TP_INT8_AGREE
+            line["generate"]["runs"][name] = rec
+    emit({"tensor_parallel": line})
+    assert ok, line
+    fused_run = line["generate"]["runs"]["fused_bf16"]["launches"]
+    train_run = line["train"]["cases"]["tp_2"]["launches_per_rank"][0]
+    results["gated_rms_norm_tp"]["launches"] = fused_run.get("gated_rms_norm_tp", 0)
+    results["gated_rms_norm_tp"]["launches_train"] = train_run.get("gated_rms_norm_tp", 0)
+    results["gated_rms_norm_tp_bwd"]["launches"] = train_run.get("gated_rms_norm_tp_bwd", 0)
+    results["decode_fused_tp"]["launches"] = fused_run.get("decode_fused_tp", 0)
+    for name in list(KERNEL_FILES) + list(TP_KERNELS):
+        results[name]["launches_tp"] = {"generate_fused": fused_run.get(name, 0),
+                                        "train_step": train_run.get(name, 0)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one CUDA device",
@@ -5841,10 +6601,14 @@ def main() -> int:
     phase(multi_rank_phase, results, card)
     torch.cuda.empty_cache()
     phase(sequence_parallel_phase, results, card)
+    torch.cuda.empty_cache()
+    phase(check_tensor_parallel_kernels, gen, results)
+    torch.cuda.empty_cache()
+    phase(tensor_parallel_phase, results, card)
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name, (source, replaces) in KERNEL_FILES.items():
+    for name, (source, replaces) in {**KERNEL_FILES, **TP_KERNEL_FILES}.items():
         r = results[name]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         row.update({k: r[k] for k in keys})
@@ -5865,7 +6629,9 @@ def main() -> int:
             "mmu", "mmu_4_layers_fp32", "mmu_48_layers_b8", "launches_mmu_path", "launches_serve",
             "stage2_t2i", "stage2_mmu", "launches_stage2", "launches_per_stage2_step",
             "launches_distill", "launches_remat_policies", "launches_dp", "launches_fsdp",
-            "launches_sp")
+            "launches_sp", "launches_tp", "tp", "steps", "layers", "bit_for_bit",
+            "max_abs_err_vs_plain", "one_rank_k3b_ms", "one_rank_k6b_ms", "one_rank_k4_ms",
+            "decode", "launches_train")
                     if k in r})
         kernels.append(row)
     emit({"card": card, "seconds_total": time.time() - t_all, "seconds_by_phase": phase_s})

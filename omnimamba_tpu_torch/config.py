@@ -343,19 +343,14 @@ class SpecialTokens:
 
 def check_mesh_shape(shape: Dict[str, int]) -> None:
     """Raise for a training mesh the port cannot run: an axis other than dp,
-    fsdp and tp, a size below 1, or tp > 1 (head-parallel tp cuts d_inner,
-    over which the gated RMSNorm normalises: it needs a partial-sum form of
-    K3b, K6b and K4's gated phase, slice 6b)."""
+    fsdp and tp, or a size below 1. Whether tp divides the model's heads is
+    checked where the model is known (``train/trainer.check_train_mesh``)."""
     unknown = sorted(set(shape) - {"dp", "fsdp", "tp"})
     if unknown:
         raise ValueError(f"mesh_shape={shape}: a training mesh has the axes dp, fsdp and tp, "
                          f"not {unknown}")
     if any(int(v) < 1 for v in shape.values()):
         raise ValueError(f"mesh_shape={shape}: every axis needs at least one rank")
-    if int(shape.get("tp", 1)) > 1:
-        raise NotImplementedError(
-            f"mesh_shape={shape}: tp > 1 (head-parallel tensor parallelism) needs a "
-            "partial-sum gated RMSNorm and arrives with slice 6b (ROADMAP: slice 6b)")
 
 
 @dataclass
@@ -395,8 +390,8 @@ class TrainConfig:
     eval_steps: int = 0
     seed: int = 0
     num_workers: int = 16
-    # the training mesh (parallel/mesh.py): dp and fsdp of any size, an absent
-    # dp taking the ranks left over; tp > 1 raises until slice 6b
+    # the training mesh (parallel/mesh.py): dp, fsdp and tp (over the Mamba-2 heads,
+    # a divisor of them), an absent dp taking the ranks left over
     mesh_shape: Dict[str, int] = field(default_factory=lambda: {"dp": 1, "tp": 1})
     # gradient checkpointing over the blocks. True: checkpoint every block;
     # False: keep every activation; "proj_xbd", "proj_ssd", "proj_conv_ssd",

@@ -130,8 +130,21 @@ struct K4Args {
   float* xbc;            // (B, d_inner + 2N)
   float* dt;             // (B, H)
   void* ya;              // (B, d_inner) io type: (yf * w_gn) rounded
-  float* sumsq;          // (B, H)
-  float* part;           // (ksplit, B, d)
+  // the gated norm's sums of squares and out_proj's K-split partials: written
+  // to sumsq_out (B, H) and part_out (ksplit, B, d), read from sumsq and part.
+  // One rank: the same arrays. Under tp (heads cut over `tp` ranks, this rank's
+  // H from head h0 of Hdt) the host gathers every rank's block of both between
+  // layers: rank q's partials at part + q rank_stride and its sums at sumsq +
+  // q rank_stride, so a row's K splits (ksplit tp of them) and heads (H tp)
+  // are read in one rank's order (part_at, sumsq_at)
+  float* sumsq;
+  float* part;
+  float* sumsq_out;
+  float* part_out;
+  int tp;
+  long rank_stride;
+  int Hdt;  // the dt columns of in_proj: every head of the model
+  int h0;   // this rank's first head among them
   // (L + 1) tensor maps in host memory for the pair in_proj, W_in of each
   // layer then hn (omt_fused_decode_in_maps), copied into its launch
   // parameters; null on the other paths
@@ -147,6 +160,19 @@ __device__ __forceinline__ const T* layer_ptr(const K4Args& a, int op, int layer
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
+// the fp32 partial of K split s (of ksplit tp) of row b: rank s / ksplit's split
+__device__ __forceinline__ const float* part_at(const K4Args& a, int s, int b) {
+  const int q = s / a.ksplit, sl = s - q * a.ksplit;
+  return a.part + static_cast<size_t>(q) * a.rank_stride +
+         (static_cast<size_t>(sl) * a.B + b) * a.d;
+}
+
+// the sum of yf^2 of row b over head h (of H tp): rank h / H's head h % H
+__device__ __forceinline__ float sumsq_at(const K4Args& a, int b, int h) {
+  const int q = h / a.H, hl = h - q * a.H;
+  return a.sumsq[static_cast<size_t>(q) * a.rank_stride + static_cast<size_t>(b) * a.H + hl];
+}
+
 // ---------------------------------------------------------------------------
 // phase 1: finish the previous layer's out_proj, residual add, RMSNorm, hn @ A
 // ---------------------------------------------------------------------------
@@ -158,17 +184,16 @@ constexpr int kRowThreads = 1024;
 // are summed by the shuffle tree; every lane returns the value
 __device__ __forceinline__ float gated_rstd(const K4Args& a, int b, int lane) {
   float total = 0.0f;
-  for (int h = lane; h < a.H; h += 32) total += a.sumsq[static_cast<size_t>(b) * a.H + h];
+  for (int h = lane; h < a.H * a.tp; h += 32) total += sumsq_at(a, b, h);
   total = warp_sum(total);
-  return rsqrtf(total / static_cast<float>(a.d_inner) + a.gn_eps);
+  return rsqrtf(total / static_cast<float>(a.d_inner * a.tp) + a.gn_eps);
 }
 
 // element i of row b of the layer output: K splits summed in split order
 template <typename IO>
 __device__ __forceinline__ float finished_out_proj(const K4Args& a, int b, int i, float rstd) {
   float total = 0.0f;
-  for (int s = 0; s < a.ksplit; ++s)
-    total += a.part[(static_cast<size_t>(s) * a.B + b) * a.d + i];
+  for (int s = 0; s < a.ksplit * a.tp; ++s) total += part_at(a, s, b)[i];
   return to_float(from_float<IO>(total * rstd));
 }
 
@@ -396,17 +421,15 @@ __global__ void __launch_bounds__(kRowThreads) k4_prenorm_early_kernel(K4Args a,
     // every load of the row goes out before the first use of a loaded value
     constexpr bool kRead = !(OMT_K4_PRE_SKIP & 1);
     float sq[kPreMaxHeads / 32], p[kPreMaxKSplit][E], r0[E];
-    const float* sp = a.sumsq + static_cast<size_t>(b) * a.H;
+    const int heads = a.H * a.tp, splits = a.ksplit * a.tp;
 #pragma unroll
     for (int j = 0; j < kPreMaxHeads / 32; ++j)
-      sq[j] = (kRead && lane + 32 * j < a.H) ? sp[lane + 32 * j] : 0.0f;
+      sq[j] = (kRead && lane + 32 * j < heads) ? sumsq_at(a, b, lane + 32 * j) : 0.0f;
 #pragma unroll
     for (int s = 0; s < kPreMaxKSplit; ++s)
 #pragma unroll
       for (int k = 0; k < E; ++k)
-        p[s][k] = (kRead && s < a.ksplit)
-                      ? a.part[(static_cast<size_t>(s) * a.B + b) * a.d + t + k * kRowThreads]
-                      : 0.0f;
+        p[s][k] = (kRead && s < splits) ? part_at(a, s, b)[t + k * kRowThreads] : 0.0f;
 #pragma unroll
     for (int k = 0; k < E; ++k) r0[k] = res[t + k * kRowThreads];
 
@@ -414,17 +437,17 @@ __global__ void __launch_bounds__(kRowThreads) k4_prenorm_early_kernel(K4Args a,
     float total = 0.0f;
 #pragma unroll
     for (int j = 0; j < kPreMaxHeads / 32; ++j)
-      if (lane + 32 * j < a.H) total = __fadd_rn(total, sq[j]);
+      if (lane + 32 * j < heads) total = __fadd_rn(total, sq[j]);
     total = warp_sum(total);
-    const float rstd_prev = rsqrtf(__fadd_rn(__fdiv_rn(total, static_cast<float>(a.d_inner)),
-                                             a.gn_eps));
+    const float rstd_prev = rsqrtf(
+        __fadd_rn(__fdiv_rn(total, static_cast<float>(a.d_inner * a.tp)), a.gn_eps));
     // finished_out_proj: the K splits in split order, times rstd, rounded to bf16
 #pragma unroll
     for (int k = 0; k < E; ++k) {
       float o = 0.0f;
 #pragma unroll
       for (int s = 0; s < kPreMaxKSplit; ++s)
-        if (s < a.ksplit) o = __fadd_rn(o, p[s][k]);
+        if (s < splits) o = __fadd_rn(o, p[s][k]);
       v[k] = __fadd_rn(to_float(from_float<bf16>(__fmul_rn(o, rstd_prev))), r0[k]);
     }
   }
@@ -727,7 +750,7 @@ __device__ __forceinline__ void in_proj_place(const K4Args& a, int layer, int ro
     const int hh = col - a.d_inner - conv_ch;
     const float u = v + to_float(layer_ptr<WT>(a, kDtBias, layer)[hh]);
     // softplus, linear above 20 like torch.nn.functional.softplus
-    a.dt[static_cast<size_t>(row) * a.H + hh] = (u > 20.0f) ? u : log1pf(expf(u));
+    a.dt[static_cast<size_t>(row) * a.Hdt + hh] = (u > 20.0f) ? u : log1pf(expf(u));
   }
 }
 
@@ -755,7 +778,7 @@ __device__ __forceinline__ void in_proj_finish4(const K4Args& a, int layer,
                                                 float4 (&v)[ROWS], bool vec) {
   using IORaw = typename Raw4<IO>::type;
   const int conv_ch = a.d_inner + 2 * a.N;
-  const int n_in = a.d_inner + conv_ch + a.H;
+  const int n_in = a.d_inner + conv_ch + a.Hdt;
   if (!vec) {
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
@@ -847,7 +870,7 @@ __global__ void __launch_bounds__(kGemmThreads) k4_in_proj_kernel(K4Args a, int 
   __shared__ __align__(16) float Ws[kBK * kBN];
   static_assert(kTN == 4, "the epilogue takes four columns a thread");
 
-  const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
+  const int n_in = 2 * a.d_inner + 2 * a.N + a.Hdt;
   const int n0 = blockIdx.x * kBN;
   const int m0 = blockIdx.y * kBM;
 
@@ -898,7 +921,7 @@ __global__ void __launch_bounds__(kSsmThreads) k4_ssm_kernel(K4Args a, int layer
   }
   __syncthreads();
 
-  const float dtv = a.dt[bh];
+  const float dtv = a.dt[static_cast<size_t>(b) * a.Hdt + a.h0 + h];
   const float A = -expf(to_float(layer_ptr<WT>(a, kALog, layer)[h]));
   const float decay = expf(dtv * A);
   const float Dv = to_float(layer_ptr<WT>(a, kD, layer)[h]);
@@ -930,7 +953,7 @@ __global__ void __launch_bounds__(kSsmThreads) k4_ssm_kernel(K4Args a, int layer
   if (threadIdx.x == 0) {
     float total = 0.0f;
     for (int w = 0; w < kSsmThreads / 32; ++w) total += warp_ss[w];
-    a.sumsq[bh] = total;
+    a.sumsq_out[bh] = total;
   }
 }
 
@@ -1075,7 +1098,7 @@ k4_ssm_tile_kernel(K4Args a, int layer) {
   }
   const float xv = xrow[h * a.P + own];
   const float zv = a.z[chan + own];
-  const float dtv = a.dt[bh];
+  const float dtv = a.dt[static_cast<size_t>(b) * a.Hdt + a.h0 + h];
   const float decay = expf(__fmul_rn(dtv, A));
 
   // Each product and multiply-add is written out as k4_ssm_kernel's code
@@ -1126,7 +1149,7 @@ k4_ssm_tile_kernel(K4Args a, int layer) {
   if (threadIdx.x == 0) {
     float total = 0.0f;
     for (int w = 0; w < kSsmThreads / 32; ++w) total += warp_ss[w];
-    a.sumsq[bh] = total;
+    a.sumsq_out[bh] = total;
   }
 }
 
@@ -1179,7 +1202,7 @@ __global__ void __launch_bounds__(kGemmThreads) k4_out_proj_kernel(K4Args a, int
 
   const int tx = threadIdx.x % (kBN / kTN);
   const int ty = threadIdx.x / (kBN / kTN);
-  float* part = a.part + static_cast<size_t>(split) * a.B * a.d;
+  float* part = a.part_out + static_cast<size_t>(split) * a.B * a.d;
   float sc[kTN] = {1.0f, 1.0f, 1.0f, 1.0f};
   if constexpr (kInt8<PW>) {
     const float4 s4 = scale4(layer_ptr<float>(a, kOutScale, layer), n0 + tx * kTN, a.d);
@@ -1372,7 +1395,7 @@ template <int MT>
 __device__ __forceinline__ void in_pair_prefetch(const K4Args& a, const InPairOps& ops, int layer,
                                                  int row0, int n0) {
   const int conv_ch = a.d_inner + 2 * a.N;
-  const int n_in = a.d_inner + conv_ch + a.H;
+  const int n_in = a.d_inner + conv_ch + a.Hdt;
   const int ch = n0 - a.d_inner;
   const bool conv = ch >= 0 && ch < conv_ch;
   if (threadIdx.x == 0) {
@@ -1403,7 +1426,7 @@ __device__ __forceinline__ void in_pair_prefetch(const K4Args& a, const InPairOp
 template <int ROWS>
 __device__ __forceinline__ void in_pair_lora(const K4Args& a, const InPairOps& ops, int row0,
                                              int col, float4 (&lo)[ROWS]) {
-  const int n_in = 2 * a.d_inner + 2 * a.N + a.H;
+  const int n_in = 2 * a.d_inner + 2 * a.N + a.Hdt;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) lo[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int q0 = 0; q0 < a.r; q0 += 8) {
@@ -1490,7 +1513,7 @@ __device__ __forceinline__ void in_pair_finish(const K4Args& a, int layer, const
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       if (rows[i] >= a.B) continue;
-      store4(a.dt + static_cast<size_t>(rows[i]) * a.H + hh,
+      store4(a.dt + static_cast<size_t>(rows[i]) * a.Hdt + hh,
              make_float4(softplus(v[i].x + b4.x), softplus(v[i].y + b4.y),
                          softplus(v[i].z + b4.z), softplus(v[i].w + b4.w)));
     }
@@ -1705,7 +1728,7 @@ cudaError_t launch_in_proj_pair(const K4Args& a, int layer, cudaStream_t stream)
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   pdl.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * ((2 * a.d_inner + 2 * a.N + a.H) / kTcBN), (a.B + MT * 16 - 1) / (MT * 16));
+  cfg.gridDim = dim3(2 * ((2 * a.d_inner + 2 * a.N + a.Hdt) / kTcBN), (a.B + MT * 16 - 1) / (MT * 16));
   cfg.blockDim = dim3(InPair<MT, PW>::kThreads);
   cfg.dynamicSmemBytes = InPair<MT, PW>::kBytes;
   cfg.stream = stream;
@@ -1962,7 +1985,7 @@ k4_out_proj_pair_kernel(K4Args a, int layer, const __grid_constant__ CUtensorMap
   grid_dependency_wait();  // returned long ago: the producer's wait came first
   constexpr int R = P::kWarps * 2;  // rows a pass
   const int cg = threadIdx.x & 15, r0 = threadIdx.x >> 4;
-  float* part = a.part + static_cast<size_t>(split) * a.B * a.d + n0 + cg * 4;
+  float* part = a.part_out + static_cast<size_t>(split) * a.B * a.d + n0 + cg * 4;
 #pragma unroll
   for (int r = r0; r < 8 * MT; r += R) {
     const int row = m0 + (r >> 3) * 16 + static_cast<int>(rank) * 8 + (r & 7);
@@ -2051,7 +2074,7 @@ cudaError_t launch_in_proj(const K4Args& a, int layer, bool tensor_cores, cudaSt
   if constexpr (kBothBf16<IO, WT>) {
     if (tensor_cores) return launch_in_proj_pair<PW>(a, layer, stream);
   }
-  const dim3 in_grid((2 * a.d_inner + 2 * a.N + a.H + kBN - 1) / kBN, (a.B + kBM - 1) / kBM);
+  const dim3 in_grid((2 * a.d_inner + 2 * a.N + a.Hdt + kBN - 1) / kBN, (a.B + kBM - 1) / kBM);
   k4_in_proj_kernel<IO, WT, PW><<<in_grid, kGemmThreads, 0, stream>>>(a, layer);
   return cudaGetLastError();
 }
@@ -2071,7 +2094,12 @@ cudaError_t launch_out_proj(const K4Args& a, int layer, bool pair, cudaStream_t 
 }
 
 // phases that run_fused_decode can launch alone, for one layer (a measurement)
-enum K4Phase : int { kPhasePrenorm = 1, kPhaseInProj = 2, kPhaseSsm = 3, kPhaseOutProj = 4 };
+// kPhaseLayer: the four phases of one layer; kPhaseFinish: the step's last kernel alone
+// (the per-layer step of tp, which gathers every rank's sums between the layers)
+enum K4Phase : int {
+  kPhasePrenorm = 1, kPhaseInProj = 2, kPhaseSsm = 3, kPhaseOutProj = 4, kPhaseLayer = 5,
+  kPhaseFinish = 6
+};
 
 template <int E, int R>
 cudaError_t launch_prenorm_early(const cudaLaunchConfig_t& cfg, const K4Args& a, int layer) {
@@ -2131,7 +2159,7 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
     if (tensor_cores && (err = allow_smem_products<PW>(a.B)) != cudaSuccess) return err;
   }
   const bool early_prenorm =
-      kBothBf16<IO, WT> && tensor_cores && prenorm_row_fits(a.d, a.r, a.H, a.ksplit);
+      kBothBf16<IO, WT> && tensor_cores && prenorm_row_fits(a.d, a.r, a.H * a.tp, a.ksplit * a.tp);
   const bool out_pair =
       kBothBf16<IO, WT> && tensor_cores && out_pair_fits(a.d, a.d_inner, a.ksplit);
   // which reads its tiles through the plan's tensor maps: no other path stands in
@@ -2144,14 +2172,20 @@ cudaError_t run_fused_decode(const K4Args& a, bool whole_tiles, int layer_only, 
     return launch_ssm<IO, WT, ST>(a, layer_only, stream);
   if (layer_only >= 0 && phase_only == kPhaseOutProj)
     return launch_out_proj<IO, WT, PW>(a, layer_only, out_pair, stream);
-  if (layer_only >= 0) return cudaErrorInvalidValue;
+  if (layer_only >= 0 && phase_only == kPhaseFinish) {
+    k4_finish_kernel<IO><<<dim3(a.B), kRowThreads, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  if (layer_only >= 0 && phase_only != kPhaseLayer) return cudaErrorInvalidValue;
 
   for (int layer = 0; layer < a.L; ++layer) {
+    if (layer_only >= 0 && layer != layer_only) continue;
     if ((err = launch_prenorm<IO, WT>(a, layer, early_prenorm, stream)) != cudaSuccess) return err;
     if ((err = launch_in_proj<IO, WT, PW>(a, layer, tensor_cores, stream)) != cudaSuccess) return err;
     if ((err = launch_ssm<IO, WT, ST>(a, layer, stream)) != cudaSuccess) return err;
     if ((err = launch_out_proj<IO, WT, PW>(a, layer, out_pair, stream)) != cudaSuccess) return err;
   }
+  if (layer_only >= 0) return cudaSuccess;
   k4_finish_kernel<IO><<<dim3(a.B), kRowThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
@@ -2197,7 +2231,17 @@ cudaError_t run_fused_decode_state(const K4Args& a, int state_dtype, bool whole_
 // Activations and weights are both bf16 or both fp32; proj_dtype is w_dtype
 // or int8. `layer_only` < 0 runs the step; a layer index runs that layer's
 // phase `phase_only` alone (1: the pre-norm, 2: the in_proj, 3: the SSM
-// update, 4: the out_proj), as the step would launch it (a measurement).
+// update, 4: the out_proj), as the step would launch it (a measurement), or
+// (5) all four phases of that layer, or (6) the step's finishing kernel.
+// Under tp (`tp` > 1: heads cut over the ranks, K4-tp) the tables hold this
+// rank's slices (in_proj z | x | bc | dt of width 2 d_inner + 2N + Hdt, dt
+// for every one of the model's Hdt = H tp heads; A_log and D from head h0)
+// and the host runs the step layer by layer (5, then 6): a layer writes its
+// K-split partials to part_out (ksplit, B, d) and its sums of squares to
+// sumsq_out (B, H), the host gathers every rank's block of both into part and
+// sumsq, rank q's at q rank_stride floats, and the next layer's pre-norm (or
+// the finish) reads them in one rank's order of K splits and heads. With
+// tp = 1, Hdt = H, h0 = 0 and part_out / sumsq_out unused.
 // Everything is enqueued on `stream`; nothing synchronises. Returns the first
 // cudaError_t of a launch (0 = success).
 extern "C" int omt_fused_decode_step(
@@ -2206,10 +2250,12 @@ extern "C" int omt_fused_decode_step(
     void* ssm_state, const void* h_in, const void* res_in, void* h_out, void* res_out, void* hn,
     void* hA, void* z, void* xbc, void* dt, void* ya, void* sumsq, void* part, int io_dtype,
     int w_dtype, int state_dtype, int aligned16, int proj_dtype, const void* in_maps,
-    const void* out_maps, int layer_only, int phase_only, void* stream) {
+    const void* out_maps, int layer_only, int phase_only, int Hdt, int h0, int tp,
+    long rank_stride, void* part_out, void* sumsq_out, void* stream) {
   using namespace omt;
   if (L < 1 || B < 1 || d < 1 || W < 1 || r < 0 || N % 4 != 0 || H * P != d_inner ||
-      ksplit < 1 || ksplit > kMaxKSplit ||
+      ksplit < 1 || ksplit > kMaxKSplit || tp < 1 || h0 < 0 || h0 + H > Hdt ||
+      (tp > 1 && (Hdt != H * tp || part_out == nullptr || sumsq_out == nullptr)) ||
       2 * static_cast<size_t>(N) * sizeof(float) > 227 * 1024 ||
       static_cast<size_t>(d) * sizeof(float) > 227 * 1024 || (B + kBM - 1) / kBM > 65535 ||
       layer_only >= L)
@@ -2218,7 +2264,7 @@ extern "C" int omt_fused_decode_step(
   a.tab = static_cast<const void* const*>(tables);
   a.L = L; a.B = B; a.d = d; a.d_inner = d_inner; a.H = H; a.P = P; a.N = N; a.W = W;
   a.r = r; a.ksplit = ksplit;
-  a.vec4 = aligned16 != 0 && d_inner % 4 == 0 && H % 4 == 0;
+  a.vec4 = aligned16 != 0 && d_inner % 4 == 0 && H % 4 == 0 && Hdt % 4 == 0;
   a.lora_scale = lora_scale; a.norm_eps = norm_eps; a.gn_eps = gn_eps;
   a.conv_state = conv_state; a.ssm_state = ssm_state;
   a.h_in = h_in; a.res_in = static_cast<const float*>(res_in);
@@ -2227,11 +2273,14 @@ extern "C" int omt_fused_decode_step(
   a.xbc = static_cast<float*>(xbc); a.dt = static_cast<float*>(dt);
   a.ya = ya; a.sumsq = static_cast<float*>(sumsq);
   a.part = static_cast<float*>(part);
+  a.sumsq_out = static_cast<float*>(tp > 1 ? sumsq_out : sumsq);
+  a.part_out = static_cast<float*>(tp > 1 ? part_out : part);
+  a.tp = tp; a.rank_stride = rank_stride; a.Hdt = Hdt; a.h0 = h0;
   a.in_maps = static_cast<const CUtensorMap*>(in_maps);
   a.out_maps = static_cast<const CUtensorMap*>(out_maps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool whole = aligned16 != 0 && d % 64 == 0 && d_inner % 64 == 0 &&
-                     (2 * d_inner + 2 * N + H) % 64 == 0 && r <= kTcMaxRank;
+                     (2 * d_inner + 2 * N + Hdt) % 64 == 0 && r <= kTcMaxRank;
   using bf16 = __nv_bfloat16;
   if (io_dtype == kBF16 && w_dtype == kBF16 && proj_dtype == kBF16)
     return run_fused_decode_state<bf16, bf16, bf16>(a, state_dtype, whole, layer_only,

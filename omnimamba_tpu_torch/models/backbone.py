@@ -40,6 +40,13 @@ from omnimamba_tpu_torch.ops.norms import add_norm, rms_norm
 from omnimamba_tpu_torch.ops.quant import is_quantized, lookup_any, matmul_any
 from omnimamba_tpu_torch.ops.remat import BlockTape, check_remat, running
 from omnimamba_tpu_torch.parallel.sharding import whole
+from omnimamba_tpu_torch.parallel.tensor import (
+    kernel_leaf,
+    row_parallel,
+    tp_cut,
+    tp_enter,
+    tp_linear_cols,
+)
 from omnimamba_tpu_torch.utils.device import resolve_device
 from omnimamba_tpu_torch.utils.init import normal, trunc_normal, uniform
 
@@ -121,10 +128,19 @@ def _linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _fused_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """FusedMLPProjector forward: Lin-GELU-Lin-GELU-Lin, exact (erf) GELU."""
-    h = F.gelu(_linear(p["fc1"], x))
-    h = F.gelu(_linear(p["fc2"], h))
-    return _linear(p["fc3"], h)
+    """FusedMLPProjector forward: Lin-GELU-Lin-GELU-Lin, exact (erf) GELU.
+    Under tp (``parallel/sharding.py``) fc1 holds the rank's columns and
+    fc2's kernel the matching rows: fc1's bias (and an int8 fc1's scale) is
+    taken at those columns, fc2's partial product summed over the ranks in
+    fp32 and rounded once before its bias; fc3 is whole."""
+    tp = tp_cut(kernel_leaf(p["fc1"]["kernel"]))
+    if tp is None:
+        h = F.gelu(_linear(p["fc1"], x))
+        h = F.gelu(_linear(p["fc2"], h))
+        return _linear(p["fc3"], h)
+    h = F.gelu(tp_linear_cols(p["fc1"], tp_enter(x, tp), tp))
+    h = row_parallel(h, p["fc2"]["kernel"], tp) + p["fc2"]["bias"].to(h.dtype)
+    return _linear(p["fc3"], F.gelu(h))
 
 
 def embed_text(params: Dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:

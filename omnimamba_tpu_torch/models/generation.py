@@ -47,6 +47,7 @@ from omnimamba_tpu_torch.ops.sampling import (
     apply_repetition_penalty,
     sample_token,
 )
+from omnimamba_tpu_torch.parallel.tensor import backbone_tp, tp_same_tokens
 from omnimamba_tpu_torch.utils.device import require_on, resolve_device
 
 
@@ -144,6 +145,12 @@ def generate(
 
     Generation stops at the first step at which every row gave
     ``eos_token_id``; later positions of ``sequences`` are zero.
+
+    Under tp (``params`` holds a rank's heads, ``parallel/sharding.py``)
+    every rank of the group calls ``generate`` with the same arguments; the
+    caches hold the rank's heads, both decode paths run on them (the fused
+    one as K4-tp), and each step's tokens are the group's first rank's
+    (``tp_same_tokens``), so every rank returns the same stream.
     """
     device = resolve_device(device)
     require_on(device, input_ids=input_ids, input_embeddings=input_embeddings)
@@ -159,6 +166,7 @@ def generate(
     if decode_impl == "fused" and limit is not None:
         raise limit
     use_fused = decode_impl != "scan" and limit is None
+    tp = backbone_tp(params)
     B, L0 = input_ids.shape
     T_new = max_length - L0
     if T_new <= 0:
@@ -240,6 +248,8 @@ def generate(
         if teacher_outputs is not None:
             # teacher indexed by absolute position L0+n
             tok = teacher_outputs[:, L0 + n].to(device=device, dtype=torch.long)
+        else:
+            tok = tp_same_tokens(tok, tp)  # one stream across the tp ranks
         seen = tok
         if token_callback is not None:
             seen = tok.cpu()  # the callback reads every token; the watch reads this copy

@@ -33,6 +33,17 @@ For serving, in_proj and out_proj may be int8 ``{"kernel": {"q", "scale"}}``
 entries (``ops/quant.quantize_decode_params``); every product goes through
 ``ops/quant.matmul_any``, which takes either form, and the SSM state of a
 decode cache may be scaled int8 (``ops/quant.quantize_ssm_state``).
+
+Under head-parallel tp (``parallel/sharding.py``) a rank's mixer holds its
+H / tp heads: in_proj ``z_r | x_r | bc | dt`` (bc and dt whole), the conv's
+``x_r | bc`` channels, ``d_inner / tp`` entries of the norm's weight and
+rows of out_proj. Every function here reads the cut from its leaves
+(``parallel/tensor.mixer_tp``) and runs on the rank's heads: the stream
+enters through ``tp_enter``, dt is computed for every head and the rank
+takes its own (as dt_bias, A_log and D), the scan and the step run on the
+rank's heads, the gated norm takes its partial-sum form, and out_proj's
+partial product is summed over the ranks in fp32 (``row_parallel``). A decode cache
+holds the rank's heads and channels.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from omnimamba_tpu_torch.ops.ssd_chunked import ssd_chunked
 from omnimamba_tpu_torch.ops.ssd_kernel import ssd_fused
 from omnimamba_tpu_torch.ops.ssd_step_kernel import ssd_step_fused
 from omnimamba_tpu_torch.parallel.sequence import halo_left, ssd_sp_local
+from omnimamba_tpu_torch.parallel.tensor import row_parallel, tp_enter, tp_heads
 from omnimamba_tpu_torch.utils.init import uniform
 
 TASKS = ("t2i", "mmu")
@@ -132,6 +144,7 @@ def _project_parts(
     lora_cfg: Optional[LoraConfig],
     generator: Optional[torch.Generator] = None,
     split_z: bool = False,
+    di: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """in_proj (+ task LoRA) split into the {z, x, bc, dt} column slices. One
     product, or with ``split_z`` (the training forward) two: z and x | bc |
@@ -144,8 +157,10 @@ def _project_parts(
     ``chip_smoke.py``'s ``remat_policies``). Every checkpoint choice runs
     the same two. With a ``generator`` the LoRA branch sees ``x`` after
     dropout (keep probability ``1 - lora_cfg.dropout``, kept values scaled
-    up); ``generator=None`` means no dropout."""
-    di, gn2 = cfg.d_inner, 2 * cfg.ngroups * cfg.d_state
+    up); ``generator=None`` means no dropout. ``di``: the width of z and x
+    in these columns (a tp rank's ``d_inner / tp``; the whole by default)."""
+    di = cfg.d_inner if di is None else di
+    gn2 = 2 * cfg.ngroups * cfg.d_state
     kernel = params["in_proj"]["kernel"]
     if split_z:
         outs = [kept_product(("in_proj_z_out",), x, kernel[:, :di]),
@@ -200,9 +215,39 @@ def _dt_activation(dt_raw: torch.Tensor, dt_bias: torch.Tensor, cfg: Mamba2Layer
     return dt
 
 
-def _split_xbc(xbc: torch.Tensor, cfg: Mamba2LayerConfig):
-    di, gn = cfg.d_inner, cfg.ngroups * cfg.d_state
+def _split_xbc(xbc: torch.Tensor, cfg: Mamba2LayerConfig, di: Optional[int] = None):
+    di = cfg.d_inner if di is None else di
+    gn = cfg.ngroups * cfg.d_state
     return xbc[..., :di], xbc[..., di : di + gn], xbc[..., di + gn :]
+
+
+class _Heads(NamedTuple):
+    """The heads a mixer runs on: all, or a tp rank's ``count`` from ``first``."""
+
+    tp: object  # the mixer's TpCut, or None
+    first: int
+    count: int
+    di: int  # count * headdim
+
+
+def _heads(params: Dict, cfg: Mamba2LayerConfig) -> _Heads:
+    tp, first, count = tp_heads(params, cfg.nheads)
+    return _Heads(tp, first, count, count * cfg.headdim)
+
+
+def _out_proj(y: torch.Tensor, w, tp, train: bool) -> torch.Tensor:
+    """out_proj of the gated y: one card's product in y's type (named for
+    the checkpoint policies in the training forward). Under tp the rank's
+    rows give a partial product in fp32, summed over the ranks and rounded
+    to y's type once, as one card's product rounds its fp32 sums once."""
+    if tp is None:
+        return kept_product(("out_proj_out",), y, w) if train else matmul_any(y, w)
+    return row_parallel(y, w, tp, ("out_proj_out",) if train else ())
+
+
+def _own(v: torch.Tensor, heads: _Heads) -> torch.Tensor:
+    """The rank's heads of a per-head vector (..., H)."""
+    return v if heads.tp is None else v[..., heads.first:heads.first + heads.count]
 
 
 def mamba2_forward(
@@ -238,17 +283,19 @@ def mamba2_forward(
     padded positions are garbage; callers mask.
     """
     B, L, _ = x.shape
-    H, P, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
+    heads = _heads(params, cfg)
+    H, P, G, N = heads.count, cfg.headdim, cfg.ngroups, cfg.d_state
+    x = tp_enter(x, heads.tp)
 
     # the training forward takes the operators a checkpoint policy can name
     train = initial_cache is None and _records_grad(params, x)
-    parts = _project_parts(params, x, task, cfg, lora_cfg, generator, split_z=train)
+    parts = _project_parts(params, x, task, cfg, lora_cfg, generator, split_z=train, di=heads.di)
     z, xbc_raw = parts["z"], parts["xbc"]
     conv = params["conv"]
     halo = initial_cache.conv_state if initial_cache is not None else None
     if train and keeps("conv_out"):
         # the policy keeps the conv of x alone, as JAX names it: x and bc apart
-        di, w, b = cfg.d_inner, conv["weight"], conv["bias"]
+        di, w, b = heads.di, conv["weight"], conv["bias"]
         xs = causal_conv1d_train(xbc_raw[..., :di], w[:, :di], b[:di], ("conv_out",))
         bc = causal_conv1d_train(xbc_raw[..., di:], w[:, di:], b[di:], ("conv_bc_out",))
         gn = cfg.ngroups * cfg.d_state
@@ -256,16 +303,17 @@ def mamba2_forward(
     elif train:
         # one call: the conv is per channel, so x's columns come out as above
         xbc = causal_conv1d_train(xbc_raw, conv["weight"], conv["bias"], ())
-        xs, Bm, Cm = _split_xbc(xbc, cfg)
+        xs, Bm, Cm = _split_xbc(xbc, cfg, heads.di)
     else:
         xbc = causal_conv1d(xbc_raw, conv["weight"], conv["bias"], initial_state=halo)
-        xs, Bm, Cm = _split_xbc(xbc, cfg)
-    dt = _dt_activation(parts["dt"], params["dt_bias"], cfg)
+        xs, Bm, Cm = _split_xbc(xbc, cfg, heads.di)
+    dt = _own(_dt_activation(parts["dt"], params["dt_bias"], cfg), heads)
     if valid_len is not None:
         v = torch.as_tensor(valid_len, device=x.device).reshape(-1, 1, 1)
         keep = torch.arange(L, device=x.device)[None, :, None] < v
         dt = torch.where(keep, dt, torch.zeros_like(dt))
-    A = -torch.exp(params["A_log"].float())
+    A = _own(-torch.exp(params["A_log"].float()), heads)
+    D = _own(params["D"], heads)
 
     xh = xs.reshape(B, L, H, P)
     Bh = Bm.reshape(B, L, G, N)
@@ -275,7 +323,7 @@ def mamba2_forward(
     if isinstance(init_state, dict):  # continuing from a scaled-int8 decode state
         init_state = dequantize_ssm_state(init_state)
     if init_state is None:
-        y, final_state = ssd_fused(xh, dt, A, Bh, Ch, params["D"])
+        y, final_state = ssd_fused(xh, dt, A, Bh, Ch, D)
     else:
         q = cfg.chunk_size
         if L < q:
@@ -283,15 +331,12 @@ def mamba2_forward(
             # intra-chunk block of a short window to the full chunk width
             q = max(16, 1 << (L - 1).bit_length())
         y, final_state = ssd_chunked(
-            xh, dt, A, Bh, Ch, params["D"], chunk_size=q, initial_state=init_state
+            xh, dt, A, Bh, Ch, D, chunk_size=q, initial_state=init_state
         )
 
-    y = y.reshape(B, L, cfg.d_inner)
-    y = gated_rms_norm(y, z, params["norm"]["weight"], cfg.norm_eps)
-    if train:
-        out = kept_product(("out_proj_out",), y, params["out_proj"]["kernel"])
-    else:
-        out = matmul_any(y, params["out_proj"]["kernel"])
+    y = y.reshape(B, L, heads.di)
+    y = gated_rms_norm(y, z, params["norm"]["weight"], cfg.norm_eps, tp=heads.tp)
+    out = _out_proj(y, params["out_proj"]["kernel"], heads.tp, train)
 
     cache = None
     if return_cache:
@@ -325,21 +370,23 @@ def mamba2_forward_sp_local(
     previous rank's last W-1 inputs as its left context (``halo_left``, x
     and bc in one gather: the conv is per channel), the scan passes states
     across ranks (``ssd_sp_local``: K1 from a zero state, then the
-    correction), then K3b and out_proj. Without a gradient, as prefill runs."""
+    correction), then K3b and out_proj. Without a gradient, as prefill runs.
+    Under tp as well, on the rank's heads (the module's docstring)."""
     B, L, _ = x.shape
-    H, P, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
-    parts = _project_parts(params, x, task, cfg, lora_cfg)
+    heads = _heads(params, cfg)
+    H, P, G, N = heads.count, cfg.headdim, cfg.ngroups, cfg.d_state
+    parts = _project_parts(params, x, task, cfg, lora_cfg, di=heads.di)
     conv = params["conv"]
     halo = halo_left(parts["xbc"], cfg.d_conv - 1, group)
     xbc = causal_conv1d(parts["xbc"], conv["weight"], conv["bias"], initial_state=halo)
-    xs, Bm, Cm = _split_xbc(xbc, cfg)
-    dt = _dt_activation(parts["dt"], params["dt_bias"], cfg)
-    A = -torch.exp(params["A_log"].float())
+    xs, Bm, Cm = _split_xbc(xbc, cfg, heads.di)
+    dt = _own(_dt_activation(parts["dt"], params["dt_bias"], cfg), heads)
+    A = _own(-torch.exp(params["A_log"].float()), heads)
     y, _ = ssd_sp_local(xs.reshape(B, L, H, P), dt, A, Bm.reshape(B, L, G, N),
-                        Cm.reshape(B, L, G, N), params["D"], group=group)
-    y = gated_rms_norm(y.reshape(B, L, cfg.d_inner), parts["z"], params["norm"]["weight"],
-                       cfg.norm_eps)
-    return matmul_any(y, params["out_proj"]["kernel"])
+                        Cm.reshape(B, L, G, N), _own(params["D"], heads), group=group)
+    y = gated_rms_norm(y.reshape(B, L, heads.di), parts["z"], params["norm"]["weight"],
+                       cfg.norm_eps, tp=heads.tp)
+    return _out_proj(y, params["out_proj"]["kernel"], heads.tp, False)
 
 
 def init_cache(
@@ -367,20 +414,22 @@ def mamba2_step(
     overwrites the SSM state) and returns it; the JAX function returns a new
     cache and leaves its argument alone."""
     B = x_t.shape[0]
-    H, P, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
+    heads = _heads(params, cfg)
+    H, P, G, N = heads.count, cfg.headdim, cfg.ngroups, cfg.d_state
 
-    parts = _project_parts(params, x_t, task, cfg, lora_cfg)
+    parts = _project_parts(params, x_t, task, cfg, lora_cfg, di=heads.di)
     conv = params["conv"]
     xbc, new_conv = causal_conv1d_step(
         parts["xbc"], cache.conv_state, conv["weight"], conv["bias"])
     cache.conv_state.copy_(new_conv)
-    xs, Bm, Cm = _split_xbc(xbc, cfg)
-    dt = _dt_activation(parts["dt"], params["dt_bias"], cfg)  # (B, H)
-    A = -torch.exp(params["A_log"].float())
+    xs, Bm, Cm = _split_xbc(xbc, cfg, heads.di)
+    dt = _own(_dt_activation(parts["dt"], params["dt_bias"], cfg), heads)  # (B, H)
+    A = _own(-torch.exp(params["A_log"].float()), heads)
 
     y, _ = ssd_step_fused(
         xs.reshape(B, H, P), dt, A, Bm.reshape(B, G, N), Cm.reshape(B, G, N),
-        params["D"], cache.ssm_state,
+        _own(params["D"], heads), cache.ssm_state,
     )
-    y = gated_rms_norm(y.reshape(B, cfg.d_inner), parts["z"], params["norm"]["weight"], cfg.norm_eps)
-    return matmul_any(y, params["out_proj"]["kernel"]), cache
+    y = gated_rms_norm(y.reshape(B, heads.di), parts["z"], params["norm"]["weight"], cfg.norm_eps,
+                       tp=heads.tp)
+    return _out_proj(y, params["out_proj"]["kernel"], heads.tp, False), cache

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from omnimamba_tpu_torch.ops.resize import resize
+from omnimamba_tpu_torch.parallel.tensor import row_parallel, tp_cut, tp_enter, tp_linear_cols
 from omnimamba_tpu_torch.utils.device import resolve_device
 from omnimamba_tpu_torch.utils.init import linear_uniform, uniform
 
@@ -98,7 +99,25 @@ def init_projector(generator: torch.Generator, vision_dim: int, llm_dim: int,
 
 
 def apply_projector(params: Dict, x: torch.Tensor, arch: str = "fused-gelu-mlp") -> torch.Tensor:
+    """The projector of ``arch`` on the towers' features. Under tp
+    (``parallel/sharding.py``: fc1 by columns, fc2's kernel by rows) fc1
+    runs on the rank's columns and fc2's partial product is summed over the
+    ranks in fp32 and rounded once before its bias."""
     arch = canonical_arch(arch)
+    tp = tp_cut(params["fc1"]["kernel"])
+    if tp is not None:
+        if arch == "linear":
+            raise NotImplementedError(
+                "tp cuts the projector's fc1 by columns: a linear projector has no fc2 to sum "
+                "them back (use a mesh without tp)")
+        h = F.gelu(tp_linear_cols(params["fc1"], tp_enter(x, tp), tp))
+        h = (row_parallel(h, params["fc2"]["kernel"].to(h.dtype), tp)
+             + params["fc2"]["bias"].to(h.dtype))
+        if arch == "fused-gelu-mlp":
+            return _apply(params["fc3"], F.gelu(h))
+        if arch in ("ldpnet", "fused-ldpnet"):
+            return _pos_inject(params, _token_down(h))
+        return h
     if arch == "linear":
         return _apply(params["fc1"], x)
     if arch == "fused-gelu-mlp":

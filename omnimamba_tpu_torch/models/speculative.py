@@ -28,6 +28,11 @@ The loop is host Python, one round a verify pass, with ONE host read a round
 (the drafts and the target's argmax chain together); the committed sequence
 lives on the host. The draft's steps run through the whole-model decode
 kernel wherever its limits are met, as ``generate``'s "auto" does.
+
+Under tp (the target's and the draft's layers hold a rank's heads,
+``parallel/sharding.py``) every rank of the group runs the same loop, and
+every argmax is the group's first rank's (``tp_same_tokens``), so the
+committed sequence is one and the same on every rank.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from omnimamba_tpu_torch.models.backbone import (
     embed_decode_window,
 )
 from omnimamba_tpu_torch.ops.decode_fused import fused_decode_limits, prepare_fused_decode
+from omnimamba_tpu_torch.parallel.tensor import backbone_tp, tp_same_tokens
 from omnimamba_tpu_torch.utils.device import require_on, resolve_device
 
 
@@ -127,7 +133,8 @@ def speculative_generate(
     hidden, t_cache = backbone_forward(params, input_embeddings, task, cfg, return_cache=True)
     if cache_dtype is not None:
         t_cache = t_cache._replace(ssm_state=t_cache.ssm_state.to(cache_dtype))
-    c0 = int(torch.argmax(apply_head(params, hidden[:, -1], task), dim=-1)[0])
+    tp, d_tp = backbone_tp(params), backbone_tp(draft_params)
+    c0 = int(tp_same_tokens(torch.argmax(apply_head(params, hidden[:, -1], task), dim=-1), tp)[0])
 
     d_cache, step, step_kw = None, None, {}
     if use_model_draft:
@@ -168,13 +175,14 @@ def speculative_generate(
             h_d, d_base = cont(draft_params, d_cache, d_tok, d_pos, du, draft_cfg)
             # the pass consumed seq[:n_commit]; its last real row predicts the first draft
             last = h_d[:, min(max(du - 1, 0), W - 1)]
-            tok = torch.argmax(apply_head(draft_params, last, task), dim=-1)  # (1,)
+            tok = tp_same_tokens(torch.argmax(apply_head(draft_params, last, task), dim=-1),
+                                 d_tp)  # (1,)
             drafts_dev = [tok]
             work = _clone_cache(d_base)  # the steps update in place; d_base is kept
             for i in range(K - 1):
                 h, _ = step(draft_params, tok, n_commit + i, work, task, draft_cfg, dtype=dtype,
                             **step_kw)
-                tok = torch.argmax(apply_head(draft_params, h, task), dim=-1)
+                tok = tp_same_tokens(torch.argmax(apply_head(draft_params, h, task), dim=-1), d_tp)
                 drafts_dev.append(tok)
             drafts_dev = torch.cat(drafts_dev)  # (K,) on the device
             d_cache = d_base
@@ -204,7 +212,7 @@ def speculative_generate(
         h, t_new = cont(params, t_cache, wtok[None], t_pos, v, cfg)
         if cache_dtype is not None:
             t_new = t_new._replace(ssm_state=t_new.ssm_state.to(cache_dtype))
-        preds = torch.argmax(apply_head(params, h[0], task), dim=-1)  # (W,)
+        preds = tp_same_tokens(torch.argmax(apply_head(params, h[0], task), dim=-1), tp)  # (W,)
         both = torch.cat([drafts_dev, preds]).cpu().numpy()  # ONE host read a round
         drafts, preds_h = both[:K], both[K:]
 

@@ -161,11 +161,19 @@ def _load() -> ctypes.CDLL:
     lib.omt_ssd_scan_bwd.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 8 + [ptr]
     lib.omt_ssd_step_q8.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 6 + [ptr]
     lib.omt_fused_decode_step.argtypes = (
-        [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr, ptr, i32, i32, ptr])
+        [ptr] + [i32] * 10 + [f32] * 3 + [ptr] * 14 + [i32] * 5 + [ptr, ptr, i32, i32]
+        + [i32] * 3 + [i64, ptr, ptr, ptr])
     lib.omt_fused_decode_in_maps.argtypes = [ptr] + [i32] * 5 + [ptr] * 2
     lib.omt_qmatmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.omt_qmatmul_pair_plan.argtypes = [i32] * 3 + [ptr]
     lib.omt_gated_rms_norm_bwd_blocks_per_sm.argtypes = [i64] * 3 + [i32] * 4
+    lib.omt_gated_rms_norm_bwd_row_kernel_taken.argtypes = [i64] * 3 + [i32] * 3
+    lib.omt_gated_norm_sums.argtypes = [ptr] * 3 + [i64] * 3 + [i32, i32, i32, ptr]
+    lib.omt_gated_norm_apply.argtypes = (
+        [ptr] * 5 + [i64] * 3 + [i32, i32, f32, i32, i32, i32, ptr])
+    lib.omt_gated_norm_bwd_sums.argtypes = [ptr] * 5 + [i64] * 4 + [i32] * 5 + [ptr]
+    lib.omt_gated_norm_bwd_finish.argtypes = (
+        [ptr] * 10 + [i64] * 4 + [i32, i32, f32, i32, i32, i32, i32, ptr])
     for fn in (lib.omt_ssd_scan_bf16_smem_bytes, lib.omt_ssd_scan_bwd_bf16_smem_bytes):
         fn.argtypes = [i32, i32]
         fn.restype = i64
@@ -173,7 +181,10 @@ def _load() -> ctypes.CDLL:
                lib.omt_gated_rms_norm_bwd, lib.omt_ssd_step, lib.omt_ssd_step_q8, lib.omt_ssd_scan,
                lib.omt_ssd_scan_bwd, lib.omt_fused_decode_step, lib.omt_fused_decode_in_maps,
                lib.omt_qmatmul, lib.omt_qmatmul_pair_plan,
-               lib.omt_gated_rms_norm_bwd_blocks_per_sm):
+               lib.omt_gated_rms_norm_bwd_blocks_per_sm,
+               lib.omt_gated_rms_norm_bwd_row_kernel_taken, lib.omt_gated_norm_sums,
+               lib.omt_gated_norm_apply, lib.omt_gated_norm_bwd_sums,
+               lib.omt_gated_norm_bwd_finish):
         fn.restype = ctypes.c_int
     return lib
 

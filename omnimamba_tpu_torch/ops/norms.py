@@ -9,7 +9,10 @@ Counterpart of ``omnimamba_tpu/ops/norms.py``. The numerics contract:
 ``add_norm_plain`` and ``gated_rms_norm_plain`` are plain tensor code and
 are the plain versions of the two forward kernels in ``norms_kernel.py``;
 ``add_norm_bwd_plain`` and ``gated_rms_norm_bwd_plain`` are those of the two
-backward kernels.
+backward kernels. Under tp (``d_inner`` cut over heads) the gated norm runs in
+partial-sum form: ``gated_norm_sums_plain`` / ``gated_norm_apply_plain``
+forward and ``gated_norm_bwd_sums_plain`` / ``gated_norm_bwd_finish_plain``
+backward, each row's sums all-reduced over the ranks between the two.
 ``add_norm`` and ``gated_rms_norm`` are what the model calls: they go to
 the kernel wrappers, which launch the kernel for a CUDA tensor and use the
 plain version for a CPU tensor. There is no size guard and no switch: a
@@ -116,6 +119,53 @@ def gated_rms_norm_bwd_plain(
     return dy.to(y.dtype), dz.to(z.dtype), dw
 
 
+def gated_norm_sums_plain(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of u^2 over its columns, u = y silu(z), fp32 (...,):
+    the partial sum a tp rank of the gated norm contributes."""
+    u = y.float() * F.silu(z.float())
+    return torch.sum(u * u, dim=-1)
+
+
+def gated_norm_apply_plain(
+    y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, sums: torch.Tensor, d: int,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """u rsqrt(sums / d + eps) w in y.dtype, with each row's sum of u^2 over
+    the whole width ``d`` given (``sums``, fp32 (...,)): the gated norm of
+    the rank's columns of a row whose sum was all-reduced over the tp ranks."""
+    u = y.float() * F.silu(z.float())
+    rstd = torch.rsqrt(sums.float()[..., None] / d + eps)
+    return (u * rstd * weight.float()).to(y.dtype)
+
+
+def gated_norm_bwd_sums_plain(
+    y: torch.Tensor, z: torch.Tensor, g: torch.Tensor, weight: torch.Tensor
+) -> torch.Tensor:
+    """Each row's sum of w g u over its columns, fp32 (...,): the backward's
+    partial sum of a tp rank."""
+    u = y.float() * F.silu(z.float())
+    return torch.sum(weight.float() * g.float() * u, dim=-1)
+
+
+def gated_norm_bwd_finish_plain(
+    y: torch.Tensor, z: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
+    sums: torch.Tensor, dots: torch.Tensor, d: int, eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``gated_rms_norm_bwd_plain`` on the rank's columns, with each row's
+    sum of u^2 and of w g u over the whole width ``d`` given (fp32 (...,)):
+    (dy, dz in y's type, dw fp32 of the rank's columns, summed over rows)."""
+    yf, zf, gf, wf = y.float(), z.float(), g.float(), weight.float()
+    sz = torch.sigmoid(zf)
+    silu = zf * sz
+    u = yf * silu
+    rstd = torch.rsqrt(sums.float()[..., None] / d + eps)
+    du = wf * gf * rstd - u * (rstd * rstd * rstd / d) * dots.float()[..., None]
+    dy = du * silu
+    dz = du * yf * (sz * (1.0 + zf * (1.0 - sz)))
+    dw = torch.sum((gf * u * rstd).reshape(-1, y.shape[-1]), dim=0)
+    return dy.to(y.dtype), dz.to(z.dtype), dw
+
+
 def add_norm(
     x: torch.Tensor,
     residual: Optional[torch.Tensor],
@@ -132,9 +182,14 @@ def add_norm(
 
 
 def gated_rms_norm(
-    y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
+    y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, tp=None
 ) -> torch.Tensor:
-    """RMSNorm(y * silu(z)) * weight on the mixer stream."""
-    from omnimamba_tpu_torch.ops.norms_kernel import fused_gated_rms_norm
+    """RMSNorm(y * silu(z)) * weight on the mixer stream. ``tp``: the tp cut
+    of a mixer whose ``d_inner`` is cut over heads (``parallel/tensor.py``):
+    y, z and weight are then the rank's columns and the row's statistics are
+    summed over the ranks (``norms_kernel.fused_gated_rms_norm_tp``)."""
+    from omnimamba_tpu_torch.ops.norms_kernel import fused_gated_rms_norm, fused_gated_rms_norm_tp
 
+    if tp is not None:
+        return fused_gated_rms_norm_tp(y, z, weight, eps, tp)
     return fused_gated_rms_norm(y, z, weight, eps)

@@ -43,6 +43,13 @@ through ``torch.autograd.Function``s that save what the JAX VJPs save
 backward kernel. An absent cotangent of the residual stream is ``None``: the
 kernel gets a null pointer and reads nothing in its place.
 
+Under tp over heads (``d_inner`` cut, ``parallel/tensor.py``) the gated
+norm runs in partial-sum form, K3b-tp and K6b-tp (``fused_gated_rms_norm_tp``):
+the K3b and K6b kernels run twice with their row-sums switch (``RowSums`` in
+``csrc/norms.cu``), first writing each row's fp32 partial sum over the
+rank's columns, then, after an all-reduce of those sums over the tp ranks,
+reading them in place of their own.
+
 For a tensor on the CPU the wrappers use the plain versions from
 ``norms.py``, forward and backward; for a CUDA tensor they launch the kernel
 or raise.
@@ -59,9 +66,14 @@ from omnimamba_tpu_torch.ops import kernel_build as kb
 from omnimamba_tpu_torch.ops.norms import (
     add_norm_bwd_plain,
     add_norm_plain,
+    gated_norm_apply_plain,
+    gated_norm_bwd_finish_plain,
+    gated_norm_bwd_sums_plain,
+    gated_norm_sums_plain,
     gated_rms_norm_bwd_plain,
     gated_rms_norm_plain,
 )
+from omnimamba_tpu_torch.parallel.tensor import tp_all_reduce
 
 BWD_BLOCKS = 528  # most blocks of a backward grid: four on each of an H100's 132 SMs
 
@@ -260,6 +272,20 @@ def gated_bwd_blocks_per_sm(y, z, g, weight) -> int:
     return n
 
 
+def gated_bwd_kernel_of(y, z, g, weight) -> str:
+    """Name of the kernel ``fused_gated_rms_norm_bwd`` launches for these CUDA
+    tensors, by the test its C launcher branches on."""
+    if not y.is_cuda:
+        raise ValueError("gated_bwd_kernel_of asks the card's launcher: give CUDA tensors")
+    d = y.shape[-1]
+    (y2, y_rs), (z2, z_rs), (g2, g_rs) = kb.as_rows(y, 1), kb.as_rows(z, 1), kb.as_rows(g, 1)
+    w = _check_weight(weight, d, y.device)
+    row = kb.load_kernels().omt_gated_rms_norm_bwd_row_kernel_taken(
+        y_rs, z_rs, g_rs, d, kb.dtype_code(y2.dtype),
+        _vectorizable(d, (y_rs, z_rs, g_rs), (y2, z2, g2, w)))
+    return "gated_rms_norm_bwd_row_kernel" if row else "gated_rms_norm_bwd_kernel"
+
+
 class _GatedRmsNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, z, weight, eps):
@@ -288,8 +314,156 @@ def fused_gated_rms_norm(
     return _gated_norm_forward(y, z, weight, eps)
 
 
+# ---------------------------------------------------------------------------
+# the gated norm in partial-sum form (tp over heads): K3b-tp and K6b-tp
+# ---------------------------------------------------------------------------
+
+
+def _gated_rows(y, z, weight, g=None):
+    if z.shape != y.shape or z.dtype != y.dtype or z.device != y.device:
+        raise ValueError("z must match y in shape, dtype and device")
+    if g is not None and (g.shape != y.shape or g.dtype != y.dtype or g.device != y.device):
+        raise ValueError("g must match y in shape, dtype and device")
+    d = y.shape[-1]
+    rows = y.numel() // d if d else 0
+    return d, rows, _check_weight(weight, d, y.device)
+
+
+def gated_norm_sums(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """K3b-tp's first pass: each row's fp32 sum of u^2 over the rank's
+    columns, u = y silu(z), shape y.shape[:-1]. Numerics of
+    ``norms.gated_norm_sums_plain``."""
+    if not y.is_cuda:
+        return gated_norm_sums_plain(y, z)
+    if z.shape != y.shape or z.dtype != y.dtype or z.device != y.device:
+        raise ValueError("z must match y in shape, dtype and device")
+    d = y.shape[-1]
+    rows = y.numel() // d if d else 0
+    (y2, y_rs), (z2, z_rs) = kb.as_rows(y, 1), kb.as_rows(z, 1)
+    sums = torch.empty(y.shape[:-1], dtype=torch.float32, device=y.device)
+    if rows:
+        err = kb.load_kernels().omt_gated_norm_sums(
+            y2.data_ptr(), z2.data_ptr(), sums.data_ptr(), y_rs, z_rs, rows, d,
+            kb.dtype_code(y2.dtype), _vectorizable(d, (y_rs, z_rs), (y2, z2)),
+            kb.current_stream(y.device))
+        kb.check_launch(err, "gated_norm_sums")
+        gated_norm_sums.launches += 1
+    return sums
+
+
+def gated_norm_apply(y, z, weight, sums: torch.Tensor, d_full: int, eps: float = 1e-5):
+    """K3b-tp's second pass: u rsqrt(sums / d_full + eps) w on the rank's
+    columns, in y's type, with each row's sum over the whole width (fp32,
+    y.shape[:-1]). Numerics of ``norms.gated_norm_apply_plain``."""
+    if not y.is_cuda:
+        return gated_norm_apply_plain(y, z, weight, sums, d_full, eps)
+    d, rows, w = _gated_rows(y, z, weight)
+    if sums.shape != y.shape[:-1] or sums.dtype != torch.float32 or not sums.is_contiguous():
+        raise ValueError("sums must be a contiguous float32 tensor of y's rows")
+    (y2, y_rs), (z2, z_rs) = kb.as_rows(y, 1), kb.as_rows(z, 1)
+    out = torch.empty_like(y, memory_format=torch.contiguous_format)
+    if rows:
+        err = kb.load_kernels().omt_gated_norm_apply(
+            y2.data_ptr(), z2.data_ptr(), w.data_ptr(), sums.data_ptr(), out.data_ptr(), y_rs,
+            z_rs, rows, d, int(d_full), float(eps), kb.dtype_code(y2.dtype),
+            kb.dtype_code(w.dtype), _vectorizable(d, (y_rs, z_rs), (y2, z2, w, out)),
+            kb.current_stream(y.device))
+        kb.check_launch(err, "gated_norm_apply")
+        gated_norm_apply.launches += 1
+    return out
+
+
+def gated_norm_bwd_sums(y, z, g, weight) -> torch.Tensor:
+    """K6b-tp's first pass: each row's fp32 sum of w g u over the rank's
+    columns. Numerics of ``norms.gated_norm_bwd_sums_plain``."""
+    if not y.is_cuda:
+        return gated_norm_bwd_sums_plain(y, z, g, weight)
+    d, rows, w = _gated_rows(y, z, weight, g)
+    (y2, y_rs), (z2, z_rs), (g2, g_rs) = kb.as_rows(y, 1), kb.as_rows(z, 1), kb.as_rows(g, 1)
+    dots = torch.empty(y.shape[:-1], dtype=torch.float32, device=y.device)
+    if rows:
+        err = kb.load_kernels().omt_gated_norm_bwd_sums(
+            y2.data_ptr(), z2.data_ptr(), g2.data_ptr(), w.data_ptr(), dots.data_ptr(), y_rs,
+            z_rs, g_rs, rows, d, kb.dtype_code(y2.dtype), kb.dtype_code(w.dtype),
+            _vectorizable(d, (y_rs, z_rs, g_rs), (y2, z2, g2, w)), max(1, min(rows, BWD_BLOCKS)),
+            kb.current_stream(y.device))
+        kb.check_launch(err, "gated_norm_bwd_sums")
+        gated_norm_bwd_sums.launches += 1
+    return dots
+
+
+def gated_norm_bwd_finish(y, z, g, weight, sums, dots, d_full: int, eps: float = 1e-5):
+    """K6b-tp's second pass: (dy, dz in y's type, the rank's dw fp32) from
+    each row's sums of u^2 and of w g u over the whole width. Numerics of
+    ``norms.gated_norm_bwd_finish_plain``."""
+    if not y.is_cuda:
+        return gated_norm_bwd_finish_plain(y, z, g, weight, sums, dots, d_full, eps)
+    d, rows, w = _gated_rows(y, z, weight, g)
+    for name, t in (("sums", sums), ("dots", dots)):
+        if t.shape != y.shape[:-1] or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor of y's rows")
+    (y2, y_rs), (z2, z_rs), (g2, g_rs) = kb.as_rows(y, 1), kb.as_rows(z, 1), kb.as_rows(g, 1)
+    blocks = max(1, min(rows, BWD_BLOCKS))
+    dy = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    dz = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+    dw = torch.zeros((d,), dtype=torch.float32, device=y.device)
+    if rows:
+        dw_part = torch.empty((blocks, d), dtype=torch.float32, device=y.device)
+        err = kb.load_kernels().omt_gated_norm_bwd_finish(
+            y2.data_ptr(), z2.data_ptr(), g2.data_ptr(), w.data_ptr(), sums.data_ptr(),
+            dots.data_ptr(), dy.data_ptr(), dz.data_ptr(), dw.data_ptr(), dw_part.data_ptr(),
+            y_rs, z_rs, g_rs, rows, d, int(d_full), float(eps), kb.dtype_code(y2.dtype),
+            kb.dtype_code(w.dtype), _vectorizable(d, (y_rs, z_rs, g_rs), (y2, z2, g2, w, dy, dz, dw_part)),
+            blocks, kb.current_stream(y.device))
+        kb.check_launch(err, "gated_norm_bwd_finish")
+        gated_norm_bwd_finish.launches += 1
+    return dy, dz, dw
+
+
+class _GatedRmsNormTp(torch.autograd.Function):
+    """The gated norm of a rank's columns of d_inner under tp: the rows'
+    sums all-reduced over the tp ranks between the two passes, forward and
+    backward. Saves the all-reduced sums of u^2 for the backward."""
+
+    @staticmethod
+    def forward(ctx, y, z, weight, eps, cut):
+        sums = tp_all_reduce(gated_norm_sums(y, z), cut)
+        ctx.eps, ctx.cut, ctx.d_full = eps, cut, y.shape[-1] * cut.size
+        ctx.save_for_backward(y, z, weight, sums)
+        return gated_norm_apply(y, z, weight, sums, ctx.d_full, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        y, z, weight, sums = ctx.saved_tensors
+        dots = tp_all_reduce(gated_norm_bwd_sums(y, z, g, weight), ctx.cut)
+        dy, dz, dw = gated_norm_bwd_finish(y, z, g, weight, sums, dots, ctx.d_full, ctx.eps)
+        return dy, dz, dw.to(weight.dtype), None, None
+
+
+def fused_gated_rms_norm_tp(
+    y: torch.Tensor,  # (..., d) the rank's columns of d_inner
+    z: torch.Tensor,  # (..., d)
+    weight: torch.Tensor,  # (d,) the rank's slice of the norm's weight
+    eps: float,
+    cut,  # the mixer's TpCut (parallel/tensor.py)
+) -> torch.Tensor:
+    """RMSNorm(y * silu(z)) * weight over the whole d_inner = d x tp, of
+    which this rank holds d columns: K3b-tp (sums pass, an all-reduce of the
+    rows' sums over the tp ranks, apply pass); differentiable, its backward
+    K6b-tp the same way. dw is the rank's own slice: no tp sum."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (y, z, weight)):
+        return _GatedRmsNormTp.apply(y, z, weight, eps, cut)
+    sums = tp_all_reduce(gated_norm_sums(y, z), cut)
+    return gated_norm_apply(y, z, weight, sums, y.shape[-1] * cut.size, eps)
+
+
 # kernel launches since the counter was last set to 0 (plain-version calls do not count)
 fused_add_rms_norm.launches = 0
 fused_gated_rms_norm.launches = 0
 fused_add_rms_norm_bwd.launches = 0
 fused_gated_rms_norm_bwd.launches = 0
+gated_norm_sums.launches = 0
+gated_norm_apply.launches = 0
+gated_norm_bwd_sums.launches = 0
+gated_norm_bwd_finish.launches = 0

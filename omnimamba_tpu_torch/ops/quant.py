@@ -19,6 +19,14 @@ Differences from the JAX module, all deliberate:
 - no ``fuse_in_proj``: the port stores in_proj fused already, and
   quantizing the fused kernel per column gives, bit for bit, the JAX parts'
   ``q`` and ``scale`` side by side.
+
+Under tp (``parallel/sharding.py``) quantize the whole tree and cut it, or
+cut it and quantize the slices: both give the same entries, except that
+``project_in`` fc1's scale stays whole the first way (JAX's rule) and holds
+the rank's columns the second. A kernel cut along its contraction axis
+(out_proj's rows, project_in fc2's) takes the maximum of its columns over
+the tp ranks (one all-reduce), and ``q`` and the scale carry the kernel's
+cut where the scale has the cut axis.
 """
 
 from __future__ import annotations
@@ -31,15 +39,30 @@ import torch
 def quantize_linear(w: torch.Tensor, reduce_axes: Sequence[int]) -> Dict[str, torch.Tensor]:
     """Symmetric int8 with one scale per kept (output) channel.
     ``reduce_axes``: the contraction axes ((0,) for an (in, out) kernel, (1,)
-    for a (rows, d) table quantized per row)."""
+    for a (rows, d) table quantized per row). A tp slice (``tp_of(w)``) cut
+    along a contraction axis takes each column's maximum over the tp ranks."""
+    from omnimamba_tpu_torch.parallel.sharding import TpCut, tag_tp, tp_of
+
     axes = tuple(reduce_axes)
     w32 = w.float()
     amax = torch.amax(w32.abs(), dim=axes, keepdim=True)
+    cut = tp_of(w)
+    if cut is not None and cut.dim in axes and cut.size > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=cut.group)
     scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     for ax in sorted(axes, reverse=True):
         scale = scale.squeeze(ax)
-    return {"q": q.contiguous(), "scale": scale.contiguous()}
+    out = {"q": q.contiguous(), "scale": scale.contiguous()}
+    if cut is not None and cut.dim is not None:
+        tag_tp(out["q"], cut)
+        if cut.dim not in axes:  # the scale keeps the cut axis
+            dim = cut.dim - sum(ax < cut.dim for ax in axes)
+            tag_tp(out["scale"], TpCut(dim, cut.size, cut.index, cut.segments,
+                                       (cut.full_shape[cut.dim],), cut.group))
+    return out
 
 
 def is_quantized(entry) -> bool:

@@ -6,9 +6,11 @@ Axes:
     fsdp  parameters, gradients and AdamW moments cut into one slice a rank;
           a leaf is gathered whole where it is used and its gradient
           reduce-scattered back (ZeRO-3)
-    tp    tensor parallel over Mamba-2 heads: slice 6b (the gated RMSNorm
-          over a cut ``d_inner`` needs a partial-sum form of K3b, K6b and
-          K4's gated phase); a training mesh with ``tp > 1`` raises
+    tp    tensor parallel over Mamba-2 heads (Megatron style): each rank
+          runs its heads' columns of in_proj, the conv, the scan and the
+          gated RMSNorm (in partial-sum form, K3b-tp, K6b-tp, K4-tp) and
+          its rows of out_proj, summed over the tp ranks
+          (``parallel/tensor.py``); the group is the mesh's ``tp`` axis
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
 the default process group, dp outermost, then fsdp, tp and any extra axis

@@ -20,9 +20,25 @@ so one card pays a walk over a few dicts. The backbone gathers a block's
 leaves inside the block, so a checkpointed block gathers them again in its
 second forward and only one block's whole leaves are alive at a time.
 
+tp (head-parallel tensor parallelism, JAX's Megatron-style rules) cuts a
+leaf first: each rank keeps the columns of its heads (``TpCut``). in_proj is
+re-packed ``z_r | x_r | bc | dt`` (bc and dt whole, as JAX keeps them), and
+so are its LoRA B factors and the int8 scales of its columns; the conv keeps
+``x_r | bc``; the gated norm's weight and out_proj's rows keep ``d_inner /
+tp``; ``project_in`` and the projector cut fc1 by columns and fc2's kernel by
+rows. A few whole leaves are used by each rank for its own heads only (the
+LoRA A factors, ``dt_bias``, ``A_log``, ``D``, fc1's bias): they carry a
+``TpCut`` without a dimension, which tells the trainer that each rank holds
+only its heads' share of their gradient (as it does for in_proj's bc and dt
+columns). fsdp then cuts the rank's tp slice as it cuts a whole leaf. A leaf
+carries up to two cuts: ``tp_of`` and ``shard_of``. The model reads the tp
+group from its leaves (``parallel/tensor.py``), so nothing else changes its
+signature.
+
 Batches: each rank of the dp x fsdp ranks takes its own contiguous rows
 (``shard_batch``); JAX shards rows over dp alone and lets the compiler
 spread the work over fsdp, where a rank here would have to run every row.
+The tp ranks of a dp x fsdp coordinate take the same rows.
 
 The collectives count their calls and the bytes of the whole tensors they
 handle in ``COLLECTIVES`` (``reset_collective_counts``), which
@@ -51,10 +67,10 @@ warnings.filterwarnings("ignore", message=r".*(all_gather_into_tensor|reduce_sca
 # dimension. The port stores in_proj fused (d_model, z | x | bc | dt), the layers as a list
 # and int8 entries as {"q", "scale"}: q keeps its kernel's spec, and a leaf of fewer
 # dimensions than the spec (a 1-D scale) has no fsdp axis, as _spec_for gives it. First
-# match wins; tp entries arrive with slice 6b. out_proj alone is cut along another
-# dimension than 0, so each gather and reduce-scatter of it copies the leaf once more
-# (``assemble`` / ``split_slices``); JAX's axis is kept because tp over heads (slice 6b)
-# cuts out_proj's d_inner, dimension 0. The copy's cost: tools/collective_probe.py.
+# match wins. out_proj alone is cut along another dimension than 0, so each gather and
+# reduce-scatter of it copies the leaf once more (``assemble`` / ``split_slices``); JAX's
+# axis is kept because tp over heads cuts out_proj's d_inner, dimension 0. The copy's
+# cost: tools/collective_probe.py.
 _RULES = (
     ("mixer/in_proj/kernel", ("fsdp", None)),  # JAX in_proj/{z,x,bc,dt}: P(None, "fsdp", ...)
     ("mixer/out_proj/kernel", (None, "fsdp")),  # JAX out_proj: P(None, "tp", "fsdp")
@@ -84,11 +100,74 @@ def fsdp_dim(path: str, shape: Tuple[int, ...], n: int) -> Optional[int]:
     return dim if shape[dim] % n == 0 else None
 
 
+# JAX's tp rules (omnimamba_tpu/parallel/sharding.py:28-69) in the port's layout: the
+# pattern, the dimension cut over tp, and which parts of it are cut (by the mixer's
+# widths, ``_tp_segments``). in_proj's int8 scales follow its columns (JAX's z and x
+# scales on tp, bc's and dt's whole); out_proj's and project_in's scales stay whole.
+# The LoRA B factors are packed as in_proj is (JAX keeps them whole and lets GSPMD slice
+# them): a rank then holds one contiguous (r, z_r | x_r | bc | dt) factor, what K4 reads.
+_TP_RULES = (
+    ("mixer/in_proj/kernel/scale", 0, "in_proj"),
+    ("mixer/out_proj/kernel/scale", None, None),
+    ("mixer/in_proj/kernel", 1, "in_proj"),
+    ("mixer/lora/t2i_B", 2, "in_proj"),
+    ("mixer/lora/mmu_B", 2, "in_proj"),
+    ("mixer/conv/weight", 1, "conv"),
+    ("mixer/conv/bias", 0, "conv"),
+    ("mixer/norm/weight", 0, "heads"),
+    ("mixer/out_proj/kernel", 0, "heads"),
+    ("img_embeddings/project_in/fc1/kernel/scale", None, None),
+    ("img_embeddings/project_in/fc2/kernel/scale", None, None),
+    ("img_embeddings/project_in/fc1/kernel", 1, "all"),
+    ("img_embeddings/project_in/fc2/kernel", 0, "all"),
+    ("projector/fc1/kernel", 1, "all"),
+    ("projector/fc2/kernel", 0, "all"),
+)
+# whole leaves that each rank uses for its own heads (or fc1 columns) only: their
+# gradient is a partial sum on each rank (path endings)
+_TP_PARTIAL = ("mixer/lora/t2i_A", "mixer/lora/mmu_A", "mixer/dt_bias", "mixer/A_log", "mixer/D",
+               "img_embeddings/project_in/fc1/bias", "projector/fc1/bias")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TpCut:
+    """What a rank's tp slice of a leaf is. Along ``dim`` the whole leaf of
+    ``full_shape`` is a run of ``segments`` (start, length, cut): a cut
+    segment is split into ``size`` equal parts over ``group``, this rank
+    keeping the ``index``-th, and a whole segment is kept whole; the rank's
+    slice is its parts in segment order. ``dim`` None: a whole leaf that the
+    rank uses for its own heads only."""
+
+    dim: Optional[int]
+    size: int
+    index: int
+    segments: Tuple[Tuple[int, int, bool], ...]
+    full_shape: Tuple[int, ...]
+    group: Any
+
+    def local_segments(self):
+        """(start, length, cut) of each segment in the rank's slice."""
+        out, at = [], 0
+        for _, length, is_cut in self.segments:
+            n = length // self.size if is_cut else length
+            out.append((at, n, is_cut))
+            at += n
+        return out
+
+    def partial_ranges(self):
+        """(dim, start, length) of the rank's slice whose gradient each rank
+        holds only its own heads' share of: the whole leaf (dim None), or the
+        whole segments of a cut leaf."""
+        if self.dim is None:
+            return [(None, 0, 0)]
+        return [(self.dim, s, n) for s, n, is_cut in self.local_segments() if not is_cut]
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Shard:
-    """What a rank's slice of a leaf is: cut along ``dim`` into ``size``
-    slices over ``group``, this one the ``index``-th, of a leaf of
-    ``full_shape``."""
+    """What a rank's fsdp slice of a leaf is: cut along ``dim`` into
+    ``size`` slices over ``group``, this one the ``index``-th, of a leaf of
+    ``full_shape`` (the rank's tp slice where tp cuts the leaf too)."""
 
     dim: int
     size: int
@@ -98,50 +177,197 @@ class Shard:
 
 
 _TAG = "_omt_shard"
+_TP_TAG = "_omt_tp"
 
 
 def shard_of(t: torch.Tensor) -> Optional[Shard]:
-    """The ``Shard`` of a slice made by ``shard_params``, None for a whole leaf."""
+    """The fsdp ``Shard`` of a slice made by ``shard_params``, None for a
+    leaf that fsdp keeps whole."""
     return getattr(t, _TAG, None)
+
+
+def tp_of(t) -> Optional[TpCut]:
+    """The ``TpCut`` of a leaf made by ``shard_params`` (or of a leaf
+    ``whole`` gathered over fsdp), None for a leaf that tp leaves alone."""
+    return getattr(t, _TP_TAG, None)
+
+
+def tag_tp(t: torch.Tensor, cut: Optional[TpCut]) -> torch.Tensor:
+    """``t`` tagged as a leaf of tp cut ``cut`` (a derived leaf: an int8 entry
+    made from a slice); returns ``t``."""
+    setattr(t, _TP_TAG, cut)
+    return t
 
 
 def logical_shape(t: torch.Tensor) -> Tuple[int, ...]:
     """The shape of the whole leaf that ``t`` is, or is a slice of."""
+    tp = tp_of(t)
+    if tp is not None:
+        return tp.full_shape
     spec = shard_of(t)
     return tuple(t.shape) if spec is None else spec.full_shape
 
 
+def _mixer_widths(params) -> Optional[Tuple[int, int, int]]:
+    """(d_inner, 2 G N, nheads) of the tree's Mamba-2 mixers, from the first
+    one's leaves; None for a tree without one."""
+    di = heads = width = None
+    for path, t in named_leaves(params):
+        if path.endswith("mixer/norm/weight"):
+            di = t.shape[0]
+        elif path.endswith("mixer/dt_bias"):
+            heads = t.shape[0]
+        elif path.endswith("mixer/in_proj/kernel") or path.endswith("mixer/in_proj/kernel/q"):
+            width = t.shape[1]
+        if di is not None and heads is not None and width is not None:
+            return di, width - 2 * di - heads, heads
+    return None
+
+
+def _tp_segments(kind: str, length: int, widths) -> Tuple[Tuple[int, int, bool], ...]:
+    """The (start, length, cut) parts of a dimension of ``length`` that a
+    rule of ``kind`` cuts: all of it, or in_proj's z | x | bc dt, or the
+    conv's x | bc."""
+    if kind == "all" or kind == "heads":
+        return ((0, length, True),)
+    di, gn2, heads = widths
+    if kind == "conv":
+        return ((0, di, True), (di, gn2, False))
+    return ((0, di, True), (di, di, True), (2 * di, gn2 + heads, False))  # in_proj
+
+
+def tp_rule(path: str, ndim: int) -> Optional[Tuple[Optional[int], Optional[str]]]:
+    """(dimension, kind) of the port's tp rule for the leaf at ``path``:
+    (None, None) for a partial whole leaf, None for a leaf tp leaves alone."""
+    for pattern, dim, kind in _TP_RULES:
+        if pattern in path:
+            return None if dim is None or dim >= ndim else (dim, kind)
+    if path.endswith(_TP_PARTIAL):
+        return (None, None)
+    return None
+
+
+def tp_cut_for(path: str, shape: Tuple[int, ...], n: int, index: int, group, widths):
+    """The ``TpCut`` of the leaf at ``path`` of ``shape`` on rank ``index``
+    of ``n`` tp ranks, or None. Raises where ``n`` does not divide a cut
+    segment: the model's code runs on equal parts only."""
+    rule = tp_rule(path, len(shape))
+    if rule is None:
+        return None
+    dim, kind = rule
+    if dim is None:
+        return TpCut(None, n, index, (), tuple(shape), group)
+    segments = _tp_segments(kind, shape[dim], widths)
+    if sum(length for _, length, _ in segments) != shape[dim]:
+        raise ValueError(f"{path}: {shape} does not match the mixer's widths {widths}")
+    for _, length, is_cut in segments:
+        if is_cut and length % n:
+            raise ValueError(f"{path}: tp={n} does not divide a part of {length} of {shape}")
+    return TpCut(dim, n, index, segments, tuple(shape), group)
+
+
+def tp_local(full: torch.Tensor, cut: TpCut) -> torch.Tensor:
+    """The rank's tp slice of the whole leaf ``full`` (a copy where it is
+    more than one part, else a view)."""
+    if cut.dim is None:
+        return full
+    parts = []
+    for start, length, is_cut in cut.segments:
+        if is_cut:
+            step = length // cut.size
+            parts.append(full.narrow(cut.dim, start + cut.index * step, step))
+        else:
+            parts.append(full.narrow(cut.dim, start, length))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=cut.dim)
+
+
+def tp_assemble(stacked: torch.Tensor, cut: TpCut) -> torch.Tensor:
+    """The whole leaf from every tp rank's slice stacked in rank order
+    (size, *slice shape): the cut parts in rank order, the whole parts from
+    rank 0."""
+    dim = cut.dim + 1
+    parts = []
+    for start, length, is_cut in cut.local_segments():
+        piece = stacked.narrow(dim, start, length)
+        if is_cut:
+            parts.extend(piece[r] for r in range(cut.size))
+        else:
+            parts.append(piece[0])
+    return torch.cat(parts, dim=cut.dim).contiguous()
+
+
 def param_shardings(mesh, params) -> Dict[str, Optional[int]]:
     """path -> the dimension each leaf of ``params`` is cut along over the
-    mesh's fsdp axis (None: whole on every rank)."""
-    n = axis_size(mesh, "fsdp")
-    return {path: fsdp_dim(path, tuple(t.shape), n) for path, t in named_leaves(params)}
+    mesh's fsdp axis (None: whole on every rank), on the rank's tp slice."""
+    return {path: dims[1] for path, dims in param_cuts(mesh, params).items()}
+
+
+def param_cuts(mesh, params) -> Dict[str, Tuple[Optional[TpCut], Optional[int]]]:
+    """path -> (the leaf's ``TpCut`` on this rank or None, the dimension of
+    its tp slice that fsdp cuts or None)."""
+    n_tp, n_fsdp = axis_size(mesh, "tp"), axis_size(mesh, "fsdp")
+    widths = _mixer_widths(params) if n_tp > 1 else None
+    group = mesh.get_group("tp") if n_tp > 1 else None
+    index = axis_rank(mesh, "tp")
+    out = {}
+    for path, t in named_leaves(params):
+        cut = tp_cut_for(path, tuple(t.shape), n_tp, index, group, widths) if n_tp > 1 else None
+        shape = list(t.shape)
+        if cut is not None and cut.dim is not None:
+            shape[cut.dim] = sum(n for _, n, _ in cut.local_segments())
+        dim = fsdp_dim(path, tuple(shape), n_fsdp)
+        if dim is not None and cut is not None and cut.dim == dim and cut.partial_ranges():
+            dim = None  # fsdp and the whole parts of a tp cut never share a dimension
+        out[path] = (cut, dim)
+    return out
 
 
 def local_slice(full: torch.Tensor, spec: Shard) -> torch.Tensor:
-    """This rank's slice of the whole leaf ``full`` (a view)."""
+    """This rank's fsdp slice of ``full`` (a view)."""
     step = spec.full_shape[spec.dim] // spec.size
     return full.narrow(spec.dim, spec.index * step, step)
 
 
+def local_part(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's part of the whole leaf ``full`` for the live leaf
+    ``like``: its tp slice, then its fsdp slice of that."""
+    tp, spec = tp_of(like), shard_of(like)
+    out = full if tp is None else tp_local(full, tp)
+    return out if spec is None else local_slice(out, spec)
+
+
 def shard_params(mesh, params):
-    """``params`` with every leaf that ``param_shardings`` cuts replaced by a
-    new tensor holding this rank's slice (tagged, ``requires_grad`` kept);
-    leaves kept whole are the same tensors. Without an fsdp axis the tree is
-    returned as it is."""
-    n = axis_size(mesh, "fsdp")
-    if n == 1:
+    """``params`` with every leaf that the mesh's tp or fsdp axis cuts
+    replaced by a new tensor holding this rank's slice (tagged,
+    ``requires_grad`` kept); the partial whole leaves of tp are new tensors
+    on the same storage, tagged; other leaves are the same tensors. Without
+    a tp or fsdp axis the tree is returned as it is. int8 ``{q, scale}``
+    entries are cut as their kernels are (quantize, then cut: the scales of
+    a cut reduction need every row)."""
+    if axis_size(mesh, "fsdp") == 1 and axis_size(mesh, "tp") == 1:
         return params
-    group, index = mesh.get_group("fsdp"), axis_rank(mesh, "fsdp")
+    cuts = param_cuts(mesh, params)
+    n_fsdp, index = axis_size(mesh, "fsdp"), axis_rank(mesh, "fsdp")
+    group = mesh.get_group("fsdp") if n_fsdp > 1 else None
 
     def cut(path, t):
-        dim = fsdp_dim(path, tuple(t.shape), n)
-        if dim is None:
+        tp, dim = cuts[path]
+        if tp is None and dim is None:
             return t
-        spec = Shard(dim, n, index, tuple(t.shape), group)
-        out = local_slice(t.detach(), spec).clone(memory_format=torch.contiguous_format)
+        out = t.detach()
+        if tp is not None and tp.dim is not None:
+            out = tp_local(out, tp)
+        spec = None
+        if dim is not None:
+            spec = Shard(dim, n_fsdp, index, tuple(out.shape), group)
+            out = local_slice(out, spec)
+        if tuple(out.shape) != tuple(t.shape):  # a slice: storage of its own
+            out = out.clone(memory_format=torch.contiguous_format)
         out.requires_grad_(t.requires_grad)
-        setattr(out, _TAG, spec)
+        if spec is not None:
+            setattr(out, _TAG, spec)
+        if tp is not None:
+            setattr(out, _TP_TAG, tp)
         return out
 
     return map_named(cut, params)
@@ -151,8 +377,11 @@ def shard_params(mesh, params):
 # collectives
 # ---------------------------------------------------------------------------
 
+# the tp collectives inside the model (parallel/tensor.py) count apart from the
+# gathers of fsdp and the gradient sums of the trainer
 COLLECTIVES = {name: {"calls": 0, "bytes": 0}
-               for name in ("all_gather", "reduce_scatter", "all_reduce")}
+               for name in ("all_gather", "reduce_scatter", "all_reduce", "tp_all_reduce",
+                            "tp_all_gather", "tp_broadcast")}
 
 
 def reset_collective_counts() -> None:
@@ -160,7 +389,8 @@ def reset_collective_counts() -> None:
         rec["calls"] = rec["bytes"] = 0
 
 
-def _count(name: str, t: torch.Tensor) -> None:
+def count_collective(name: str, t: torch.Tensor) -> None:
+    """Count one call of collective ``name`` over the whole tensor ``t``."""
     COLLECTIVES[name]["calls"] += 1
     COLLECTIVES[name]["bytes"] += t.numel() * t.element_size()
 
@@ -173,7 +403,7 @@ def all_gather_stacked(t: torch.Tensor, group=None) -> torch.Tensor:
     # the output as the concatenation along dimension 0, the one form every backend takes
     out = t.new_empty((n * t.shape[0], *t.shape[1:]))
     dist.all_gather_into_tensor(out, t, group=group)
-    _count("all_gather", out)
+    count_collective("all_gather", out)
     return out.view(n, *t.shape)
 
 
@@ -203,7 +433,7 @@ def _reduce_scatter(full: torch.Tensor, spec: Shard) -> torch.Tensor:
     parts = split_slices(full, spec)  # (n, *slice shape)
     out = full.new_empty(parts.shape[1:])
     dist.reduce_scatter_tensor(out, parts.view(-1, *parts.shape[2:]), group=spec.group)
-    _count("reduce_scatter", parts)
+    count_collective("reduce_scatter", parts)
     return out
 
 
@@ -232,18 +462,34 @@ def whole(node):
     if isinstance(node, torch.Tensor):
         spec = shard_of(node)
         if spec is not None:
-            return _Gather.apply(node, spec)
+            out = _Gather.apply(node, spec)
+            tp = tp_of(node)
+            if tp is not None:  # the rank's tp slice: the model reads its group from it
+                setattr(out, _TP_TAG, tp)
+            return out
     return node
 
 
 @torch.no_grad()
-def whole_tensor(t: torch.Tensor, spec: Optional[Shard] = None) -> torch.Tensor:
+def whole_tensor(t: torch.Tensor, spec: Optional[Shard] = None,
+                 tp: Optional[TpCut] = None) -> torch.Tensor:
     """The whole leaf of a slice (or ``t`` itself), outside autograd: for
-    checkpoints and comparisons. ``spec``: how ``t`` is cut, where ``t`` is
-    not itself tagged (an AdamW moment of a slice). Every rank of the
-    slice's group must call it in the same order."""
+    checkpoints and comparisons; gathered over fsdp, then over tp.
+    ``spec`` and ``tp``: how ``t`` is cut, where ``t`` is not itself tagged
+    (an AdamW moment or a gradient of a slice: ``whole_like``). Every rank
+    of the slice's groups must call it in the same order."""
     spec = spec if spec is not None else shard_of(t)
-    return t.detach() if spec is None else _all_gather(t.detach(), spec)
+    tp = tp if tp is not None else tp_of(t)
+    out = t.detach() if spec is None else _all_gather(t.detach(), spec)
+    if tp is not None and tp.dim is not None:
+        out = tp_assemble(all_gather_stacked(out, tp.group), tp)
+    return out
+
+
+def whole_like(t: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``whole_tensor`` of ``t`` cut as the live ``leaf`` is (its gradient,
+    an AdamW moment of it)."""
+    return whole_tensor(t, shard_of(leaf), tp_of(leaf))
 
 
 # the most bytes all_reduce_flat packs into one call: its flat copy of the gradients
@@ -268,7 +514,7 @@ def all_reduce_flat(tensors, group=None):
     for idx in (b[0] for per_dtype in buckets.values() for b in per_dtype):
         flat = torch.cat([out[i].reshape(-1) for i in idx])
         dist.all_reduce(flat, group=group)
-        _count("all_reduce", flat)
+        count_collective("all_reduce", flat)
         for i, piece in zip(idx, flat.split([out[i].numel() for i in idx])):
             out[i] = piece.view(out[i].shape)
     return out

@@ -8,6 +8,7 @@ underneath.
         [--batch-t2i 48] [--batch-mmu 3] [--grad-accum 1] [--device cuda]
     torchrun --nproc-per-node 8 -m omnimamba_tpu_torch.scripts.train --dp 8 ...
     torchrun --nproc-per-node 8 -m omnimamba_tpu_torch.scripts.train --fsdp 8 ...
+    torchrun --nproc-per-node 8 -m omnimamba_tpu_torch.scripts.train --tp 2 --fsdp 2 ...
 
 Without ``--config`` the config is ``TrainConfig()``, the values of
 ``config/config_stage2.yaml`` (reading a YAML needs PyYAML). With
@@ -21,14 +22,16 @@ scalars under ``tb/`` and ``--wandb`` a wandb run (each warns and drops its
 metrics where its package is missing).
 
 Under ``torchrun`` each process is one rank on ``cuda:LOCAL_RANK`` (NCCL;
-gloo with ``--device cpu``) of the mesh ``--dp`` x ``--fsdp`` (``--dp 0``, the
-default, takes the ranks the other axes leave; without flags a non-trivial
-``mesh_shape`` of the config wins, else every rank is dp). The batch sizes
-are the global batch's: each rank reads and collates only its own rows.
-Rank 0 names the run, writes the synthetic data, prints, and writes the
-metrics and the checkpoints. ``--tp`` above 1 raises: head-parallel tp is
-slice 6b. Without torchrun and without mesh flags the run is the one-card
-run.
+gloo with ``--device cpu``) of the mesh ``--dp`` x ``--fsdp`` x ``--tp``
+(``--dp 0``, the default, takes the ranks the other axes leave; without
+flags a non-trivial ``mesh_shape`` of the config wins, else every rank is
+dp). ``--tp N`` cuts every Mamba-2 mixer over its heads (N must divide them)
+and ``project_in`` and the projector as JAX's rules do. The batch sizes are
+the global batch's: each dp x fsdp rank reads and collates only its own
+rows, and the tp ranks of one such rank read the same rows. Rank 0 names the
+run, writes the synthetic data, prints the mesh, and writes the metrics and
+the checkpoints. Without torchrun and without mesh flags the run is the
+one-card run.
 """
 
 from __future__ import annotations
@@ -64,8 +67,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="cuda (one rank a card, NCCL) or cpu (gloo across ranks)")
     p.add_argument("--dp", type=int, default=0, help="data-parallel ranks; 0: the ranks left over")
     p.add_argument("--fsdp", type=int, default=1, help="ranks the parameters are cut over")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks: above 1 raises "
-                   "(slice 6b)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks over the Mamba-2 heads (must divide them)")
     return p.parse_args(argv)
 
 

@@ -1,5 +1,5 @@
 """The training step and the loop around it, on one card or over the ranks of
-a (dp, fsdp) mesh.
+a (dp, fsdp, tp) mesh.
 
 Counterpart of ``omnimamba_tpu/train/trainer.py``. A step computes
 ``loss = loss_t2i + loss_mmu`` over one combined batch, differentiates the
@@ -22,7 +22,14 @@ loader hands each rank only its rows) and the step is the global batch's:
   fsdp), and clipping and AdamW run on each rank's slices;
 - metrics are the global batch's, identical on every rank; only rank 0 logs
   and writes metrics and checkpoints;
-- ``tp > 1`` raises: head-parallel tp is slice 6b.
+- under tp (``parallel/tensor.py``) the tp ranks of a dp x fsdp coordinate
+  take the same rows and the same dropout draws, and each runs its heads:
+  its tp slices' gradients are its own, and the leaves and parts that each
+  rank uses for its own heads only (in_proj's bc and dt columns, the LoRA
+  factors' like them, the conv's bc channels, the LoRA A factors, dt_bias,
+  A_log, D, fc1's bias: ``TpCut.partial_ranges``) are summed over tp; sums
+  over the batch go over the dp x fsdp ranks only, and the norm counts each
+  cut part once and each replicated part once.
 
 What differs from the JAX trainer:
 
@@ -59,7 +66,13 @@ from omnimamba_tpu_torch.data.transforms import dinosiglip_transform
 from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel, mmu_loss, t2i_loss
 from omnimamba_tpu_torch.ops.remat import check_remat
 from omnimamba_tpu_torch.parallel.mesh import AXES, axis_size
-from omnimamba_tpu_torch.parallel.sharding import all_reduce_flat, rank_seed, shard_of
+from omnimamba_tpu_torch.parallel.sharding import (
+    all_reduce_flat,
+    batch_sharding,
+    rank_seed,
+    shard_of,
+    tp_of,
+)
 from omnimamba_tpu_torch.train.optimizer import make_optimizer, make_schedule, named_leaves
 from omnimamba_tpu_torch.utils.device import resolve_device
 from omnimamba_tpu_torch.utils.logging import Overwatch
@@ -137,17 +150,15 @@ def prepare_batch(batch, model: OmniMambaModel, device: torch.device, stacked: b
     return batch
 
 
-def check_train_mesh(mesh) -> None:
-    """Raise for a mesh the training step cannot run on: ``tp > 1`` (slice
-    6b), an extra axis of more than one rank, or a mesh that leaves ranks of
-    the process group out."""
+def check_train_mesh(mesh, nheads: Optional[int] = None) -> None:
+    """Raise for a mesh the training step cannot run on: an extra axis of
+    more than one rank, a mesh that leaves ranks of the process group out,
+    or (given the model's ``nheads``) a tp that does not divide the heads."""
     if mesh is None:
         return
-    if axis_size(mesh, "tp") > 1:
-        raise NotImplementedError(
-            f"tp={axis_size(mesh, 'tp')}: head-parallel tp cuts d_inner, over which the gated "
-            "RMSNorm normalises; it needs a partial-sum form of K3b, K6b and K4's gated phase "
-            "and arrives with slice 6b (ROADMAP: slice 6b)")
+    tp = axis_size(mesh, "tp")
+    if nheads is not None and nheads % tp:
+        raise ValueError(f"tp={tp} does not divide the model's {nheads} heads")
     extra = {ax: axis_size(mesh, ax) for ax in mesh.mesh_dim_names
              if ax not in AXES and axis_size(mesh, ax) > 1}
     if extra:
@@ -157,43 +168,100 @@ def check_train_mesh(mesh) -> None:
                          f"{dist.get_world_size()}")
 
 
-def _global_means(parts: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+def _data_sum(mesh, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each tensor summed over the ranks that hold other rows of the batch:
+    every rank without tp, else the dp x fsdp ranks of this tp coordinate
+    (over dp, then over fsdp)."""
+    if axis_size(mesh, "tp") == 1:
+        return all_reduce_flat(tensors)
+    for axis in ("dp", "fsdp"):
+        if axis_size(mesh, axis) > 1:
+            tensors = all_reduce_flat(tensors, mesh.get_group(axis))
+    return list(tensors)
+
+
+def _global_means(parts: Dict[str, tuple], mesh) -> Dict[str, torch.Tensor]:
     """{flow: (sum, count) of this rank's rows} -> {flow: sum / the count on
     every rank}: this rank's share of each flow's global mean (one
     ``all_reduce`` of the counts, in fp32: exact below 2^24 labelled positions)."""
     counts = torch.stack([count for _, count in parts.values()]).float()
-    counts = all_reduce_flat([counts])[0]
+    counts = _data_sum(mesh, [counts])[0]
     return {k: total / torch.clamp(c, min=1.0) for (k, (total, _)), c in zip(parts.items(), counts)}
 
 
-def _sync_gradients(mesh, leaves: List[torch.Tensor], grads: List[torch.Tensor]):
-    """The global batch's gradients from this rank's: a slice's gradient was
-    summed over fsdp by the gather's backward, so dp sums it; the gradient of
-    a leaf kept whole is summed over every rank."""
+def _sum_tp_partials(mesh, leaves: List[torch.Tensor], grads: List[torch.Tensor]):
+    """The gradients with every part that each tp rank holds only its own
+    heads' share of (``TpCut.partial_ranges``) summed over the tp ranks, in
+    one bucketed all-reduce."""
     out = list(grads)
+    where, pieces = [], []
+    for i, leaf in enumerate(leaves):
+        cut = tp_of(leaf)
+        if cut is None or cut.size == 1:
+            continue
+        for dim, start, length in cut.partial_ranges():
+            where.append((i, dim, start, length))
+            pieces.append(out[i] if dim is None else out[i].narrow(dim, start, length))
+    if not pieces:
+        return out
+    summed = all_reduce_flat(pieces, mesh.get_group("tp"))
+    for (i, dim, start, length), total in zip(where, summed):
+        if dim is None:
+            out[i] = total
+        else:
+            if out[i] is grads[i]:
+                out[i] = grads[i].clone()
+            out[i].narrow(dim, start, length).copy_(total)
+    return out
+
+
+def _sync_gradients(mesh, leaves: List[torch.Tensor], grads: List[torch.Tensor]):
+    """The global batch's gradients from this rank's: the parts each tp rank
+    holds only its heads' share of are summed over tp; a slice's gradient was
+    summed over fsdp by the gather's backward, so dp sums it; the gradient of
+    a leaf kept whole is summed over the ranks that hold other rows."""
+    out = _sum_tp_partials(mesh, leaves, grads)
     cut = [i for i, p in enumerate(leaves) if shard_of(p) is not None]
     kept = [i for i, p in enumerate(leaves) if shard_of(p) is None]
-    groups = [(kept, None)]
-    if axis_size(mesh, "dp") > 1:
-        groups.append((cut, mesh.get_group("dp")))
-    for idx, group in groups:
-        if idx:
-            for i, g in zip(idx, all_reduce_flat([out[i] for i in idx], group)):
-                out[i] = g
+    if kept:
+        for i, g in zip(kept, _data_sum(mesh, [out[i] for i in kept])):
+            out[i] = g
+    if cut and axis_size(mesh, "dp") > 1:
+        for i, g in zip(cut, all_reduce_flat([out[i] for i in cut], mesh.get_group("dp"))):
+            out[i] = g
     return out
 
 
 def _global_norm(mesh, leaves: List[torch.Tensor], grads: List[torch.Tensor]) -> torch.Tensor:
-    """fp32 norm of the global gradient: the squares of the slices summed
-    over fsdp, plus those of the leaves every rank holds whole."""
+    """fp32 norm of the global gradient, each square counted once whoever
+    holds it. Four sums: (an fsdp slice or a leaf kept whole) x (a part tp
+    cuts, distinct on each tp rank, or a part the same on each after
+    ``_sum_tp_partials``); the slices' sums go over fsdp, the cut parts'
+    over tp."""
     zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    cut = sum((torch.sum(torch.square(g.float())) for p, g in zip(leaves, grads)
-               if shard_of(p) is not None), zero)
-    kept = sum((torch.sum(torch.square(g.float())) for p, g in zip(leaves, grads)
-                if shard_of(p) is None), zero)
+    sums = [zero, zero, zero, zero]  # fsdp slice x tp cut, slice x replicated, whole x cut, whole
+    for leaf, g in zip(leaves, grads):
+        sq = torch.square(g.float())
+        cut, spec = tp_of(leaf), shard_of(leaf)
+        base = 0 if spec is not None else 2
+        if cut is None or cut.size == 1 or cut.dim is None:
+            sums[base + 1] = sums[base + 1] + sq.sum()
+        elif spec is not None and spec.dim == cut.dim:
+            # fsdp cuts the tp slice along the tp dimension: it has no whole part
+            sums[base] = sums[base] + sq.sum()
+        else:
+            parts = cut.local_segments()
+            sums[base] = sums[base] + sum(
+                (sq.narrow(cut.dim, s, n).sum() for s, n, is_cut in parts if is_cut), zero)
+            sums[base + 1] = sums[base + 1] + sum(
+                (sq.narrow(cut.dim, s, n).sum() for s, n, is_cut in parts if not is_cut), zero)
+    if axis_size(mesh, "tp") > 1:
+        sums[0], sums[2] = all_reduce_flat([torch.stack([sums[0], sums[2]])],
+                                           mesh.get_group("tp"))[0]
+    sliced, kept = sums[0] + sums[1], sums[2] + sums[3]
     if axis_size(mesh, "fsdp") > 1:
-        cut = all_reduce_flat([cut], mesh.get_group("fsdp"))[0]
-    return torch.sqrt(cut + kept)
+        sliced = all_reduce_flat([sliced], mesh.get_group("fsdp"))[0]
+    return torch.sqrt(sliced + kept)
 
 
 def clip_and_apply(state: TrainState, tx, schedule, grads: List[torch.Tensor],
@@ -233,7 +301,7 @@ def make_grad_fn(
     their fp32 global norm, ``loss`` and ``parts`` (``loss_t2i``,
     ``loss_mmu``) detached 0-dim tensors. Arguments as ``make_train_step``."""
     device = resolve_device(device)
-    check_train_mesh(mesh)
+    check_train_mesh(mesh, model.cfg.mixer.nheads)
     accum = max(int(cfg.grad_accum or 1), 1)
     # the mmu flow's rows are 1,182 tokens long: checkpoint every block of them
     # unless told otherwise
@@ -256,7 +324,7 @@ def make_grad_fn(
                 flow["multimodal_mask"], dtype=dtype, generator=generator, remat=remat_mmu,
                 reduction=reduction)
         if mesh is not None and parts:
-            parts = _global_means(parts)
+            parts = _global_means(parts, mesh)
         zero = torch.zeros((), dtype=torch.float32, device=device)
         loss_t2i, loss_mmu = parts.get("loss_t2i", zero), parts.get("loss_mmu", zero)
         return loss_t2i + loss_mmu, {"loss_t2i": loss_t2i, "loss_mmu": loss_mmu}
@@ -290,7 +358,7 @@ def make_grad_fn(
                 sum(torch.sum(torch.square(g.float())) for g in grads))
         grads = _sync_gradients(mesh, leaves, grads)
         # each rank holds its share of each mean: their sum is the global batch's
-        shares = all_reduce_flat([torch.stack([loss.detach(), parts["loss_t2i"],
+        shares = _data_sum(mesh, [torch.stack([loss.detach(), parts["loss_t2i"],
                                                parts["loss_mmu"]])])[0]
         parts = {"loss_t2i": shares[1], "loss_mmu": shares[2]}
         return shares[0], parts, grads, _global_norm(mesh, leaves, grads)
@@ -476,7 +544,9 @@ class Trainer:
     With a ``mesh`` every rank of it runs a ``Trainer`` over its own loader,
     which hands it its own rows of each global batch (``DataLoader(shard=...)``
     or ``shard_batch``), and under fsdp over the slices of ``shard_params``.
-    The dropout generator of rank r starts from ``rank_seed(cfg.seed, r)``.
+    The dropout generator of the rank at row index r (``batch_sharding``: the
+    tp ranks of a dp x fsdp coordinate share it) starts from
+    ``rank_seed(cfg.seed, r)``.
     Only rank 0 calls ``log_fn`` and the metrics writer; a checkpoint is
     written by rank 0 with every rank taking part (``utils/checkpoint.py``)."""
 
@@ -495,10 +565,14 @@ class Trainer:
         eval_loader=None,
         device="cuda",
     ):
-        check_train_mesh(mesh)
+        check_train_mesh(mesh, model.cfg.mixer.nheads)
         if axis_size(mesh, "fsdp") > 1 and not any(
                 shard_of(t) is not None for _, t in named_leaves(params)):
             raise ValueError("under fsdp the trainer takes this rank's slices: "
+                             "parallel.shard_params(mesh, params)")
+        if axis_size(mesh, "tp") > 1 and not any(
+                tp_of(t) is not None for _, t in named_leaves(params)):
+            raise ValueError("under tp the trainer takes this rank's slices: "
                              "parallel.shard_params(mesh, params)")
         self.model = model
         self.cfg = cfg
@@ -515,7 +589,7 @@ class Trainer:
         self.step_fn = make_train_step(model, self.tx, cfg, mesh=mesh, dtype=dtype,
                                        device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(cfg.seed, self.rank))
+            rank_seed(cfg.seed, batch_sharding(mesh)[0] if mesh is not None else 0))
 
     def train(self, resume_step: int = 0, max_steps: Optional[int] = None):
         """Run the loop from ``resume_step`` (a restored state carries its own
@@ -591,7 +665,7 @@ class Trainer:
         def mean(loss):  # across ranks: the sum of the ranks' shares of the global mean
             if self.mesh is None:
                 return float(loss)
-            return float(all_reduce_flat([_global_means({"": loss})[""]])[0])
+            return float(_data_sum(self.mesh, [_global_means({"": loss}, self.mesh)[""]])[0])
 
         for batch in self.eval_loader:
             if "inputs" in batch:

@@ -11,13 +11,14 @@ the tensors of the state it is given, so the optimizer keeps pointing at the
 live parameters.
 
 Across ranks (a process group is initialised) every rank calls ``save`` and
-``restore``. ``save`` gathers each fsdp slice and its AdamW moments whole,
-so the file is the one a card writes, whatever the mesh; rank 0 alone
+``restore``. ``save`` gathers each fsdp and tp slice and its AdamW moments
+whole (over fsdp, then over tp), so the file is the one a card writes,
+whatever the mesh; rank 0 alone
 copies them to host memory and writes the file, and every rank waits at a
 barrier until it is in place. The file also holds
 every rank's generator state (``"generators"``, by rank; ``"generator"`` is
-rank 0's). ``restore`` copies each rank's slice out of the whole leaves and
-moments, so a checkpoint moves between world sizes and meshes; a rank takes
+rank 0's). ``restore`` copies each rank's slice (tp, then fsdp) out of the
+whole leaves and moments, so a checkpoint moves between world sizes and meshes; a rank takes
 its own generator state where the file has one for its rank and keeps its
 own stream otherwise.
 """
@@ -31,7 +32,7 @@ from typing import Any, List, Optional
 import torch
 import torch.distributed as dist
 
-from omnimamba_tpu_torch.parallel.sharding import local_slice, shard_of, whole_tensor
+from omnimamba_tpu_torch.parallel.sharding import local_part, whole_like, whole_tensor
 from omnimamba_tpu_torch.train.optimizer import named_leaves
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -110,10 +111,9 @@ class CheckpointManager:
 
 
 def _own_part(full: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """This rank's slice of a saved whole leaf for the live ``leaf`` (the
-    whole leaf where ``leaf`` is whole)."""
-    spec = shard_of(leaf)
-    return full if spec is None else local_slice(full, spec)
+    """This rank's slice of a saved whole leaf for the live ``leaf`` (its tp
+    slice, then its fsdp slice; the whole leaf where ``leaf`` is whole)."""
+    return local_part(full, leaf)
 
 
 def _optimizer_params(tx) -> List[torch.Tensor]:
@@ -127,7 +127,7 @@ def _host(t: torch.Tensor, keep: bool) -> Optional[torch.Tensor]:
 
 
 def _whole_moments(tx, keep: bool = True) -> dict:
-    """``tx.state_dict()`` with every moment of an fsdp slice gathered whole
+    """``tx.state_dict()`` with every moment of a tp or fsdp slice gathered whole
     and copied to the host (every rank gathers, in index order; where
     ``keep`` is False the moments are dropped once gathered and come back as
     None)."""
@@ -136,7 +136,7 @@ def _whole_moments(tx, keep: bool = True) -> dict:
     state = {}
     for idx, entry in sd["state"].items():
         p = params[idx]
-        state[idx] = {k: (_host(whole_tensor(v, shard_of(p)), keep)
+        state[idx] = {k: (_host(whole_like(v, p), keep)
                           if torch.is_tensor(v) and v.shape == p.shape and v.dim() else v)
                       for k, v in entry.items()}
     return {**sd, "state": state}

@@ -242,6 +242,18 @@ def test_wrappers_use_the_plain_version_only_on_the_cpu():
             f"{mod}: no try/except around a build or a launch")
 
 
+@pytest.mark.parametrize("query", ["gated_bwd_blocks_per_sm", "gated_bwd_kernel_of"])
+def test_card_queries_refuse_cpu_tensors_without_a_build(query):
+    """The questions a wrapper asks the card's launcher have no plain version:
+    on CPU tensors they raise before anything is built or loaded."""
+    from omnimamba_tpu_torch.ops import norms_kernel
+
+    rows = torch.zeros(3, 32)
+    with pytest.raises(ValueError, match="give CUDA tensors"):
+        getattr(norms_kernel, query)(rows, rows, rows, torch.ones(32))
+    assert not kernel_build._LOADED
+
+
 _WIDE = torch.zeros(3, 5, 40)
 ROW_LAYOUTS = {
     # name: (tensor, trailing dims of a row, expected row stride or None = copied)

@@ -4,7 +4,8 @@ path and the training CLI's mesh flags) against the JAX package, on the CPU.
 Without processes: the mesh's fill rule against JAX's ``create_mesh``, every
 leaf's fsdp dimension against JAX's ``_spec_for`` on the bridged name, the
 slice -> whole round trip bit for bit, the decay mask of slices, the rows
-``shard_batch`` gives each rank, what raises (tp: slice 6b).
+``shard_batch`` gives each rank, which meshes the config and the trainer take
+(tp: ``tests/test_torch_tensor_parallel.py``).
 
 With processes: two or four gloo ranks (``parallel/launch.run_ranks``; their
 programs are in ``tests/torch_parallel_ranks.py``, which imports no JAX), fp32,
@@ -271,29 +272,33 @@ def test_loaders_give_each_rank_its_rows_of_the_global_batch(tmp_path):
                 np.concatenate([ranked[r][i][key] for r in range(2)]), batch[key])
 
 
-def test_tp_raises_naming_slice_6b_dp_and_fsdp_do_not():
-    for shape in ({"tp": 2}, {"dp": 2, "tp": 2}, {"fsdp": 2, "tp": 4}):
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            tcfg.TrainConfig(mesh_shape=shape)
-    for shape in ({"dp": 8}, {"fsdp": 4}, {"dp": 2, "fsdp": 4, "tp": 1}):
+def test_tp_meshes_are_taken_and_a_tp_not_dividing_the_heads_raises():
+    """The config takes tp beside dp and fsdp (slice 6b); an axis outside
+    the three still raises, and so does, in the trainer's check, a tp that
+    does not divide the model's heads (the tiny model's 8)."""
+    for shape in ({"tp": 2}, {"dp": 2, "tp": 2}, {"fsdp": 2, "tp": 4}, {"dp": 8}, {"fsdp": 4},
+                  {"dp": 2, "fsdp": 4, "tp": 1}):
         assert tcfg.TrainConfig(mesh_shape=shape).mesh_shape == shape
     with pytest.raises(ValueError, match="sp"):
         tcfg.TrainConfig(mesh_shape={"sp": 2})
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        ttrainer.check_train_mesh(FakeMesh(dp=1, fsdp=1, tp=2))
+    _, tm = models()
+    with pytest.raises(ValueError, match="does not divide"):
+        ttrainer.check_train_mesh(FakeMesh(dp=1, fsdp=1, tp=3), tm.cfg.mixer.nheads)
 
 
 def test_training_cli_mesh_flags_without_ranks(tmp_path):
-    """``--tp 2`` raises before anything is built; ``--dp 2`` outside
-    torchrun says how to start it."""
+    """Outside torchrun, ``--tp 2`` and ``--dp 2`` say how to start the run,
+    before anything is built; ``--tp`` is an axis of the mesh the flags ask
+    for (``mesh_shape``)."""
     from omnimamba_tpu_torch.scripts import train as cli
 
     base = ["--config", "config/config_tiny.yaml", "--device", "cpu", "--output-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        cli.main(base + ["--tp", "2"])
-    with pytest.raises(ValueError, match="torchrun"):
-        cli.main(base + ["--dp", "2"])
+    for flags in (["--tp", "2"], ["--dp", "2"]):
+        with pytest.raises(ValueError, match="torchrun"):
+            cli.main(base + flags)
     assert not list(tmp_path.iterdir())
+    args = cli.parse_args(["--tp", "2", "--fsdp", "2"])
+    assert cli.mesh_shape(args, tcfg.TrainConfig()) == {"fsdp": 2, "tp": 2}
 
 
 # ---------------------------------------------------------------------------

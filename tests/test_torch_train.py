@@ -21,6 +21,7 @@ from omnimamba_tpu.models import omnimamba as jomni
 from omnimamba_tpu.train import optimizer as jopt
 from omnimamba_tpu.train import trainer as jtrainer
 from omnimamba_tpu_torch import config as tcfg
+from omnimamba_tpu_torch.models import backbone as tbackbone
 from omnimamba_tpu_torch.models import mamba2 as tmamba2
 from omnimamba_tpu_torch.models import omnimamba as tomni
 from omnimamba_tpu_torch.train import optimizer as topt
@@ -440,11 +441,16 @@ def test_train_config_defaults_equal_jax():
     assert dataclasses.asdict(tcfg.TrainConfig()) == j
 
 
+def _layers_beside_tp_mesh(tm, **changes):
+    """A tp mesh is taken (slice 6b, tests/test_torch_tensor_parallel.py); the
+    layers of ROADMAP Q1 item 4 still raise, mesh or not."""
+    assert tcfg.TrainConfig(mesh_shape={"dp": 2, "tp": 2}).mesh_shape == {"dp": 2, "tp": 2}
+    return tbackbone.check_supported(dataclasses.replace(tm.cfg, **changes))
+
+
 UNPORTED = {
-    # dp and fsdp of any size are taken (tests/test_torch_parallel.py); tp > 1 beside them
-    # still raises
-    "mesh_dp2": lambda tm: tcfg.TrainConfig(mesh_shape={"dp": 2, "tp": 2}),
-    "mesh_tp4": lambda tm: tcfg.TrainConfig(mesh_shape={"dp": 1, "tp": 4}),
+    "attn_layers_tp_mesh": lambda tm: _layers_beside_tp_mesh(tm, attn_layer_idx=(1,)),
+    "gated_mlp_tp_mesh": lambda tm: _layers_beside_tp_mesh(tm, d_intermediate=64),
 }
 
 

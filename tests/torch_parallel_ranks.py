@@ -20,7 +20,7 @@ import torch
 from omnimamba_tpu_torch.config import TrainConfig
 from omnimamba_tpu_torch.parallel import create_mesh, shard_batch, shard_params
 from omnimamba_tpu_torch.parallel.sharding import (
-    COLLECTIVES, logical_shape, reset_collective_counts, shard_of, whole_tensor)
+    COLLECTIVES, logical_shape, reset_collective_counts, shard_of, tp_of, whole_like, whole_tensor)
 from omnimamba_tpu_torch.train import trainer as ttrainer
 from omnimamba_tpu_torch.utils.bridge import from_jax_params, to_jax_tree
 from omnimamba_tpu_torch.utils.tree import map_named, named_leaves
@@ -61,9 +61,11 @@ def train_steps(rank, world, tm, jax_np, cfg_kwargs, mesh_shape, batches):
     _, _, grads, _ = ttrainer.make_grad_fn(tm, cfg, **kw)(
         state.params, shard_batch(mesh, batches[0], stacked=stacked), None)
     trainable = iter(grads)
-    grad_tree = map_named(lambda _, t: whole_tensor(next(trainable), shard_of(t))
+    grad_tree = map_named(lambda _, t: whole_like(next(trainable), t)
                           if t.requires_grad else torch.zeros(logical_shape(t)), state.params)
     n_cut = sum(shard_of(t) is not None for _, t in named_leaves(state.params))
+    n_tp = sum(tp_of(t) is not None and tp_of(t).dim is not None
+               for _, t in named_leaves(state.params))
     reset_collective_counts()
     metrics = []
     for batch in batches:
@@ -77,7 +79,7 @@ def train_steps(rank, world, tm, jax_np, cfg_kwargs, mesh_shape, batches):
     gather = scatter = 0
     for path, t in named_leaves(state.params):
         if shard_of(t) is not None and path != "mamba/mmu_pos_embed":
-            whole = int(np.prod(logical_shape(t))) * t.element_size()
+            whole = int(np.prod(shard_of(t).full_shape)) * t.element_size()
             gather += whole * (2 if path.startswith("mamba/layers/") else 1)
             scatter += whole if t.requires_grad else 0
 
@@ -85,7 +87,7 @@ def train_steps(rank, world, tm, jax_np, cfg_kwargs, mesh_shape, batches):
         return to_jax_tree({k: v for k, v in tree.items() if k != "vq"}, tm) if rank == 0 else None
 
     return {"rank": rank, "metrics": metrics, "jax_loaded": _jax_loaded(), "slices": n_cut,
-            "collectives": calls, "params": named(params), "grads": named(grad_tree),
+            "tp_slices": n_tp, "collectives": calls, "params": named(params), "grads": named(grad_tree),
             "checkpointed_step_bytes": {"all_gather": gather * len(batches),
                                         "reduce_scatter": scatter * len(batches)}}
 
@@ -138,7 +140,8 @@ def training_cli(rank, world, out_dir, extra):
                                "--device", "cpu", "--output-dir", out_dir, *extra])
     return {"rank": rank, "jax_loaded": _jax_loaded(), "step": state.step,
             "metrics": {k: float(v) for k, v in metrics.items()},
-            "slices": sum(shard_of(t) is not None for _, t in named_leaves(state.params))}
+            "slices": sum(shard_of(t) is not None for _, t in named_leaves(state.params)),
+            "tp_slices": sum(tp_of(t) is not None for _, t in named_leaves(state.params))}
 
 
 # ---------------------------------------------------------------------------
@@ -172,16 +175,20 @@ def ssd_sp(rank, world, inputs):
     return out
 
 
-def backbone_sp(rank, world, tm, jax_backbone_np, emb, add_mmu_pos):
-    """``backbone_forward_sp`` of this rank's slice of ``emb`` (mmu)."""
+def backbone_sp(rank, world, tm, jax_backbone_np, emb, add_mmu_pos, tp=1):
+    """``backbone_forward_sp`` of this rank's slice of ``emb`` (mmu); with
+    ``tp`` > 1 on a (tp, sp) mesh, each mixer on the rank's heads."""
     from omnimamba_tpu_torch.models.backbone import backbone_forward_sp
 
-    mesh = create_mesh({"sp": world}, "cpu")
+    mesh = create_mesh({"tp": tp, "sp": world // tp}, "cpu")
     params = from_jax_params({"mamba": jax_backbone_np}, tm, device="cpu")["mamba"]
+    params = shard_params(mesh, params)
+    sp = mesh.get_local_rank("sp")
     with torch.no_grad():
-        h = backbone_forward_sp(params, _own(emb, rank, world), "mmu", tm.cfg, mesh,
+        h = backbone_forward_sp(params, _own(emb, sp, world // tp), "mmu", tm.cfg, mesh,
                                 add_mmu_pos=add_mmu_pos)
-    return {"rank": rank, "jax_loaded": _jax_loaded(), "hidden": h.numpy()}
+    return {"rank": rank, "jax_loaded": _jax_loaded(), "hidden": h.numpy(), "sp": sp,
+            "tp": mesh.get_local_rank("tp") if tp > 1 else 0}
 
 
 # ---------------------------------------------------------------------------
@@ -215,3 +222,61 @@ def sleeps(rank, world, seconds):
     import time
 
     time.sleep(seconds)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel over heads: decoding
+# ---------------------------------------------------------------------------
+
+
+def tp_decode(rank, world, cfg, jax_backbone_np, mesh_shape, ids, emb, runs):
+    """Decode runs under a tp mesh, each ``(name, kind, kwargs)``: ``kind``
+    "generate" or "speculative" (task mmu, on this rank's heads of the
+    backbone, which comes in JAX's names; ``int8_weights`` in kwargs
+    quantizes the whole tree before it is cut). Returns every run's token
+    stream and the tp collectives' counts of each run, and whether the
+    whole tree quantized then cut equals the cut tree quantized, leaf by leaf
+    (``quant_cut_equal``: out_proj's scales take the maximum over the ranks)."""
+    from omnimamba_tpu_torch.config import VQConfig
+    from omnimamba_tpu_torch.models.generation import generate
+    from omnimamba_tpu_torch.models.omnimamba import OmniMambaModel
+    from omnimamba_tpu_torch.models.speculative import speculative_generate
+    from omnimamba_tpu_torch.ops.decode_fused import fused_decode_step
+    from omnimamba_tpu_torch.ops.quant import quantize_decode_params
+    from omnimamba_tpu_torch.ops.sampling import SampleParams
+
+    mesh = create_mesh(mesh_shape, "cpu")
+    model = OmniMambaModel(cfg=cfg, vq_cfg=VQConfig(), sptids={})
+    whole = from_jax_params({"mamba": jax_backbone_np}, model, device="cpu")["mamba"]
+    ids, emb = torch.from_numpy(ids), torch.from_numpy(emb)
+    out = {"rank": rank, "jax_loaded": _jax_loaded(), "streams": {}, "collectives": {},
+           "tp_steps": {}}
+    one_way = dict(named_leaves(shard_params(mesh, quantize_decode_params(whole))))
+    other = dict(named_leaves(quantize_decode_params(shard_params(mesh, whole))))
+    index = mesh.get_local_rank("tp")
+
+    def same(a, b):  # project_in fc1's scale: whole one way, the rank's columns the other
+        n = b.shape[-1]
+        return torch.equal(a if a.shape == b.shape else a[..., index * n:(index + 1) * n], b)
+
+    out["quant_cut_equal"] = one_way.keys() == other.keys() and all(
+        same(one_way[k], other[k]) for k in one_way)
+    for name, kind, kw in runs:
+        kw = dict(kw)
+        params = whole
+        if kw.pop("int8_weights", False):
+            params = quantize_decode_params(params)
+        params = shard_params(mesh, params)
+        reset_collective_counts()
+        fused_decode_step.tp_launches = 0
+        with torch.no_grad():
+            if kind == "speculative":
+                seqs = speculative_generate(params, cfg, input_ids=ids, input_embeddings=emb,
+                                            task="mmu", device="cpu", **kw).sequences
+            else:
+                seqs = generate(params, cfg, input_ids=ids, input_embeddings=emb, task="mmu",
+                                sample=SampleParams(top_k=1), device="cpu", **kw).sequences
+        out["streams"][name] = seqs.numpy()
+        out["collectives"][name] = {k: dict(v) for k, v in COLLECTIVES.items()}
+        out["tp_steps"][name] = fused_decode_step.tp_launches
+    return out
